@@ -1,0 +1,90 @@
+"""All four RK4 stages of the blended momentum update: the wrapper of the
+CUDA kernel (counterpart of
+``pyrmt_tpu.kernels.momentum_rk4.momentum_rk4_pallas``).
+
+The plain version is ``pyrmt_tpu_torch.physics.momentum_core``; this
+wrapper takes the same arguments. The kernel is ``csrc/momentum_rk4.cu``;
+its source note says what it replaces and what bounds it. External forces
+are not an operand: the slice has none, as the JAX kernel's
+``has_ext=False`` elides them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.physics import momentum_core
+
+# Times the wrapper launched the CUDA kernel (one per call on a CUDA
+# tensor). A caller may reset it to 0.
+launches = 0
+
+_BC_CODES = {"noop": 0, "lid": 1, "free_slip": 2}
+
+
+def _cuda_lib():
+    lib = _build.load("momentum_rk4")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for fn in (lib.pyrmt_momentum_rk4_f32, lib.pyrmt_momentum_rk4_f64):
+        fn.argtypes = [P] * 13 + [I, I, D, D, D, D, I, D, P]
+        fn.restype = I
+    return lib
+
+
+def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
+                       rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt,
+                       mu_f):
+    """RK4 velocity update; same arguments and result as
+    ``physics.momentum_core`` with ``dt`` a 0-d tensor.
+
+    A CPU tensor goes to ``momentum_core``. A CUDA tensor goes to the CUDA
+    kernel, which applies the BC from ``velocity_bc.kernel_spec`` ('lid',
+    'free_slip' or 'noop'); anything else raises. ``mkv`` is read only when
+    eta_s > 0.
+    """
+    global launches
+    if u.device.type == "cpu":
+        return momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el,
+                             Hf, rho_local, mkv, velocity_bc, eta_s=eta_s,
+                             dx=dx, dy=dy, dt=dt, mu_f=mu_f)
+    if u.device.type != "cuda":
+        raise ValueError(f"momentum_rk4: no kernel for device {u.device}")
+    spec = getattr(velocity_bc, "kernel_spec", None)
+    if spec is None or spec[0] not in _BC_CODES:
+        raise ValueError(
+            "the momentum_rk4 kernel applies the velocity BC from its "
+            "kernel_spec ('lid', 'free_slip' or 'noop'); got "
+            f"{velocity_bc!r} with spec {spec!r}")
+    if u.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"momentum_rk4 kernel takes float32/float64, not {u.dtype}")
+    Ny, Nx = u.shape
+    if Ny < 5 or Nx < 5:
+        raise ValueError(f"momentum_rk4 kernel needs a grid of at least 5x5, "
+                         f"not {Ny}x{Nx}")
+    fields = {"u": u, "v": v, "p": p, "sig_sxx_el": sig_sxx_el,
+              "sig_sxy_el": sig_sxy_el, "sig_syy_el": sig_syy_el, "Hf": Hf,
+              "rho_local": rho_local, "mkv": mkv, "dt": dt}
+    for name, t in fields.items():
+        shape = () if name == "dt" else (Ny, Nx)
+        if t.device != u.device or t.dtype != u.dtype:
+            raise ValueError(f"momentum_rk4: {name} is {t.dtype} on "
+                             f"{t.device}; expected {u.dtype} on {u.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"momentum_rk4: {name} must be a contiguous "
+                             f"{shape} tensor, got {tuple(t.shape)}")
+    lib = _cuda_lib()
+    u_new = torch.empty_like(u)
+    v_new = torch.empty_like(u)
+    scratch = torch.empty((9, Ny, Nx), dtype=u.dtype, device=u.device)
+    fn = (lib.pyrmt_momentum_rk4_f32 if u.dtype == torch.float32
+          else lib.pyrmt_momentum_rk4_f64)
+    lid = float(spec[1]) if spec[0] == "lid" else 0.0
+    err = fn(*(_build.pointer(t) for t in (*fields.values(), u_new, v_new,
+                                            scratch)),
+             Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s),
+             _BC_CODES[spec[0]], lid, _build.stream_handle(u.device))
+    _build.check(lib, err, "momentum_rk4 kernel launch")
+    launches += 1
+    return u_new, v_new

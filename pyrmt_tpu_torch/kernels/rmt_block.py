@@ -1,0 +1,154 @@
+"""The RMT solid block of one step: the plain PyTorch version and the
+wrapper of its CUDA kernel (counterpart of
+``pyrmt_tpu.kernels.rmt_block.rmt_block_fused``).
+
+Per solid:
+
+    phi   = phi_init(X1, X2)                  (compatibility rebuild)
+    X1a, X2a = advect(X1, X2; u, v, dt) * (phi <= 0)
+    X1e, X2e = extrapolate(X1a, X2a, phi)     (num_layers sweeps)
+    phi2  = phi_init(X1e, X2e)
+    sigma, J = solid_cauchy_stress(X1e, X2e, phi2)   (interior mode)
+    H     = smoothed_heaviside(phi2, w_t)
+
+followed by the mixture sums Hf, rho and sum_i (1 - H_i) sigma_i. The
+kernel is ``csrc/rmt_block.cu``; its source note says what it replaces and
+what bounds it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.ops.advect import advect_semilagrangian_rk4_local
+from pyrmt_tpu_torch.ops.extrapolate import (
+    _kernels_1d,
+    extrapolate_reference_map,
+)
+from pyrmt_tpu_torch.ops.levelset import rebuild_phi_from_reference_map
+from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
+
+# Times the wrapper launched the CUDA kernel (one per call on a CUDA
+# tensor). A caller may reset it to 0.
+launches = 0
+
+
+def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
+                    w_t, params):
+    """The composed ops. ``X1s``/``X2s`` are (S, Ny, Nx) stacks, ``dt`` a
+    0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f].
+
+    Returns (X1e, X2e, phis, sxx_s, sxy_s, syy_s, J_s, Hf, rho_local,
+    sig_sxx_el, sig_sxy_el, sig_syy_el): seven (S, Ny, Nx) stacks and five
+    (Ny, Nx) fields.
+    """
+    mu_s, kappa, rho_s, rho_f = params.unbind()
+    S = X1s.shape[0]
+    phis = torch.stack([rebuild_phi_from_reference_map(X1s[i], X2s[i], f)
+                        for i, f in enumerate(phi_inits)])
+    masks = (phis <= 0.0).to(u.dtype)
+    qs = advect_semilagrangian_rk4_local(
+        torch.cat([X1s, X2s]), u, v, dt, dx, dy)
+    X1a, X2a = qs[:S] * masks, qs[S:] * masks
+    ext = [extrapolate_reference_map(X1a[i], X2a[i], phis[i], dx, dy,
+                                     num_layers) for i in range(S)]
+    X1e = torch.stack([e[0] for e in ext])
+    X2e = torch.stack([e[1] for e in ext])
+    phis = torch.stack([rebuild_phi_from_reference_map(X1e[i], X2e[i], f)
+                        for i, f in enumerate(phi_inits)])
+    stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, mu_s, kappa,
+                                  phis[i]) for i in range(S)]
+    sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
+    H = smoothed_heaviside(phis, w_t)
+    one_mH = 1.0 - H
+    Hf = torch.sum(H, dim=0) - (S - 1.0)
+    rho_local = Hf * rho_f + torch.sum(one_mH, dim=0) * rho_s
+    return (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
+            torch.sum(one_mH * sxx, dim=0), torch.sum(one_mH * sxy, dim=0),
+            torch.sum(one_mH * syy, dim=0))
+
+
+def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers):
+    """Raise unless the operands are what the kernel takes."""
+    if u.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rmt_block kernel takes float32/float64, not {u.dtype}")
+    Ny, Nx = u.shape
+    if Ny < 3 or Nx < 3:
+        raise ValueError(f"rmt_block kernel needs a grid of at least 3x3, "
+                         f"not {Ny}x{Nx}")
+    expect = {"u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)),
+              "X1s": (X1s, (1, Ny, Nx)), "X2s": (X2s, (1, Ny, Nx)),
+              "dt": (dt, ()), "params": (params, (4,))}
+    for name, (t, shape) in expect.items():
+        if t.device != u.device or t.dtype != u.dtype:
+            raise ValueError(f"rmt_block: {name} is {t.dtype} on {t.device}; "
+                             f"expected {u.dtype} on {u.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"rmt_block: {name} must be a contiguous "
+                             f"{shape} tensor, got {tuple(t.shape)}")
+    if len(phi_inits) != 1:
+        raise NotImplementedError(
+            "the rmt_block kernel takes one solid; multi-solid configs wait "
+            "for ROADMAP modules item 11")
+    spec = getattr(phi_inits[0], "kernel_spec", None)
+    if spec is None or spec[0] != "disc":
+        raise ValueError(
+            "the rmt_block kernel evaluates the level set from runtime "
+            "scalars and needs a shape with kernel_spec ('disc', x0, y0, R) "
+            f"(ops.levelset.Disc); got {phi_inits[0]!r}")
+    if num_layers < 1:
+        raise ValueError("rmt_block kernel needs num_layers >= 1")
+    return spec
+
+
+def _cuda_lib():
+    lib = _build.load("rmt_block")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
+        fn.argtypes = [P] * 18 + [I, I, D, D, I, D, D, D, D, P, P]
+        fn.restype = I
+    return lib
+
+
+def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
+                    w_t, params):
+    """The solid block; same arguments and results as ``rmt_block_plain``.
+
+    A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
+    CUDA kernel, which takes one solid whose level set carries
+    ``kernel_spec = ('disc', x0, y0, R)``; anything else raises. dt and the
+    physics scalars are read on the device, so a call does not wait for the
+    card.
+    """
+    global launches
+    if u.device.type == "cpu":
+        return rmt_block_plain(u, v, X1s, X2s, dt, phi_inits=phi_inits,
+                               dx=dx, dy=dy, num_layers=num_layers, w_t=w_t,
+                               params=params)
+    if u.device.type != "cuda":
+        raise ValueError(f"rmt_block: no kernel for device {u.device}")
+    _, x0, y0, R = _check_cuda_operands(u, v, X1s, X2s, dt, params,
+                                        phi_inits, num_layers)
+    lib = _cuda_lib()
+    Ny, Nx = u.shape
+    sc = torch.cat([dt.reshape(1), params])
+    stacks = [torch.empty((1, Ny, Nx), dtype=u.dtype, device=u.device)
+              for _ in range(7)]
+    fields = [torch.empty((Ny, Nx), dtype=u.dtype, device=u.device)
+              for _ in range(5)]
+    scratch = torch.empty((6, Ny, Nx), dtype=u.dtype, device=u.device)
+    fx, fy = _kernels_1d(dx, dy)
+    taps = (ctypes.c_double * 54)(*[
+        float(w) for k in (fx["wx"], fx["wxd"], fx["wxd2"],
+                           fy["wy"], fy["wyd"], fy["wyd2"]) for w in k])
+    fn = (lib.pyrmt_rmt_block_f32 if u.dtype == torch.float32
+          else lib.pyrmt_rmt_block_f64)
+    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, sc, *stacks,
+                                            *fields, scratch)),
+             Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
+             x0, y0, R, taps, _build.stream_handle(u.device))
+    _build.check(lib, err, "rmt_block kernel launch")
+    launches += 1
+    return (*stacks, *fields)

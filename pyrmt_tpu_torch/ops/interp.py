@@ -1,0 +1,80 @@
+"""Gather-free bilinear sampling (counterpart of
+``pyrmt_tpu.ops.interp.gather_bilinear_local``).
+
+The general gather paths and bicubic sampling wait for ROADMAP modules
+items 9 and 10.
+"""
+from __future__ import annotations
+
+import torch
+
+from pyrmt_tpu_torch.ops.fd import _shift_x, _shift_y
+
+
+def gather_bilinear_local(us, sx, sy):
+    """Bilinear sampling of a stack ``us`` (K, Ny, Nx) at per-cell displaced
+    points (i + sx[j, i], j + sy[j, i]) with |sx|, |sy| < 1.
+
+    The 4 corners are among the 9 edge-clamped shifts of the field and are
+    selected per cell by the signs of the displacement AT THE OUTPUT CELL.
+    Displacements are clipped into (-1, 1) and queries clamped into the
+    domain; non-finite displacements give NaN.
+    """
+    K, Ny, Nx = us.shape
+    jj = torch.arange(Ny, dtype=sx.dtype, device=sx.device)[:, None]
+    ii = torch.arange(Nx, dtype=sx.dtype, device=sx.device)[None, :]
+
+    finite = torch.isfinite(sx) & torch.isfinite(sy)
+    zero = torch.zeros((), dtype=sx.dtype, device=sx.device)
+    sx = torch.where(finite, sx, zero)
+    sy = torch.where(finite, sy, zero)
+    eps = 1e-6
+    sx = torch.clamp(sx, -1.0 + eps, 1.0 - eps)
+    sy = torch.clamp(sy, -1.0 + eps, 1.0 - eps)
+    x = torch.clamp(ii + sx, 0.0, Nx - 1.0)
+    y = torch.clamp(jj + sy, 0.0, Ny - 1.0)
+    sx = x - ii
+    sy = y - jj
+
+    neg_x = sx < 0.0
+    neg_y = sy < 0.0
+    fx = torch.where(neg_x, sx + 1.0, sx).to(us.dtype)
+    fy = torch.where(neg_y, sy + 1.0, sy).to(us.dtype)
+    # i = Nx-1 with s >= 0 must use the cell to the left with weight 1,
+    # which reproduces the clamped gather exactly
+    one = torch.ones((), dtype=us.dtype, device=us.device)
+    at_right = (ii >= Nx - 1.0) & ~neg_x
+    neg_x = neg_x | at_right
+    fx = torch.where(at_right, one, fx)
+    at_top = (jj >= Ny - 1.0) & ~neg_y
+    neg_y = neg_y | at_top
+    fy = torch.where(at_top, one, fy)
+
+    w00 = (1.0 - fx) * (1.0 - fy)
+    w10 = fx * (1.0 - fy)
+    w01 = (1.0 - fx) * fy
+    w11 = fx * fy
+
+    vals = []
+    for k in range(K):
+        f = us[k]
+        f_xm1 = _shift_x(f, -1)
+        f_xp1 = _shift_x(f, 1)
+        f_ym1 = _shift_y(f, -1)
+        f_yp1 = _shift_y(f, 1)
+        f_xm1_ym1 = _shift_y(f_xm1, -1)
+        f_xp1_ym1 = _shift_y(f_xp1, -1)
+        f_xm1_yp1 = _shift_y(f_xm1, 1)
+        f_xp1_yp1 = _shift_y(f_xp1, 1)
+        v00 = torch.where(neg_x, torch.where(neg_y, f_xm1_ym1, f_xm1),
+                          torch.where(neg_y, f_ym1, f))
+        v10 = torch.where(neg_x, torch.where(neg_y, f_ym1, f),
+                          torch.where(neg_y, f_xp1_ym1, f_xp1))
+        v01 = torch.where(neg_x, torch.where(neg_y, f_xm1, f_xm1_yp1),
+                          torch.where(neg_y, f, f_yp1))
+        v11 = torch.where(neg_x, torch.where(neg_y, f, f_yp1),
+                          torch.where(neg_y, f_xp1, f_xp1_yp1))
+        vals.append(w00 * v00 + w10 * v10 + w01 * v01 + w11 * v11)
+
+    out = torch.stack(vals)
+    return torch.where(finite[None], out, torch.full_like(out, float("nan")))

@@ -1,0 +1,103 @@
+"""Neumann Poisson solve and the divergence/gradient companions of the
+projection (counterpart of the constant-density Neumann part of
+``pyrmt_tpu.ops.poisson``).
+
+The DCT-I runs as dense matrix products ``C_y @ rhs @ C_x^T``: the same
+transform as the JAX package's rFFT-of-the-even-extension path. The even/odd
+fold of the JAX matmul path is a TPU layout device and is not carried over.
+The products run in full precision: the step module turns TF32 off. The
+periodic and variable-density solvers wait for ROADMAP modules items 12
+and 13.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# the cell-centred gradients of the JAX module are the fd stencils
+from pyrmt_tpu_torch.ops.fd import grad_central_x_2nd as _grad_x_cc
+from pyrmt_tpu_torch.ops.fd import grad_central_y_2nd as _grad_y_cc
+
+
+def dct1_matrix(N, dtype=torch.float32, device="cpu"):
+    """Dense unnormalised DCT-I matrix: C[k, n] = w_n cos(pi k n / (N-1)),
+    w_0 = w_{N-1} = 1, else 2 (scipy ``dctn(type=1)`` convention)."""
+    k = np.arange(N)[:, None]
+    n = np.arange(N)[None, :]
+    w = np.full(N, 2.0)
+    w[0] = w[-1] = 1.0
+    C = np.cos(np.pi * k * n / (N - 1)) * w[None, :]
+    return torch.as_tensor(C, dtype=dtype, device=device)
+
+
+def precompute_dct_matrices(Nx, Ny, dtype=torch.float32, device="cpu"):
+    """(C_x, C_y) for ``solve_poisson_dct``."""
+    return dct1_matrix(Nx, dtype, device), dct1_matrix(Ny, dtype, device)
+
+
+def precompute_poisson_eigenvalues(Nx, Ny, dx, dy, dtype=torch.float64,
+                                   device="cpu"):
+    """Eigenvalues of the ghost-mirror Neumann Laplacian under DCT-I,
+    lambda = -2(1 - cos(pi k/(N-1)))/h^2; the (0, 0) mode is pinned to 1
+    (the mean is removed separately)."""
+    lam_x = -2.0 * (1.0 - np.cos(np.pi * np.arange(Nx) / (Nx - 1))) / dx**2
+    lam_y = -2.0 * (1.0 - np.cos(np.pi * np.arange(Ny) / (Ny - 1))) / dy**2
+    eig = lam_x[None, :] + lam_y[:, None]
+    eig[0, 0] = 1.0
+    return torch.as_tensor(eig, dtype=dtype, device=device)
+
+
+def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats):
+    """Direct Neumann solve: forward DCT-I, divide by the eigenvalues,
+    inverse DCT-I (the forward transform over 4 (Nx-1)(Ny-1)), de-mean."""
+    Cx, Cy = dct_mats
+    Ny, Nx = rhs_2d.shape
+    rhs_hat = Cy @ rhs_2d @ Cx.T
+    p_hat = rhs_hat / eigenvalues
+    p = (Cy @ p_hat @ Cx.T) / (4.0 * (Nx - 1) * (Ny - 1))
+    return p - torch.mean(p)
+
+
+def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy):
+    """Rhie-Chow face-velocity divergence for constant density, zero on the
+    boundary ring: face velocities are corrected by d = dt / mean(rho) times
+    the difference of the compact face pressure gradient and the average of
+    the cell-centred ones."""
+    dpdx_cc = _grad_x_cc(p_prev, dx)
+    dpdy_cc = _grad_y_cc(p_prev, dy)
+
+    u_face = 0.5 * (a_star[:, :-1] + a_star[:, 1:])
+    face_dpdx = (p_prev[:, 1:] - p_prev[:, :-1]) / dx
+    avg_dpdx = 0.5 * (dpdx_cc[:, :-1] + dpdx_cc[:, 1:])
+
+    v_face = 0.5 * (b_star[:-1, :] + b_star[1:, :])
+    face_dpdy = (p_prev[1:, :] - p_prev[:-1, :]) / dy
+    avg_dpdy = 0.5 * (dpdy_cc[:-1, :] + dpdy_cc[1:, :])
+
+    d_scalar = dt / torch.mean(rho)
+    u_face_rc = u_face - d_scalar * (face_dpdx - avg_dpdx)
+    v_face_rc = v_face - d_scalar * (face_dpdy - avg_dpdy)
+
+    div_i = (u_face_rc[1:-1, 1:] - u_face_rc[1:-1, :-1]) / dx + (
+        v_face_rc[1:, 1:-1] - v_face_rc[:-1, 1:-1]) / dy
+    return F.pad(div_i, (1, 1, 1, 1))
+
+
+def compute_pressure_gradient(p, dx, dy):
+    """Central interior and one-sided boundary pressure gradient; the
+    tangential component is zero on the boundary rows and columns, as in the
+    reference."""
+    Ny, Nx = p.shape
+    jj = torch.arange(Ny, device=p.device)[:, None]
+    ii = torch.arange(Nx, device=p.device)[None, :]
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+
+    row_interior = (jj > 0) & (jj < Ny - 1)
+    col_boundary = (ii == 0) | (ii == Nx - 1)
+    dpdx = torch.where(col_boundary | row_interior, _grad_x_cc(p, dx), zero)
+
+    col_interior = (ii > 0) & (ii < Nx - 1)
+    row_boundary = (jj == 0) | (jj == Ny - 1)
+    dpdy = torch.where(row_boundary | col_interior, _grad_y_cc(p, dy), zero)
+    return dpdx, dpdy

@@ -1,0 +1,117 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA card and nvcc (a CUDA kernel has no CPU mode), so they
+skip elsewhere. This module imports no jax, so it also runs on a machine
+without it; there, skip the repository's conftest (it sets jax up):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import pyrmt_tpu_torch as pt
+import pyrmt_tpu_torch.kernels.momentum_rk4 as mk
+import pyrmt_tpu_torch.kernels.rmt_block as rb
+from pyrmt_tpu_torch.physics import momentum_core
+
+pytestmark = pytest.mark.cuda
+
+N = 64
+SHAPES = [(64, 64), (48, 80), (65, 65)]  # (Ny, Nx): square, wide, odd
+DISC = pt.Disc(0.6, 0.5, 0.2)
+# float64 kernel vs plain version: the same IEEE operations in the same
+# order (nvcc --fmad=false) and agree bit for bit on the H100
+ATOL = 1e-11
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def block_inputs(dev, shape=(N, N), dtype=torch.float64):
+    Ny, Nx = shape
+    cfg = pt.RMTConfig(grid=pt.Grid(Nx, Ny, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, rho_s=1.3)
+    s = pt.make_init_state(cfg, (DISC,), dtype=dtype, device=dev)
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    u = t(0.3 * np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y))
+    v = t(-0.3 * np.cos(2 * np.pi * X) * np.sin(2 * np.pi * Y))
+    kw = dict(phi_inits=(DISC,), dx=cfg.grid.dx, dy=cfg.grid.dy,
+              num_layers=cfg.num_layers, w_t=cfg.w_t,
+              params=t([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f]))
+    return cfg, (u, v, s.X1, s.X2, t(0.4 * cfg.grid.dx / 0.3)), kw
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_kernel_matches_plain(dev, shape):
+    _, args, kw = block_inputs(dev, shape)
+    before = rb.launches
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert rb.launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("eta_s", [0.0, 0.01])
+@pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
+                                pt.noop_bc])
+def test_momentum_kernel_matches_plain(dev, bc, eta_s, shape):
+    cfg, args, kw = block_inputs(dev, shape)
+    blk = rb.rmt_block_plain(*args, **kw)
+    Hf, rho, sbxx, sbxy, sbyy = blk[7:]
+    mkv = (blk[2][0] <= 0.0).to(Hf.dtype) * (1.0 - Hf)
+    Ny, Nx = shape
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    p = torch.tensor(0.05 * np.cos(np.pi * X) * np.cos(np.pi * Y),
+                     dtype=torch.float64, device=dev)
+    fields = (args[0], args[1], p, sbxx, sbxy, sbyy, Hf, rho, mkv)
+    mkw = dict(eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=args[4] / 20,
+               mu_f=cfg.mu_f)
+    out = mk.momentum_rk4_fused(*fields, bc, **mkw)
+    ref = momentum_core(*fields, bc, **mkw)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert float((o - r).abs().max()) <= ATOL
+
+
+def test_kernel_path_step_matches_plain_path(dev):
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01)
+    kw = dict(dtype=torch.float64, device=dev)
+    step_k = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw)
+    step_p = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                          rmt_block_impl=rb.rmt_block_plain,
+                          momentum_rk4_impl=momentum_core)
+    s_k = s_p = pt.make_init_state(cfg, (DISC,), **kw)
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        assert float((getattr(s_k, k) - getattr(s_p, k)).abs().max()) <= 1e-10
+
+
+def test_kernels_raise_on_what_they_do_not_take(dev):
+    _, args, kw = block_inputs(dev)
+    with pytest.raises(ValueError):  # a level set without kernel_spec
+        rb.rmt_block_fused(*args, **dict(kw, phi_inits=(lambda x, y: x,)))
+    with pytest.raises(NotImplementedError):  # two solids
+        rb.rmt_block_fused(*args, **dict(kw, phi_inits=(DISC, DISC)))
+    with pytest.raises(ValueError):  # operands on two devices
+        rb.rmt_block_fused(args[0], args[1].cpu(), *args[2:], **kw)
+    u = args[0]
+    with pytest.raises(ValueError):  # a BC without kernel_spec
+        mk.momentum_rk4_fused(*([u] * 9), lambda a, b: (a, b), eta_s=0.0,
+                              dx=0.1, dy=0.1, dt=args[4], mu_f=0.01)
+    with pytest.raises(TypeError):
+        h = u.half()
+        mk.momentum_rk4_fused(*([h] * 9), pt.noop_bc, eta_s=0.0, dx=0.1,
+                              dy=0.1, dt=args[4].half(), mu_f=0.01)
