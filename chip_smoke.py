@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (or
-another sm_90a card) and the CUDA toolkit. Phases, one line each:
+another sm_90a card) and the CUDA toolkit. Phases:
 
   1. probe: torch and CUDA versions, nvcc, the card's name and power limit;
-  2. build both CUDA kernels from pyrmt_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version on the same tensors on
-     the card: float64 at N=256 (max-abs <= 1e-11), float32 at N=256 and at
-     the flagship's N=1024 (bounds below), and the times of both at N=1024;
-  4. the flagship soft disc in the lid-driven cavity at N=1024 float32:
-     make_init_state, 50 warm-up steps, 500 timed steps of make_step with
-     both kernels' launch counts checked, then 3 steps at N=128 float64
-     through the kernel path and through the plain path.
+  2. build the three CUDA sources of pyrmt_tpu_torch/csrc side by side;
+  3. each of the four kernels against its plain PyTorch version on the same
+     tensors on the card: float64 at N=256 (max-abs <= 1e-11), float32 at
+     N=256 and at the flagship's N=1024 (bounds below), the disc touching
+     the domain's edge at N=256, and the times of both at N=1024;
+  4. the flagship soft disc in the lid-driven cavity at N=1024 float32
+     (the fused tier): 50 warm-up steps, one step under sync-debug, 500
+     timed steps with the launch counts checked;
+  5. the split tier at full width: the flagship with the area fix and PDE
+     reinitialisation, 20 warm-up steps, one under sync-debug, 200 timed;
+  6. rebasing at full width: make_rebase_runner on the flagship with
+     map_rebase_minj=0.5, one pre-rebase step under sync-debug, a 50-step
+     chunk, a forced rebase (timed, with its fast-sweeping redistance), 20
+     post-rebase steps;
+  7. paths: 3 float64 steps at N=128 through the kernels and through the
+     plain versions, for the flagship, for area fix + PDE reinit and for a
+     rebase on every step.
 
 It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
@@ -42,11 +51,21 @@ from pyrmt_tpu_torch import (  # noqa: E402
     free_slip_box_bc,
     make_init_state,
     make_lid_bc,
+    make_rebase_runner,
     make_step,
 )
 from pyrmt_tpu_torch.kernels import _build  # noqa: E402
+from pyrmt_tpu_torch.kernels import extrapolate_fused as ef  # noqa: E402
 from pyrmt_tpu_torch.kernels import momentum_rk4 as mk  # noqa: E402
 from pyrmt_tpu_torch.kernels import rmt_block as rb  # noqa: E402
+from pyrmt_tpu_torch.ops.extrapolate import (  # noqa: E402
+    extrapolate_reference_map,
+)
+from pyrmt_tpu_torch.ops.levelset import (  # noqa: E402
+    reinitialize_phi_fsm,
+    smoothed_solid_area,
+)
+from pyrmt_tpu_torch.ops.stress import solid_cauchy_stress  # noqa: E402
 from pyrmt_tpu_torch.physics import compute_timestep, momentum_core  # noqa: E402
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
@@ -66,6 +85,18 @@ TOL_F32_RMT = 1e-4
 TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
+EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
+SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused")
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "rmt_block": ("pyrmt_tpu_torch/csrc/rmt_block.cu",
+                  "pyrmt_tpu/kernels/rmt_block.py:825"),
+    "momentum_rk4": ("pyrmt_tpu_torch/csrc/momentum_rk4.cu",
+                     "pyrmt_tpu/kernels/momentum_rk4.py:453"),
+    "advext_block": ("pyrmt_tpu_torch/csrc/rmt_block.cu",
+                     "pyrmt_tpu/kernels/rmt_block.py:1085"),
+    "extrapolate_fused": ("pyrmt_tpu_torch/csrc/extrapolate_fused.cu",
+                          "pyrmt_tpu/kernels/extrapolate_fused.py:202"),
+}
 OUT_NAMES = ("X1e", "X2e", "phi", "sxx", "sxy", "syy", "J", "Hf", "rho",
              "sb_xx", "sb_xy", "sb_yy")
 
@@ -84,10 +115,12 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(N, dtype, device, seed=0):
-    """Seeded smooth inputs around the flagship disc: a velocity of a few
-    random Fourier modes scaled to a sub-cell displacement, the flagship's
-    initial map plus a smooth sub-cell perturbation, a smooth pressure."""
+def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
+    """Seeded smooth inputs around a disc: a velocity of a few random
+    Fourier modes scaled to a sub-cell displacement, the disc's initial map
+    plus a smooth sub-cell perturbation, a smooth pressure, and the split
+    tier's pre-advection phi (the map's rebuild, shifted and wobbled by a
+    fraction of a cell, as reinit and the area fix move it)."""
     rng = np.random.default_rng(seed)
     cfg = flagship(N)
     x = np.linspace(0.0, 1.0, N)
@@ -102,7 +135,7 @@ def kernel_inputs(N, dtype, device, seed=0):
     scale = 0.5 / max(np.abs(u).max(), np.abs(v).max())
     u, v = u * scale, v * scale
     p = 0.05 * np.cos(np.pi * X) * np.cos(2 * np.pi * Y)
-    state = make_init_state(cfg, (FLAGSHIP_DISC,), dtype=dtype, device=device)
+    state = make_init_state(cfg, (disc,), dtype=dtype, device=device)
     # half a cell: a larger shift would move the level set past the
     # num_layers-cell band the map was extrapolated into
     pert = 0.5 * cfg.grid.dx * np.sin(3 * np.pi * X + rng.standard_normal()) \
@@ -113,14 +146,30 @@ def kernel_inputs(N, dtype, device, seed=0):
     # dt such that max|u| dt / dx = 0.4 cells
     dt = t(0.4 * cfg.grid.dx / 0.5)
     params = t([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f])
+    wobble = 0.3 * cfg.grid.dx * np.sin(4 * np.pi * X + rng.standard_normal())
+    phis = (disc(X1s[0], X2s[0]) + t(wobble))[None].contiguous()
+    # the identity map inside phis <= 0, as a rebase extrapolates it
+    Xg, Yg = cfg.grid.coords(dtype=dtype, device=device)
+    mask = (phis[0] <= 0.0).to(dtype)
     return cfg, dict(u=t(u), v=t(v), p=t(p), X1s=X1s, X2s=X2s, dt=dt,
-                     params=params)
+                     params=params, phis=phis, Xm=Xg * mask, Ym=Yg * mask,
+                     disc=disc)
 
 
 def rmt_call(fn, cfg, d):
     return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["dt"],
-              phi_inits=(FLAGSHIP_DISC,), dx=cfg.grid.dx, dy=cfg.grid.dy,
+              phi_inits=(d["disc"],), dx=cfg.grid.dx, dy=cfg.grid.dy,
               num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"])
+
+
+def advext_call(fn, cfg, d):
+    return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["phis"], d["dt"],
+              dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=cfg.num_layers)
+
+
+def extrap_call(fn, cfg, d):
+    return fn(d["Xm"], d["Ym"], d["phis"][0], cfg.grid.dx, cfg.grid.dy,
+              cfg.num_layers)
 
 
 def momentum_args(cfg, d, rmt_out, eta_s):
@@ -152,22 +201,37 @@ def check_close(what, err, scale, f64, tol_f32):
         raise AssertionError(f"{what} differs by {err:.3e} > {bound:.3g}")
 
 
-def compare_kernels(N, dtype, device):
-    """Each kernel against its plain version on the same tensors. Returns
-    {kernel: max-abs over its outputs}; raises past the tolerance."""
+def compare_kernels(N, dtype, device, disc=FLAGSHIP_DISC):
+    """Each kernel against its plain version on the same tensors (the
+    momentum kernel for the flagship disc only). Returns {kernel: max-abs
+    over its outputs}; raises past the tolerance."""
     f64 = dtype == torch.float64
-    cfg, d = kernel_inputs(N, dtype, device)
+    cfg, d = kernel_inputs(N, dtype, device, disc=disc)
+    tag = f"N={N} {str(dtype)[6:]}" + ("" if disc == FLAGSHIP_DISC
+                                       else " edge disc")
+    worst = {}
+
+    def hold(name, outs, kern, plain):
+        torch.cuda.synchronize()
+        for out_name, a, b in zip(outs, kern, plain):
+            if not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"plain {name} {out_name} is not finite")
+            err, scale = max_errs(a, b)
+            check_close(f"{tag} {name} {out_name}", err, scale, f64,
+                        TOL_F32_RMT)
+            worst[name] = max(worst.get(name, 0.0), err)
+
     plain = rmt_call(rb.rmt_block_plain, cfg, d)
-    kern = rmt_call(rb.rmt_block_fused, cfg, d)
-    torch.cuda.synchronize()
-    worst = {"rmt_block": 0.0, "momentum_rk4": 0.0}
-    tag = f"N={N} {str(dtype)[6:]}"
-    for name, a, b in zip(OUT_NAMES, kern, plain):
-        if not bool(torch.isfinite(b).all()):
-            raise AssertionError(f"plain rmt_block {name} is not finite")
-        err, scale = max_errs(a, b)
-        check_close(f"{tag} rmt_block {name}", err, scale, f64, TOL_F32_RMT)
-        worst["rmt_block"] = max(worst["rmt_block"], err)
+    hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d), plain)
+    hold("advext_block", ("X1e", "X2e"),
+         advext_call(rb.advext_block_fused, cfg, d),
+         advext_call(rb.advext_block_plain, cfg, d))
+    hold("extrapolate_fused", ("X1e", "X2e"),
+         extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
+         extrap_call(extrapolate_reference_map, cfg, d))
+    if disc != FLAGSHIP_DISC:
+        return worst
+    worst["momentum_rk4"] = 0.0
     for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
                                ("free_slip", free_slip_box_bc, 0.0)):
         args, kw = momentum_args(cfg, d, plain, eta_s)
@@ -208,6 +272,11 @@ def time_kernels(N, device, reps=20):
                       lambda: rmt_call(rb.rmt_block_plain, cfg, d)),
         "momentum_rk4": (lambda: mk.momentum_rk4_fused(*args, bc, **kw),
                          lambda: momentum_core(*args, bc, **kw)),
+        "advext_block": (lambda: advext_call(rb.advext_block_fused, cfg, d),
+                         lambda: advext_call(rb.advext_block_plain, cfg, d)),
+        "extrapolate_fused": (
+            lambda: extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
+            lambda: extrap_call(extrapolate_reference_map, cfg, d)),
     }
     times = {}
     for name, (kernel, plain) in pairs.items():
@@ -221,12 +290,33 @@ def time_kernels(N, device, reps=20):
     return times
 
 
-def run_flagship(N, device, warmup, steps):
+def reset_counts():
+    rb.launches = rb.advext_launches = mk.launches = ef.launches = 0
+
+
+def counts():
+    return {"rmt_block": rb.launches, "momentum_rk4": mk.launches,
+            "advext_block": rb.advext_launches,
+            "extrapolate_fused": ef.launches}
+
+
+def step_without_sync(step, state, t_end):
+    """One step under PyTorch's sync debug mode, which raises on a call
+    that waits for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step(state, t_end)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def run_flagship(N, device, warmup, steps, **overrides):
     """make_init_state, warm-up steps, one step that must not synchronise
     with the host, then timed steps with the launch counts reset just
-    before. Returns (state, aux, launches, seconds,
-    sum of dts, t before the timed steps)."""
-    cfg = flagship(N)
+    before. Returns (cfg, state, aux, launches, seconds, sum of dts, t
+    before the timed steps)."""
+    cfg = flagship(N, **overrides)
     bc = make_lid_bc(1.0)
     step = make_step(cfg, bc, (FLAGSHIP_DISC,), dtype=torch.float32,
                      device=device)
@@ -235,50 +325,109 @@ def run_flagship(N, device, warmup, steps):
     t_end = 8.0
     for _ in range(warmup):
         state, aux = step(state, t_end)
-    torch.cuda.synchronize()
-    # a step must not wait for the card: PyTorch's sync debug mode raises
-    # on a synchronizing call
-    torch.cuda.set_sync_debug_mode("error")
-    state, aux = step(state, t_end)
-    torch.cuda.set_sync_debug_mode("default")
+    state, aux = step_without_sync(step, state, t_end)
     t0 = state.t.double()
     dt_sum = torch.zeros((), dtype=torch.float64, device=device)
-    rb.launches = 0
-    mk.launches = 0
+    torch.cuda.synchronize()
+    reset_counts()
     wall = time.perf_counter()
     for _ in range(steps):
         state, aux = step(state, t_end)
         dt_sum += aux["dt"].double()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall
-    launches = {"rmt_block": rb.launches, "momentum_rk4": mk.launches}
-    return state, aux, launches, wall, dt_sum, t0
+    return cfg, state, aux, counts(), wall, dt_sum, t0
 
 
-def check_flagship(state, aux, launches, steps, dt_sum, t0):
-    for name, n in launches.items():
-        if n != steps:
-            raise AssertionError(f"{name} launched {n} times in {steps} steps")
+def check_state(state, aux, what):
+    """Finite, not diverged, min J over the solid in (0.5, 2)."""
     for name in ("u", "v", "p", "X1", "X2"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"state.{name} is not finite")
+            raise AssertionError(f"{what}: state.{name} is not finite")
     if bool(diverged(state)):
-        raise AssertionError("the flagship run diverged")
-    solid = aux["phis"] <= 0.0
-    min_J = float(aux["J"][solid].min())
+        raise AssertionError(f"{what}: the run diverged")
+    min_J = float(aux["J"][aux["phis"] <= 0.0].min())
     if not 0.5 < min_J < 2.0:
-        raise AssertionError(f"min J over the solid is {min_J}")
+        raise AssertionError(f"{what}: min J over the solid is {min_J}")
+    return min_J
+
+
+def check_run(what, state, aux, launches, expect, dt_sum, t0):
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches}, expected {expect}")
+    min_J = check_state(state, aux, what)
     advanced = float(state.t.double() - t0)
     if not abs(advanced - float(dt_sum)) <= 1e-4 * max(advanced, 1e-6):
         raise AssertionError(
-            f"t advanced by {advanced}, the dts sum to {float(dt_sum)}")
+            f"{what}: t advanced by {advanced}, the dts sum to "
+            f"{float(dt_sum)}")
     return min_J, advanced
 
 
-def compare_paths(N, device, steps=3):
+def run_rebase(N, device, chunk=50, post_steps=20):
+    """The rebasing runner at full width: one pre-rebase step under sync
+    debug, one chunk, a rebase forced on the solid, post-rebase steps."""
+    cfg = flagship(N, map_rebase_minj=0.5)
+    g = cfg.grid
+    bc = make_lid_bc(1.0)
+    kw = dict(dtype=torch.float32, device=device)
+    runner = make_rebase_runner(cfg, bc, (FLAGSHIP_DISC,), chunk, **kw)
+    state = make_init_state(cfg, (FLAGSHIP_DISC,), **kw)
+    t_end = 8.0
+    state, _ = step_without_sync(runner.pre_step, state, t_end)
+    state, _ = runner(state, t_end)
+    if runner.post:
+        raise AssertionError("the pre-rebase chunk triggered a rebase")
+    min_J_pre = float(runner.min_J(state)[0])
+
+    phi = FLAGSHIP_DISC(state.X1[0], state.X2[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reinitialize_phi_fsm(phi, g.dx, g.dy)
+    torch.cuda.synchronize()
+    fsm_s = time.perf_counter() - t
+
+    phis0_before = state.phis0.clone()
+    reset_counts()
+    t = time.perf_counter()
+    state = runner.rebase(state, [True])
+    torch.cuda.synchronize()
+    rebase_s = time.perf_counter() - t
+    rebase_counts = counts()
+    if rebase_counts["extrapolate_fused"] != 1 or not runner.post:
+        raise AssertionError(f"the forced rebase launched {rebase_counts}")
+    if torch.equal(state.phis0, phis0_before):
+        raise AssertionError("the rebase left phis0 as it was")
+    J = solid_cauchy_stress(state.X1[0], state.X2[0], g.dx, g.dy, cfg.mu_s,
+                            cfg.kappa, state.phis0[0])[3]
+    inner = state.phis0[0] < -3.0 * g.dx
+    J_err = float((J[inner] - 1.0).abs().max())
+    if not J_err <= 1e-4:
+        raise AssertionError(f"J after the rebase is {J_err} off 1")
+
+    reset_counts()
+    fired = []
+    t = time.perf_counter()
+    for _ in range(post_steps):
+        state, aux = runner.post_step(state, t_end)
+        fired.append(aux["rebased"])
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t
+    post_counts = counts()
+    if bool(torch.stack(fired).any()) or post_counts["extrapolate_fused"]:
+        raise AssertionError(f"a post-rebase step rebased: {post_counts}")
+    if post_counts["advext_block"] != post_steps:
+        raise AssertionError(f"post-rebase launches {post_counts}")
+    min_J_post = check_state(state, aux, "post-rebase")
+    return dict(min_J_pre=min_J_pre, fsm_s=fsm_s, rebase_s=rebase_s,
+                J_err=J_err, min_J_post=min_J_post, post_s=post_s,
+                launches=rebase_counts["extrapolate_fused"])
+
+
+def compare_paths(N, device, steps=3, **overrides):
     """A few float64 steps through the kernels and through the plain
-    versions from the same state; returns the max-abs difference."""
-    cfg = flagship(N)
+    versions from the same state; returns the max-abs differences."""
+    cfg = flagship(N, **overrides)
     bc = make_lid_bc(1.0)
     kw = dict(dtype=torch.float64, device=device)
     s_k = make_init_state(cfg, (FLAGSHIP_DISC,), **kw)
@@ -293,15 +442,18 @@ def compare_paths(N, device, steps=3):
     step_k = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw)
     step_p = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw,
                        rmt_block_impl=rb.rmt_block_plain,
-                       momentum_rk4_impl=momentum_core)
+                       momentum_rk4_impl=momentum_core,
+                       advext_impl=rb.advext_block_plain,
+                       extrap_impl=extrapolate_reference_map)
     for _ in range(steps):
         s_k, _ = step_k(s_k, 8.0)
         s_p, _ = step_p(s_p, 8.0)
     torch.cuda.synchronize()
     errs = {k: float((getattr(s_k, k) - getattr(s_p, k)).abs().max())
-            for k in ("u", "v", "p", "X1", "X2")}
+            for k in ("u", "v", "p", "X1", "X2", "phis0")
+            if getattr(s_k, k).numel()}
     if not all(e <= 1e-10 for e in errs.values()):
-        raise AssertionError(f"kernel path vs plain path: {errs}")
+        raise AssertionError(f"kernel path vs plain path {overrides}: {errs}")
     return errs
 
 
@@ -319,11 +471,11 @@ def main() -> int:
 
     # 2. build
     t = time.perf_counter()
-    for name in ("rmt_block", "momentum_rk4"):
-        _build.load(name)
-    print(f"[build] both kernels built for sm_90a in "
-          f"{time.perf_counter() - t:.1f} s into {_build.build_dir()}")
-    for name in ("rmt_block", "momentum_rk4"):
+    _build.load_all(SOURCES)
+    print(f"[build] {len(SOURCES)} CUDA sources built side by side for "
+          f"sm_90a in {time.perf_counter() - t:.1f} s into "
+          f"{_build.build_dir()}")
+    for name in SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -331,32 +483,79 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel vs plain on the card
-    compare_kernels(256, torch.float64, device)
-    compare_kernels(256, torch.float32, device)
-    errs = compare_kernels(1024, torch.float32, device)
+    errs = {}
+    for N, dtype, disc in ((256, torch.float64, FLAGSHIP_DISC),
+                           (256, torch.float32, FLAGSHIP_DISC),
+                           (256, torch.float64, EDGE_DISC),
+                           (256, torch.float32, EDGE_DISC),
+                           (1024, torch.float32, FLAGSHIP_DISC)):
+        for name, e in compare_kernels(N, dtype, device, disc).items():
+            errs[name] = max(errs.get(name, 0.0), e)
     times = time_kernels(1024, device)
 
-    # 4. the flagship slice
+    # 4. the flagship slice (fused tier)
     steps = 500
-    state, aux, launches, wall, dt_sum, t0 = run_flagship(
+    _, state, aux, launches, wall, dt_sum, t0 = run_flagship(
         1024, device, warmup=50, steps=steps)
-    min_J, advanced = check_flagship(state, aux, launches, steps, dt_sum, t0)
+    min_J, advanced = check_run(
+        "flagship", state, aux, launches,
+        {"rmt_block": steps, "momentum_rk4": steps, "advext_block": 0,
+         "extrapolate_fused": 0}, dt_sum, t0)
     print(f"[slice] flagship N=1024 float32: {steps} steps in {wall:.3f} s = "
           f"{steps / wall:.1f} steps/s, {1e3 * wall / steps:.3f} ms/step "
           f"(host clock, synchronised) on '{card}'; launches {launches}; "
           f"t advanced {advanced:.6f}; min J over the solid {min_J:.4f}")
-    path_errs = compare_paths(128, device)
-    print(f"[slice] N=128 float64, 3 steps kernel path vs plain path: "
-          + ", ".join(f"{k} {e:.2e}" for k, e in path_errs.items()))
+    main_launches = dict(launches)
 
-    source = {"rmt_block": ("pyrmt_tpu_torch/csrc/rmt_block.cu",
-                            "pyrmt_tpu/kernels/rmt_block.py:825"),
-              "momentum_rk4": ("pyrmt_tpu_torch/csrc/momentum_rk4.cu",
-                               "pyrmt_tpu/kernels/momentum_rk4.py:453")}
-    kernels = [{"name": name, "route": "cuda", "source": source[name][0],
-                "replaces": source[name][1], "launches": launches[name],
+    # 5. the split tier at full width
+    steps = 200
+    cfg, state, aux, launches, wall, dt_sum, t0 = run_flagship(
+        1024, device, warmup=20, steps=steps, phi_area_fix=True,
+        reinit_method="pde")
+    min_J, advanced = check_run(
+        "split tier", state, aux, launches,
+        {"rmt_block": 0, "momentum_rk4": steps, "advext_block": steps,
+         "extrapolate_fused": 0}, dt_sum, t0)
+    g = cfg.grid
+    X, Y = g.coords(dtype=torch.float32, device=device)
+    target = float(smoothed_solid_area(FLAGSHIP_DISC(X, Y), g.dx, g.dy,
+                                       cfg.w_t))
+    area = float(smoothed_solid_area(aux["phis"][0], g.dx, g.dy, cfg.w_t))
+    if not abs(area - target) <= 1e-4 * target:
+        raise AssertionError(f"area {area} drifted from {target}")
+    print(f"[split] flagship + area fix + PDE reinit N=1024 float32: "
+          f"{steps} steps in {wall:.3f} s = {steps / wall:.1f} steps/s, "
+          f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised) on "
+          f"'{card}'; launches {launches}; t advanced {advanced:.6f}; "
+          f"min J {min_J:.4f}; solid area {area:.7g} vs target {target:.7g}")
+    main_launches["advext_block"] = launches["advext_block"]
+
+    # 6. rebasing at full width
+    rebase = run_rebase(1024, device)
+    print(f"[rebase] flagship map_rebase_minj=0.5 N=1024 float32: 51 "
+          f"pre-rebase steps (min J {rebase['min_J_pre']:.4f}); fast-sweeping "
+          f"redistance {rebase['fsm_s']:.3f} s, whole forced rebase "
+          f"{rebase['rebase_s']:.3f} s (host clock) on '{card}'; |J - 1| "
+          f"inside {rebase['J_err']:.2e}; 20 post-rebase steps in "
+          f"{rebase['post_s']:.3f} s ({1e3 * rebase['post_s'] / 20:.3f} "
+          f"ms/step), none rebased, min J {rebase['min_J_post']:.4f}")
+    main_launches["extrapolate_fused"] = rebase["launches"]
+
+    # 7. kernel path vs plain path
+    for what, overrides in (("flagship", {}),
+                            ("area fix + PDE reinit",
+                             dict(phi_area_fix=True, reinit_method="pde")),
+                            ("rebase every step", dict(map_rebase_minj=10.0))):
+        path_errs = compare_paths(128, device, **overrides)
+        print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
+              f"path: " + ", ".join(f"{k} {e:.2e}"
+                                    for k, e in path_errs.items()))
+
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": main_launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in source]
+                "plain_ms": times[name][1]}
+               for name, (src, tpu) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from pyrmt_tpu_torch.sim import (
     SimState,
     diverged,
     make_init_state,
+    make_rebase_runner,
     make_run_chunk,
     make_step,
     run_until,
@@ -33,6 +34,7 @@ __all__ = [
     "free_slip_box_bc",
     "make_init_state",
     "make_lid_bc",
+    "make_rebase_runner",
     "make_run_chunk",
     "make_step",
     "noop_bc",

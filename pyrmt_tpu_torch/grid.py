@@ -32,8 +32,22 @@ class Grid:
         return (self.Ny, self.Nx)
 
     def coords(self, dtype=torch.float32, device="cpu"):
-        """Return (X, Y) meshes of shape (Ny, Nx)."""
-        x = torch.linspace(0.0, self.Lx, self.Nx, dtype=dtype, device=device)
-        y = torch.linspace(0.0, self.Ly, self.Ny, dtype=dtype, device=device)
+        """Return (X, Y) meshes of shape (Ny, Nx), bit for bit the JAX
+        package's."""
+        x = _linspace(self.Lx, self.Nx, dtype, device)
+        y = _linspace(self.Ly, self.Ny, dtype, device)
         Y, X = torch.meshgrid(y, x, indexing="ij")
         return X, Y
+
+
+def _linspace(stop, num, dtype, device):
+    """``jnp.linspace(0.0, stop, num)`` as JAX rounds it on the CPU:
+    i * (stop * (1 / div)) in ``dtype``, the endpoint exactly ``stop``
+    (``torch.linspace`` rounds otherwise, an ulp off in up to a quarter of
+    the points). Computed on the host, then moved."""
+    div = num - 1
+    one, stop_t, div_t = (torch.tensor(a, dtype=dtype)
+                          for a in (1.0, stop, float(div)))
+    x = torch.cat([torch.arange(div, dtype=dtype) * (stop_t * (one / div_t)),
+                   stop_t.reshape(1)])
+    return x.to(device)

@@ -53,30 +53,79 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _start_build(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless a build of the current
+    sources exists; returns (process, temporary path) or None."""
+    if name in _LIBS or library_path(name).exists():
+        return None
+    so = library_path(name)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    out, _ = proc.communicate()
+    so = library_path(name)
+    so.with_suffix(".log").write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{out}")
+    os.replace(tmp, so)  # atomic: a concurrent build cannot tear it
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """Load the libraries of ``csrc/<name>.cu`` for every name, running the
+    nvcc builds that are missing side by side. Raises RuntimeError with
+    nvcc's output if a build fails."""
+    started = {name: _start_build(name) for name in names}
+    try:
+        for name, s in started.items():
+            _finish_build(name, s)
+    finally:
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+    libs = []
+    for name in names:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.pyrmt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.pyrmt_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        libs.append(lib)
+    return libs
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library of ``csrc/<name>.cu``, building it first
-    if no build of the current sources exists. Raises RuntimeError with
-    nvcc's output if the build fails."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    so = library_path(name)
-    if not so.exists():
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu (exit {res.returncode}):\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build cannot tear it
-    lib = ctypes.CDLL(str(so))
-    lib.pyrmt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pyrmt_cuda_error_string.restype = ctypes.c_char_p
-    _LIBS[name] = lib
-    return lib
+    if no build of the current sources exists."""
+    return load_all((name,))[0]
+
+
+def check_operands(what: str, ref, expect) -> None:
+    """Raise unless ``ref`` is float32/float64 and every entry of
+    ``expect`` ({name: (tensor, shape)}) is a contiguous tensor of that
+    shape with ref's dtype and device."""
+    import torch
+
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what} kernel takes float32/float64, not {ref.dtype}")
+    for name, (t, shape) in expect.items():
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}; "
+                             f"expected {ref.dtype} on {ref.device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{tuple(shape)} tensor, got {tuple(t.shape)}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

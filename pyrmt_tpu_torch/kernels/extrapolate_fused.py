@@ -1,0 +1,76 @@
+"""The whole narrow-band extrapolation of one reference map: the wrapper of
+its CUDA kernel (counterpart of
+``pyrmt_tpu.kernels.extrapolate_fused.extrapolate_reference_map_fused``).
+
+The plain version is ``ops.extrapolate.extrapolate_reference_map``; the
+kernel is ``csrc/extrapolate_fused.cu``, whose source note says what it
+replaces and what bounds it. It runs where a map is extrapolated from
+scratch: at every map-rebase event.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.ops.extrapolate import (
+    _kernels_1d,
+    extrapolate_reference_map,
+)
+
+# Times the wrapper launched the CUDA kernel (one per call on a CUDA
+# tensor). A caller may reset it to 0.
+launches = 0
+
+
+def window_taps(dx, dy):
+    """The 6 x 9 separable factors of the 9x9 window (wx, wxd, wxd2, wy,
+    wyd, wyd2) as a ctypes array of doubles, the ``taps`` operand of the
+    extrapolation kernels."""
+    fx, fy = _kernels_1d(dx, dy)
+    return (ctypes.c_double * 54)(*[
+        float(w) for k in (fx["wx"], fx["wxd"], fx["wxd2"],
+                           fy["wy"], fy["wyd"], fy["wyd2"]) for w in k])
+
+
+def _cuda_lib():
+    lib = _build.load("extrapolate_fused")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.pyrmt_extrapolate_fused_f32,
+               lib.pyrmt_extrapolate_fused_f64):
+        fn.argtypes = [P] * 6 + [I, I, I, P, P]
+        fn.restype = I
+    return lib
+
+
+def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
+    """Extrapolate (X1, X2) from the solid (phi < 0) ``max_layers`` cells
+    into the fluid; same arguments and result as
+    ``extrapolate_reference_map``.
+
+    A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
+    kernel; another dtype, shape or device raises.
+    """
+    global launches
+    if X1.device.type == "cpu":
+        return extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers)
+    if X1.device.type != "cuda":
+        raise ValueError(f"extrapolate_fused: no kernel for device {X1.device}")
+    Ny, Nx = X1.shape
+    _build.check_operands("extrapolate_fused", X1, {
+        "X1": (X1, (Ny, Nx)), "X2": (X2, (Ny, Nx)), "phi": (phi, (Ny, Nx))})
+    if max_layers < 0:
+        raise ValueError(f"extrapolate_fused: max_layers={max_layers} < 0")
+    lib = _cuda_lib()
+    x1e = torch.empty_like(X1)
+    x2e = torch.empty_like(X1)
+    scratch = torch.empty((6, Ny, Nx), dtype=X1.dtype, device=X1.device)
+    fn = (lib.pyrmt_extrapolate_fused_f32 if X1.dtype == torch.float32
+          else lib.pyrmt_extrapolate_fused_f64)
+    err = fn(*(_build.pointer(t) for t in (X1, X2, phi, x1e, x2e, scratch)),
+             Ny, Nx, int(max_layers), window_taps(dx, dy),
+             _build.stream_handle(X1.device))
+    _build.check(lib, err, "extrapolate_fused kernel launch")
+    launches += 1
+    return x1e, x2e

@@ -57,8 +57,6 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
             "the momentum_rk4 kernel applies the velocity BC from its "
             "kernel_spec ('lid', 'free_slip' or 'noop'); got "
             f"{velocity_bc!r} with spec {spec!r}")
-    if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"momentum_rk4 kernel takes float32/float64, not {u.dtype}")
     Ny, Nx = u.shape
     if Ny < 5 or Nx < 5:
         raise ValueError(f"momentum_rk4 kernel needs a grid of at least 5x5, "
@@ -66,14 +64,9 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     fields = {"u": u, "v": v, "p": p, "sig_sxx_el": sig_sxx_el,
               "sig_sxy_el": sig_sxy_el, "sig_syy_el": sig_syy_el, "Hf": Hf,
               "rho_local": rho_local, "mkv": mkv, "dt": dt}
-    for name, t in fields.items():
-        shape = () if name == "dt" else (Ny, Nx)
-        if t.device != u.device or t.dtype != u.dtype:
-            raise ValueError(f"momentum_rk4: {name} is {t.dtype} on "
-                             f"{t.device}; expected {u.dtype} on {u.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"momentum_rk4: {name} must be a contiguous "
-                             f"{shape} tensor, got {tuple(t.shape)}")
+    _build.check_operands("momentum_rk4", u, {
+        name: (t, () if name == "dt" else (Ny, Nx))
+        for name, t in fields.items()})
     lib = _cuda_lib()
     u_new = torch.empty_like(u)
     v_new = torch.empty_like(u)

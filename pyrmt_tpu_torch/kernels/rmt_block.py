@@ -1,8 +1,9 @@
-"""The RMT solid block of one step: the plain PyTorch version and the
-wrapper of its CUDA kernel (counterpart of
-``pyrmt_tpu.kernels.rmt_block.rmt_block_fused``).
+"""The RMT solid block of one step: the plain PyTorch versions and the
+wrappers of their CUDA kernels (counterparts of
+``pyrmt_tpu.kernels.rmt_block.rmt_block_fused`` and
+``advext_block_fused``).
 
-Per solid:
+The fused tier (``rmt_block_fused``), per solid:
 
     phi   = phi_init(X1, X2)                  (compatibility rebuild)
     X1a, X2a = advect(X1, X2; u, v, dt) * (phi <= 0)
@@ -12,8 +13,11 @@ Per solid:
     H     = smoothed_heaviside(phi2, w_t)
 
 followed by the mixture sums Hf, rho and sum_i (1 - H_i) sigma_i. The
-kernel is ``csrc/rmt_block.cu``; its source note says what it replaces and
-what bounds it.
+split tier's kernel A (``advext_block_fused``) runs only the advection and
+the extrapolation, with the pre-advection phi given: the step rebuilds,
+reinitialises and area-fixes phi around it. Both kernels are entry points
+of ``csrc/rmt_block.cu``; its source note says what they replace and what
+bounds them.
 """
 from __future__ import annotations
 
@@ -22,17 +26,33 @@ import ctypes
 import torch
 
 from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels.extrapolate_fused import window_taps
 from pyrmt_tpu_torch.ops.advect import advect_semilagrangian_rk4_local
-from pyrmt_tpu_torch.ops.extrapolate import (
-    _kernels_1d,
-    extrapolate_reference_map,
-)
+from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.ops.levelset import rebuild_phi_from_reference_map
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
-# Times the wrapper launched the CUDA kernel (one per call on a CUDA
-# tensor). A caller may reset it to 0.
+# Times each wrapper launched its CUDA kernel (one per call on a CUDA
+# tensor): rmt_block_fused and advext_block_fused. A caller may reset them
+# to 0.
 launches = 0
+advext_launches = 0
+
+
+def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
+    """The split tier's advect and extrapolate block: the shared SL-RK4
+    backtrace of the (S, Ny, Nx) map stacks, times the mask (phis <= 0),
+    then ``num_layers`` extrapolation sweeps from the known cells
+    (phis < 0). Returns the stacks (X1e, X2e)."""
+    S = X1s.shape[0]
+    masks = (phis <= 0.0).to(u.dtype)
+    qs = advect_semilagrangian_rk4_local(
+        torch.cat([X1s, X2s]), u, v, dt, dx, dy)
+    X1a, X2a = qs[:S] * masks, qs[S:] * masks
+    ext = [extrapolate_reference_map(X1a[i], X2a[i], phis[i], dx, dy,
+                                     num_layers) for i in range(S)]
+    return (torch.stack([e[0] for e in ext]),
+            torch.stack([e[1] for e in ext]))
 
 
 def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
@@ -48,14 +68,8 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     S = X1s.shape[0]
     phis = torch.stack([rebuild_phi_from_reference_map(X1s[i], X2s[i], f)
                         for i, f in enumerate(phi_inits)])
-    masks = (phis <= 0.0).to(u.dtype)
-    qs = advect_semilagrangian_rk4_local(
-        torch.cat([X1s, X2s]), u, v, dt, dx, dy)
-    X1a, X2a = qs[:S] * masks, qs[S:] * masks
-    ext = [extrapolate_reference_map(X1a[i], X2a[i], phis[i], dx, dy,
-                                     num_layers) for i in range(S)]
-    X1e = torch.stack([e[0] for e in ext])
-    X2e = torch.stack([e[1] for e in ext])
+    X1e, X2e = advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
+                                  num_layers=num_layers)
     phis = torch.stack([rebuild_phi_from_reference_map(X1e[i], X2e[i], f)
                         for i, f in enumerate(phi_inits)])
     stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, mu_s, kappa,
@@ -72,22 +86,13 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
 
 def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers):
     """Raise unless the operands are what the kernel takes."""
-    if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"rmt_block kernel takes float32/float64, not {u.dtype}")
     Ny, Nx = u.shape
     if Ny < 3 or Nx < 3:
         raise ValueError(f"rmt_block kernel needs a grid of at least 3x3, "
                          f"not {Ny}x{Nx}")
-    expect = {"u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)),
-              "X1s": (X1s, (1, Ny, Nx)), "X2s": (X2s, (1, Ny, Nx)),
-              "dt": (dt, ()), "params": (params, (4,))}
-    for name, (t, shape) in expect.items():
-        if t.device != u.device or t.dtype != u.dtype:
-            raise ValueError(f"rmt_block: {name} is {t.dtype} on {t.device}; "
-                             f"expected {u.dtype} on {u.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"rmt_block: {name} must be a contiguous "
-                             f"{shape} tensor, got {tuple(t.shape)}")
+    _build.check_operands("rmt_block", u, {
+        "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (1, Ny, Nx)),
+        "X2s": (X2s, (1, Ny, Nx)), "dt": (dt, ()), "params": (params, (4,))})
     if len(phi_inits) != 1:
         raise NotImplementedError(
             "the rmt_block kernel takes one solid; multi-solid configs wait "
@@ -108,6 +113,9 @@ def _cuda_lib():
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
         fn.argtypes = [P] * 18 + [I, I, D, D, I, D, D, D, D, P, P]
+        fn.restype = I
+    for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
+        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, P, P]
         fn.restype = I
     return lib
 
@@ -139,10 +147,7 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     fields = [torch.empty((Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(5)]
     scratch = torch.empty((6, Ny, Nx), dtype=u.dtype, device=u.device)
-    fx, fy = _kernels_1d(dx, dy)
-    taps = (ctypes.c_double * 54)(*[
-        float(w) for k in (fx["wx"], fx["wxd"], fx["wxd2"],
-                           fy["wy"], fy["wyd"], fy["wyd2"]) for w in k])
+    taps = window_taps(dx, dy)
     fn = (lib.pyrmt_rmt_block_f32 if u.dtype == torch.float32
           else lib.pyrmt_rmt_block_f64)
     err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, sc, *stacks,
@@ -152,3 +157,41 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     _build.check(lib, err, "rmt_block kernel launch")
     launches += 1
     return (*stacks, *fields)
+
+
+def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
+    """The split tier's advect and extrapolate block; same arguments and
+    results as ``advext_block_plain``.
+
+    A CPU tensor goes to ``advext_block_plain``. A CUDA tensor goes to the
+    CUDA kernel, which takes phi as a field, so any level set and any
+    number of solids; another dtype, shape or device raises. dt is read on
+    the device, so a call does not wait for the card.
+    """
+    global advext_launches
+    if u.device.type == "cpu":
+        return advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
+                                  num_layers=num_layers)
+    if u.device.type != "cuda":
+        raise ValueError(f"advext_block: no kernel for device {u.device}")
+    Ny, Nx = u.shape
+    S = X1s.shape[0]
+    _build.check_operands("advext_block", u, {
+        "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (S, Ny, Nx)),
+        "X2s": (X2s, (S, Ny, Nx)), "phis": (phis, (S, Ny, Nx)),
+        "dt": (dt, ())})
+    if num_layers < 1:
+        raise ValueError("advext_block kernel needs num_layers >= 1")
+    lib = _cuda_lib()
+    x1e = torch.empty_like(X1s)
+    x2e = torch.empty_like(X1s)
+    scratch = torch.empty((6, Ny, Nx), dtype=u.dtype, device=u.device)
+    fn = (lib.pyrmt_advext_f32 if u.dtype == torch.float32
+          else lib.pyrmt_advext_f64)
+    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, phis, dt, x1e,
+                                            x2e, scratch)),
+             S, Ny, Nx, float(dx), float(dy), int(num_layers),
+             window_taps(dx, dy), _build.stream_handle(u.device))
+    _build.check(lib, err, "advext_block kernel launch")
+    advext_launches += 1
+    return x1e, x2e

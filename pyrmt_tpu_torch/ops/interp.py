@@ -1,14 +1,53 @@
-"""Gather-free bilinear sampling (counterpart of
-``pyrmt_tpu.ops.interp.gather_bilinear_local``).
-
-The general gather paths and bicubic sampling wait for ROADMAP modules
-items 9 and 10.
+"""Bilinear sampling (counterpart of ``pyrmt_tpu.ops.interp``): the general
+gather at physical points and the gather-free sampling at sub-cell
+displacements. Bicubic sampling waits for ROADMAP modules item 10.
 """
 from __future__ import annotations
 
 import torch
 
 from pyrmt_tpu_torch.ops.fd import _shift_x, _shift_y
+
+
+def _prepare_queries(xq, yq, dx, dy, Nx, Ny):
+    """Grid coordinates of the queries, clamped into the domain (before any
+    integer conversion), and the mask of finite queries."""
+    x = xq / dx
+    y = yq / dy
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    x = torch.clamp(torch.where(finite, x, 0.0), 0.0, Nx - 1.0)
+    y = torch.clamp(torch.where(finite, y, 0.0), 0.0, Ny - 1.0)
+    return x, y, finite
+
+
+def bilinear_interpolate(u, xq, yq, dx, dy):
+    """Bilinear interpolation of ``u`` (Ny, Nx) at the physical points
+    (xq, yq); a non-finite query gives NaN."""
+    return gather_bilinear_multi(u[None], xq, yq, dx, dy)[0]
+
+
+def gather_bilinear_multi(us, xq, yq, dx, dy):
+    """Bilinear interpolation of a stack ``us`` (K, Ny, Nx) at the same
+    query points, with the indices and weights computed once."""
+    K, Ny, Nx = us.shape
+    x, y, finite = _prepare_queries(xq, yq, dx, dy, Nx, Ny)
+
+    ix = torch.clamp(torch.floor(x).to(torch.int64), 0, Nx - 2)
+    iy = torch.clamp(torch.floor(y).to(torch.int64), 0, Ny - 2)
+    fx = (x - ix).to(us.dtype)
+    fy = (y - iy).to(us.dtype)
+
+    v00 = us[:, iy, ix]
+    v10 = us[:, iy, ix + 1]
+    v01 = us[:, iy + 1, ix]
+    v11 = us[:, iy + 1, ix + 1]
+
+    w00 = (1.0 - fx) * (1.0 - fy)
+    w10 = fx * (1.0 - fy)
+    w01 = (1.0 - fx) * fy
+    w11 = fx * fy
+    out = w00 * v00 + w10 * v10 + w01 * v01 + w11 * v11
+    return torch.where(finite, out, float("nan"))
 
 
 def gather_bilinear_local(us, sx, sy):

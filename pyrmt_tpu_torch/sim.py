@@ -1,23 +1,30 @@
-"""Simulation state and the FSI step (counterpart of ``pyrmt_tpu.sim``).
+"""Simulation state, the FSI step and the rebasing runner (counterpart of
+``pyrmt_tpu.sim``).
 
     state', aux = step(state, t_end)
 
-One step of the ported slice, the fused branch of the JAX ``make_step``:
+One step of the ported slice:
   1. adaptive dt (compute_timestep), clipped at t_end;
-  2. the RMT solid block (kernels/rmt_block.py): rebuild, advect, mask,
-     extrapolate, rebuild, stress, Heaviside, mixture blends;
+  2. the RMT solid block, on one of two tiers:
+     - fused (no level-set post-processing): kernels/rmt_block.py
+       ``rmt_block_fused`` rebuilds, advects, masks, extrapolates,
+       rebuilds, and computes the stress, Heaviside and mixture blends;
+     - split (reinitialisation, area fix or map rebasing): the phi chain
+       (rebuild, reinit, area fix) as plain ops, then
+       ``advext_block_fused`` (advect, mask, extrapolate given phi), then
+       the rebuild (+ area fix), stress and blends as plain ops;
   3. the RK4 momentum update (kernels/momentum_rk4.py);
   4. the incremental Rhie-Chow projection with the DCT-I Poisson solve;
-  5. t += dt.
+  5. on the split tier with rebasing, ``maybe_rebase``; t += dt.
 
-On a CUDA state the two blocks run their CUDA kernels; on a CPU state they
-run the plain PyTorch versions. dt stays a 0-d device tensor for the whole
-step, so a step never waits for the card.
+On a CUDA state the blocks run their CUDA kernels; on a CPU state they run
+the plain PyTorch versions. dt stays a 0-d device tensor for the whole
+step, so a step never waits for the card, except where rebasing reads its
+trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step).
 
-The step takes the flagship's feature set (one solid, semi-Lagrangian
-gather-free bilinear advection with CFL < 1, Neumann walls, constant
-density, no surface tension, gravity, reinitialisation, area fix or
-rebasing) and raises NotImplementedError, naming the ROADMAP item that
+The step takes one solid with semi-Lagrangian gather-free bilinear
+advection (CFL < 1), Neumann walls, constant density, no surface tension
+or gravity, and raises NotImplementedError, naming the ROADMAP item that
 ports it, for anything else.
 """
 from __future__ import annotations
@@ -29,14 +36,28 @@ from typing import Callable, Sequence
 import torch
 
 from pyrmt_tpu_torch.grid import Grid
+from pyrmt_tpu_torch.kernels.extrapolate_fused import (
+    extrapolate_reference_map_fused,
+)
 from pyrmt_tpu_torch.kernels.momentum_rk4 import momentum_rk4_fused
-from pyrmt_tpu_torch.kernels.rmt_block import rmt_block_fused
+from pyrmt_tpu_torch.kernels.rmt_block import (
+    advext_block_fused,
+    rmt_block_fused,
+)
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
+from pyrmt_tpu_torch.ops.interp import bilinear_interpolate
+from pyrmt_tpu_torch.ops.levelset import (
+    area_conserving_shift,
+    reinitialize_level_set,
+    reinitialize_phi_fsm,
+    smoothed_solid_area,
+)
 from pyrmt_tpu_torch.ops.poisson import (
     precompute_dct_matrices,
     precompute_poisson_eigenvalues,
 )
 from pyrmt_tpu_torch.ops.projection import pressure_projection
+from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 from pyrmt_tpu_torch.physics import compute_timestep
 
 
@@ -51,8 +72,8 @@ class SimState:
     X2: torch.Tensor     # (S, Ny, Nx) reference-map y-components
     t: torch.Tensor      # 0-d time
     step: torch.Tensor   # 0-d int32 step counter
-    phis0: torch.Tensor | None = None  # (0, Ny, Nx): base level sets of
-                                       # map rebasing, which is not ported
+    phis0: torch.Tensor | None = None  # (S, Ny, Nx) base level sets of
+                                       # map rebasing; (0, Ny, Nx) without
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,17 +149,13 @@ class RMTConfig:
 _OUTSIDE_SLICE = (
     ("scheme != 'semilagrangian'",
      lambda c: c.scheme != "semilagrangian", "modules item 14"),
-    ("sl_local=False", lambda c: not c.sl_local, "modules item 9"),
+    ("sl_local=False", lambda c: not c.sl_local, "modules item 14"),
     ("CFL >= 1 (the gather-free backtrace needs CFL < 1)",
-     lambda c: c.CFL >= 1.0, "modules item 9"),
+     lambda c: c.CFL >= 1.0, "modules item 14"),
     ("sl_interp='bicubic'", lambda c: c.sl_interp != "bilinear",
      "modules item 10"),
     ("bc_type='periodic'", lambda c: c.bc_type != "neumann",
      "modules item 13"),
-    ("reinitialisation", lambda c: c.reinit_method != "none",
-     "modules item 9"),
-    ("phi_area_fix", lambda c: c.phi_area_fix, "modules item 9"),
-    ("map rebasing", lambda c: c.map_rebase_minj > 0.0, "modules item 9"),
     ("stress_band (band-mode stress)", lambda c: c.stress_band,
      "modules item 9"),
     ("surface tension", lambda c: c.gamma > 1e-12, "modules item 11"),
@@ -156,6 +173,8 @@ _KNOWN_VALUES = {
     "extrap_method": ("auto", "xla", "sparse", "pallas"),
     "dct_method": ("auto", "fft", "matmul", "matmul_rec"),
     "projection_method": ("auto", "xla", "pallas"),
+    "reinit_method": ("none", "pde", "fmm"),
+    "map_rebase_rebuild": ("cond", "analytic", "sampled"),
     # the TPU's reduced-precision DCT passes (docs/DESIGN.md #6) are not
     # carried over: the port's DCT runs in full precision
     "dct_precision": ("auto", "highest"),
@@ -193,6 +212,113 @@ def check_slice(cfg: RMTConfig, n_solids: int) -> None:
                 f"{item}")
 
 
+def _rmt_advect_fusible(cfg: RMTConfig, S: int) -> bool:
+    """The base conditions of both fused tiers: semi-Lagrangian gather-free
+    advection with a sub-cell (CFL < 1) backtrace."""
+    return (S >= 1 and cfg.scheme == "semilagrangian" and cfg.sl_local
+            and cfg.sl_interp in ("bilinear", "bicubic") and cfg.CFL < 1.0)
+
+
+def rmt_block_fusible(cfg: RMTConfig, S: int) -> bool:
+    """The full RMT-block kernel can run the solid block: the base
+    advection conditions and no level-set post-processing (reinit, area
+    fix), which would rewrite phi after the kernel's internal rebuild, and
+    no map rebasing, whose rebuild samples ``SimState.phis0``."""
+    return (_rmt_advect_fusible(cfg, S) and cfg.reinit_method == "none"
+            and not cfg.phi_area_fix and cfg.map_rebase_minj == 0.0)
+
+
+def rmt_block_split_eligible(cfg: RMTConfig, S: int) -> bool:
+    """Configurations that post-process phi but meet the base advection
+    conditions run the split tier: ``advext_block_fused`` with the phi
+    chain, the stress and the blends as plain ops around it."""
+    return _rmt_advect_fusible(cfg, S) and not rmt_block_fusible(cfg, S)
+
+
+def _rebasing(cfg: RMTConfig, S: int) -> bool:
+    return cfg.map_rebase_minj > 0.0 and S > 0
+
+
+def _area_targets(cfg, phi_inits, X, Y, dtype):
+    """Per-solid smoothed areas at t=0, as Python floats: the rebuild at
+    the identity map is phi_init(X, Y). Read once, when a step is built."""
+    g = cfg.grid
+    return tuple(float(smoothed_solid_area(pi(X, Y).to(dtype), g.dx, g.dy,
+                                           cfg.w_t)) for pi in phi_inits)
+
+
+def _rebase_map(phi, X, Y, dx, dy, num_layers, extrap_fn):
+    """One solid's rebase: redistance its current level set by fast
+    sweeping into the new base phi0, and extrapolate the identity map from
+    it. Returns (X1, X2, phi0)."""
+    phi0 = reinitialize_phi_fsm(phi, dx, dy)
+    mask = (phi0 <= 0.0).to(phi.dtype)
+    X1, X2 = extrap_fn(X * mask, Y * mask, phi0, dx, dy, num_layers)
+    return X1, X2, phi0
+
+
+def _make_rebuild(cfg, phi_inits, X, Y, dtype):
+    """``rebuild_phis(X1s, X2s, phis0)``: phi_i = phi0_i(xi_i). Without
+    rebasing, and in map_rebase_rebuild 'analytic' mode, phi0_i is the
+    analytic phi_inits[i]; in 'sampled' mode the bilinear sample of
+    phis0[i]; in 'cond' mode the analytic rebuild until a rebase has
+    rewritten phis0[i] and the sample after, both computed and selected on
+    the device, so the choice needs no host read."""
+    g = cfg.grid
+    mode = cfg.map_rebase_rebuild if _rebasing(cfg, len(phi_inits)) \
+        else "analytic"
+    seeds = ([pi(X, Y).to(dtype) for pi in phi_inits] if mode == "cond"
+             else None)
+
+    def rebuild_phis(X1s, X2s, phis0):
+        outs = []
+        for i, phi_init in enumerate(phi_inits):
+            if mode == "analytic":
+                outs.append(phi_init(X1s[i], X2s[i]).to(dtype))
+                continue
+            phi = bilinear_interpolate(phis0[i], X1s[i], X2s[i], g.dx, g.dy)
+            if mode == "cond":
+                phi = torch.where((phis0[i] != seeds[i]).any(), phi,
+                                  phi_init(X1s[i], X2s[i]).to(dtype))
+            outs.append(phi)
+        return torch.stack(outs)
+
+    return rebuild_phis
+
+
+def _make_maybe_rebase(cfg, S, X, Y, extrap_fn):
+    """``maybe_rebase(X1s, X2s, phis, J_s, phis0, active)`` ->
+    (X1s, X2s, phis0, rebased): where a solid's least J over phi <= 0
+    drops below ``cfg.map_rebase_minj`` on an active step, reset its map
+    to the identity against its redistanced level set (``_rebase_map``).
+    J = 1 at the identity, so a rebase cannot re-trigger at once.
+
+    The JAX package selects the rebase with ``lax.cond`` on the device;
+    here the step reads the S trigger flags on the host, once per step,
+    and runs the redistance and extrapolation only when one fires. Mode
+    'analytic' (the runner's pre-rebase step) never triggers: there the
+    runner owns the trigger, and the step reads nothing on the host.
+    """
+    g = cfg.grid
+
+    def maybe_rebase(X1s, X2s, phis, J_s, phis0, active):
+        if cfg.map_rebase_rebuild == "analytic":
+            return X1s, X2s, phis0, torch.zeros((S,), dtype=torch.bool,
+                                                device=X1s.device)
+        minJ = torch.amin(torch.where(phis <= 0.0, J_s, float("inf")),
+                          dim=(1, 2))
+        trig = (minJ < cfg.map_rebase_minj) & active
+        fire = trig.tolist()  # the step's one host read
+        if not any(fire):
+            return X1s, X2s, phis0, trig
+        outs = [_rebase_map(phis[i], X, Y, g.dx, g.dy, cfg.num_layers,
+                            extrap_fn) if fire[i]
+                else (X1s[i], X2s[i], phis0[i]) for i in range(S)]
+        return (*(torch.stack(c) for c in zip(*outs)), trig)
+
+    return maybe_rebase
+
+
 def make_step(
     cfg: RMTConfig,
     velocity_bc: Callable,
@@ -201,17 +327,25 @@ def make_step(
     device="cpu",
     rmt_block_impl: Callable | None = None,
     momentum_rk4_impl: Callable | None = None,
+    advext_impl: Callable | None = None,
+    extrap_impl: Callable | None = None,
 ):
     """Build the FSI step for a fixed configuration.
 
     ``phi_inits`` holds one level-set function of the reference map per
-    solid (the kernel path needs ``ops.levelset.Disc``); ``velocity_bc`` is
-    one of ``bcs``. Returns ``step(state, t_end) -> (state, aux)``.
+    solid; ``velocity_bc`` is one of ``bcs``. On the fused tier the CUDA
+    kernel needs an ``ops.levelset.Disc``; on the split tier (reinit, area
+    fix or rebasing) any torch callable works. Returns
+    ``step(state, t_end) -> (state, aux)``; with rebasing, aux["rebased"]
+    holds the per-solid flags.
 
-    ``rmt_block_impl`` / ``momentum_rk4_impl`` substitute the two blocks
-    with functions of the same signatures, for example the plain versions
-    ``kernels.rmt_block.rmt_block_plain`` and ``physics.momentum_core`` to
-    run the plain path on a CUDA state.
+    ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl`` and
+    ``extrap_impl`` substitute the four kernel blocks with functions of the
+    same signatures, for example the plain versions
+    ``kernels.rmt_block.rmt_block_plain``, ``physics.momentum_core``,
+    ``kernels.rmt_block.advext_block_plain`` and
+    ``ops.extrapolate.extrapolate_reference_map`` to run the plain path on
+    a CUDA state.
 
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
@@ -223,6 +357,8 @@ def make_step(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phi_inits = tuple(phi_inits)
+    S = len(phi_inits)
     eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype, device)
     dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
     params = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
@@ -233,7 +369,52 @@ def make_step(
                 torch.full((), cfg.fixed_dt, dtype=dtype, device=device))
     rmt_fn = rmt_block_impl or rmt_block_fused
     momentum_fn = momentum_rk4_impl or momentum_rk4_fused
-    phi_inits = tuple(phi_inits)
+    advext_fn = advext_impl or advext_block_fused
+
+    X, Y = g.coords(dtype=dtype, device=device)
+    rebuild_phis = _make_rebuild(cfg, phi_inits, X, Y, dtype)
+    fix_areas = None
+    if cfg.phi_area_fix:
+        targets = _area_targets(cfg, phi_inits, X, Y, dtype)
+
+        def fix_areas(phis):
+            return torch.stack([
+                area_conserving_shift(phis[i], dx, dy, cfg.w_t, targets[i])
+                for i in range(S)])
+
+    maybe_rebase = (_make_maybe_rebase(
+        cfg, S, X, Y, extrap_impl or extrapolate_reference_map_fused)
+        if _rebasing(cfg, S) else None)
+
+    def split_block(u, v, X1s, X2s, phis0, dt):
+        """The split tier's solid block; the results of rmt_block_plain."""
+        phis = rebuild_phis(X1s, X2s, phis0)
+        if cfg.reinit_method != "none":
+            phis = torch.stack([
+                reinitialize_level_set(phis[i], dx, dy,
+                                       method=cfg.reinit_method,
+                                       num_iters=cfg.reinit_iters)
+                for i in range(S)])
+        if fix_areas is not None:
+            phis = fix_areas(phis)
+        X1e, X2e = advext_fn(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
+                             num_layers=cfg.num_layers)
+        phis = rebuild_phis(X1e, X2e, phis0)
+        if fix_areas is not None:
+            phis = fix_areas(phis)
+        stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, cfg.mu_s,
+                                      cfg.kappa, phis[i]) for i in range(S)]
+        sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
+        H = smoothed_heaviside(phis, cfg.w_t)
+        one_mH = 1.0 - H
+        Hf = torch.sum(H, dim=0) - (S - 1.0)
+        rho_local = Hf * cfg.rho_f + torch.sum(one_mH, dim=0) * cfg.rho_s
+        return (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
+                torch.sum(one_mH * sxx, dim=0),
+                torch.sum(one_mH * sxy, dim=0),
+                torch.sum(one_mH * syy, dim=0))
+
+    split = rmt_block_split_eligible(cfg, S)
 
     def step(state: SimState, t_end):
         u, v, p = state.u, state.v, state.p
@@ -251,10 +432,14 @@ def make_step(
         active = dt > 0.0
         dt = torch.where(active, dt, one)
 
+        if split:
+            block = split_block(u, v, state.X1, state.X2, state.phis0, dt)
+        else:
+            block = rmt_fn(u, v, state.X1, state.X2, dt, phi_inits=phi_inits,
+                           dx=dx, dy=dy, num_layers=cfg.num_layers,
+                           w_t=cfg.w_t, params=params)
         (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
-         sb_xx, sb_xy, sb_yy) = rmt_fn(
-            u, v, state.X1, state.X2, dt, phi_inits=phi_inits, dx=dx, dy=dy,
-            num_layers=cfg.num_layers, w_t=cfg.w_t, params=params)
+         sb_xx, sb_xy, sb_yy) = block
 
         if cfg.eta_s > 0.0:
             # Kelvin-Voigt mask of the one solid: (phi <= 0) (1 - Hf)
@@ -274,15 +459,18 @@ def make_step(
             return torch.where(active, new, old)
 
         dt_taken = torch.where(active, dt, zero)
-        new_state = SimState(
-            u=frz(u_new, u), v=frz(v_new, v), p=frz(p_new, p),
-            X1=frz(X1e, state.X1), X2=frz(X2e, state.X2),
-            t=state.t + dt_taken,
-            step=state.step + active.to(torch.int32),
-            phis0=state.phis0,
-        )
+        X1s, X2s, phis0 = frz(X1e, state.X1), frz(X2e, state.X2), state.phis0
         aux = {"dt": dt_taken, "phis": phis, "J": J, "sxx": sxx, "sxy": sxy,
                "syy": syy, "rho_local": rho_local}
+        if maybe_rebase is not None:
+            # after the step's physics, which used the pre-rebase maps
+            X1s, X2s, phis0, aux["rebased"] = maybe_rebase(
+                X1s, X2s, phis, J, state.phis0, active)
+        new_state = SimState(
+            u=frz(u_new, u), v=frz(v_new, v), p=frz(p_new, p),
+            X1=X1s, X2=X2s, t=state.t + dt_taken,
+            step=state.step + active.to(torch.int32), phis0=phis0,
+        )
         return new_state, aux
 
     return step
@@ -291,13 +479,15 @@ def make_step(
 def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),
                     u0=None, v0=None, dtype=torch.float32, device="cpu"):
     """Initial state: reference maps seeded with the identity inside each
-    solid and extrapolated ``num_layers`` cells into the fluid."""
+    solid and extrapolated ``num_layers`` cells into the fluid; with map
+    rebasing, ``phis0`` holds each phi_init(X, Y) as it is, so the rebuild
+    at the identity map reproduces the analytic level set exactly."""
     g = cfg.grid
     X, Y = g.coords(dtype=dtype, device=device)
     zeros = torch.zeros(g.shape, dtype=dtype, device=device)
     u = zeros if u0 is None else torch.as_tensor(u0, dtype=dtype, device=device)
     v = zeros if v0 is None else torch.as_tensor(v0, dtype=dtype, device=device)
-    X1s, X2s = [], []
+    X1s, X2s, phi0s = [], [], []
     for phi_init in phi_inits:
         phi = phi_init(X, Y).to(dtype)
         mask = (phi <= 0.0).to(dtype)
@@ -305,6 +495,7 @@ def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),
                                              g.dy, cfg.num_layers)
         X1s.append(X1e)
         X2s.append(X2e)
+        phi0s.append(phi)
     empty = torch.zeros((0,) + g.shape, dtype=dtype, device=device)
     return SimState(
         u=u, v=v, p=zeros.clone(),
@@ -312,7 +503,8 @@ def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),
         X2=torch.stack(X2s) if X2s else empty.clone(),
         t=torch.zeros((), dtype=dtype, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
-        phis0=empty.clone(),
+        phis0=(torch.stack(phi0s) if _rebasing(cfg, len(phi_inits))
+               else empty.clone()),
     )
 
 
@@ -351,3 +543,97 @@ def make_run_chunk(step_fn, n_steps: int):
         return state, state.t
 
     return run_chunk
+
+
+class RebaseRunner:
+    """Chunked runner of a map-rebasing configuration (the JAX package's
+    production path, ``make_rebase_runner``).
+
+    Two steps of the same physics differ only in ``map_rebase_rebuild``:
+    the 'analytic' pre-rebase step (no trigger in the step, no host read)
+    and the 'sampled' post-rebase step (phis0 sampled at every rebuild,
+    the in-step trigger for later rebases). In the pre phase the runner
+    owns the trigger: after each chunk it computes each solid's least J
+    (one host read per chunk) and, where one falls below the threshold,
+    rebases that solid (``rebase``) and switches to the post phase for
+    good. A trigger is thus seen at the end of the chunk it occurs in, and
+    the first one switches every solid to the sampled rebuild.
+
+    The extrapolation of a rebase is ``extrapolate_reference_map_fused``:
+    the CUDA kernel on a CUDA state, the plain version on a CPU state.
+
+    ``runner(state, t_end) -> (state, t)`` runs one chunk of ``n_steps``
+    steps, as ``make_run_chunk`` does.
+    """
+
+    def __init__(self, cfg, velocity_bc, phi_inits, n_steps,
+                 dtype=torch.float32, device="cpu"):
+        self.phi_inits = tuple(phi_inits)
+        S = len(self.phi_inits)
+        if not _rebasing(cfg, S):
+            raise ValueError("make_rebase_runner requires map_rebase_minj > 0 "
+                             "and at least one solid")
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device)
+        self.pre_step = make_step(
+            dataclasses.replace(cfg, map_rebase_rebuild="analytic"),
+            velocity_bc, self.phi_inits, **kw)
+        self.post_step = make_step(
+            dataclasses.replace(cfg, map_rebase_rebuild="sampled"),
+            velocity_bc, self.phi_inits, **kw)
+        self._pre_chunk = make_run_chunk(self.pre_step, n_steps)
+        self._post_chunk = make_run_chunk(self.post_step, n_steps)
+        self.X, self.Y = cfg.grid.coords(**kw)
+        self._targets = (_area_targets(cfg, self.phi_inits, self.X, self.Y,
+                                       dtype) if cfg.phi_area_fix else None)
+        self.dtype = dtype
+        self.post = False
+
+    def _phi(self, state, i):
+        """Solid i's level set at the end of a pre-phase chunk: the
+        analytic rebuild, area-fixed where the step fixes it."""
+        g = self.cfg.grid
+        phi = self.phi_inits[i](state.X1[i], state.X2[i]).to(self.dtype)
+        if self._targets is None:
+            return phi
+        return area_conserving_shift(phi, g.dx, g.dy, self.cfg.w_t,
+                                     self._targets[i])
+
+    def min_J(self, state):
+        """(S,) tensor: each solid's least J over phi <= 0."""
+        g, cfg = self.cfg.grid, self.cfg
+        mins = []
+        for i in range(len(self.phi_inits)):
+            phi = self._phi(state, i)
+            J = solid_cauchy_stress(state.X1[i], state.X2[i], g.dx, g.dy,
+                                    cfg.mu_s, cfg.kappa, phi)[3]
+            mins.append(torch.amin(torch.where(phi <= 0.0, J, float("inf"))))
+        return torch.stack(mins)
+
+    def rebase(self, state, fire):
+        """Rebase the solids i with ``fire[i]`` true (as the in-step
+        rebase does) and switch to the post phase."""
+        g = self.cfg.grid
+        outs = [_rebase_map(self._phi(state, i), self.X, self.Y, g.dx, g.dy,
+                            self.cfg.num_layers,
+                            extrapolate_reference_map_fused) if f
+                else (state.X1[i], state.X2[i], state.phis0[i])
+                for i, f in enumerate(fire)]
+        X1, X2, phis0 = (torch.stack(c) for c in zip(*outs))
+        self.post = True
+        return dataclasses.replace(state, X1=X1, X2=X2, phis0=phis0)
+
+    def __call__(self, state: SimState, t_end):
+        if self.post:
+            return self._post_chunk(state, t_end)
+        state, t = self._pre_chunk(state, t_end)
+        fire = (self.min_J(state) < self.cfg.map_rebase_minj).tolist()
+        if any(fire):
+            state = self.rebase(state, fire)
+        return state, t
+
+
+def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
+                       dtype=torch.float32, device="cpu") -> RebaseRunner:
+    """The chunked rebasing runner (see ``RebaseRunner``)."""
+    return RebaseRunner(cfg, velocity_bc, phi_inits, n_steps, dtype, device)

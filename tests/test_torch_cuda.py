@@ -11,8 +11,10 @@ import pytest
 import torch
 
 import pyrmt_tpu_torch as pt
+import pyrmt_tpu_torch.kernels.extrapolate_fused as ef
 import pyrmt_tpu_torch.kernels.momentum_rk4 as mk
 import pyrmt_tpu_torch.kernels.rmt_block as rb
+from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.physics import momentum_core
 
 pytestmark = pytest.mark.cuda
@@ -20,6 +22,7 @@ pytestmark = pytest.mark.cuda
 N = 64
 SHAPES = [(64, 64), (48, 80), (65, 65)]  # (Ny, Nx): square, wide, odd
 DISC = pt.Disc(0.6, 0.5, 0.2)
+EDGE_DISC = pt.Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
 # float64 kernel vs plain version: the same IEEE operations in the same
 # order (nvcc --fmad=false) and agree bit for bit on the H100
 ATOL = 1e-11
@@ -115,3 +118,111 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
         h = u.half()
         mk.momentum_rk4_fused(*([h] * 9), pt.noop_bc, eta_s=0.0, dx=0.1,
                               dy=0.1, dt=args[4].half(), mu_f=0.01)
+
+
+def split_inputs(dev, shape, disc, dtype=torch.float64):
+    """The block inputs plus a pre-advection phi that is the disc shifted
+    and wobbled off the map's own rebuild."""
+    Ny, Nx = shape
+    cfg = pt.RMTConfig(grid=pt.Grid(Nx, Ny, 1.0, 1.0), mu_s=0.1, mu_f=0.01)
+    s = pt.make_init_state(cfg, (disc,), dtype=dtype, device=dev)
+    X, Y = cfg.grid.coords(dtype=dtype, device=dev)
+    phis = (disc(X, Y) + 0.2 * cfg.grid.dx
+            * torch.sin(4 * torch.pi * X) * torch.cos(2 * torch.pi * Y))[None]
+    u = 0.3 * torch.sin(2 * torch.pi * X) * torch.cos(2 * torch.pi * Y)
+    v = -0.3 * torch.cos(2 * torch.pi * X) * torch.sin(2 * torch.pi * Y)
+    dt = torch.tensor(0.4 * cfg.grid.dx / 0.3, dtype=dtype, device=dev)
+    return cfg, (u, v, s.X1, s.X2, phis.contiguous(), dt)
+
+
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_advext_kernel_matches_plain(dev, shape, disc):
+    cfg, args = split_inputs(dev, shape, disc)
+    kw = dict(dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=cfg.num_layers)
+    before = rb.advext_launches
+    out = rb.advext_block_fused(*args, **kw)
+    ref = rb.advext_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert rb.advext_launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape == (1,) + shape
+        assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("layers", [0, 3, 4])
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_extrapolate_fused_kernel_matches_plain(dev, shape, disc, layers):
+    cfg, args = split_inputs(dev, shape, disc)
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=dev)
+    phi = args[4][0]
+    m = (phi < 0).to(X.dtype)
+    before = ef.launches
+    a = (X * m, Y * m, phi, cfg.grid.dx, cfg.grid.dy, layers)
+    out = ef.extrapolate_reference_map_fused(*a)
+    ref = extrapolate_reference_map(*a)
+    torch.cuda.synchronize()
+    assert ef.launches == before + 1
+    for o, r in zip(out, ref):
+        assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("override", [
+    dict(phi_area_fix=True, reinit_method="pde"),
+    dict(map_rebase_minj=10.0),   # a rebase on every step
+])
+def test_split_kernel_path_matches_plain_path(dev, override):
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, **override)
+    kw = dict(dtype=torch.float64, device=dev)
+    step_k = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw)
+    step_p = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                          momentum_rk4_impl=momentum_core,
+                          advext_impl=rb.advext_block_plain,
+                          extrap_impl=extrapolate_reference_map)
+    s_k = s_p = pt.make_init_state(cfg, (DISC,), **kw)
+    before = (rb.launches, rb.advext_launches, ef.launches)
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    rebases = 3 if cfg.map_rebase_minj > 0 else 0
+    assert (rb.launches, rb.advext_launches, ef.launches) == (
+        before[0], before[1] + 3, before[2] + rebases)
+    for k in ("u", "v", "p", "X1", "X2", "t", "phis0"):
+        diff = (getattr(s_k, k) - getattr(s_p, k)).abs()
+        assert diff.numel() == 0 or float(diff.max()) <= 1e-10, k
+
+
+def test_split_tier_kernel_takes_any_level_set(dev):
+    def ellipse(X1, X2):
+        return torch.sqrt(((X1 - 0.5) / 1.3) ** 2 + (X2 - 0.5) ** 2) - 0.15
+
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, mu_f=0.01,
+                       phi_area_fix=True)
+    kw = dict(dtype=torch.float64, device=dev)
+    step = pt.make_step(cfg, pt.make_lid_bc(1.0), (ellipse,), **kw)
+    s = pt.make_init_state(cfg, (ellipse,), **kw)
+    before = rb.advext_launches
+    for _ in range(2):
+        s, _ = step(s, 1.0)
+    assert rb.advext_launches == before + 2 and not bool(pt.diverged(s))
+
+
+def test_split_kernels_raise_on_what_they_do_not_take(dev):
+    cfg, args = split_inputs(dev, (N, N), DISC)
+    kw = dict(dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=3)
+    with pytest.raises(TypeError):  # dtype
+        rb.advext_block_fused(*(a.half() for a in args), **kw)
+    with pytest.raises(ValueError):  # operands on two devices
+        rb.advext_block_fused(args[0], args[1].cpu(), *args[2:], **kw)
+    with pytest.raises(ValueError):  # phis of another shape
+        rb.advext_block_fused(*args[:4], args[4][:, :-1], args[5], **kw)
+    X1, X2, phi = args[2][0], args[3][0], args[4][0]
+    with pytest.raises(TypeError):
+        ef.extrapolate_reference_map_fused(X1.half(), X2.half(), phi.half(),
+                                           0.1, 0.1, 3)
+    with pytest.raises(ValueError):
+        ef.extrapolate_reference_map_fused(X1, X2, phi.cpu(), 0.1, 0.1, 3)
+    with pytest.raises(ValueError):
+        ef.extrapolate_reference_map_fused(X1, X2[:-1], phi, 0.1, 0.1, 3)

@@ -14,12 +14,14 @@ import pytest
 import torch
 
 import pyrmt_tpu.bcs as j_bcs
+import pyrmt_tpu.grid as j_grid
 import pyrmt_tpu.ops.advect as j_advect
 import pyrmt_tpu.ops.extrapolate as j_extrap
 import pyrmt_tpu.ops.fd as j_fd
 import pyrmt_tpu.ops.interp as j_interp
 import pyrmt_tpu.ops.stress as j_stress
 import pyrmt_tpu_torch.bcs as t_bcs
+import pyrmt_tpu_torch.grid as t_grid
 import pyrmt_tpu_torch.ops.advect as t_advect
 import pyrmt_tpu_torch.ops.extrapolate as t_extrap
 import pyrmt_tpu_torch.ops.fd as t_fd
@@ -56,6 +58,19 @@ def fields(N, seed=0):
     X1 = X + 0.02 * a * np.sin(3 * np.pi * Y)
     X2 = Y + 0.02 * b * np.sin(2 * np.pi * X)
     return dict(X=X, Y=Y, u=u, v=v, phi=phi, X1=X1, X2=X2, dx=1.0 / (N - 1))
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 1.0, 1.3), (1024, 1024, 1.0, 1.0),
+                                   (80, 48, 2.5, 0.7), (129, 33, 1.0, 1.0)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_grid_coords_bit_for_bit(shape, dtype):
+    """The coordinates equal JAX's to the bit (torch.linspace was an ulp
+    off in a quarter of the points, which flipped the 'cond' rebuild's
+    has-this-solid-rebased test on a state made by JAX)."""
+    jx = j_grid.Grid(*shape).coords(dtype=getattr(jnp, dtype))
+    tx = t_grid.Grid(*shape).coords(dtype=getattr(torch, dtype))
+    for a, b in zip(tx, jx):
+        assert np.array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("name", ["grad_central_x_2nd", "grad_central_y_2nd"])
@@ -188,6 +203,7 @@ def test_port_imports_without_jax():
         "import pyrmt_tpu_torch, pyrmt_tpu_torch.sim, pyrmt_tpu_torch.io\n"
         "import pyrmt_tpu_torch.kernels.rmt_block\n"
         "import pyrmt_tpu_torch.kernels.momentum_rk4\n"
+        "import pyrmt_tpu_torch.kernels.extrapolate_fused\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('pyrmt_tpu.') or m == 'pyrmt_tpu' "
         "for m, mod in sys.modules.items() if mod is not None)\n"

@@ -132,12 +132,17 @@ def test_fixed_dt():
     assert float(aux["dt"]) == 1e-4 and float(s.t) == 1e-4
 
 
+# reinitialisation, the area fix and rebasing came into the slice with the
+# split tier: their entries hold them with a feature still outside it
 @pytest.mark.parametrize("override", [
-    dict(scheme="weno5"), dict(bc_type="periodic"), dict(reinit_method="pde"),
+    dict(scheme="weno5"), dict(bc_type="periodic"),
+    dict(reinit_method="pde", sl_local=False),
     dict(sl_interp="bicubic"), dict(gamma=0.1), dict(g_y=-1.0),
-    dict(variable_rho=True), dict(stress_band=True), dict(phi_area_fix=True),
-    dict(map_rebase_minj=0.5), dict(CFL=1.5), dict(use_pallas_rhs=True),
-    dict(projection_method="pallas"), dict(dct_precision="default"),
+    dict(variable_rho=True), dict(stress_band=True),
+    dict(phi_area_fix=True, sl_interp="bicubic"),
+    dict(map_rebase_minj=0.5, bc_type="periodic"), dict(CFL=1.5),
+    dict(use_pallas_rhs=True), dict(projection_method="pallas"),
+    dict(dct_precision="default"),
 ])
 def test_configs_outside_the_slice_raise(override):
     cfg = pt.RMTConfig(grid=pt.Grid(16, 16, 1.0, 1.0), **override)
@@ -150,9 +155,11 @@ def test_bad_configs_raise():
     g = pt.Grid(16, 16, 1.0, 1.0)
     with pytest.raises(TypeError):
         pt.RMTConfig(grid=g, not_a_field=1.0)
-    with pytest.raises(ValueError):
-        pt.make_step(pt.RMTConfig(grid=g, rmt_method="fast"),
-                     pt.make_lid_bc(1.0), (DISC,))
+    for bad in (dict(rmt_method="fast"), dict(reinit_method="bogus"),
+                dict(map_rebase_minj=0.5, map_rebase_rebuild="bogus")):
+        with pytest.raises(ValueError):
+            pt.make_step(pt.RMTConfig(grid=g, **bad), pt.make_lid_bc(1.0),
+                         (DISC,))
     with pytest.raises(ValueError):  # 1 layer cannot cover the blend band
         pt.make_step(pt.RMTConfig(grid=g, num_layers=1), pt.make_lid_bc(1.0),
                      (DISC,))
