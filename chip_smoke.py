@@ -7,14 +7,20 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. Phases:
 
   1. probe: torch and CUDA versions, nvcc, the card's name and power limit;
-  2. build the three CUDA sources of pyrmt_tpu_torch/csrc side by side;
-  3. each of the four kernels against its plain PyTorch version on the same
-     tensors on the card: float64 at N=256 (max-abs <= 1e-11), float32 at
-     N=256 and at the flagship's N=1024 (bounds below), the disc touching
-     the domain's edge at N=256, and the times of both at N=1024;
+  2. build the five CUDA sources of pyrmt_tpu_torch/csrc side by side;
+  3. each of the seven kernels against its plain PyTorch version on the
+     same tensors on the card: float64 at N=256 (max-abs <= 1e-11), float32
+     at N=256 and at the flagship's N=1024 (bounds below), the disc
+     touching the domain's edge at N=256 (the solid-block kernels),
+     grad_correct under the lid, free-slip and no-op BCs, velocity_rhs with
+     a random external force, and the times of both at N=1024;
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
+  4b. the flagship with projection_method='pallas' (the projection's
+     stencil kernels): 20 warm-up steps, one under sync-debug, 200 timed;
+  4c. the same with momentum_method='xla', use_pallas_rhs=True added (the
+     one-RHS kernel at each RK4 stage in place of the RK4 kernel);
   5. the split tier at full width: the flagship with the area fix and PDE
      reinitialisation, 20 warm-up steps, one under sync-debug, 200 timed;
   6. rebasing at full width: make_rebase_runner on the flagship with
@@ -22,8 +28,9 @@ another sm_90a card) and the CUDA toolkit. Phases:
      chunk, a forced rebase (timed, with its fast-sweeping redistance), 20
      post-rebase steps;
   7. paths: 3 float64 steps at N=128 through the kernels and through the
-     plain versions, for the flagship, for area fix + PDE reinit and for a
-     rebase on every step.
+     plain versions, for the flagship, for area fix + PDE reinit, for a
+     rebase on every step, for the flagship with both opt-in switches and
+     for area fix + PDE reinit with the projection's stencil kernels.
 
 It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
@@ -53,10 +60,13 @@ from pyrmt_tpu_torch import (  # noqa: E402
     make_lid_bc,
     make_rebase_runner,
     make_step,
+    noop_bc,
 )
 from pyrmt_tpu_torch.kernels import _build  # noqa: E402
 from pyrmt_tpu_torch.kernels import extrapolate_fused as ef  # noqa: E402
+from pyrmt_tpu_torch.kernels import momentum_rhs as mr  # noqa: E402
 from pyrmt_tpu_torch.kernels import momentum_rk4 as mk  # noqa: E402
+from pyrmt_tpu_torch.kernels import projection_stencils as ps  # noqa: E402
 from pyrmt_tpu_torch.kernels import rmt_block as rb  # noqa: E402
 from pyrmt_tpu_torch.ops.extrapolate import (  # noqa: E402
     extrapolate_reference_map,
@@ -66,7 +76,11 @@ from pyrmt_tpu_torch.ops.levelset import (  # noqa: E402
     smoothed_solid_area,
 )
 from pyrmt_tpu_torch.ops.stress import solid_cauchy_stress  # noqa: E402
-from pyrmt_tpu_torch.physics import compute_timestep, momentum_core  # noqa: E402
+from pyrmt_tpu_torch.physics import (  # noqa: E402
+    compute_timestep,
+    momentum_core,
+    velocity_rhs_blended,
+)
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -80,13 +94,15 @@ TOL_F64 = 1e-11
 # when the map moves by an ulp. The bound is 1e-4 times max(1, max |plain|):
 # sigma and J grow large where det G is small, and there only the relative
 # error means anything. The velocity update sees those differences times
-# dt, hence 1e-5 there.
+# dt, hence 1e-5 there. The projection stencils and the one RHS read no
+# map: 1e-5 (their expected difference is 0, as for the others).
 TOL_F32_RMT = 1e-4
 TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
-SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused")
+SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused",
+           "projection_stencils", "momentum_rhs")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "rmt_block": ("pyrmt_tpu_torch/csrc/rmt_block.cu",
                   "pyrmt_tpu/kernels/rmt_block.py:825"),
@@ -96,7 +112,23 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                      "pyrmt_tpu/kernels/rmt_block.py:1085"),
     "extrapolate_fused": ("pyrmt_tpu_torch/csrc/extrapolate_fused.cu",
                           "pyrmt_tpu/kernels/extrapolate_fused.py:202"),
+    "rc_rhs": ("pyrmt_tpu_torch/csrc/projection_stencils.cu",
+               "pyrmt_tpu/kernels/projection_stencils.py:185"),
+    "grad_correct": ("pyrmt_tpu_torch/csrc/projection_stencils.cu",
+                     "pyrmt_tpu/kernels/projection_stencils.py:218"),
+    "velocity_rhs": ("pyrmt_tpu_torch/csrc/momentum_rhs.cu",
+                     "pyrmt_tpu/kernels/momentum_rhs.py:260"),
 }
+# the opt-in switches of phases 4c and 7
+BOTH_SWITCHES = dict(projection_method="pallas", momentum_method="xla",
+                     use_pallas_rhs=True)
+PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
+                   momentum_rk4_impl=momentum_core,
+                   advext_impl=rb.advext_block_plain,
+                   extrap_impl=extrapolate_reference_map,
+                   momentum_rhs_impl=velocity_rhs_blended,
+                   projection_stencils_impl=(ps.rc_rhs_plain,
+                                             ps.grad_correct_plain))
 OUT_NAMES = ("X1e", "X2e", "phi", "sxx", "sxy", "syy", "J", "Hf", "rho",
              "sb_xx", "sb_xy", "sb_yy")
 
@@ -118,9 +150,10 @@ def nvidia_smi_line():
 def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
     """Seeded smooth inputs around a disc: a velocity of a few random
     Fourier modes scaled to a sub-cell displacement, the disc's initial map
-    plus a smooth sub-cell perturbation, a smooth pressure, and the split
+    plus a smooth sub-cell perturbation, a smooth pressure, the split
     tier's pre-advection phi (the map's rebuild, shifted and wobbled by a
-    fraction of a cell, as reinit and the area fix move it)."""
+    fraction of a cell, as reinit and the area fix move it), a pressure
+    correction and an external force of random noise."""
     rng = np.random.default_rng(seed)
     cfg = flagship(N)
     x = np.linspace(0.0, 1.0, N)
@@ -151,9 +184,11 @@ def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
     # the identity map inside phis <= 0, as a rebase extrapolates it
     Xg, Yg = cfg.grid.coords(dtype=dtype, device=device)
     mask = (phis[0] <= 0.0).to(dtype)
+    p_corr = 1e-3 * rng.standard_normal((N, N))
+    fx, fy = 0.01 * rng.standard_normal((2, N, N))
     return cfg, dict(u=t(u), v=t(v), p=t(p), X1s=X1s, X2s=X2s, dt=dt,
                      params=params, phis=phis, Xm=Xg * mask, Ym=Yg * mask,
-                     disc=disc)
+                     disc=disc, p_corr=t(p_corr), fx=t(fx), fy=t(fy))
 
 
 def rmt_call(fn, cfg, d):
@@ -186,6 +221,22 @@ def momentum_args(cfg, d, rmt_out, eta_s):
         eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt, mu_f=cfg.mu_f)
 
 
+def stencil_args(cfg, d, rmt_out, fields, dt):
+    """The operands of the projection kernels and of the one RHS, from
+    ``momentum_args``' fields and dt: the velocity as a*, b*, a density
+    1 .. 1.3 across the disc's interface (the flagship's is 1 everywhere);
+    rc_rhs's (a*, b*, p_prev, rho, dt, d_scalar), grad_correct's (p_corr,
+    a*, b*, rho, dt) and velocity_rhs's full argument list."""
+    Hf = rmt_out[7]
+    rho = 1.0 + 0.3 * (1.0 - Hf)
+    g = cfg.grid
+    u, v, p = d["u"], d["v"], d["p"]
+    rc = (u, v, p, rho, dt, dt / rho.mean())
+    gc = (d["p_corr"], u, v, rho, dt)
+    rhs = (*fields[:6], g.dx, g.dy, cfg.mu_f, Hf, rho, d["fx"], d["fy"])
+    return rc, gc, rhs
+
+
 def max_errs(a, b):
     """(max-abs, max |b|) of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -211,14 +262,13 @@ def compare_kernels(N, dtype, device, disc=FLAGSHIP_DISC):
                                        else " edge disc")
     worst = {}
 
-    def hold(name, outs, kern, plain):
+    def hold(name, outs, kern, plain, tol_f32=TOL_F32_RMT):
         torch.cuda.synchronize()
         for out_name, a, b in zip(outs, kern, plain):
             if not bool(torch.isfinite(b).all()):
                 raise AssertionError(f"plain {name} {out_name} is not finite")
             err, scale = max_errs(a, b)
-            check_close(f"{tag} {name} {out_name}", err, scale, f64,
-                        TOL_F32_RMT)
+            check_close(f"{tag} {name} {out_name}", err, scale, f64, tol_f32)
             worst[name] = max(worst.get(name, 0.0), err)
 
     plain = rmt_call(rb.rmt_block_plain, cfg, d)
@@ -231,6 +281,19 @@ def compare_kernels(N, dtype, device, disc=FLAGSHIP_DISC):
          extrap_call(extrapolate_reference_map, cfg, d))
     if disc != FLAGSHIP_DISC:
         return worst
+    dx, dy = cfg.grid.dx, cfg.grid.dy
+    fields, mkw = momentum_args(cfg, d, plain, cfg.eta_s)
+    rc, gc, rhs = stencil_args(cfg, d, plain, fields, mkw["dt"])
+    hold("rc_rhs", ("rhs",), [ps.rc_rhs_fused(*rc, dx, dy)],
+         [ps.rc_rhs_plain(*rc, dx, dy)], TOL_F32_MOMENTUM)
+    for bc_name, bc in (("lid", make_lid_bc(1.0)),
+                        ("free_slip", free_slip_box_bc), ("noop", noop_bc)):
+        hold("grad_correct", (f"a {bc_name}", f"b {bc_name}"),
+             ps.grad_correct_fused(*gc, dx, dy, bc),
+             ps.grad_correct_plain(*gc, dx, dy, bc), TOL_F32_MOMENTUM)
+    hold("velocity_rhs", ("rhs_u", "rhs_v"),
+         mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
+         TOL_F32_MOMENTUM)
     worst["momentum_rk4"] = 0.0
     for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
                                ("free_slip", free_slip_box_bc, 0.0)):
@@ -266,6 +329,8 @@ def time_kernels(N, device, reps=20):
     cfg, d = kernel_inputs(N, torch.float32, device)
     plain_out = rmt_call(rb.rmt_block_plain, cfg, d)
     args, kw = momentum_args(cfg, d, plain_out, cfg.eta_s)
+    rc, gc, rhs = stencil_args(cfg, d, plain_out, args, kw["dt"])
+    dx, dy = cfg.grid.dx, cfg.grid.dy
     bc = make_lid_bc(1.0)
     pairs = {
         "rmt_block": (lambda: rmt_call(rb.rmt_block_fused, cfg, d),
@@ -277,6 +342,12 @@ def time_kernels(N, device, reps=20):
         "extrapolate_fused": (
             lambda: extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
             lambda: extrap_call(extrapolate_reference_map, cfg, d)),
+        "rc_rhs": (lambda: ps.rc_rhs_fused(*rc, dx, dy),
+                   lambda: ps.rc_rhs_plain(*rc, dx, dy)),
+        "grad_correct": (lambda: ps.grad_correct_fused(*gc, dx, dy, bc),
+                         lambda: ps.grad_correct_plain(*gc, dx, dy, bc)),
+        "velocity_rhs": (lambda: mr.velocity_rhs_blended_fused(*rhs),
+                         lambda: velocity_rhs_blended(*rhs)),
     }
     times = {}
     for name, (kernel, plain) in pairs.items():
@@ -292,12 +363,21 @@ def time_kernels(N, device, reps=20):
 
 def reset_counts():
     rb.launches = rb.advext_launches = mk.launches = ef.launches = 0
+    ps.rc_rhs_launches = ps.grad_correct_launches = mr.launches = 0
 
 
 def counts():
     return {"rmt_block": rb.launches, "momentum_rk4": mk.launches,
             "advext_block": rb.advext_launches,
-            "extrapolate_fused": ef.launches}
+            "extrapolate_fused": ef.launches,
+            "rc_rhs": ps.rc_rhs_launches,
+            "grad_correct": ps.grad_correct_launches,
+            "velocity_rhs": mr.launches}
+
+
+def expected_launches(**launches):
+    """The launch counts of a run: the named ones, 0 for the rest."""
+    return {name: launches.get(name, 0) for name in KERNELS}
 
 
 def step_without_sync(step, state, t_end):
@@ -426,7 +506,8 @@ def run_rebase(N, device, chunk=50, post_steps=20):
 
 def compare_paths(N, device, steps=3, **overrides):
     """A few float64 steps through the kernels and through the plain
-    versions from the same state; returns the max-abs differences."""
+    versions from the same state; returns the max-abs differences and the
+    kernel path's launches."""
     cfg = flagship(N, **overrides)
     bc = make_lid_bc(1.0)
     kw = dict(dtype=torch.float64, device=device)
@@ -440,11 +521,8 @@ def compare_paths(N, device, steps=3, **overrides):
                          **kw)
     s_p = s_k
     step_k = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw)
-    step_p = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw,
-                       rmt_block_impl=rb.rmt_block_plain,
-                       momentum_rk4_impl=momentum_core,
-                       advext_impl=rb.advext_block_plain,
-                       extrap_impl=extrapolate_reference_map)
+    step_p = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw, **PLAIN_IMPLS)
+    reset_counts()
     for _ in range(steps):
         s_k, _ = step_k(s_k, 8.0)
         s_p, _ = step_p(s_p, 8.0)
@@ -454,7 +532,7 @@ def compare_paths(N, device, steps=3, **overrides):
             if getattr(s_k, k).numel()}
     if not all(e <= 1e-10 for e in errs.values()):
         raise AssertionError(f"kernel path vs plain path {overrides}: {errs}")
-    return errs
+    return errs, {k: n for k, n in counts().items() if n}
 
 
 def main() -> int:
@@ -499,13 +577,37 @@ def main() -> int:
         1024, device, warmup=50, steps=steps)
     min_J, advanced = check_run(
         "flagship", state, aux, launches,
-        {"rmt_block": steps, "momentum_rk4": steps, "advext_block": 0,
-         "extrapolate_fused": 0}, dt_sum, t0)
+        expected_launches(rmt_block=steps, momentum_rk4=steps), dt_sum, t0)
+    flagship_rate = steps / wall
     print(f"[slice] flagship N=1024 float32: {steps} steps in {wall:.3f} s = "
-          f"{steps / wall:.1f} steps/s, {1e3 * wall / steps:.3f} ms/step "
+          f"{flagship_rate:.1f} steps/s, {1e3 * wall / steps:.3f} ms/step "
           f"(host clock, synchronised) on '{card}'; launches {launches}; "
           f"t advanced {advanced:.6f}; min J over the solid {min_J:.4f}")
     main_launches = dict(launches)
+
+    # 4b. the projection's stencil kernels; 4c. and the one-RHS kernel
+    steps = 200
+    for tag, overrides, per_step, reported in (
+            ("proj", dict(projection_method="pallas"),
+             dict(rmt_block=1, momentum_rk4=1, rc_rhs=1, grad_correct=1),
+             ("rc_rhs", "grad_correct")),
+            ("rhs", BOTH_SWITCHES,
+             dict(rmt_block=1, velocity_rhs=4, rc_rhs=1, grad_correct=1),
+             ("velocity_rhs",))):
+        _, state, aux, launches, wall, dt_sum, t0 = run_flagship(
+            1024, device, warmup=20, steps=steps, **overrides)
+        expected = expected_launches(**{k: n * steps
+                                        for k, n in per_step.items()})
+        min_J, advanced = check_run(f"flagship {overrides}", state, aux,
+                                    launches, expected, dt_sum, t0)
+        print(f"[{tag}] flagship {overrides} N=1024 float32: {steps} steps "
+              f"in {wall:.3f} s = {steps / wall:.1f} steps/s, "
+              f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
+              f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
+              f"launches {launches}; t advanced {advanced:.6f}; min J over "
+              f"the solid {min_J:.4f}")
+        for name in reported:
+            main_launches[name] = launches[name]
 
     # 5. the split tier at full width
     steps = 200
@@ -514,8 +616,7 @@ def main() -> int:
         reinit_method="pde")
     min_J, advanced = check_run(
         "split tier", state, aux, launches,
-        {"rmt_block": 0, "momentum_rk4": steps, "advext_block": steps,
-         "extrapolate_fused": 0}, dt_sum, t0)
+        expected_launches(momentum_rk4=steps, advext_block=steps), dt_sum, t0)
     g = cfg.grid
     X, Y = g.coords(dtype=torch.float32, device=device)
     target = float(smoothed_solid_area(FLAGSHIP_DISC(X, Y), g.dx, g.dy,
@@ -542,14 +643,20 @@ def main() -> int:
     main_launches["extrapolate_fused"] = rebase["launches"]
 
     # 7. kernel path vs plain path
-    for what, overrides in (("flagship", {}),
-                            ("area fix + PDE reinit",
-                             dict(phi_area_fix=True, reinit_method="pde")),
-                            ("rebase every step", dict(map_rebase_minj=10.0))):
-        path_errs = compare_paths(128, device, **overrides)
+    for what, overrides in (
+            ("flagship", {}),
+            ("area fix + PDE reinit",
+             dict(phi_area_fix=True, reinit_method="pde")),
+            ("rebase every step", dict(map_rebase_minj=10.0)),
+            ("flagship + both opt-in switches", BOTH_SWITCHES),
+            ("area fix + PDE reinit + projection stencils",
+             dict(phi_area_fix=True, reinit_method="pde",
+                  projection_method="pallas"))):
+        path_errs, path_launches = compare_paths(128, device, **overrides)
         print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
               f"path: " + ", ".join(f"{k} {e:.2e}"
-                                    for k, e in path_errs.items()))
+                                    for k, e in path_errs.items())
+              + f"; kernel path launches {path_launches}")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": main_launches[name],

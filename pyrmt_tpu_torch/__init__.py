@@ -13,6 +13,12 @@ This package imports ``torch`` and never ``jax``.
 from pyrmt_tpu_torch.bcs import free_slip_box_bc, make_lid_bc, noop_bc
 from pyrmt_tpu_torch.grid import Grid
 from pyrmt_tpu_torch.io import state_from_numpy, state_to_numpy
+from pyrmt_tpu_torch.kernels.momentum_rhs import velocity_rhs_blended_fused
+from pyrmt_tpu_torch.kernels.projection_stencils import (
+    grad_correct_fused,
+    projection_stencils_supported,
+    rc_rhs_fused,
+)
 from pyrmt_tpu_torch.ops.levelset import Disc
 from pyrmt_tpu_torch.sim import (
     RMTConfig,
@@ -32,13 +38,17 @@ __all__ = [
     "SimState",
     "diverged",
     "free_slip_box_bc",
+    "grad_correct_fused",
     "make_init_state",
     "make_lid_bc",
     "make_rebase_runner",
     "make_run_chunk",
     "make_step",
     "noop_bc",
+    "projection_stencils_supported",
+    "rc_rhs_fused",
     "run_until",
     "state_from_numpy",
     "state_to_numpy",
+    "velocity_rhs_blended_fused",
 ]

@@ -22,16 +22,17 @@
 // fused pass with halo recompute: fusing the stages in shared-memory tiles
 // is later work.
 //
-// Built with --fmad=false, and a division by a constant is a product by its
+// The BC, the stencils, sigma_kernel and the RHS are the device code of
+// stencil_device.cuh, which momentum_rhs.cu (one RHS) runs too. Built with
+// --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
-#include "common.cuh"
+#include "stencil_device.cuh"
 
 namespace {
 
-using pyrmt::clampi;
-
-enum Bc { kNoop = 0, kLid = 1, kFreeSlip = 2 };
+using pyrmt::bc_u;
+using pyrmt::bc_v;
 
 // Raw (pre-BC) stage value base + h * k at a cell; base alone without k.
 template <typename T>
@@ -46,62 +47,6 @@ struct Raw {
   }
 };
 
-// bcs.make_lid_bc / free_slip_box_bc / noop_bc, evaluated at one cell from
-// the raw field (the free-slip copies read the raw neighbour).
-template <typename T>
-__device__ T bc_u(const Raw<T>& r, int j, int i, int Ny, int Nx, int bc,
-                  T lid) {
-  if (bc == kLid) {
-    bool col_b = i == 0 || i == Nx - 1;
-    if (j == Ny - 1 && !col_b) return lid;
-    if (col_b || j == 0 || j == Ny - 1) return T(0);
-  } else if (bc == kFreeSlip) {
-    if (i == 0 || i == Nx - 1) return T(0);
-    if (j == 0) return r(1, i);
-    if (j == Ny - 1) return r(Ny - 2, i);
-  }
-  return r(j, i);
-}
-
-template <typename T>
-__device__ T bc_v(const Raw<T>& r, int j, int i, int Ny, int Nx, int bc) {
-  if (bc == kLid) {
-    if (i == 0 || i == Nx - 1 || j == 0 || j == Ny - 1) return T(0);
-  } else if (bc == kFreeSlip) {
-    if (j == 0 || j == Ny - 1) return T(0);
-    if (i == 0) return r(j, 1);
-    if (i == Nx - 1) return r(j, Nx - 2);
-  }
-  return r(j, i);
-}
-
-// fd.grad_central_{x,y}_2nd at one cell: central inside, 2nd-order
-// one-sided on the boundary column/row. `s` is the stride along the axis,
-// `m` the cell's index along it and `n` the axis length.
-template <typename T>
-__device__ T grad(const T* f, size_t c, size_t s, int m, int n, T inv) {
-  if (m == 0) return (T(-3) * f[c] + T(4) * f[c + s] - f[c + 2 * s]) * inv;
-  if (m == n - 1)
-    return (T(3) * f[c] - T(4) * f[c - s] + f[c - 2 * s]) * inv;
-  return (f[c + s] - f[c - s]) * inv;
-}
-
-// fd.diff_upwind_3rd at one cell: forward at the first index, backward at
-// the last, 1st-order upwind at indices 1 and n-2, 3rd-order upwind-biased
-// inside, upwinded by the sign of `vel`.
-template <typename T>
-__device__ T upwind(const T* f, size_t c, size_t s, int m, int n, T vel,
-                    T inv_h, T inv_6h) {
-  T f0 = f[c];
-  if (m == 0) return (f[c + s] - f0) * inv_h;
-  if (m == n - 1) return (f0 - f[c - s]) * inv_h;
-  T fp1 = f[c + s], fm1 = f[c - s];
-  if (m < 2 || m > n - 3) return vel > 0 ? (f0 - fm1) * inv_h : (fp1 - f0) * inv_h;
-  T fp2 = f[c + 2 * s], fm2 = f[c - 2 * s];
-  if (vel > 0) return (T(2) * fp1 + T(3) * f0 - T(6) * fm1 + fm2) * inv_6h;
-  return (-fp2 + T(6) * fp1 - T(3) * f0 - T(2) * fm1) * inv_6h;
-}
-
 template <typename T>
 __global__ void stage_kernel(const T* u0, const T* v0, const T* ku,
                              const T* kv, const T* dt, int stage, T* wu,
@@ -112,38 +57,12 @@ __global__ void stage_kernel(const T* u0, const T* v0, const T* ku,
   T h = stage == 3 ? dt[0] : T(0.5) * dt[0];
   Raw<T> ru{u0, stage ? ku : nullptr, h, Nx};
   Raw<T> rv{v0, stage ? kv : nullptr, h, Nx};
-  wu[n] = bc_u(ru, j, i, Ny, Nx, bc, lid);
-  wv[n] = bc_v(rv, j, i, Ny, Nx, bc);
+  wu[n] = bc_u<T>(ru, j, i, Ny, Nx, bc, lid);
+  wv[n] = bc_v<T>(rv, j, i, Ny, Nx, bc);
 }
 
-template <typename T>
-__global__ void sigma_kernel(const T* wu, const T* wv, const T* sxx_el,
-                             const T* sxy_el, const T* syy_el, const T* Hf,
-                             const T* mkv, T* sxx, T* sxy, T* syy, int Ny,
-                             int Nx, double dx, double dy, double mu_f,
-                             double eta_s) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  const T inv_x = static_cast<T>(1.0 / (2.0 * dx));
-  const T inv_y = static_cast<T>(1.0 / (2.0 * dy));
-  T du_dx = grad(wu, n, 1, i, Nx, inv_x);
-  T dv_dy = grad(wv, n, Nx, j, Ny, inv_y);
-  T du_dy = grad(wu, n, Nx, j, Ny, inv_y);
-  T dv_dx = grad(wv, n, 1, i, Nx, inv_x);
-  T a = sxx_el[n], b = syy_el[n], c = sxy_el[n];
-  if (eta_s > 0.0) {  // Kelvin-Voigt damping inside the solid
-    T m = mkv[n];
-    a = a + m * (static_cast<T>(eta_s) * du_dx);
-    b = b + m * (static_cast<T>(eta_s) * dv_dy);
-    c = c + m * (static_cast<T>(eta_s * 0.5) * (du_dy + dv_dx));
-  }
-  T h = Hf[n];
-  sxx[n] = h * (static_cast<T>(2.0 * mu_f) * du_dx) + a;
-  syy[n] = h * (static_cast<T>(2.0 * mu_f) * dv_dy) + b;
-  sxy[n] = h * (static_cast<T>(mu_f) * (du_dy + dv_dx)) + c;
-}
-
+// k_s at a cell and its share of the running sum k1 + 2 k2 + 2 k3 + k4,
+// summed left to right.
 template <typename T>
 __global__ void rhs_kernel(const T* wu, const T* wv, const T* sxx,
                            const T* sxy, const T* syy, const T* p,
@@ -152,26 +71,11 @@ __global__ void rhs_kernel(const T* wu, const T* wv, const T* sxx,
   long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= static_cast<long long>(Ny) * Nx) return;
   int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  const T inv_x = static_cast<T>(1.0 / (2.0 * dx));
-  const T inv_y = static_cast<T>(1.0 / (2.0 * dy));
-  const T ih_x = static_cast<T>(1.0 / dx), ih_y = static_cast<T>(1.0 / dy);
-  const T i6_x = static_cast<T>(1.0 / (6.0 * dx));
-  const T i6_y = static_cast<T>(1.0 / (6.0 * dy));
-  T div_x = grad(sxx, n, 1, i, Nx, inv_x) + grad(sxy, n, Nx, j, Ny, inv_y);
-  T div_y = grad(sxy, n, 1, i, Nx, inv_x) + grad(syy, n, Nx, j, Ny, inv_y);
-  T uc = wu[n], vc = wv[n];
-  T u_adv = (-uc) * upwind(wu, n, 1, i, Nx, uc, ih_x, i6_x)
-            - vc * upwind(wu, n, Nx, j, Ny, vc, ih_y, i6_y);
-  T v_adv = (-uc) * upwind(wv, n, 1, i, Nx, uc, ih_x, i6_x)
-            - vc * upwind(wv, n, Nx, j, Ny, vc, ih_y, i6_y);
-  T dp_dx = grad(p, n, 1, i, Nx, inv_x);
-  T dp_dy = grad(p, n, Nx, j, Ny, inv_y);
-  T inv_rho = T(1) / (rho[n] + static_cast<T>(1e-12));
-  T a = u_adv + (div_x - dp_dx) * inv_rho;
-  T b = v_adv + (div_y - dp_dy) * inv_rho;
+  T a, b;
+  pyrmt::rhs_at<T>(wu, wv, sxx, sxy, syy, p, rho, nullptr, nullptr, n, j, i,
+                   Ny, Nx, dx, dy, a, b);
   ku[n] = a;
   kv[n] = b;
-  // k1 + 2 k2 + 2 k3 + k4, summed left to right
   if (stage == 0) {
     su[n] = a;
     sv[n] = b;
@@ -194,8 +98,8 @@ __global__ void final_kernel(const T* u0, const T* v0, const T* su,
   T h = dt[0] * static_cast<T>(1.0 / 6.0);
   Raw<T> ru{u0, su, h, Nx};
   Raw<T> rv{v0, sv, h, Nx};
-  un[n] = bc_u(ru, j, i, Ny, Nx, bc, lid);
-  vn[n] = bc_v(rv, j, i, Ny, Nx, bc);
+  un[n] = bc_u<T>(ru, j, i, Ny, Nx, bc, lid);
+  vn[n] = bc_v<T>(rv, j, i, Ny, Nx, bc);
 }
 
 // scratch holds 9 fields: W (2), k (2), running sum (2), sigma (3).
@@ -222,9 +126,9 @@ int launch(const T* u, const T* v, const T* p, const T* sxx_el,
     stage_kernel<T><<<nb, nt, 0, stream>>>(u, v, ku, kv, dt, s, wu, wv, Ny,
                                            Nx, bc, static_cast<T>(lid));
     PYRMT_RETURN_IF_ERROR();
-    sigma_kernel<T><<<nb, nt, 0, stream>>>(wu, wv, sxx_el, sxy_el, syy_el,
-                                           Hf, mkv, sxx, sxy, syy, Ny, Nx,
-                                           dx, dy, mu_f, eta_s);
+    pyrmt::sigma_kernel<T><<<nb, nt, 0, stream>>>(
+        wu, wv, sxx_el, sxy_el, syy_el, Hf, mkv, sxx, sxy, syy, Ny, Nx, dx, dy,
+        mu_f, eta_s);
     PYRMT_RETURN_IF_ERROR();
     rhs_kernel<T><<<nb, nt, 0, stream>>>(wu, wv, sxx, sxy, syy, p, rho, ku,
                                          kv, su, sv, s, Ny, Nx, dx, dy);

@@ -28,6 +28,10 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+# The velocity BCs that the kernels apply from a BC's kernel_spec: the Bc
+# enum of csrc/stencil_device.cuh.
+BC_CODES = {"noop": 0, "lid": 1, "free_slip": 2}
+
 
 def build_dir() -> Path:
     default = CSRC.parent / "_build"
@@ -114,18 +118,34 @@ def load(name: str) -> ctypes.CDLL:
 def check_operands(what: str, ref, expect) -> None:
     """Raise unless ``ref`` is float32/float64 and every entry of
     ``expect`` ({name: (tensor, shape)}) is a contiguous tensor of that
-    shape with ref's dtype and device."""
+    shape with ref's dtype and device (0-d scalars included: a Python
+    number there would have to be copied to the card)."""
     import torch
 
     if ref.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what} kernel takes float32/float64, not {ref.dtype}")
     for name, (t, shape) in expect.items():
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{what}: {name} must be a tensor on "
+                             f"{ref.device}, not {type(t).__name__}")
         if t.device != ref.device or t.dtype != ref.dtype:
             raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}; "
                              f"expected {ref.dtype} on {ref.device}")
         if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"{tuple(shape)} tensor, got {tuple(t.shape)}")
+
+
+def bc_operands(what: str, velocity_bc) -> tuple[int, float]:
+    """(Bc code, lid speed) of ``velocity_bc.kernel_spec``; raises
+    ValueError for a BC without a spec that the kernels apply."""
+    spec = getattr(velocity_bc, "kernel_spec", None)
+    if spec is None or spec[0] not in BC_CODES:
+        raise ValueError(
+            f"the {what} kernel applies the velocity BC from its kernel_spec "
+            f"('lid', 'free_slip' or 'noop'); got {velocity_bc!r} with spec "
+            f"{spec!r}")
+    return BC_CODES[spec[0]], float(spec[1]) if spec[0] == "lid" else 0.0
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

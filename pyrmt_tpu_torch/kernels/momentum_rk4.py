@@ -21,8 +21,6 @@ from pyrmt_tpu_torch.physics import momentum_core
 # tensor). A caller may reset it to 0.
 launches = 0
 
-_BC_CODES = {"noop": 0, "lid": 1, "free_slip": 2}
-
 
 def _cuda_lib():
     lib = _build.load("momentum_rk4")
@@ -51,12 +49,7 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                              dx=dx, dy=dy, dt=dt, mu_f=mu_f)
     if u.device.type != "cuda":
         raise ValueError(f"momentum_rk4: no kernel for device {u.device}")
-    spec = getattr(velocity_bc, "kernel_spec", None)
-    if spec is None or spec[0] not in _BC_CODES:
-        raise ValueError(
-            "the momentum_rk4 kernel applies the velocity BC from its "
-            "kernel_spec ('lid', 'free_slip' or 'noop'); got "
-            f"{velocity_bc!r} with spec {spec!r}")
+    bc, lid = _build.bc_operands("momentum_rk4", velocity_bc)
     Ny, Nx = u.shape
     if Ny < 5 or Nx < 5:
         raise ValueError(f"momentum_rk4 kernel needs a grid of at least 5x5, "
@@ -73,11 +66,10 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     scratch = torch.empty((9, Ny, Nx), dtype=u.dtype, device=u.device)
     fn = (lib.pyrmt_momentum_rk4_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rk4_f64)
-    lid = float(spec[1]) if spec[0] == "lid" else 0.0
     err = fn(*(_build.pointer(t) for t in (*fields.values(), u_new, v_new,
                                             scratch)),
-             Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s),
-             _BC_CODES[spec[0]], lid, _build.stream_handle(u.device))
+             Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s), bc, lid,
+             _build.stream_handle(u.device))
     _build.check(lib, err, "momentum_rk4 kernel launch")
     launches += 1
     return u_new, v_new

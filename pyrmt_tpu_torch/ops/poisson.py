@@ -59,11 +59,13 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats):
     return p - torch.mean(p)
 
 
-def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy):
+def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
+                          d_scalar=None):
     """Rhie-Chow face-velocity divergence for constant density, zero on the
     boundary ring: face velocities are corrected by d = dt / mean(rho) times
     the difference of the compact face pressure gradient and the average of
-    the cell-centred ones."""
+    the cell-centred ones. ``d_scalar`` passes d in, as the projection's
+    stencil kernel takes it."""
     dpdx_cc = _grad_x_cc(p_prev, dx)
     dpdy_cc = _grad_y_cc(p_prev, dy)
 
@@ -75,7 +77,8 @@ def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy):
     face_dpdy = (p_prev[1:, :] - p_prev[:-1, :]) / dy
     avg_dpdy = 0.5 * (dpdy_cc[:-1, :] + dpdy_cc[1:, :])
 
-    d_scalar = dt / torch.mean(rho)
+    if d_scalar is None:
+        d_scalar = dt / torch.mean(rho)
     u_face_rc = u_face - d_scalar * (face_dpdx - avg_dpdx)
     v_face_rc = v_face - d_scalar * (face_dpdy - avg_dpdy)
 

@@ -3,8 +3,9 @@
 
 The one-fluid mixture blends the stress tensors before the divergence:
 sigma = Hf sigma_f + sum_i (1 - H_i) sigma_s_i, with Hf = sum_i H_i - (S-1).
-External forces (surface tension, contact, gravity) and the periodic
-stencils wait for ROADMAP modules items 11 and 13.
+The RHS takes an external force field; the forces themselves (surface
+tension, contact, gravity) and the periodic stencils wait for ROADMAP
+modules items 11 and 13.
 """
 from __future__ import annotations
 
@@ -46,10 +47,12 @@ def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
 
 
 def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
-                         Hf, rho_local):
-    """Conservative one-fluid RHS without external forces. ``sig_s**`` are
-    the pre-blended solid stresses sum_i (1 - H_i) sigma_s_i and ``Hf`` the
-    fluid fraction."""
+                         Hf, rho_local, f_ext_x=None, f_ext_y=None):
+    """Conservative one-fluid RHS. ``sig_s**`` are the pre-blended solid
+    stresses sum_i (1 - H_i) sigma_s_i and ``Hf`` the fluid fraction. The
+    external force (f_ext_x, f_ext_y) adds to the stress divergence, in the
+    JAX package's order; without it (None) the sum is left out. The CUDA
+    counterpart is kernels/momentum_rhs.py."""
     gx2, gy2, dup3 = grad_central_x_2nd, grad_central_y_2nd, diff_upwind_3rd
     du_dx = gx2(u, dx)
     dv_dy = gy2(v, dy)
@@ -69,6 +72,9 @@ def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
     dp_dx = gx2(p, dx)
     dp_dy = gy2(p, dy)
 
+    if f_ext_x is not None:
+        div_sigma_x = div_sigma_x + f_ext_x
+        div_sigma_y = div_sigma_y + f_ext_y
     inv_rho = 1.0 / (rho_local + 1e-12)
     rhs_u = u_adv + (div_sigma_x - dp_dx) * inv_rho
     rhs_v = v_adv + (div_sigma_y - dp_dy) * inv_rho
@@ -76,13 +82,17 @@ def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
 
 
 def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
-                  rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f):
+                  rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f,
+                  rhs_fn=velocity_rhs_blended):
     """Plain RK4 velocity update from pre-blended fields, with the velocity
     BC applied to every stage input and to the result.
 
     ``mkv`` is the Kelvin-Voigt blend mask sum_i mask_i (1 - H_i); it is
-    read only when eta_s > 0. The CUDA counterpart is
-    kernels/momentum_rk4.py.
+    read only when eta_s > 0. ``rhs_fn`` is each stage's RHS, called as
+    ``velocity_rhs_blended`` without the force after the stage loop's BC
+    and Kelvin-Voigt ops: the plain version, or the one-RHS kernel
+    (kernels/momentum_rhs.py) as ``use_pallas_rhs`` selects. The CUDA
+    counterpart of the whole update is kernels/momentum_rk4.py.
     """
     gx2, gy2 = grad_central_x_2nd, grad_central_y_2nd
 
@@ -100,8 +110,8 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
             sxx = sxx + mkv * (eta_s * du_dx)
             syy = syy + mkv * (eta_s * dv_dy)
             sxy = sxy + mkv * (eta_s * 0.5 * (du_dy + dv_dx))
-        return velocity_rhs_blended(u_stage, v_stage, p, sxx, sxy, syy, dx,
-                                    dy, mu_f, Hf, rho_local)
+        return rhs_fn(u_stage, v_stage, p, sxx, sxy, syy, dx, dy, mu_f, Hf,
+                      rho_local)
 
     k1u, k1v = rhs(u, v)
     k2u, k2v = rhs(u + 0.5 * dt * k1u, v + 0.5 * dt * k1v)

@@ -13,8 +13,13 @@ One step of the ported slice:
        (rebuild, reinit, area fix) as plain ops, then
        ``advext_block_fused`` (advect, mask, extrapolate given phi), then
        the rebuild (+ area fix), stress and blends as plain ops;
-  3. the RK4 momentum update (kernels/momentum_rk4.py);
-  4. the incremental Rhie-Chow projection with the DCT-I Poisson solve;
+  3. the RK4 momentum update: by default (``momentum_method`` 'auto' or
+     'pallas') all four stages in kernels/momentum_rk4.py; with
+     ``momentum_method='xla'`` the stage loop of ``physics.momentum_core``,
+     whose stage RHS is kernels/momentum_rhs.py with ``use_pallas_rhs``;
+  4. the incremental Rhie-Chow projection with the DCT-I Poisson solve,
+     its two stencil chains fused into kernels/projection_stencils.py with
+     ``projection_method='pallas'``;
   5. on the split tier with rebasing, ``maybe_rebase``; t += dt.
 
 On a CUDA state the blocks run their CUDA kernels; on a CPU state they run
@@ -30,6 +35,7 @@ ports it, for anything else.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Sequence
 
@@ -39,7 +45,14 @@ from pyrmt_tpu_torch.grid import Grid
 from pyrmt_tpu_torch.kernels.extrapolate_fused import (
     extrapolate_reference_map_fused,
 )
+from pyrmt_tpu_torch.kernels.momentum_rhs import velocity_rhs_blended_fused
 from pyrmt_tpu_torch.kernels.momentum_rk4 import momentum_rk4_fused
+from pyrmt_tpu_torch.kernels.projection_stencils import (
+    grad_correct_fused,
+    grad_correct_plain,
+    rc_rhs_fused,
+    rc_rhs_plain,
+)
 from pyrmt_tpu_torch.kernels.rmt_block import (
     advext_block_fused,
     rmt_block_fused,
@@ -58,7 +71,7 @@ from pyrmt_tpu_torch.ops.poisson import (
 )
 from pyrmt_tpu_torch.ops.projection import pressure_projection
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
-from pyrmt_tpu_torch.physics import compute_timestep
+from pyrmt_tpu_torch.physics import compute_timestep, momentum_core
 
 
 @dataclasses.dataclass
@@ -79,12 +92,19 @@ class SimState:
 @dataclasses.dataclass(frozen=True)
 class RMTConfig:
     """Static configuration, with the field names and defaults of
-    ``pyrmt_tpu.sim.RMTConfig`` so that one dict builds both. The fields
-    that select a TPU implementation or tune a Pallas kernel
-    (``rmt_method``, ``momentum_method``, ``extrap_method``, ``dct_method``,
-    ``rmt_panel_width``, ``rmt_tile``, ``kernel_slab_halo``) are accepted and
-    do not change the port's path: the state's device chooses kernels or
-    plain versions. ``make_step`` checks the rest against the slice."""
+    ``pyrmt_tpu.sim.RMTConfig`` so that one dict builds both.
+
+    Three fields choose the path as in the JAX package:
+    ``momentum_method`` 'auto' or 'pallas' runs the RK4 kernel and 'xla'
+    the stage loop of ``physics.momentum_core``; on that loop
+    ``use_pallas_rhs`` makes each stage's RHS the one-RHS kernel (ignored
+    under the RK4 kernel, as in JAX); ``projection_method='pallas'`` runs
+    the projection's stencil kernels ('auto' and 'xla' the plain ops). The
+    fields that select or tune the TPU's other kernels (``rmt_method``,
+    ``extrap_method``, ``dct_method``, ``rmt_panel_width``, ``rmt_tile``,
+    ``kernel_slab_halo``) are accepted and do not change the port's path.
+    On every path the state's device chooses kernels (CUDA) or plain
+    versions (CPU). ``make_step`` checks the rest against the slice."""
 
     grid: Grid
     mu_s: float = 0.0
@@ -161,10 +181,6 @@ _OUTSIDE_SLICE = (
     ("surface tension", lambda c: c.gamma > 1e-12, "modules item 11"),
     ("gravity", lambda c: c.g_x != 0.0 or c.g_y != 0.0, "modules item 11"),
     ("variable_rho", lambda c: c.variable_rho, "modules item 12"),
-    ("use_pallas_rhs (velocity_rhs_blended_pallas)",
-     lambda c: c.use_pallas_rhs, "kernels item 6"),
-    ("projection_method='pallas' (rc_rhs_pallas, grad_correct_pallas)",
-     lambda c: c.projection_method == "pallas", "kernels item 5"),
 )
 
 _KNOWN_VALUES = {
@@ -329,6 +345,8 @@ def make_step(
     momentum_rk4_impl: Callable | None = None,
     advext_impl: Callable | None = None,
     extrap_impl: Callable | None = None,
+    momentum_rhs_impl: Callable | None = None,
+    projection_stencils_impl: tuple[Callable, Callable] | None = None,
 ):
     """Build the FSI step for a fixed configuration.
 
@@ -339,13 +357,15 @@ def make_step(
     ``step(state, t_end) -> (state, aux)``; with rebasing, aux["rebased"]
     holds the per-solid flags.
 
-    ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl`` and
-    ``extrap_impl`` substitute the four kernel blocks with functions of the
-    same signatures, for example the plain versions
-    ``kernels.rmt_block.rmt_block_plain``, ``physics.momentum_core``,
-    ``kernels.rmt_block.advext_block_plain`` and
-    ``ops.extrapolate.extrapolate_reference_map`` to run the plain path on
-    a CUDA state.
+    ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl``,
+    ``extrap_impl``, ``momentum_rhs_impl`` and ``projection_stencils_impl``
+    substitute the kernel blocks with functions of the same signatures, for
+    example the plain versions ``kernels.rmt_block.rmt_block_plain``,
+    ``physics.momentum_core``, ``kernels.rmt_block.advext_block_plain``,
+    ``ops.extrapolate.extrapolate_reference_map``,
+    ``physics.velocity_rhs_blended`` and the pair
+    ``(kernels.projection_stencils.rc_rhs_plain, grad_correct_plain)`` to
+    run the plain path on a CUDA state.
 
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
@@ -368,8 +388,22 @@ def make_step(
     fixed_dt = (None if cfg.fixed_dt is None else
                 torch.full((), cfg.fixed_dt, dtype=dtype, device=device))
     rmt_fn = rmt_block_impl or rmt_block_fused
-    momentum_fn = momentum_rk4_impl or momentum_rk4_fused
     advext_fn = advext_impl or advext_block_fused
+    if cfg.momentum_method != "xla":
+        momentum_fn = momentum_rk4_impl or momentum_rk4_fused
+    elif cfg.use_pallas_rhs:
+        # the slice has no external force: the kernel takes zero fields,
+        # as the JAX step passes them
+        f_zero = torch.zeros(g.shape, dtype=dtype, device=device)
+        rhs_fn = functools.partial(
+            momentum_rhs_impl or velocity_rhs_blended_fused, f_ext_x=f_zero,
+            f_ext_y=f_zero)
+        momentum_fn = functools.partial(momentum_core, rhs_fn=rhs_fn)
+    else:
+        momentum_fn = momentum_core
+    stencils = ((projection_stencils_impl or (rc_rhs_fused, grad_correct_fused))
+                if cfg.projection_method == "pallas"
+                else (rc_rhs_plain, grad_correct_plain))
 
     X, Y = g.coords(dtype=dtype, device=device)
     rebuild_phis = _make_rebuild(cfg, phi_inits, X, Y, dtype)
@@ -451,7 +485,7 @@ def make_step(
             eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f)
         u_new, v_new, p_new = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
-            dct_mats)
+            dct_mats, stencils=stencils)
 
         # On a no-op step the state stays exactly frozen; the aux fields
         # reflect the discarded trial step, as on the JAX fused path.

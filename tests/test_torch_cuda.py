@@ -12,10 +12,12 @@ import torch
 
 import pyrmt_tpu_torch as pt
 import pyrmt_tpu_torch.kernels.extrapolate_fused as ef
+import pyrmt_tpu_torch.kernels.momentum_rhs as mr
 import pyrmt_tpu_torch.kernels.momentum_rk4 as mk
+import pyrmt_tpu_torch.kernels.projection_stencils as ps
 import pyrmt_tpu_torch.kernels.rmt_block as rb
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
-from pyrmt_tpu_torch.physics import momentum_core
+from pyrmt_tpu_torch.physics import momentum_core, velocity_rhs_blended
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +228,115 @@ def test_split_kernels_raise_on_what_they_do_not_take(dev):
         ef.extrapolate_reference_map_fused(X1, X2, phi.cpu(), 0.1, 0.1, 3)
     with pytest.raises(ValueError):
         ef.extrapolate_reference_map_fused(X1, X2[:-1], phi, 0.1, 0.1, 3)
+
+
+def stencil_inputs(dev, shape, seed=0):
+    """Seeded velocities, pressures and a two-valued density on the grid."""
+    Ny, Nx = shape
+    rng = np.random.default_rng(seed)
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    a = 0.3 * np.sin(2 * np.pi * X) * np.cos(3 * np.pi * Y)
+    b = -0.2 * np.cos(3 * np.pi * X) * np.sin(2 * np.pi * Y)
+    a += 0.01 * rng.standard_normal(shape)
+    b += 0.01 * rng.standard_normal(shape)
+    p = 0.1 * np.cos(np.pi * X) * np.cos(2 * np.pi * Y)
+    pc = 0.01 * rng.standard_normal(shape)
+    rho = 1.0 + 0.3 * (np.hypot(X - 0.6, Y - 0.5) < 0.2)
+    return [t(f) for f in (a, b, p, pc, rho)], 1.0 / (Nx - 1), 1.0 / (Ny - 1)
+
+
+def assert_equal_to_plain(out, ref):
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rc_rhs_kernel_matches_plain(dev, shape):
+    (a, b, p, _, rho), dx, dy = stencil_inputs(dev, shape)
+    dt = torch.tensor(1.3e-3, dtype=torch.float64, device=dev)
+    args = (a, b, p, rho, dt, dt / rho.mean(), dx, dy)
+    before = ps.rc_rhs_launches
+    assert_equal_to_plain([ps.rc_rhs_fused(*args)], [ps.rc_rhs_plain(*args)])
+    assert ps.rc_rhs_launches == before + 1
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
+                                pt.noop_bc])
+def test_grad_correct_kernel_matches_plain(dev, bc, shape):
+    (a, b, _, pc, rho), dx, dy = stencil_inputs(dev, shape, seed=1)
+    dt = torch.tensor(1.3e-3, dtype=torch.float64, device=dev)
+    args = (pc, a, b, rho, dt, dx, dy, bc)
+    before = ps.grad_correct_launches
+    assert_equal_to_plain(ps.grad_correct_fused(*args),
+                          ps.grad_correct_plain(*args))
+    assert ps.grad_correct_launches == before + 1
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_velocity_rhs_kernel_matches_plain(dev, shape):
+    cfg, args, kw = block_inputs(dev, shape)
+    blk = rb.rmt_block_plain(*args, **kw)
+    Hf, rho, sbxx, sbxy, sbyy = blk[7:]
+    (_, _, p, _, _), dx, dy = stencil_inputs(dev, shape)
+    rng = np.random.default_rng(2)
+    fx, fy = (torch.tensor(0.01 * rng.standard_normal(shape),
+                           dtype=torch.float64, device=dev) for _ in range(2))
+    rargs = (args[0], args[1], p, sbxx, sbxy, sbyy, dx, dy, cfg.mu_f, Hf, rho,
+             fx, fy)
+    before = mr.launches
+    assert_equal_to_plain(mr.velocity_rhs_blended_fused(*rargs),
+                          velocity_rhs_blended(*rargs))
+    assert mr.launches == before + 1
+
+
+@pytest.mark.parametrize("override", [
+    dict(projection_method="pallas"),
+    dict(momentum_method="xla", use_pallas_rhs=True),
+    dict(projection_method="pallas", momentum_method="xla",
+         use_pallas_rhs=True, phi_area_fix=True, reinit_method="pde"),
+])
+def test_opt_in_kernel_paths_match_plain_paths(dev, override):
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, **override)
+    kw = dict(dtype=torch.float64, device=dev)
+    step_k = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw)
+    step_p = pt.make_step(
+        cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+        rmt_block_impl=rb.rmt_block_plain, momentum_rk4_impl=momentum_core,
+        advext_impl=rb.advext_block_plain,
+        momentum_rhs_impl=velocity_rhs_blended,
+        projection_stencils_impl=(ps.rc_rhs_plain, ps.grad_correct_plain))
+    s_k = s_p = pt.make_init_state(cfg, (DISC,), **kw)
+    before = (ps.rc_rhs_launches, ps.grad_correct_launches, mr.launches,
+              mk.launches)
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    proj = 3 if cfg.projection_method == "pallas" else 0
+    rhs = 12 if cfg.use_pallas_rhs else 0
+    assert (ps.rc_rhs_launches, ps.grad_correct_launches, mr.launches,
+            mk.launches) == (before[0] + proj, before[1] + proj,
+                             before[2] + rhs, before[3] + 3 - rhs // 4)
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        assert float((getattr(s_k, k) - getattr(s_p, k)).abs().max()) <= 1e-10
+
+
+def test_opt_in_kernels_raise_on_what_they_do_not_take(dev):
+    (a, b, p, pc, rho), dx, dy = stencil_inputs(dev, (N, N))
+    dt = torch.tensor(1e-3, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):  # a BC without kernel_spec
+        ps.grad_correct_fused(pc, a, b, rho, dt, dx, dy, lambda u, v: (u, v))
+    with pytest.raises(ValueError):  # dt as a Python float
+        ps.rc_rhs_fused(a, b, p, rho, 1e-3, dt, dx, dy)
+    with pytest.raises(ValueError):  # a scalar density
+        ps.rc_rhs_fused(a, b, p, rho.mean(), dt, dt, dx, dy)
+    with pytest.raises(TypeError):
+        h = a.half()
+        mr.velocity_rhs_blended_fused(*([h] * 6), dx, dy, 0.01, *([h] * 4))
+    with pytest.raises(ValueError):  # a 4x4 grid
+        s = a[:4, :4].contiguous()
+        mr.velocity_rhs_blended_fused(*([s] * 6), dx, dy, 0.01, *([s] * 4))

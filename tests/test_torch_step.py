@@ -132,8 +132,9 @@ def test_fixed_dt():
     assert float(aux["dt"]) == 1e-4 and float(s.t) == 1e-4
 
 
-# reinitialisation, the area fix and rebasing came into the slice with the
-# split tier: their entries hold them with a feature still outside it
+# reinitialisation, the area fix, rebasing and the opt-in RHS and
+# projection kernels came into the slice: their entries hold them with a
+# feature still outside it
 @pytest.mark.parametrize("override", [
     dict(scheme="weno5"), dict(bc_type="periodic"),
     dict(reinit_method="pde", sl_local=False),
@@ -141,7 +142,8 @@ def test_fixed_dt():
     dict(variable_rho=True), dict(stress_band=True),
     dict(phi_area_fix=True, sl_interp="bicubic"),
     dict(map_rebase_minj=0.5, bc_type="periodic"), dict(CFL=1.5),
-    dict(use_pallas_rhs=True), dict(projection_method="pallas"),
+    dict(momentum_method="xla", use_pallas_rhs=True, gamma=0.1),
+    dict(projection_method="pallas", variable_rho=True),
     dict(dct_precision="default"),
 ])
 def test_configs_outside_the_slice_raise(override):
