@@ -2,6 +2,7 @@
 """Smoke run of pyrmt_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-kernels [ROOT]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. Phases:
@@ -13,7 +14,14 @@ another sm_90a card) and the CUDA toolkit. Phases:
      at N=256 and at the flagship's N=1024 (bounds below), the disc
      touching the domain's edge at N=256 (the solid-block kernels),
      grad_correct under the lid, free-slip and no-op BCs, velocity_rhs with
-     a random external force, and the times of both at N=1024;
+     a random external force; the two tile kernels (rmt_block,
+     momentum_rk4) also on ragged grids (203x301, 9x300, 33x49) in both
+     types and at N=4096 float32; then the times of kernel and plain
+     version at N=1024 (CUDA events), and in one torch.profiler session
+     each kernel's device time and device kernels per call at N=1024 and
+     N=4096 beside its bound (rmt_block also with every tile skipping),
+     and the kernels and device-busy ms per step of phases 4, 4b and 5's
+     configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -36,9 +44,16 @@ It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises before that line and
 exits nonzero; so does a machine without CUDA.
+
+With --profile-kernels it runs phases 1 and 2 and the device profile of
+the two tile kernels only, at N=1024 and N=4096 float32, for the
+pyrmt_tpu_torch package under ROOT (default: this checkout), and prints
+one JSON line: the way to time another commit's kernels on the same card,
+e.g. the parent's unpacked with git archive into a git-ignored directory.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,7 +63,10 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+PROFILE_ONLY = len(sys.argv) > 1 and sys.argv[1] == "--profile-kernels"
+PORT_ROOT = os.path.abspath(sys.argv[2] if PROFILE_ONLY and len(sys.argv) > 2
+                            else os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, PORT_ROOT)
 
 from pyrmt_tpu_torch import (  # noqa: E402
     Disc,
@@ -101,6 +119,8 @@ TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
+# the kernels of one launch each with shared-memory tiles and a halo
+TILED = ("rmt_block", "momentum_rk4")
 SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused",
            "projection_stencils", "momentum_rhs")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -119,6 +139,22 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "velocity_rhs": ("pyrmt_tpu_torch/csrc/momentum_rhs.cu",
                      "pyrmt_tpu/kernels/momentum_rhs.py:260"),
 }
+# Device-memory fields each kernel must move (read once, written once) and
+# its floating-point operations per cell (counted from the sources, rounded
+# up; the solid blocks' window sums on the thin frontier ring left out):
+# the bound is the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s
+# (the H100 SXM's HBM rate and float32 peak off the tensor cores).
+WORK = {  # name: (fields read, fields written, operations per cell)
+    "rmt_block": (4, 12, 200),
+    "momentum_rk4": (9, 2, 400),
+    "advext_block": (5, 2, 150),
+    "extrapolate_fused": (3, 2, 10),
+    "rc_rhs": (4, 1, 40),
+    "grad_correct": (4, 2, 30),
+    "velocity_rhs": (10, 2, 100),
+}
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 # the opt-in switches of phases 4c and 7
 BOTH_SWITCHES = dict(projection_method="pallas", momentum_method="xla",
                      use_pallas_rhs=True)
@@ -147,19 +183,32 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
-    """Seeded smooth inputs around a disc: a velocity of a few random
-    Fourier modes scaled to a sub-cell displacement, the disc's initial map
-    plus a smooth sub-cell perturbation, a smooth pressure, the split
-    tier's pre-advection phi (the map's rebuild, shifted and wobbled by a
-    fraction of a cell, as reinit and the area fix move it), a pressure
-    correction and an external force of random noise."""
+def bound_us(name, N, dtype=torch.float32):
+    """(the least device time of one call at N x N in microseconds, what
+    bounds it: 'bytes' or 'operations')."""
+    read, written, ops = WORK[name]
+    cells = N * N
+    item = torch.finfo(dtype).bits // 8
+    t_bytes = 1e6 * (read + written) * cells * item / HBM_BYTES_PER_S
+    t_ops = 1e6 * ops * cells / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_inputs(shape, dtype, device, seed=0, disc=FLAGSHIP_DISC):
+    """Seeded smooth inputs around a disc on an N x N (or shape = (Ny, Nx))
+    grid: a velocity of a few random Fourier modes scaled to a sub-cell
+    displacement, the disc's initial map plus a smooth sub-cell
+    perturbation, a smooth pressure, the split tier's pre-advection phi
+    (the map's rebuild, shifted and wobbled by a fraction of a cell, as
+    reinit and the area fix move it), a pressure correction and an
+    external force of random noise."""
+    Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
     rng = np.random.default_rng(seed)
-    cfg = flagship(N)
-    x = np.linspace(0.0, 1.0, N)
-    X, Y = np.meshgrid(x, x)
-    u = np.zeros((N, N))
-    v = np.zeros((N, N))
+    cfg = dataclasses.replace(flagship(Nx),
+                              grid=Grid(Nx=Nx, Ny=Ny, Lx=1.0, Ly=1.0))
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    u = np.zeros((Ny, Nx))
+    v = np.zeros((Ny, Nx))
     for _ in range(4):
         kx, ky = rng.integers(1, 4, size=2)
         a, b, c = rng.standard_normal(3)
@@ -171,11 +220,12 @@ def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
     state = make_init_state(cfg, (disc,), dtype=dtype, device=device)
     # half a cell: a larger shift would move the level set past the
     # num_layers-cell band the map was extrapolated into
-    pert = 0.5 * cfg.grid.dx * np.sin(3 * np.pi * X + rng.standard_normal()) \
-        * np.sin(2 * np.pi * Y)
+    r = rng.standard_normal()
+    pert = 0.5 * cfg.grid.dx * np.sin(3 * np.pi * X + r) * np.sin(2 * np.pi * Y)
+    pert2 = 0.5 * cfg.grid.dx * np.sin(3 * np.pi * Y + r) * np.sin(2 * np.pi * X)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     X1s = (state.X1 + t(pert)).contiguous()
-    X2s = (state.X2 - t(pert.T)).contiguous()
+    X2s = (state.X2 - t(pert2)).contiguous()
     # dt such that max|u| dt / dx = 0.4 cells
     dt = t(0.4 * cfg.grid.dx / 0.5)
     params = t([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f])
@@ -184,8 +234,8 @@ def kernel_inputs(N, dtype, device, seed=0, disc=FLAGSHIP_DISC):
     # the identity map inside phis <= 0, as a rebase extrapolates it
     Xg, Yg = cfg.grid.coords(dtype=dtype, device=device)
     mask = (phis[0] <= 0.0).to(dtype)
-    p_corr = 1e-3 * rng.standard_normal((N, N))
-    fx, fy = 0.01 * rng.standard_normal((2, N, N))
+    p_corr = 1e-3 * rng.standard_normal((Ny, Nx))
+    fx, fy = 0.01 * rng.standard_normal((2, Ny, Nx))
     return cfg, dict(u=t(u), v=t(v), p=t(p), X1s=X1s, X2s=X2s, dt=dt,
                      params=params, phis=phis, Xm=Xg * mask, Ym=Yg * mask,
                      disc=disc, p_corr=t(p_corr), fx=t(fx), fy=t(fy))
@@ -252,14 +302,17 @@ def check_close(what, err, scale, f64, tol_f32):
         raise AssertionError(f"{what} differs by {err:.3e} > {bound:.3g}")
 
 
-def compare_kernels(N, dtype, device, disc=FLAGSHIP_DISC):
-    """Each kernel against its plain version on the same tensors (the
-    momentum kernel for the flagship disc only). Returns {kernel: max-abs
-    over its outputs}; raises past the tolerance."""
+def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC,
+                    only=tuple(KERNELS)):
+    """The kernels named in ``only`` against their plain versions on the
+    same tensors (the momentum and stencil kernels for the flagship disc
+    only). Returns {kernel: max-abs over its outputs}; raises past the
+    tolerance."""
     f64 = dtype == torch.float64
-    cfg, d = kernel_inputs(N, dtype, device, disc=disc)
-    tag = f"N={N} {str(dtype)[6:]}" + ("" if disc == FLAGSHIP_DISC
-                                       else " edge disc")
+    cfg, d = kernel_inputs(shape, dtype, device, disc=disc)
+    g = cfg.grid
+    tag = (f"N={g.Nx}" if g.Nx == g.Ny else f"{g.Ny}x{g.Nx}") + \
+        f" {str(dtype)[6:]}" + ("" if disc == FLAGSHIP_DISC else " edge disc")
     worst = {}
 
     def hold(name, outs, kern, plain, tol_f32=TOL_F32_RMT):
@@ -272,31 +325,41 @@ def compare_kernels(N, dtype, device, disc=FLAGSHIP_DISC):
             worst[name] = max(worst.get(name, 0.0), err)
 
     plain = rmt_call(rb.rmt_block_plain, cfg, d)
-    hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d), plain)
-    hold("advext_block", ("X1e", "X2e"),
-         advext_call(rb.advext_block_fused, cfg, d),
-         advext_call(rb.advext_block_plain, cfg, d))
-    hold("extrapolate_fused", ("X1e", "X2e"),
-         extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
-         extrap_call(extrapolate_reference_map, cfg, d))
+    if "rmt_block" in only:
+        hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d),
+             plain)
+    if "advext_block" in only:
+        hold("advext_block", ("X1e", "X2e"),
+             advext_call(rb.advext_block_fused, cfg, d),
+             advext_call(rb.advext_block_plain, cfg, d))
+    if "extrapolate_fused" in only:
+        hold("extrapolate_fused", ("X1e", "X2e"),
+             extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
+             extrap_call(extrapolate_reference_map, cfg, d))
     if disc != FLAGSHIP_DISC:
         return worst
     dx, dy = cfg.grid.dx, cfg.grid.dy
     fields, mkw = momentum_args(cfg, d, plain, cfg.eta_s)
     rc, gc, rhs = stencil_args(cfg, d, plain, fields, mkw["dt"])
-    hold("rc_rhs", ("rhs",), [ps.rc_rhs_fused(*rc, dx, dy)],
-         [ps.rc_rhs_plain(*rc, dx, dy)], TOL_F32_MOMENTUM)
+    if "rc_rhs" in only:
+        hold("rc_rhs", ("rhs",), [ps.rc_rhs_fused(*rc, dx, dy)],
+             [ps.rc_rhs_plain(*rc, dx, dy)], TOL_F32_MOMENTUM)
     for bc_name, bc in (("lid", make_lid_bc(1.0)),
                         ("free_slip", free_slip_box_bc), ("noop", noop_bc)):
-        hold("grad_correct", (f"a {bc_name}", f"b {bc_name}"),
-             ps.grad_correct_fused(*gc, dx, dy, bc),
-             ps.grad_correct_plain(*gc, dx, dy, bc), TOL_F32_MOMENTUM)
-    hold("velocity_rhs", ("rhs_u", "rhs_v"),
-         mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
-         TOL_F32_MOMENTUM)
+        if "grad_correct" in only:
+            hold("grad_correct", (f"a {bc_name}", f"b {bc_name}"),
+                 ps.grad_correct_fused(*gc, dx, dy, bc),
+                 ps.grad_correct_plain(*gc, dx, dy, bc), TOL_F32_MOMENTUM)
+    if "velocity_rhs" in only:
+        hold("velocity_rhs", ("rhs_u", "rhs_v"),
+             mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
+             TOL_F32_MOMENTUM)
+    if "momentum_rk4" not in only:
+        return worst
     worst["momentum_rk4"] = 0.0
     for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
-                               ("free_slip", free_slip_box_bc, 0.0)):
+                               ("free_slip", free_slip_box_bc, 0.0),
+                               ("noop", noop_bc, cfg.eta_s)):
         args, kw = momentum_args(cfg, d, plain, eta_s)
         ref = momentum_core(*args, bc, **kw)
         out = mk.momentum_rk4_fused(*args, bc, **kw)
@@ -359,6 +422,140 @@ def time_kernels(N, device, reps=20):
         print(f"[timing] N={N} float32 {name}: kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.4f}/{p2:.4f} ms")
     return times
+
+
+def profile_groups(groups):
+    """Run each (name, fn) of groups in order inside one torch.profiler
+    session, with a short spin kernel before each group and after the last
+    one; returns {name: the device-side events (kernels, copies) of its
+    group}. One session for everything: on the card's machine the profiler
+    saw no device work after a few sessions in one process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, fn in groups:
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = sum("spin_kernel" in e.name for e in events)
+    if marks not in (len(groups), len(groups) + 1):
+        raise AssertionError(f"torch.profiler saw {marks} of the "
+                             f"{len(groups) + 1} group marks")
+    out = {name: [] for name, _ in groups}
+    k = len(groups) + 1 - marks  # 1 where the first mark was not recorded
+    for e in events:
+        if "spin_kernel" in e.name:
+            k += 1
+        elif 0 < k <= len(groups):
+            out[groups[k - 1][0]].append(e)
+    return out
+
+
+def busy_us(events):
+    return sum(e.time_range.elapsed_us() for e in events)
+
+
+def kernel_calls(N, device):
+    """{kernel: a call of its wrapper} on operands made at N float32."""
+    cfg, d = kernel_inputs(N, torch.float32, device)
+    plain_out = rmt_call(rb.rmt_block_plain, cfg, d)
+    args, kw = momentum_args(cfg, d, plain_out, cfg.eta_s)
+    rc, gc, rhs = stencil_args(cfg, d, plain_out, args, kw["dt"])
+    dx, dy = cfg.grid.dx, cfg.grid.dy
+    bc = make_lid_bc(1.0)
+    far = dict(d, X1s=torch.full_like(d["X1s"], 5.0),
+               X2s=torch.full_like(d["X2s"], 5.0))
+    return {
+        "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
+        # the map far from the disc everywhere: every tile takes the skip
+        "rmt_block, every tile skipping": lambda: rmt_call(
+            rb.rmt_block_fused, cfg, far),
+        "momentum_rk4": lambda: mk.momentum_rk4_fused(*args, bc, **kw),
+        "advext_block": lambda: advext_call(rb.advext_block_fused, cfg, d),
+        "extrapolate_fused": lambda: extrap_call(
+            ef.extrapolate_reference_map_fused, cfg, d),
+        "rc_rhs": lambda: ps.rc_rhs_fused(*rc, dx, dy),
+        "grad_correct": lambda: ps.grad_correct_fused(*gc, dx, dy, bc),
+        "velocity_rhs": lambda: mr.velocity_rhs_blended_fused(*rhs),
+    }
+
+
+def step_groups(device, steps=20, warmup=10):
+    """(name, fn) groups of `steps` steps each at N=1024 float32: the
+    flagship, with the projection's stencil kernels, and the split tier
+    (area fix + PDE reinit), each after warm-up steps."""
+    groups = []
+    for name, overrides in (
+            ("flagship", {}),
+            ("flagship proj", dict(projection_method="pallas")),
+            ("split", dict(phi_area_fix=True, reinit_method="pde"))):
+        cfg = flagship(1024, **overrides)
+        kw = dict(dtype=torch.float32, device=device)
+        step = make_step(cfg, make_lid_bc(1.0), (FLAGSHIP_DISC,), **kw)
+        box = [make_init_state(cfg, (FLAGSHIP_DISC,), **kw)]
+
+        def run(step=step, box=box, n=steps):
+            for _ in range(n):
+                box[0], _ = step(box[0], 8.0)
+
+        run(n=warmup)
+        groups.append((name, run))
+    return groups
+
+
+def profile_all(device, names=tuple(KERNELS), sizes=(1024, 4096), reps=20,
+                with_steps=True):
+    """One profiler session: each kernel's wrapper once (its device kernels
+    per call) and reps times (its device time per call) at each size, and
+    with_steps the step groups. Returns ({N: {kernel: (device us per call,
+    device kernels per call)}}, {step group: (kernels per step, copies
+    per step, device-busy ms per step)})."""
+    groups = []
+    if "rmt_block" in names:
+        names = (*names, "rmt_block, every tile skipping")
+    for N in sizes:
+        calls = kernel_calls(N, device)
+        for name in names:
+            calls[name]()  # builds and warms up
+            groups.append(((N, name, "one"), calls[name]))
+            groups.append(((N, name, "reps"),
+                           lambda f=calls[name]: [f() for _ in range(reps)]))
+    steps = step_groups(device) if with_steps else []
+    ev = profile_groups(groups + steps)
+    kern = {N: {} for N in sizes}
+    for N in sizes:
+        for name in names:
+            one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
+            kern[N][name] = (busy_us(many) / reps, len(one))
+            b, by = bound_us(name.split(",")[0], N)
+            us = kern[N][name][0]
+            print(f"[profile] N={N} float32 {name}: {us:.2f} us of device "
+                  f"time per call (torch.profiler, {reps} calls), "
+                  f"{len(one)} device kernels per call, {len(many) / reps:g} "
+                  f"over the reps; bound {b:.2f} us ({by}), "
+                  f"{100 * b / us:.0f}% of it")
+    step_prof = {}
+    for name, _ in steps:
+        e = ev[name]
+        copies = sum(x.name.startswith(("Memcpy", "Memset")) for x in e)
+        step_prof[name] = ((len(e) - copies) / 20, copies / 20,
+                           busy_us(e) / 20 / 1e3)
+    return kern, step_prof
+
+
+def profile_line(prof, wall, steps):
+    kernels, copies, busy = prof
+    ms = 1e3 * wall / steps
+    return (f"profile: {kernels:g} kernels + {copies:g} copies per step, "
+            f"device busy {busy:.3f} ms/step (torch.profiler, 20 steps), "
+            f"idle share {1 - busy / ms:.2f} of the timed {ms:.3f} ms/step")
 
 
 def reset_counts():
@@ -559,17 +756,41 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
+    if PROFILE_ONLY:
+        prof, _ = profile_all(device, TILED, with_steps=False)
+        print(json.dumps({"profile": {
+            name: {f"N{N}": {"device_us": prof[N][name][0],
+                             "device_launches_per_call": prof[N][name][1],
+                             "bound_us": bound_us(name, N)[0]}
+                   for N in prof} for name in TILED},
+            "root": PORT_ROOT}))
+        print(card)
+        return 0
 
     # 3. kernel vs plain on the card
     errs = {}
-    for N, dtype, disc in ((256, torch.float64, FLAGSHIP_DISC),
-                           (256, torch.float32, FLAGSHIP_DISC),
-                           (256, torch.float64, EDGE_DISC),
-                           (256, torch.float32, EDGE_DISC),
-                           (1024, torch.float32, FLAGSHIP_DISC)):
-        for name, e in compare_kernels(N, dtype, device, disc).items():
+    f32, f64 = torch.float32, torch.float64
+    for shape, dtype, disc, only in (
+            (256, f64, FLAGSHIP_DISC, tuple(KERNELS)),
+            (256, f32, FLAGSHIP_DISC, tuple(KERNELS)),
+            (256, f64, EDGE_DISC, tuple(KERNELS)),
+            (256, f32, EDGE_DISC, tuple(KERNELS)),
+            ((203, 301), f64, FLAGSHIP_DISC, TILED),
+            ((203, 301), f32, FLAGSHIP_DISC, TILED),
+            ((9, 300), f64, FLAGSHIP_DISC, TILED),
+            ((33, 49), f32, FLAGSHIP_DISC, TILED),
+            (1024, f32, FLAGSHIP_DISC, tuple(KERNELS)),
+            (4096, f32, FLAGSHIP_DISC, TILED)):
+        for name, e in compare_kernels(shape, dtype, device, disc,
+                                       only).items():
             errs[name] = max(errs.get(name, 0.0), e)
     times = time_kernels(1024, device)
+    prof, step_prof = profile_all(device)
+    for name in TILED:
+        if prof[1024][name][1] != 1 or prof[4096][name][1] != 1:
+            raise AssertionError(
+                f"one {name} call ran {prof[1024][name][1]:g} device "
+                f"kernels at N=1024, {prof[4096][name][1]:g} at N=4096")
 
     # 4. the flagship slice (fused tier)
     steps = 500
@@ -582,7 +803,8 @@ def main() -> int:
     print(f"[slice] flagship N=1024 float32: {steps} steps in {wall:.3f} s = "
           f"{flagship_rate:.1f} steps/s, {1e3 * wall / steps:.3f} ms/step "
           f"(host clock, synchronised) on '{card}'; launches {launches}; "
-          f"t advanced {advanced:.6f}; min J over the solid {min_J:.4f}")
+          f"t advanced {advanced:.6f}; min J over the solid {min_J:.4f}; "
+          + profile_line(step_prof["flagship"], wall, steps))
     main_launches = dict(launches)
 
     # 4b. the projection's stencil kernels; 4c. and the one-RHS kernel
@@ -605,7 +827,9 @@ def main() -> int:
               f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
               f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
               f"launches {launches}; t advanced {advanced:.6f}; min J over "
-              f"the solid {min_J:.4f}")
+              f"the solid {min_J:.4f}" + ("; " + profile_line(
+                  step_prof["flagship proj"], wall, steps)
+                                          if tag == "proj" else ""))
         for name in reported:
             main_launches[name] = launches[name]
 
@@ -628,7 +852,8 @@ def main() -> int:
           f"{steps} steps in {wall:.3f} s = {steps / wall:.1f} steps/s, "
           f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised) on "
           f"'{card}'; launches {launches}; t advanced {advanced:.6f}; "
-          f"min J {min_J:.4f}; solid area {area:.7g} vs target {target:.7g}")
+          f"min J {min_J:.4f}; solid area {area:.7g} vs target {target:.7g}; "
+          + profile_line(step_prof["split"], wall, steps))
     main_launches["advext_block"] = launches["advext_block"]
 
     # 6. rebasing at full width
@@ -658,11 +883,19 @@ def main() -> int:
                                     for k, e in path_errs.items())
               + f"; kernel path launches {path_launches}")
 
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": tpu, "launches": main_launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name, (src, tpu) in KERNELS.items()]
+    kernels = []
+    for name, (src, tpu) in KERNELS.items():
+        bound, bound_by = bound_us(name, 1024)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": main_launches[name], "max_abs_err": errs[name],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": 1e-3 * bound, "bound_by": bound_by,
+            "library_ms": None,  # no one PyTorch call computes any of them
+            "device_us": prof[1024][name][0], "bound_us": bound,
+            "device_launches_per_call": prof[1024][name][1],
+            "device_us_N4096": prof[4096][name][0],
+            "bound_us_N4096": bound_us(name, 4096)[0]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

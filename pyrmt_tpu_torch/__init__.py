@@ -6,6 +6,9 @@ The Reference Map Technique for fully Eulerian fluid-structure interaction
 mirror ``pyrmt_tpu``. Every TPU kernel on the ported path is a CUDA kernel
 written for Hopper (``csrc/``), with a plain PyTorch version beside it: a
 CPU tensor runs the plain version, a CUDA tensor runs the kernel or raises.
+The entry points (``make_step``, ``make_init_state``,
+``make_rebase_runner``, ``state_from_numpy``) run on the card unless the
+caller passes ``device="cpu"``.
 
 This package imports ``torch`` and never ``jax``.
 """

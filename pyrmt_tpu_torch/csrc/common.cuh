@@ -1,7 +1,9 @@
 // Shared helpers of the pyrmt_tpu_torch CUDA kernels.
 //
-// Every kernel runs one thread per grid cell of a row-major (Ny, Nx) field
-// and evaluates its expressions in the order of the plain PyTorch version
+// The staged kernels run one thread per grid cell of a row-major (Ny, Nx)
+// field; the tile kernels (momentum_rk4.cu, the fused entry of
+// rmt_block.cu) run one block per 2D tile with a halo (Span). Every kernel
+// evaluates its expressions in the order of the plain PyTorch version
 // (built with --fmad=false, see kernels/_build.py), so the two round alike.
 #pragma once
 
@@ -31,6 +33,55 @@ __device__ inline int clampi(int x, int lo, int hi) {
 template <typename T>
 __device__ inline T clampf(T x, T lo, T hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// One axis of a tile kernel's tile. The block writes the cells [out_lo,
+// out_hi) and computes over the panel [lo, hi): the core [core_lo,
+// core_hi), which is the output cells widened to a whole tile where the
+// domain's end cuts the tile short, plus `halo` cells on each side,
+// clipped to the domain [0, n). Widening the core keeps a short last tile
+// as deep in the panel as a whole one: the one-sided closures at the
+// domain's edge reach further inward than the interior stencils do.
+struct Span {
+  int lo, hi, core_lo, core_hi, out_lo, out_hi, n;
+
+  __device__ int size() const { return hi - lo; }
+
+  // Panel index l lies in the panel, at least r cells in from each panel
+  // edge that is not the domain's edge: a stage whose inputs are valid
+  // r - d cells in is valid there when it reads d cells around.
+  __device__ bool inside(int l, int r) const {
+    return l < hi - lo && (lo == 0 || l >= r) && (hi == n || l < hi - lo - r);
+  }
+};
+
+__device__ inline Span tile_span(int t0, int t, int n, int halo) {
+  Span s;
+  s.n = n;
+  s.out_lo = t0;
+  s.out_hi = min(t0 + t, n);
+  s.core_lo = max(0, min(t0, n - t));
+  s.core_hi = min(n, s.core_lo + t);
+  s.lo = max(0, s.core_lo - halo);
+  s.hi = min(n, s.core_hi + halo);
+  return s;
+}
+
+__host__ __device__ inline unsigned tiles_for(int n, int t) {
+  return static_cast<unsigned>((n + t - 1) / t);
+}
+
+// Raise a kernel's limit of dynamic shared memory to `bytes` (needed above
+// 48 KB) once per kernel; returns a CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  allowed = bytes;
+  return 0;
 }
 
 // phi = |x - (x0, y0)| - R: the Disc shape of ops/levelset.py

@@ -8,7 +8,7 @@
 //   sigma_kernel  sigma = Hf mu_f (grad u + grad u^T) + blended solid stress
 //   rhs_kernel    rhs = -(u.grad)u + (div sigma + f_ext - grad p) / rho
 //
-// Both are the RK4 kernel's stage code (stencil_device.cuh): sigma_kernel
+// Both run the RK4 kernel's stage code (stencil_device.cuh): sigma_at
 // with eta_s = 0 (the stage loop adds the Kelvin-Voigt term to the solid
 // stress as plain ops before it calls the RHS), and the RHS with the
 // external force added and no running sum. The TPU kernel's row tiling,
@@ -34,8 +34,11 @@ __global__ void rhs_kernel(const T* u, const T* v, const T* sxx, const T* sxy,
   long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= static_cast<long long>(Ny) * Nx) return;
   int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  pyrmt::rhs_at<T>(u, v, sxx, sxy, syy, p, rho, fx, fy, n, j, i, Ny, Nx, dx,
-                   dy, rhs_u[n], rhs_v[n]);
+  using A = pyrmt::At<T>;
+  const size_t c = static_cast<size_t>(n), sy = static_cast<size_t>(Nx);
+  pyrmt::rhs_at<T>(A{u, c, sy}, A{v, c, sy}, A{sxx, c, sy}, A{sxy, c, sy},
+                   A{syy, c, sy}, A{p, c, sy}, rho[n], fx, fy, c, j, i, Ny,
+                   Nx, dx, dy, rhs_u[n], rhs_v[n]);
 }
 
 // scratch holds the 3 stress fields.

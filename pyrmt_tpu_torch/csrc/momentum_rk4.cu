@@ -1,141 +1,267 @@
-// All four RK4 stages of the blended momentum update, on Hopper.
+// All four RK4 stages of the blended momentum update, on Hopper, in one
+// launch.
 //
 // Replaces: pyrmt_tpu/kernels/momentum_rk4.py::momentum_rk4_pallas (the
 // pl.pallas_call at momentum_rk4.py:453), the fused full-RK4 Pallas kernel.
 // The plain version is pyrmt_tpu_torch.physics.momentum_core.
 //
-// Per stage s (input c_s = 0, dt/2, dt/2, dt):
-//   stage_kernel  W = bc(u0 + c_s k_{s-1})        (velocity BC from the spec)
-//   sigma_kernel  sigma = Hf mu_f (grad W + grad W^T) + KV + blended solid
-//   rhs_kernel    k_s = -(W.grad)W + (div sigma - grad p) / rho, and the
-//                 running sum k1 + 2 k2 + 2 k3 + k4
-// then final_kernel u_new = bc(u0 + dt/6 sum). The BC has to act on each
-// stage input BEFORE any neighbour reads it; materialising W does that.
-// External forces are elided (has_ext=False): the slice has none.
+// One block per 2D output tile, computing over the tile plus an 8-cell
+// halo (the panel, Span in common.cuh): each stage reads the stage before
+// at up to +-2 cells (3rd-order upwind, and the stress's central
+// difference of a central difference), so four stages shrink the valid
+// region by 8. A panel edge on the domain's edge needs no halo; every
+// closure chooses by the cell's global index, and cells outside the domain
+// are never read. Per stage s (c_s = 0, dt/2, dt/2, dt), over the region
+// still valid:
+//   1. raw W = u0 + c_s k_{s-1} into shared memory, then the velocity BC
+//      in place on the domain's edge (bc_u/bc_v over the raw tile: a wall
+//      cell reads only inner cells, which the BC leaves as they are; the u
+//      columns are zeroed before the rows are copied, bcs.py's order)
+//   2. sigma = Hf mu_f (grad W + grad W^T) + KV + blended solid, in shared
+//      memory
+//   3. k_s = -(W.grad)W + (div sigma - grad p) / rho and the running sum
+//      k1 + 2 k2 + 2 k3 + k4, in shared memory
+// then u_new = bc(u0 + dt/6 sum) the same way, written for the tile's own
+// cells. The stage-constant fields (p, the solid stresses, Hf, rho, mkv)
+// and u0, v0 are read from device memory at each stage, a panel's reuse
+// going through L1 and L2. External forces are elided (has_ext=False): the
+// slice has none.
+// A tile whose panel keeps 2 cells off the domain's edge (most of them)
+// runs a copy of the code in which the BC is the identity and every
+// stencil is the interior one.
 //
-// What bounds it on the H100: device-memory traffic. Each stage reads and
-// writes ~16 fields of 4 or 8 bytes per cell with a 5-point stencil and
-// ~100 flops per cell, far below the card's flop/byte balance. The design
-// answers it only by keeping each pass a single coalesced sweep (one thread
-// per cell, neighbouring threads on neighbouring addresses; the stencil
-// reads hit L1/L2). The 13 launches per step move ~4x the bytes of one
-// fused pass with halo recompute: fusing the stages in shared-memory tiles
-// is later work.
+// Tile: float32 48 x 32 output cells, a 64 x 48 panel, 512 threads, 9
+// fields of shared memory (W, sigma, k, the sum: 110,592 B, two blocks per
+// SM at 64 registers); float64 48 x 16, a 64 x 32 panel (147,456 B, one
+// block). Recompute factor (panel / tile cells) 2.0 and 2.7 where the halo
+// is interior. k and the sum live in shared memory, not in registers
+// under a fixed thread-to-cell map: unrolling that map over every stage
+// pass costs the registers, and so the occupancy, that the passes need.
 //
-// The BC, the stencils, sigma_kernel and the RHS are the device code of
-// stencil_device.cuh, which momentum_rhs.cu (one RHS) runs too. Built with
-// --fmad=false, and a division by a constant is a product by its
+// What bounds it on the H100: not the device-memory traffic (11 fields
+// read or written, 13.8 us at N=1024 float32) but the instructions: ~100
+// flops per cell per stage without fused multiply-adds (see below), the
+// closures' tests, and the shared-memory stencil reads, over ~2x the
+// cells. It runs well above the byte bound (PERF.md).
+//
+// Built with --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
+// The halo recompute evaluates the same expressions on the same values.
 #include "stencil_device.cuh"
 
 namespace {
 
+using pyrmt::At;
 using pyrmt::bc_u;
 using pyrmt::bc_v;
+using pyrmt::Span;
 
-// Raw (pre-BC) stage value base + h * k at a cell; base alone without k.
+constexpr int kThreads = 512;
+constexpr int kHalo = 8;  // 4 stages x 2 cells
+
 template <typename T>
-struct Raw {
-  const T* base;
-  const T* k;
-  T h;
-  int Nx;
+struct Tile;
+template <>
+struct Tile<float> {
+  static constexpr int X = 48, Y = 32;
+};
+template <>
+struct Tile<double> {
+  static constexpr int X = 48, Y = 16;
+};
+
+// The panel's shape in shared memory and the cells each thread owns.
+template <typename T>
+struct Panel {
+  static constexpr int W = Tile<T>::X + 2 * kHalo;  // row stride
+  static constexpr int H = Tile<T>::Y + 2 * kHalo;
+  static constexpr int N = W * H;
+  static constexpr int CPT = (N + kThreads - 1) / kThreads;  // cells each
+  // W (2), sigma (3), k (2) and the running sum (2)
+  static constexpr size_t kSmem = 9 * sizeof(T) * N;
+};
+
+// The pre-BC value of a shared-memory panel at a global cell.
+template <typename T>
+struct TileRaw {
+  const T* w;
+  int j0, i0;
   __device__ T operator()(int j, int i) const {
-    size_t n = static_cast<size_t>(j) * Nx + i;
-    return k ? base[n] + h * k[n] : base[n];
+    return w[(j - j0) * Panel<T>::W + (i - i0)];
   }
 };
 
-template <typename T>
-__global__ void stage_kernel(const T* u0, const T* v0, const T* ku,
-                             const T* kv, const T* dt, int stage, T* wu,
-                             T* wv, int Ny, int Nx, int bc, T lid) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T h = stage == 3 ? dt[0] : T(0.5) * dt[0];
-  Raw<T> ru{u0, stage ? ku : nullptr, h, Nx};
-  Raw<T> rv{v0, stage ? kv : nullptr, h, Nx};
-  wu[n] = bc_u<T>(ru, j, i, Ny, Nx, bc, lid);
-  wv[n] = bc_v<T>(rv, j, i, Ny, Nx, bc);
-}
-
-// k_s at a cell and its share of the running sum k1 + 2 k2 + 2 k3 + k4,
-// summed left to right.
-template <typename T>
-__global__ void rhs_kernel(const T* wu, const T* wv, const T* sxx,
-                           const T* sxy, const T* syy, const T* p,
-                           const T* rho, T* ku, T* kv, T* su, T* sv,
-                           int stage, int Ny, int Nx, double dx, double dy) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T a, b;
-  pyrmt::rhs_at<T>(wu, wv, sxx, sxy, syy, p, rho, nullptr, nullptr, n, j, i,
-                   Ny, Nx, dx, dy, a, b);
-  ku[n] = a;
-  kv[n] = b;
-  if (stage == 0) {
-    su[n] = a;
-    sv[n] = b;
-  } else if (stage == 3) {
-    su[n] = su[n] + a;
-    sv[n] = sv[n] + b;
-  } else {
-    su[n] = su[n] + T(2) * a;
-    sv[n] = sv[n] + T(2) * b;
+// f(lj, li) for each cell (lj, li) of the panel that this thread owns
+// and that lies r cells in from the panel's inner edges.
+template <typename T, typename F>
+__device__ __forceinline__ void for_cells(const Span& ys, const Span& xs,
+                                          int r, F&& f) {
+#pragma unroll 1
+  for (int c = 0; c < Panel<T>::CPT; ++c) {
+    const int q = threadIdx.x + c * kThreads;
+    const int lj = q / Panel<T>::W, li = q % Panel<T>::W;
+    if (lj < Panel<T>::H && ys.inside(lj, r) && xs.inside(li, r)) f(lj, li);
   }
 }
 
-template <typename T>
-__global__ void final_kernel(const T* u0, const T* v0, const T* su,
-                             const T* sv, const T* dt, T* un, T* vn, int Ny,
-                             int Nx, int bc, T lid) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T h = dt[0] * static_cast<T>(1.0 / 6.0);
-  Raw<T> ru{u0, su, h, Nx};
-  Raw<T> rv{v0, sv, h, Nx};
-  un[n] = bc_u<T>(ru, j, i, Ny, Nx, bc, lid);
-  vn[n] = bc_v<T>(rv, j, i, Ny, Nx, bc);
+// The four stages and the update of one tile. kEdge false: no cell of the
+// panel lies within 2 of the domain's edge, so the BC is the identity
+// there and every stencil is the interior one; the closures' tests are
+// then given a mid index (2 of 5) and fold away.
+template <typename T, bool kEdge>
+__device__ __forceinline__ void rk4_tile(
+    const Span& ys, const Span& xs, unsigned char* smem,
+    const T* __restrict__ u0, const T* __restrict__ v0,
+    const T* __restrict__ p, const T* __restrict__ sxx_el,
+    const T* __restrict__ sxy_el, const T* __restrict__ syy_el,
+    const T* __restrict__ Hf, const T* __restrict__ rho,
+    const T* __restrict__ mkv, T dt, T* __restrict__ u_new,
+    T* __restrict__ v_new, int Ny, int Nx, double dx, double dy,
+    double mu_f, double eta_s, int bc, T lid) {
+  using P = Panel<T>;
+  T* Wu = reinterpret_cast<T*>(smem);
+  T* Wv = Wu + P::N;
+  T* Sxx = Wv + P::N;
+  T* Sxy = Sxx + P::N;
+  T* Syy = Sxy + P::N;
+  T* Ku = Syy + P::N;
+  T* Kv = Ku + P::N;
+  T* Su = Kv + P::N;
+  T* Sv = Su + P::N;
+  const size_t sy = static_cast<size_t>(Nx);
+  const int ny = kEdge ? Ny : 5, nx = kEdge ? Nx : 5;
+  auto gidx = [&](int lj, int li) {
+    return static_cast<size_t>(ys.lo + lj) * sy + (xs.lo + li);
+  };
+  auto mj = [&](int lj) { return kEdge ? ys.lo + lj : 2; };
+  auto mi = [&](int li) { return kEdge ? xs.lo + li : 2; };
+
+  for (int s = 0; s < 4; ++s) {
+    const T h = s == 3 ? dt : T(0.5) * dt;
+    // 1. the raw stage value, then the BC on the domain's edge
+    for_cells<T>(ys, xs, 2 * s, [&](int lj, int li) {
+      const size_t g = gidx(lj, li);
+      const int l = lj * P::W + li;
+      Wu[l] = s ? u0[g] + h * Ku[l] : u0[g];
+      Wv[l] = s ? v0[g] + h * Kv[l] : v0[g];
+    });
+    __syncthreads();
+    if (kEdge) {
+      for_cells<T>(ys, xs, 2 * s, [&](int lj, int li) {
+        const int j = ys.lo + lj, i = xs.lo + li;
+        if (j != 0 && j != Ny - 1 && i != 0 && i != Nx - 1) return;
+        const T bu = bc_u<T>(TileRaw<T>{Wu, ys.lo, xs.lo}, j, i, Ny, Nx, bc,
+                             lid);
+        const T bv = bc_v<T>(TileRaw<T>{Wv, ys.lo, xs.lo}, j, i, Ny, Nx, bc);
+        Wu[lj * P::W + li] = bu;
+        Wv[lj * P::W + li] = bv;
+      });
+      __syncthreads();
+    }
+    // 2. the stress
+    for_cells<T>(ys, xs, 2 * s + 1, [&](int lj, int li) {
+      const size_t g = gidx(lj, li);
+      const size_t l = static_cast<size_t>(lj) * P::W + li;
+      pyrmt::sigma_at<T>(At<T>{Wu, l, P::W}, At<T>{Wv, l, P::W}, sxx_el[g],
+                         sxy_el[g], syy_el[g], Hf[g], mkv, g, mj(lj), mi(li),
+                         ny, nx, dx, dy, mu_f, eta_s, Sxx[l], Sxy[l],
+                         Syy[l]);
+    });
+    __syncthreads();
+    // 3. k_s and the running sum k1 + 2 k2 + 2 k3 + k4, left to right
+    for_cells<T>(ys, xs, 2 * s + 2, [&](int lj, int li) {
+      const size_t g = gidx(lj, li);
+      const int l = lj * P::W + li;
+      const size_t ls = l;
+      T ra, rb;
+      pyrmt::rhs_at<T>(At<T>{Wu, ls, P::W}, At<T>{Wv, ls, P::W},
+                       At<T>{Sxx, ls, P::W}, At<T>{Sxy, ls, P::W},
+                       At<T>{Syy, ls, P::W}, At<T>{p, g, sy}, rho[g],
+                       nullptr, nullptr, g, mj(lj), mi(li), ny, nx, dx, dy,
+                       ra, rb);
+      Ku[l] = ra;
+      Kv[l] = rb;
+      if (s == 0) {
+        Su[l] = ra;
+        Sv[l] = rb;
+      } else if (s == 3) {
+        Su[l] = Su[l] + ra;
+        Sv[l] = Sv[l] + rb;
+      } else {
+        Su[l] = Su[l] + T(2) * ra;
+        Sv[l] = Sv[l] + T(2) * rb;
+      }
+    });
+    __syncthreads();
+  }
+
+  // u_new = bc(u0 + dt/6 sum) over the core, written for the own cells
+  const T h6 = dt * static_cast<T>(1.0 / 6.0);
+  for_cells<T>(ys, xs, kHalo, [&](int lj, int li) {
+    const size_t g = gidx(lj, li);
+    const int l = lj * P::W + li;
+    Wu[l] = u0[g] + h6 * Su[l];
+    Wv[l] = v0[g] + h6 * Sv[l];
+  });
+  __syncthreads();
+  for_cells<T>(ys, xs, kHalo, [&](int lj, int li) {
+    const int j = ys.lo + lj, i = xs.lo + li;
+    if (j < ys.out_lo || j >= ys.out_hi || i < xs.out_lo || i >= xs.out_hi)
+      return;
+    const size_t g = gidx(lj, li);
+    if (kEdge) {
+      u_new[g] = bc_u<T>(TileRaw<T>{Wu, ys.lo, xs.lo}, j, i, Ny, Nx, bc, lid);
+      v_new[g] = bc_v<T>(TileRaw<T>{Wv, ys.lo, xs.lo}, j, i, Ny, Nx, bc);
+    } else {
+      u_new[g] = Wu[lj * P::W + li];
+      v_new[g] = Wv[lj * P::W + li];
+    }
+  });
 }
 
-// scratch holds 9 fields: W (2), k (2), running sum (2), sigma (3).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    rk4_kernel(const T* __restrict__ u0, const T* __restrict__ v0,
+               const T* __restrict__ p, const T* __restrict__ sxx_el,
+               const T* __restrict__ sxy_el, const T* __restrict__ syy_el,
+               const T* __restrict__ Hf, const T* __restrict__ rho,
+               const T* __restrict__ mkv, const T* __restrict__ dt_ptr,
+               T* __restrict__ u_new, T* __restrict__ v_new, int Ny, int Nx,
+               double dx, double dy, double mu_f, double eta_s, int bc,
+               T lid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Span ys = pyrmt::tile_span(blockIdx.y * Tile<T>::Y, Tile<T>::Y, Ny,
+                                   kHalo);
+  const Span xs = pyrmt::tile_span(blockIdx.x * Tile<T>::X, Tile<T>::X, Nx,
+                                   kHalo);
+  const T dt = *dt_ptr;
+  if (ys.lo >= 2 && ys.hi <= Ny - 2 && xs.lo >= 2 && xs.hi <= Nx - 2)
+    rk4_tile<T, false>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el, Hf,
+                       rho, mkv, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
+                       eta_s, bc, lid);
+  else
+    rk4_tile<T, true>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el, Hf,
+                      rho, mkv, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
+                      eta_s, bc, lid);
+}
+
 template <typename T>
 int launch(const T* u, const T* v, const T* p, const T* sxx_el,
            const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
-           const T* mkv, const T* dt, T* u_new, T* v_new, T* scratch, int Ny,
-           int Nx, double dx, double dy, double mu_f, double eta_s, int bc,
+           const T* mkv, const T* dt, T* u_new, T* v_new, int Ny, int Nx,
+           double dx, double dy, double mu_f, double eta_s, int bc,
            double lid, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t N = static_cast<size_t>(Ny) * Nx;
-  T* wu = scratch;
-  T* wv = wu + N;
-  T* ku = wv + N;
-  T* kv = ku + N;
-  T* su = kv + N;
-  T* sv = su + N;
-  T* sxx = sv + N;
-  T* sxy = sxx + N;
-  T* syy = sxy + N;
-  const unsigned nb = pyrmt::blocks_for(static_cast<long long>(N));
-  const int nt = pyrmt::kThreads;
-  for (int s = 0; s < 4; ++s) {
-    stage_kernel<T><<<nb, nt, 0, stream>>>(u, v, ku, kv, dt, s, wu, wv, Ny,
-                                           Nx, bc, static_cast<T>(lid));
-    PYRMT_RETURN_IF_ERROR();
-    pyrmt::sigma_kernel<T><<<nb, nt, 0, stream>>>(
-        wu, wv, sxx_el, sxy_el, syy_el, Hf, mkv, sxx, sxy, syy, Ny, Nx, dx, dy,
-        mu_f, eta_s);
-    PYRMT_RETURN_IF_ERROR();
-    rhs_kernel<T><<<nb, nt, 0, stream>>>(wu, wv, sxx, sxy, syy, p, rho, ku,
-                                         kv, su, sv, s, Ny, Nx, dx, dy);
-    PYRMT_RETURN_IF_ERROR();
-  }
-  final_kernel<T><<<nb, nt, 0, stream>>>(u, v, su, sv, dt, u_new, v_new, Ny,
-                                         Nx, bc, static_cast<T>(lid));
+  static size_t allowed = 48 * 1024;
+  const size_t smem = Panel<T>::kSmem;
+  int err = pyrmt::allow_smem(rk4_kernel<T>, smem, allowed);
+  if (err) return err;
+  const dim3 grid(pyrmt::tiles_for(Nx, Tile<T>::X),
+                  pyrmt::tiles_for(Ny, Tile<T>::Y));
+  rk4_kernel<T><<<grid, kThreads, smem,
+                  static_cast<cudaStream_t>(stream_ptr)>>>(
+      u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, dt, u_new, v_new, Ny,
+      Nx, dx, dy, mu_f, eta_s, bc, static_cast<T>(lid));
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
@@ -146,12 +272,12 @@ int launch(const T* u, const T* v, const T* p, const T* sxx_el,
   extern "C" int NAME(const T* u, const T* v, const T* p, const T* sxx_el,   \
                       const T* sxy_el, const T* syy_el, const T* Hf,         \
                       const T* rho, const T* mkv, const T* dt, T* u_new,     \
-                      T* v_new, T* scratch, int Ny, int Nx, double dx,       \
-                      double dy, double mu_f, double eta_s, int bc,          \
-                      double lid, void* stream) {                            \
+                      T* v_new, int Ny, int Nx, double dx, double dy,        \
+                      double mu_f, double eta_s, int bc, double lid,         \
+                      void* stream) {                                        \
     return launch<T>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, dt,      \
-                     u_new, v_new, scratch, Ny, Nx, dx, dy, mu_f, eta_s, bc, \
-                     lid, stream);                                           \
+                     u_new, v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, lid,     \
+                     stream);                                                \
   }
 
 PYRMT_MOMENTUM_ENTRY(pyrmt_momentum_rk4_f32, float)

@@ -1,17 +1,18 @@
 // Device code of the reference-map kernels, shared by rmt_block.cu (the
-// fused tier and the split tier's advect-extrapolate entry) and
-// extrapolate_fused.cu (the standalone extrapolation):
+// fused tier's tile kernel and the split tier's advect-extrapolate entry)
+// and extrapolate_fused.cu (the standalone extrapolation):
 //   Bilinear       ops/interp.py::gather_bilinear_local at one cell
-//   advect_kernel  the shared RK4 backtrace of the map, the mask
-//                  (phi <= 0) and the known flags (phi < 0), with phi taken
-//                  from a PhiSource: evaluated from the map (DiscPhi) or
-//                  read from a field (FieldPhi)
-//   layer_kernel   one layer-synchronous least-squares extrapolation sweep
-//   run_layers     num_layers sweeps, ping-ponging scratch, the last one
-//                  into the outputs
-// One thread per cell; every expression in the order of the plain PyTorch
-// version (built with --fmad=false), so kernel and plain version round
-// alike.
+//   advect_at      the shared RK4 backtrace of the map, the mask
+//                  (phi <= 0) and the known flag (phi < 0) at one cell,
+//                  given the cell's pre-advection phi
+//   layer_at       one layer-synchronous least-squares extrapolation step at
+//                  one cell, over a field in device memory or a
+//                  shared-memory panel
+//   advect_kernel, layer_kernel, run_layers
+//                  the staged launches of the split tier and the standalone
+//                  extrapolation: one thread per cell, one launch per stage
+// Every expression in the order of the plain PyTorch version (built with
+// --fmad=false), so kernel and plain version round alike.
 #pragma once
 
 #include "common.cuh"
@@ -41,12 +42,25 @@ Taps<T> load_taps(const double* taps) {
   return tp;
 }
 
+// A field by global (row, column): element (r - j0) * stride + (c - i0)
+// of f: a device field (j0 = i0 = 0, stride Nx) or a shared-memory copy of
+// a window of one.
+template <typename T>
+struct Rows {
+  const T* f;
+  size_t stride;
+  int j0, i0;
+  __device__ T operator()(int r, int c) const {
+    return f[static_cast<size_t>(r - j0) * stride + (c - i0)];
+  }
+};
+
 // ops/interp.py::gather_bilinear_local at one cell: clip the displacement,
 // clamp the query into the domain, pick the corners by the signs at this
 // cell; edge-clamped neighbours.
 template <typename T>
 struct Bilinear {
-  size_t c00, c10, c01, c11;
+  int r0, r1, a0, a1;  // the corners' rows and columns
   T w00, w10, w01, w11;
   bool finite;
 
@@ -77,59 +91,32 @@ struct Bilinear {
     w01 = (T(1) - fx) * fy;
     w11 = fx * fy;
     int jl = j - (neg_y ? 1 : 0), il = i - (neg_x ? 1 : 0);
-    size_t r0 = static_cast<size_t>(clampi(jl, 0, Ny - 1)) * Nx;
-    size_t r1 = static_cast<size_t>(clampi(jl + 1, 0, Ny - 1)) * Nx;
-    int a0 = clampi(il, 0, Nx - 1), a1 = clampi(il + 1, 0, Nx - 1);
-    c00 = r0 + a0;
-    c10 = r0 + a1;
-    c01 = r1 + a0;
-    c11 = r1 + a1;
+    r0 = clampi(jl, 0, Ny - 1);
+    r1 = clampi(jl + 1, 0, Ny - 1);
+    a0 = clampi(il, 0, Nx - 1);
+    a1 = clampi(il + 1, 0, Nx - 1);
   }
 
-  __device__ T operator()(const T* f) const {
+  __device__ T operator()(const Rows<T>& f) const {
     if (!finite) return static_cast<T>(NAN);
-    return w00 * f[c00] + w10 * f[c10] + w01 * f[c01] + w11 * f[c11];
-  }
-};
-
-// The pre-advection level set at cell n: phi = disc(X) of the map (the
-// fused tier) ...
-template <typename T>
-struct DiscPhi {
-  Disc<T> disc;
-  __device__ T operator()(long long n, const T* X1, const T* X2) const {
-    return disc(X1[n], X2[n]);
-  }
-};
-
-// ... or a given field (the split tier: phi from the rebuild, reinit and
-// area-fix chain).
-template <typename T>
-struct FieldPhi {
-  const T* phi;
-  __device__ T operator()(long long n, const T*, const T*) const {
-    return phi[n];
+    return w00 * f(r0, a0) + w10 * f(r0, a1) + w01 * f(r1, a0) +
+           w11 * f(r1, a1);
   }
 };
 
 // The RK4 backtrace through three bilinear samples of (u, v), the bilinear
-// sample of X1, X2, times mask (phi <= 0); known = phi < 0. dt = *dt on the
-// device: no host sync.
-template <typename T, typename PhiSource>
-__global__ void advect_kernel(const T* u, const T* v, const T* X1,
-                              const T* X2, const T* dt_ptr, PhiSource phi_at,
-                              T* X1a, T* X2a, T* kf, int Ny, int Nx, double dx,
-                              double dy) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  const T dt = *dt_ptr;
+// sample of X1, X2, times mask (phi0 <= 0); known = phi0 < 0. At cell
+// (j, i); each field is read within +-1 cell of it.
+template <typename T>
+__device__ void advect_at(const Rows<T>& u, const Rows<T>& v,
+                          const Rows<T>& X1, const Rows<T>& X2, T dt, T phi0,
+                          int j, int i, int Ny, int Nx, double dx, double dy,
+                          T& x1a, T& x2a, T& known) {
   const T inv_dx = static_cast<T>(1.0 / dx), inv_dy = static_cast<T>(1.0 / dy);
-  T phi0 = phi_at(n, X1, X2);
   T mask = phi0 <= T(0) ? T(1) : T(0);
-  kf[n] = phi0 < T(0) ? T(1) : T(0);
+  known = phi0 < T(0) ? T(1) : T(0);
 
-  T k1x = u[n], k1y = v[n];
+  T k1x = u(j, i), k1y = v(j, i);
   const T half = T(-0.5) * dt;
   Bilinear<T> b2(j, i, half * k1x * inv_dx, half * k1y * inv_dy, Ny, Nx);
   T k2x = b2(u), k2y = b2(v);
@@ -142,82 +129,125 @@ __global__ void advect_kernel(const T* u, const T* v, const T* X1,
   T sx = sixth * (k1x + T(2) * k2x + T(2) * k3x + k4x) * inv_dx;
   T sy = sixth * (k1y + T(2) * k2y + T(2) * k3y + k4y) * inv_dy;
   Bilinear<T> bf(j, i, sx, sy, Ny, Nx);
-  X1a[n] = bf(X1) * mask;
-  X2a[n] = bf(X2) * mask;
+  x1a = bf(X1) * mask;
+  x2a = bf(X2) * mask;
 }
 
-// One layer-synchronous extrapolation sweep (ops/extrapolate.py): a
-// frontier cell (unknown, interior, a known 3x3 neighbour) solves the 3x3
-// normal equations of the Gaussian plane fit over its 9x9 window (zero
-// outside the domain), summed as the separable x-then-y pass of the plain
-// version, in the same order.
+// advect_at with phi read from a field, one thread per cell. dt = *dt_ptr
+// on the device: no host sync.
+template <typename T>
+__global__ void advect_kernel(const T* u, const T* v, const T* X1,
+                              const T* X2, const T* dt_ptr, const T* phi,
+                              T* X1a, T* X2a, T* kf, int Ny, int Nx, double dx,
+                              double dy) {
+  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= static_cast<long long>(Ny) * Nx) return;
+  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
+  T x1a, x2a, known;
+  const size_t sy = static_cast<size_t>(Nx);
+  advect_at<T>(Rows<T>{u, sy, 0, 0}, Rows<T>{v, sy, 0, 0},
+               Rows<T>{X1, sy, 0, 0}, Rows<T>{X2, sy, 0, 0}, *dt_ptr, phi[n],
+               j, i, Ny, Nx, dx, dy, x1a, x2a, known);
+  X1a[n] = x1a;
+  X2a[n] = x2a;
+  kf[n] = known;
+}
+
+// Is cell (j, i), element n of known flags whose rows are sy apart (K: T
+// or a byte), on the extrapolation's frontier: unknown, interior, with a
+// known 3x3 neighbour?
+template <typename T, typename K>
+__device__ bool frontier_at(const K* kf, size_t n, size_t sy, int j, int i,
+                            int Ny, int Nx) {
+  const long long ss = static_cast<long long>(sy);
+  bool interior = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
+  bool frontier = false;
+  if (interior && static_cast<T>(kf[n]) == T(0)) {
+    for (int dj = -1; dj <= 1; ++dj)
+      for (int di = -1; di <= 1; ++di)
+        frontier = frontier || static_cast<T>(kf[n + dj * ss + di]) > T(0);
+  }
+  return frontier;
+}
+
+// One layer-synchronous extrapolation step at cell (j, i), element n of
+// fields whose rows are sy apart (K: the known flags' type, T or a byte):
+// a frontier cell solves the 3x3 normal equations of the Gaussian plane
+// fit over its 9x9 window (zero outside the domain), summed as the
+// separable x-then-y pass of the plain version, in the same order; any
+// other cell keeps its state. (x1, x2, k) is the cell's new state.
+template <typename T, typename K>
+__device__ void layer_at(const T* X1, const T* X2, const K* kf, size_t n,
+                         size_t sy, int j, int i, int Ny, int Nx,
+                         const Taps<T>& tp, T& x1, T& x2, T& k) {
+  x1 = X1[n];
+  x2 = X2[n];
+  k = static_cast<T>(kf[n]);
+  const long long ss = static_cast<long long>(sy);
+  if (!frontier_at<T, K>(kf, n, sy, j, i, Ny, Nx)) return;
+  T count = 0, s00 = 0, s01 = 0, s02 = 0, s11 = 0, s12 = 0, s22 = 0;
+  T b10 = 0, b11 = 0, b12 = 0, b20 = 0, b21 = 0, b22 = 0;
+  for (int dj = -kWin; dj <= kWin; ++dj) {
+    int r = j + dj;
+    if (r < 0 || r >= Ny) continue;  // zero rows add nothing
+    const size_t row = n + dj * ss;
+    // x pass of row r: sum over di in ascending order
+    T k_1 = 0, k_wx = 0, k_wxd = 0, k_wxd2 = 0;
+    T x1_wx = 0, x1_wxd = 0, x2_wx = 0, x2_wxd = 0;
+    for (int di = -kWin; di <= kWin; ++di) {
+      int col = i + di;
+      if (col < 0 || col >= Nx) continue;
+      size_t m = row + di;
+      T kk = static_cast<T>(kf[m]);
+      T kx1 = kk * X1[m], kx2 = kk * X2[m];
+      const int t = di + kWin;
+      k_1 = k_1 + kk;
+      k_wx = k_wx + kk * tp.wx[t];
+      k_wxd = k_wxd + kk * tp.wxd[t];
+      k_wxd2 = k_wxd2 + kk * tp.wxd2[t];
+      x1_wx = x1_wx + kx1 * tp.wx[t];
+      x1_wxd = x1_wxd + kx1 * tp.wxd[t];
+      x2_wx = x2_wx + kx2 * tp.wx[t];
+      x2_wxd = x2_wxd + kx2 * tp.wxd[t];
+    }
+    const int t = dj + kWin;
+    count = count + k_1;
+    s00 = s00 + k_wx * tp.wy[t];
+    s02 = s02 + k_wx * tp.wyd[t];
+    s22 = s22 + k_wx * tp.wyd2[t];
+    s01 = s01 + k_wxd * tp.wy[t];
+    s12 = s12 + k_wxd * tp.wyd[t];
+    s11 = s11 + k_wxd2 * tp.wy[t];
+    b10 = b10 + x1_wx * tp.wy[t];
+    b12 = b12 + x1_wx * tp.wyd[t];
+    b11 = b11 + x1_wxd * tp.wy[t];
+    b20 = b20 + x2_wx * tp.wy[t];
+    b22 = b22 + x2_wx * tp.wyd[t];
+    b21 = b21 + x2_wxd * tp.wy[t];
+  }
+  // fd.solve3x3_sym's constant coefficient, det threshold 1e-10
+  T det = s00 * (s11 * s22 - s12 * s12) - s01 * (s01 * s22 - s12 * s02)
+          + s02 * (s01 * s12 - s11 * s02);
+  bool ok = fabs(det) > static_cast<T>(1e-10);
+  if (ok && count >= T(3)) {
+    T inv_det = T(1) / det;
+    x1 = (b10 * (s11 * s22 - s12 * s12) - s01 * (b11 * s22 - s12 * b12)
+          + s02 * (b11 * s12 - s11 * b12)) * inv_det;
+    x2 = (b20 * (s11 * s22 - s12 * s12) - s01 * (b21 * s22 - s12 * b22)
+          + s02 * (b21 * s12 - s11 * b22)) * inv_det;
+    k = T(1);
+  }
+}
+
+// layer_at, one thread per cell of the device fields.
 template <typename T>
 __global__ void layer_kernel(const T* X1, const T* X2, const T* kf, T* X1o,
                              T* X2o, T* kfo, int Ny, int Nx, Taps<T> tp) {
   long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= static_cast<long long>(Ny) * Nx) return;
   int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T x1 = X1[n], x2 = X2[n], k = kf[n];
-  bool interior = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
-  bool frontier = false;
-  if (interior && k == T(0)) {
-    for (int dj = -1; dj <= 1; ++dj)
-      for (int di = -1; di <= 1; ++di)
-        frontier = frontier || kf[n + static_cast<long long>(dj) * Nx + di] > T(0);
-  }
-  if (frontier) {
-    T count = 0, s00 = 0, s01 = 0, s02 = 0, s11 = 0, s12 = 0, s22 = 0;
-    T b10 = 0, b11 = 0, b12 = 0, b20 = 0, b21 = 0, b22 = 0;
-    for (int dj = -kWin; dj <= kWin; ++dj) {
-      int r = j + dj;
-      if (r < 0 || r >= Ny) continue;  // zero rows add nothing
-      // x pass of row r: sum over di in ascending order
-      T k_1 = 0, k_wx = 0, k_wxd = 0, k_wxd2 = 0;
-      T x1_wx = 0, x1_wxd = 0, x2_wx = 0, x2_wxd = 0;
-      for (int di = -kWin; di <= kWin; ++di) {
-        int col = i + di;
-        if (col < 0 || col >= Nx) continue;
-        size_t m = static_cast<size_t>(r) * Nx + col;
-        T kk = kf[m];
-        T kx1 = kk * X1[m], kx2 = kk * X2[m];
-        const int t = di + kWin;
-        k_1 = k_1 + kk;
-        k_wx = k_wx + kk * tp.wx[t];
-        k_wxd = k_wxd + kk * tp.wxd[t];
-        k_wxd2 = k_wxd2 + kk * tp.wxd2[t];
-        x1_wx = x1_wx + kx1 * tp.wx[t];
-        x1_wxd = x1_wxd + kx1 * tp.wxd[t];
-        x2_wx = x2_wx + kx2 * tp.wx[t];
-        x2_wxd = x2_wxd + kx2 * tp.wxd[t];
-      }
-      const int t = dj + kWin;
-      count = count + k_1;
-      s00 = s00 + k_wx * tp.wy[t];
-      s02 = s02 + k_wx * tp.wyd[t];
-      s22 = s22 + k_wx * tp.wyd2[t];
-      s01 = s01 + k_wxd * tp.wy[t];
-      s12 = s12 + k_wxd * tp.wyd[t];
-      s11 = s11 + k_wxd2 * tp.wy[t];
-      b10 = b10 + x1_wx * tp.wy[t];
-      b12 = b12 + x1_wx * tp.wyd[t];
-      b11 = b11 + x1_wxd * tp.wy[t];
-      b20 = b20 + x2_wx * tp.wy[t];
-      b22 = b22 + x2_wx * tp.wyd[t];
-      b21 = b21 + x2_wxd * tp.wy[t];
-    }
-    // fd.solve3x3_sym's constant coefficient, det threshold 1e-10
-    T det = s00 * (s11 * s22 - s12 * s12) - s01 * (s01 * s22 - s12 * s02)
-            + s02 * (s01 * s12 - s11 * s02);
-    bool ok = fabs(det) > static_cast<T>(1e-10);
-    if (ok && count >= T(3)) {
-      T inv_det = T(1) / det;
-      x1 = (b10 * (s11 * s22 - s12 * s12) - s01 * (b11 * s22 - s12 * b12)
-            + s02 * (b11 * s12 - s11 * b12)) * inv_det;
-      x2 = (b20 * (s11 * s22 - s12 * s12) - s01 * (b21 * s22 - s12 * b22)
-            + s02 * (b21 * s12 - s11 * b22)) * inv_det;
-      k = T(1);
-    }
-  }
+  T x1, x2, k;
+  layer_at<T, T>(X1, X2, kf, n, Nx, j, i, Ny, Nx, tp, x1, x2, k);
   X1o[n] = x1;
   X2o[n] = x2;
   kfo[n] = k;

@@ -4,13 +4,15 @@
 //                  gives the pre-BC value at any (j, i)
 //   grad           fd.grad_central_{x,y}_2nd at one cell
 //   upwind         fd.diff_upwind_3rd at one cell
-//   sigma_kernel   the blended stress of physics.velocity_rhs_blended, plus
+//   At             a field seen from one cell, in device memory or in a
+//                  shared-memory tile (its own flat index and row stride)
+//   sigma_at       the blended stress of physics.velocity_rhs_blended, plus
 //                  the Kelvin-Voigt term of physics.momentum_core
+//   sigma_kernel   sigma_at, one thread per cell
 //   rhs_at         the momentum RHS of physics.velocity_rhs_blended at one
 //                  cell, with or without the external force
-// One thread per cell; every expression in the order of the plain PyTorch
-// version (built with --fmad=false), so kernel and plain version round
-// alike.
+// Every expression in the order of the plain PyTorch version (built with
+// --fmad=false), so kernel and plain version round alike.
 #pragma once
 
 #include "common.cuh"
@@ -78,9 +80,55 @@ __device__ T upwind(const T* f, size_t c, size_t s, int m, int n, T vel,
   return (-fp2 + T(6) * fp1 - T(3) * f0 - T(2) * fm1) * inv_6h;
 }
 
-// sigma = Hf mu_f (grad w + grad w^T) + the pre-blended solid stress, plus
-// the Kelvin-Voigt term mkv eta_s (rate of strain) when eta_s > 0 (mkv is
-// read only then).
+// A field seen from one cell: element c of f, with rows sy apart and
+// columns adjacent. A device field has sy = Nx; a shared-memory tile its
+// own width. The closures of grad and upwind still choose by the cell's
+// global index along the axis.
+template <typename T>
+struct At {
+  const T* f;
+  size_t c, sy;
+
+  __device__ T operator*() const { return f[c]; }
+  __device__ T gx(int i, int Nx, T inv) const {
+    return grad(f, c, 1, i, Nx, inv);
+  }
+  __device__ T gy(int j, int Ny, T inv) const {
+    return grad(f, c, sy, j, Ny, inv);
+  }
+  __device__ T ux(int i, int Nx, T vel, T ih, T i6) const {
+    return upwind(f, c, 1, i, Nx, vel, ih, i6);
+  }
+  __device__ T uy(int j, int Ny, T vel, T ih, T i6) const {
+    return upwind(f, c, sy, j, Ny, vel, ih, i6);
+  }
+};
+
+// sigma = Hf mu_f (grad w + grad w^T) + the pre-blended solid stress
+// (a, c, b = its xx, xy, yy at the cell), plus the Kelvin-Voigt term
+// mkv eta_s (rate of strain) when eta_s > 0 (mkv[g] is read only then).
+template <typename T>
+__device__ void sigma_at(At<T> wu, At<T> wv, T a, T c, T b, T h,
+                         const T* mkv, size_t g, int j, int i, int Ny, int Nx,
+                         double dx, double dy, double mu_f, double eta_s,
+                         T& sxx, T& sxy, T& syy) {
+  const T inv_x = static_cast<T>(1.0 / (2.0 * dx));
+  const T inv_y = static_cast<T>(1.0 / (2.0 * dy));
+  T du_dx = wu.gx(i, Nx, inv_x);
+  T dv_dy = wv.gy(j, Ny, inv_y);
+  T du_dy = wu.gy(j, Ny, inv_y);
+  T dv_dx = wv.gx(i, Nx, inv_x);
+  if (eta_s > 0.0) {  // Kelvin-Voigt damping inside the solid
+    T m = mkv[g];
+    a = a + m * (static_cast<T>(eta_s) * du_dx);
+    b = b + m * (static_cast<T>(eta_s) * dv_dy);
+    c = c + m * (static_cast<T>(eta_s * 0.5) * (du_dy + dv_dx));
+  }
+  sxx = h * (static_cast<T>(2.0 * mu_f) * du_dx) + a;
+  syy = h * (static_cast<T>(2.0 * mu_f) * dv_dy) + b;
+  sxy = h * (static_cast<T>(mu_f) * (du_dy + dv_dx)) + c;
+}
+
 template <typename T>
 __global__ void sigma_kernel(const T* wu, const T* wv, const T* sxx_el,
                              const T* sxy_el, const T* syy_el, const T* Hf,
@@ -90,51 +138,39 @@ __global__ void sigma_kernel(const T* wu, const T* wv, const T* sxx_el,
   long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= static_cast<long long>(Ny) * Nx) return;
   int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  const T inv_x = static_cast<T>(1.0 / (2.0 * dx));
-  const T inv_y = static_cast<T>(1.0 / (2.0 * dy));
-  T du_dx = grad(wu, n, 1, i, Nx, inv_x);
-  T dv_dy = grad(wv, n, Nx, j, Ny, inv_y);
-  T du_dy = grad(wu, n, Nx, j, Ny, inv_y);
-  T dv_dx = grad(wv, n, 1, i, Nx, inv_x);
-  T a = sxx_el[n], b = syy_el[n], c = sxy_el[n];
-  if (eta_s > 0.0) {  // Kelvin-Voigt damping inside the solid
-    T m = mkv[n];
-    a = a + m * (static_cast<T>(eta_s) * du_dx);
-    b = b + m * (static_cast<T>(eta_s) * dv_dy);
-    c = c + m * (static_cast<T>(eta_s * 0.5) * (du_dy + dv_dx));
-  }
-  T h = Hf[n];
-  sxx[n] = h * (static_cast<T>(2.0 * mu_f) * du_dx) + a;
-  syy[n] = h * (static_cast<T>(2.0 * mu_f) * dv_dy) + b;
-  sxy[n] = h * (static_cast<T>(mu_f) * (du_dy + dv_dx)) + c;
+  const size_t sy = static_cast<size_t>(Nx);
+  sigma_at<T>(At<T>{wu, static_cast<size_t>(n), sy},
+              At<T>{wv, static_cast<size_t>(n), sy}, sxx_el[n], sxy_el[n],
+              syy_el[n], Hf[n], mkv, n, j, i, Ny, Nx, dx, dy, mu_f, eta_s,
+              sxx[n], sxy[n], syy[n]);
 }
 
-// -(w.grad)w + (div sigma + f - grad p) / (rho + 1e-12) at cell n = (j, i)
+// -(w.grad)w + (div sigma + f - grad p) / (rho + 1e-12) at one cell (j, i)
 // into (ru, rv); without a force (fx == nullptr) the f term is left out,
-// as the slice's momentum_core leaves it out.
+// as the slice's momentum_core leaves it out. fx, fy are read at g.
 template <typename T>
-__device__ void rhs_at(const T* wu, const T* wv, const T* sxx, const T* sxy,
-                       const T* syy, const T* p, const T* rho, const T* fx,
-                       const T* fy, size_t n, int j, int i, int Ny, int Nx,
-                       double dx, double dy, T& ru, T& rv) {
+__device__ void rhs_at(At<T> wu, At<T> wv, At<T> sxx, At<T> sxy, At<T> syy,
+                       At<T> p, T rho, const T* fx, const T* fy, size_t g,
+                       int j, int i, int Ny, int Nx, double dx, double dy,
+                       T& ru, T& rv) {
   const T inv_x = static_cast<T>(1.0 / (2.0 * dx));
   const T inv_y = static_cast<T>(1.0 / (2.0 * dy));
   const T ih_x = static_cast<T>(1.0 / dx), ih_y = static_cast<T>(1.0 / dy);
   const T i6_x = static_cast<T>(1.0 / (6.0 * dx));
   const T i6_y = static_cast<T>(1.0 / (6.0 * dy));
-  T div_x = grad(sxx, n, 1, i, Nx, inv_x) + grad(sxy, n, Nx, j, Ny, inv_y);
-  T div_y = grad(sxy, n, 1, i, Nx, inv_x) + grad(syy, n, Nx, j, Ny, inv_y);
-  T uc = wu[n], vc = wv[n];
-  T u_adv = (-uc) * upwind(wu, n, 1, i, Nx, uc, ih_x, i6_x)
-            - vc * upwind(wu, n, Nx, j, Ny, vc, ih_y, i6_y);
-  T v_adv = (-uc) * upwind(wv, n, 1, i, Nx, uc, ih_x, i6_x)
-            - vc * upwind(wv, n, Nx, j, Ny, vc, ih_y, i6_y);
-  T dp_dx = grad(p, n, 1, i, Nx, inv_x);
-  T dp_dy = grad(p, n, Nx, j, Ny, inv_y);
-  T inv_rho = T(1) / (rho[n] + static_cast<T>(1e-12));
+  T div_x = sxx.gx(i, Nx, inv_x) + sxy.gy(j, Ny, inv_y);
+  T div_y = sxy.gx(i, Nx, inv_x) + syy.gy(j, Ny, inv_y);
+  T uc = *wu, vc = *wv;
+  T u_adv = (-uc) * wu.ux(i, Nx, uc, ih_x, i6_x)
+            - vc * wu.uy(j, Ny, vc, ih_y, i6_y);
+  T v_adv = (-uc) * wv.ux(i, Nx, uc, ih_x, i6_x)
+            - vc * wv.uy(j, Ny, vc, ih_y, i6_y);
+  T dp_dx = p.gx(i, Nx, inv_x);
+  T dp_dy = p.gy(j, Ny, inv_y);
+  T inv_rho = T(1) / (rho + static_cast<T>(1e-12));
   if (fx) {
-    div_x = div_x + fx[n];
-    div_y = div_y + fy[n];
+    div_x = div_x + fx[g];
+    div_y = div_y + fy[g];
   }
   ru = u_adv + (div_x - dp_dx) * inv_rho;
   rv = v_adv + (div_y - dp_dy) * inv_rho;

@@ -31,7 +31,7 @@ class Grid:
     def shape(self):
         return (self.Ny, self.Nx)
 
-    def coords(self, dtype=torch.float32, device="cpu"):
+    def coords(self, dtype=torch.float32, device="cuda"):
         """Return (X, Y) meshes of shape (Ny, Nx), bit for bit the JAX
         package's."""
         x = _linspace(self.Lx, self.Nx, dtype, device)

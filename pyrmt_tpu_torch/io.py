@@ -16,7 +16,7 @@ from pyrmt_tpu_torch.sim import SimState
 STATE_FIELDS = ("u", "v", "p", "X1", "X2", "t", "step", "phis0")
 
 
-def state_from_numpy(d, device="cpu", dtype=torch.float32) -> SimState:
+def state_from_numpy(d, device="cuda", dtype=torch.float32) -> SimState:
     """SimState from a mapping of numpy arrays. Float fields take ``dtype``
     and ``step`` int32; a missing ``phis0`` becomes the empty stack."""
     kw = {}

@@ -3,8 +3,9 @@ CUDA kernel (counterpart of
 ``pyrmt_tpu.kernels.momentum_rk4.momentum_rk4_pallas``).
 
 The plain version is ``pyrmt_tpu_torch.physics.momentum_core``; this
-wrapper takes the same arguments. The kernel is ``csrc/momentum_rk4.cu``;
-its source note says what it replaces and what bounds it. External forces
+wrapper takes the same arguments. The kernel is ``csrc/momentum_rk4.cu``,
+one launch of shared-memory tiles with an 8-cell halo; its source note
+says what it replaces and what bounds it. External forces
 are not an operand: the slice has none, as the JAX kernel's
 ``has_ext=False`` elides them.
 """
@@ -26,7 +27,7 @@ def _cuda_lib():
     lib = _build.load("momentum_rk4")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_momentum_rk4_f32, lib.pyrmt_momentum_rk4_f64):
-        fn.argtypes = [P] * 13 + [I, I, D, D, D, D, I, D, P]
+        fn.argtypes = [P] * 12 + [I, I, D, D, D, D, I, D, P]
         fn.restype = I
     return lib
 
@@ -63,11 +64,9 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     lib = _cuda_lib()
     u_new = torch.empty_like(u)
     v_new = torch.empty_like(u)
-    scratch = torch.empty((9, Ny, Nx), dtype=u.dtype, device=u.device)
     fn = (lib.pyrmt_momentum_rk4_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rk4_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), u_new, v_new,
-                                            scratch)),
+    err = fn(*(_build.pointer(t) for t in (*fields.values(), u_new, v_new)),
              Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s), bc, lid,
              _build.stream_handle(u.device))
     _build.check(lib, err, "momentum_rk4 kernel launch")

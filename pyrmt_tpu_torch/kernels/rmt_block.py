@@ -112,8 +112,12 @@ def _cuda_lib():
     lib = _build.load("rmt_block")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
-        fn.argtypes = [P] * 18 + [I, I, D, D, I, D, D, D, D, P, P]
+        fn.argtypes = [P] * 19 + [I, I, D, D, I, D, D, D, D, P, I, P]
         fn.restype = I
+    for fn in (lib.pyrmt_rmt_block_workspace_f32,
+               lib.pyrmt_rmt_block_workspace_f64):
+        fn.argtypes = [I, I, I, I]
+        fn.restype = ctypes.c_longlong
     for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
         fn.argtypes = [P] * 9 + [I, I, I, D, D, I, P, P]
         fn.restype = I
@@ -141,19 +145,26 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                                         phi_inits, num_layers)
     lib = _cuda_lib()
     Ny, Nx = u.shape
-    sc = torch.cat([dt.reshape(1), params])
     stacks = [torch.empty((1, Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(7)]
     fields = [torch.empty((Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(5)]
-    scratch = torch.empty((6, Ny, Nx), dtype=u.dtype, device=u.device)
-    taps = window_taps(dx, dy)
-    fn = (lib.pyrmt_rmt_block_f32 if u.dtype == torch.float32
-          else lib.pyrmt_rmt_block_f64)
-    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, sc, *stacks,
-                                            *fields, scratch)),
+    f32 = u.dtype == torch.float32
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    # device memory for the panels only where they do not fit a block's
+    # shared memory (num_layers past ~10)
+    ws_bytes = (lib.pyrmt_rmt_block_workspace_f32 if f32 else
+                lib.pyrmt_rmt_block_workspace_f64)(Ny, Nx, int(num_layers),
+                                                   sms)
+    ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=u.device)
+          if ws_bytes else None)
+    fn = lib.pyrmt_rmt_block_f32 if f32 else lib.pyrmt_rmt_block_f64
+    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, dt, params,
+                                            *stacks, *fields)),
+             None if ws is None else _build.pointer(ws),
              Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
-             x0, y0, R, taps, _build.stream_handle(u.device))
+             x0, y0, R, window_taps(dx, dy), sms,
+             _build.stream_handle(u.device))
     _build.check(lib, err, "rmt_block kernel launch")
     launches += 1
     return (*stacks, *fields)

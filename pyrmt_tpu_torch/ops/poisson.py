@@ -20,7 +20,7 @@ from pyrmt_tpu_torch.ops.fd import grad_central_x_2nd as _grad_x_cc
 from pyrmt_tpu_torch.ops.fd import grad_central_y_2nd as _grad_y_cc
 
 
-def dct1_matrix(N, dtype=torch.float32, device="cpu"):
+def dct1_matrix(N, dtype=torch.float32, device="cuda"):
     """Dense unnormalised DCT-I matrix: C[k, n] = w_n cos(pi k n / (N-1)),
     w_0 = w_{N-1} = 1, else 2 (scipy ``dctn(type=1)`` convention)."""
     k = np.arange(N)[:, None]
@@ -31,13 +31,13 @@ def dct1_matrix(N, dtype=torch.float32, device="cpu"):
     return torch.as_tensor(C, dtype=dtype, device=device)
 
 
-def precompute_dct_matrices(Nx, Ny, dtype=torch.float32, device="cpu"):
+def precompute_dct_matrices(Nx, Ny, dtype=torch.float32, device="cuda"):
     """(C_x, C_y) for ``solve_poisson_dct``."""
     return dct1_matrix(Nx, dtype, device), dct1_matrix(Ny, dtype, device)
 
 
 def precompute_poisson_eigenvalues(Nx, Ny, dx, dy, dtype=torch.float64,
-                                   device="cpu"):
+                                   device="cuda"):
     """Eigenvalues of the ghost-mirror Neumann Laplacian under DCT-I,
     lambda = -2(1 - cos(pi k/(N-1)))/h^2; the (0, 0) mode is pinned to 1
     (the mean is removed separately)."""

@@ -340,7 +340,7 @@ def make_step(
     velocity_bc: Callable,
     phi_inits: Sequence[Callable] = (),
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     rmt_block_impl: Callable | None = None,
     momentum_rk4_impl: Callable | None = None,
     advext_impl: Callable | None = None,
@@ -511,7 +511,7 @@ def make_step(
 
 
 def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),
-                    u0=None, v0=None, dtype=torch.float32, device="cpu"):
+                    u0=None, v0=None, dtype=torch.float32, device="cuda"):
     """Initial state: reference maps seeded with the identity inside each
     solid and extrapolated ``num_layers`` cells into the fluid; with map
     rebasing, ``phis0`` holds each phi_init(X, Y) as it is, so the rebuild
@@ -601,7 +601,7 @@ class RebaseRunner:
     """
 
     def __init__(self, cfg, velocity_bc, phi_inits, n_steps,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.phi_inits = tuple(phi_inits)
         S = len(self.phi_inits)
         if not _rebasing(cfg, S):
@@ -668,6 +668,6 @@ class RebaseRunner:
 
 
 def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
-                       dtype=torch.float32, device="cpu") -> RebaseRunner:
+                       dtype=torch.float32, device="cuda") -> RebaseRunner:
     """The chunked rebasing runner (see ``RebaseRunner``)."""
     return RebaseRunner(cfg, velocity_bc, phi_inits, n_steps, dtype, device)

@@ -22,7 +22,11 @@ from pyrmt_tpu_torch.physics import momentum_core, velocity_rhs_blended
 pytestmark = pytest.mark.cuda
 
 N = 64
-SHAPES = [(64, 64), (48, 80), (65, 65)]  # (Ny, Nx): square, wide, odd
+# (Ny, Nx): square, wide, odd; ragged against the tile kernels' tiles on
+# both axes, one tile row, a whole grid smaller than a tile, and a last
+# tile one cell deep on both axes
+SHAPES = [(64, 64), (48, 80), (65, 65), (203, 301), (9, 300), (5, 5),
+          (33, 49)]
 DISC = pt.Disc(0.6, 0.5, 0.2)
 EDGE_DISC = pt.Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
 # float64 kernel vs plain version: the same IEEE operations in the same
@@ -37,16 +41,17 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def block_inputs(dev, shape=(N, N), dtype=torch.float64):
+def block_inputs(dev, shape=(N, N), dtype=torch.float64, disc=DISC,
+                 num_layers=3):
     Ny, Nx = shape
     cfg = pt.RMTConfig(grid=pt.Grid(Nx, Ny, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
-                       mu_f=0.01, rho_s=1.3)
-    s = pt.make_init_state(cfg, (DISC,), dtype=dtype, device=dev)
+                       mu_f=0.01, rho_s=1.3, num_layers=num_layers)
+    s = pt.make_init_state(cfg, (disc,), dtype=dtype, device=dev)
     X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
     t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
     u = t(0.3 * np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y))
     v = t(-0.3 * np.cos(2 * np.pi * X) * np.sin(2 * np.pi * Y))
-    kw = dict(phi_inits=(DISC,), dx=cfg.grid.dx, dy=cfg.grid.dy,
+    kw = dict(phi_inits=(disc,), dx=cfg.grid.dx, dy=cfg.grid.dy,
               num_layers=cfg.num_layers, w_t=cfg.w_t,
               params=t([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f]))
     return cfg, (u, v, s.X1, s.X2, t(0.4 * cfg.grid.dx / 0.3)), kw
@@ -70,22 +75,129 @@ def test_rmt_block_kernel_matches_plain(dev, shape):
 @pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
                                 pt.noop_bc])
 def test_momentum_kernel_matches_plain(dev, bc, eta_s, shape):
-    cfg, args, kw = block_inputs(dev, shape)
-    blk = rb.rmt_block_plain(*args, **kw)
-    Hf, rho, sbxx, sbxy, sbyy = blk[7:]
-    mkv = (blk[2][0] <= 0.0).to(Hf.dtype) * (1.0 - Hf)
-    Ny, Nx = shape
-    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
-    p = torch.tensor(0.05 * np.cos(np.pi * X) * np.cos(np.pi * Y),
-                     dtype=torch.float64, device=dev)
-    fields = (args[0], args[1], p, sbxx, sbxy, sbyy, Hf, rho, mkv)
-    mkw = dict(eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=args[4] / 20,
+    cfg, fields, dt = momentum_inputs(dev, shape)
+    mkw = dict(eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
                mu_f=cfg.mu_f)
     out = mk.momentum_rk4_fused(*fields, bc, **mkw)
     ref = momentum_core(*fields, bc, **mkw)
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
         assert float((o - r).abs().max()) <= ATOL
+
+
+def momentum_inputs(dev, shape, dtype=torch.float64):
+    """The RK4 kernel's nine fields from the plain block's outputs, and a
+    smooth pressure."""
+    cfg, args, kw = block_inputs(dev, shape, dtype)
+    blk = rb.rmt_block_plain(*args, **kw)
+    Hf, rho, sbxx, sbxy, sbyy = blk[7:]
+    mkv = (blk[2][0] <= 0.0).to(Hf.dtype) * (1.0 - Hf)
+    Ny, Nx = shape
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    p = torch.tensor(0.05 * np.cos(np.pi * X) * np.cos(np.pi * Y),
+                     dtype=dtype, device=dev)
+    fields = (args[0], args[1], p, sbxx, sbxy, sbyy, Hf, rho, mkv)
+    return cfg, fields, args[4] / 20
+
+
+def assert_close_f32(out, ref, rel):
+    """float32: max-abs <= rel * max(1, max |plain|) (chip_smoke.py's
+    bounds)."""
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        scale = max(1.0, float(r.abs().max()))
+        assert float((o - r).abs().max()) <= rel * scale
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+def test_tile_kernels_match_plain_in_float32(dev, disc, shape):
+    """The two tile kernels in float32: rmt_block to 1e-4 and momentum_rk4
+    to 1e-5 of max(1, |plain|); they round alike, so the expected
+    difference is 0."""
+    _, args, kw = block_inputs(dev, shape, torch.float32, disc)
+    assert_close_f32(rb.rmt_block_fused(*args, **kw),
+                     rb.rmt_block_plain(*args, **kw), 1e-4)
+    cfg, fields, dt = momentum_inputs(dev, shape, torch.float32)
+    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+               mu_f=cfg.mu_f)
+    bc = pt.free_slip_box_bc
+    assert_close_f32(mk.momentum_rk4_fused(*fields, bc, **mkw),
+                     momentum_core(*fields, bc, **mkw), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layers", [1, 5, 7, 9, 12])
+def test_rmt_block_kernel_takes_any_num_layers(dev, layers, dtype):
+    """As the layers grow the panel outgrows a block's shared memory: the
+    tile shrinks from 32 to 16 and 8 cells (float32: 7 and 9 layers;
+    float64: 5) and then the panels move to a device-memory workspace
+    (float32 from 10 layers, float64 from 7)."""
+    _, args, kw = block_inputs(dev, (65, 97), dtype, num_layers=layers)
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("what", ["u_nan", "v_inf", "u_huge", "X1_nan",
+                                  "X2_inf", "dt_nan"])
+def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
+    """A tile far from the solid takes the skip only where the full
+    pipeline gives the zero map: a non-finite (or overflowing) velocity or
+    map, or a non-finite dt, sends it down the full path, so the kernel
+    gives the plain version's NaNs where that one does."""
+    _, args, kw = block_inputs(dev)
+    args = [a.clone() for a in args]
+    u, v, X1, X2, dt = args
+    at = (3, 5)  # far from the disc at (0.6, 0.5)
+    if what == "u_nan":
+        u[at] = float("nan")
+    elif what == "v_inf":
+        v[at] = float("inf")
+    elif what == "u_huge":
+        u[at] = 1e308  # finite; its backtrace may overflow
+    elif what == "X1_nan":
+        X1[(0, *at)] = float("nan")
+    elif what == "X2_inf":
+        X2[(0, *at)] = float("inf")
+    else:
+        args[4] = torch.full_like(dt, float("nan"))
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert what == "u_huge" or not bool(
+        torch.isfinite(ref[0]).all() and torch.isfinite(ref[1]).all())
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=ATOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["rmt_block", "momentum_rk4"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_kernel_call_runs_one_device_kernel(dev, kernel, dtype):
+    """One wrapper call of each tile kernel runs exactly one CUDA kernel
+    on the card (torch.profiler), no copy and no other kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, args, kw = block_inputs(dev, (203, 301), dtype)
+    cfg, fields, dt = momentum_inputs(dev, (203, 301), dtype)
+    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+               mu_f=cfg.mu_f)
+    call = {"rmt_block": lambda: rb.rmt_block_fused(*args, **kw),
+            "momentum_rk4": lambda: mk.momentum_rk4_fused(
+                *fields, pt.make_lid_bc(1.0), **mkw)}[kernel]
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(device) == 1, device
 
 
 def test_kernel_path_step_matches_plain_path(dev):

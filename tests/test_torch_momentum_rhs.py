@@ -27,6 +27,7 @@ from test_pallas import _fields
 from test_torch_projection_stencils import assert_steps_match, step_trajectories
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 ATOL = 1e-12
 MU_F = 0.01
@@ -125,7 +126,8 @@ def test_step_selects_the_stage_rhs(method, use_rhs, calls):
                        use_pallas_rhs=use_rhs)
     disc = pt.Disc(0.6, 0.5, 0.2)
     step = pt.make_step(cfg, pt.make_lid_bc(1.0), (disc,),
-                        dtype=torch.float64, momentum_rhs_impl=rhs)
-    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64)
+                        dtype=torch.float64, device=DEV,
+                        momentum_rhs_impl=rhs)
+    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64, device=DEV)
     s, _ = step(s, 1.0)
     assert seen == [(16, 16)] * calls and not bool(pt.diverged(s))

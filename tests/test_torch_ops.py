@@ -30,6 +30,7 @@ import pyrmt_tpu_torch.ops.stress as t_stress
 from pyrmt_tpu_torch.ops.levelset import Disc, rebuild_phi_from_reference_map
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 ATOL = 1e-13
 
@@ -68,7 +69,7 @@ def test_grid_coords_bit_for_bit(shape, dtype):
     off in a quarter of the points, which flipped the 'cond' rebuild's
     has-this-solid-rebased test on a state made by JAX)."""
     jx = j_grid.Grid(*shape).coords(dtype=getattr(jnp, dtype))
-    tx = t_grid.Grid(*shape).coords(dtype=getattr(torch, dtype))
+    tx = t_grid.Grid(*shape).coords(dtype=getattr(torch, dtype), device=DEV)
     for a, b in zip(tx, jx):
         assert np.array_equal(a.numpy(), np.asarray(b))
 

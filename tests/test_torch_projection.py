@@ -16,6 +16,7 @@ from pyrmt_tpu.ops.projection import pressure_projection as j_projection
 from pyrmt_tpu_torch.ops.projection import pressure_projection
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 ATOL = 1e-12
 
@@ -48,17 +49,17 @@ def test_solve_poisson_dct_matches_jax_fft(Ny, Nx):
     a, _, _, _, dx, dy = fields(Ny, Nx)
     rhs = a - a.mean()
     eig = jp.precompute_poisson_eigenvalues(Nx, Ny, dx, dy)
-    t_eig = tp.precompute_poisson_eigenvalues(Nx, Ny, dx, dy)
+    t_eig = tp.precompute_poisson_eigenvalues(Nx, Ny, dx, dy, device=DEV)
     close(t_eig, eig, 0)
     ref = jp.solve_poisson_dct(jnp.asarray(rhs), eig)
     out = tp.solve_poisson_dct(tt(rhs), t_eig,
                                tp.precompute_dct_matrices(Nx, Ny,
-                                                          torch.float64))
+                                                          torch.float64, DEV))
     close(out, ref)
 
 
 def test_dct1_matrix_matches_jax():
-    close(tp.dct1_matrix(33, torch.float64),
+    close(tp.dct1_matrix(33, torch.float64, DEV),
           jp.dct1_matrix(33, dtype=jnp.float64), 0)
 
 
@@ -88,7 +89,7 @@ def test_pressure_projection_matches_jax(bc_name):
                        eigenvalues=eig)
     out = pressure_projection(
         tt(a), tt(b), dx, dy, tt(dt), tt(rho), t_bc, tt(p),
-        tp.precompute_poisson_eigenvalues(N, N, dx, dy),
-        tp.precompute_dct_matrices(N, N, torch.float64))
+        tp.precompute_poisson_eigenvalues(N, N, dx, dy, device=DEV),
+        tp.precompute_dct_matrices(N, N, torch.float64, DEV))
     for t, j in zip(out, ref):
         close(t, j)

@@ -32,6 +32,7 @@ from pyrmt_tpu_torch.io import STATE_FIELDS, state_from_numpy, state_to_numpy
 from test_torch_step import port_config
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 ATOL = 1e-13
 STEP_ATOL = {"u": 1e-12, "v": 1e-12, "X1": 1e-12, "X2": 1e-12, "p": 1e-11,
@@ -156,10 +157,11 @@ def step_trajectories(j_overrides, t_overrides, N=32, steps=3, **impls):
         js = jsim.make_init_state(jcfg, jphis, u0=u0, v0=v0,
                                   dtype=jnp.float64)
         ts = state_from_numpy({k: np.asarray(getattr(js, k))
-                               for k in STATE_FIELDS}, dtype=torch.float64)
+                               for k in STATE_FIELDS}, device=DEV,
+                              dtype=torch.float64)
         tstep = pt.make_step(tcfg, pt.make_lid_bc(1.0),
                              (pt.Disc(0.6, 0.5, 0.2),), dtype=torch.float64,
-                             **impls)
+                             device=DEV, **impls)
         traj = []
         for _ in range(steps):
             js, _ = jstep(js, jnp.asarray(1.0, jnp.float64))
@@ -203,9 +205,9 @@ def test_step_selects_the_stencil_pair(method):
                        projection_method=method)
     disc = pt.Disc(0.6, 0.5, 0.2)
     step = pt.make_step(cfg, pt.make_lid_bc(1.0), (disc,),
-                        dtype=torch.float64,
+                        dtype=torch.float64, device=DEV,
                         projection_stencils_impl=(rc, gc))
-    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64)
+    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64, device=DEV)
     for _ in range(2):
         s, _ = step(s, 1.0)
     assert calls == (["rc_rhs", "grad_correct"] * 2 if method == "pallas"

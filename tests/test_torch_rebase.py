@@ -37,6 +37,7 @@ from test_torch_split_step import (
 from test_torch_step import port_config
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 
 @pytest.mark.parametrize("mode", ["cond", "analytic", "sampled"])
@@ -54,12 +55,12 @@ def test_init_state_seeds_phis0():
     jcfg = jax_config(map_rebase_minj=0.5)
     with jax.disable_jit():
         js = jax_numpy(jax_init(jcfg))
-    X, Y = port_config(jcfg).grid.coords(dtype=torch.float64)
+    X, Y = port_config(jcfg).grid.coords(dtype=torch.float64, device=DEV)
     ts = state_to_numpy(pt.make_init_state(
         port_config(jcfg), (pt.Disc(*DISC),),
         u0=0.4 * torch.sin(torch.pi * X) * torch.cos(torch.pi * Y),
         v0=-0.4 * torch.cos(torch.pi * X) * torch.sin(torch.pi * Y),
-        dtype=torch.float64))
+        dtype=torch.float64, device=DEV))
     assert ts["phis0"].shape == (1, 64, 64)
     for k in STATE_FIELDS:
         np.testing.assert_allclose(ts[k], js[k], rtol=0, atol=1e-13,
@@ -77,10 +78,11 @@ def test_runner_matches_jax():
         js = jax_init(jcfg)
         trun = pt.make_rebase_runner(port_config(jcfg), pt.make_lid_bc(1.0),
                                      (pt.Disc(*DISC),), 2,
-                                     dtype=torch.float64)
-        ts = state_from_numpy(jax_numpy(js), dtype=torch.float64)
+                                     dtype=torch.float64, device=DEV)
+        ts = state_from_numpy(jax_numpy(js), device=DEV, dtype=torch.float64)
         ts = pt.make_init_state(port_config(jcfg), (pt.Disc(*DISC),),
-                                u0=ts.u, v0=ts.v, dtype=torch.float64)
+                                u0=ts.u, v0=ts.v, dtype=torch.float64,
+                                device=DEV)
         phis0_start = ts.phis0.clone()
         for chunk in range(2):
             js, jt = jrun(js, jnp.asarray(1.0, jnp.float64))
@@ -95,7 +97,7 @@ def test_runner_matches_jax():
                 assert not torch.equal(ts.phis0, phis0_start)
     with pytest.raises(ValueError, match="map_rebase_minj"):
         pt.make_rebase_runner(port_config(jax_config()), pt.make_lid_bc(1.0),
-                              (pt.Disc(*DISC),), 2)
+                              (pt.Disc(*DISC),), 2, device=DEV)
 
 
 def test_runner_rebase_resets_the_map():
@@ -104,13 +106,13 @@ def test_runner_rebase_resets_the_map():
     cfg = port_config(jax_config(mu_s=0.02, map_rebase_minj=0.5))
     disc = pt.Disc(*DISC)
     run = pt.make_rebase_runner(cfg, pt.make_lid_bc(1.0), (disc,), 3,
-                                dtype=torch.float64)
-    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64)
+                                dtype=torch.float64, device=DEV)
+    s = pt.make_init_state(cfg, (disc,), dtype=torch.float64, device=DEV)
     s, _ = run(s, 1.0)
     assert not run.post  # J ~ 1 > 0.5: no trigger
     s = run.rebase(s, [True])
     assert run.post
-    X, Y = cfg.grid.coords(dtype=torch.float64)
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=DEV)
     inner = s.phis0[0] < -2 * cfg.grid.dx
     assert torch.equal(s.X1[0][inner], X[inner])
     assert float((run.min_J(s) - 1.0).abs().max()) < 1e-12

@@ -25,6 +25,7 @@ from pyrmt_tpu_torch.io import STATE_FIELDS, state_from_numpy, state_to_numpy
 from test_torch_step import port_config
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 N = 64
 STEPS = 3
@@ -71,13 +72,14 @@ def trajectories(jcfg, steps=STEPS, port_init=False):
         jstep = jsim.make_step(jcfg, j_lid_bc(1.0), (j_phi,),
                                dtype=jnp.float64)
         js = jax_init(jcfg)
-        ts = state_from_numpy(jax_numpy(js), dtype=torch.float64)
+        ts = state_from_numpy(jax_numpy(js), device=DEV, dtype=torch.float64)
         tcfg = port_config(jcfg)
         if port_init:
             ts = pt.make_init_state(tcfg, (pt.Disc(*DISC),), u0=ts.u,
-                                    v0=ts.v, dtype=torch.float64)
+                                    v0=ts.v, dtype=torch.float64, device=DEV)
         tstep = pt.make_step(tcfg, pt.make_lid_bc(1.0),
-                             (pt.Disc(*DISC),), dtype=torch.float64)
+                             (pt.Disc(*DISC),), dtype=torch.float64,
+                             device=DEV)
         j_traj, t_traj = [], []
         for _ in range(steps):
             js, jaux = jstep(js, jnp.asarray(1.0, jnp.float64))
@@ -124,9 +126,9 @@ def test_area_fix_holds_the_area():
     cfg = port_config(jax_config(phi_area_fix=True))
     g = cfg.grid
     disc = pt.Disc(*DISC)
-    X, Y = g.coords(dtype=torch.float64)
+    X, Y = g.coords(dtype=torch.float64, device=DEV)
     target = float(smoothed_solid_area(disc(X, Y), g.dx, g.dy, cfg.w_t))
-    kw = dict(dtype=torch.float64)
+    kw = dict(dtype=torch.float64, device=DEV)
     misses = []
     for c in (cfg, dataclasses.replace(cfg, phi_area_fix=False,
                                        reinit_method="pde")):
@@ -150,8 +152,8 @@ def test_split_tier_takes_any_level_set():
     cfg = pt.RMTConfig(grid=pt.Grid(32, 32, 1.0, 1.0), mu_s=0.1, mu_f=0.01,
                        reinit_method="pde")
     step = pt.make_step(cfg, pt.make_lid_bc(1.0), (ellipse,),
-                        dtype=torch.float64)
-    s = pt.make_init_state(cfg, (ellipse,), dtype=torch.float64)
+                        dtype=torch.float64, device=DEV)
+    s = pt.make_init_state(cfg, (ellipse,), dtype=torch.float64, device=DEV)
     for _ in range(2):
         s, aux = step(s, 1.0)
     assert not bool(pt.diverged(s)) and int(s.step) == 2

@@ -21,6 +21,7 @@ from __graft_entry__ import _flagship
 from pyrmt_tpu_torch.io import STATE_FIELDS, state_from_numpy, state_to_numpy
 
 torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
 
 N = 64
 DISC = pt.Disc(0.6, 0.5, 0.2)
@@ -50,8 +51,8 @@ def runs():
     js = jsim.make_init_state(jcfg, jphis, dtype=jnp.float64)
     tcfg = port_config(jcfg)
     tstep = pt.make_step(tcfg, pt.make_lid_bc(1.0), (DISC,),
-                         dtype=torch.float64)
-    ts = state_from_numpy(jax_numpy(js), dtype=torch.float64)
+                         dtype=torch.float64, device=DEV)
+    ts = state_from_numpy(jax_numpy(js), device=DEV, dtype=torch.float64)
     j_traj, t_traj = [], []
     t_end = 1.0
     for n in range(5):
@@ -98,7 +99,7 @@ def test_init_state_matches_jax(runs):
     js = jsim.make_init_state(jcfg, _flagship(N, jnp.float64)[2],
                               dtype=jnp.float64)
     ts = state_to_numpy(pt.make_init_state(tcfg, (DISC,),
-                                           dtype=torch.float64))
+                                           dtype=torch.float64, device=DEV))
     for k in STATE_FIELDS:
         np.testing.assert_allclose(ts[k], np.asarray(getattr(js, k)),
                                    rtol=0, atol=1e-13, err_msg=k)
@@ -108,8 +109,8 @@ def test_run_chunk_and_run_until():
     cfg = pt.RMTConfig(grid=pt.Grid(32, 32, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
                        mu_f=0.01)
     step = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,),
-                        dtype=torch.float64)
-    s0 = pt.make_init_state(cfg, (DISC,), dtype=torch.float64)
+                        dtype=torch.float64, device=DEV)
+    s0 = pt.make_init_state(cfg, (DISC,), dtype=torch.float64, device=DEV)
     s = s0
     for _ in range(3):
         s, _ = step(s, 1.0)
@@ -127,8 +128,9 @@ def test_fixed_dt():
     cfg = pt.RMTConfig(grid=pt.Grid(32, 32, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
                        mu_f=0.01, fixed_dt=1e-4)
     step = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,),
-                        dtype=torch.float64)
-    s, aux = step(pt.make_init_state(cfg, (DISC,), dtype=torch.float64), 1.0)
+                        dtype=torch.float64, device=DEV)
+    s, aux = step(pt.make_init_state(cfg, (DISC,), dtype=torch.float64,
+                                     device=DEV), 1.0)
     assert float(aux["dt"]) == 1e-4 and float(s.t) == 1e-4
 
 
@@ -150,7 +152,7 @@ def test_configs_outside_the_slice_raise(override):
     cfg = pt.RMTConfig(grid=pt.Grid(16, 16, 1.0, 1.0), **override)
     err = ValueError if "dct_precision" in override else NotImplementedError
     with pytest.raises(err):
-        pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,))
+        pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), device=DEV)
 
 
 def test_bad_configs_raise():
@@ -161,9 +163,10 @@ def test_bad_configs_raise():
                 dict(map_rebase_minj=0.5, map_rebase_rebuild="bogus")):
         with pytest.raises(ValueError):
             pt.make_step(pt.RMTConfig(grid=g, **bad), pt.make_lid_bc(1.0),
-                         (DISC,))
+                         (DISC,), device=DEV)
     with pytest.raises(ValueError):  # 1 layer cannot cover the blend band
         pt.make_step(pt.RMTConfig(grid=g, num_layers=1), pt.make_lid_bc(1.0),
-                     (DISC,))
+                     (DISC,), device=DEV)
     with pytest.raises(NotImplementedError):  # two solids
-        pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (DISC, DISC))
+        pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (DISC, DISC),
+                     device=DEV)

@@ -1,0 +1,210 @@
+"""The halos that the tile kernels rely on, held to the plain versions on
+the CPU (float64, seeded numpy inputs).
+
+The CUDA kernels of ``rmt_block_fused`` and ``momentum_rk4_fused`` compute
+each output tile from a panel of the tile plus a halo; a result there is
+right only if no input outside the halo can reach it. So each plain
+function's dependency radius is the halo its kernel relies on:
+
+- ``rmt_block_plain``: 4L + 4 cells (L = num_layers): the stress reads the
+  map at +-1, each extrapolation sweep a 9x9 window, the advection +-1 of
+  a sub-cell backtrace;
+- ``physics.momentum_core``: 8 cells (four stages, +-2 each) off the
+  domain's edge, and 9 inward from a cell on it (the one-sided closures
+  reach 3 cells in, where the interior stencils reach 2); the kernel
+  widens a tile cut short by the domain's end for that reason;
+- the tile-activity skip: where no disc(X1, X2) <= 0 lies within 4L + 4
+  cells, the block's outputs are those of the zero map, which is what
+  ``rmt_block_plain`` gives for X1 = X2 = 0, for any disc.
+
+Also: the entry points run on the card unless told otherwise, so without
+CUDA their default device raises (with CUDA it is the card).
+"""
+import numpy as np
+import pytest
+import torch
+
+import pyrmt_tpu_torch as pt
+from pyrmt_tpu_torch.kernels.rmt_block import rmt_block_plain
+from pyrmt_tpu_torch.physics import momentum_core
+
+torch.set_num_threads(1)
+DEV = "cpu"  # the entry points default to the card
+
+N = 64
+FLAGSHIP = pt.Disc(0.6, 0.5, 0.2)
+EDGE = pt.Disc(0.08, 0.9, 0.15)      # clipped by the domain's corner
+ORIGIN = pt.Disc(0.1, 0.15, 0.3)     # holds the map's origin (0, 0)
+
+
+def t(a):
+    return torch.tensor(a, dtype=torch.float64)
+
+
+def outside(probe, h, shape=(N, N)):
+    """1.0 outside the (2h+1)^2 window around probe, 0.0 inside."""
+    j, i = probe
+    m = np.ones(shape)
+    m[max(0, j - h):j + h + 1, max(0, i - h):i + h + 1] = 0.0
+    return m
+
+
+def velocity(rng, shape=(N, N), amp=0.5):
+    """A few random Fourier modes, max |u|, |v| = amp."""
+    Ny, Nx = shape
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    u, v = np.zeros(shape), np.zeros(shape)
+    for _ in range(4):
+        kx, ky = rng.integers(1, 4, size=2)
+        a, b, c = rng.standard_normal(3)
+        u += a * np.sin(np.pi * kx * X + c) * np.cos(np.pi * ky * Y)
+        v += b * np.cos(np.pi * kx * X) * np.sin(np.pi * ky * Y + c)
+    s = amp / max(np.abs(u).max(), np.abs(v).max())
+    return u * s, v * s
+
+
+def block_case(disc, num_layers, seed=0, identity_map=False):
+    """rmt_block_plain's operands: the disc's initial map (or the identity
+    map everywhere) plus a sub-cell wobble, a velocity that moves 0.4
+    cells per step."""
+    rng = np.random.default_rng(seed)
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, kappa=0.5,
+                       rho_s=1.3, mu_f=0.01, num_layers=num_layers)
+    g = cfg.grid
+    if identity_map:
+        X, Y = g.coords(dtype=torch.float64, device=DEV)
+        X1, X2 = X[None], Y[None]
+    else:
+        s = pt.make_init_state(cfg, (disc,), dtype=torch.float64, device=DEV)
+        X1, X2 = s.X1, s.X2
+    wob = 0.3 * g.dx * rng.standard_normal((2, N, N))
+    u, v = velocity(rng)
+    args = [t(u), t(v), X1 + t(wob[0]), X2 + t(wob[1]),
+            t(0.4 * g.dx / 0.5)]
+    kw = dict(phi_inits=(disc,), dx=g.dx, dy=g.dy, num_layers=num_layers,
+              w_t=cfg.w_t, params=t([cfg.mu_s, cfg.kappa, cfg.rho_s,
+                                     cfg.rho_f]))
+    return args, kw
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("disc, probe", [
+    (FLAGSHIP, (32, 51)),   # on the interface, x = 0.8
+    (EDGE, (63, 12)),       # the interface where it meets the top edge
+    (EDGE, (63, 0)),        # the solid's corner cell
+], ids=["interface", "edge", "corner"])
+def test_rmt_block_reaches_4L_plus_4(disc, probe, num_layers):
+    """Perturbing u, v, X1, X2 only outside the (2h+1)^2 window, h = 4L+4,
+    leaves all 12 outputs at the probe bit for bit."""
+    args, kw = block_case(disc, num_layers)
+    h = 4 * num_layers + 4
+    rng = np.random.default_rng(7)
+    far = t(outside(probe, h))
+    pert = list(args)
+    pert[0] = args[0] + far * t(0.5 * rng.standard_normal((N, N)))
+    pert[1] = args[1] + far * t(0.5 * rng.standard_normal((N, N)))
+    dX = 3.0 * kw["dx"] * rng.standard_normal((2, N, N))
+    pert[2] = args[2] + far * t(dX[0])
+    pert[3] = args[3] + far * t(dX[1])
+    ref = rmt_block_plain(*args, **kw)
+    out = rmt_block_plain(*pert, **kw)
+    j, i = probe
+    assert float(ref[0][0, j, i]) != 0.0  # the probe is in the map's band
+    for o, r in zip(out, ref):
+        assert torch.equal(o[..., j, i], r[..., j, i])
+    # the perturbation reached everything outside the window
+    assert not torch.equal(out[0], ref[0])
+
+
+def momentum_case(seed=0, shape=(40, 40)):
+    """momentum_core's nine fields: a velocity, a pressure, the blended
+    fields of a disc at (0.6, 0.5) and seeded noise."""
+    rng = np.random.default_rng(seed)
+    Ny, Nx = shape
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    dx = 1.0 / (Nx - 1)
+    u, v = velocity(rng, shape, amp=0.3)
+    p = 0.05 * np.cos(np.pi * X) * np.cos(np.pi * Y)
+    phi = np.sqrt((X - 0.6) ** 2 + (Y - 0.5) ** 2) - 0.2
+    H = 0.5 * (1 + np.tanh(phi / (2 * dx)))
+    sxx = (1.0 - H) * (1.0 + 0.1 * rng.standard_normal(shape))
+    sxy = (1.0 - H) * 0.05 * rng.standard_normal(shape)
+    syy = (1.0 - H) * (1.0 - 0.1 * X * Y)
+    rho = H + (1.0 - H) * 1.2
+    mkv = (phi <= 0).astype(np.float64) * (1.0 - H)
+    return dx, [t(f) for f in (u, v, p, sxx, sxy, syy, H, rho, mkv)]
+
+
+@pytest.mark.parametrize("probe", [(20, 21), (1, 17), (0, 23), (39, 0)],
+                         ids=["interior", "next_to_edge", "on_edge",
+                              "corner"])
+@pytest.mark.parametrize("eta_s", [0.0, 0.01])
+@pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
+                                pt.noop_bc], ids=["lid", "free_slip", "noop"])
+def test_momentum_reaches_8(bc, eta_s, probe):
+    """Perturbing the nine fields only outside the (2h+1)^2 window leaves
+    u_new, v_new at the probe bit for bit: h = 8 off the domain's edge,
+    9 on it (its one-sided closures reach a cell further in)."""
+    dx, fields = momentum_case()
+    Ny, Nx = fields[0].shape
+    j, i = probe
+    h = 9 if j in (0, Ny - 1) or i in (0, Nx - 1) else 8
+    rng = np.random.default_rng(3)
+    far = t(outside(probe, h, (Ny, Nx)))
+    pert = [f + far * t(0.1 * rng.standard_normal((Ny, Nx))) for f in fields]
+    kw = dict(eta_s=eta_s, dx=dx, dy=dx, dt=t(2e-3), mu_f=0.01)
+    ref = momentum_core(*fields, bc, **kw)
+    out = momentum_core(*pert, bc, **kw)
+    for o, r in zip(out, ref):
+        assert torch.equal(o[j, i], r[j, i])
+        assert not torch.equal(o, r)
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("disc, identity_map", [(FLAGSHIP, False),
+                                                (ORIGIN, True)],
+                         ids=["flagship", "origin_disc"])
+def test_skip_is_the_zero_map(disc, identity_map, num_layers):
+    """Where no disc(X1, X2) <= 0 lies within 4L + 4 cells, all 12 outputs
+    equal rmt_block_plain's on the zero map X1 = X2 = 0. For a disc that
+    holds the origin the zero map is solid (phi = disc(0, 0) <= 0), so
+    the skip is not a constant fluid state."""
+    args, kw = block_case(disc, num_layers, identity_map=identity_map)
+    h = 4 * num_layers + 4
+    solid = (disc(args[2][0], args[3][0]) <= 0.0).to(torch.float64)
+    near = torch.nn.functional.max_pool2d(solid[None, None], 2 * h + 1,
+                                          stride=1, padding=h)[0, 0] > 0
+    quiet = ~near
+    assert 0 < int(quiet.sum()) < N * N - int(solid.sum())
+    zero = torch.zeros_like(args[2])
+    out = rmt_block_plain(*args, **kw)
+    ref = rmt_block_plain(args[0], args[1], zero, zero, args[4], **kw)
+    assert (float(ref[2].max()) <= 0.0) == (disc is ORIGIN)
+    for o, r in zip(out, ref):
+        assert torch.equal(o[..., quiet], r[..., quiet])
+
+
+@pytest.mark.parametrize("entry", ["make_step", "make_init_state",
+                                   "make_rebase_runner", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without device=, an entry point puts its tensors on the card; on a
+    machine without CUDA that raises (never a quiet CPU run)."""
+    cfg = pt.RMTConfig(grid=pt.Grid(16, 16, 1.0, 1.0), mu_s=0.1,
+                       map_rebase_minj=0.5)
+    disc = pt.Disc(0.5, 0.5, 0.25)
+    calls = {
+        "make_step": lambda: pt.make_step(cfg, pt.make_lid_bc(1.0), (disc,)),
+        "make_init_state": lambda: pt.make_init_state(cfg, (disc,)).u,
+        "make_rebase_runner": lambda: pt.make_rebase_runner(
+            cfg, pt.make_lid_bc(1.0), (disc,), 2).X,
+        "state_from_numpy": lambda: pt.state_from_numpy(
+            pt.state_to_numpy(pt.make_init_state(cfg, (disc,),
+                                                 device=DEV))).u,
+    }
+    if torch.cuda.is_available():
+        out = calls[entry]()
+        if isinstance(out, torch.Tensor):
+            assert out.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        calls[entry]()
