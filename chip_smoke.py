@@ -14,13 +14,14 @@ another sm_90a card) and the CUDA toolkit. Phases:
      at N=256 and at the flagship's N=1024 (bounds below), the disc
      touching the domain's edge at N=256 (the solid-block kernels),
      grad_correct under the lid, free-slip and no-op BCs, velocity_rhs with
-     a random external force; the two tile kernels (rmt_block,
-     momentum_rk4) also on ragged grids (203x301, 9x300, 33x49) in both
-     types and at N=4096 float32; then the times of kernel and plain
-     version at N=1024 (CUDA events), and in one torch.profiler session
-     each kernel's device time and device kernels per call at N=1024 and
-     N=4096 beside its bound (rmt_block also with every tile skipping),
-     and the kernels and device-busy ms per step of phases 4, 4b and 5's
+     a random external force; the four tile kernels (rmt_block,
+     momentum_rk4, advext_block, velocity_rhs) also on ragged grids
+     (203x301, 9x300, 33x49) in both types and at N=4096 float32; then the
+     times of kernel and plain version at N=1024 (CUDA events), and in one
+     torch.profiler session each kernel's device time and device kernels
+     per call at N=1024 and N=4096 beside its bound (rmt_block and
+     advext_block also with every tile skipping), and the kernels
+     and device-busy ms per step of phases 4, 4b, 4c and 5's
      configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
@@ -46,10 +47,11 @@ as nvidia-smi gives them, and last one JSON line
 exits nonzero; so does a machine without CUDA.
 
 With --profile-kernels it runs phases 1 and 2 and the device profile of
-the two tile kernels only, at N=1024 and N=4096 float32, for the
-pyrmt_tpu_torch package under ROOT (default: this checkout), and prints
-one JSON line: the way to time another commit's kernels on the same card,
-e.g. the parent's unpacked with git archive into a git-ignored directory.
+the four tile kernels only, at N=1024 and N=4096 float32, and of the
+step groups of phase 3, for the pyrmt_tpu_torch package under ROOT
+(default: this checkout), and prints one JSON line: the way to time
+another commit's kernels and steps on the same card, e.g. the parent's
+unpacked with git archive into a git-ignored directory.
 """
 from __future__ import annotations
 
@@ -119,8 +121,11 @@ TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
-# the kernels of one launch each with shared-memory tiles and a halo
-TILED = ("rmt_block", "momentum_rk4")
+# the kernels with shared-memory tiles and a halo
+TILED = ("rmt_block", "momentum_rk4", "advext_block", "velocity_rhs")
+# device kernels per wrapper call of a tile kernel: advext_block's flag
+# pre-pass and tile kernel; one for the others
+DEVICE_KERNELS = {"advext_block": 2}
 SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused",
            "projection_stencils", "momentum_rhs")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -472,6 +477,7 @@ def kernel_calls(N, device):
     bc = make_lid_bc(1.0)
     far = dict(d, X1s=torch.full_like(d["X1s"], 5.0),
                X2s=torch.full_like(d["X2s"], 5.0))
+    far["phis"] = d["disc"](far["X1s"], far["X2s"])
     return {
         "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
         # the map far from the disc everywhere: every tile takes the skip
@@ -484,17 +490,22 @@ def kernel_calls(N, device):
         "rc_rhs": lambda: ps.rc_rhs_fused(*rc, dx, dy),
         "grad_correct": lambda: ps.grad_correct_fused(*gc, dx, dy, bc),
         "velocity_rhs": lambda: mr.velocity_rhs_blended_fused(*rhs),
+        # the map and phi far from the disc everywhere: every tile skips
+        "advext_block, every tile skipping": lambda: advext_call(
+            rb.advext_block_fused, cfg, far),
     }
 
 
 def step_groups(device, steps=20, warmup=10):
     """(name, fn) groups of `steps` steps each at N=1024 float32: the
-    flagship, with the projection's stencil kernels, and the split tier
-    (area fix + PDE reinit), each after warm-up steps."""
+    flagship, with the projection's stencil kernels, with both opt-in
+    switches, and the split tier (area fix + PDE reinit), each after
+    warm-up steps."""
     groups = []
     for name, overrides in (
             ("flagship", {}),
             ("flagship proj", dict(projection_method="pallas")),
+            ("flagship rhs", BOTH_SWITCHES),
             ("split", dict(phi_area_fix=True, reinit_method="pde"))):
         cfg = flagship(1024, **overrides)
         kw = dict(dtype=torch.float32, device=device)
@@ -510,28 +521,28 @@ def step_groups(device, steps=20, warmup=10):
     return groups
 
 
-def profile_all(device, names=tuple(KERNELS), sizes=(1024, 4096), reps=20,
-                with_steps=True):
+def profile_all(device, names=tuple(KERNELS), sizes=(1024, 4096), reps=20):
     """One profiler session: each kernel's wrapper once (its device kernels
     per call) and reps times (its device time per call) at each size, and
-    with_steps the step groups. Returns ({N: {kernel: (device us per call,
+    the step groups. Returns ({N: {kernel: (device us per call,
     device kernels per call)}}, {step group: (kernels per step, copies
     per step, device-busy ms per step)})."""
     groups = []
-    if "rmt_block" in names:
-        names = (*names, "rmt_block, every tile skipping")
     for N in sizes:
         calls = kernel_calls(N, device)
-        for name in names:
+        # rmt_block's and advext_block's other rows
+        rows = [name for name in calls
+                if name in names or name.split(",")[0] in names]
+        for name in rows:
             calls[name]()  # builds and warms up
             groups.append(((N, name, "one"), calls[name]))
             groups.append(((N, name, "reps"),
                            lambda f=calls[name]: [f() for _ in range(reps)]))
-    steps = step_groups(device) if with_steps else []
+    steps = step_groups(device)
     ev = profile_groups(groups + steps)
     kern = {N: {} for N in sizes}
     for N in sizes:
-        for name in names:
+        for name in rows:
             one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
             kern[N][name] = (busy_us(many) / reps, len(one))
             b, by = bound_us(name.split(",")[0], N)
@@ -757,12 +768,14 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
     if PROFILE_ONLY:
-        prof, _ = profile_all(device, TILED, with_steps=False)
+        prof, step_prof = profile_all(device, TILED)
         print(json.dumps({"profile": {
             name: {f"N{N}": {"device_us": prof[N][name][0],
                              "device_launches_per_call": prof[N][name][1],
-                             "bound_us": bound_us(name, N)[0]}
-                   for N in prof} for name in TILED},
+                             "bound_us": bound_us(name.split(",")[0], N)[0]}
+                   for N in prof} for name in prof[1024]},
+            "steps": {name: dict(zip(("kernels", "copies", "busy_ms"), p))
+                      for name, p in step_prof.items()},
             "root": PORT_ROOT}))
         print(card)
         return 0
@@ -787,10 +800,12 @@ def main() -> int:
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
     for name in TILED:
-        if prof[1024][name][1] != 1 or prof[4096][name][1] != 1:
+        want = DEVICE_KERNELS.get(name, 1)
+        if prof[1024][name][1] != want or prof[4096][name][1] != want:
             raise AssertionError(
                 f"one {name} call ran {prof[1024][name][1]:g} device "
-                f"kernels at N=1024, {prof[4096][name][1]:g} at N=4096")
+                f"kernels at N=1024, {prof[4096][name][1]:g} at N=4096; "
+                f"expected {want}")
 
     # 4. the flagship slice (fused tier)
     steps = 500
@@ -827,9 +842,8 @@ def main() -> int:
               f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
               f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
               f"launches {launches}; t advanced {advanced:.6f}; min J over "
-              f"the solid {min_J:.4f}" + ("; " + profile_line(
-                  step_prof["flagship proj"], wall, steps)
-                                          if tag == "proj" else ""))
+              f"the solid {min_J:.4f}; " + profile_line(
+                  step_prof[f"flagship {tag}"], wall, steps))
         for name in reported:
             main_launches[name] = launches[name]
 

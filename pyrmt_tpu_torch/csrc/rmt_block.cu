@@ -10,7 +10,7 @@
 //   pyrmt_tpu_torch.kernels.rmt_block.rmt_block_plain.
 // pyrmt_advext_*  the split tier's kernel A: the same advection, mask and
 //   extrapolation with the pre-advection phi given as a field (any level
-//   set, S solids one after another). Replaces
+//   set, S solids sharing one backtrace). Replaces
 //   pyrmt_tpu/kernels/rmt_block.py::advext_block_fused (the pl.pallas_call
 //   at rmt_block.py:1085); plain version
 //   pyrmt_tpu_torch.kernels.rmt_block.advext_block_plain.
@@ -54,15 +54,40 @@
 // resident block, and the blocks walk over the tiles (2 per SM), so every
 // num_layers runs.
 //
-// The split tier's entry keeps the staged launches, one thread per cell
-// each (rmt_device.cuh): advect_kernel, then one layer_kernel per layer,
-// ping-ponging a (6, Ny, Nx) scratch.
+// The split tier's entry, pyrmt_advext_*, runs the same panels and layer
+// sweeps (Panel, sweeps) with phi read from the S fields phis[s], in one
+// tile kernel, after a pre-pass for its skip:
+//   flags    advext_flag_kernel, one block per 32 x 32 cells: a byte per
+//            8 x 8 cells, set where a cell is not quiet_at (a phi not above
+//            0, a map value past half the type's largest, a velocity past
+//            the backtrace's bound); each input read once
+//   vote     a tile is active if dt is not finite or any flag over the
+//            panel widened by the advection's +-1 is set (at most 9 x 9
+//            bytes read: the flags dilated by the panel's reach, 8 cells
+//            coarse); an inactive tile writes X1e = X2e = 0 for every solid,
+//            the plain version's value there (mask 0, no known cell, an
+//            empty frontier, 0 * finite = 0), and moves on
+//   advect   u, v over the widened panel into shared memory, the RK4
+//            backtrace once per cell for all S solids (the plain version
+//            advects the stack of all maps with one backtrace); per solid,
+//            the masked sample of X1s[s], X2s[s] with phis[s] (for S > 1
+//            the displacements wait in u and v's place)
+//   layers   the fused tier's L sweeps, then the tile's own cells of
+//            x1e[s], x2e[s]
+// The pre-pass replaced a vote inside the tile kernel over the widened
+// panel, as the fused tier's, which read 2 + 3S fields over 3.5x the tile's
+// cells and was slower in every case measured (PERF.md).
 //
 // What bounds the fused tier on the H100: the byte bound is 4 fields read
 // and 12 written per cell (20.0 us at N=1024 float32); the kernel runs
 // well above it (PERF.md), held back by the skip tiles (a vote that reads
 // four fields over 3.5x the tile's cells, then the stores) and by the
 // tiles at the disc, which recompute the backtrace over 3.3x their cells.
+// The split tier's bound is 2 + 3S fields read and 2S written (8.8 us at
+// N=1024 float32, S = 1); the pre-pass reads those once, the skip tiles
+// (most of the flagship's) then only write, and the active tiles, which
+// recompute the backtrace over 3.3x their cells and run the sweeps, take
+// most of the time (PERF.md).
 //
 // Built with --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
@@ -79,6 +104,8 @@ using pyrmt::Taps;
 constexpr int kBx = 32, kBy = 16;  // threads of a block: columns x rows
 constexpr int kThreads = kBx * kBy;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's most on sm_90
+constexpr int kFlag = 8;    // the split tier's skip flags: one per 8x8 cells
+constexpr int kFlagTile = 32;  // cells per side of a pre-pass block
 
 // The 12 outputs of the fused tier.
 template <typename T>
@@ -95,6 +122,16 @@ __device__ constexpr float largest<float>() {
 template <>
 __device__ constexpr double largest<double>() {
   return 1.7976931348623157e+308;
+}
+
+// The skip's bound on |u| and |v| is largest / vote_scale: below it every
+// backtrace displacement and every sum of the RK4 stages is finite.
+template <typename T>
+__device__ T vote_scale(T dt, double dx, double dy) {
+  const T inv_h = static_cast<T>(1.0 / (dx < dy ? dx : dy));
+  T vscale = T(8) * (fabs(dt) * inv_h);
+  if (!(vscale >= T(8))) vscale = T(8);
+  return vscale;
 }
 
 // The 12 outputs at one cell.
@@ -200,7 +237,36 @@ size_t panel_bytes(int width) {
          256 * 256;
 }
 
-// The fused tier's tile and where its panels live.
+// A block's panel buffers, laid out as panel_bytes counts them: [X1 X1' X2
+// X2' u v known known' frontier list], the state in two buffers for the
+// sweeps' ping-pong.
+template <typename T>
+struct Panel {
+  int W;           // the row stride of the state buffers: the panel's width
+  size_t NP, NV;   // cells of a state buffer and of u, v
+  T* base;
+  T* us;
+  T* vs;
+  unsigned char* kbase;
+  int* flist;
+
+  __device__ Panel(unsigned char* mem, int width)
+      : W(width),
+        NP(static_cast<size_t>(width) * width),
+        NV(static_cast<size_t>(width + 2) * (width + 2)) {
+    base = reinterpret_cast<T*>(mem);
+    us = base + 4 * NP;
+    vs = us + NV;
+    kbase = reinterpret_cast<unsigned char*>(vs + NV);
+    flist = reinterpret_cast<int*>(
+        kbase + (2 * NP + sizeof(int) - 1) / sizeof(int) * sizeof(int));
+  }
+  __device__ T* x1(size_t b) const { return base + b * NP; }
+  __device__ T* x2(size_t b) const { return base + (2 + b) * NP; }
+  __device__ unsigned char* known(size_t b) const { return kbase + b * NP; }
+};
+
+// The tile and where its panels live, for either tier.
 struct Plan {
   int tile;
   size_t bytes;  // one panel
@@ -257,6 +323,49 @@ __device__ __forceinline__ void for_panel(const Span& ys, const Span& xs,
   }
 }
 
+// The L layer sweeps from the advected state in buffer 0, each 4 cells
+// further in: the cells off the frontier keep their state, the frontier
+// cells (a thin ring) are listed and then solved by consecutive threads.
+// Returns the buffer that holds the last sweep's state, valid 4L cells in
+// from the panel's inner edges. nfront: an int in shared memory.
+template <typename T>
+__device__ size_t sweeps(const Panel<T>& P, const Span& ys, const Span& xs,
+                         int L, int Ny, int Nx, const Taps<T>& tp,
+                         int& nfront) {
+  for (int layer = 1; layer <= L; ++layer) {
+    const size_t src = (layer - 1) & 1, dst = layer & 1;
+    const T* x1s = P.x1(src);
+    const T* x2s = P.x2(src);
+    const unsigned char* ks = P.known(src);
+    if (threadIdx.x == 0 && threadIdx.y == 0) nfront = 0;
+    __syncthreads();
+    for_panel(ys, xs, 4 * layer, [&](int lj, int li) {
+      const size_t l = static_cast<size_t>(lj) * P.W + li;
+      if (pyrmt::frontier_at<T, unsigned char>(ks, l, P.W, ys.lo + lj,
+                                               xs.lo + li, Ny, Nx)) {
+        P.flist[atomicAdd(&nfront, 1)] = static_cast<int>(l);
+      } else {
+        P.x1(dst)[l] = x1s[l];
+        P.x2(dst)[l] = x2s[l];
+        P.known(dst)[l] = ks[l];
+      }
+    });
+    __syncthreads();
+    for (int f = threadIdx.y * kBx + threadIdx.x; f < nfront;
+         f += kThreads) {
+      const int l = P.flist[f], lj = l / P.W, li = l - lj * P.W;
+      T x1, x2, k;
+      pyrmt::layer_at<T, unsigned char>(x1s, x2s, ks, l, P.W, ys.lo + lj,
+                                        xs.lo + li, Ny, Nx, tp, x1, x2, k);
+      P.x1(dst)[l] = x1;
+      P.x2(dst)[l] = x2;
+      P.known(dst)[l] = k > T(0);
+    }
+    __syncthreads();
+  }
+  return L & 1;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     rmt_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
@@ -269,26 +378,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
-  const int W = tile + 2 * halo;  // the panel buffers' row stride
-  const size_t NP = static_cast<size_t>(W) * W;
-  const size_t NV = static_cast<size_t>(W + 2) * (W + 2);
-  // [X1 X1' X2 X2' u v known known' frontier list] (panel_bytes)
-  T* const base =
-      reinterpret_cast<T*>(ws ? ws + blockIdx.x * panel_stride : smem);
-  T* const us = base + 4 * NP;
-  T* const vs = us + NV;
-  unsigned char* const kbase = reinterpret_cast<unsigned char*>(vs + NV);
-  int* const flist = reinterpret_cast<int*>(
-      kbase + (2 * NP + sizeof(int) - 1) / sizeof(int) * sizeof(int));
+  const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
+                   tile + 2 * halo);
+  const int W = P.W;
   const T dt = *dt_ptr;
   const T mu_s = params[0], kappa = params[1], rho_s = params[2];
   const T rho_f = params[3];
-  // the vote's bound on |u|, |v|: below it every backtrace displacement
-  // and every sum of the RK4 stages is finite
   const T big = largest<T>();
-  const T inv_h = static_cast<T>(1.0 / (dx < dy ? dx : dy));
-  T vscale = T(8) * (fabs(dt) * inv_h);
-  if (!(vscale >= T(8))) vscale = T(8);
+  const T vscale = vote_scale<T>(dt, dx, dy);
   const bool dt_bad = !isfinite(dt);
   // the zero map's outputs, at an interior cell and at an edge cell (they
   // differ only there); the post stage's own code on X1e = X2e = 0
@@ -312,8 +409,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     for_panel(vy, vx, 0, [&](int lj, int li) {
       const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
       const T ug = u[g], vg = v[g];
-      us[lj * (W + 2) + li] = ug;
-      vs[lj * (W + 2) + li] = vg;
+      P.us[lj * (W + 2) + li] = ug;
+      P.vs[lj * (W + 2) + li] = vg;
       const T ph = disc(X1[g], X2[g]);
       active |= !(ph > T(0) && ph <= big && fabs(ug) * vscale < big &&
                   fabs(vg) * vscale < big);
@@ -328,68 +425,223 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 
     // advect over the whole panel, u and v from the vote's copy
-    const Rows<T> ut{us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-    const Rows<T> vt{vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+    const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+    const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
     const Rows<T> x1g{X1, static_cast<size_t>(Nx), 0, 0};
     const Rows<T> x2g{X2, static_cast<size_t>(Nx), 0, 0};
     for_panel(ys, xs, 0, [&](int lj, int li) {
       const int j = ys.lo + lj, i = xs.lo + li;
       const size_t g = static_cast<size_t>(j) * Nx + i;
       const size_t l = static_cast<size_t>(lj) * W + li;
-      T x1a, x2a, known;
-      pyrmt::advect_at<T>(ut, vt, x1g, x2g, dt, disc(X1[g], X2[g]), j, i, Ny,
-                          Nx, dx, dy, x1a, x2a, known);
-      base[l] = x1a;
-      base[2 * NP + l] = x2a;
-      kbase[l] = known > T(0);
+      T sx, sy;
+      pyrmt::backtrace_at<T>(ut, vt, dt, j, i, Ny, Nx, dx, dy, sx, sy);
+      bool known;
+      pyrmt::masked_sample<T>(x1g, x2g, sx, sy, disc(X1[g], X2[g]), j, i, Ny,
+                              Nx, P.x1(0)[l], P.x2(0)[l], known);
+      P.known(0)[l] = known;
     });
     __syncthreads();
 
-    // the layer sweeps, each 4 cells further in: the cells off the
-    // frontier keep their state, the frontier cells (a thin ring) are
-    // listed and then solved by consecutive threads
-    for (int layer = 1; layer <= L; ++layer) {
-      const size_t src = (layer - 1) & 1, dst = layer & 1;
-      const T* x1s = base + src * NP;
-      const T* x2s = base + (2 + src) * NP;
-      const unsigned char* ks = kbase + src * NP;
-      if (threadIdx.x == 0 && threadIdx.y == 0) nfront = 0;
-      __syncthreads();
-      for_panel(ys, xs, 4 * layer, [&](int lj, int li) {
-        const size_t l = static_cast<size_t>(lj) * W + li;
-        if (pyrmt::frontier_at<T, unsigned char>(ks, l, W, ys.lo + lj,
-                                                 xs.lo + li, Ny, Nx)) {
-          flist[atomicAdd(&nfront, 1)] = static_cast<int>(l);
-        } else {
-          base[dst * NP + l] = x1s[l];
-          base[(2 + dst) * NP + l] = x2s[l];
-          kbase[dst * NP + l] = ks[l];
-        }
-      });
-      __syncthreads();
-      for (int f = threadIdx.y * kBx + threadIdx.x; f < nfront;
-           f += kThreads) {
-        const int l = flist[f], lj = l / W, li = l - lj * W;
-        T x1, x2, k;
-        pyrmt::layer_at<T, unsigned char>(x1s, x2s, ks, l, W, ys.lo + lj,
-                                          xs.lo + li, Ny, Nx, tp, x1, x2, k);
-        base[dst * NP + l] = x1;
-        base[(2 + dst) * NP + l] = x2;
-        kbase[dst * NP + l] = k > T(0);
-      }
-      __syncthreads();
-    }
+    const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
 
     // post, for the tile's own cells
-    const size_t e = L & 1;
     for_panel(oy, ox, 0, [&](int lj, int li) {
       const int j = oy.lo + lj, i = ox.lo + li;
-      post_at<T>(base + e * NP, base + (2 + e) * NP,
+      post_at<T>(P.x1(e), P.x2(e),
                  static_cast<size_t>(j - ys.lo) * W + (i - xs.lo), W, j, i,
                  Ny, Nx, disc, mu_s, kappa, rho_s, rho_f, dx, dy, w_t)
           .store(o, static_cast<size_t>(j) * Nx + i);
     });
     __syncthreads();  // before the next tile overwrites the panel
+  }
+}
+
+// Can a cell's inputs reach the split tier's output only as its zero map
+// (X1e = X2e = 0 where no solid is near)? Every phis[s] > 0; every map value
+// at most half the type's largest, so that a bilinear sample of them stays
+// finite; |u| and |v| below the backtrace's bound.
+template <typename T>
+__device__ bool quiet_at(T ug, T vg, const T* __restrict__ X1s,
+                         const T* __restrict__ X2s,
+                         const T* __restrict__ phis, size_t g, size_t N,
+                         int S, T vscale) {
+  const T big = largest<T>();
+  bool q = (fabs(ug) * vscale < big) & (fabs(vg) * vscale < big);
+  for (int s = 0; s < S; ++s) {
+    const size_t n = s * N + g;
+    q &= (phis[n] > T(0)) & (fabs(X1s[n]) * T(2) < big) &
+         (fabs(X2s[n]) * T(2) < big);
+  }
+  return q;
+}
+
+__host__ __device__ unsigned flag_cols(int Nx) {
+  return pyrmt::tiles_for(Nx, kFlag);
+}
+
+// Bytes of the split tier's skip flags, rounded up so that a workspace
+// after them stays aligned.
+size_t flag_bytes(int Ny, int Nx) {
+  return (static_cast<size_t>(pyrmt::tiles_for(Ny, kFlag)) * flag_cols(Nx) +
+          255) / 256 * 256;
+}
+
+// The split tier's pre-pass: flags[fj, fi] = 1 where some cell of the 8x8
+// cells (fj, fi) is not quiet_at, else 0. One block of 32 x 8 threads per
+// 32 x 32 cells (4 x 4 flags); each thread reads one cell in each of 4 rows.
+template <typename T>
+__global__ void __launch_bounds__(kFlagTile * kFlag)
+    advext_flag_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                       const T* __restrict__ X1s, const T* __restrict__ X2s,
+                       const T* __restrict__ phis,
+                       const T* __restrict__ dt_ptr,
+                       unsigned char* __restrict__ flags, int S, int Ny,
+                       int Nx, double dx, double dy) {
+  constexpr int kPer = kFlagTile / kFlag;  // flags along a block's side
+  __shared__ unsigned bits;
+  const int tid = threadIdx.y * kFlagTile + threadIdx.x;
+  if (tid == 0) bits = 0;
+  __syncthreads();
+  const T vscale = vote_scale<T>(*dt_ptr, dx, dy);
+  const size_t N = static_cast<size_t>(Ny) * Nx;
+  const int i = blockIdx.x * kFlagTile + threadIdx.x;
+  unsigned mine = 0;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int j = blockIdx.y * kFlagTile + r * kFlag + threadIdx.y;
+    if (i < Nx && j < Ny) {
+      const size_t g = static_cast<size_t>(j) * Nx + i;
+      if (!quiet_at<T>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale))
+        mine |= 1u << (r * kPer + threadIdx.x / kFlag);
+    }
+  }
+  mine = __reduce_or_sync(0xffffffffu, mine);
+  if (threadIdx.x == 0 && mine) atomicOr(&bits, mine);
+  __syncthreads();
+  if (tid < kPer * kPer) {
+    const unsigned fj = blockIdx.y * kPer + tid / kPer;
+    const unsigned fi = blockIdx.x * kPer + tid % kPer;
+    if (fj < pyrmt::tiles_for(Ny, kFlag) && fi < flag_cols(Nx))
+      flags[static_cast<size_t>(fj) * flag_cols(Nx) + fi] = (bits >> tid) & 1u;
+  }
+}
+
+// The split tier's tile kernel (the source note above). flags: the
+// pre-pass's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    advext_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                       const T* __restrict__ X1s, const T* __restrict__ X2s,
+                       const T* __restrict__ phis,
+                       const T* __restrict__ dt_ptr,
+                       const unsigned char* __restrict__ flags,
+                       T* __restrict__ x1e, T* __restrict__ x2e, int S,
+                       int Ny, int Nx, double dx, double dy, int L,
+                       Taps<T> tp, int tile, unsigned char* ws,
+                       size_t panel_stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int nfront;
+  const int halo = 4 * L + 1;
+  const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
+                   tile + 2 * halo);
+  const int W = P.W;
+  const size_t N = static_cast<size_t>(Ny) * Nx;
+  const T dt = *dt_ptr;
+  const bool dt_bad = !isfinite(dt);
+  const int ntx = static_cast<int>(pyrmt::tiles_for(Nx, tile));
+  const int ntiles = static_cast<int>(num_tiles(Ny, Nx, tile));
+  const int tid = threadIdx.y * kBx + threadIdx.x;
+
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const Span ys = pyrmt::tile_span((t / ntx) * tile, tile, Ny, halo);
+    const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
+    const Span oy = own(ys), ox = own(xs);
+    const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
+
+    // vote: the pre-pass's flags over the widened panel
+    bool active = dt_bad;
+    const int fy0 = vy.lo / kFlag, fx0 = vx.lo / kFlag;
+    const int fw = (vx.hi - 1) / kFlag + 1 - fx0;
+    const int nf = ((vy.hi - 1) / kFlag + 1 - fy0) * fw;
+    for (int f = tid; f < nf; f += kThreads)
+      active |= flags[static_cast<size_t>(fy0 + f / fw) * flag_cols(Nx) +
+                      fx0 + f % fw] != 0;
+    if (!__syncthreads_or(active)) {
+      for (int s = 0; s < S; ++s)
+        for_panel(oy, ox, 0, [&](int lj, int li) {
+          const size_t n =
+              s * N + static_cast<size_t>(oy.lo + lj) * Nx + (ox.lo + li);
+          x1e[n] = T(0);
+          x2e[n] = T(0);
+        });
+      continue;
+    }
+
+    // u and v over the widened panel into shared memory
+    for_panel(vy, vx, 0, [&](int lj, int li) {
+      const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
+      P.us[lj * (W + 2) + li] = u[g];
+      P.vs[lj * (W + 2) + li] = v[g];
+    });
+    __syncthreads();
+
+    // the masked sample of solid s at panel cell (lj, li) from the
+    // backtrace's displacement (sx, sy), into buffer 0
+    auto sample = [&](int s, int lj, int li, T sx, T sy) {
+      const int j = ys.lo + lj, i = xs.lo + li;
+      const size_t l = static_cast<size_t>(lj) * W + li;
+      const size_t n = s * N + static_cast<size_t>(j) * Nx + i;
+      bool known;
+      pyrmt::masked_sample<T>(Rows<T>{X1s + s * N, static_cast<size_t>(Nx), 0, 0},
+                              Rows<T>{X2s + s * N, static_cast<size_t>(Nx), 0, 0},
+                              sx, sy, phis[n], j, i, Ny, Nx, P.x1(0)[l],
+                              P.x2(0)[l], known);
+      P.known(0)[l] = known;
+    };
+    // the backtrace, once per cell for every solid: with one solid its
+    // sample at once; with more the displacement waits in buffer 1, then
+    // (the backtraces done) in u and v's place
+    const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+    const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+    for_panel(ys, xs, 0, [&](int lj, int li) {
+      T sx, sy;
+      pyrmt::backtrace_at<T>(ut, vt, dt, ys.lo + lj, xs.lo + li, Ny, Nx, dx,
+                             dy, sx, sy);
+      if (S == 1) {
+        sample(0, lj, li, sx, sy);
+      } else {
+        const size_t l = static_cast<size_t>(lj) * W + li;
+        P.x1(1)[l] = sx;
+        P.x2(1)[l] = sy;
+      }
+    });
+    __syncthreads();
+    if (S > 1) {
+      for_panel(ys, xs, 0, [&](int lj, int li) {
+        const size_t l = static_cast<size_t>(lj) * W + li;
+        P.us[l] = P.x1(1)[l];
+        P.vs[l] = P.x2(1)[l];
+      });
+      __syncthreads();
+    }
+    for (int s = 0; s < S; ++s) {
+      if (S > 1) {
+        for_panel(ys, xs, 0, [&](int lj, int li) {
+          const size_t l = static_cast<size_t>(lj) * W + li;
+          sample(s, lj, li, P.us[l], P.vs[l]);
+        });
+        __syncthreads();
+      }
+      const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
+      for_panel(oy, ox, 0, [&](int lj, int li) {
+        const int j = oy.lo + lj, i = ox.lo + li;
+        const size_t l = static_cast<size_t>(j - ys.lo) * W + (i - xs.lo);
+        const size_t n = s * N + static_cast<size_t>(j) * Nx + i;
+        x1e[n] = P.x1(e)[l];
+        x2e[n] = P.x2(e)[l];
+      });
+      __syncthreads();  // before the next solid or tile overwrites the panel
+    }
   }
 }
 
@@ -425,29 +677,40 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
   return 0;
 }
 
-// Split tier: per solid s, advect + mask with phi = phis[s], then
-// num_layers sweeps into (x1e[s], x2e[s]). dt on the device.
+// The split tier's device scratch: the skip flags, then the panels'
+// workspace (none where a panel fits shared memory).
+template <typename T>
+long long advext_scratch_bytes(int Ny, int Nx, int num_layers, int sms) {
+  return static_cast<long long>(flag_bytes(Ny, Nx)) +
+         workspace_bytes<T>(Ny, Nx, num_layers, sms);
+}
+
+// Split tier: the pre-pass, then the tile kernel. dt on the device;
+// scratch: advext_scratch_bytes(...) bytes.
 template <typename T>
 int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
-                  const T* phis, const T* dt, T* x1e, T* x2e, T* scratch,
+                  const T* phis, const T* dt, T* x1e, T* x2e, void* scratch,
                   int S, int Ny, int Nx, double dx, double dy, int num_layers,
-                  const double* taps, void* stream_ptr) {
+                  const double* taps, int sms, void* stream_ptr) {
+  static size_t allowed = 48 * 1024;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t N = static_cast<size_t>(Ny) * Nx;
-  const unsigned nb = pyrmt::blocks_for(static_cast<long long>(N));
-  const Taps<T> tp = pyrmt::load_taps<T>(taps);
-  T* const buf[2][3] = {{scratch, scratch + N, scratch + 2 * N},
-                        {scratch + 3 * N, scratch + 4 * N, scratch + 5 * N}};
-  for (int s = 0; s < S; ++s) {
-    const size_t o = static_cast<size_t>(s) * N;
-    pyrmt::advect_kernel<T><<<nb, pyrmt::kThreads, 0, stream>>>(
-        u, v, X1s + o, X2s + o, dt, phis + o, buf[0][0], buf[0][1], buf[0][2],
-        Ny, Nx, dx, dy);
-    PYRMT_RETURN_IF_ERROR();
-    int err = pyrmt::run_layers<T>(buf, x1e + o, x2e + o, num_layers, Ny, Nx,
-                                   tp, stream);
-    if (err) return err;
-  }
+  const Plan p = plan<T>(num_layers);
+  const size_t smem = p.in_smem ? p.bytes : 0;
+  int err = pyrmt::allow_smem(advext_tile_kernel<T>, smem, allowed);
+  if (err) return err;
+  unsigned char* flags = static_cast<unsigned char*>(scratch);
+  unsigned char* ws = flags + flag_bytes(Ny, Nx);
+  const dim3 grid(pyrmt::tiles_for(Nx, kFlagTile),
+                  pyrmt::tiles_for(Ny, kFlagTile));
+  advext_flag_kernel<T><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
+      u, v, X1s, X2s, phis, dt, flags, S, Ny, Nx, dx, dy);
+  PYRMT_RETURN_IF_ERROR();
+  advext_tile_kernel<T><<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy), smem,
+                          stream>>>(
+      u, v, X1s, X2s, phis, dt, flags, x1e, x2e, S, Ny, Nx, dx, dy,
+      num_layers, pyrmt::load_taps<T>(taps), p.tile,
+      p.in_smem ? nullptr : ws, p.bytes);
+  PYRMT_RETURN_IF_ERROR();
   return 0;
 }
 
@@ -473,15 +736,19 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
 PYRMT_RMT_ENTRY(pyrmt_rmt_block_f32, pyrmt_rmt_block_workspace_f32, float)
 PYRMT_RMT_ENTRY(pyrmt_rmt_block_f64, pyrmt_rmt_block_workspace_f64, double)
 
-#define PYRMT_ADVEXT_ENTRY(NAME, T)                                           \
+#define PYRMT_ADVEXT_ENTRY(NAME, SCRATCH_NAME, T)                             \
+  extern "C" long long SCRATCH_NAME(int Ny, int Nx, int num_layers,           \
+                                    int sms) {                                \
+    return advext_scratch_bytes<T>(Ny, Nx, num_layers, sms);                  \
+  }                                                                           \
   extern "C" int NAME(const T* u, const T* v, const T* X1s, const T* X2s,     \
                       const T* phis, const T* dt, T* x1e, T* x2e,             \
-                      T* scratch, int S, int Ny, int Nx, double dx,           \
-                      double dy, int num_layers, const double* taps,          \
+                      void* scratch, int S, int Ny, int Nx, double dx,        \
+                      double dy, int num_layers, const double* taps, int sms, \
                       void* stream) {                                         \
     return launch_advext<T>(u, v, X1s, X2s, phis, dt, x1e, x2e, scratch, S,   \
-                            Ny, Nx, dx, dy, num_layers, taps, stream);        \
+                            Ny, Nx, dx, dy, num_layers, taps, sms, stream);   \
   }
 
-PYRMT_ADVEXT_ENTRY(pyrmt_advext_f32, float)
-PYRMT_ADVEXT_ENTRY(pyrmt_advext_f64, double)
+PYRMT_ADVEXT_ENTRY(pyrmt_advext_f32, pyrmt_advext_scratch_f32, float)
+PYRMT_ADVEXT_ENTRY(pyrmt_advext_f64, pyrmt_advext_scratch_f64, double)

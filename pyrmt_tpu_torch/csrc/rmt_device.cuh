@@ -1,16 +1,17 @@
 // Device code of the reference-map kernels, shared by rmt_block.cu (the
-// fused tier's tile kernel and the split tier's advect-extrapolate entry)
-// and extrapolate_fused.cu (the standalone extrapolation):
+// tile kernels of the fused tier and of the split tier's advect-extrapolate
+// block) and extrapolate_fused.cu (the standalone extrapolation):
 //   Bilinear       ops/interp.py::gather_bilinear_local at one cell
-//   advect_at      the shared RK4 backtrace of the map, the mask
-//                  (phi <= 0) and the known flag (phi < 0) at one cell,
-//                  given the cell's pre-advection phi
+//   backtrace_at   the shared RK4 backtrace of the map at one cell
+//   masked_sample  the advected map at one cell times the mask (phi <= 0),
+//                  and the known flag (phi < 0), given the cell's
+//                  pre-advection phi
 //   layer_at       one layer-synchronous least-squares extrapolation step at
 //                  one cell, over a field in device memory or a
 //                  shared-memory panel
-//   advect_kernel, layer_kernel, run_layers
-//                  the staged launches of the split tier and the standalone
-//                  extrapolation: one thread per cell, one launch per stage
+//   layer_kernel, run_layers
+//                  the staged launches of the standalone extrapolation: one
+//                  thread per cell, one launch per layer
 // Every expression in the order of the plain PyTorch version (built with
 // --fmad=false), so kernel and plain version round alike.
 #pragma once
@@ -104,18 +105,15 @@ struct Bilinear {
   }
 };
 
-// The RK4 backtrace through three bilinear samples of (u, v), the bilinear
-// sample of X1, X2, times mask (phi0 <= 0); known = phi0 < 0. At cell
-// (j, i); each field is read within +-1 cell of it.
+// The RK4 backtrace of the map at cell (j, i) through three bilinear
+// samples of (u, v), each read within +-1 cell: the displacement (sx, sy),
+// in cells, of the final sample. One backtrace serves every field that
+// the step advects (the plain version samples the stack of all maps).
 template <typename T>
-__device__ void advect_at(const Rows<T>& u, const Rows<T>& v,
-                          const Rows<T>& X1, const Rows<T>& X2, T dt, T phi0,
-                          int j, int i, int Ny, int Nx, double dx, double dy,
-                          T& x1a, T& x2a, T& known) {
+__device__ void backtrace_at(const Rows<T>& u, const Rows<T>& v, T dt, int j,
+                             int i, int Ny, int Nx, double dx, double dy,
+                             T& sx, T& sy) {
   const T inv_dx = static_cast<T>(1.0 / dx), inv_dy = static_cast<T>(1.0 / dy);
-  T mask = phi0 <= T(0) ? T(1) : T(0);
-  known = phi0 < T(0) ? T(1) : T(0);
-
   T k1x = u(j, i), k1y = v(j, i);
   const T half = T(-0.5) * dt;
   Bilinear<T> b2(j, i, half * k1x * inv_dx, half * k1y * inv_dy, Ny, Nx);
@@ -126,31 +124,22 @@ __device__ void advect_at(const Rows<T>& u, const Rows<T>& v,
   Bilinear<T> b4(j, i, full * k3x * inv_dx, full * k3y * inv_dy, Ny, Nx);
   T k4x = b4(u), k4y = b4(v);
   const T sixth = dt * static_cast<T>(-1.0 / 6.0);
-  T sx = sixth * (k1x + T(2) * k2x + T(2) * k3x + k4x) * inv_dx;
-  T sy = sixth * (k1y + T(2) * k2y + T(2) * k3y + k4y) * inv_dy;
+  sx = sixth * (k1x + T(2) * k2x + T(2) * k3x + k4x) * inv_dx;
+  sy = sixth * (k1y + T(2) * k2y + T(2) * k3y + k4y) * inv_dy;
+}
+
+// The advected map at cell (j, i) from its backtrace's displacement: the
+// bilinear sample of X1, X2 (read within +-1 cell) times mask (phi0 <= 0);
+// known = phi0 < 0, phi0 being the cell's pre-advection level set.
+template <typename T>
+__device__ void masked_sample(const Rows<T>& X1, const Rows<T>& X2, T sx,
+                              T sy, T phi0, int j, int i, int Ny, int Nx,
+                              T& x1a, T& x2a, bool& known) {
+  const T mask = phi0 <= T(0) ? T(1) : T(0);
+  known = phi0 < T(0);
   Bilinear<T> bf(j, i, sx, sy, Ny, Nx);
   x1a = bf(X1) * mask;
   x2a = bf(X2) * mask;
-}
-
-// advect_at with phi read from a field, one thread per cell. dt = *dt_ptr
-// on the device: no host sync.
-template <typename T>
-__global__ void advect_kernel(const T* u, const T* v, const T* X1,
-                              const T* X2, const T* dt_ptr, const T* phi,
-                              T* X1a, T* X2a, T* kf, int Ny, int Nx, double dx,
-                              double dy) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T x1a, x2a, known;
-  const size_t sy = static_cast<size_t>(Nx);
-  advect_at<T>(Rows<T>{u, sy, 0, 0}, Rows<T>{v, sy, 0, 0},
-               Rows<T>{X1, sy, 0, 0}, Rows<T>{X2, sy, 0, 0}, *dt_ptr, phi[n],
-               j, i, Ny, Nx, dx, dy, x1a, x2a, known);
-  X1a[n] = x1a;
-  X2a[n] = x2a;
-  kf[n] = known;
 }
 
 // Is cell (j, i), element n of known flags whose rows are sy apart (K: T

@@ -8,7 +8,6 @@
 //                  shared-memory tile (its own flat index and row stride)
 //   sigma_at       the blended stress of physics.velocity_rhs_blended, plus
 //                  the Kelvin-Voigt term of physics.momentum_core
-//   sigma_kernel   sigma_at, one thread per cell
 //   rhs_at         the momentum RHS of physics.velocity_rhs_blended at one
 //                  cell, with or without the external force
 // Every expression in the order of the plain PyTorch version (built with
@@ -127,22 +126,6 @@ __device__ void sigma_at(At<T> wu, At<T> wv, T a, T c, T b, T h,
   sxx = h * (static_cast<T>(2.0 * mu_f) * du_dx) + a;
   syy = h * (static_cast<T>(2.0 * mu_f) * dv_dy) + b;
   sxy = h * (static_cast<T>(mu_f) * (du_dy + dv_dx)) + c;
-}
-
-template <typename T>
-__global__ void sigma_kernel(const T* wu, const T* wv, const T* sxx_el,
-                             const T* sxy_el, const T* syy_el, const T* Hf,
-                             const T* mkv, T* sxx, T* sxy, T* syy, int Ny,
-                             int Nx, double dx, double dy, double mu_f,
-                             double eta_s) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  const size_t sy = static_cast<size_t>(Nx);
-  sigma_at<T>(At<T>{wu, static_cast<size_t>(n), sy},
-              At<T>{wv, static_cast<size_t>(n), sy}, sxx_el[n], sxy_el[n],
-              syy_el[n], Hf[n], mkv, n, j, i, Ny, Nx, dx, dy, mu_f, eta_s,
-              sxx[n], sxy[n], syy[n]);
 }
 
 // -(w.grad)w + (div sigma + f - grad p) / (rho + 1e-12) at one cell (j, i)

@@ -26,7 +26,7 @@ def _cuda_lib():
     lib = _build.load("momentum_rhs")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_momentum_rhs_f32, lib.pyrmt_momentum_rhs_f64):
-        fn.argtypes = [P] * 13 + [I, I, D, D, D, P]
+        fn.argtypes = [P] * 12 + [I, I, D, D, D, P]
         fn.restype = I
     return lib
 
@@ -57,11 +57,9 @@ def velocity_rhs_blended_fused(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy,
     lib = _cuda_lib()
     rhs_u = torch.empty_like(u)
     rhs_v = torch.empty_like(u)
-    scratch = torch.empty((3, Ny, Nx), dtype=u.dtype, device=u.device)
     fn = (lib.pyrmt_momentum_rhs_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rhs_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), rhs_u, rhs_v,
-                                            scratch)),
+    err = fn(*(_build.pointer(t) for t in (*fields.values(), rhs_u, rhs_v)),
              Ny, Nx, float(dx), float(dy), float(mu_f),
              _build.stream_handle(u.device))
     _build.check(lib, err, "velocity_rhs kernel launch")

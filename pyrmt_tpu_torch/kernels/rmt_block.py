@@ -119,8 +119,11 @@ def _cuda_lib():
         fn.argtypes = [I, I, I, I]
         fn.restype = ctypes.c_longlong
     for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
-        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, P, P]
+        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, P, I, P]
         fn.restype = I
+    for fn in (lib.pyrmt_advext_scratch_f32, lib.pyrmt_advext_scratch_f64):
+        fn.argtypes = [I] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -191,18 +194,25 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
         "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (S, Ny, Nx)),
         "X2s": (X2s, (S, Ny, Nx)), "phis": (phis, (S, Ny, Nx)),
         "dt": (dt, ())})
+    if Ny < 3 or Nx < 3:
+        raise ValueError(f"advext_block kernel needs a grid of at least "
+                         f"3x3, not {Ny}x{Nx}")
     if num_layers < 1:
         raise ValueError("advext_block kernel needs num_layers >= 1")
     lib = _cuda_lib()
     x1e = torch.empty_like(X1s)
     x2e = torch.empty_like(X1s)
-    scratch = torch.empty((6, Ny, Nx), dtype=u.dtype, device=u.device)
-    fn = (lib.pyrmt_advext_f32 if u.dtype == torch.float32
-          else lib.pyrmt_advext_f64)
+    f32 = u.dtype == torch.float32
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    # the pre-pass's flags, and the panels' workspace past ~10 layers
+    nbytes = (lib.pyrmt_advext_scratch_f32 if f32 else
+              lib.pyrmt_advext_scratch_f64)(Ny, Nx, int(num_layers), sms)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=u.device)
+    fn = lib.pyrmt_advext_f32 if f32 else lib.pyrmt_advext_f64
     err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, phis, dt, x1e,
                                             x2e, scratch)),
              S, Ny, Nx, float(dx), float(dy), int(num_layers),
-             window_taps(dx, dy), _build.stream_handle(u.device))
+             window_taps(dx, dy), sms, _build.stream_handle(u.device))
     _build.check(lib, err, "advext_block kernel launch")
     advext_launches += 1
     return x1e, x2e

@@ -175,29 +175,43 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
         torch.testing.assert_close(o, r, rtol=0, atol=ATOL, equal_nan=True)
 
 
-@pytest.mark.parametrize("kernel", ["rmt_block", "momentum_rk4"])
+@pytest.mark.parametrize("kernel", ["rmt_block", "momentum_rk4",
+                                    "advext_block", "velocity_rhs"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_tile_kernel_call_runs_one_device_kernel(dev, kernel, dtype):
     """One wrapper call of each tile kernel runs exactly one CUDA kernel
-    on the card (torch.profiler), no copy and no other kernel."""
+    on the card (torch.profiler), no copy and no other kernel; advext_block
+    runs two, its skip's flag pre-pass and its tile kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, args, kw = block_inputs(dev, (203, 301), dtype)
-    cfg, fields, dt = momentum_inputs(dev, (203, 301), dtype)
-    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
-               mu_f=cfg.mu_f)
-    call = {"rmt_block": lambda: rb.rmt_block_fused(*args, **kw),
-            "momentum_rk4": lambda: mk.momentum_rk4_fused(
-                *fields, pt.make_lid_bc(1.0), **mkw)}[kernel]
-    call()
+    shape = (203, 301)
+    calls = {
+        "rmt_block": lambda: (rb.rmt_block_fused, *block_inputs(
+            dev, shape, dtype)[1:]),
+        "momentum_rk4": lambda: momentum_call(dev, shape, dtype),
+        "advext_block": lambda: (rb.advext_block_fused,
+                                 *split_call(dev, shape, DISC, dtype)),
+        "velocity_rhs": lambda: (mr.velocity_rhs_blended_fused,
+                                 rhs_inputs(dev, shape, dtype), {}),
+    }
+    fn, args, kw = calls[kernel]()
+    fn(*args, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        call()
+        fn(*args, **kw)
         torch.cuda.synchronize()
     device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(device) == 1, device
+    assert len(device) == (2 if kernel == "advext_block" else 1), device
+
+
+def momentum_call(dev, shape, dtype):
+    """(momentum_rk4_fused, its arguments, its keywords) under the lid."""
+    cfg, fields, dt = momentum_inputs(dev, shape, dtype)
+    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+               mu_f=cfg.mu_f)
+    return mk.momentum_rk4_fused, (*fields, pt.make_lid_bc(1.0)), mkw
 
 
 def test_kernel_path_step_matches_plain_path(dev):
@@ -234,19 +248,29 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
                               dy=0.1, dt=args[4].half(), mu_f=0.01)
 
 
-def split_inputs(dev, shape, disc, dtype=torch.float64):
+def split_inputs(dev, shape, disc, dtype=torch.float64, solids=None):
     """The block inputs plus a pre-advection phi that is the disc shifted
-    and wobbled off the map's own rebuild."""
+    and wobbled off the map's own rebuild; with ``solids`` (a tuple of
+    discs) the stacks of all of them."""
     Ny, Nx = shape
+    solids = solids or (disc,)
     cfg = pt.RMTConfig(grid=pt.Grid(Nx, Ny, 1.0, 1.0), mu_s=0.1, mu_f=0.01)
-    s = pt.make_init_state(cfg, (disc,), dtype=dtype, device=dev)
+    s = pt.make_init_state(cfg, solids, dtype=dtype, device=dev)
     X, Y = cfg.grid.coords(dtype=dtype, device=dev)
-    phis = (disc(X, Y) + 0.2 * cfg.grid.dx
-            * torch.sin(4 * torch.pi * X) * torch.cos(2 * torch.pi * Y))[None]
+    wobble = (0.2 * cfg.grid.dx
+              * torch.sin(4 * torch.pi * X) * torch.cos(2 * torch.pi * Y))
+    phis = torch.stack([d(X, Y) + wobble for d in solids])
     u = 0.3 * torch.sin(2 * torch.pi * X) * torch.cos(2 * torch.pi * Y)
     v = -0.3 * torch.cos(2 * torch.pi * X) * torch.sin(2 * torch.pi * Y)
     dt = torch.tensor(0.4 * cfg.grid.dx / 0.3, dtype=dtype, device=dev)
     return cfg, (u, v, s.X1, s.X2, phis.contiguous(), dt)
+
+
+def split_call(dev, shape, disc, dtype=torch.float64, num_layers=3,
+               solids=None):
+    """(advext_block's arguments, its keywords)."""
+    cfg, args = split_inputs(dev, shape, disc, dtype, solids)
+    return args, dict(dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=num_layers)
 
 
 @pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
@@ -262,6 +286,82 @@ def test_advext_kernel_matches_plain(dev, shape, disc):
     for o, r in zip(out, ref):
         assert o.shape == r.shape == (1,) + shape
         assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layers", [1, 5, 7, 9, 12])
+def test_advext_kernel_takes_any_num_layers(dev, layers, dtype):
+    """The split tier's panels as the fused tier's: the tile shrinks to 16
+    and 8 cells, then the panels move to a device-memory workspace (after
+    the pre-pass's flags in the same scratch)."""
+    args, kw = split_call(dev, (65, 97), DISC, dtype, layers)
+    out = rb.advext_block_fused(*args, **kw)
+    ref = rb.advext_block_plain(*args, **kw)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_advext_kernel_takes_two_solids(dev, dtype):
+    """Two solids share one backtrace per cell; each has its own mask,
+    known cells and sweeps."""
+    solids = (DISC, pt.Disc(0.25, 0.3, 0.12))
+    args, kw = split_call(dev, (96, 130), DISC, dtype, solids=solids)
+    out = rb.advext_block_fused(*args, **kw)
+    ref = rb.advext_block_plain(*args, **kw)
+    assert out[0].shape == (2, 96, 130)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("what", ["u_nan", "v_inf", "u_huge", "X1_nan",
+                                  "X2_inf", "dt_nan", "phi_nan"])
+def test_advext_block_tile_skip_is_exact_for_any_input(dev, what):
+    """As rmt_block's skip: a tile far from the solid skips only where the
+    full path gives the zero map, so a non-finite (or overflowing) velocity
+    or map, or a non-finite dt, gives the plain version's NaNs; a NaN phi
+    there gives the zero map in both."""
+    args, kw = split_call(dev, (160, 160), DISC)
+    u, v, X1, X2, phis, dt = [a.clone() for a in args]
+    at = (3, 5)  # far from the disc at (0.6, 0.5): 64 cells and more
+    if what == "u_nan":
+        u[at] = float("nan")
+    elif what == "v_inf":
+        v[at] = float("inf")
+    elif what == "u_huge":
+        u[at] = 1e308  # finite; its backtrace may overflow
+    elif what == "X1_nan":
+        X1[(0, *at)] = float("nan")
+    elif what == "X2_inf":
+        X2[(0, *at)] = float("inf")
+    elif what == "phi_nan":
+        phis[(0, *at)] = float("nan")
+    else:
+        dt = torch.full_like(dt, float("nan"))
+    args = (u, v, X1, X2, phis, dt)
+    out = rb.advext_block_fused(*args, **kw)
+    ref = rb.advext_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert what in ("u_huge", "phi_nan") or not bool(
+        torch.isfinite(ref[0]).all() and torch.isfinite(ref[1]).all())
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=ATOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_split_and_rhs_kernels_match_plain_in_float32(dev, shape):
+    """advext_block to 1e-4 and velocity_rhs to 1e-5 of max(1, |plain|) in
+    float32 (chip_smoke.py's bounds); the expected difference is 0."""
+    args, kw = split_call(dev, shape, DISC, torch.float32)
+    assert_close_f32(rb.advext_block_fused(*args, **kw),
+                     rb.advext_block_plain(*args, **kw), 1e-4)
+    rargs = rhs_inputs(dev, shape, torch.float32)
+    assert_close_f32(mr.velocity_rhs_blended_fused(*rargs),
+                     velocity_rhs_blended(*rargs), 1e-5)
 
 
 @pytest.mark.parametrize("layers", [0, 3, 4])
@@ -332,6 +432,9 @@ def test_split_kernels_raise_on_what_they_do_not_take(dev):
         rb.advext_block_fused(args[0], args[1].cpu(), *args[2:], **kw)
     with pytest.raises(ValueError):  # phis of another shape
         rb.advext_block_fused(*args[:4], args[4][:, :-1], args[5], **kw)
+    with pytest.raises(ValueError):  # a 2x3 grid
+        rb.advext_block_fused(*(a[..., :2, :3].contiguous() for a in args[:5]),
+                              args[5], **kw)
     X1, X2, phi = args[2][0], args[3][0], args[4][0]
     with pytest.raises(TypeError):
         ef.extrapolate_reference_map_fused(X1.half(), X2.half(), phi.half(),
@@ -388,8 +491,9 @@ def test_grad_correct_kernel_matches_plain(dev, bc, shape):
     assert ps.grad_correct_launches == before + 1
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_velocity_rhs_kernel_matches_plain(dev, shape):
+def rhs_inputs(dev, shape, dtype=torch.float64):
+    """velocity_rhs's arguments: the block's velocity and blended fields, a
+    smooth pressure and a random force, made in float64 and cast."""
     cfg, args, kw = block_inputs(dev, shape)
     blk = rb.rmt_block_plain(*args, **kw)
     Hf, rho, sbxx, sbxy, sbyy = blk[7:]
@@ -397,8 +501,14 @@ def test_velocity_rhs_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(2)
     fx, fy = (torch.tensor(0.01 * rng.standard_normal(shape),
                            dtype=torch.float64, device=dev) for _ in range(2))
-    rargs = (args[0], args[1], p, sbxx, sbxy, sbyy, dx, dy, cfg.mu_f, Hf, rho,
-             fx, fy)
+    fields = [f.to(dtype) for f in (args[0], args[1], p, sbxx, sbxy, sbyy,
+                                    Hf, rho, fx, fy)]
+    return (*fields[:6], dx, dy, cfg.mu_f, *fields[6:])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_velocity_rhs_kernel_matches_plain(dev, shape):
+    rargs = rhs_inputs(dev, shape)
     before = mr.launches
     assert_equal_to_plain(mr.velocity_rhs_blended_fused(*rargs),
                           velocity_rhs_blended(*rargs))

@@ -1,10 +1,11 @@
 """The halos that the tile kernels rely on, held to the plain versions on
 the CPU (float64, seeded numpy inputs).
 
-The CUDA kernels of ``rmt_block_fused`` and ``momentum_rk4_fused`` compute
-each output tile from a panel of the tile plus a halo; a result there is
-right only if no input outside the halo can reach it. So each plain
-function's dependency radius is the halo its kernel relies on:
+The CUDA tile kernels (``rmt_block_fused``, ``momentum_rk4_fused``,
+``advext_block_fused``, ``velocity_rhs_blended_fused``) compute each output
+tile from a panel of the tile plus a halo; a result there is right only if
+no input outside the halo can reach it. So each plain function's dependency
+radius is the halo its kernel relies on:
 
 - ``rmt_block_plain``: 4L + 4 cells (L = num_layers): the stress reads the
   map at +-1, each extrapolation sweep a 9x9 window, the advection +-1 of
@@ -13,9 +14,16 @@ function's dependency radius is the halo its kernel relies on:
   domain's edge, and 9 inward from a cell on it (the one-sided closures
   reach 3 cells in, where the interior stencils reach 2); the kernel
   widens a tile cut short by the domain's end for that reason;
-- the tile-activity skip: where no disc(X1, X2) <= 0 lies within 4L + 4
+- ``advext_block_plain``: 4L + 1 cells: the sweeps' 9x9 windows and the
+  advection's +-1 (the kernel's panel is the tile plus 4L + 1 each side);
+- ``physics.velocity_rhs_blended``: 2 cells off the domain's edge (the
+  3rd-order upwind, the divergence of a stress of central differences),
+  3 inward from a cell on it (the one-sided closures);
+- the tile-activity skips: where no disc(X1, X2) <= 0 lies within 4L + 4
   cells, the block's outputs are those of the zero map, which is what
-  ``rmt_block_plain`` gives for X1 = X2 = 0, for any disc.
+  ``rmt_block_plain`` gives for X1 = X2 = 0, for any disc; where no
+  phis <= 0 lies within 4L + 1 cells and the inputs are finite,
+  ``advext_block_plain`` gives X1e = X2e = 0 for every solid.
 
 Also: the entry points run on the card unless told otherwise, so without
 CUDA their default device raises (with CUDA it is the card).
@@ -25,8 +33,11 @@ import pytest
 import torch
 
 import pyrmt_tpu_torch as pt
-from pyrmt_tpu_torch.kernels.rmt_block import rmt_block_plain
-from pyrmt_tpu_torch.physics import momentum_core
+from pyrmt_tpu_torch.kernels.rmt_block import (
+    advext_block_plain,
+    rmt_block_plain,
+)
+from pyrmt_tpu_torch.physics import momentum_core, velocity_rhs_blended
 
 torch.set_num_threads(1)
 DEV = "cpu"  # the entry points default to the card
@@ -35,6 +46,7 @@ N = 64
 FLAGSHIP = pt.Disc(0.6, 0.5, 0.2)
 EDGE = pt.Disc(0.08, 0.9, 0.15)      # clipped by the domain's corner
 ORIGIN = pt.Disc(0.1, 0.15, 0.3)     # holds the map's origin (0, 0)
+SECOND = pt.Disc(0.25, 0.3, 0.12)    # a second solid, clear of FLAGSHIP
 
 
 def t(a):
@@ -158,6 +170,102 @@ def test_momentum_reaches_8(bc, eta_s, probe):
     for o, r in zip(out, ref):
         assert torch.equal(o[j, i], r[j, i])
         assert not torch.equal(o, r)
+
+
+@pytest.mark.parametrize("probe", [(20, 21), (1, 17), (0, 23), (39, 0)],
+                         ids=["interior", "next_to_edge", "on_edge",
+                              "corner"])
+def test_velocity_rhs_reaches_2_off_the_edge_3_on_it(probe):
+    """Perturbing the ten fields of the one RHS (with a random force) only
+    outside the (2h+1)^2 window leaves rhs_u, rhs_v at the probe bit for
+    bit, h = 2 off the domain's edge and 3 on it; perturbing them outside
+    the window one cell smaller moves both."""
+    dx, fields = momentum_case()
+    u, v, p, sxx, sxy, syy, Hf, rho, _ = fields
+    Ny, Nx = u.shape
+    rng = np.random.default_rng(4)
+    fx, fy = (t(0.01 * rng.standard_normal((Ny, Nx))) for _ in range(2))
+    ins = [u, v, p, sxx, sxy, syy, Hf, rho, fx, fy]
+
+    def rhs(f):
+        return velocity_rhs_blended(*f[:6], dx, dx, 0.01, *f[6:])
+
+    j, i = probe
+    h = 3 if j in (0, Ny - 1) or i in (0, Nx - 1) else 2
+    noise = [t(0.1 * rng.standard_normal((Ny, Nx))) for _ in ins]
+    ref = rhs(ins)
+    for r, same in ((h, True), (h - 1, False)):
+        far = t(outside(probe, r, (Ny, Nx)))
+        out = rhs([f + far * n for f, n in zip(ins, noise)])
+        for o, q in zip(out, ref):
+            assert torch.equal(o[j, i], q[j, i]) == same
+            assert not torch.equal(o, q)
+
+
+def advext_case(num_layers, solids, seed=0):
+    """advext_block_plain's operands for the discs ``solids``: their
+    initial maps plus a sub-cell wobble, each pre-advection phi the disc
+    plus a sub-cell wobble, a velocity that moves 0.4 cells per step."""
+    rng = np.random.default_rng(seed)
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1,
+                       num_layers=num_layers)
+    g = cfg.grid
+    s = pt.make_init_state(cfg, solids, dtype=torch.float64, device=DEV)
+    X, Y = g.coords(dtype=torch.float64, device=DEV)
+    S = len(solids)
+    wob = 0.3 * g.dx * rng.standard_normal((3, S, N, N))
+    phis = torch.stack([d(X, Y) for d in solids]) + t(0.5 * wob[2])
+    u, v = velocity(rng)
+    args = [t(u), t(v), s.X1 + t(wob[0]), s.X2 + t(wob[1]), phis,
+            t(0.4 * g.dx / 0.5)]
+    return args, dict(dx=g.dx, dy=g.dy, num_layers=num_layers)
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("solids", [(FLAGSHIP,), (FLAGSHIP, SECOND)],
+                         ids=["S1", "S2"])
+def test_advext_block_reaches_4L_plus_1(solids, num_layers):
+    """Perturbing u, v and every solid's X1, X2 and phi only outside the
+    (2h+1)^2 window, h = 4L+1, leaves X1e, X2e of every solid at the probe
+    (on the first disc's interface) bit for bit."""
+    args, kw = advext_case(num_layers, solids)
+    h = 4 * num_layers + 1
+    probe = (32, 51)
+    rng = np.random.default_rng(7)
+    far = t(outside(probe, h))
+    S = len(solids)
+    pert = list(args)
+    pert[0] = args[0] + far * t(0.5 * rng.standard_normal((N, N)))
+    pert[1] = args[1] + far * t(0.5 * rng.standard_normal((N, N)))
+    for k in (2, 3, 4):
+        pert[k] = args[k] + far * t(3.0 * kw["dx"]
+                                    * rng.standard_normal((S, N, N)))
+    ref = advext_block_plain(*args, **kw)
+    out = advext_block_plain(*pert, **kw)
+    j, i = probe
+    assert float(ref[0][0, j, i]) != 0.0  # the probe is in the map's band
+    for o, r in zip(out, ref):
+        assert torch.equal(o[:, j, i], r[:, j, i])
+        assert not torch.equal(o, r)
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("solids", [(FLAGSHIP,), (FLAGSHIP, SECOND)],
+                         ids=["S1", "S2"])
+def test_advext_skip_is_the_zero_map(solids, num_layers):
+    """Where no phis <= 0 of any solid lies within 4L + 1 cells and the
+    inputs are finite, advext_block_plain gives X1e = X2e = 0 for every
+    solid (by value: the plain version may hold -0.0 there)."""
+    args, kw = advext_case(num_layers, solids)
+    h = 4 * num_layers + 1
+    solid = (args[4] <= 0.0).any(dim=0).to(torch.float64)
+    near = torch.nn.functional.max_pool2d(solid[None, None], 2 * h + 1,
+                                          stride=1, padding=h)[0, 0] > 0
+    quiet = ~near
+    assert 0 < int(quiet.sum()) < N * N - int(solid.sum())
+    for out in advext_block_plain(*args, **kw):
+        assert bool((out[:, quiet] == 0.0).all())
+        assert bool((out[:, near] != 0.0).any())
 
 
 @pytest.mark.parametrize("num_layers", [1, 3])
