@@ -14,9 +14,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      at N=256 and at the flagship's N=1024 (bounds below), the disc
      touching the domain's edge at N=256 (the solid-block kernels),
      grad_correct under the lid, free-slip and no-op BCs, velocity_rhs with
-     a random external force; the four tile kernels (rmt_block,
-     momentum_rk4, advext_block, velocity_rhs) also on ragged grids
-     (203x301, 9x300, 33x49) in both types and at N=4096 float32; then the
+     a random external force; the six tile kernels (rmt_block,
+     momentum_rk4, advext_block, velocity_rhs, rc_rhs, grad_correct) also
+     on ragged grids (203x301, 9x300, 33x49) in both types and at N=4096
+     float32; then the
      times of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block and
@@ -47,7 +48,7 @@ as nvidia-smi gives them, and last one JSON line
 exits nonzero; so does a machine without CUDA.
 
 With --profile-kernels it runs phases 1 and 2 and the device profile of
-the four tile kernels only, at N=1024 and N=4096 float32, and of the
+the six tile kernels only, at N=1024 and N=4096 float32, and of the
 step groups of phase 3, for the pyrmt_tpu_torch package under ROOT
 (default: this checkout), and prints one JSON line: the way to time
 another commit's kernels and steps on the same card, e.g. the parent's
@@ -121,8 +122,9 @@ TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
-# the kernels with shared-memory tiles and a halo
-TILED = ("rmt_block", "momentum_rk4", "advext_block", "velocity_rhs")
+# the kernels with shared-memory tiles (or a ring of rows) and a halo
+TILED = ("rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
+         "rc_rhs", "grad_correct")
 # device kernels per wrapper call of a tile kernel: advext_block's flag
 # pre-pass and tile kernel; one for the others
 DEVICE_KERNELS = {"advext_block": 2}

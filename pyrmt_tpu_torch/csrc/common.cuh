@@ -1,11 +1,12 @@
 // Shared helpers of the pyrmt_tpu_torch CUDA kernels.
 //
-// The staged kernels run one thread per grid cell of a row-major (Ny, Nx)
-// field; the tile kernels (momentum_rk4.cu, momentum_rhs.cu, both entries
-// of rmt_block.cu) run one block per 2D tile with a halo (Span). Every
-// kernel evaluates its expressions in the order of the plain PyTorch
-// version (built with --fmad=false, see kernels/_build.py), so the two
-// round alike.
+// The staged kernels (extrapolate_fused.cu's, with rmt_device.cuh's layer
+// sweeps) run one thread per grid cell of a row-major (Ny, Nx) field; the
+// tile kernels (momentum_rk4.cu, momentum_rhs.cu, projection_stencils.cu,
+// both entries of rmt_block.cu) run one block per 2D tile with a halo
+// (Span). Every kernel evaluates its expressions in the order of the plain
+// PyTorch version (built with --fmad=false, see kernels/_build.py), so the
+// two round alike.
 #pragma once
 
 #include <cuda_runtime.h>

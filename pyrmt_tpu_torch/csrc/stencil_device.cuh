@@ -1,5 +1,5 @@
-// Stencil device code of the momentum and projection kernels, shared by
-// momentum_rk4.cu, momentum_rhs.cu and projection_stencils.cu:
+// Stencil device code of the momentum kernels, shared by momentum_rk4.cu
+// and momentum_rhs.cu (projection_stencils.cu takes the Bc codes):
 //   bc_u, bc_v     bcs.py's velocity BCs at one cell, from a functor that
 //                  gives the pre-BC value at any (j, i)
 //   grad           fd.grad_central_{x,y}_2nd at one cell

@@ -194,6 +194,9 @@ _KNOWN_VALUES = {
     # the TPU's reduced-precision DCT passes (docs/DESIGN.md #6) are not
     # carried over: the port's DCT runs in full precision
     "dct_precision": ("auto", "highest"),
+    # checked at any gamma, as the JAX package checks them
+    "st_method": ("csf", "balanced"),
+    "st_curvature": ("fd", "hf"),
 }
 
 

@@ -175,34 +175,71 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
         torch.testing.assert_close(o, r, rtol=0, atol=ATOL, equal_nan=True)
 
 
-@pytest.mark.parametrize("kernel", ["rmt_block", "momentum_rk4",
-                                    "advext_block", "velocity_rhs"])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_tile_kernel_call_runs_one_device_kernel(dev, kernel, dtype):
-    """One wrapper call of each tile kernel runs exactly one CUDA kernel
-    on the card (torch.profiler), no copy and no other kernel; advext_block
-    runs two, its skip's flag pre-pass and its tile kernel."""
+TILE_KERNELS = ["rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
+                "rc_rhs", "grad_correct"]
+
+
+@pytest.fixture(scope="module")
+def device_kernels_per_call():
+    """{(kernel, dtype): the device events of one wrapper call} for each
+    tile kernel at 203x301, from one torch.profiler session with a spin
+    kernel before each call and after the last: on the card's machine a
+    process's later profiler sessions may record no device work, so the
+    cases share one (as chip_smoke.py's profile does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    dev = torch.device("cuda", 0)
     shape = (203, 301)
-    calls = {
-        "rmt_block": lambda: (rb.rmt_block_fused, *block_inputs(
-            dev, shape, dtype)[1:]),
-        "momentum_rk4": lambda: momentum_call(dev, shape, dtype),
-        "advext_block": lambda: (rb.advext_block_fused,
-                                 *split_call(dev, shape, DISC, dtype)),
-        "velocity_rhs": lambda: (mr.velocity_rhs_blended_fused,
-                                 rhs_inputs(dev, shape, dtype), {}),
-    }
-    fn, args, kw = calls[kernel]()
-    fn(*args, **kw)
+    calls = {}
+    for dtype in (torch.float64, torch.float32):
+        calls[("rmt_block", dtype)] = (rb.rmt_block_fused, *block_inputs(
+            dev, shape, dtype)[1:])
+        calls[("momentum_rk4", dtype)] = momentum_call(dev, shape, dtype)
+        calls[("advext_block", dtype)] = (rb.advext_block_fused,
+                                          *split_call(dev, shape, DISC, dtype))
+        calls[("velocity_rhs", dtype)] = (mr.velocity_rhs_blended_fused,
+                                          rhs_inputs(dev, shape, dtype), {})
+        calls[("rc_rhs", dtype)] = (ps.rc_rhs_fused,
+                                    rc_args(dev, shape, dtype), {})
+        calls[("grad_correct", dtype)] = (ps.grad_correct_fused, gc_args(
+            dev, shape, dtype, pt.free_slip_box_bc), {})
+    for fn, args, kw in calls.values():
+        fn(*args, **kw)  # builds and warms up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn(*args, **kw)
+        for fn, args, kw in calls.values():
+            torch.cuda._sleep(1000)
+            fn(*args, **kw)
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = sum("spin_kernel" in e.name for e in events)
+    assert marks in (len(calls), len(calls) + 1), marks
+    out = {key: [] for key in calls}
+    keys = list(calls)
+    k = len(calls) + 1 - marks  # 1 where the first mark was not recorded
+    for e in events:
+        if "spin_kernel" in e.name:
+            k += 1
+        elif 0 < k <= len(keys):
+            out[keys[k - 1]].append(e.name)
+    return out
+
+
+@pytest.mark.parametrize("kernel", TILE_KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_kernel_call_runs_one_device_kernel(device_kernels_per_call,
+                                                 kernel, dtype):
+    """One wrapper call of each tile kernel runs exactly one CUDA kernel
+    on the card (torch.profiler), no copy and no other kernel; advext_block
+    runs two, its skip's flag pre-pass and its tile kernel."""
+    device = device_kernels_per_call[(kernel, dtype)]
     assert len(device) == (2 if kernel == "advext_block" else 1), device
 
 
@@ -468,27 +505,128 @@ def assert_equal_to_plain(out, ref):
         assert float((o - r).abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_rc_rhs_kernel_matches_plain(dev, shape):
-    (a, b, p, _, rho), dx, dy = stencil_inputs(dev, shape)
-    dt = torch.tensor(1.3e-3, dtype=torch.float64, device=dev)
-    args = (a, b, p, rho, dt, dt / rho.mean(), dx, dy)
+# the projection stencils' 64 x 32 tiles: SHAPES, the smallest grids (3
+# rows or columns) and a grid whose last tiles are 5 rows deep and 6
+# columns wide, with Nx not a multiple of 4 (float32 rows of a multiple of
+# 16 bytes take 16-byte copies: 64, 48x80, 9x300, 3x200 do)
+STENCIL_SHAPES = SHAPES + [(3, 3), (3, 200), (200, 3), (2053, 390)]
+DTYPES = [torch.float64, torch.float32]
+STENCIL_BCS = [pt.make_lid_bc(0.7), pt.free_slip_box_bc, pt.noop_bc]
+
+
+def assert_bit_for_bit(out, ref):
+    """max-abs 0.0 and NaN where the plain version has NaN."""
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=0, equal_nan=True)
+
+
+def rc_args(dev, shape, dtype, seed=0):
+    (a, b, p, _, rho), dx, dy = stencil_inputs(dev, shape, seed)
+    a, b, p, rho = (f.to(dtype) for f in (a, b, p, rho))
+    dt = torch.tensor(1.3e-3, dtype=dtype, device=dev)
+    return [a, b, p, rho, dt, dt / rho.mean(), dx, dy]
+
+
+def gc_args(dev, shape, dtype, bc, seed=1):
+    (a, b, _, pc, rho), dx, dy = stencil_inputs(dev, shape, seed)
+    pc, a, b, rho = (f.to(dtype) for f in (pc, a, b, rho))
+    dt = torch.tensor(1.3e-3, dtype=dtype, device=dev)
+    return [pc, a, b, rho, dt, dx, dy, bc]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_rc_rhs_kernel_matches_plain(dev, shape, dtype):
+    """Bit for bit, float64 and float32."""
+    args = rc_args(dev, shape, dtype)
     before = ps.rc_rhs_launches
-    assert_equal_to_plain([ps.rc_rhs_fused(*args)], [ps.rc_rhs_plain(*args)])
+    assert_bit_for_bit([ps.rc_rhs_fused(*args)], [ps.rc_rhs_plain(*args)])
     assert ps.rc_rhs_launches == before + 1
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
-                                pt.noop_bc])
-def test_grad_correct_kernel_matches_plain(dev, bc, shape):
-    (a, b, _, pc, rho), dx, dy = stencil_inputs(dev, shape, seed=1)
-    dt = torch.tensor(1.3e-3, dtype=torch.float64, device=dev)
-    args = (pc, a, b, rho, dt, dx, dy, bc)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+@pytest.mark.parametrize("bc", STENCIL_BCS)
+def test_grad_correct_kernel_matches_plain(dev, bc, shape, dtype):
+    """Bit for bit, float64 and float32."""
+    args = gc_args(dev, shape, dtype, bc)
     before = ps.grad_correct_launches
-    assert_equal_to_plain(ps.grad_correct_fused(*args),
-                          ps.grad_correct_plain(*args))
+    assert_bit_for_bit(ps.grad_correct_fused(*args),
+                       ps.grad_correct_plain(*args))
     assert ps.grad_correct_launches == before + 1
+
+
+def place(f, at, what):
+    f = f.clone()
+    big = torch.finfo(f.dtype).max / 4
+    f[at] = {"nan": float("nan"), "inf": float("inf"), "huge": big}[what]
+    return f
+
+
+@pytest.mark.parametrize("at", [(1, 2), (6, 1), (20, 30)],
+                         ids=["next_to_corner", "next_to_side", "interior"])
+@pytest.mark.parametrize("what", ["a_nan", "b_inf", "p_huge", "p_nan",
+                                  "rho_inf", "rho_huge"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rc_rhs_kernel_takes_non_finite_inputs(dev, dtype, what, at):
+    """A NaN, an infinity or a huge value in one input off the boundary
+    ring: the kernel gives the plain version's output at every cell, NaN
+    for NaN. The ring is 0 in both because the plain version computes
+    rho * 0 / dt there with a finite rho (rc_rhs_pallas and the kernel
+    write 0 whatever rho is); d_scalar stays that of the finite density."""
+    args = rc_args(dev, (48, 80), dtype)
+    name, value = what.split("_")
+    k = {"a": 0, "b": 1, "p": 2, "rho": 3}[name]
+    args[k] = place(args[k], at, value)
+    out, ref = ps.rc_rhs_fused(*args), ps.rc_rhs_plain(*args)
+    assert not bool(torch.isfinite(ref).all()) or value == "huge"
+    assert_bit_for_bit([out], [ref])
+
+
+@pytest.mark.parametrize("at", [(1, 2), (6, 1), (20, 30)],
+                         ids=["next_to_corner", "next_to_side", "interior"])
+@pytest.mark.parametrize("what", ["pc_nan", "pc_inf", "pc_huge", "a_nan",
+                                  "b_inf", "rho_nan", "rho_zero"])
+@pytest.mark.parametrize("bc", STENCIL_BCS, ids=["lid", "free_slip", "noop"])
+def test_grad_correct_kernel_takes_non_finite_inputs(dev, bc, what, at):
+    """As for rc_rhs, under each BC, in float32: the free-slip copies carry
+    a non-finite corrected value of row 1 and column 1 to the walls, and a
+    zero density makes dt / rho infinite (times a zero gradient, NaN)."""
+    args = gc_args(dev, (48, 80), torch.float32, bc)
+    name, value = what.split("_")
+    k = {"pc": 0, "a": 1, "b": 2, "rho": 3}[name]
+    if value == "zero":
+        args[k] = args[k].clone()
+        args[k][at] = 0.0
+    else:
+        args[k] = place(args[k], at, value)
+    assert_bit_for_bit(ps.grad_correct_fused(*args),
+                       ps.grad_correct_plain(*args))
+
+
+def misaligned(f):
+    """f's values in a contiguous tensor that starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(f.numel() + 1, dtype=f.dtype, device=f.device)
+    out = flat[1:].view(f.shape)
+    out.copy_(f)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stencil_kernels_take_misaligned_fields(dev, dtype):
+    """Rows of a multiple of 16 bytes take 16-byte copies only where every
+    field starts at a 16-byte boundary; one that does not takes the
+    element copies, with the same result."""
+    args = rc_args(dev, (48, 80), dtype)
+    args[2] = misaligned(args[2])
+    assert args[2].data_ptr() % 16 != 0
+    assert_bit_for_bit([ps.rc_rhs_fused(*args)], [ps.rc_rhs_plain(*args)])
+    args = gc_args(dev, (48, 80), dtype, pt.free_slip_box_bc)
+    args[3] = misaligned(args[3])
+    assert_bit_for_bit(ps.grad_correct_fused(*args),
+                       ps.grad_correct_plain(*args))
 
 
 def rhs_inputs(dev, shape, dtype=torch.float64):

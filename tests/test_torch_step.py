@@ -160,7 +160,8 @@ def test_bad_configs_raise():
     with pytest.raises(TypeError):
         pt.RMTConfig(grid=g, not_a_field=1.0)
     for bad in (dict(rmt_method="fast"), dict(reinit_method="bogus"),
-                dict(map_rebase_minj=0.5, map_rebase_rebuild="bogus")):
+                dict(map_rebase_minj=0.5, map_rebase_rebuild="bogus"),
+                dict(st_method="bogus"), dict(st_curvature="bogus")):
         with pytest.raises(ValueError):
             pt.make_step(pt.RMTConfig(grid=g, **bad), pt.make_lid_bc(1.0),
                          (DISC,), device=DEV)
@@ -170,3 +171,18 @@ def test_bad_configs_raise():
     with pytest.raises(NotImplementedError):  # two solids
         pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (DISC, DISC),
                      device=DEV)
+
+
+@pytest.mark.parametrize("bad", [dict(st_method="bogus"),
+                                 dict(st_curvature="bogus")],
+                         ids=["st_method", "st_curvature"])
+def test_bad_surface_tension_options_raise_as_in_jax(bad):
+    """An unknown surface-tension option raises ValueError in both packages,
+    with surface tension off (gamma = 0) too."""
+    jcfg, jbc, jphis = _flagship(16, jnp.float64)
+    jcfg = dataclasses.replace(jcfg, gamma=0.0, **bad)
+    with pytest.raises(ValueError):
+        jsim.make_step(jcfg, jbc, jphis, dtype=jnp.float64)
+    with pytest.raises(ValueError):
+        pt.make_step(port_config(jcfg), pt.make_lid_bc(1.0), (DISC,),
+                     dtype=torch.float64, device=DEV)

@@ -2,10 +2,11 @@
 the CPU (float64, seeded numpy inputs).
 
 The CUDA tile kernels (``rmt_block_fused``, ``momentum_rk4_fused``,
-``advext_block_fused``, ``velocity_rhs_blended_fused``) compute each output
-tile from a panel of the tile plus a halo; a result there is right only if
-no input outside the halo can reach it. So each plain function's dependency
-radius is the halo its kernel relies on:
+``advext_block_fused``, ``velocity_rhs_blended_fused``, ``rc_rhs_fused``,
+``grad_correct_fused``) compute each output tile from a panel (or a ring of
+rows) of the tile plus a halo; a result there is right only if no input
+outside the halo can reach it. So each plain function's dependency radius
+is the halo its kernel relies on:
 
 - ``rmt_block_plain``: 4L + 4 cells (L = num_layers): the stress reads the
   map at +-1, each extrapolation sweep a 9x9 window, the advection +-1 of
@@ -19,6 +20,14 @@ radius is the halo its kernel relies on:
 - ``physics.velocity_rhs_blended``: 2 cells off the domain's edge (the
   3rd-order upwind, the divergence of a stress of central differences),
   3 inward from a cell on it (the one-sided closures);
+- ``rc_rhs_plain``: exactly 2 cells from a cell off the boundary ring
+  (the Rhie-Chow face at i + 1/2 reads the cell-centred dp/dx at i + 1,
+  which reads p at i + 2), and 0 on the ring, where it is 0 for any
+  finite rho;
+- ``grad_correct_plain``: 1 cell off the domain's edge; on it, by BC: the
+  no-op BC's one-sided closures reach 2 cells inward, the free-slip copy
+  of row 1 (column 1) reaches 1 cell diagonally, and the lid (and the
+  free-slip corner) gives constants;
 - the tile-activity skips: where no disc(X1, X2) <= 0 lies within 4L + 4
   cells, the block's outputs are those of the zero map, which is what
   ``rmt_block_plain`` gives for X1 = X2 = 0, for any disc; where no
@@ -33,6 +42,10 @@ import pytest
 import torch
 
 import pyrmt_tpu_torch as pt
+from pyrmt_tpu_torch.kernels.projection_stencils import (
+    grad_correct_plain,
+    rc_rhs_plain,
+)
 from pyrmt_tpu_torch.kernels.rmt_block import (
     advext_block_plain,
     rmt_block_plain,
@@ -200,6 +213,98 @@ def test_velocity_rhs_reaches_2_off_the_edge_3_on_it(probe):
         for o, q in zip(out, ref):
             assert torch.equal(o[j, i], q[j, i]) == same
             assert not torch.equal(o, q)
+
+
+STENCIL_PROBES = {"interior": (20, 21), "next_to_edge": (1, 17),
+                  "next_to_corner": (1, 1), "on_edge": (0, 23),
+                  "on_side": (17, 0), "corner": (39, 0)}
+
+
+def stencil_case(seed=0, shape=(40, 40)):
+    """The projection stencils' fields: a*, b* (a few Fourier modes), a
+    smooth pressure plus noise, a pressure correction of noise, a density
+    1 .. 1.3 across a disc."""
+    rng = np.random.default_rng(seed)
+    Ny, Nx = shape
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, Nx), np.linspace(0.0, 1.0, Ny))
+    a, b = velocity(rng, shape, amp=0.3)
+    p = 0.05 * np.cos(np.pi * X) * np.cos(2 * np.pi * Y)
+    p = p + 1e-3 * rng.standard_normal(shape)
+    pc = 1e-3 * rng.standard_normal(shape)
+    rho = 1.0 + 0.3 * (np.hypot(X - 0.6, Y - 0.5) < 0.2)
+    return 1.0 / (Nx - 1), [t(f) for f in (a, b, p, pc, rho)]
+
+
+def assert_stencil_reach(fn, ins, probe, h, seed):
+    """Perturbing ``ins`` only outside the (2h+1)^2 window around the probe
+    leaves every output of fn at the probe bit for bit, and perturbing them
+    outside the window one cell smaller moves one; h None: the outputs at
+    the probe do not move however every input moves, the probe's own
+    included."""
+    Ny, Nx = ins[0].shape
+    j, i = probe
+    rng = np.random.default_rng(seed)
+    noise = [t(0.1 * rng.standard_normal((Ny, Nx))) for _ in ins]
+    ref = fn(ins)
+    cases = ((-1, True),) if h is None else ((h, True), (h - 1, False))
+    for r, same in cases:
+        far = t(outside(probe, r, (Ny, Nx))) if r >= 0 else 1.0
+        out = fn([f + far * n for f, n in zip(ins, noise)])
+        assert all(torch.equal(o[j, i], q[j, i])
+                   for o, q in zip(out, ref)) == same
+        assert not all(torch.equal(o, q) for o, q in zip(out, ref))
+
+
+RC_RHS_REACH = {"interior": 2, "next_to_edge": 2, "next_to_corner": 2,
+                "on_edge": None, "on_side": None, "corner": None}
+
+
+@pytest.mark.parametrize("where", list(STENCIL_PROBES))
+def test_rc_rhs_reaches_2_and_the_ring_is_0(where):
+    """rc_rhs_plain at a cell off the boundary ring reads a*, b*, p and rho
+    within exactly 2 cells; on the ring it is 0 whatever its inputs."""
+    dx, (a, b, p, _, rho) = stencil_case()
+    dt = t(2e-3)
+    d = dt / rho.mean()
+
+    def rc(f):
+        return (rc_rhs_plain(*f, dt, d, dx, dx),)
+
+    probe = STENCIL_PROBES[where]
+    assert_stencil_reach(rc, [a, b, p, rho], probe, RC_RHS_REACH[where], 5)
+    if RC_RHS_REACH[where] is None:
+        assert float(rc([a, b, p, rho])[0][probe]) == 0.0
+
+
+# (probe -> radius) of grad_correct_plain under each BC; None: constant
+GRAD_CORRECT_REACH = {
+    "noop": {"interior": 1, "next_to_edge": 1, "next_to_corner": 1,
+             "on_edge": 2, "on_side": 2, "corner": 2},
+    "lid": {"interior": 1, "next_to_edge": 1, "next_to_corner": 1,
+            "on_edge": None, "on_side": None, "corner": None},
+    "free_slip": {"interior": 1, "next_to_edge": 1, "next_to_corner": 1,
+                  "on_edge": 1, "on_side": 1, "corner": None},
+}
+STENCIL_BCS = {"noop": pt.noop_bc, "lid": pt.make_lid_bc(0.7),
+               "free_slip": pt.free_slip_box_bc}
+
+
+@pytest.mark.parametrize("where", list(STENCIL_PROBES))
+@pytest.mark.parametrize("bc_name", list(STENCIL_BCS))
+def test_grad_correct_reach_by_bc(bc_name, where):
+    """grad_correct_plain reads p_corr, a*, b* and rho within 1 cell of a
+    cell off the domain's edge; on the edge the no-op BC's one-sided
+    gradients reach 2 cells inward, the free-slip copy of row 1 (column 1)
+    1 cell diagonally, and the lid gives constants."""
+    dx, (a, b, _, pc, rho) = stencil_case(seed=1)
+    dt = t(2e-3)
+    bc = STENCIL_BCS[bc_name]
+
+    def gc(f):
+        return grad_correct_plain(*f, dt, dx, dx, bc)
+
+    assert_stencil_reach(gc, [pc, a, b, rho], STENCIL_PROBES[where],
+                         GRAD_CORRECT_REACH[bc_name][where], 6)
 
 
 def advext_case(num_layers, solids, seed=0):
