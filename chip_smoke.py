@@ -9,19 +9,18 @@ another sm_90a card) and the CUDA toolkit. Phases:
 
   1. probe: torch and CUDA versions, nvcc, the card's name and power limit;
   2. build the five CUDA sources of pyrmt_tpu_torch/csrc side by side;
-  3. each of the seven kernels against its plain PyTorch version on the
-     same tensors on the card: float64 at N=256 (max-abs <= 1e-11), float32
-     at N=256 and at the flagship's N=1024 (bounds below), the disc
-     touching the domain's edge at N=256 (the solid-block kernels),
-     grad_correct under the lid, free-slip and no-op BCs, velocity_rhs with
-     a random external force; the six tile kernels (rmt_block,
-     momentum_rk4, advext_block, velocity_rhs, rc_rhs, grad_correct) also
-     on ragged grids (203x301, 9x300, 33x49) in both types and at N=4096
-     float32; then the
-     times of kernel and plain version at N=1024 (CUDA events), and in one
-     torch.profiler session each kernel's device time and device kernels
-     per call at N=1024 and N=4096 beside its bound (rmt_block and
-     advext_block also with every tile skipping), and the kernels
+  3. each of the seven kernels (all tile kernels) against its plain
+     PyTorch version on the same tensors on the card: float64 at N=256
+     (max-abs <= 1e-11), float32 at N=256 and at the flagship's N=1024
+     (bounds below), the disc touching the domain's edge at N=256 (the
+     solid-block kernels and the extrapolation), grad_correct under the
+     lid, free-slip and no-op BCs, velocity_rhs with a random external
+     force; all seven also on ragged grids (203x301, 9x300, 33x49) in both
+     types and at N=4096 float32; then the times of kernel and plain
+     version at N=1024 (CUDA events), and in one torch.profiler session
+     each kernel's device time and device kernels per call at N=1024 and
+     N=4096 beside its bound (rmt_block, advext_block and
+     extrapolate_fused also with every tile skipping), and the kernels
      and device-busy ms per step of phases 4, 4b, 4c and 5's
      configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
@@ -48,7 +47,7 @@ as nvidia-smi gives them, and last one JSON line
 exits nonzero; so does a machine without CUDA.
 
 With --profile-kernels it runs phases 1 and 2 and the device profile of
-the six tile kernels only, at N=1024 and N=4096 float32, and of the
+the seven kernels only, at N=1024 and N=4096 float32, and of the
 step groups of phase 3, for the pyrmt_tpu_torch package under ROOT
 (default: this checkout), and prints one JSON line: the way to time
 another commit's kernels and steps on the same card, e.g. the parent's
@@ -122,12 +121,9 @@ TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
-# the kernels with shared-memory tiles (or a ring of rows) and a halo
-TILED = ("rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
-         "rc_rhs", "grad_correct")
-# device kernels per wrapper call of a tile kernel: advext_block's flag
-# pre-pass and tile kernel; one for the others
-DEVICE_KERNELS = {"advext_block": 2}
+# device kernels per wrapper call: advext_block's and extrapolate_fused's
+# flag pre-pass and tile kernel; one for the others
+DEVICE_KERNELS = {"advext_block": 2, "extrapolate_fused": 2}
 SOURCES = ("rmt_block", "momentum_rk4", "extrapolate_fused",
            "projection_stencils", "momentum_rhs")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -309,12 +305,10 @@ def check_close(what, err, scale, f64, tol_f32):
         raise AssertionError(f"{what} differs by {err:.3e} > {bound:.3g}")
 
 
-def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC,
-                    only=tuple(KERNELS)):
-    """The kernels named in ``only`` against their plain versions on the
-    same tensors (the momentum and stencil kernels for the flagship disc
-    only). Returns {kernel: max-abs over its outputs}; raises past the
-    tolerance."""
+def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
+    """The kernels against their plain versions on the same tensors (the
+    momentum and stencil kernels for the flagship disc only). Returns
+    {kernel: max-abs over its outputs}; raises past the tolerance."""
     f64 = dtype == torch.float64
     cfg, d = kernel_inputs(shape, dtype, device, disc=disc)
     g = cfg.grid
@@ -332,37 +326,28 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC,
             worst[name] = max(worst.get(name, 0.0), err)
 
     plain = rmt_call(rb.rmt_block_plain, cfg, d)
-    if "rmt_block" in only:
-        hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d),
-             plain)
-    if "advext_block" in only:
-        hold("advext_block", ("X1e", "X2e"),
-             advext_call(rb.advext_block_fused, cfg, d),
-             advext_call(rb.advext_block_plain, cfg, d))
-    if "extrapolate_fused" in only:
-        hold("extrapolate_fused", ("X1e", "X2e"),
-             extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
-             extrap_call(extrapolate_reference_map, cfg, d))
+    hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d), plain)
+    hold("advext_block", ("X1e", "X2e"),
+         advext_call(rb.advext_block_fused, cfg, d),
+         advext_call(rb.advext_block_plain, cfg, d))
+    hold("extrapolate_fused", ("X1e", "X2e"),
+         extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
+         extrap_call(extrapolate_reference_map, cfg, d))
     if disc != FLAGSHIP_DISC:
         return worst
     dx, dy = cfg.grid.dx, cfg.grid.dy
     fields, mkw = momentum_args(cfg, d, plain, cfg.eta_s)
     rc, gc, rhs = stencil_args(cfg, d, plain, fields, mkw["dt"])
-    if "rc_rhs" in only:
-        hold("rc_rhs", ("rhs",), [ps.rc_rhs_fused(*rc, dx, dy)],
-             [ps.rc_rhs_plain(*rc, dx, dy)], TOL_F32_MOMENTUM)
+    hold("rc_rhs", ("rhs",), [ps.rc_rhs_fused(*rc, dx, dy)],
+         [ps.rc_rhs_plain(*rc, dx, dy)], TOL_F32_MOMENTUM)
     for bc_name, bc in (("lid", make_lid_bc(1.0)),
                         ("free_slip", free_slip_box_bc), ("noop", noop_bc)):
-        if "grad_correct" in only:
-            hold("grad_correct", (f"a {bc_name}", f"b {bc_name}"),
-                 ps.grad_correct_fused(*gc, dx, dy, bc),
-                 ps.grad_correct_plain(*gc, dx, dy, bc), TOL_F32_MOMENTUM)
-    if "velocity_rhs" in only:
-        hold("velocity_rhs", ("rhs_u", "rhs_v"),
-             mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
-             TOL_F32_MOMENTUM)
-    if "momentum_rk4" not in only:
-        return worst
+        hold("grad_correct", (f"a {bc_name}", f"b {bc_name}"),
+             ps.grad_correct_fused(*gc, dx, dy, bc),
+             ps.grad_correct_plain(*gc, dx, dy, bc), TOL_F32_MOMENTUM)
+    hold("velocity_rhs", ("rhs_u", "rhs_v"),
+         mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
+         TOL_F32_MOMENTUM)
     worst["momentum_rk4"] = 0.0
     for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
                                ("free_slip", free_slip_box_bc, 0.0),
@@ -495,6 +480,9 @@ def kernel_calls(N, device):
         # the map and phi far from the disc everywhere: every tile skips
         "advext_block, every tile skipping": lambda: advext_call(
             rb.advext_block_fused, cfg, far),
+        # phi > 0 everywhere, no known cell: every tile copies
+        "extrapolate_fused, every tile skipping": lambda: extrap_call(
+            ef.extrapolate_reference_map_fused, cfg, far),
     }
 
 
@@ -523,7 +511,7 @@ def step_groups(device, steps=20, warmup=10):
     return groups
 
 
-def profile_all(device, names=tuple(KERNELS), sizes=(1024, 4096), reps=20):
+def profile_all(device, sizes=(1024, 4096), reps=20):
     """One profiler session: each kernel's wrapper once (its device kernels
     per call) and reps times (its device time per call) at each size, and
     the step groups. Returns ({N: {kernel: (device us per call,
@@ -532,19 +520,16 @@ def profile_all(device, names=tuple(KERNELS), sizes=(1024, 4096), reps=20):
     groups = []
     for N in sizes:
         calls = kernel_calls(N, device)
-        # rmt_block's and advext_block's other rows
-        rows = [name for name in calls
-                if name in names or name.split(",")[0] in names]
-        for name in rows:
-            calls[name]()  # builds and warms up
-            groups.append(((N, name, "one"), calls[name]))
+        for name, fn in calls.items():
+            fn()  # builds and warms up
+            groups.append(((N, name, "one"), fn))
             groups.append(((N, name, "reps"),
-                           lambda f=calls[name]: [f() for _ in range(reps)]))
+                           lambda f=fn: [f() for _ in range(reps)]))
     steps = step_groups(device)
     ev = profile_groups(groups + steps)
     kern = {N: {} for N in sizes}
     for N in sizes:
-        for name in rows:
+        for name in calls:
             one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
             kern[N][name] = (busy_us(many) / reps, len(one))
             b, by = bound_us(name.split(",")[0], N)
@@ -770,7 +755,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
     if PROFILE_ONLY:
-        prof, step_prof = profile_all(device, TILED)
+        prof, step_prof = profile_all(device)
         print(json.dumps({"profile": {
             name: {f"N{N}": {"device_us": prof[N][name][0],
                              "device_launches_per_call": prof[N][name][1],
@@ -785,23 +770,17 @@ def main() -> int:
     # 3. kernel vs plain on the card
     errs = {}
     f32, f64 = torch.float32, torch.float64
-    for shape, dtype, disc, only in (
-            (256, f64, FLAGSHIP_DISC, tuple(KERNELS)),
-            (256, f32, FLAGSHIP_DISC, tuple(KERNELS)),
-            (256, f64, EDGE_DISC, tuple(KERNELS)),
-            (256, f32, EDGE_DISC, tuple(KERNELS)),
-            ((203, 301), f64, FLAGSHIP_DISC, TILED),
-            ((203, 301), f32, FLAGSHIP_DISC, TILED),
-            ((9, 300), f64, FLAGSHIP_DISC, TILED),
-            ((33, 49), f32, FLAGSHIP_DISC, TILED),
-            (1024, f32, FLAGSHIP_DISC, tuple(KERNELS)),
-            (4096, f32, FLAGSHIP_DISC, TILED)):
-        for name, e in compare_kernels(shape, dtype, device, disc,
-                                       only).items():
+    for shape, dtype, disc in (
+            (256, f64, FLAGSHIP_DISC), (256, f32, FLAGSHIP_DISC),
+            (256, f64, EDGE_DISC), (256, f32, EDGE_DISC),
+            ((203, 301), f64, FLAGSHIP_DISC), ((203, 301), f32, FLAGSHIP_DISC),
+            ((9, 300), f64, FLAGSHIP_DISC), ((33, 49), f32, FLAGSHIP_DISC),
+            (1024, f32, FLAGSHIP_DISC), (4096, f32, FLAGSHIP_DISC)):
+        for name, e in compare_kernels(shape, dtype, device, disc).items():
             errs[name] = max(errs.get(name, 0.0), e)
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
-    for name in TILED:
+    for name in KERNELS:
         want = DEVICE_KERNELS.get(name, 1)
         if prof[1024][name][1] != want or prof[4096][name][1] != want:
             raise AssertionError(

@@ -1,12 +1,11 @@
 // Shared helpers of the pyrmt_tpu_torch CUDA kernels.
 //
-// The staged kernels (extrapolate_fused.cu's, with rmt_device.cuh's layer
-// sweeps) run one thread per grid cell of a row-major (Ny, Nx) field; the
-// tile kernels (momentum_rk4.cu, momentum_rhs.cu, projection_stencils.cu,
-// both entries of rmt_block.cu) run one block per 2D tile with a halo
-// (Span). Every kernel evaluates its expressions in the order of the plain
-// PyTorch version (built with --fmad=false, see kernels/_build.py), so the
-// two round alike.
+// Every kernel is a tile kernel (momentum_rk4.cu, momentum_rhs.cu,
+// projection_stencils.cu, both entries of rmt_block.cu,
+// extrapolate_fused.cu): one block per 2D tile of a row-major (Ny, Nx)
+// field, with a halo (Span). Every kernel evaluates its expressions in
+// the order of the plain PyTorch version (built with --fmad=false, see
+// kernels/_build.py), so the two round alike.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,12 +20,6 @@
   } while (0)
 
 namespace pyrmt {
-
-constexpr int kThreads = 256;
-
-inline unsigned blocks_for(long long n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
 
 __device__ inline int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);

@@ -17,7 +17,8 @@
 //
 // The fused tier: one block per 2D output tile (Span in common.cuh), with
 // the state (X1, X2, known) of a panel of the tile plus 4L+1 cells each
-// side in shared memory (L = num_layers):
+// side in shared memory (L = num_layers; the panels, tiles and layer
+// sweeps are panel_device.cuh's, shared with extrapolate_fused.cu):
 //   vote     is any cell of the panel widened by 1 solid (phi = disc(X)
 //            <= 0, or not finite) or fast enough that a backtrace may not
 //            be finite (|u| or |v| times 8 max(1, |dt|/dx, |dt|/dy) not
@@ -55,7 +56,7 @@
 // num_layers runs.
 //
 // The split tier's entry, pyrmt_advext_*, runs the same panels and layer
-// sweeps (Panel, sweeps) with phi read from the S fields phis[s], in one
+// sweeps (panel_device.cuh) with phi read from the S fields phis[s], in one
 // tile kernel, after a pre-pass for its skip:
 //   flags    advext_flag_kernel, one block per 32 x 32 cells: a byte per
 //            8 x 8 cells, set where a cell is not quiet_at (a phi not above
@@ -92,20 +93,29 @@
 // Built with --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
-#include "rmt_device.cuh"
+#include "panel_device.cuh"
 
 namespace {
 
 using pyrmt::Disc;
+using pyrmt::flag_bytes;
+using pyrmt::flag_cols;
+using pyrmt::for_panel;
+using pyrmt::kBx;
+using pyrmt::kBy;
+using pyrmt::kFlag;
+using pyrmt::kFlagTile;
+using pyrmt::kThreads;
+using pyrmt::num_blocks;
+using pyrmt::num_tiles;
+using pyrmt::own;
+using pyrmt::Panel;
+using pyrmt::Plan;
+using pyrmt::plan;
 using pyrmt::Rows;
 using pyrmt::Span;
+using pyrmt::sweeps;
 using pyrmt::Taps;
-
-constexpr int kBx = 32, kBy = 16;  // threads of a block: columns x rows
-constexpr int kThreads = kBx * kBy;
-constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's most on sm_90
-constexpr int kFlag = 8;    // the split tier's skip flags: one per 8x8 cells
-constexpr int kFlagTile = 32;  // cells per side of a pre-pass block
 
 // The 12 outputs of the fused tier.
 template <typename T>
@@ -225,145 +235,11 @@ __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
           omh * s_xx, omh * s_xy, omh * s_yy};
 }
 
-// Bytes of a panel `width` cells square: two (X1, X2) buffers, u and v on
-// the panel widened by 1, two known-flag buffers (bytes) and a list of
-// frontier cells (panel indices); rounded up so that workspace panels stay
-// aligned.
-template <typename T>
-size_t panel_bytes(int width) {
-  const size_t n = static_cast<size_t>(width) * width;
-  const size_t nv = static_cast<size_t>(width + 2) * (width + 2);
-  return ((4 * n + 2 * nv) * sizeof(T) + (2 + sizeof(int)) * n + 4 + 255) /
-         256 * 256;
-}
-
-// A block's panel buffers, laid out as panel_bytes counts them: [X1 X1' X2
-// X2' u v known known' frontier list], the state in two buffers for the
-// sweeps' ping-pong.
-template <typename T>
-struct Panel {
-  int W;           // the row stride of the state buffers: the panel's width
-  size_t NP, NV;   // cells of a state buffer and of u, v
-  T* base;
-  T* us;
-  T* vs;
-  unsigned char* kbase;
-  int* flist;
-
-  __device__ Panel(unsigned char* mem, int width)
-      : W(width),
-        NP(static_cast<size_t>(width) * width),
-        NV(static_cast<size_t>(width + 2) * (width + 2)) {
-    base = reinterpret_cast<T*>(mem);
-    us = base + 4 * NP;
-    vs = us + NV;
-    kbase = reinterpret_cast<unsigned char*>(vs + NV);
-    flist = reinterpret_cast<int*>(
-        kbase + (2 * NP + sizeof(int) - 1) / sizeof(int) * sizeof(int));
-  }
-  __device__ T* x1(size_t b) const { return base + b * NP; }
-  __device__ T* x2(size_t b) const { return base + (2 + b) * NP; }
-  __device__ unsigned char* known(size_t b) const { return kbase + b * NP; }
-};
-
-// The tile and where its panels live, for either tier.
-struct Plan {
-  int tile;
-  size_t bytes;  // one panel
-  bool in_smem;
-};
-
-template <typename T>
-Plan plan(int num_layers) {
-  const int halo = 4 * num_layers + 1;
-  const int tiles[] = {32, 16, 8};
-  for (int tile : tiles) {
-    const size_t b = panel_bytes<T>(tile + 2 * halo);
-    if (b <= kMaxSmem) return {tile, b, true};
-  }
-  return {tiles[0], panel_bytes<T>(tiles[0] + 2 * halo), false};
-}
-
-__host__ __device__ unsigned num_tiles(int Ny, int Nx, int tile) {
-  return pyrmt::tiles_for(Ny, tile) * pyrmt::tiles_for(Nx, tile);
-}
-
-// Blocks of a launch: one per tile, or with the panels in a workspace two
-// per SM (sms of them), each walking over the tiles.
-unsigned num_blocks(const Plan& p, int Ny, int Nx, int sms) {
-  const unsigned n = num_tiles(Ny, Nx, p.tile);
-  const unsigned resident = 2u * static_cast<unsigned>(sms);
-  return p.in_smem || n < resident ? n : resident;
-}
-
-// The tile's own cells [out_lo, out_hi) of an axis, as a span of its own.
-__device__ inline Span own(Span s) {
-  s.lo = s.out_lo;
-  s.hi = s.out_hi;
-  return s;
-}
-
 // A panel widened by the advection's +-1 reads, clipped to [0, n).
 __device__ inline Span widen(Span s, int n) {
   s.lo = max(0, s.lo - 1);
   s.hi = min(n, s.hi + 1);
   return s;
-}
-
-// f(lj, li) for each cell of a ph x pw panel, r cells in from its inner
-// edges: warps along the rows, 16 rows at a time.
-template <typename F>
-__device__ __forceinline__ void for_panel(const Span& ys, const Span& xs,
-                                          int r, F&& f) {
-  const int ph = ys.size(), pw = xs.size();
-  for (int lj = threadIdx.y; lj < ph; lj += kBy) {
-    if (!ys.inside(lj, r)) continue;
-    for (int li = threadIdx.x; li < pw; li += kBx)
-      if (xs.inside(li, r)) f(lj, li);
-  }
-}
-
-// The L layer sweeps from the advected state in buffer 0, each 4 cells
-// further in: the cells off the frontier keep their state, the frontier
-// cells (a thin ring) are listed and then solved by consecutive threads.
-// Returns the buffer that holds the last sweep's state, valid 4L cells in
-// from the panel's inner edges. nfront: an int in shared memory.
-template <typename T>
-__device__ size_t sweeps(const Panel<T>& P, const Span& ys, const Span& xs,
-                         int L, int Ny, int Nx, const Taps<T>& tp,
-                         int& nfront) {
-  for (int layer = 1; layer <= L; ++layer) {
-    const size_t src = (layer - 1) & 1, dst = layer & 1;
-    const T* x1s = P.x1(src);
-    const T* x2s = P.x2(src);
-    const unsigned char* ks = P.known(src);
-    if (threadIdx.x == 0 && threadIdx.y == 0) nfront = 0;
-    __syncthreads();
-    for_panel(ys, xs, 4 * layer, [&](int lj, int li) {
-      const size_t l = static_cast<size_t>(lj) * P.W + li;
-      if (pyrmt::frontier_at<T, unsigned char>(ks, l, P.W, ys.lo + lj,
-                                               xs.lo + li, Ny, Nx)) {
-        P.flist[atomicAdd(&nfront, 1)] = static_cast<int>(l);
-      } else {
-        P.x1(dst)[l] = x1s[l];
-        P.x2(dst)[l] = x2s[l];
-        P.known(dst)[l] = ks[l];
-      }
-    });
-    __syncthreads();
-    for (int f = threadIdx.y * kBx + threadIdx.x; f < nfront;
-         f += kThreads) {
-      const int l = P.flist[f], lj = l / P.W, li = l - lj * P.W;
-      T x1, x2, k;
-      pyrmt::layer_at<T, unsigned char>(x1s, x2s, ks, l, P.W, ys.lo + lj,
-                                        xs.lo + li, Ny, Nx, tp, x1, x2, k);
-      P.x1(dst)[l] = x1;
-      P.x2(dst)[l] = x2;
-      P.known(dst)[l] = k > T(0);
-    }
-    __syncthreads();
-  }
-  return L & 1;
 }
 
 template <typename T>
@@ -379,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int nfront;
   const int halo = 4 * L + 1;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
-                   tile + 2 * halo);
+                   tile + 2 * halo, true);
   const int W = P.W;
   const T dt = *dt_ptr;
   const T mu_s = params[0], kappa = params[1], rho_s = params[2];
@@ -475,20 +351,8 @@ __device__ bool quiet_at(T ug, T vg, const T* __restrict__ X1s,
   return q;
 }
 
-__host__ __device__ unsigned flag_cols(int Nx) {
-  return pyrmt::tiles_for(Nx, kFlag);
-}
-
-// Bytes of the split tier's skip flags, rounded up so that a workspace
-// after them stays aligned.
-size_t flag_bytes(int Ny, int Nx) {
-  return (static_cast<size_t>(pyrmt::tiles_for(Ny, kFlag)) * flag_cols(Nx) +
-          255) / 256 * 256;
-}
-
 // The split tier's pre-pass: flags[fj, fi] = 1 where some cell of the 8x8
-// cells (fj, fi) is not quiet_at, else 0. One block of 32 x 8 threads per
-// 32 x 32 cells (4 x 4 flags); each thread reads one cell in each of 4 rows.
+// cells (fj, fi) is not quiet_at, else 0 (panel_device.cuh's flag_pass).
 template <typename T>
 __global__ void __launch_bounds__(kFlagTile * kFlag)
     advext_flag_kernel(const T* __restrict__ u, const T* __restrict__ v,
@@ -497,33 +361,12 @@ __global__ void __launch_bounds__(kFlagTile * kFlag)
                        const T* __restrict__ dt_ptr,
                        unsigned char* __restrict__ flags, int S, int Ny,
                        int Nx, double dx, double dy) {
-  constexpr int kPer = kFlagTile / kFlag;  // flags along a block's side
-  __shared__ unsigned bits;
-  const int tid = threadIdx.y * kFlagTile + threadIdx.x;
-  if (tid == 0) bits = 0;
-  __syncthreads();
   const T vscale = vote_scale<T>(*dt_ptr, dx, dy);
   const size_t N = static_cast<size_t>(Ny) * Nx;
-  const int i = blockIdx.x * kFlagTile + threadIdx.x;
-  unsigned mine = 0;
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int j = blockIdx.y * kFlagTile + r * kFlag + threadIdx.y;
-    if (i < Nx && j < Ny) {
-      const size_t g = static_cast<size_t>(j) * Nx + i;
-      if (!quiet_at<T>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale))
-        mine |= 1u << (r * kPer + threadIdx.x / kFlag);
-    }
-  }
-  mine = __reduce_or_sync(0xffffffffu, mine);
-  if (threadIdx.x == 0 && mine) atomicOr(&bits, mine);
-  __syncthreads();
-  if (tid < kPer * kPer) {
-    const unsigned fj = blockIdx.y * kPer + tid / kPer;
-    const unsigned fi = blockIdx.x * kPer + tid % kPer;
-    if (fj < pyrmt::tiles_for(Ny, kFlag) && fi < flag_cols(Nx))
-      flags[static_cast<size_t>(fj) * flag_cols(Nx) + fi] = (bits >> tid) & 1u;
-  }
+  pyrmt::flag_pass<1>(flags, Ny, Nx, [&](size_t g) {
+    return quiet_at<T>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale) ? 0u
+                                                                     : 1u;
+  });
 }
 
 // The split tier's tile kernel (the source note above). flags: the
@@ -543,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int nfront;
   const int halo = 4 * L + 1;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
-                   tile + 2 * halo);
+                   tile + 2 * halo, true);
   const int W = P.W;
   const size_t N = static_cast<size_t>(Ny) * Nx;
   const T dt = *dt_ptr;
@@ -645,12 +488,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Both tiers' panels: the tile plus 4L + 1 cells each side (the sweeps'
+// 9x9 windows and the advection's +-1 reads), u and v included.
+template <typename T>
+Plan rmt_plan(int num_layers) {
+  return plan<T>(4 * num_layers + 1, true);
+}
+
 template <typename T>
 long long workspace_bytes(int Ny, int Nx, int num_layers, int sms) {
-  const Plan p = plan<T>(num_layers);
-  if (p.in_smem) return 0;
-  return static_cast<long long>(num_blocks(p, Ny, Nx, sms)) *
-         static_cast<long long>(p.bytes);
+  return pyrmt::workspace_bytes<T>(Ny, Nx, 4 * num_layers + 1, true, sms);
 }
 
 // ws: workspace_bytes(...) bytes of device memory (unused when 0); sms:
@@ -662,7 +509,7 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            double y0, double R, const double* taps, int sms,
            void* stream_ptr) {
   static size_t allowed = 48 * 1024;
-  const Plan p = plan<T>(num_layers);
+  const Plan p = rmt_plan<T>(num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
   int err = pyrmt::allow_smem(rmt_tile_kernel<T>, smem, allowed);
   if (err) return err;
@@ -694,7 +541,7 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                   const double* taps, int sms, void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Plan p = plan<T>(num_layers);
+  const Plan p = rmt_plan<T>(num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
   int err = pyrmt::allow_smem(advext_tile_kernel<T>, smem, allowed);
   if (err) return err;

@@ -1,17 +1,16 @@
-// Device code of the reference-map kernels, shared by rmt_block.cu (the
-// tile kernels of the fused tier and of the split tier's advect-extrapolate
-// block) and extrapolate_fused.cu (the standalone extrapolation):
+// Device code of the reference-map kernels at one cell, shared by the tile
+// kernels of rmt_block.cu (the fused tier and the split tier's
+// advect-extrapolate block) and extrapolate_fused.cu (the standalone
+// extrapolation); the panels and the layer sweeps over them are
+// panel_device.cuh's:
 //   Bilinear       ops/interp.py::gather_bilinear_local at one cell
 //   backtrace_at   the shared RK4 backtrace of the map at one cell
 //   masked_sample  the advected map at one cell times the mask (phi <= 0),
 //                  and the known flag (phi < 0), given the cell's
 //                  pre-advection phi
-//   layer_at       one layer-synchronous least-squares extrapolation step at
-//                  one cell, over a field in device memory or a
-//                  shared-memory panel
-//   layer_kernel, run_layers
-//                  the staged launches of the standalone extrapolation: one
-//                  thread per cell, one launch per layer
+//   frontier_at, layer_at
+//                  one layer-synchronous least-squares extrapolation step at
+//                  one cell of a shared-memory panel
 // Every expression in the order of the plain PyTorch version (built with
 // --fmad=false), so kernel and plain version round alike.
 #pragma once
@@ -142,12 +141,12 @@ __device__ void masked_sample(const Rows<T>& X1, const Rows<T>& X2, T sx,
   x2a = bf(X2) * mask;
 }
 
-// Is cell (j, i), element n of known flags whose rows are sy apart (K: T
-// or a byte), on the extrapolation's frontier: unknown, interior, with a
-// known 3x3 neighbour?
-template <typename T, typename K>
-__device__ bool frontier_at(const K* kf, size_t n, size_t sy, int j, int i,
-                            int Ny, int Nx) {
+// Is cell (j, i), element n of known flags (bytes) whose rows are sy
+// apart, on the extrapolation's frontier: unknown, interior, with a known
+// 3x3 neighbour?
+template <typename T>
+__device__ bool frontier_at(const unsigned char* kf, size_t n, size_t sy,
+                            int j, int i, int Ny, int Nx) {
   const long long ss = static_cast<long long>(sy);
   bool interior = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
   bool frontier = false;
@@ -160,20 +159,20 @@ __device__ bool frontier_at(const K* kf, size_t n, size_t sy, int j, int i,
 }
 
 // One layer-synchronous extrapolation step at cell (j, i), element n of
-// fields whose rows are sy apart (K: the known flags' type, T or a byte):
-// a frontier cell solves the 3x3 normal equations of the Gaussian plane
+// fields whose rows are sy apart (the known flags as bytes): a frontier
+// cell solves the 3x3 normal equations of the Gaussian plane
 // fit over its 9x9 window (zero outside the domain), summed as the
 // separable x-then-y pass of the plain version, in the same order; any
 // other cell keeps its state. (x1, x2, k) is the cell's new state.
-template <typename T, typename K>
-__device__ void layer_at(const T* X1, const T* X2, const K* kf, size_t n,
-                         size_t sy, int j, int i, int Ny, int Nx,
+template <typename T>
+__device__ void layer_at(const T* X1, const T* X2, const unsigned char* kf,
+                         size_t n, size_t sy, int j, int i, int Ny, int Nx,
                          const Taps<T>& tp, T& x1, T& x2, T& k) {
   x1 = X1[n];
   x2 = X2[n];
   k = static_cast<T>(kf[n]);
   const long long ss = static_cast<long long>(sy);
-  if (!frontier_at<T, K>(kf, n, sy, j, i, Ny, Nx)) return;
+  if (!frontier_at<T>(kf, n, sy, j, i, Ny, Nx)) return;
   T count = 0, s00 = 0, s01 = 0, s02 = 0, s11 = 0, s12 = 0, s22 = 0;
   T b10 = 0, b11 = 0, b12 = 0, b20 = 0, b21 = 0, b22 = 0;
   for (int dj = -kWin; dj <= kWin; ++dj) {
@@ -226,39 +225,6 @@ __device__ void layer_at(const T* X1, const T* X2, const K* kf, size_t n,
           + s02 * (b21 * s12 - s11 * b22)) * inv_det;
     k = T(1);
   }
-}
-
-// layer_at, one thread per cell of the device fields.
-template <typename T>
-__global__ void layer_kernel(const T* X1, const T* X2, const T* kf, T* X1o,
-                             T* X2o, T* kfo, int Ny, int Nx, Taps<T> tp) {
-  long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= static_cast<long long>(Ny) * Nx) return;
-  int j = static_cast<int>(n / Nx), i = static_cast<int>(n % Nx);
-  T x1, x2, k;
-  layer_at<T, T>(X1, X2, kf, n, Nx, j, i, Ny, Nx, tp, x1, x2, k);
-  X1o[n] = x1;
-  X2o[n] = x2;
-  kfo[n] = k;
-}
-
-// num_layers >= 1 sweeps from buf[0] = (X1, X2, known); scratch buf[1] is
-// the other half of the ping-pong; the last sweep writes X1 and X2 into
-// (x1e, x2e).
-template <typename T>
-int run_layers(T* const buf[2][3], T* x1e, T* x2e, int num_layers, int Ny,
-               int Nx, const Taps<T>& tp, cudaStream_t stream) {
-  const unsigned nb = blocks_for(static_cast<long long>(Ny) * Nx);
-  for (int l = 0; l < num_layers; ++l) {
-    T* const* src = buf[l % 2];
-    T* const* dst = buf[(l + 1) % 2];
-    bool last = l == num_layers - 1;
-    layer_kernel<T><<<nb, kThreads, 0, stream>>>(
-        src[0], src[1], src[2], last ? x1e : dst[0], last ? x2e : dst[1],
-        dst[2], Ny, Nx, tp);
-    PYRMT_RETURN_IF_ERROR();
-  }
-  return 0;
 }
 
 }  // namespace pyrmt

@@ -39,8 +39,12 @@ def _cuda_lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.pyrmt_extrapolate_fused_f32,
                lib.pyrmt_extrapolate_fused_f64):
-        fn.argtypes = [P] * 6 + [I, I, I, P, P]
+        fn.argtypes = [P] * 6 + [I, I, I, P, I, P]
         fn.restype = I
+    for fn in (lib.pyrmt_extrapolate_fused_scratch_f32,
+               lib.pyrmt_extrapolate_fused_scratch_f64):
+        fn.argtypes = [I] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -50,7 +54,8 @@ def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
     ``extrapolate_reference_map``.
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
-    kernel; another dtype, shape or device raises.
+    kernel (a flag pre-pass and a tile kernel on the current stream, which
+    do not wait for the card); another dtype, shape or device raises.
     """
     global launches
     if X1.device.type == "cpu":
@@ -65,11 +70,18 @@ def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
     lib = _cuda_lib()
     x1e = torch.empty_like(X1)
     x2e = torch.empty_like(X1)
-    scratch = torch.empty((6, Ny, Nx), dtype=X1.dtype, device=X1.device)
-    fn = (lib.pyrmt_extrapolate_fused_f32 if X1.dtype == torch.float32
+    f32 = X1.dtype == torch.float32
+    sms = torch.cuda.get_device_properties(X1.device).multi_processor_count
+    # the pre-pass's flags, and the panels' workspace where a panel does not
+    # fit a block's shared memory (float32 from 12 layers, float64 from 9)
+    nbytes = (lib.pyrmt_extrapolate_fused_scratch_f32 if f32 else
+              lib.pyrmt_extrapolate_fused_scratch_f64)(
+                  Ny, Nx, int(max_layers), sms)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=X1.device)
+    fn = (lib.pyrmt_extrapolate_fused_f32 if f32
           else lib.pyrmt_extrapolate_fused_f64)
     err = fn(*(_build.pointer(t) for t in (X1, X2, phi, x1e, x2e, scratch)),
-             Ny, Nx, int(max_layers), window_taps(dx, dy),
+             Ny, Nx, int(max_layers), window_taps(dx, dy), sms,
              _build.stream_handle(X1.device))
     _build.check(lib, err, "extrapolate_fused kernel launch")
     launches += 1

@@ -176,7 +176,7 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
 
 
 TILE_KERNELS = ["rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
-                "rc_rhs", "grad_correct"]
+                "rc_rhs", "grad_correct", "extrapolate_fused"]
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +206,9 @@ def device_kernels_per_call():
                                     rc_args(dev, shape, dtype), {})
         calls[("grad_correct", dtype)] = (ps.grad_correct_fused, gc_args(
             dev, shape, dtype, pt.free_slip_box_bc), {})
+        calls[("extrapolate_fused", dtype)] = (
+            ef.extrapolate_reference_map_fused,
+            extrap_args(dev, shape, dtype=dtype), {})
     for fn, args, kw in calls.values():
         fn(*args, **kw)  # builds and warms up
     torch.cuda.synchronize()
@@ -237,10 +240,12 @@ def device_kernels_per_call():
 def test_tile_kernel_call_runs_one_device_kernel(device_kernels_per_call,
                                                  kernel, dtype):
     """One wrapper call of each tile kernel runs exactly one CUDA kernel
-    on the card (torch.profiler), no copy and no other kernel; advext_block
-    runs two, its skip's flag pre-pass and its tile kernel."""
+    on the card (torch.profiler), no copy and no other kernel;
+    advext_block and extrapolate_fused run two, their skip's flag pre-pass
+    and their tile kernel."""
     device = device_kernels_per_call[(kernel, dtype)]
-    assert len(device) == (2 if kernel == "advext_block" else 1), device
+    two = ("advext_block", "extrapolate_fused")
+    assert len(device) == (2 if kernel in two else 1), device
 
 
 def momentum_call(dev, shape, dtype):
@@ -401,22 +406,94 @@ def test_split_and_rhs_kernels_match_plain_in_float32(dev, shape):
                      velocity_rhs_blended(*rargs), 1e-5)
 
 
-@pytest.mark.parametrize("layers", [0, 3, 4])
-@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_extrapolate_fused_kernel_matches_plain(dev, shape, disc, layers):
+def extrap_args(dev, shape, disc=DISC, dtype=torch.float64, layers=3):
+    """The extrapolation's arguments: the identity map inside the wobbled
+    disc (phi < 0), as a rebase extrapolates it, in dtype."""
     cfg, args = split_inputs(dev, shape, disc)
     X, Y = cfg.grid.coords(dtype=torch.float64, device=dev)
     phi = args[4][0]
     m = (phi < 0).to(X.dtype)
+    return [f.to(dtype).contiguous() for f in (X * m, Y * m, phi)] + [
+        cfg.grid.dx, cfg.grid.dy, layers]
+
+
+@pytest.mark.parametrize("layers", [0, 1, 3, 4])
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_extrapolate_fused_kernel_matches_plain(dev, shape, disc, layers):
+    a = extrap_args(dev, shape, disc, layers=layers)
     before = ef.launches
-    a = (X * m, Y * m, phi, cfg.grid.dx, cfg.grid.dy, layers)
     out = ef.extrapolate_reference_map_fused(*a)
     ref = extrapolate_reference_map(*a)
     torch.cuda.synchronize()
     assert ef.launches == before + 1
     for o, r in zip(out, ref):
         assert float((o - r).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("dtype, layers", [
+    (torch.float64, 6), (torch.float64, 8), (torch.float64, 9),
+    (torch.float32, 9), (torch.float32, 11), (torch.float32, 12)],
+    ids=["f64-16", "f64-8", "f64-workspace", "f32-16", "f32-8",
+         "f32-workspace"])
+def test_extrapolate_fused_kernel_takes_any_num_layers(dev, dtype, layers):
+    """As the layers grow the panel (the tile plus 4L each side, no u, v)
+    outgrows a block's shared memory: the tile shrinks from 32 to 16 and 8
+    cells, then the panels move to a device-memory workspace (float64 from
+    9 layers, float32 from 12)."""
+    a = extrap_args(dev, (65, 97), dtype=dtype, layers=layers)
+    assert_bit_for_bit(ef.extrapolate_reference_map_fused(*a),
+                       extrapolate_reference_map(*a))
+
+
+@pytest.mark.parametrize("what", ["X1_nan_far", "X2_inf_far", "X1_inf_near",
+                                  "phi_nan_far", "phi_nan_near"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extrapolate_fused_copy_is_exact_for_any_input(dev, dtype, what):
+    """A tile copies X1, X2 only where no cell can change, so a NaN or an
+    infinity far from the solid comes out where it went in, one in a
+    frontier cell's window gives the plain version's NaNs, and a NaN phi
+    is an unknown cell in both."""
+    a = extrap_args(dev, (160, 160), dtype=dtype)
+    X1, X2, phi = (f.clone() for f in a[:3])
+    far, near = (3, 5), (80, 129)  # the disc's edge is at i = 127.2 there
+    if what == "X1_nan_far":
+        X1[far] = float("nan")
+    elif what == "X2_inf_far":
+        X2[far] = float("inf")
+    elif what == "X1_inf_near":
+        X1[near] = float("inf")
+    elif what == "phi_nan_far":
+        phi[far] = float("nan")
+    else:
+        phi[80, 126] = float("nan")  # a solid cell
+    a[:3] = X1, X2, phi
+    out = ef.extrapolate_reference_map_fused(*a)
+    ref = extrapolate_reference_map(*a)
+    assert_bit_for_bit(out, ref)
+    assert bool(torch.isnan(ref[0]).any()) == (what in ("X1_nan_far",
+                                                        "X1_inf_near"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extrapolate_fused_takes_misaligned_fields(dev, dtype):
+    a = extrap_args(dev, (48, 80), dtype=dtype)
+    a[0], a[2] = misaligned(a[0]), misaligned(a[2])
+    assert a[0].data_ptr() % 16 != 0
+    assert_bit_for_bit(ef.extrapolate_reference_map_fused(*a),
+                       extrapolate_reference_map(*a))
+
+
+@pytest.mark.parametrize("known", ["none", "all"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extrapolate_fused_every_tile_copies(dev, dtype, known):
+    """With no known cell, or no unknown one, every tile copies: the
+    outputs are the inputs bit for bit, as in the plain version."""
+    a = extrap_args(dev, (203, 301), dtype=dtype)
+    a[2] = torch.full_like(a[2], 1.0 if known == "none" else -1.0)
+    out = ef.extrapolate_reference_map_fused(*a)
+    assert_bit_for_bit(out, extrapolate_reference_map(*a))
+    assert_bit_for_bit(out, a[:2])
 
 
 @pytest.mark.parametrize("override", [
@@ -480,6 +557,8 @@ def test_split_kernels_raise_on_what_they_do_not_take(dev):
         ef.extrapolate_reference_map_fused(X1, X2, phi.cpu(), 0.1, 0.1, 3)
     with pytest.raises(ValueError):
         ef.extrapolate_reference_map_fused(X1, X2[:-1], phi, 0.1, 0.1, 3)
+    with pytest.raises(ValueError):
+        ef.extrapolate_reference_map_fused(X1, X2, phi, 0.1, 0.1, -1)
 
 
 def stencil_inputs(dev, shape, seed=0):

@@ -7,15 +7,17 @@ the JAX package's Pallas kernels run in interpret mode on the CPU.
   rebuild: float64, 1e-13. A stack of two solids is two one-solid blocks.
 - ``extrapolate_reference_map`` against
   ``extrapolate_reference_map_fused(..., interpret=True)`` on the interior
-  disc of tests/test_extrap.py (3 layers): 1e-12. Its edge disc is in
-  tests/test_torch_extrap_edge.py: the interpreter takes about a minute
-  for each, and the two files run side by side.
+  and the edge disc of tests/test_extrap.py, 1 and 3 layers: 1e-12. The
+  edge disc at 4 layers (halo == tile) is in
+  tests/test_torch_extrap_edge.py, so that the two files run side by
+  side.
 
 The CUDA kernels are held to these plain versions on the card
 (chip_smoke.py, tests/test_torch_cuda.py).
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import pyrmt_tpu_torch.kernels.extrapolate_fused as ef
@@ -105,8 +107,12 @@ def extrapolation_case(disc, layers, tile):
     return [o.numpy() for o in out], [np.asarray(r) for r in ref]
 
 
-def test_extrapolation_matches_pallas_interpret():
-    out, ref = extrapolation_case((0.55, 0.45, 0.22), 3, 32)
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("disc, tile", [((0.55, 0.45, 0.22), 32),
+                                        ((0.08, 0.90, 0.15), 16)],
+                         ids=["interior", "edge"])
+def test_extrapolation_matches_pallas_interpret(disc, tile, layers):
+    out, ref = extrapolation_case(disc, layers, tile)
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o, r, rtol=0, atol=1e-12)
 
@@ -125,3 +131,13 @@ def test_cpu_tensors_take_the_plain_versions():
                     extrapolate_reference_map(X1, X2, phi, DX, DX, 3)):
         assert torch.equal(a, b)
     assert (rb.advext_launches, ef.launches) == before
+
+
+def test_extrapolation_kernel_raises_off_cpu_and_cuda():
+    """A tensor on neither the CPU nor a CUDA card has no kernel and no
+    plain fallback: the wrapper raises, and launches nothing."""
+    X1 = torch.zeros((8, 8), dtype=torch.float64, device="meta")
+    before = ef.launches
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ef.extrapolate_reference_map_fused(X1, X1, X1, DX, DX, 3)
+    assert ef.launches == before

@@ -3,8 +3,9 @@ the CPU (float64, seeded numpy inputs).
 
 The CUDA tile kernels (``rmt_block_fused``, ``momentum_rk4_fused``,
 ``advext_block_fused``, ``velocity_rhs_blended_fused``, ``rc_rhs_fused``,
-``grad_correct_fused``) compute each output tile from a panel (or a ring of
-rows) of the tile plus a halo; a result there is right only if no input
+``grad_correct_fused``, ``extrapolate_reference_map_fused``) compute each
+output tile from a panel of the tile plus a halo; a result there is right
+only if no input
 outside the halo can reach it. So each plain function's dependency radius
 is the halo its kernel relies on:
 
@@ -20,6 +21,9 @@ is the halo its kernel relies on:
 - ``physics.velocity_rhs_blended``: 2 cells off the domain's edge (the
   3rd-order upwind, the divergence of a stress of central differences),
   3 inward from a cell on it (the one-sided closures);
+- ``extrapolate_reference_map``: exactly 4L cells from a cell filled in
+  the last sweep (each sweep reads a 9x9 window; the kernel's panel is the
+  tile plus 4L each side);
 - ``rc_rhs_plain``: exactly 2 cells from a cell off the boundary ring
   (the Rhie-Chow face at i + 1/2 reads the cell-centred dp/dx at i + 1,
   which reads p at i + 2), and 0 on the ring, where it is 0 for any
@@ -32,7 +36,10 @@ is the halo its kernel relies on:
   cells, the block's outputs are those of the zero map, which is what
   ``rmt_block_plain`` gives for X1 = X2 = 0, for any disc; where no
   phis <= 0 lies within 4L + 1 cells and the inputs are finite,
-  ``advext_block_plain`` gives X1e = X2e = 0 for every solid.
+  ``advext_block_plain`` gives X1e = X2e = 0 for every solid; a cell that
+  is known (phi < 0) or farther than L cells from every known cell keeps
+  its X1, X2 in ``extrapolate_reference_map``, whatever they hold (the
+  extrapolation kernel's tiles copy where no cell can change).
 
 Also: the entry points run on the card unless told otherwise, so without
 CUDA their default device raises (with CUDA it is the card).
@@ -50,6 +57,7 @@ from pyrmt_tpu_torch.kernels.rmt_block import (
     advext_block_plain,
     rmt_block_plain,
 )
+from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.physics import momentum_core, velocity_rhs_blended
 
 torch.set_num_threads(1)
@@ -395,6 +403,69 @@ def test_skip_is_the_zero_map(disc, identity_map, num_layers):
     assert (float(ref[2].max()) <= 0.0) == (disc is ORIGIN)
     for o, r in zip(out, ref):
         assert torch.equal(o[..., quiet], r[..., quiet])
+
+
+def extrap_case(disc, seed=0):
+    """extrapolate_reference_map's operands: the identity map and the disc,
+    each plus a sub-cell wobble, so no two cells of a window agree."""
+    rng = np.random.default_rng(seed)
+    g = pt.Grid(N, N, 1.0, 1.0)
+    X, Y = g.coords(dtype=torch.float64, device=DEV)
+    wob = 0.3 * g.dx * rng.standard_normal((3, N, N))
+    return [X + t(wob[0]), Y + t(wob[1]), disc(X, Y) + t(wob[2])], g.dx
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+def test_extrapolate_reaches_4L(num_layers):
+    """Perturbing X1, X2 and phi only outside the (2h+1)^2 window, h = 4L,
+    leaves both outputs at the probe (on the interface's band, filled in
+    the last sweep) bit for bit; perturbing them outside the window one
+    cell smaller moves both."""
+    args, dx = extrap_case(FLAGSHIP)
+    L = num_layers
+    probe = (32, 50 + L)  # the disc's edge is at i = 50.4 on row 32
+    j, i = probe
+    ref = extrapolate_reference_map(*args, dx, dx, L)
+    before = extrapolate_reference_map(*args, dx, dx, L - 1)
+    assert all(float(r[j, i]) != float(b[j, i]) for r, b in zip(ref, before))
+    rng = np.random.default_rng(7)
+    noise = [t(3.0 * dx * rng.standard_normal((N, N))) for _ in args]
+    for h, same in ((4 * L, True), (4 * L - 1, False)):
+        far = t(outside(probe, h))
+        out = extrapolate_reference_map(
+            *(a + far * n for a, n in zip(args, noise)), dx, dx, L)
+        for o, r in zip(out, ref):
+            assert torch.equal(o[j, i], r[j, i]) == same
+            assert not torch.equal(o, r)
+
+
+def bits(x):
+    return x.view(torch.int64)
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("disc", [FLAGSHIP, EDGE], ids=["flagship", "edge"])
+def test_extrapolate_skip_is_the_copy(disc, num_layers):
+    """Known cells, and cells farther than L (Chebyshev) from every known
+    cell, keep their X1, X2 bit for bit, NaN and infinities placed far from
+    the solid included; the cells in between are the only ones that
+    move."""
+    (X1, X2, phi), dx = extrap_case(disc, seed=1)
+    L = num_layers
+    X1, X2 = X1.clone(), X2.clone()
+    X1[2, 40], X2[5, 60] = float("nan"), float("inf")
+    X1[60, 60], X2[3, 3] = float("-inf"), float("nan")
+    known = phi < 0.0
+    near = torch.nn.functional.max_pool2d(
+        known.to(torch.float64)[None, None], 2 * L + 1, stride=1,
+        padding=L)[0, 0] > 0
+    keep = known | ~near
+    assert 0 < int(keep.sum()) < N * N
+    out = extrapolate_reference_map(X1, X2, phi, dx, dx, L)
+    for o, x in zip(out, (X1, X2)):
+        assert torch.equal(bits(o[keep]), bits(x[keep]))
+        assert not torch.equal(bits(o[~keep]), bits(x[~keep]))
+        assert bool(torch.isfinite(o[~keep]).all())
 
 
 @pytest.mark.parametrize("entry", ["make_step", "make_init_state",
