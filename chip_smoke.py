@@ -16,13 +16,15 @@ another sm_90a card) and the CUDA toolkit. Phases:
      solid-block kernels and the extrapolation), grad_correct under the
      lid, free-slip and no-op BCs, velocity_rhs with a random external
      force; all seven also on ragged grids (203x301, 9x300, 33x49) in both
-     types and at N=4096 float32; then the times of kernel and plain
-     version at N=1024 (CUDA events), and in one torch.profiler session
-     each kernel's device time and device kernels per call at N=1024 and
-     N=4096 beside its bound (rmt_block, advext_block and
-     extrapolate_fused also with every tile skipping), and the kernels
-     and device-busy ms per step of phases 4, 4b, 4c and 5's
-     configurations (20 steps each);
+     types and at N=4096 float32; the contact configuration's two modes,
+     rmt_block with two solids and the two-solid clamp and momentum_rk4
+     with the contact and gravity force, at the same sizes; then the times
+     of kernel and plain version at N=1024 (CUDA events), and in one
+     torch.profiler session each kernel's device time and device kernels
+     per call at N=1024 and N=4096 beside its bound (rmt_block,
+     advext_block and extrapolate_fused also with every tile skipping; the
+     two contact modes), and the kernels and device-busy ms per step of
+     phases 4, 4b, 4c, 5 and 8's configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -38,8 +40,18 @@ another sm_90a card) and the CUDA toolkit. Phases:
      post-rebase steps;
   7. paths: 3 float64 steps at N=128 through the kernels and through the
      plain versions, for the flagship, for area fix + PDE reinit, for a
-     rebase on every step, for the flagship with both opt-in switches and
-     for area fix + PDE reinit with the projection's stencil kernels.
+     rebase on every step, for the flagship with both opt-in switches, for
+     area fix + PDE reinit with the projection's stencil kernels, for the
+     contact configuration with touching contact bands, and for it with
+     gravity on the split tier (area fix);
+  8. contact: the head-on collision of two soft discs
+     (benchmarks/two_disc_contact.py: free-slip box, k_rep = 2, the
+     two-solid clamp 4) at N=1024 float32: 20 warm-up steps, one under
+     sync-debug, 200 timed steps with the launch counts checked;
+  9. the collision at N=256 float32 to t = 0.6, the predicates of the JAX
+     package's gate (tests/test_validation_gates.py): the least distance
+     of the two solids' centroids over the steps above 2R (no
+     pass-through), the least J over the run in (0.5, 1).
 
 It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
@@ -51,12 +63,15 @@ the seven kernels only, at N=1024 and N=4096 float32, and of the
 step groups of phase 3, for the pyrmt_tpu_torch package under ROOT
 (default: this checkout), and prints one JSON line: the way to time
 another commit's kernels and steps on the same card, e.g. the parent's
-unpacked with git archive into a git-ignored directory.
+unpacked with git archive into a git-ignored directory (a package
+without the contact modes profiles the rest).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -96,11 +111,17 @@ from pyrmt_tpu_torch.ops.levelset import (  # noqa: E402
     smoothed_solid_area,
 )
 from pyrmt_tpu_torch.ops.stress import solid_cauchy_stress  # noqa: E402
+from pyrmt_tpu_torch.ops.stress import smoothed_heaviside  # noqa: E402
 from pyrmt_tpu_torch.physics import (  # noqa: E402
     compute_timestep,
     momentum_core,
     velocity_rhs_blended,
 )
+
+# Does the package under PORT_ROOT take two solids, the clamp and forces?
+# (--profile-kernels on an older commit profiles the rest.)
+HAS_CONTACT = "stress_clamp" in inspect.signature(
+    rb.rmt_block_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -121,6 +142,12 @@ TOL_F32_MOMENTUM = 1e-5
 
 FLAGSHIP_DISC = Disc(0.6, 0.5, 0.2)
 EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
+# the head-on collision (benchmarks/two_disc_contact.py:37-57), and the
+# same discs moved so that their contact bands touch at once (the
+# configuration of tests/test_sharding.py's contact test)
+CONTACT_DISCS = (Disc(0.30, 0.5, 0.15), Disc(0.70, 0.5, 0.15))
+TOUCHING_DISCS = (Disc(0.38, 0.5, 0.14), Disc(0.66, 0.5, 0.14))
+CONTACT_V0 = 0.15
 # device kernels per wrapper call: advext_block's and extrapolate_fused's
 # flag pre-pass and tile kernel; one for the others
 DEVICE_KERNELS = {"advext_block": 2, "extrapolate_fused": 2}
@@ -150,12 +177,20 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 WORK = {  # name: (fields read, fields written, operations per cell)
     "rmt_block": (4, 12, 200),
     "momentum_rk4": (9, 2, 400),
+    # the contact configuration's modes: S = 2 solids (2 + 2S read, 7S + 5
+    # written), the force without Kelvin-Voigt (u, v, p, three stresses,
+    # Hf, rho and the two force fields read)
+    "rmt_block, two solids": (6, 19, 400),
+    "momentum_rk4, force": (10, 2, 400),
     "advext_block": (5, 2, 150),
     "extrapolate_fused": (3, 2, 10),
     "rc_rhs": (4, 1, 40),
     "grad_correct": (4, 2, 30),
     "velocity_rhs": (10, 2, 100),
 }
+# the profile rows of the contact configuration's modes: {row: kernel}
+CONTACT_MODES = {"rmt_block, two solids": "rmt_block",
+                 "momentum_rk4, force": "momentum_rk4"}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the opt-in switches of phases 4c and 7
@@ -179,6 +214,30 @@ def flagship(N, **overrides):
                      num_layers=3, CFL=0.2, dt_min_cap=1e-3, **overrides)
 
 
+def contact_config(N, **overrides):
+    """The head-on collision's configuration
+    (benchmarks/two_disc_contact.py:41-45)."""
+    fields = dict(mu_s=1.0, kappa=0.0, rho_s=1.0, eta_s=0.0, mu_f=0.01,
+                  rho_f=1.0, w_t_cells=2.0, w_c_cells=3.0, k_rep=2.0,
+                  two_solid_clamp=4.0, num_layers=3, CFL=0.2,
+                  dt_min_cap=1e-3)
+    return RMTConfig(grid=Grid(Nx=N, Ny=N, Lx=1.0, Ly=1.0),
+                     **dict(fields, **overrides))
+
+
+def contact_state(cfg, discs, dtype, device, V0=CONTACT_V0):
+    """make_init_state of the collision: u0 = V0 (1 - H_a) - V0 (1 - H_b),
+    the discs approaching each other, after the free-slip BC
+    (two_disc_contact.py:52-58)."""
+    X, Y = cfg.grid.coords(dtype=dtype, device=device)
+    Ha = smoothed_heaviside(discs[0](X, Y), cfg.w_t)
+    Hb = smoothed_heaviside(discs[1](X, Y), cfg.w_t)
+    u0, v0 = free_slip_box_bc(V0 * (1 - Ha) - V0 * (1 - Hb),
+                              torch.zeros_like(X))
+    return make_init_state(cfg, discs, u0=u0, v0=v0, dtype=dtype,
+                           device=device)
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -188,8 +247,9 @@ def nvidia_smi_line():
 
 def bound_us(name, N, dtype=torch.float32):
     """(the least device time of one call at N x N in microseconds, what
-    bounds it: 'bytes' or 'operations')."""
-    read, written, ops = WORK[name]
+    bounds it: 'bytes' or 'operations'); a profile row "kernel, case" takes
+    its own work where WORK has it, else the kernel's."""
+    read, written, ops = WORK.get(name) or WORK[name.split(",")[0]]
     cells = N * N
     item = torch.finfo(dtype).bits // 8
     t_bytes = 1e6 * (read + written) * cells * item / HBM_BYTES_PER_S
@@ -274,6 +334,63 @@ def momentum_args(cfg, d, rmt_out, eta_s):
         eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt, mu_f=cfg.mu_f)
 
 
+def contact_kernel_inputs(shape, dtype, device, seed=0):
+    """The contact modes' inputs: kernel_inputs' velocity, pressure and dt;
+    the contact configuration with the touching discs and rho_s = 1.2 (so
+    gravity's force is not 0), their maps from make_init_state with sine
+    waves of a tenth of the domain added: along x in the first (d X1/dx
+    from 0.05 to 1.95), along x and y in the second (-0.2 to 2.2, det G
+    up to 4.8), so det G leaves the clamp's [1/4, 4] at both ends; made in
+    float64 and cast."""
+    _, d = kernel_inputs(shape, dtype, device, seed)
+    Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
+    cfg = dataclasses.replace(contact_config(Nx, rho_s=1.2),
+                              grid=Grid(Nx=Nx, Ny=Ny, Lx=1.0, Ly=1.0))
+    s = make_init_state(cfg, TOUCHING_DISCS, dtype=torch.float64,
+                        device=device)
+    X1, X2 = s.X1.clone(), s.X2.clone()
+    # waves through 0 where the discs touch (x = 0.52), so the contact
+    # force acts at every size
+    k = 2.0 * math.pi / 0.1
+    X1[0] = X1[0] + (0.95 / k) * torch.sin(k * (X1[0] - 0.52))
+    X1[1] = X1[1] + (1.2 / k) * torch.sin(k * (X1[1] - 0.52))
+    X2[1] = X2[1] + (1.2 / k) * torch.sin(k * X2[1])
+    params = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
+                          dtype=dtype, device=device)
+    return cfg, dict(d, X1s=X1.to(dtype).contiguous(),
+                     X2s=X2.to(dtype).contiguous(), params=params)
+
+
+def contact_rmt_call(fn, cfg, d):
+    return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["dt"],
+              phi_inits=TOUCHING_DISCS, dx=cfg.grid.dx, dy=cfg.grid.dy,
+              num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"],
+              stress_clamp=cfg.two_solid_clamp)
+
+
+def contact_momentum_args(cfg, d, rmt_out, eta_s):
+    """The momentum operands of a contact step with gravity (g_y = -1)
+    from the two-solid block's outputs: the blends, the Kelvin-Voigt mask
+    of the two solids and the force (contact plus gravity), with the
+    configuration's adaptive dt."""
+    from pyrmt_tpu_torch.physics import body_forces
+
+    phis, Hf, rho, sbxx, sbxy, sbyy = rmt_out[2], *rmt_out[7:]
+    g = cfg.grid
+    H = smoothed_heaviside(phis, cfg.w_t)
+    mkv = torch.sum((phis <= 0.0).to(Hf.dtype) * (1.0 - H), dim=0)
+    fx, fy = body_forces(phis, rho, g.dx, g.dy, gamma=0.0, k_rep=cfg.k_rep,
+                         w_c=cfg.w_c, w_t=cfg.w_t, g_y=-1.0,
+                         g_rho_ref=cfg.rho_f)
+    dt = compute_timestep(d["u"], d["v"], g.dx, g.dy, cfg.CFL,
+                          cfg.dt_min_cap, cfg.mu_s, cfg.rho_s, cfg.gamma,
+                          cfg.rho_f, mu_f=cfg.mu_f, eta_s=eta_s,
+                          kappa=cfg.kappa)
+    return (d["u"], d["v"], d["p"], sbxx, sbxy, sbyy, Hf, rho, mkv), dict(
+        eta_s=eta_s, dx=g.dx, dy=g.dy, dt=dt, mu_f=cfg.mu_f, f_ext_x=fx,
+        f_ext_y=fy)
+
+
 def stencil_args(cfg, d, rmt_out, fields, dt):
     """The operands of the projection kernels and of the one RHS, from
     ``momentum_args``' fields and dt: the velocity as a*, b*, a density
@@ -349,18 +466,33 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
          mr.velocity_rhs_blended_fused(*rhs), velocity_rhs_blended(*rhs),
          TOL_F32_MOMENTUM)
     worst["momentum_rk4"] = 0.0
-    for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
-                               ("free_slip", free_slip_box_bc, 0.0),
-                               ("noop", noop_bc, cfg.eta_s)):
-        args, kw = momentum_args(cfg, d, plain, eta_s)
+
+    def hold_momentum(what, args, bc, kw):
         ref = momentum_core(*args, bc, **kw)
         out = mk.momentum_rk4_fused(*args, bc, **kw)
         torch.cuda.synchronize()
         for name, a, b in zip(("u_new", "v_new"), out, ref):
             err, scale = max_errs(a, b)
-            check_close(f"{tag} momentum_rk4 {bc_name} eta_s={eta_s} {name}",
-                        err, scale, f64, TOL_F32_MOMENTUM)
+            check_close(f"{tag} {what} {name}", err, scale, f64,
+                        TOL_F32_MOMENTUM)
             worst["momentum_rk4"] = max(worst["momentum_rk4"], err)
+
+    for bc_name, bc, eta_s in (("lid", make_lid_bc(1.0), cfg.eta_s),
+                               ("free_slip", free_slip_box_bc, 0.0),
+                               ("noop", noop_bc, cfg.eta_s)):
+        args, kw = momentum_args(cfg, d, plain, eta_s)
+        hold_momentum(f"momentum_rk4 {bc_name} eta_s={eta_s}", args, bc, kw)
+
+    # the contact configuration's modes: two solids with the clamp, and
+    # the force of contact and gravity
+    ccfg, cd = contact_kernel_inputs(shape, dtype, device)
+    cplain = contact_rmt_call(rb.rmt_block_plain, ccfg, cd)
+    hold("rmt_block", [f"two solids {n}" for n in OUT_NAMES],
+         contact_rmt_call(rb.rmt_block_fused, ccfg, cd), cplain)
+    for eta_s in (0.0, 0.01):
+        args, kw = contact_momentum_args(ccfg, cd, cplain, eta_s)
+        hold_momentum(f"momentum_rk4 force free_slip eta_s={eta_s}", args,
+                      free_slip_box_bc, kw)
     return worst
 
 
@@ -465,6 +597,17 @@ def kernel_calls(N, device):
     far = dict(d, X1s=torch.full_like(d["X1s"], 5.0),
                X2s=torch.full_like(d["X2s"], 5.0))
     far["phis"] = d["disc"](far["X1s"], far["X2s"])
+    contact = {}
+    if HAS_CONTACT:
+        ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
+        cplain = contact_rmt_call(rb.rmt_block_plain, ccfg, cd)
+        cargs, ckw = contact_momentum_args(ccfg, cd, cplain, 0.0)
+        contact = {
+            "rmt_block, two solids": lambda: contact_rmt_call(
+                rb.rmt_block_fused, ccfg, cd),
+            "momentum_rk4, force": lambda: mk.momentum_rk4_fused(
+                *cargs, free_slip_box_bc, **ckw),
+        }
     return {
         "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
         # the map far from the disc everywhere: every tile takes the skip
@@ -483,24 +626,32 @@ def kernel_calls(N, device):
         # phi > 0 everywhere, no known cell: every tile copies
         "extrapolate_fused, every tile skipping": lambda: extrap_call(
             ef.extrapolate_reference_map_fused, cfg, far),
+        **contact,
     }
 
 
 def step_groups(device, steps=20, warmup=10):
     """(name, fn) groups of `steps` steps each at N=1024 float32: the
     flagship, with the projection's stencil kernels, with both opt-in
-    switches, and the split tier (area fix + PDE reinit), each after
-    warm-up steps."""
+    switches, the split tier (area fix + PDE reinit) and the contact
+    configuration, each after warm-up steps."""
     groups = []
-    for name, overrides in (
-            ("flagship", {}),
-            ("flagship proj", dict(projection_method="pallas")),
-            ("flagship rhs", BOTH_SWITCHES),
-            ("split", dict(phi_area_fix=True, reinit_method="pde"))):
-        cfg = flagship(1024, **overrides)
-        kw = dict(dtype=torch.float32, device=device)
-        step = make_step(cfg, make_lid_bc(1.0), (FLAGSHIP_DISC,), **kw)
-        box = [make_init_state(cfg, (FLAGSHIP_DISC,), **kw)]
+    kw = dict(dtype=torch.float32, device=device)
+    flag = ((FLAGSHIP_DISC,), make_lid_bc(1.0),
+            lambda cfg: make_init_state(cfg, (FLAGSHIP_DISC,), **kw))
+    configs = [
+        ("flagship", flagship(1024), *flag),
+        ("flagship proj", flagship(1024, projection_method="pallas"), *flag),
+        ("flagship rhs", flagship(1024, **BOTH_SWITCHES), *flag),
+        ("split", flagship(1024, phi_area_fix=True, reinit_method="pde"),
+         *flag)]
+    if HAS_CONTACT:
+        configs.append((
+            "contact", contact_config(1024), CONTACT_DISCS, free_slip_box_bc,
+            lambda cfg: contact_state(cfg, CONTACT_DISCS, **kw)))
+    for name, cfg, discs, bc, init in configs:
+        step = make_step(cfg, bc, discs, **kw)
+        box = [init(cfg)]
 
         def run(step=step, box=box, n=steps):
             for _ in range(n):
@@ -532,7 +683,7 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
         for name in calls:
             one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
             kern[N][name] = (busy_us(many) / reps, len(one))
-            b, by = bound_us(name.split(",")[0], N)
+            b, by = bound_us(name, N)
             us = kern[N][name][0]
             print(f"[profile] N={N} float32 {name}: {us:.2f} us of device "
                   f"time per call (torch.profiler, {reps} calls), "
@@ -587,17 +738,22 @@ def step_without_sync(step, state, t_end):
 
 
 def run_flagship(N, device, warmup, steps, **overrides):
-    """make_init_state, warm-up steps, one step that must not synchronise
-    with the host, then timed steps with the launch counts reset just
-    before. Returns (cfg, state, aux, launches, seconds, sum of dts, t
-    before the timed steps)."""
+    """make_init_state, then run_timed. Returns (cfg, state, aux, launches,
+    seconds, sum of dts, t before the timed steps)."""
     cfg = flagship(N, **overrides)
     bc = make_lid_bc(1.0)
     step = make_step(cfg, bc, (FLAGSHIP_DISC,), dtype=torch.float32,
                      device=device)
     state = make_init_state(cfg, (FLAGSHIP_DISC,), dtype=torch.float32,
                             device=device)
-    t_end = 8.0
+    return (cfg, *run_timed(step, state, device, warmup, steps))
+
+
+def run_timed(step, state, device, warmup, steps, t_end=8.0):
+    """Warm-up steps, one step that must not synchronise with the host,
+    then timed steps with the launch counts reset just before. Returns
+    (state, aux, launches, seconds, sum of dts, t before the timed
+    steps)."""
     for _ in range(warmup):
         state, aux = step(state, t_end)
     state, aux = step_without_sync(step, state, t_end)
@@ -611,7 +767,45 @@ def run_flagship(N, device, warmup, steps, **overrides):
         dt_sum += aux["dt"].double()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall
-    return cfg, state, aux, counts(), wall, dt_sum, t0
+    return state, aux, counts(), wall, dt_sum, t0
+
+
+def run_collision(N, device, t_end=0.6, chunk=500):
+    """The head-on collision at N float32 from t = 0 to t_end, in chunks of
+    steps with one host read of t after each: the least distance of the
+    two solids' centroids (the phi <= 0 cells) and the least J, over every
+    active step (a no-op step's aux is its discarded trial step), kept on
+    the card. Returns (gap, min J, steps, seconds, launches)."""
+    cfg = contact_config(N)
+    kw = dict(dtype=torch.float32, device=device)
+    step = make_step(cfg, free_slip_box_bc, CONTACT_DISCS, **kw)
+    state = contact_state(cfg, CONTACT_DISCS, **kw)
+    X, _ = cfg.grid.coords(**kw)
+    inf = torch.full((), math.inf, **kw)
+    gap, min_J = inf, inf
+    n = 0
+    reset_counts()
+    wall = time.perf_counter()
+    while float(state.t) < t_end and n < 100 * chunk:
+        for _ in range(chunk):
+            state, aux = step(state, t_end)
+            m = (aux["phis"] <= 0.0).to(torch.float32)
+            cx = (m * X).sum(dim=(1, 2)) / m.sum(dim=(1, 2)).clamp(min=1.0)
+            active = aux["dt"] > 0.0
+            gap = torch.minimum(gap, torch.where(active, cx[1] - cx[0], inf))
+            min_J = torch.minimum(min_J, torch.where(active, aux["J"].min(),
+                                                     inf))
+        n += chunk
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    if not float(state.t) >= t_end * (1 - 1e-6):
+        raise AssertionError(f"the collision reached t = {float(state.t)}")
+    for name in ("u", "v", "p", "X1", "X2"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"collision: state.{name} is not finite")
+    if bool(diverged(state)):
+        raise AssertionError("collision: the run diverged")
+    return float(gap), float(min_J), int(state.step), wall, counts()
 
 
 def check_state(state, aux, what):
@@ -699,29 +893,45 @@ def run_rebase(N, device, chunk=50, post_steps=20):
                 launches=rebase_counts["extrapolate_fused"])
 
 
-def compare_paths(N, device, steps=3, **overrides):
+def compare_paths(N, device, steps=3, contact=False, **overrides):
     """A few float64 steps through the kernels and through the plain
-    versions from the same state; returns the max-abs differences and the
-    kernel path's launches."""
-    cfg = flagship(N, **overrides)
-    bc = make_lid_bc(1.0)
+    versions from the same state: the flagship with overrides, or with
+    ``contact`` the contact configuration with the touching discs (the
+    contact force acts from the first step); returns the max-abs
+    differences and the kernel path's launches."""
     kw = dict(dtype=torch.float64, device=device)
-    s_k = make_init_state(cfg, (FLAGSHIP_DISC,), **kw)
-    rng = np.random.default_rng(1)
-    x = np.linspace(0.0, 1.0, N)
-    X, Y = np.meshgrid(x, x)
-    a, b = rng.standard_normal(2)
-    s_k.u = torch.tensor(0.3 * a * np.sin(np.pi * X) * np.sin(np.pi * Y), **kw)
-    s_k.v = torch.tensor(0.3 * b * np.sin(2 * np.pi * X) * np.sin(np.pi * Y),
-                         **kw)
+    if contact:
+        cfg = contact_config(N, **overrides)
+        bc, discs = free_slip_box_bc, TOUCHING_DISCS
+        s_k = contact_state(cfg, discs, **kw)
+    else:
+        cfg = flagship(N, **overrides)
+        bc, discs = make_lid_bc(1.0), (FLAGSHIP_DISC,)
+        s_k = make_init_state(cfg, discs, **kw)
+        rng = np.random.default_rng(1)
+        x = np.linspace(0.0, 1.0, N)
+        X, Y = np.meshgrid(x, x)
+        a, b = rng.standard_normal(2)
+        s_k.u = torch.tensor(
+            0.3 * a * np.sin(np.pi * X) * np.sin(np.pi * Y), **kw)
+        s_k.v = torch.tensor(
+            0.3 * b * np.sin(2 * np.pi * X) * np.sin(np.pi * Y), **kw)
     s_p = s_k
-    step_k = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw)
-    step_p = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw, **PLAIN_IMPLS)
+    step_k = make_step(cfg, bc, discs, **kw)
+    step_p = make_step(cfg, bc, discs, **kw, **PLAIN_IMPLS)
     reset_counts()
     for _ in range(steps):
-        s_k, _ = step_k(s_k, 8.0)
+        s_k, aux = step_k(s_k, 8.0)
         s_p, _ = step_p(s_p, 8.0)
     torch.cuda.synchronize()
+    if contact:
+        from pyrmt_tpu_torch.physics import external_forces
+
+        f = external_forces(aux["phis"], None, cfg.grid.dx, cfg.grid.dy,
+                            gamma=0.0, k_rep=cfg.k_rep, w_c=cfg.w_c,
+                            w_t=cfg.w_t)
+        if not float(f[0].abs().max()) > 0.0:
+            raise AssertionError("the contact force did not act")
     errs = {k: float((getattr(s_k, k) - getattr(s_p, k)).abs().max())
             for k in ("u", "v", "p", "X1", "X2", "phis0")
             if getattr(s_k, k).numel()}
@@ -759,7 +969,7 @@ def main() -> int:
         print(json.dumps({"profile": {
             name: {f"N{N}": {"device_us": prof[N][name][0],
                              "device_launches_per_call": prof[N][name][1],
-                             "bound_us": bound_us(name.split(",")[0], N)[0]}
+                             "bound_us": bound_us(name, N)[0]}
                    for N in prof} for name in prof[1024]},
             "steps": {name: dict(zip(("kernels", "copies", "busy_ms"), p))
                       for name, p in step_prof.items()},
@@ -780,7 +990,7 @@ def main() -> int:
             errs[name] = max(errs.get(name, 0.0), e)
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
-    for name in KERNELS:
+    for name in (*KERNELS, *CONTACT_MODES):
         want = DEVICE_KERNELS.get(name, 1)
         if prof[1024][name][1] != want or prof[4096][name][1] != want:
             raise AssertionError(
@@ -877,6 +1087,48 @@ def main() -> int:
               f"path: " + ", ".join(f"{k} {e:.2e}"
                                     for k, e in path_errs.items())
               + f"; kernel path launches {path_launches}")
+    for what, overrides in (
+            ("contact (touching discs)", {}),
+            ("contact + gravity, split tier (area fix)",
+             dict(g_y=-1.0, rho_s=1.2, phi_area_fix=True))):
+        path_errs, path_launches = compare_paths(128, device, contact=True,
+                                                 **overrides)
+        print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
+              f"path: " + ", ".join(f"{k} {e:.2e}"
+                                    for k, e in path_errs.items())
+              + f"; kernel path launches {path_launches}")
+
+    # 8. the contact configuration at full width
+    steps = 200
+    cfg = contact_config(1024)
+    kw = dict(dtype=torch.float32, device=device)
+    step = make_step(cfg, free_slip_box_bc, CONTACT_DISCS, **kw)
+    state, aux, launches, wall, dt_sum, t0 = run_timed(
+        step, contact_state(cfg, CONTACT_DISCS, **kw), device, warmup=20,
+        steps=steps)
+    min_J, advanced = check_run(
+        "contact", state, aux, launches,
+        expected_launches(rmt_block=steps, momentum_rk4=steps), dt_sum, t0)
+    contact_launches = launches
+    print(f"[contact] head-on collision (two discs, k_rep={cfg.k_rep}, "
+          f"two_solid_clamp={cfg.two_solid_clamp}, free slip) N=1024 "
+          f"float32: {steps} steps in {wall:.3f} s = {steps / wall:.1f} "
+          f"steps/s, {1e3 * wall / steps:.3f} ms/step (host clock, "
+          f"synchronised; phase 4's flagship {flagship_rate:.1f} steps/s) on "
+          f"'{card}'; launches {launches}; t advanced {advanced:.6f}; min J "
+          f"over the solids {min_J:.4f}; "
+          + profile_line(step_prof["contact"], wall, steps))
+
+    # 9. the collision to t = 0.6: no pass-through, J in (0.5, 1)
+    R = CONTACT_DISCS[0].R
+    gap, coll_J, coll_steps, coll_wall, coll_launches = run_collision(
+        256, device)
+    print(f"[collision] N=256 float32 to t=0.6: {coll_steps} steps in "
+          f"{coll_wall:.3f} s; least centroid distance {gap:.4f} (2R = "
+          f"{2 * R:.2f}), least J {coll_J:.4f}; launches {coll_launches}")
+    if not (gap > 2 * R and 0.5 < coll_J < 1.0):
+        raise AssertionError(f"collision: gap {gap} (2R = {2 * R}), min J "
+                             f"{coll_J} outside the gate")
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -891,6 +1143,14 @@ def main() -> int:
             "device_launches_per_call": prof[1024][name][1],
             "device_us_N4096": prof[4096][name][0],
             "bound_us_N4096": bound_us(name, 4096)[0]})
+    for row, name in CONTACT_MODES.items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["contact"] = {
+            "mode": row.split(", ")[1], "launches": contact_launches[name],
+            "device_us": prof[1024][row][0],
+            "bound_us": bound_us(row, 1024)[0],
+            "device_us_N4096": prof[4096][row][0],
+            "bound_us_N4096": bound_us(row, 4096)[0]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

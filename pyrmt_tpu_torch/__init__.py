@@ -22,7 +22,9 @@ from pyrmt_tpu_torch.kernels.projection_stencils import (
     projection_stencils_supported,
     rc_rhs_fused,
 )
+from pyrmt_tpu_torch.ops.contact import compute_contact_force
 from pyrmt_tpu_torch.ops.levelset import Disc
+from pyrmt_tpu_torch.physics import external_forces
 from pyrmt_tpu_torch.sim import (
     RMTConfig,
     SimState,
@@ -39,7 +41,9 @@ __all__ = [
     "Grid",
     "RMTConfig",
     "SimState",
+    "compute_contact_force",
     "diverged",
+    "external_forces",
     "free_slip_box_bc",
     "grad_correct_fused",
     "make_init_state",

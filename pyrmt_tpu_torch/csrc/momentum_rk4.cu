@@ -22,10 +22,14 @@
 //   3. k_s = -(W.grad)W + (div sigma - grad p) / rho and the running sum
 //      k1 + 2 k2 + 2 k3 + k4, in shared memory
 // then u_new = bc(u0 + dt/6 sum) the same way, written for the tile's own
-// cells. The stage-constant fields (p, the solid stresses, Hf, rho, mkv)
-// and u0, v0 are read from device memory at each stage, a panel's reuse
-// going through L1 and L2. External forces are elided (has_ext=False): the
-// slice has none.
+// cells. The stage-constant fields (p, the solid stresses, Hf, rho, mkv,
+// the external force) and u0, v0 are read from device memory at each
+// stage, a panel's reuse going through L1 and L2. The external force
+// (f_x, f_y: contact, gravity) is a second instantiation (kExt, the TPU
+// kernel's has_ext=True), added as the plain version adds it: (div sigma
+// + f - grad p) / rho; it is read at the cell itself, so a halo cell reads
+// it in the domain like any other. Without a force the launch is the
+// instantiation that has no force operands.
 // A tile whose panel keeps 2 cells off the domain's edge (most of them)
 // runs a copy of the code in which the BC is the identity and every
 // stencil is the interior one.
@@ -39,7 +43,9 @@
 // pass costs the registers, and so the occupancy, that the passes need.
 //
 // What bounds it on the H100: not the device-memory traffic (11 fields
-// read or written, 13.8 us at N=1024 float32) but the instructions: ~100
+// read or written, 13.8 us at N=1024 float32; 13 with the force, of which
+// the step's eta_s = 0 configurations read 12: mkv is read only for
+// Kelvin-Voigt) but the instructions: ~100
 // flops per cell per stage without fused multiply-adds (see below), the
 // closures' tests, and the shared-memory stencil reads, over ~2x the
 // cells. It runs well above the byte bound (PERF.md).
@@ -109,14 +115,16 @@ __device__ __forceinline__ void for_cells(const Span& ys, const Span& xs,
 // panel lies within 2 of the domain's edge, so the BC is the identity
 // there and every stencil is the interior one; the closures' tests are
 // then given a mid index (2 of 5) and fold away.
-template <typename T, bool kEdge>
+// kExt: the external force (fx, fy) is added to each stage's RHS.
+template <typename T, bool kEdge, bool kExt>
 __device__ __forceinline__ void rk4_tile(
     const Span& ys, const Span& xs, unsigned char* smem,
     const T* __restrict__ u0, const T* __restrict__ v0,
     const T* __restrict__ p, const T* __restrict__ sxx_el,
     const T* __restrict__ sxy_el, const T* __restrict__ syy_el,
     const T* __restrict__ Hf, const T* __restrict__ rho,
-    const T* __restrict__ mkv, T dt, T* __restrict__ u_new,
+    const T* __restrict__ mkv, const T* __restrict__ fx,
+    const T* __restrict__ fy, T dt, T* __restrict__ u_new,
     T* __restrict__ v_new, int Ny, int Nx, double dx, double dy,
     double mu_f, double eta_s, int bc, T lid) {
   using P = Panel<T>;
@@ -178,8 +186,8 @@ __device__ __forceinline__ void rk4_tile(
       pyrmt::rhs_at<T>(At<T>{Wu, ls, P::W}, At<T>{Wv, ls, P::W},
                        At<T>{Sxx, ls, P::W}, At<T>{Sxy, ls, P::W},
                        At<T>{Syy, ls, P::W}, At<T>{p, g, sy}, rho[g],
-                       nullptr, nullptr, g, mj(lj), mi(li), ny, nx, dx, dy,
-                       ra, rb);
+                       kExt ? fx : nullptr, kExt ? fy : nullptr, g, mj(lj),
+                       mi(li), ny, nx, dx, dy, ra, rb);
       Ku[l] = ra;
       Kv[l] = rb;
       if (s == 0) {
@@ -220,13 +228,14 @@ __device__ __forceinline__ void rk4_tile(
   });
 }
 
-template <typename T>
+template <typename T, bool kExt>
 __global__ void __launch_bounds__(kThreads, 2)
     rk4_kernel(const T* __restrict__ u0, const T* __restrict__ v0,
                const T* __restrict__ p, const T* __restrict__ sxx_el,
                const T* __restrict__ sxy_el, const T* __restrict__ syy_el,
                const T* __restrict__ Hf, const T* __restrict__ rho,
-               const T* __restrict__ mkv, const T* __restrict__ dt_ptr,
+               const T* __restrict__ mkv, const T* __restrict__ fx,
+               const T* __restrict__ fy, const T* __restrict__ dt_ptr,
                T* __restrict__ u_new, T* __restrict__ v_new, int Ny, int Nx,
                double dx, double dy, double mu_f, double eta_s, int bc,
                T lid) {
@@ -237,33 +246,50 @@ __global__ void __launch_bounds__(kThreads, 2)
                                    kHalo);
   const T dt = *dt_ptr;
   if (ys.lo >= 2 && ys.hi <= Ny - 2 && xs.lo >= 2 && xs.hi <= Nx - 2)
-    rk4_tile<T, false>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el, Hf,
-                       rho, mkv, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
-                       eta_s, bc, lid);
+    rk4_tile<T, false, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
+                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
+                             dx, dy, mu_f, eta_s, bc, lid);
   else
-    rk4_tile<T, true>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el, Hf,
-                      rho, mkv, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
-                      eta_s, bc, lid);
+    rk4_tile<T, true, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
+                            Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
+                            dx, dy, mu_f, eta_s, bc, lid);
 }
 
-template <typename T>
-int launch(const T* u, const T* v, const T* p, const T* sxx_el,
-           const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
-           const T* mkv, const T* dt, T* u_new, T* v_new, int Ny, int Nx,
-           double dx, double dy, double mu_f, double eta_s, int bc,
-           double lid, void* stream_ptr) {
+template <typename T, bool kExt>
+int launch_tiles(const T* u, const T* v, const T* p, const T* sxx_el,
+                 const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
+                 const T* mkv, const T* fx, const T* fy, const T* dt,
+                 T* u_new, T* v_new, int Ny, int Nx, double dx, double dy,
+                 double mu_f, double eta_s, int bc, double lid,
+                 void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   const size_t smem = Panel<T>::kSmem;
-  int err = pyrmt::allow_smem(rk4_kernel<T>, smem, allowed);
+  int err = pyrmt::allow_smem(rk4_kernel<T, kExt>, smem, allowed);
   if (err) return err;
   const dim3 grid(pyrmt::tiles_for(Nx, Tile<T>::X),
                   pyrmt::tiles_for(Ny, Tile<T>::Y));
-  rk4_kernel<T><<<grid, kThreads, smem,
-                  static_cast<cudaStream_t>(stream_ptr)>>>(
-      u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, dt, u_new, v_new, Ny,
-      Nx, dx, dy, mu_f, eta_s, bc, static_cast<T>(lid));
+  rk4_kernel<T, kExt><<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream_ptr)>>>(
+      u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx, fy, dt, u_new,
+      v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, static_cast<T>(lid));
   PYRMT_RETURN_IF_ERROR();
   return 0;
+}
+
+// fx, fy: the external force, or both null for none.
+template <typename T>
+int launch(const T* u, const T* v, const T* p, const T* sxx_el,
+           const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
+           const T* mkv, const T* fx, const T* fy, const T* dt, T* u_new,
+           T* v_new, int Ny, int Nx, double dx, double dy, double mu_f,
+           double eta_s, int bc, double lid, void* stream_ptr) {
+  if (fx)
+    return launch_tiles<T, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho,
+                                 mkv, fx, fy, dt, u_new, v_new, Ny, Nx, dx,
+                                 dy, mu_f, eta_s, bc, lid, stream_ptr);
+  return launch_tiles<T, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho,
+                                mkv, nullptr, nullptr, dt, u_new, v_new, Ny,
+                                Nx, dx, dy, mu_f, eta_s, bc, lid, stream_ptr);
 }
 
 }  // namespace
@@ -271,12 +297,12 @@ int launch(const T* u, const T* v, const T* p, const T* sxx_el,
 #define PYRMT_MOMENTUM_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const T* u, const T* v, const T* p, const T* sxx_el,   \
                       const T* sxy_el, const T* syy_el, const T* Hf,         \
-                      const T* rho, const T* mkv, const T* dt, T* u_new,     \
-                      T* v_new, int Ny, int Nx, double dx, double dy,        \
-                      double mu_f, double eta_s, int bc, double lid,         \
-                      void* stream) {                                        \
-    return launch<T>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, dt,      \
-                     u_new, v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, lid,     \
+                      const T* rho, const T* mkv, const T* fx, const T* fy,  \
+                      const T* dt, T* u_new, T* v_new, int Ny, int Nx,       \
+                      double dx, double dy, double mu_f, double eta_s,       \
+                      int bc, double lid, void* stream) {                    \
+    return launch<T>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx, fy,  \
+                     dt, u_new, v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, lid, \
                      stream);                                                \
   }
 

@@ -2,9 +2,10 @@
 //
 // pyrmt_rmt_block_*  the fused tier, in one launch: rebuild,
 //   shared-backtrace semi-Lagrangian RK4 advection, mask, layer-synchronous
-//   least-squares extrapolation, rebuild, neo-Hookean stress and J,
-//   smoothed Heaviside and the mixture blends. One solid, shaped as a Disc
-//   given by runtime scalars. Replaces
+//   least-squares extrapolation, rebuild, neo-Hookean stress and J (det G
+//   clamped to [1/c, c] where the step clamps it: two solids and more),
+//   smoothed Heaviside and the mixture blends. S solids (1 to kMaxSolids),
+//   each shaped as a Disc given by runtime scalars. Replaces
 //   pyrmt_tpu/kernels/rmt_block.py::rmt_block_fused (the pl.pallas_call at
 //   rmt_block.py:825); plain version
 //   pyrmt_tpu_torch.kernels.rmt_block.rmt_block_plain.
@@ -44,6 +45,16 @@
 //   post     phi = disc(Xe); stress with one-sided differences next to
 //            fluid (interior cells only); H(phi); Hf, rho, (1-H) sigma;
 //            written for the tile's own cells (reads Xe at +-1)
+// With S >= 2 solids (a second instantiation; S = 1 compiles to the code
+// above) a tile runs vote, skip or advect, layers and post once per solid
+// on the same panel: solid s writes its seven stacks' slices, and the
+// mixture sums of its own cells go through the five mixture outputs in
+// device memory (each cell read and written by the same thread): H_0 + H_1
+// + ..., 1 - H_i and (1 - H_i) sigma_i summed in the solids' order, the
+// last solid writing Hf = sum H - (S - 1) and rho. A skipped solid adds its
+// zero map's terms, so every tile sums the plain version's terms: bit for
+// bit for S = 2 (a sum of two terms), to a few ulps for S > 2, where
+// torch.sum over the stack may add in another order.
 // Tile: 32 x 32 output cells where the panel fits a block's 227 KB of
 // shared memory, else 16 x 16 or 8 x 8; 512 threads. At the flagship's
 // L = 3 the panel is 58 x 58 cells and, with u and v kept from the vote
@@ -79,11 +90,13 @@
 // panel, as the fused tier's, which read 2 + 3S fields over 3.5x the tile's
 // cells and was slower in every case measured (PERF.md).
 //
-// What bounds the fused tier on the H100: the byte bound is 4 fields read
-// and 12 written per cell (20.0 us at N=1024 float32); the kernel runs
-// well above it (PERF.md), held back by the skip tiles (a vote that reads
-// four fields over 3.5x the tile's cells, then the stores) and by the
-// tiles at the disc, which recompute the backtrace over 3.3x their cells.
+// What bounds the fused tier on the H100: the byte bound is 2 + 2S fields
+// read and 7S + 5 written per cell (16 fields, 20.0 us at N=1024 float32
+// for S = 1; 25 and 31.3 us for S = 2); the kernel runs well above it
+// (PERF.md), held back by the skip tiles (a vote that reads four fields
+// over 3.5x the tile's cells, then the stores; per solid), by the tiles at
+// a disc, which recompute the backtrace over 3.3x their cells, and for
+// S >= 2 by the mixture sums' reads and writes per solid.
 // The split tier's bound is 2 + 3S fields read and 2S written (8.8 us at
 // N=1024 float32, S = 1); the pre-pass reads those once, the skip tiles
 // (most of the flagship's) then only write, and the active tiles, which
@@ -116,6 +129,22 @@ using pyrmt::Rows;
 using pyrmt::Span;
 using pyrmt::sweeps;
 using pyrmt::Taps;
+
+constexpr int kMaxSolids = 16;  // kernels/rmt_block.py MAX_SOLIDS
+
+// The fused tier's solids, passed by value.
+template <typename T>
+struct Discs {
+  Disc<T> d[kMaxSolids];
+};
+
+// The stress's det G clamp: [lo, hi] where on (lo from the host as the
+// plain version's torch.clamp takes it, 1.0 / c in double).
+template <typename T>
+struct Clamp {
+  T lo, hi;
+  bool on;
+};
 
 // The 12 outputs of the fused tier.
 template <typename T>
@@ -173,7 +202,7 @@ template <typename T>
 __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
                            int j, int i, int Ny, int Nx, const Disc<T>& disc,
                            T mu_s, T kappa, T rho_s, T rho_f, double dx,
-                           double dy, double w_t) {
+                           double dy, double w_t, const Clamp<T>& clamp) {
   const T x1 = X1[n], x2 = X2[n];
   const T ph = disc(x1, x2);
   T s_xx = T(0), s_xy = T(0), s_yy = T(0), jac = T(1);
@@ -208,6 +237,10 @@ __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
     }
     T detG = g11 * g22 - g12 * g21;
     if (fabs(detG) >= static_cast<T>(1e-10)) {
+      if (clamp.on) {  // torch.clamp: the upper end wins past the lower
+        detG = detG < clamp.lo ? clamp.lo : detG;
+        detG = detG > clamp.hi ? clamp.hi : detG;
+      }
       T inv_det = T(1) / detG;
       T f11 = g22 * inv_det, f12 = -g12 * inv_det;
       T f21 = -g21 * inv_det, f22 = g11 * inv_det;
@@ -242,34 +275,74 @@ __device__ inline Span widen(Span s, int n) {
   return s;
 }
 
-template <typename T>
+// The fused tier's tile kernel (the source note above); kMulti: S >= 2.
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(kThreads, 2)
     rmt_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ X1, const T* __restrict__ X2,
                     const T* __restrict__ dt_ptr,
-                    const T* __restrict__ params, Disc<T> disc, Outs<T> o,
-                    int Ny, int Nx, double dx, double dy, int L, double w_t,
-                    Taps<T> tp, int tile, unsigned char* ws,
-                    size_t panel_stride) {
+                    const T* __restrict__ params, Discs<T> discs, int S,
+                    Clamp<T> clamp, Outs<T> o, int Ny, int Nx, double dx,
+                    double dy, int L, double w_t, Taps<T> tp, int tile,
+                    unsigned char* ws, size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
                    tile + 2 * halo, true);
   const int W = P.W;
+  const size_t N = static_cast<size_t>(Ny) * Nx;
   const T dt = *dt_ptr;
   const T mu_s = params[0], kappa = params[1], rho_s = params[2];
   const T rho_f = params[3];
   const T big = largest<T>();
   const T vscale = vote_scale<T>(dt, dx, dy);
   const bool dt_bad = !isfinite(dt);
-  // the zero map's outputs, at an interior cell and at an edge cell (they
-  // differ only there); the post stage's own code on X1e = X2e = 0
+  // a solid's zero map's outputs, at an interior cell and at an edge cell
+  // (they differ only there); the post stage's own code on X1e = X2e = 0
   const T zero[9] = {};
-  const Post<T> zero_in = post_at<T>(zero, zero, 4, 3, 1, 1, 3, 3, disc, mu_s,
-                                     kappa, rho_s, rho_f, dx, dy, w_t);
-  const Post<T> zero_edge = post_at<T>(zero, zero, 4, 3, 0, 0, 3, 3, disc,
-                                       mu_s, kappa, rho_s, rho_f, dx, dy, w_t);
+  auto zero_post = [&](const Disc<T>& disc, int at) {
+    return post_at<T>(zero, zero, 4, 3, at, at, 3, 3, disc, mu_s, kappa,
+                      rho_s, rho_f, dx, dy, w_t, clamp);
+  };
+  Post<T> zero_in = zero_post(discs.d[0], 1);
+  Post<T> zero_edge = zero_post(discs.d[0], 0);
+  // solid s's outputs at cell (j, i): with one solid the 12 outputs; with
+  // more its stacks' slices and its terms of the mixture sums (the source
+  // note above)
+  auto emit = [&](int s, int j, int i, const Post<T>& p) {
+    const size_t g = static_cast<size_t>(j) * Nx + i;
+    if constexpr (!kMulti) {
+      p.store(o, g);
+    } else {
+      const size_t n = s * N + g;
+      o.x1e[n] = p.x1e;
+      o.x2e[n] = p.x2e;
+      o.phi[n] = p.phi;
+      o.sxx[n] = p.sxx;
+      o.sxy[n] = p.sxy;
+      o.syy[n] = p.syy;
+      o.J[n] = p.J;
+      // one solid's Hf is its H, and (1 - H) sigma its sb terms
+      T h = p.Hf, omh = T(1) - p.Hf, a = p.sbxx, b = p.sbxy, c = p.sbyy;
+      if (s > 0) {
+        h = o.Hf[g] + h;
+        omh = o.rho[g] + omh;
+        a = o.sbxx[g] + a;
+        b = o.sbxy[g] + b;
+        c = o.sbyy[g] + c;
+      }
+      if (s == S - 1) {
+        h = h - static_cast<T>(S - 1);
+        omh = h * rho_f + omh * rho_s;  // rho, from the sum of 1 - H_i
+      }
+      o.Hf[g] = h;
+      o.rho[g] = omh;
+      o.sbxx[g] = a;
+      o.sbxy[g] = b;
+      o.sbyy[g] = c;
+    }
+  };
   const int ntx = static_cast<int>(pyrmt::tiles_for(Nx, tile));
   const int ntiles = static_cast<int>(num_tiles(Ny, Nx, tile));
 
@@ -277,58 +350,69 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Span ys = pyrmt::tile_span((t / ntx) * tile, tile, Ny, halo);
     const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
     const Span oy = own(ys), ox = own(xs);
-
-    // vote over the panel widened by the advection's +-1 reads, keeping
-    // u and v there for the backtrace
     const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
-    bool active = dt_bad;
-    for_panel(vy, vx, 0, [&](int lj, int li) {
-      const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
-      const T ug = u[g], vg = v[g];
-      P.us[lj * (W + 2) + li] = ug;
-      P.vs[lj * (W + 2) + li] = vg;
-      const T ph = disc(X1[g], X2[g]);
-      active |= !(ph > T(0) && ph <= big && fabs(ug) * vscale < big &&
-                  fabs(vg) * vscale < big);
-    });
-    if (!__syncthreads_or(active)) {
+
+    for (int s = 0; s < (kMulti ? S : 1); ++s) {
+      const Disc<T> disc = discs.d[s];
+      const T* X1s = X1 + s * N;
+      const T* X2s = X2 + s * N;
+      if constexpr (kMulti) {
+        zero_in = zero_post(disc, 1);
+        zero_edge = zero_post(disc, 0);
+      }
+
+      // vote over the panel widened by the advection's +-1 reads, keeping
+      // u and v there for the backtrace
+      bool active = dt_bad;
+      for_panel(vy, vx, 0, [&](int lj, int li) {
+        const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
+        const T ug = u[g], vg = v[g];
+        P.us[lj * (W + 2) + li] = ug;
+        P.vs[lj * (W + 2) + li] = vg;
+        const T ph = disc(X1s[g], X2s[g]);
+        active |= !(ph > T(0) && ph <= big && fabs(ug) * vscale < big &&
+                    fabs(vg) * vscale < big);
+      });
+      if (!__syncthreads_or(active)) {
+        for_panel(oy, ox, 0, [&](int lj, int li) {
+          const int j = oy.lo + lj, i = ox.lo + li;
+          const bool in = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
+          emit(s, j, i, in ? zero_in : zero_edge);
+        });
+        continue;
+      }
+
+      // advect over the whole panel, u and v from the vote's copy
+      const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+      const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+      const Rows<T> x1g{X1s, static_cast<size_t>(Nx), 0, 0};
+      const Rows<T> x2g{X2s, static_cast<size_t>(Nx), 0, 0};
+      for_panel(ys, xs, 0, [&](int lj, int li) {
+        const int j = ys.lo + lj, i = xs.lo + li;
+        const size_t g = static_cast<size_t>(j) * Nx + i;
+        const size_t l = static_cast<size_t>(lj) * W + li;
+        T sx, sy;
+        pyrmt::backtrace_at<T>(ut, vt, dt, j, i, Ny, Nx, dx, dy, sx, sy);
+        bool known;
+        pyrmt::masked_sample<T>(x1g, x2g, sx, sy, disc(X1s[g], X2s[g]), j, i,
+                                Ny, Nx, P.x1(0)[l], P.x2(0)[l], known);
+        P.known(0)[l] = known;
+      });
+      __syncthreads();
+
+      const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
+
+      // post, for the tile's own cells
       for_panel(oy, ox, 0, [&](int lj, int li) {
         const int j = oy.lo + lj, i = ox.lo + li;
-        const bool in = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
-        (in ? zero_in : zero_edge).store(o, static_cast<size_t>(j) * Nx + i);
+        emit(s, j, i,
+             post_at<T>(P.x1(e), P.x2(e),
+                        static_cast<size_t>(j - ys.lo) * W + (i - xs.lo), W,
+                        j, i, Ny, Nx, disc, mu_s, kappa, rho_s, rho_f, dx,
+                        dy, w_t, clamp));
       });
-      continue;
+      __syncthreads();  // before the next solid or tile overwrites the panel
     }
-
-    // advect over the whole panel, u and v from the vote's copy
-    const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-    const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-    const Rows<T> x1g{X1, static_cast<size_t>(Nx), 0, 0};
-    const Rows<T> x2g{X2, static_cast<size_t>(Nx), 0, 0};
-    for_panel(ys, xs, 0, [&](int lj, int li) {
-      const int j = ys.lo + lj, i = xs.lo + li;
-      const size_t g = static_cast<size_t>(j) * Nx + i;
-      const size_t l = static_cast<size_t>(lj) * W + li;
-      T sx, sy;
-      pyrmt::backtrace_at<T>(ut, vt, dt, j, i, Ny, Nx, dx, dy, sx, sy);
-      bool known;
-      pyrmt::masked_sample<T>(x1g, x2g, sx, sy, disc(X1[g], X2[g]), j, i, Ny,
-                              Nx, P.x1(0)[l], P.x2(0)[l], known);
-      P.known(0)[l] = known;
-    });
-    __syncthreads();
-
-    const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
-
-    // post, for the tile's own cells
-    for_panel(oy, ox, 0, [&](int lj, int li) {
-      const int j = oy.lo + lj, i = ox.lo + li;
-      post_at<T>(P.x1(e), P.x2(e),
-                 static_cast<size_t>(j - ys.lo) * W + (i - xs.lo), W, j, i,
-                 Ny, Nx, disc, mu_s, kappa, rho_s, rho_f, dx, dy, w_t)
-          .store(o, static_cast<size_t>(j) * Nx + i);
-    });
-    __syncthreads();  // before the next tile overwrites the panel
   }
 }
 
@@ -500,28 +584,52 @@ long long workspace_bytes(int Ny, int Nx, int num_layers, int sms) {
   return pyrmt::workspace_bytes<T>(Ny, Nx, 4 * num_layers + 1, true, sms);
 }
 
-// ws: workspace_bytes(...) bytes of device memory (unused when 0); sms:
-// the card's SM count.
-template <typename T>
-int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
-           const T* params, const Outs<T>& o, void* ws, int Ny, int Nx,
-           double dx, double dy, int num_layers, double w_t, double x0,
-           double y0, double R, const double* taps, int sms,
-           void* stream_ptr) {
+// One instantiation's launch (kMulti: S >= 2).
+template <typename T, bool kMulti>
+int launch_tiles(const T* u, const T* v, const T* X1, const T* X2,
+                 const T* dt, const T* params, const Discs<T>& discs, int S,
+                 const Clamp<T>& clamp, const Outs<T>& o, void* ws, int Ny,
+                 int Nx, double dx, double dy, int num_layers, double w_t,
+                 const double* taps, int sms, void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   const Plan p = rmt_plan<T>(num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(rmt_tile_kernel<T>, smem, allowed);
+  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti>, smem, allowed);
   if (err) return err;
-  const Disc<T> disc{static_cast<T>(x0), static_cast<T>(y0),
-                     static_cast<T>(R)};
-  rmt_tile_kernel<T><<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy), smem,
-                       static_cast<cudaStream_t>(stream_ptr)>>>(
-      u, v, X1, X2, dt, params, disc, o, Ny, Nx, dx, dy, num_layers, w_t,
-      pyrmt::load_taps<T>(taps), p.tile,
+  rmt_tile_kernel<T, kMulti><<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy),
+                               smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      u, v, X1, X2, dt, params, discs, S, clamp, o, Ny, Nx, dx, dy,
+      num_layers, w_t, pyrmt::load_taps<T>(taps), p.tile,
       p.in_smem ? nullptr : static_cast<unsigned char*>(ws), p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
+}
+
+// discs: S (x0, y0, R) host triples; clamp: det G's upper end, 0 for no
+// clamp, clamp_lo its lower end (1.0 / clamp in double); ws:
+// workspace_bytes(...) bytes of device memory (unused when 0); sms: the
+// card's SM count.
+template <typename T>
+int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
+           const T* params, const Outs<T>& o, void* ws, int S,
+           const double* discs, int Ny, int Nx, double dx, double dy,
+           int num_layers, double w_t, double clamp, double clamp_lo,
+           const double* taps, int sms, void* stream_ptr) {
+  if (S < 1 || S > kMaxSolids) return static_cast<int>(cudaErrorInvalidValue);
+  Discs<T> d{};
+  for (int s = 0; s < S; ++s)
+    d.d[s] = Disc<T>{static_cast<T>(discs[3 * s]),
+                     static_cast<T>(discs[3 * s + 1]),
+                     static_cast<T>(discs[3 * s + 2])};
+  const Clamp<T> c{static_cast<T>(clamp_lo), static_cast<T>(clamp),
+                   clamp > 0.0};
+  if (S == 1)
+    return launch_tiles<T, false>(u, v, X1, X2, dt, params, d, S, c, o, ws,
+                                  Ny, Nx, dx, dy, num_layers, w_t, taps, sms,
+                                  stream_ptr);
+  return launch_tiles<T, true>(u, v, X1, X2, dt, params, d, S, c, o, ws, Ny,
+                               Nx, dx, dy, num_layers, w_t, taps, sms,
+                               stream_ptr);
 }
 
 // The split tier's device scratch: the skip flags, then the panels'
@@ -570,14 +678,15 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
   extern "C" int NAME(const T* u, const T* v, const T* X1, const T* X2,       \
                       const T* dt, const T* params, T* x1e, T* x2e, T* phi,   \
                       T* sxx, T* sxy, T* syy, T* J, T* Hf, T* rho, T* sbxx,   \
-                      T* sbxy, T* sbyy, void* ws, int Ny, int Nx, double dx,  \
-                      double dy, int num_layers, double w_t, double x0,       \
-                      double y0, double R, const double* taps, int sms,       \
-                      void* stream) {                                         \
+                      T* sbxy, T* sbyy, void* ws, int S, const double* discs, \
+                      int Ny, int Nx, double dx, double dy, int num_layers,   \
+                      double w_t, double clamp, double clamp_lo,              \
+                      const double* taps, int sms, void* stream) {            \
     const Outs<T> o{x1e, x2e, phi, sxx, sxy, syy, J, Hf, rho, sbxx, sbxy,     \
                     sbyy};                                                    \
-    return launch<T>(u, v, X1, X2, dt, params, o, ws, Ny, Nx, dx, dy,         \
-                     num_layers, w_t, x0, y0, R, taps, sms, stream);          \
+    return launch<T>(u, v, X1, X2, dt, params, o, ws, S, discs, Ny, Nx, dx,   \
+                     dy, num_layers, w_t, clamp, clamp_lo, taps, sms,         \
+                     stream);                                                 \
   }
 
 PYRMT_RMT_ENTRY(pyrmt_rmt_block_f32, pyrmt_rmt_block_workspace_f32, float)

@@ -130,7 +130,7 @@ __device__ void sigma_at(At<T> wu, At<T> wv, T a, T c, T b, T h,
 
 // -(w.grad)w + (div sigma + f - grad p) / (rho + 1e-12) at one cell (j, i)
 // into (ru, rv); without a force (fx == nullptr) the f term is left out,
-// as the slice's momentum_core leaves it out. fx, fy are read at g.
+// as physics.momentum_core leaves it out without one. fx, fy are read at g.
 template <typename T>
 __device__ void rhs_at(At<T> wu, At<T> wv, At<T> sxx, At<T> sxy, At<T> syy,
                        At<T> p, T rho, const T* fx, const T* fy, size_t g,

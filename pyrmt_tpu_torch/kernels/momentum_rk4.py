@@ -5,9 +5,10 @@ CUDA kernel (counterpart of
 The plain version is ``pyrmt_tpu_torch.physics.momentum_core``; this
 wrapper takes the same arguments. The kernel is ``csrc/momentum_rk4.cu``,
 one launch of shared-memory tiles with an 8-cell halo; its source note
-says what it replaces and what bounds it. External forces
-are not an operand: the slice has none, as the JAX kernel's
-``has_ext=False`` elides them.
+says what it replaces and what bounds it. The external force (contact,
+gravity) is two optional (Ny, Nx) operands: with them the launch is the
+kernel's force instantiation (the JAX kernel's ``has_ext=True``), without
+them the one that has no force operands (``has_ext=False``).
 """
 from __future__ import annotations
 
@@ -27,27 +28,28 @@ def _cuda_lib():
     lib = _build.load("momentum_rk4")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_momentum_rk4_f32, lib.pyrmt_momentum_rk4_f64):
-        fn.argtypes = [P] * 12 + [I, I, D, D, D, D, I, D, P]
+        fn.argtypes = [P] * 14 + [I, I, D, D, D, D, I, D, P]
         fn.restype = I
     return lib
 
 
 def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                        rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt,
-                       mu_f):
+                       mu_f, f_ext_x=None, f_ext_y=None):
     """RK4 velocity update; same arguments and result as
     ``physics.momentum_core`` with ``dt`` a 0-d tensor.
 
     A CPU tensor goes to ``momentum_core``. A CUDA tensor goes to the CUDA
     kernel, which applies the BC from ``velocity_bc.kernel_spec`` ('lid',
     'free_slip' or 'noop'); anything else raises. ``mkv`` is read only when
-    eta_s > 0.
+    eta_s > 0; the force (``f_ext_x``, ``f_ext_y``) where it is given.
     """
     global launches
     if u.device.type == "cpu":
         return momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el,
                              Hf, rho_local, mkv, velocity_bc, eta_s=eta_s,
-                             dx=dx, dy=dy, dt=dt, mu_f=mu_f)
+                             dx=dx, dy=dy, dt=dt, mu_f=mu_f, f_ext_x=f_ext_x,
+                             f_ext_y=f_ext_y)
     if u.device.type != "cuda":
         raise ValueError(f"momentum_rk4: no kernel for device {u.device}")
     bc, lid = _build.bc_operands("momentum_rk4", velocity_bc)
@@ -55,18 +57,25 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     if Ny < 5 or Nx < 5:
         raise ValueError(f"momentum_rk4 kernel needs a grid of at least 5x5, "
                          f"not {Ny}x{Nx}")
+    if (f_ext_x is None) != (f_ext_y is None):
+        raise ValueError("momentum_rk4: give both force fields or neither")
     fields = {"u": u, "v": v, "p": p, "sig_sxx_el": sig_sxx_el,
               "sig_sxy_el": sig_sxy_el, "sig_syy_el": sig_syy_el, "Hf": Hf,
-              "rho_local": rho_local, "mkv": mkv, "dt": dt}
+              "rho_local": rho_local, "mkv": mkv}
+    forces = ({} if f_ext_x is None else
+              {"f_ext_x": f_ext_x, "f_ext_y": f_ext_y})
     _build.check_operands("momentum_rk4", u, {
         name: (t, () if name == "dt" else (Ny, Nx))
-        for name, t in fields.items()})
+        for name, t in {**fields, **forces, "dt": dt}.items()})
     lib = _cuda_lib()
     u_new = torch.empty_like(u)
     v_new = torch.empty_like(u)
     fn = (lib.pyrmt_momentum_rk4_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rk4_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), u_new, v_new)),
+    force_ptrs = ((None, None) if f_ext_x is None else
+                  (_build.pointer(f_ext_x), _build.pointer(f_ext_y)))
+    err = fn(*(_build.pointer(t) for t in fields.values()), *force_ptrs,
+             *(_build.pointer(t) for t in (dt, u_new, v_new)),
              Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s), bc, lid,
              _build.stream_handle(u.device))
     _build.check(lib, err, "momentum_rk4 kernel launch")

@@ -3,16 +3,19 @@ wrappers of their CUDA kernels (counterparts of
 ``pyrmt_tpu.kernels.rmt_block.rmt_block_fused`` and
 ``advext_block_fused``).
 
-The fused tier (``rmt_block_fused``), per solid:
+The fused tier (``rmt_block_fused``), per solid i of S:
 
     phi   = phi_init(X1, X2)                  (compatibility rebuild)
     X1a, X2a = advect(X1, X2; u, v, dt) * (phi <= 0)
     X1e, X2e = extrapolate(X1a, X2a, phi)     (num_layers sweeps)
     phi2  = phi_init(X1e, X2e)
-    sigma, J = solid_cauchy_stress(X1e, X2e, phi2)   (interior mode)
+    sigma, J = solid_cauchy_stress(X1e, X2e, phi2)   (interior mode; with
+               stress_clamp > 0 det G clamped to [1/clamp, clamp], the
+               step's two-solid collision clamp)
     H     = smoothed_heaviside(phi2, w_t)
 
-followed by the mixture sums Hf, rho and sum_i (1 - H_i) sigma_i. The
+followed by the mixture sums Hf = sum_i H_i - (S - 1), rho and
+sum_i (1 - H_i) sigma_i. The
 split tier's kernel A (``advext_block_fused``) runs only the advection and
 the extrapolation, with the pre-advection phi given: the step rebuilds,
 reinitialises and area-fixes phi around it. Both kernels are entry points
@@ -38,6 +41,10 @@ from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 launches = 0
 advext_launches = 0
 
+# The most solids the fused tier's kernel takes: their discs are kernel
+# arguments (kMaxSolids in csrc/rmt_block.cu).
+MAX_SOLIDS = 16
+
 
 def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
     """The split tier's advect and extrapolate block: the shared SL-RK4
@@ -56,9 +63,11 @@ def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
 
 
 def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
-                    w_t, params):
+                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0):
     """The composed ops. ``X1s``/``X2s`` are (S, Ny, Nx) stacks, ``dt`` a
-    0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f].
+    0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f];
+    ``stress_w_cut`` and ``stress_clamp`` select the stress's variant, as
+    ``ops.stress.solid_cauchy_stress``'s ``w_cut`` and ``detg_clamp`` do.
 
     Returns (X1e, X2e, phis, sxx_s, sxy_s, syy_s, J_s, Hf, rho_local,
     sig_sxx_el, sig_sxy_el, sig_syy_el): seven (S, Ny, Nx) stacks and five
@@ -73,7 +82,9 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     phis = torch.stack([rebuild_phi_from_reference_map(X1e[i], X2e[i], f)
                         for i, f in enumerate(phi_inits)])
     stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, mu_s, kappa,
-                                  phis[i]) for i in range(S)]
+                                  phis[i], w_cut=stress_w_cut,
+                                  detg_clamp=stress_clamp)
+              for i in range(S)]
     sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
     H = smoothed_heaviside(phis, w_t)
     one_mH = 1.0 - H
@@ -84,35 +95,44 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
             torch.sum(one_mH * syy, dim=0))
 
 
-def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers):
-    """Raise unless the operands are what the kernel takes."""
+def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers,
+                         stress_w_cut):
+    """Raise unless the operands are what the kernel takes; returns the
+    discs' (x0, y0, R), one triple per solid."""
     Ny, Nx = u.shape
+    S = len(phi_inits)
     if Ny < 3 or Nx < 3:
         raise ValueError(f"rmt_block kernel needs a grid of at least 3x3, "
                          f"not {Ny}x{Nx}")
+    if not 1 <= S <= MAX_SOLIDS:
+        raise ValueError(f"the rmt_block kernel takes 1 to {MAX_SOLIDS} "
+                         f"solids, not {S}")
     _build.check_operands("rmt_block", u, {
-        "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (1, Ny, Nx)),
-        "X2s": (X2s, (1, Ny, Nx)), "dt": (dt, ()), "params": (params, (4,))})
-    if len(phi_inits) != 1:
+        "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (S, Ny, Nx)),
+        "X2s": (X2s, (S, Ny, Nx)), "dt": (dt, ()), "params": (params, (4,))})
+    if stress_w_cut > 0.0:
         raise NotImplementedError(
-            "the rmt_block kernel takes one solid; multi-solid configs wait "
-            "for ROADMAP modules item 11")
-    spec = getattr(phi_inits[0], "kernel_spec", None)
-    if spec is None or spec[0] != "disc":
-        raise ValueError(
-            "the rmt_block kernel evaluates the level set from runtime "
-            "scalars and needs a shape with kernel_spec ('disc', x0, y0, R) "
-            f"(ops.levelset.Disc); got {phi_inits[0]!r}")
+            "the rmt_block kernel computes the interior-mode stress; the band "
+            "mode (stress_w_cut > 0) waits for ROADMAP modules item 9")
+    discs = []
+    for f in phi_inits:
+        spec = getattr(f, "kernel_spec", None)
+        if spec is None or spec[0] != "disc":
+            raise ValueError(
+                "the rmt_block kernel evaluates the level sets from runtime "
+                "scalars and needs shapes with kernel_spec ('disc', x0, y0, "
+                f"R) (ops.levelset.Disc); got {f!r}")
+        discs.append(spec[1:])
     if num_layers < 1:
         raise ValueError("rmt_block kernel needs num_layers >= 1")
-    return spec
+    return discs
 
 
 def _cuda_lib():
     lib = _build.load("rmt_block")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
-        fn.argtypes = [P] * 19 + [I, I, D, D, I, D, D, D, D, P, I, P]
+        fn.argtypes = [P] * 19 + [I, P, I, I, D, D, I, D, D, D, P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_rmt_block_workspace_f32,
                lib.pyrmt_rmt_block_workspace_f64):
@@ -128,27 +148,30 @@ def _cuda_lib():
 
 
 def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
-                    w_t, params):
+                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0):
     """The solid block; same arguments and results as ``rmt_block_plain``.
 
     A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
-    CUDA kernel, which takes one solid whose level set carries
-    ``kernel_spec = ('disc', x0, y0, R)``; anything else raises. dt and the
-    physics scalars are read on the device, so a call does not wait for the
-    card.
+    CUDA kernel, which takes 1 to ``MAX_SOLIDS`` solids whose level sets
+    carry ``kernel_spec = ('disc', x0, y0, R)``, and the interior-mode
+    stress with or without the clamp; anything else raises. dt and the
+    physics scalars are read on the device, so a call does not wait for
+    the card.
     """
     global launches
     if u.device.type == "cpu":
         return rmt_block_plain(u, v, X1s, X2s, dt, phi_inits=phi_inits,
                                dx=dx, dy=dy, num_layers=num_layers, w_t=w_t,
-                               params=params)
+                               params=params, stress_w_cut=stress_w_cut,
+                               stress_clamp=stress_clamp)
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
-    _, x0, y0, R = _check_cuda_operands(u, v, X1s, X2s, dt, params,
-                                        phi_inits, num_layers)
+    discs = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
+                                 num_layers, stress_w_cut)
     lib = _cuda_lib()
+    S = len(discs)
     Ny, Nx = u.shape
-    stacks = [torch.empty((1, Ny, Nx), dtype=u.dtype, device=u.device)
+    stacks = [torch.empty((S, Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(7)]
     fields = [torch.empty((Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(5)]
@@ -161,12 +184,18 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                                                    sms)
     ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=u.device)
           if ws_bytes else None)
+    disc_args = (ctypes.c_double * (3 * S))(*(float(x) for d in discs
+                                              for x in d))
+    # the clamp's lower end as the plain version's torch.clamp takes it: a
+    # Python double, rounded once to the tensor's type
+    clamp = float(stress_clamp)
+    clamp_lo = 1.0 / clamp if clamp > 0.0 else 0.0
     fn = lib.pyrmt_rmt_block_f32 if f32 else lib.pyrmt_rmt_block_f64
     err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, dt, params,
                                             *stacks, *fields)),
-             None if ws is None else _build.pointer(ws),
+             None if ws is None else _build.pointer(ws), S, disc_args,
              Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
-             x0, y0, R, window_taps(dx, dy), sms,
+             clamp, clamp_lo, window_taps(dx, dy), sms,
              _build.stream_handle(u.device))
     _build.check(lib, err, "rmt_block kernel launch")
     launches += 1

@@ -12,7 +12,7 @@ iteration, a Python loop of ``num_iters`` steps); 'fmm' (parallel fast
 sweeping: frontier cells frozen at their interpolated front distance, then
 two passes of the 4 Gauss-Seidel orderings, each traversal a loop over
 anti-diagonals with one vector op per diagonal). Curvature and the
-periodic phi BCs wait for ROADMAP modules items 11 and 13.
+periodic phi BCs wait for ROADMAP modules items 19 and 13.
 """
 from __future__ import annotations
 

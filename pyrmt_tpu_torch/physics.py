@@ -3,15 +3,16 @@
 
 The one-fluid mixture blends the stress tensors before the divergence:
 sigma = Hf sigma_f + sum_i (1 - H_i) sigma_s_i, with Hf = sum_i H_i - (S-1).
-The RHS takes an external force field; the forces themselves (surface
-tension, contact, gravity) and the periodic stencils wait for ROADMAP
-modules items 11 and 13.
+The RHS takes an external force field: pairwise contact between solids
+(``external_forces``) and gravity, which ``body_forces`` adds. Surface
+tension and the periodic stencils wait for ROADMAP modules items 19 and 13.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from pyrmt_tpu_torch.ops.contact import compute_contact_force
 from pyrmt_tpu_torch.ops.fd import (
     diff_upwind_3rd,
     grad_central_x_2nd,
@@ -81,19 +82,67 @@ def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
     return rhs_u, rhs_v
 
 
+def external_forces(phis, H_s, dx, dy, *, gamma, k_rep, w_c, w_t):
+    """The body forces that stay constant over the RK4 stages: pairwise
+    repulsive contact between the (S, Ny, Nx) level sets ``phis``, summed
+    over the pairs i < j, with half-width ``w_c`` (2 w_t when None).
+    Returns (f_ext_x, f_ext_y).
+
+    Surface tension (gamma > 0), which would read the Heaviside stack
+    ``H_s``, waits for ROADMAP modules item 19 and raises."""
+    if gamma > 1e-12:
+        raise NotImplementedError(
+            "surface tension is outside the ported slice; it waits for "
+            "ROADMAP modules item 19")
+    S = phis.shape[0]
+    f_ext_x = torch.zeros(phis.shape[1:], dtype=phis.dtype,
+                          device=phis.device)
+    f_ext_y = torch.zeros_like(f_ext_x)
+    if k_rep > 0.0 and S >= 2:
+        wc = (2.0 * w_t) if w_c is None else w_c
+        for i in range(S):
+            for j in range(i + 1, S):
+                fcx, fcy = compute_contact_force(phis[i], phis[j], k_rep, wc,
+                                                 dx, dy)
+                f_ext_x = f_ext_x + fcx
+                f_ext_y = f_ext_y + fcy
+    return f_ext_x, f_ext_y
+
+
+def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
+                g_x=0.0, g_y=0.0, g_rho_ref=1.0):
+    """The step's stage-constant force (f_x, f_y), as the JAX step builds
+    it: ``external_forces`` where surface tension or contact is on, plus
+    gravity's (rho_local - g_rho_ref) g; (None, None) with neither."""
+    forces = gamma > 1e-12 or (k_rep > 0.0 and phis.shape[0] >= 2)
+    gravity = g_x != 0.0 or g_y != 0.0
+    if forces:
+        fx, fy = external_forces(phis, None, dx, dy, gamma=gamma,
+                                 k_rep=k_rep, w_c=w_c, w_t=w_t)
+    if not gravity:
+        return (fx, fy) if forces else (None, None)
+    drho = rho_local - g_rho_ref
+    if not forces:
+        return drho * g_x, drho * g_y
+    return fx + drho * g_x, fy + drho * g_y
+
+
 def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                   rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f,
-                  rhs_fn=velocity_rhs_blended):
+                  f_ext_x=None, f_ext_y=None, rhs_fn=velocity_rhs_blended):
     """Plain RK4 velocity update from pre-blended fields, with the velocity
     BC applied to every stage input and to the result.
 
     ``mkv`` is the Kelvin-Voigt blend mask sum_i mask_i (1 - H_i); it is
-    read only when eta_s > 0. ``rhs_fn`` is each stage's RHS, called as
-    ``velocity_rhs_blended`` without the force after the stage loop's BC
-    and Kelvin-Voigt ops: the plain version, or the one-RHS kernel
-    (kernels/momentum_rhs.py) as ``use_pallas_rhs`` selects. The CUDA
-    counterpart of the whole update is kernels/momentum_rk4.py.
+    read only when eta_s > 0. ``f_ext_x``, ``f_ext_y`` are the stage-
+    constant body forces, None for none. ``rhs_fn`` is each stage's RHS,
+    called as ``velocity_rhs_blended`` after the stage loop's BC and
+    Kelvin-Voigt ops, with the force keywords where a force is given: the
+    plain version, or the one-RHS kernel (kernels/momentum_rhs.py) as
+    ``use_pallas_rhs`` selects. The CUDA counterpart of the whole update is
+    kernels/momentum_rk4.py.
     """
+    force = {} if f_ext_x is None else dict(f_ext_x=f_ext_x, f_ext_y=f_ext_y)
     gx2, gy2 = grad_central_x_2nd, grad_central_y_2nd
 
     def rhs(u_stage, v_stage):
@@ -111,7 +160,7 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
             syy = syy + mkv * (eta_s * dv_dy)
             sxy = sxy + mkv * (eta_s * 0.5 * (du_dy + dv_dx))
         return rhs_fn(u_stage, v_stage, p, sxx, sxy, syy, dx, dy, mu_f, Hf,
-                      rho_local)
+                      rho_local, **force)
 
     k1u, k1v = rhs(u, v)
     k2u, k2v = rhs(u + 0.5 * dt * k1u, v + 0.5 * dt * k1v)

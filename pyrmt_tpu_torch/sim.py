@@ -13,10 +13,13 @@ One step of the ported slice:
        (rebuild, reinit, area fix) as plain ops, then
        ``advext_block_fused`` (advect, mask, extrapolate given phi), then
        the rebuild (+ area fix), stress and blends as plain ops;
-  3. the RK4 momentum update: by default (``momentum_method`` 'auto' or
-     'pallas') all four stages in kernels/momentum_rk4.py; with
-     ``momentum_method='xla'`` the stage loop of ``physics.momentum_core``,
-     whose stage RHS is kernels/momentum_rhs.py with ``use_pallas_rhs``;
+  3. the body forces, as plain ops: pairwise contact between two solids
+     or more (``k_rep > 0``, ``physics.external_forces``) and gravity
+     ((rho - rho_ref) g); then the RK4 momentum update: by default
+     (``momentum_method`` 'auto' or 'pallas') all four stages in
+     kernels/momentum_rk4.py; with ``momentum_method='xla'`` the stage loop
+     of ``physics.momentum_core``, whose stage RHS is kernels/momentum_rhs.py
+     with ``use_pallas_rhs``;
   4. the incremental Rhie-Chow projection with the DCT-I Poisson solve,
      its two stencil chains fused into kernels/projection_stencils.py with
      ``projection_method='pallas'``;
@@ -27,10 +30,12 @@ the plain PyTorch versions. dt stays a 0-d device tensor for the whole
 step, so a step never waits for the card, except where rebasing reads its
 trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step).
 
-The step takes one solid with semi-Lagrangian gather-free bilinear
-advection (CFL < 1), Neumann walls, constant density, no surface tension
-or gravity, and raises NotImplementedError, naming the ROADMAP item that
-ports it, for anything else.
+The step takes one solid or more (two or more with the JAX package's
+two-solid stress: interior mode, det G clamped to ``two_solid_clamp``),
+pairwise contact and gravity, with semi-Lagrangian gather-free bilinear
+advection (CFL < 1), Neumann walls and constant density, and raises
+NotImplementedError, naming the ROADMAP item that ports it, for anything
+else: surface tension among them.
 """
 from __future__ import annotations
 
@@ -71,7 +76,11 @@ from pyrmt_tpu_torch.ops.poisson import (
 )
 from pyrmt_tpu_torch.ops.projection import pressure_projection
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
-from pyrmt_tpu_torch.physics import compute_timestep, momentum_core
+from pyrmt_tpu_torch.physics import (
+    body_forces,
+    compute_timestep,
+    momentum_core,
+)
 
 
 @dataclasses.dataclass
@@ -178,8 +187,7 @@ _OUTSIDE_SLICE = (
      "modules item 13"),
     ("stress_band (band-mode stress)", lambda c: c.stress_band,
      "modules item 9"),
-    ("surface tension", lambda c: c.gamma > 1e-12, "modules item 11"),
-    ("gravity", lambda c: c.g_x != 0.0 or c.g_y != 0.0, "modules item 11"),
+    ("surface tension", lambda c: c.gamma > 1e-12, "modules item 19"),
     ("variable_rho", lambda c: c.variable_rho, "modules item 12"),
 )
 
@@ -219,16 +227,23 @@ def check_slice(cfg: RMTConfig, n_solids: int) -> None:
         if getattr(cfg, name) not in values:
             raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one "
                              f"of {values}")
-    if n_solids != 1:
-        item = "modules item 11" if n_solids > 1 else "modules item 17"
+    if n_solids < 1:
         raise NotImplementedError(
-            f"{n_solids} solids: the port runs one solid so far; this waits "
-            f"for ROADMAP {item}")
+            "no solid: the pure-fluid step waits for ROADMAP modules item 18")
     for what, outside, item in _OUTSIDE_SLICE:
         if outside(cfg):
             raise NotImplementedError(
                 f"{what} is outside the ported slice; it waits for ROADMAP "
                 f"{item}")
+
+
+def stress_mode(cfg: RMTConfig, S: int) -> tuple[float, float]:
+    """(w_cut, detg_clamp) of the solid stress, as the JAX step chooses
+    them (``pyrmt_tpu/sim.py:617-622``): two solids or more take the
+    interior stress with the collision clamp ``two_solid_clamp``, one the
+    interior stress unclamped (its ``stress_band`` mode waits for ROADMAP
+    modules item 9 and raises in ``check_slice``)."""
+    return (0.0, cfg.two_solid_clamp) if S >= 2 else (0.0, 0.0)
 
 
 def _rmt_advect_fusible(cfg: RMTConfig, S: int) -> bool:
@@ -355,8 +370,8 @@ def make_step(
 
     ``phi_inits`` holds one level-set function of the reference map per
     solid; ``velocity_bc`` is one of ``bcs``. On the fused tier the CUDA
-    kernel needs an ``ops.levelset.Disc``; on the split tier (reinit, area
-    fix or rebasing) any torch callable works. Returns
+    kernel needs each to be an ``ops.levelset.Disc``; on the split tier
+    (reinit, area fix or rebasing) any torch callable works. Returns
     ``step(state, t_end) -> (state, aux)``; with rebasing, aux["rebased"]
     holds the per-solid flags.
 
@@ -392,16 +407,16 @@ def make_step(
                 torch.full((), cfg.fixed_dt, dtype=dtype, device=device))
     rmt_fn = rmt_block_impl or rmt_block_fused
     advext_fn = advext_impl or advext_block_fused
+    # the force of a step without one: none, or zero fields for the
+    # one-RHS kernel, which takes them as the JAX step passes them
+    f_none = None
     if cfg.momentum_method != "xla":
         momentum_fn = momentum_rk4_impl or momentum_rk4_fused
     elif cfg.use_pallas_rhs:
-        # the slice has no external force: the kernel takes zero fields,
-        # as the JAX step passes them
-        f_zero = torch.zeros(g.shape, dtype=dtype, device=device)
-        rhs_fn = functools.partial(
-            momentum_rhs_impl or velocity_rhs_blended_fused, f_ext_x=f_zero,
-            f_ext_y=f_zero)
-        momentum_fn = functools.partial(momentum_core, rhs_fn=rhs_fn)
+        f_none = torch.zeros(g.shape, dtype=dtype, device=device)
+        momentum_fn = functools.partial(
+            momentum_core,
+            rhs_fn=momentum_rhs_impl or velocity_rhs_blended_fused)
     else:
         momentum_fn = momentum_core
     stencils = ((projection_stencils_impl or (rc_rhs_fused, grad_correct_fused))
@@ -422,6 +437,11 @@ def make_step(
     maybe_rebase = (_make_maybe_rebase(
         cfg, S, X, Y, extrap_impl or extrapolate_reference_map_fused)
         if _rebasing(cfg, S) else None)
+    w_cut, clamp = stress_mode(cfg, S)
+    forces = functools.partial(
+        body_forces, dx=dx, dy=dy, gamma=cfg.gamma, k_rep=cfg.k_rep,
+        w_c=cfg.w_c, w_t=cfg.w_t, g_x=cfg.g_x, g_y=cfg.g_y,
+        g_rho_ref=cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref)
 
     def split_block(u, v, X1s, X2s, phis0, dt):
         """The split tier's solid block; the results of rmt_block_plain."""
@@ -440,7 +460,8 @@ def make_step(
         if fix_areas is not None:
             phis = fix_areas(phis)
         stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, cfg.mu_s,
-                                      cfg.kappa, phis[i]) for i in range(S)]
+                                      cfg.kappa, phis[i], w_cut=w_cut,
+                                      detg_clamp=clamp) for i in range(S)]
         sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
         H = smoothed_heaviside(phis, cfg.w_t)
         one_mH = 1.0 - H
@@ -474,18 +495,27 @@ def make_step(
         else:
             block = rmt_fn(u, v, state.X1, state.X2, dt, phi_inits=phi_inits,
                            dx=dx, dy=dy, num_layers=cfg.num_layers,
-                           w_t=cfg.w_t, params=params)
+                           w_t=cfg.w_t, params=params, stress_w_cut=w_cut,
+                           stress_clamp=clamp)
         (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
          sb_xx, sb_xy, sb_yy) = block
 
-        if cfg.eta_s > 0.0:
-            # Kelvin-Voigt mask of the one solid: (phi <= 0) (1 - Hf)
+        if cfg.eta_s > 0.0 and S == 1:
+            # Kelvin-Voigt mask of one solid: (phi <= 0) (1 - Hf), Hf = H
             mkv = (phis[0] <= 0.0).to(dtype) * (1.0 - Hf)
+        elif cfg.eta_s > 0.0:
+            # of S solids: sum_i (phi_i <= 0) (1 - H_i)
+            H = smoothed_heaviside(phis, cfg.w_t)
+            mkv = torch.sum((phis <= 0.0).to(dtype) * (1.0 - H), dim=0)
         else:
             mkv = torch.zeros_like(u)
+        f_x, f_y = forces(phis, rho_local)
+        if f_x is None:
+            f_x = f_y = f_none
         u_star, v_star = momentum_fn(
             u, v, p, sb_xx, sb_xy, sb_yy, Hf, rho_local, mkv, velocity_bc,
-            eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f)
+            eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f,
+            f_ext_x=f_x, f_ext_y=f_y)
         u_new, v_new, p_new = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
             dct_mats, stencils=stencils)
@@ -637,13 +667,16 @@ class RebaseRunner:
                                      self._targets[i])
 
     def min_J(self, state):
-        """(S,) tensor: each solid's least J over phi <= 0."""
+        """(S,) tensor: each solid's least J over phi <= 0, from the step's
+        stress (``stress_mode``)."""
         g, cfg = self.cfg.grid, self.cfg
+        w_cut, clamp = stress_mode(cfg, len(self.phi_inits))
         mins = []
         for i in range(len(self.phi_inits)):
             phi = self._phi(state, i)
             J = solid_cauchy_stress(state.X1[i], state.X2[i], g.dx, g.dy,
-                                    cfg.mu_s, cfg.kappa, phi)[3]
+                                    cfg.mu_s, cfg.kappa, phi, w_cut=w_cut,
+                                    detg_clamp=clamp)[3]
             mins.append(torch.amin(torch.where(phi <= 0.0, J, float("inf"))))
         return torch.stack(mins)
 

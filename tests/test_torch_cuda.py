@@ -6,6 +6,8 @@ without it; there, skip the repository's conftest (it sets jax up):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -176,7 +178,8 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
 
 
 TILE_KERNELS = ["rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
-                "rc_rhs", "grad_correct", "extrapolate_fused"]
+                "rc_rhs", "grad_correct", "extrapolate_fused",
+                "rmt_block, two solids", "momentum_rk4, force"]
 
 
 @pytest.fixture(scope="module")
@@ -197,7 +200,12 @@ def device_kernels_per_call():
     for dtype in (torch.float64, torch.float32):
         calls[("rmt_block", dtype)] = (rb.rmt_block_fused, *block_inputs(
             dev, shape, dtype)[1:])
+        calls[("rmt_block, two solids", dtype)] = (
+            rb.rmt_block_fused, *multi_call(dev, shape, dtype, TWO_DISCS))
         calls[("momentum_rk4", dtype)] = momentum_call(dev, shape, dtype)
+        fn, margs, mkw = momentum_call(dev, shape, dtype)
+        calls[("momentum_rk4, force", dtype)] = (fn, margs, dict(
+            mkw, **force_fields(dev, shape, dtype)))
         calls[("advext_block", dtype)] = (rb.advext_block_fused,
                                           *split_call(dev, shape, DISC, dtype))
         calls[("velocity_rhs", dtype)] = (mr.velocity_rhs_blended_fused,
@@ -240,9 +248,9 @@ def device_kernels_per_call():
 def test_tile_kernel_call_runs_one_device_kernel(device_kernels_per_call,
                                                  kernel, dtype):
     """One wrapper call of each tile kernel runs exactly one CUDA kernel
-    on the card (torch.profiler), no copy and no other kernel;
-    advext_block and extrapolate_fused run two, their skip's flag pre-pass
-    and their tile kernel."""
+    on the card (torch.profiler), no copy and no other kernel (with two
+    solids and with a force too); advext_block and extrapolate_fused run
+    two, their skip's flag pre-pass and their tile kernel."""
     device = device_kernels_per_call[(kernel, dtype)]
     two = ("advext_block", "extrapolate_fused")
     assert len(device) == (2 if kernel in two else 1), device
@@ -276,8 +284,13 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
     _, args, kw = block_inputs(dev)
     with pytest.raises(ValueError):  # a level set without kernel_spec
         rb.rmt_block_fused(*args, **dict(kw, phi_inits=(lambda x, y: x,)))
-    with pytest.raises(NotImplementedError):  # two solids
-        rb.rmt_block_fused(*args, **dict(kw, phi_inits=(DISC, DISC)))
+    with pytest.raises(NotImplementedError):  # the band-mode stress
+        rb.rmt_block_fused(*args, **dict(kw, stress_w_cut=0.05))
+    with pytest.raises(ValueError):  # more solids than the kernel takes
+        S = rb.MAX_SOLIDS + 1
+        rb.rmt_block_fused(args[0], args[1], args[2].expand(S, -1, -1),
+                           args[3].expand(S, -1, -1), args[4],
+                           **dict(kw, phi_inits=(DISC,) * S))
     with pytest.raises(ValueError):  # operands on two devices
         rb.rmt_block_fused(args[0], args[1].cpu(), *args[2:], **kw)
     u = args[0]
@@ -288,6 +301,9 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
         h = u.half()
         mk.momentum_rk4_fused(*([h] * 9), pt.noop_bc, eta_s=0.0, dx=0.1,
                               dy=0.1, dt=args[4].half(), mu_f=0.01)
+    with pytest.raises(ValueError):  # one force field without the other
+        mk.momentum_rk4_fused(*([u] * 9), pt.noop_bc, eta_s=0.0, dx=0.1,
+                              dy=0.1, dt=args[4], mu_f=0.01, f_ext_x=u)
 
 
 def split_inputs(dev, shape, disc, dtype=torch.float64, solids=None):
@@ -779,3 +795,192 @@ def test_opt_in_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # a 4x4 grid
         s = a[:4, :4].contiguous()
         mr.velocity_rhs_blended_fused(*([s] * 6), dx, dy, 0.01, *([s] * 4))
+
+
+# the fused tier with S solids: the contact configuration's discs (their
+# contact bands touch), two apart (a tile near one solid skips the other),
+# two overlapping, three, and one solid with the clamp
+TWO_DISCS = (pt.Disc(0.38, 0.5, 0.14), pt.Disc(0.66, 0.5, 0.14))
+SOLID_CASES = {
+    "contact": TWO_DISCS,
+    "apart": (pt.Disc(0.25, 0.3, 0.12), pt.Disc(0.72, 0.7, 0.12)),
+    "overlap": (pt.Disc(0.45, 0.5, 0.2), pt.Disc(0.6, 0.5, 0.2)),
+    "three": TWO_DISCS + (pt.Disc(0.52, 0.8, 0.12),),
+    "one": (DISC,),
+}
+
+
+def multi_call(dev, shape, dtype, solids, clamp=4.0):
+    """(rmt_block's arguments, its keywords) for the solids, with the
+    collision clamp: the maps from make_init_state, the first squeezed and
+    stretched along x by a sine (det G down to ~0.2 at N=64) and, with two
+    solids or more, the second stretched 3x along x and 2x along y (det G
+    6), so the clamp bites at both ends; made in float64 and cast."""
+    Ny, Nx = shape
+    cfg = pt.RMTConfig(grid=pt.Grid(Nx, Ny, 1.0, 1.0), mu_s=1.0, kappa=0.5,
+                       mu_f=0.01, rho_s=1.3)
+    s = pt.make_init_state(cfg, solids, dtype=torch.float64, device=dev)
+    X1, X2 = s.X1.clone(), s.X2.clone()
+    k = 2 * math.pi / 0.1
+    X1[0] = X1[0] + (0.95 / k) * torch.sin(k * X1[0])
+    if len(solids) > 1:
+        x0, y0 = solids[1].x0, solids[1].y0
+        X1[1] = torch.where(X1[1] != 0, x0 + 3.0 * (X1[1] - x0), X1[1])
+        X2[1] = torch.where(X2[1] != 0, y0 + 2.0 * (X2[1] - y0), X2[1])
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=dev)
+    u = 0.3 * torch.sin(2 * torch.pi * X) * torch.cos(2 * torch.pi * Y)
+    v = -0.3 * torch.cos(2 * torch.pi * X) * torch.sin(2 * torch.pi * Y)
+    t = lambda a: a.to(dtype).contiguous()
+    dt = torch.tensor(0.4 * cfg.grid.dx / 0.3, dtype=dtype, device=dev)
+    kw = dict(phi_inits=solids, dx=cfg.grid.dx, dy=cfg.grid.dy,
+              num_layers=cfg.num_layers, w_t=cfg.w_t,
+              params=torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
+                                  dtype=dtype, device=dev),
+              stress_clamp=clamp)
+    return [t(u), t(v), t(X1), t(X2), dt], kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(SOLID_CASES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_kernel_takes_several_solids(dev, shape, case, dtype):
+    """S solids and the clamp, one launch: float64 to 1e-11 (S = 2 is bit
+    for bit; S = 3 leaves torch.sum's order of three terms to it), float32
+    to 1e-4 of max(1, |plain|)."""
+    args, kw = multi_call(dev, shape, dtype, SOLID_CASES[case])
+    before = rb.launches
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    assert rb.launches == before + 1
+    assert out[0].shape == (len(SOLID_CASES[case]),) + shape
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("clamp", [4.0, 0.0, 2.5])
+def test_rmt_block_two_solid_clamp_bites(dev, clamp):
+    """With the clamp c, J over the solids spans [1/c, c] (det G left it at
+    both ends), in the kernel as in the plain version, bit for bit; without
+    it (0) J goes past both. The clamp's lower end is 1.0 / c in double,
+    rounded once to the type (2.5: 0.4 is not a float)."""
+    for dtype in DTYPES:
+        args, kw = multi_call(dev, (64, 64), dtype, TWO_DISCS, clamp)
+        out = rb.rmt_block_fused(*args, **kw)
+        ref = rb.rmt_block_plain(*args, **kw)
+        assert_bit_for_bit(out, ref)
+        J = ref[6][ref[2] <= 0.0]
+        lo, hi = float(J.min()), float(J.max())
+        if clamp:
+            assert abs(hi - clamp) <= 1e-6 * clamp
+            assert abs(lo - 1.0 / clamp) <= 1e-6 / clamp
+        else:
+            assert hi > 4.0 and lo < 0.25
+
+
+@pytest.mark.parametrize("what", ["u_nan", "X1_nan", "X2_inf", "dt_nan"])
+def test_rmt_block_two_solids_non_finite_inputs(dev, what):
+    """A NaN or an infinity in the second solid's map far from both discs
+    (or in u, or dt): the kernel gives the plain version's NaNs; the first
+    solid's tiles there may skip."""
+    args, kw = multi_call(dev, (160, 160), torch.float64, TWO_DISCS)
+    u, v, X1, X2, dt = args
+    at = (5, 150)  # far from the discs
+    if what == "u_nan":
+        u[at] = float("nan")
+    elif what == "X1_nan":
+        X1[(1, *at)] = float("nan")
+    elif what == "X2_inf":
+        X2[(1, *at)] = float("inf")
+    else:
+        args[4] = torch.full_like(dt, float("nan"))
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref[0]).all() and
+                    torch.isfinite(ref[1]).all())
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=ATOL, equal_nan=True)
+
+
+def force_fields(dev, shape, dtype=torch.float64, seed=3):
+    """{"f_ext_x", "f_ext_y"}: a contact-like random force and a buoyancy-
+    like one, made in float64 and cast."""
+    Ny, Nx = shape
+    rng = np.random.default_rng(seed)
+    Y = np.linspace(0.0, 1.0, Ny)[:, None] * np.ones((1, Nx))
+    fx = 0.05 * rng.standard_normal(shape)
+    fy = -0.3 * (Y > 0.5) + 0.05 * rng.standard_normal(shape)
+    return {k: torch.tensor(f, dtype=torch.float64, device=dev).to(dtype)
+            for k, f in (("f_ext_x", fx), ("f_ext_y", fy))}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("eta_s", [0.0, 0.01])
+@pytest.mark.parametrize("bc", [pt.make_lid_bc(0.7), pt.free_slip_box_bc,
+                                pt.noop_bc])
+def test_momentum_kernel_with_force_matches_plain(dev, bc, eta_s, shape):
+    """The force instantiation, one launch, bit for bit in float64 and to
+    1e-5 of max(1, |plain|) in float32."""
+    for dtype in DTYPES:
+        cfg, fields, dt = momentum_inputs(dev, shape, dtype)
+        mkw = dict(eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+                   mu_f=cfg.mu_f, **force_fields(dev, shape, dtype))
+        before = mk.launches
+        out = mk.momentum_rk4_fused(*fields, bc, **mkw)
+        ref = momentum_core(*fields, bc, **mkw)
+        assert mk.launches == before + 1
+        if dtype == torch.float32:
+            assert_close_f32(out, ref, 1e-5)
+        else:
+            assert_equal_to_plain(out, ref)
+        # the force moved the result
+        free = momentum_core(*fields, bc, **dict(mkw, f_ext_x=None,
+                                                 f_ext_y=None))
+        assert float((free[1] - ref[1]).abs().max()) > 0.0
+
+
+CONTACT = dict(mu_s=1.0, kappa=0.0, rho_s=1.0, eta_s=0.0, mu_f=0.01,
+               rho_f=1.0, w_t_cells=2.0, w_c_cells=3.0, k_rep=2.0,
+               two_solid_clamp=4.0, num_layers=3, CFL=0.2, dt_min_cap=1e-3)
+
+
+@pytest.mark.parametrize("override", [
+    {}, dict(g_y=-1.0, rho_s=1.2), dict(eta_s=0.01), dict(phi_area_fix=True),
+    dict(momentum_method="xla", use_pallas_rhs=True,
+         projection_method="pallas"),
+], ids=["contact", "gravity", "kelvin_voigt", "split", "both_switches"])
+def test_contact_kernel_path_matches_plain_path(dev, override):
+    """Three float64 steps of the head-on collision (touching contact
+    bands, so the force acts from the first step) through the kernels and
+    through the plain versions, within 1e-10; the kernel path launches
+    the two-solid rmt_block (advext_block on the split tier) and
+    momentum_rk4 with the force (the one-RHS kernel with it) every step."""
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0),
+                       **dict(CONTACT, **override))
+    kw = dict(dtype=torch.float64, device=dev)
+    bc = pt.free_slip_box_bc
+    step_k = pt.make_step(cfg, bc, TWO_DISCS, **kw)
+    step_p = pt.make_step(
+        cfg, bc, TWO_DISCS, **kw, rmt_block_impl=rb.rmt_block_plain,
+        momentum_rk4_impl=momentum_core, advext_impl=rb.advext_block_plain,
+        momentum_rhs_impl=velocity_rhs_blended,
+        projection_stencils_impl=(ps.rc_rhs_plain, ps.grad_correct_plain))
+    X, _ = cfg.grid.coords(**kw)
+    s_k = s_p = pt.make_init_state(cfg, TWO_DISCS,
+                                   u0=0.3 * torch.tanh((0.52 - X) * 8.0), **kw)
+    before = (rb.launches, rb.advext_launches, mk.launches, mr.launches)
+    for _ in range(3):
+        s_k, aux = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    split, rhs = cfg.phi_area_fix, cfg.use_pallas_rhs
+    assert (rb.launches, rb.advext_launches, mk.launches, mr.launches) == (
+        before[0] + (0 if split else 3), before[1] + (3 if split else 0),
+        before[2] + (0 if rhs else 3), before[3] + (12 if rhs else 0))
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        assert float((getattr(s_k, k) - getattr(s_p, k)).abs().max()) <= 1e-10
+    f = pt.external_forces(aux["phis"], None, cfg.grid.dx, cfg.grid.dy,
+                           gamma=0.0, k_rep=cfg.k_rep, w_c=cfg.w_c,
+                           w_t=cfg.w_t)
+    assert float(f[0].abs().max()) > 0.0  # the contact force acts

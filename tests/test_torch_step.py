@@ -134,13 +134,14 @@ def test_fixed_dt():
     assert float(aux["dt"]) == 1e-4 and float(s.t) == 1e-4
 
 
-# reinitialisation, the area fix, rebasing and the opt-in RHS and
-# projection kernels came into the slice: their entries hold them with a
+# reinitialisation, the area fix, rebasing, the opt-in RHS and projection
+# kernels and gravity came into the slice: their entries hold them with a
 # feature still outside it
 @pytest.mark.parametrize("override", [
     dict(scheme="weno5"), dict(bc_type="periodic"),
     dict(reinit_method="pde", sl_local=False),
-    dict(sl_interp="bicubic"), dict(gamma=0.1), dict(g_y=-1.0),
+    dict(sl_interp="bicubic"), dict(gamma=0.1),
+    dict(g_y=-1.0, bc_type="periodic"),
     dict(variable_rho=True), dict(stress_band=True),
     dict(phi_area_fix=True, sl_interp="bicubic"),
     dict(map_rebase_minj=0.5, bc_type="periodic"), dict(CFL=1.5),
@@ -168,8 +169,8 @@ def test_bad_configs_raise():
     with pytest.raises(ValueError):  # 1 layer cannot cover the blend band
         pt.make_step(pt.RMTConfig(grid=g, num_layers=1), pt.make_lid_bc(1.0),
                      (DISC,), device=DEV)
-    with pytest.raises(NotImplementedError):  # two solids
-        pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (DISC, DISC),
+    with pytest.raises(NotImplementedError):  # no solid (modules item 18)
+        pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (),
                      device=DEV)
 
 
