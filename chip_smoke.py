@@ -18,13 +18,19 @@ another sm_90a card) and the CUDA toolkit. Phases:
      force; all seven also on ragged grids (203x301, 9x300, 33x49) in both
      types and at N=4096 float32; the contact configuration's two modes,
      rmt_block with two solids and the two-solid clamp and momentum_rk4
-     with the contact and gravity force, at the same sizes; then the times
+     with the contact and gravity force, at the same sizes; momentum_rk4's
+     periodic instantiation on overlap-consistent operands (with and
+     without the force, eta_s 0 and 0.01) at N=256, 65x65, 129x129,
+     203x301, 9x300 and 33x49 in both types and at N=1024 and 4096
+     float32; then the times
      of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block,
      advext_block and extrapolate_fused also with every tile skipping; the
-     two contact modes), and the kernels and device-busy ms per step of
-     phases 4, 4b, 4c, 5 and 8's configurations (20 steps each);
+     two contact modes, the periodic instantiation beside the lid's, and
+     the FFT solve of the periodic projection, cuFFT, at N=1024), and the
+     kernels and device-busy ms per step of phases 4, 4b, 4c, 5, 8, 10 and
+     11's configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -42,8 +48,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      plain versions, for the flagship, for area fix + PDE reinit, for a
      rebase on every step, for the flagship with both opt-in switches, for
      area fix + PDE reinit with the projection's stencil kernels, for the
-     contact configuration with touching contact bands, and for it with
-     gravity on the split tier (area fix);
+     contact configuration with touching contact bands, for it with
+     gravity on the split tier (area fix), for the flagship on the
+     doubly-periodic box (bench.py --periodic), and with no solid for the
+     lid-driven cavity and the periodic Taylor-Green vortex;
   8. contact: the head-on collision of two soft discs
      (benchmarks/two_disc_contact.py: free-slip box, k_rep = 2, the
      two-solid clamp 4) at N=1024 float32: 20 warm-up steps, one under
@@ -51,7 +59,18 @@ another sm_90a card) and the CUDA toolkit. Phases:
   9. the collision at N=256 float32 to t = 0.6, the predicates of the JAX
      package's gate (tests/test_validation_gates.py): the least distance
      of the two solids' centroids over the steps above 2R (no
-     pass-through), the least J over the run in (0.5, 1).
+     pass-through), the least J over the run in (0.5, 1);
+  10. the flagship on the doubly-periodic box, seeded with a Taylor-Green
+     vortex (bench.py --periodic), at N=1024 float32: 20 warm-up steps,
+     one under sync-debug, 200 timed with the launch counts checked;
+  11. the pure-fluid lid-driven cavity (no solid) at N=1024 float32, on the
+     RK4 kernel and with momentum_method='xla': the same protocol;
+  12. the JAX package's two solid-free gates on the card, with its own
+     predicates and sizes (tests/test_validation_gates.py): the periodic
+     Taylor-Green decay at N=65 float64 to t = 0.5 (stable, decay-rate
+     error < 1e-2, profile error < 5e-3, divergence < 1e-6), and Ghia's
+     lid-driven cavity at Re = 100, N=65 float64 to the steady criterion
+     of benchmarks/lid_driven_cavity.py (centreline RMS < 5e-3).
 
 It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
@@ -97,6 +116,7 @@ from pyrmt_tpu_torch import (  # noqa: E402
     make_step,
     noop_bc,
 )
+from pyrmt_tpu_torch import bcs  # noqa: E402
 from pyrmt_tpu_torch.kernels import _build  # noqa: E402
 from pyrmt_tpu_torch.kernels import extrapolate_fused as ef  # noqa: E402
 from pyrmt_tpu_torch.kernels import momentum_rhs as mr  # noqa: E402
@@ -119,9 +139,12 @@ from pyrmt_tpu_torch.physics import (  # noqa: E402
 )
 
 # Does the package under PORT_ROOT take two solids, the clamp and forces?
-# (--profile-kernels on an older commit profiles the rest.)
+# The periodic box and no solid? (--profile-kernels on an older commit
+# profiles the rest.)
 HAS_CONTACT = "stress_clamp" in inspect.signature(
     rb.rmt_block_fused).parameters
+HAS_PERIODIC = "periodic" in inspect.signature(
+    mk.momentum_rk4_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -158,6 +181,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                   "pyrmt_tpu/kernels/rmt_block.py:825"),
     "momentum_rk4": ("pyrmt_tpu_torch/csrc/momentum_rk4.cu",
                      "pyrmt_tpu/kernels/momentum_rk4.py:453"),
+    # the ('periodic',) spec of the same TPU kernel
+    "momentum_rk4_periodic": ("pyrmt_tpu_torch/csrc/momentum_rk4.cu",
+                              "pyrmt_tpu/kernels/momentum_rk4.py:453"),
     "advext_block": ("pyrmt_tpu_torch/csrc/rmt_block.cu",
                      "pyrmt_tpu/kernels/rmt_block.py:1085"),
     "extrapolate_fused": ("pyrmt_tpu_torch/csrc/extrapolate_fused.cu",
@@ -182,6 +208,10 @@ WORK = {  # name: (fields read, fields written, operations per cell)
     # Hf, rho and the two force fields read)
     "rmt_block, two solids": (6, 19, 400),
     "momentum_rk4, force": (10, 2, 400),
+    "momentum_rk4_periodic": (9, 2, 400),
+    # the periodic projection's FFT solve (a library call, cuFFT): rhs read,
+    # p written; four 1D complex FFT passes of ~5 log2(1023) operations
+    "solve_poisson_fft": (1, 1, 200),
     "advext_block": (5, 2, 150),
     "extrapolate_fused": (3, 2, 10),
     "rc_rhs": (4, 1, 40),
@@ -191,6 +221,10 @@ WORK = {  # name: (fields read, fields written, operations per cell)
 # the profile rows of the contact configuration's modes: {row: kernel}
 CONTACT_MODES = {"rmt_block, two solids": "rmt_block",
                  "momentum_rk4, force": "momentum_rk4"}
+# profile rows whose wrapper runs PyTorch kernels beside its own (the
+# periodic wrapper's periodic_bc, a few copies): {row: a part of the name
+# of its own device kernel}, which alone makes the row's device time
+OWN_KERNEL = {"momentum_rk4_periodic": "rk4_periodic_kernel"}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the opt-in switches of phases 4c and 7
@@ -236,6 +270,86 @@ def contact_state(cfg, discs, dtype, device, V0=CONTACT_V0):
                               torch.zeros_like(X))
     return make_init_state(cfg, discs, u0=u0, v0=v0, dtype=dtype,
                            device=device)
+
+
+def tg_seed(cfg, dtype, device, amp=0.5):
+    """bench.py --periodic's Taylor-Green seed (bench.py:65-74):
+    u = amp sin(2 pi x) cos(2 pi y), v = -amp cos(2 pi x) sin(2 pi y)."""
+    X, Y = cfg.grid.coords(dtype=dtype, device=device)
+    return (amp * torch.sin(2 * math.pi * X) * torch.cos(2 * math.pi * Y),
+            -amp * torch.cos(2 * math.pi * X) * torch.sin(2 * math.pi * Y))
+
+
+def periodic_state(cfg, dtype, device):
+    """make_init_state of the flagship disc on the periodic box with the
+    Taylor-Green seed."""
+    u0, v0 = tg_seed(cfg, dtype, device)
+    return make_init_state(cfg, (FLAGSHIP_DISC,), u0=u0, v0=v0, dtype=dtype,
+                           device=device)
+
+
+def fluid_case(kind, N, dtype, device, **overrides):
+    """(cfg, bc, state) with no solid: 'lid', the lid-driven cavity of
+    benchmarks/lid_driven_cavity.py (Re = 100), or 'tg', the periodic
+    Taylor-Green vortex of benchmarks/periodic_taylor_green.py."""
+    from pyrmt_tpu_torch import validation
+
+    if kind == "lid":
+        cfg = dataclasses.replace(validation.lid_cavity_config(N),
+                                  **overrides)
+        return cfg, make_lid_bc(1.0), validation.lid_cavity_state(
+            cfg, dtype, device)
+    cfg = dataclasses.replace(validation.taylor_green_config(N), **overrides)
+    u0, v0 = tg_seed(cfg, dtype, device)
+    return cfg, bcs.periodic_bc, make_init_state(
+        cfg, (), u0=u0, v0=v0, dtype=dtype, device=device)
+
+
+def overlap(f):
+    """f made overlap-consistent: column Nx-1 set to column 0, then row
+    Ny-1 to row 0 (the periodic box's layout)."""
+    f = f.clone()
+    f[:, -1] = f[:, 0]
+    f[-1, :] = f[0, :]
+    return f
+
+
+def periodic_momentum_args(cfg, d, rmt_out, eta_s, force):
+    """momentum_args' operands made overlap-consistent, as the step gives
+    them on the periodic box, with kernel_inputs' force where asked."""
+    fields, kw = momentum_args(cfg, d, rmt_out, eta_s)
+    kw = dict(kw, periodic=True)
+    if force:
+        kw.update(f_ext_x=overlap(d["fx"]), f_ext_y=overlap(d["fy"]))
+    return tuple(overlap(f) for f in fields), kw
+
+
+def compare_periodic(shape, dtype, device):
+    """momentum_rk4's periodic instantiation against the plain periodic
+    update (physics.momentum_core(periodic=True)) on the same
+    overlap-consistent operands: without and with the force, eta_s 0 and
+    the flagship's 0.01. Returns the max-abs difference; raises past the
+    tolerance."""
+    f64 = dtype == torch.float64
+    cfg, d = kernel_inputs(shape, dtype, device)
+    g = cfg.grid
+    tag = (f"N={g.Nx}" if g.Nx == g.Ny else f"{g.Ny}x{g.Nx}") + \
+        f" {str(dtype)[6:]}"
+    plain = rmt_call(rb.rmt_block_plain, cfg, d)
+    worst = 0.0
+    for eta_s in (0.0, cfg.eta_s):
+        for force in (False, True):
+            args, kw = periodic_momentum_args(cfg, d, plain, eta_s, force)
+            ref = momentum_core(*args, bcs.periodic_bc, **kw)
+            out = mk.momentum_rk4_fused(*args, bcs.periodic_bc, **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("u_new", "v_new"), out, ref):
+                err, scale = max_errs(a, b)
+                check_close(f"{tag} momentum_rk4 periodic"
+                            f"{' force' if force else ''} eta_s={eta_s} "
+                            f"{name}", err, scale, f64, TOL_F32_MOMENTUM)
+                worst = max(worst, err)
+    return worst
 
 
 def nvidia_smi_line():
@@ -536,6 +650,10 @@ def time_kernels(N, device, reps=20):
         "velocity_rhs": (lambda: mr.velocity_rhs_blended_fused(*rhs),
                          lambda: velocity_rhs_blended(*rhs)),
     }
+    pargs, pkw = periodic_momentum_args(cfg, d, plain_out, cfg.eta_s, False)
+    pairs["momentum_rk4_periodic"] = (
+        lambda: mk.momentum_rk4_fused(*pargs, bcs.periodic_bc, **pkw),
+        lambda: momentum_core(*pargs, bcs.periodic_bc, **pkw))
     times = {}
     for name, (kernel, plain) in pairs.items():
         p1 = time_ms(plain, reps)
@@ -608,6 +726,23 @@ def kernel_calls(N, device):
             "momentum_rk4, force": lambda: mk.momentum_rk4_fused(
                 *cargs, free_slip_box_bc, **ckw),
         }
+    periodic = {}
+    if HAS_PERIODIC:
+        from pyrmt_tpu_torch.ops.poisson import (
+            precompute_poisson_eigenvalues_periodic,
+            solve_poisson_fft,
+        )
+
+        pargs, pkw = periodic_momentum_args(cfg, d, plain_out, cfg.eta_s,
+                                            False)
+        eig = precompute_poisson_eigenvalues_periodic(N, N, dx, dy,
+                                                      torch.float32, device)
+        rhs_fft = 1e3 * overlap(d["p_corr"])
+        periodic = {
+            "momentum_rk4_periodic": lambda: mk.momentum_rk4_fused(
+                *pargs, bcs.periodic_bc, **pkw),
+            "solve_poisson_fft": lambda: solve_poisson_fft(rhs_fft, eig),
+        }
     return {
         "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
         # the map far from the disc everywhere: every tile takes the skip
@@ -627,14 +762,17 @@ def kernel_calls(N, device):
         "extrapolate_fused, every tile skipping": lambda: extrap_call(
             ef.extrapolate_reference_map_fused, cfg, far),
         **contact,
+        **periodic,
     }
 
 
 def step_groups(device, steps=20, warmup=10):
     """(name, fn) groups of `steps` steps each at N=1024 float32: the
     flagship, with the projection's stencil kernels, with both opt-in
-    switches, the split tier (area fix + PDE reinit) and the contact
-    configuration, each after warm-up steps."""
+    switches, the split tier (area fix + PDE reinit), the contact
+    configuration, the flagship on the periodic box and the pure-fluid lid
+    cavity (on the RK4 kernel and with momentum_method='xla'), each after
+    warm-up steps."""
     groups = []
     kw = dict(dtype=torch.float32, device=device)
     flag = ((FLAGSHIP_DISC,), make_lid_bc(1.0),
@@ -649,6 +787,14 @@ def step_groups(device, steps=20, warmup=10):
         configs.append((
             "contact", contact_config(1024), CONTACT_DISCS, free_slip_box_bc,
             lambda cfg: contact_state(cfg, CONTACT_DISCS, **kw)))
+    if HAS_PERIODIC:
+        configs.append((
+            "periodic", flagship(1024, bc_type="periodic"), (FLAGSHIP_DISC,),
+            bcs.periodic_bc, lambda cfg: periodic_state(cfg, **kw)))
+        for tag, over in (("lid fluid", {}),
+                          ("lid fluid xla", dict(momentum_method="xla"))):
+            cfg, bc, state = fluid_case("lid", 1024, **kw, **over)
+            configs.append((tag, cfg, (), bc, lambda cfg, s=state: s))
     for name, cfg, discs, bc, init in configs:
         step = make_step(cfg, bc, discs, **kw)
         box = [init(cfg)]
@@ -682,13 +828,21 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
     for N in sizes:
         for name in calls:
             one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
+            extra = ""
+            if name in OWN_KERNEL:
+                own = OWN_KERNEL[name]
+                others = sum(own not in e.name for e in one)
+                one = [e for e in one if own in e.name]
+                many = [e for e in many if own in e.name]
+                extra = (f" (its wrapper also ran {others} PyTorch kernels "
+                         f"or copies per call, not counted)")
             kern[N][name] = (busy_us(many) / reps, len(one))
             b, by = bound_us(name, N)
             us = kern[N][name][0]
             print(f"[profile] N={N} float32 {name}: {us:.2f} us of device "
                   f"time per call (torch.profiler, {reps} calls), "
                   f"{len(one)} device kernels per call, {len(many) / reps:g} "
-                  f"over the reps; bound {b:.2f} us ({by}), "
+                  f"over the reps{extra}; bound {b:.2f} us ({by}), "
                   f"{100 * b / us:.0f}% of it")
     step_prof = {}
     for name, _ in steps:
@@ -710,10 +864,12 @@ def profile_line(prof, wall, steps):
 def reset_counts():
     rb.launches = rb.advext_launches = mk.launches = ef.launches = 0
     ps.rc_rhs_launches = ps.grad_correct_launches = mr.launches = 0
+    mk.periodic_launches = 0
 
 
 def counts():
     return {"rmt_block": rb.launches, "momentum_rk4": mk.launches,
+            "momentum_rk4_periodic": mk.periodic_launches,
             "advext_block": rb.advext_launches,
             "extrapolate_fused": ef.launches,
             "rc_rhs": ps.rc_rhs_launches,
@@ -809,12 +965,15 @@ def run_collision(N, device, t_end=0.6, chunk=500):
 
 
 def check_state(state, aux, what):
-    """Finite, not diverged, min J over the solid in (0.5, 2)."""
+    """Finite, not diverged, min J over the solid in (0.5, 2) (None with
+    no solid)."""
     for name in ("u", "v", "p", "X1", "X2"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"{what}: state.{name} is not finite")
     if bool(diverged(state)):
         raise AssertionError(f"{what}: the run diverged")
+    if aux["J"].numel() == 0:
+        return None
     min_J = float(aux["J"][aux["phis"] <= 0.0].min())
     if not 0.5 < min_J < 2.0:
         raise AssertionError(f"{what}: min J over the solid is {min_J}")
@@ -893,17 +1052,27 @@ def run_rebase(N, device, chunk=50, post_steps=20):
                 launches=rebase_counts["extrapolate_fused"])
 
 
-def compare_paths(N, device, steps=3, contact=False, **overrides):
+def compare_paths(N, device, steps=3, contact=False, case=None,
+                  **overrides):
     """A few float64 steps through the kernels and through the plain
     versions from the same state: the flagship with overrides, or with
     ``contact`` the contact configuration with the touching discs (the
-    contact force acts from the first step); returns the max-abs
+    contact force acts from the first step), or the ``case`` 'periodic'
+    (the flagship on the periodic box with bench.py --periodic's seed),
+    'lid' or 'tg' (no solid: ``fluid_case``); returns the max-abs
     differences and the kernel path's launches."""
     kw = dict(dtype=torch.float64, device=device)
     if contact:
         cfg = contact_config(N, **overrides)
         bc, discs = free_slip_box_bc, TOUCHING_DISCS
         s_k = contact_state(cfg, discs, **kw)
+    elif case == "periodic":
+        cfg = flagship(N, bc_type="periodic", **overrides)
+        bc, discs = bcs.periodic_bc, (FLAGSHIP_DISC,)
+        s_k = periodic_state(cfg, **kw)
+    elif case is not None:
+        cfg, bc, s_k = fluid_case(case, N, **kw, **overrides)
+        discs = ()
     else:
         cfg = flagship(N, **overrides)
         bc, discs = make_lid_bc(1.0), (FLAGSHIP_DISC,)
@@ -936,7 +1105,10 @@ def compare_paths(N, device, steps=3, contact=False, **overrides):
             for k in ("u", "v", "p", "X1", "X2", "phis0")
             if getattr(s_k, k).numel()}
     if not all(e <= 1e-10 for e in errs.values()):
-        raise AssertionError(f"kernel path vs plain path {overrides}: {errs}")
+        raise AssertionError(f"kernel path vs plain path {case} {overrides}: "
+                             f"{errs}")
+    if case is not None and not float(s_k.u.abs().max()) > 0.1:
+        raise AssertionError(f"paths {case}: the flow did not move")
     return errs, {k: n for k, n in counts().items() if n}
 
 
@@ -988,6 +1160,15 @@ def main() -> int:
             (1024, f32, FLAGSHIP_DISC), (4096, f32, FLAGSHIP_DISC)):
         for name, e in compare_kernels(shape, dtype, device, disc).items():
             errs[name] = max(errs.get(name, 0.0), e)
+    errs["momentum_rk4_periodic"] = 0.0
+    for shape in (256, 65, 129, (203, 301), (9, 300), (33, 49)):
+        for dtype in (f64, f32):
+            errs["momentum_rk4_periodic"] = max(
+                errs["momentum_rk4_periodic"],
+                compare_periodic(shape, dtype, device))
+    for N in (1024, 4096):
+        errs["momentum_rk4_periodic"] = max(
+            errs["momentum_rk4_periodic"], compare_periodic(N, f32, device))
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
     for name in (*KERNELS, *CONTACT_MODES):
@@ -1088,11 +1269,14 @@ def main() -> int:
                                     for k, e in path_errs.items())
               + f"; kernel path launches {path_launches}")
     for what, overrides in (
-            ("contact (touching discs)", {}),
+            ("contact (touching discs)", dict(contact=True)),
             ("contact + gravity, split tier (area fix)",
-             dict(g_y=-1.0, rho_s=1.2, phi_area_fix=True))):
-        path_errs, path_launches = compare_paths(128, device, contact=True,
-                                                 **overrides)
+             dict(contact=True, g_y=-1.0, rho_s=1.2, phi_area_fix=True)),
+            ("periodic flagship (bench.py --periodic)",
+             dict(case="periodic")),
+            ("lid-driven cavity, no solid", dict(case="lid")),
+            ("periodic Taylor-Green, no solid", dict(case="tg"))):
+        path_errs, path_launches = compare_paths(128, device, **overrides)
         print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
               f"path: " + ", ".join(f"{k} {e:.2e}"
                                     for k, e in path_errs.items())
@@ -1130,6 +1314,84 @@ def main() -> int:
         raise AssertionError(f"collision: gap {gap} (2R = {2 * R}), min J "
                              f"{coll_J} outside the gate")
 
+    # 10. the flagship on the doubly-periodic box
+    from pyrmt_tpu_torch import validation
+    from pyrmt_tpu_torch.sim import (
+        periodic_seam_clearance_cells,
+        solid_near_periodic_seam,
+    )
+
+    steps = 200
+    cfg = flagship(1024, bc_type="periodic")
+    step = make_step(cfg, bcs.periodic_bc, (FLAGSHIP_DISC,), **kw)
+    state, aux, launches, wall, dt_sum, t0 = run_timed(
+        step, periodic_state(cfg, **kw), device, warmup=20, steps=steps)
+    min_J, advanced = check_run(
+        "periodic flagship", state, aux, launches,
+        expected_launches(rmt_block=steps, momentum_rk4_periodic=steps),
+        dt_sum, t0)
+    if bool(solid_near_periodic_seam(aux["phis"],
+                                     periodic_seam_clearance_cells(cfg))):
+        raise AssertionError("periodic flagship: the solid reached the seam")
+    main_launches["momentum_rk4_periodic"] = launches["momentum_rk4_periodic"]
+    print(f"[periodic] flagship on the doubly-periodic box (bench.py "
+          f"--periodic's Taylor-Green seed) N=1024 float32: {steps} steps in "
+          f"{wall:.3f} s = {steps / wall:.1f} steps/s, "
+          f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
+          f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
+          f"launches {launches}; t advanced {advanced:.6f}; min J over the "
+          f"solid {min_J:.4f}; " + profile_line(step_prof["periodic"], wall,
+                                                steps))
+
+    # 11. the pure-fluid lid cavity, on the RK4 kernel and with 'xla'
+    fluid = {}
+    for tag, over, expect in (
+            ("lid fluid", {}, dict(momentum_rk4=steps)),
+            ("lid fluid xla", dict(momentum_method="xla"), {})):
+        cfg, bc, state = fluid_case("lid", 1024, **kw, **over)
+        step = make_step(cfg, bc, (), **kw)
+        state, aux, launches, wall, dt_sum, t0 = run_timed(
+            step, state, device, warmup=20, steps=steps)
+        check_run(tag, state, aux, launches, expected_launches(**expect),
+                  dt_sum, t0)
+        fluid[tag] = (steps / wall, launches["momentum_rk4"])
+        print(f"[fluid] lid-driven cavity, no solid, {over or 'default'} "
+              f"N=1024 float32: {steps} steps in {wall:.3f} s = "
+              f"{steps / wall:.1f} steps/s, {1e3 * wall / steps:.3f} ms/step "
+              f"(host clock, synchronised) on '{card}'; launches {launches}; "
+              + profile_line(step_prof[tag], wall, steps))
+
+    # 12. the JAX package's solid-free gates, on the card
+    reset_counts()
+    rows, tg = validation.taylor_green_decay(N=65, nu=0.01, t_end=0.5,
+                                             dtype=f64, device=device)
+    tg_launches = counts()["momentum_rk4_periodic"]
+    print(f"[gates] periodic Taylor-Green N=65 float64 to t=0.5: "
+          f"{tg['steps']} steps in {tg['wall_s']:.3f} s; stable "
+          f"{tg['stable']}, decay rate {tg['rate']:.6f} against "
+          f"{tg['rate_exact']:.6f} (rel err {tg['rate_rel_err']:.3e} < 1e-2), "
+          f"profile rel err {tg['profile_rel_err']:.3e} (< 5e-3), max|div| "
+          f"{tg['maxdiv']:.3e} (< 1e-6); momentum_rk4 periodic launches "
+          f"{tg_launches}")
+    if not (tg["stable"] and tg["rate_rel_err"] < 1e-2
+            and tg["profile_rel_err"] < 5e-3 and tg["maxdiv"] < 1e-6
+            and tg_launches == tg["steps"]):
+        raise AssertionError(f"Taylor-Green gate: {tg}")
+    reset_counts()
+    ghia = validation.lid_driven_cavity(
+        Re=100.0, N=65, dtype=f64, device=device,
+        ghia_csv=os.path.join(PORT_ROOT, "data", "plot_u_y_Ghia100.csv"))
+    ghia_launches = counts()["momentum_rk4"]
+    print(f"[gates] Ghia lid-driven cavity Re=100 N=65 float64: "
+          f"{ghia['steps']} steps in {ghia['wall_s']:.3f} s to t = "
+          f"{ghia['t']:.4f}, steady residual {ghia['residual']:.3e} (< 2e-5); "
+          f"centreline RMS against Ghia {ghia['rms']:.4e} (< 5e-3); "
+          f"momentum_rk4 launches {ghia_launches}")
+    if not (ghia["steady"] and ghia["rms"] < 5e-3
+            and ghia_launches == ghia["steps"]):
+        raise AssertionError(f"Ghia gate: steps {ghia['steps']}, residual "
+                             f"{ghia['residual']}, RMS {ghia.get('rms')}")
+
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         bound, bound_by = bound_us(name, 1024)
@@ -1143,6 +1405,11 @@ def main() -> int:
             "device_launches_per_call": prof[1024][name][1],
             "device_us_N4096": prof[4096][name][0],
             "bound_us_N4096": bound_us(name, 4096)[0]})
+    entry = next(k for k in kernels if k["name"] == "momentum_rk4")
+    entry["pure_fluid"] = {
+        "launches": fluid["lid fluid"][1],
+        "steps_per_s": fluid["lid fluid"][0],
+        "xla_steps_per_s": fluid["lid fluid xla"][0]}
     for row, name in CONTACT_MODES.items():
         entry = next(k for k in kernels if k["name"] == name)
         entry["contact"] = {

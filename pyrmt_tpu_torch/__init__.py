@@ -8,14 +8,37 @@ written for Hopper (``csrc/``), with a plain PyTorch version beside it: a
 CPU tensor runs the plain version, a CUDA tensor runs the kernel or raises.
 The entry points (``make_step``, ``make_init_state``,
 ``make_rebase_runner``, ``state_from_numpy``) run on the card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``. With no level set the step is the
+pure-fluid solver; ``bc_type='periodic'`` with ``periodic_bc`` runs the
+doubly-periodic box.
 
 This package imports ``torch`` and never ``jax``.
 """
 
-from pyrmt_tpu_torch.bcs import free_slip_box_bc, make_lid_bc, noop_bc
+from pyrmt_tpu_torch.bcs import (
+    free_slip_box_bc,
+    make_lid_bc,
+    noop_bc,
+    periodic_bc,
+)
+from pyrmt_tpu_torch.diagnostics import (
+    compute_kinetic_energy,
+    compute_strain_energy,
+    compute_viscous_dissipation,
+    disc_centroid,
+    divergence_2d_interior,
+    extract_centerlines,
+)
 from pyrmt_tpu_torch.grid import Grid
-from pyrmt_tpu_torch.io import state_from_numpy, state_to_numpy
+from pyrmt_tpu_torch.io import (
+    EnergyLogger,
+    load_checkpoint,
+    load_snapshot,
+    save_checkpoint,
+    save_snapshot,
+    state_from_numpy,
+    state_to_numpy,
+)
 from pyrmt_tpu_torch.kernels.momentum_rhs import velocity_rhs_blended_fused
 from pyrmt_tpu_torch.kernels.projection_stencils import (
     grad_correct_fused,
@@ -23,7 +46,11 @@ from pyrmt_tpu_torch.kernels.projection_stencils import (
     rc_rhs_fused,
 )
 from pyrmt_tpu_torch.ops.contact import compute_contact_force
-from pyrmt_tpu_torch.ops.levelset import Disc
+from pyrmt_tpu_torch.ops.levelset import Disc, apply_phi_BCs
+from pyrmt_tpu_torch.ops.poisson import (
+    precompute_poisson_eigenvalues_periodic,
+    solve_poisson_fft,
+)
 from pyrmt_tpu_torch.physics import external_forces
 from pyrmt_tpu_torch.sim import (
     RMTConfig,
@@ -38,23 +65,38 @@ from pyrmt_tpu_torch.sim import (
 
 __all__ = [
     "Disc",
+    "EnergyLogger",
     "Grid",
     "RMTConfig",
     "SimState",
+    "apply_phi_BCs",
     "compute_contact_force",
+    "compute_kinetic_energy",
+    "compute_strain_energy",
+    "compute_viscous_dissipation",
+    "disc_centroid",
     "diverged",
+    "divergence_2d_interior",
     "external_forces",
+    "extract_centerlines",
     "free_slip_box_bc",
     "grad_correct_fused",
+    "load_checkpoint",
+    "load_snapshot",
     "make_init_state",
     "make_lid_bc",
     "make_rebase_runner",
     "make_run_chunk",
     "make_step",
     "noop_bc",
+    "periodic_bc",
+    "precompute_poisson_eigenvalues_periodic",
     "projection_stencils_supported",
     "rc_rhs_fused",
     "run_until",
+    "save_checkpoint",
+    "save_snapshot",
+    "solve_poisson_fft",
     "state_from_numpy",
     "state_to_numpy",
     "velocity_rhs_blended_fused",

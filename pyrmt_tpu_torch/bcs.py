@@ -2,8 +2,7 @@
 
 Counterpart of ``pyrmt_tpu.bcs``. Each BC carries the same static
 ``kernel_spec`` tuple as its JAX twin; the momentum kernel
-(kernels/momentum_rk4.py) applies the BC from that spec. The periodic BC
-waits for the periodic stack (ROADMAP modules item 13).
+(kernels/momentum_rk4.py) applies the BC from that spec.
 """
 from __future__ import annotations
 
@@ -46,6 +45,24 @@ def free_slip_box_bc(u, v):
 
 
 free_slip_box_bc.kernel_spec = ("free_slip",)
+
+
+def periodic_bc(u, v):
+    """Doubly-periodic overlap-grid wrap: the last column takes the first,
+    then the last row takes the first row as it was before the column copy
+    (the JAX package's order, which leaves the corner (-1, -1) at the old
+    (0, -1))."""
+    u0, v0 = u[0, :], v[0, :]
+    u, v = u.clone(), v.clone()
+    for f, row0 in ((u, u0), (v, v0)):
+        f[:, -1] = f[:, 0]
+        f[-1, :] = row0
+    return u, v
+
+
+# the momentum kernel's periodic instantiation: wrapped reads, the
+# interior stencils, the BC the identity on overlap-consistent fields
+periodic_bc.kernel_spec = ("periodic",)
 
 
 def noop_bc(u, v):

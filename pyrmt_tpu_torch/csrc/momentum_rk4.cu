@@ -34,6 +34,20 @@
 // runs a copy of the code in which the BC is the identity and every
 // stencil is the interior one.
 //
+// The doubly-periodic box (BC code kPeriodic, bcs.periodic_bc) is a third
+// instantiation, the TPU kernel's ('periodic',) spec: its interior tiles
+// run that interior copy as they are; a tile whose panel reaches within 2
+// of an edge takes its full 8-cell halo across the seam (WrapSpan: the
+// panel is not clipped to the domain) and reads every global field
+// through the overlap wrap, index j as j mod (Ny - 1) (a true modulo: on
+// a grid of fewer than 9 rows an index wraps more than once), the columns
+// likewise; the overlap row Ny - 1 and column Nx - 1 are thus read as
+// their copies, row and column 0. Every stencil is the interior one (the
+// fd.*_periodic stencils are the interior ones on the wrapped grid) and
+// the per-stage BC is the identity. Exact where the stage-constant fields
+// are overlap-consistent (kernels/momentum_rk4.py says why the step's
+// are); u0 and v0 are read only on the reduced grid.
+//
 // Tile: float32 48 x 32 output cells, a 64 x 48 panel, 512 threads, 9
 // fields of shared memory (W, sigma, k, the sum: 110,592 B, two blocks per
 // SM at 64 registers); float64 48 x 16, a 64 x 32 panel (147,456 B, one
@@ -54,6 +68,8 @@
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
 // The halo recompute evaluates the same expressions on the same values.
+#include <type_traits>
+
 #include "stencil_device.cuh"
 
 namespace {
@@ -88,6 +104,44 @@ struct Panel {
   static constexpr size_t kSmem = 9 * sizeof(T) * N;
 };
 
+// One axis of a periodic tile's panel: the output cells [out_lo, out_hi),
+// the core [out_lo, out_lo + t) and the halo around it, unclipped: lo may
+// be negative and hi past the domain. Panel index l is global index
+// at(l) = (lo + l) mod period, period = n - 1 (the overlap grid's).
+struct WrapSpan {
+  int lo, hi, out_lo, out_hi, period;
+
+  __device__ bool inside(int l, int r) const {
+    return l >= r && l < hi - lo - r;
+  }
+  __device__ int at(int l) const {
+    const int j = (lo + l) % period;
+    return j < 0 ? j + period : j;
+  }
+};
+
+__device__ inline WrapSpan wrap_span(int t0, int t, int n, int halo) {
+  return WrapSpan{t0 - halo, t0 + t + halo, t0, min(t0 + t, n), n - 1};
+}
+
+// A device field seen from one cell of a periodic panel: p's central
+// differences (At's gx and gy at an interior cell), the neighbours read
+// through the wrap. row, row_n, row_s: the wrapped rows j, j + 1, j - 1
+// times the row stride; i, ie, iw: the wrapped columns i, i + 1, i - 1.
+template <typename T>
+struct WrapAt {
+  const T* f;
+  size_t row, row_n, row_s;
+  int i, ie, iw;
+
+  __device__ T gx(int, int, T inv) const {
+    return (f[row + ie] - f[row + iw]) * inv;
+  }
+  __device__ T gy(int, int, T inv) const {
+    return (f[row_n + i] - f[row_s + i]) * inv;
+  }
+};
+
 // The pre-BC value of a shared-memory panel at a global cell.
 template <typename T>
 struct TileRaw {
@@ -99,10 +153,11 @@ struct TileRaw {
 };
 
 // f(lj, li) for each cell (lj, li) of the panel that this thread owns
-// and that lies r cells in from the panel's inner edges.
-template <typename T, typename F>
-__device__ __forceinline__ void for_cells(const Span& ys, const Span& xs,
-                                          int r, F&& f) {
+// and that lies r cells in from the panel's inner edges (a Span or a
+// WrapSpan).
+template <typename T, typename S, typename F>
+__device__ __forceinline__ void for_cells(const S& ys, const S& xs, int r,
+                                          F&& f) {
 #pragma unroll 1
   for (int c = 0; c < Panel<T>::CPT; ++c) {
     const int q = threadIdx.x + c * kThreads;
@@ -114,11 +169,12 @@ __device__ __forceinline__ void for_cells(const Span& ys, const Span& xs,
 // The four stages and the update of one tile. kEdge false: no cell of the
 // panel lies within 2 of the domain's edge, so the BC is the identity
 // there and every stencil is the interior one; the closures' tests are
-// then given a mid index (2 of 5) and fold away.
+// then given a mid index (2 of 5) and fold away. S = WrapSpan (with kEdge
+// false): a periodic edge tile, every global read through the wrap.
 // kExt: the external force (fx, fy) is added to each stage's RHS.
-template <typename T, bool kEdge, bool kExt>
+template <typename T, bool kEdge, bool kExt, typename S>
 __device__ __forceinline__ void rk4_tile(
-    const Span& ys, const Span& xs, unsigned char* smem,
+    const S& ys, const S& xs, unsigned char* smem,
     const T* __restrict__ u0, const T* __restrict__ v0,
     const T* __restrict__ p, const T* __restrict__ sxx_el,
     const T* __restrict__ sxy_el, const T* __restrict__ syy_el,
@@ -128,6 +184,8 @@ __device__ __forceinline__ void rk4_tile(
     T* __restrict__ v_new, int Ny, int Nx, double dx, double dy,
     double mu_f, double eta_s, int bc, T lid) {
   using P = Panel<T>;
+  constexpr bool kWrap = std::is_same<S, WrapSpan>::value;
+  static_assert(!(kWrap && kEdge), "a periodic tile has no edge closures");
   T* Wu = reinterpret_cast<T*>(smem);
   T* Wv = Wu + P::N;
   T* Sxx = Wv + P::N;
@@ -140,7 +198,10 @@ __device__ __forceinline__ void rk4_tile(
   const size_t sy = static_cast<size_t>(Nx);
   const int ny = kEdge ? Ny : 5, nx = kEdge ? Nx : 5;
   auto gidx = [&](int lj, int li) {
-    return static_cast<size_t>(ys.lo + lj) * sy + (xs.lo + li);
+    if constexpr (kWrap)
+      return static_cast<size_t>(ys.at(lj)) * sy + xs.at(li);
+    else
+      return static_cast<size_t>(ys.lo + lj) * sy + (xs.lo + li);
   };
   auto mj = [&](int lj) { return kEdge ? ys.lo + lj : 2; };
   auto mi = [&](int li) { return kEdge ? xs.lo + li : 2; };
@@ -183,9 +244,19 @@ __device__ __forceinline__ void rk4_tile(
       const int l = lj * P::W + li;
       const size_t ls = l;
       T ra, rb;
+      auto p_at = [&] {
+        if constexpr (kWrap)
+          return WrapAt<T>{p,
+                           static_cast<size_t>(ys.at(lj)) * sy,
+                           static_cast<size_t>(ys.at(lj + 1)) * sy,
+                           static_cast<size_t>(ys.at(lj - 1)) * sy,
+                           xs.at(li), xs.at(li + 1), xs.at(li - 1)};
+        else
+          return At<T>{p, g, sy};
+      };
       pyrmt::rhs_at<T>(At<T>{Wu, ls, P::W}, At<T>{Wv, ls, P::W},
                        At<T>{Sxx, ls, P::W}, At<T>{Sxy, ls, P::W},
-                       At<T>{Syy, ls, P::W}, At<T>{p, g, sy}, rho[g],
+                       At<T>{Syy, ls, P::W}, p_at(), rho[g],
                        kExt ? fx : nullptr, kExt ? fy : nullptr, g, mj(lj),
                        mi(li), ny, nx, dx, dy, ra, rb);
       Ku[l] = ra;
@@ -217,7 +288,13 @@ __device__ __forceinline__ void rk4_tile(
     const int j = ys.lo + lj, i = xs.lo + li;
     if (j < ys.out_lo || j >= ys.out_hi || i < xs.out_lo || i >= xs.out_hi)
       return;
-    const size_t g = gidx(lj, li);
+    // the output cell itself: a periodic panel's gidx would send the
+    // overlap row and column to row and column 0
+    size_t g;
+    if constexpr (kWrap)
+      g = static_cast<size_t>(j) * sy + i;
+    else
+      g = gidx(lj, li);
     if (kEdge) {
       u_new[g] = bc_u<T>(TileRaw<T>{Wu, ys.lo, xs.lo}, j, i, Ny, Nx, bc, lid);
       v_new[g] = bc_v<T>(TileRaw<T>{Wv, ys.lo, xs.lo}, j, i, Ny, Nx, bc);
@@ -255,7 +332,38 @@ __global__ void __launch_bounds__(kThreads, 2)
                             dx, dy, mu_f, eta_s, bc, lid);
 }
 
+// The periodic instantiation (BC kPeriodic): the interior tiles as in
+// rk4_kernel, the others over wrapped panels. bc and lid are not read.
 template <typename T, bool kExt>
+__global__ void __launch_bounds__(kThreads, 2)
+    rk4_periodic_kernel(const T* __restrict__ u0, const T* __restrict__ v0,
+                        const T* __restrict__ p, const T* __restrict__ sxx_el,
+                        const T* __restrict__ sxy_el,
+                        const T* __restrict__ syy_el,
+                        const T* __restrict__ Hf, const T* __restrict__ rho,
+                        const T* __restrict__ mkv, const T* __restrict__ fx,
+                        const T* __restrict__ fy, const T* __restrict__ dt_ptr,
+                        T* __restrict__ u_new, T* __restrict__ v_new, int Ny,
+                        int Nx, double dx, double dy, double mu_f,
+                        double eta_s, int bc, T lid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ty = blockIdx.y * Tile<T>::Y, tx = blockIdx.x * Tile<T>::X;
+  const Span ys = pyrmt::tile_span(ty, Tile<T>::Y, Ny, kHalo);
+  const Span xs = pyrmt::tile_span(tx, Tile<T>::X, Nx, kHalo);
+  const T dt = *dt_ptr;
+  if (ys.lo >= 2 && ys.hi <= Ny - 2 && xs.lo >= 2 && xs.hi <= Nx - 2)
+    rk4_tile<T, false, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
+                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
+                             dx, dy, mu_f, eta_s, bc, lid);
+  else
+    rk4_tile<T, false, kExt>(wrap_span(ty, Tile<T>::Y, Ny, kHalo),
+                             wrap_span(tx, Tile<T>::X, Nx, kHalo), smem, u0,
+                             v0, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx,
+                             fy, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
+                             eta_s, bc, lid);
+}
+
+template <typename T, bool kExt, bool kPeriodic>
 int launch_tiles(const T* u, const T* v, const T* p, const T* sxx_el,
                  const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
                  const T* mkv, const T* fx, const T* fy, const T* dt,
@@ -264,12 +372,12 @@ int launch_tiles(const T* u, const T* v, const T* p, const T* sxx_el,
                  void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   const size_t smem = Panel<T>::kSmem;
-  int err = pyrmt::allow_smem(rk4_kernel<T, kExt>, smem, allowed);
+  auto kernel = kPeriodic ? rk4_periodic_kernel<T, kExt> : rk4_kernel<T, kExt>;
+  int err = pyrmt::allow_smem(kernel, smem, allowed);
   if (err) return err;
   const dim3 grid(pyrmt::tiles_for(Nx, Tile<T>::X),
                   pyrmt::tiles_for(Ny, Tile<T>::Y));
-  rk4_kernel<T, kExt><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream_ptr)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
       u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx, fy, dt, u_new,
       v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, static_cast<T>(lid));
   PYRMT_RETURN_IF_ERROR();
@@ -283,13 +391,26 @@ int launch(const T* u, const T* v, const T* p, const T* sxx_el,
            const T* mkv, const T* fx, const T* fy, const T* dt, T* u_new,
            T* v_new, int Ny, int Nx, double dx, double dy, double mu_f,
            double eta_s, int bc, double lid, void* stream_ptr) {
+  if (bc == pyrmt::kPeriodic) {
+    if (fx)
+      return launch_tiles<T, true, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
+                                         rho, mkv, fx, fy, dt, u_new, v_new,
+                                         Ny, Nx, dx, dy, mu_f, eta_s, bc,
+                                         lid, stream_ptr);
+    return launch_tiles<T, false, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
+                                        rho, mkv, nullptr, nullptr, dt,
+                                        u_new, v_new, Ny, Nx, dx, dy, mu_f,
+                                        eta_s, bc, lid, stream_ptr);
+  }
   if (fx)
-    return launch_tiles<T, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho,
-                                 mkv, fx, fy, dt, u_new, v_new, Ny, Nx, dx,
-                                 dy, mu_f, eta_s, bc, lid, stream_ptr);
-  return launch_tiles<T, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho,
-                                mkv, nullptr, nullptr, dt, u_new, v_new, Ny,
-                                Nx, dx, dy, mu_f, eta_s, bc, lid, stream_ptr);
+    return launch_tiles<T, true, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
+                                        rho, mkv, fx, fy, dt, u_new, v_new,
+                                        Ny, Nx, dx, dy, mu_f, eta_s, bc, lid,
+                                        stream_ptr);
+  return launch_tiles<T, false, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
+                                       rho, mkv, nullptr, nullptr, dt, u_new,
+                                       v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc,
+                                       lid, stream_ptr);
 }
 
 }  // namespace

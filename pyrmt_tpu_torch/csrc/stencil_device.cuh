@@ -18,7 +18,9 @@
 
 namespace pyrmt {
 
-enum Bc { kNoop = 0, kLid = 1, kFreeSlip = 2 };
+// kPeriodic: momentum_rk4.cu's periodic instantiation, which reads every
+// field through the overlap wrap; bc_u and bc_v leave it as the identity.
+enum Bc { kNoop = 0, kLid = 1, kFreeSlip = 2, kPeriodic = 3 };
 
 // bcs.make_lid_bc / free_slip_box_bc / noop_bc, evaluated at one cell.
 // `raw(j, i)` is the field before the BC; the free-slip copies read it at
@@ -131,9 +133,11 @@ __device__ void sigma_at(At<T> wu, At<T> wv, T a, T c, T b, T h,
 // -(w.grad)w + (div sigma + f - grad p) / (rho + 1e-12) at one cell (j, i)
 // into (ru, rv); without a force (fx == nullptr) the f term is left out,
 // as physics.momentum_core leaves it out without one. fx, fy are read at g.
-template <typename T>
+// p is an At, or any accessor with At's gx and gy (momentum_rk4.cu's
+// wrapped one).
+template <typename T, typename PAt = At<T>>
 __device__ void rhs_at(At<T> wu, At<T> wv, At<T> sxx, At<T> sxy, At<T> syy,
-                       At<T> p, T rho, const T* fx, const T* fy, size_t g,
+                       PAt p, T rho, const T* fx, const T* fy, size_t g,
                        int j, int i, int Ny, int Nx, double dx, double dy,
                        T& ru, T& rv) {
   const T inv_x = static_cast<T>(1.0 / (2.0 * dx));

@@ -29,8 +29,11 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 # The velocity BCs that the kernels apply from a BC's kernel_spec: the Bc
-# enum of csrc/stencil_device.cuh.
-BC_CODES = {"noop": 0, "lid": 1, "free_slip": 2}
+# enum of csrc/stencil_device.cuh. The projection's grad_correct kernel
+# takes the walls only (the JAX package's stencil kernels are Neumann-only);
+# momentum_rk4 takes the periodic box too.
+BC_CODES = {"noop": 0, "lid": 1, "free_slip": 2, "periodic": 3}
+WALL_BCS = ("noop", "lid", "free_slip")
 
 
 def build_dir() -> Path:
@@ -136,15 +139,16 @@ def check_operands(what: str, ref, expect) -> None:
                              f"{tuple(shape)} tensor, got {tuple(t.shape)}")
 
 
-def bc_operands(what: str, velocity_bc) -> tuple[int, float]:
+def bc_operands(what: str, velocity_bc,
+                kinds=tuple(BC_CODES)) -> tuple[int, float]:
     """(Bc code, lid speed) of ``velocity_bc.kernel_spec``; raises
-    ValueError for a BC without a spec that the kernels apply."""
+    ValueError for a BC without a spec of one of ``kinds``, the BCs that
+    the ``what`` kernel applies."""
     spec = getattr(velocity_bc, "kernel_spec", None)
-    if spec is None or spec[0] not in BC_CODES:
+    if spec is None or spec[0] not in kinds:
         raise ValueError(
             f"the {what} kernel applies the velocity BC from its kernel_spec "
-            f"('lid', 'free_slip' or 'noop'); got {velocity_bc!r} with spec "
-            f"{spec!r}")
+            f"(one of {kinds}); got {velocity_bc!r} with spec {spec!r}")
     return BC_CODES[spec[0]], float(spec[1]) if spec[0] == "lid" else 0.0
 
 

@@ -34,7 +34,7 @@ def projection_stencils_supported(velocity_bc) -> bool:
     """The grad_correct kernel applies ``velocity_bc`` from its
     ``kernel_spec``: 'lid', 'free_slip' or 'noop'."""
     spec = getattr(velocity_bc, "kernel_spec", None)
-    return spec is not None and spec[0] in _build.BC_CODES
+    return spec is not None and spec[0] in _build.WALL_BCS
 
 
 def rc_rhs_plain(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy):
@@ -111,7 +111,8 @@ def grad_correct_fused(p_corr, a_star, b_star, rho, dt, dx, dy, velocity_bc):
     if a_star.device.type == "cpu":
         return grad_correct_plain(p_corr, a_star, b_star, rho, dt, dx, dy,
                                   velocity_bc)
-    bc, lid = _build.bc_operands("grad_correct", velocity_bc)
+    bc, lid = _build.bc_operands("grad_correct", velocity_bc,
+                                 _build.WALL_BCS)
     fields = {"p_corr": p_corr, "a_star": a_star, "b_star": b_star,
               "rho": rho, "dt": dt}
     Ny, Nx = _check("grad_correct", a_star, fields)

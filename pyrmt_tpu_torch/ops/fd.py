@@ -2,7 +2,9 @@
 
 Whole-array expressions built from slices and concatenation, with the same
 one-sided boundary closures and the same order of floating-point operations
-as the JAX package, so the two agree to roundoff.
+as the JAX package, so the two agree to roundoff. The ``*_periodic``
+stencils of the doubly-periodic box wrap on the overlap grid instead of
+closing one-sidedly.
 """
 from __future__ import annotations
 
@@ -73,6 +75,46 @@ def diff_upwind_3rd(f, u, h, axis):
     out = torch.where(boundary, first, third)
     out = torch.where(idx == 0, forward, out)
     return torch.where(idx == n - 1, backward, out)
+
+
+def wrap_pad_x(f, k):
+    """``k`` periodic ghost columns each side on the overlap grid, where
+    column N-1 duplicates column 0 (the layout of the periodic solver,
+    ops/poisson.py ``tile_overlap``): the left ghosts are columns
+    N-1-k..N-2 and the right ghosts columns 1..k."""
+    return torch.cat([f[:, -1 - k:-1], f, f[:, 1:1 + k]], dim=1)
+
+
+def wrap_pad_y(f, k):
+    return torch.cat([f[-1 - k:-1, :], f, f[1:1 + k, :]], dim=0)
+
+
+def grad_central_x_2nd_periodic(f, dx):
+    """2nd-order central d/dx with the overlap-grid wrap and no one-sided
+    closures: columns 0 and N-1 read the same neighbours."""
+    p = wrap_pad_x(f, 1)
+    return (p[:, 2:] - p[:, :-2]) * (1.0 / (2.0 * dx))
+
+
+def grad_central_y_2nd_periodic(f, dy):
+    p = wrap_pad_y(f, 1)
+    return (p[2:, :] - p[:-2, :]) * (1.0 / (2.0 * dy))
+
+
+def diff_upwind_3rd_periodic(f, u, h, axis):
+    """The interior formula of ``diff_upwind_3rd`` everywhere, with wrapped
+    shifts and no boundary fallbacks."""
+    if axis == 1:
+        p = wrap_pad_x(f, 2)
+        sh = lambda k: p[:, 2 + k: 2 + k + f.shape[1]]  # noqa: E731
+    else:
+        p = wrap_pad_y(f, 2)
+        sh = lambda k: p[2 + k: 2 + k + f.shape[0], :]  # noqa: E731
+    fp1, fp2, fm1, fm2 = sh(1), sh(2), sh(-1), sh(-2)
+    inv_6h = 1.0 / (6.0 * h)
+    pos = (2.0 * fp1 + 3.0 * f - 6.0 * fm1 + fm2) * inv_6h
+    neg = (-fp2 + 6.0 * fp1 - 3.0 * f - 2.0 * fm1) * inv_6h
+    return torch.where(u > 0, pos, neg)
 
 
 def solve3x3_sym(a00, a01, a02, a11, a12, a22, b0, b1, b2, det_eps=1e-10):

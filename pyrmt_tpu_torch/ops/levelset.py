@@ -11,8 +11,8 @@ Reinitialisation methods: 'none'; 'pde' (Sussman-Smereka-Osher upwind
 iteration, a Python loop of ``num_iters`` steps); 'fmm' (parallel fast
 sweeping: frontier cells frozen at their interpolated front distance, then
 two passes of the 4 Gauss-Seidel orderings, each traversal a loop over
-anti-diagonals with one vector op per diagonal). Curvature and the
-periodic phi BCs wait for ROADMAP modules items 19 and 13.
+anti-diagonals with one vector op per diagonal). ``apply_phi_BCs`` is the
+3-cell periodic wrap of phi. Curvature waits for ROADMAP modules item 19.
 """
 from __future__ import annotations
 
@@ -20,6 +20,18 @@ import dataclasses
 import math
 
 import torch
+
+
+def apply_phi_BCs(phi):
+    """3-cell periodic wrap of phi: rows 0:3 take rows -6:-3, then rows -3:
+    take rows 3:6, then the same for the columns, each copy reading the
+    field as the copies before left it (the JAX package's order)."""
+    phi = phi.clone()
+    phi[0:3, :] = phi[-6:-3, :].clone()
+    phi[-3:, :] = phi[3:6, :].clone()
+    phi[:, 0:3] = phi[:, -6:-3].clone()
+    phi[:, -3:] = phi[:, 3:6].clone()
+    return phi
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,16 @@
-"""Neumann Poisson solve and the divergence/gradient companions of the
-projection (counterpart of the constant-density Neumann part of
-``pyrmt_tpu.ops.poisson``).
+"""Poisson solves and the divergence/gradient companions of the projection
+(counterpart of the constant-density part of ``pyrmt_tpu.ops.poisson``).
 
-The DCT-I runs as dense matrix products ``C_y @ rhs @ C_x^T``: the same
-transform as the JAX package's rFFT-of-the-even-extension path. The even/odd
-fold of the JAX matmul path is a TPU layout device and is not carried over.
-The products run in full precision: the step module turns TF32 off. The
-periodic and variable-density solvers wait for ROADMAP modules items 12
-and 13.
+Neumann walls: the DCT-I runs as dense matrix products
+``C_y @ rhs @ C_x^T``, the same transform as the JAX package's
+rFFT-of-the-even-extension path. The even/odd fold of the JAX matmul path
+is a TPU layout device and is not carried over. The products run in full
+precision: the step module turns TF32 off.
+
+The doubly-periodic box: an FFT solve on the reduced (Ny-1, Nx-1) sub-grid
+of the overlap grid (``torch.fft`` per axis, cuFFT on the card; the JAX
+package runs it as XLA's FFT, outside any Pallas kernel). The
+variable-density solver waits for ROADMAP modules item 12.
 """
 from __future__ import annotations
 
@@ -104,3 +107,69 @@ def compute_pressure_gradient(p, dx, dy):
     row_boundary = (jj == 0) | (jj == Ny - 1)
     dpdy = torch.where(row_boundary | col_interior, _grad_y_cc(p, dy), zero)
     return dpdx, dpdy
+
+
+# The doubly-periodic (FFT) solver on the reduced sub-grid
+
+
+def precompute_poisson_eigenvalues_periodic(Nx, Ny, dx, dy,
+                                            dtype=torch.float64,
+                                            device="cuda"):
+    """The Fourier symbol of the wide central div(grad), -sin(2 pi k/m)^2
+    / h^2, on the reduced (Ny-1, Nx-1) periodic sub-grid. Returns
+    (eig, null): the constant and Nyquist (checkerboard) null modes are
+    pinned to 1 in eig and flagged in the bool tensor null."""
+    mx, my = Nx - 1, Ny - 1
+    lam_x = -((np.sin(2.0 * np.pi * np.arange(mx) / mx) / dx) ** 2)
+    lam_y = -((np.sin(2.0 * np.pi * np.arange(my) / my) / dy) ** 2)
+    eig = lam_x[None, :] + lam_y[:, None]
+    null = np.abs(eig) < 1e-12
+    eig = eig.copy()
+    eig[null] = 1.0
+    return (torch.as_tensor(eig, dtype=dtype, device=device),
+            torch.as_tensor(null, device=device))
+
+
+def tile_overlap(field_reduced, Ny, Nx):
+    """Pad a reduced (Ny-1, Nx-1) periodic field to the overlap grid: the
+    last column and row repeat the first."""
+    top = torch.cat([field_reduced, field_reduced[:, 0:1]], dim=1)
+    return torch.cat([top, top[0:1, :]], dim=0)
+
+
+def solve_poisson_fft(rhs_full, eigenvalues_periodic):
+    """Direct periodic Poisson solve on the reduced sub-grid: de-mean, an
+    FFT along x then y (complex64 for float32, complex128 for float64, as
+    ``jnp.fft`` makes them), divide by the symbol, zero the null modes, the
+    inverse FFTs, the real part tiled to the overlap grid, de-mean."""
+    eig, null = eigenvalues_periodic
+    Ny, Nx = rhs_full.shape
+    r = rhs_full[:-1, :-1]
+    r = r - torch.mean(r)
+    rhat = torch.fft.fft(torch.fft.fft(r, dim=1), dim=0)
+    phat = rhat / eig.to(rhat.real.dtype)
+    phat = torch.where(null, 0.0, phat)
+    g = torch.fft.ifft(torch.fft.ifft(phat, dim=1), dim=0)
+    p = tile_overlap(g.real.to(rhs_full.dtype), Ny, Nx)
+    return p - torch.mean(p)
+
+
+def compute_divergence_periodic(a_star, b_star, dx, dy):
+    """Wide central divergence with the periodic wrap on the reduced
+    sub-grid, tiled to the overlap grid."""
+    Ny, Nx = a_star.shape
+    au = a_star[:-1, :-1]
+    bv = b_star[:-1, :-1]
+    dudx = (torch.roll(au, -1, 1) - torch.roll(au, 1, 1)) / (2.0 * dx)
+    dvdy = (torch.roll(bv, -1, 0) - torch.roll(bv, 1, 0)) / (2.0 * dy)
+    return tile_overlap(dudx + dvdy, Ny, Nx)
+
+
+def compute_pressure_gradient_periodic(p, dx, dy):
+    """Wide central pressure gradient with the periodic wrap, tiled to the
+    overlap grid."""
+    Ny, Nx = p.shape
+    pr = p[:-1, :-1]
+    dpdx = (torch.roll(pr, -1, 1) - torch.roll(pr, 1, 1)) / (2.0 * dx)
+    dpdy = (torch.roll(pr, -1, 0) - torch.roll(pr, 1, 0)) / (2.0 * dy)
+    return tile_overlap(dpdx, Ny, Nx), tile_overlap(dpdy, Ny, Nx)

@@ -4,8 +4,9 @@
 The one-fluid mixture blends the stress tensors before the divergence:
 sigma = Hf sigma_f + sum_i (1 - H_i) sigma_s_i, with Hf = sum_i H_i - (S-1).
 The RHS takes an external force field: pairwise contact between solids
-(``external_forces``) and gravity, which ``body_forces`` adds. Surface
-tension and the periodic stencils wait for ROADMAP modules items 19 and 13.
+(``external_forces``) and gravity, which ``body_forces`` adds. On the
+doubly-periodic box (``periodic=True``) every stencil is its overlap-grid
+wrap variant. Surface tension waits for ROADMAP modules item 19.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 from pyrmt_tpu_torch.ops.contact import compute_contact_force
 from pyrmt_tpu_torch.ops.fd import (
     diff_upwind_3rd,
+    diff_upwind_3rd_periodic,
     grad_central_x_2nd,
+    grad_central_x_2nd_periodic,
     grad_central_y_2nd,
+    grad_central_y_2nd_periodic,
 )
 
 
@@ -48,13 +52,21 @@ def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
 
 
 def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
-                         Hf, rho_local, f_ext_x=None, f_ext_y=None):
+                         Hf, rho_local, f_ext_x=None, f_ext_y=None,
+                         periodic=False):
     """Conservative one-fluid RHS. ``sig_s**`` are the pre-blended solid
     stresses sum_i (1 - H_i) sigma_s_i and ``Hf`` the fluid fraction. The
     external force (f_ext_x, f_ext_y) adds to the stress divergence, in the
-    JAX package's order; without it (None) the sum is left out. The CUDA
-    counterpart is kernels/momentum_rhs.py."""
-    gx2, gy2, dup3 = grad_central_x_2nd, grad_central_y_2nd, diff_upwind_3rd
+    JAX package's order; without it (None) the sum is left out.
+    ``periodic=True`` takes the overlap-grid wrap stencils. The CUDA
+    counterpart (Neumann walls only, as in the JAX package) is
+    kernels/momentum_rhs.py."""
+    if periodic:
+        gx2, gy2 = grad_central_x_2nd_periodic, grad_central_y_2nd_periodic
+        dup3 = diff_upwind_3rd_periodic
+    else:
+        gx2, gy2 = grad_central_x_2nd, grad_central_y_2nd
+        dup3 = diff_upwind_3rd
     du_dx = gx2(u, dx)
     dv_dy = gy2(v, dy)
     du_dy = gy2(u, dy)
@@ -129,7 +141,8 @@ def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
 
 def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                   rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f,
-                  f_ext_x=None, f_ext_y=None, rhs_fn=velocity_rhs_blended):
+                  f_ext_x=None, f_ext_y=None, rhs_fn=velocity_rhs_blended,
+                  periodic=False):
     """Plain RK4 velocity update from pre-blended fields, with the velocity
     BC applied to every stage input and to the result.
 
@@ -139,11 +152,18 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     called as ``velocity_rhs_blended`` after the stage loop's BC and
     Kelvin-Voigt ops, with the force keywords where a force is given: the
     plain version, or the one-RHS kernel (kernels/momentum_rhs.py) as
-    ``use_pallas_rhs`` selects. The CUDA counterpart of the whole update is
-    kernels/momentum_rk4.py.
+    ``use_pallas_rhs`` selects. ``periodic=True`` takes the overlap-grid
+    wrap stencils and the plain RHS, whatever ``rhs_fn`` is: the JAX
+    package skips its one-RHS kernel on the periodic box. The CUDA
+    counterpart of the whole update is kernels/momentum_rk4.py.
     """
-    force = {} if f_ext_x is None else dict(f_ext_x=f_ext_x, f_ext_y=f_ext_y)
-    gx2, gy2 = grad_central_x_2nd, grad_central_y_2nd
+    rhs_kw = {} if f_ext_x is None else dict(f_ext_x=f_ext_x, f_ext_y=f_ext_y)
+    if periodic:
+        gx2, gy2 = grad_central_x_2nd_periodic, grad_central_y_2nd_periodic
+        rhs_kw["periodic"] = True
+        rhs_fn = velocity_rhs_blended
+    else:
+        gx2, gy2 = grad_central_x_2nd, grad_central_y_2nd
 
     def rhs(u_stage, v_stage):
         u_stage, v_stage = velocity_bc(u_stage, v_stage)
@@ -160,7 +180,7 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
             syy = syy + mkv * (eta_s * dv_dy)
             sxy = sxy + mkv * (eta_s * 0.5 * (du_dy + dv_dx))
         return rhs_fn(u_stage, v_stage, p, sxx, sxy, syy, dx, dy, mu_f, Hf,
-                      rho_local, **force)
+                      rho_local, **rhs_kw)
 
     k1u, k1v = rhs(u, v)
     k2u, k2v = rhs(u + 0.5 * dt * k1u, v + 0.5 * dt * k1v)

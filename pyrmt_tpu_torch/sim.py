@@ -20,9 +20,11 @@ One step of the ported slice:
      kernels/momentum_rk4.py; with ``momentum_method='xla'`` the stage loop
      of ``physics.momentum_core``, whose stage RHS is kernels/momentum_rhs.py
      with ``use_pallas_rhs``;
-  4. the incremental Rhie-Chow projection with the DCT-I Poisson solve,
-     its two stencil chains fused into kernels/projection_stencils.py with
-     ``projection_method='pallas'``;
+  4. the projection: under Neumann walls the incremental Rhie-Chow
+     projection with the DCT-I Poisson solve, its two stencil chains fused
+     into kernels/projection_stencils.py with ``projection_method='pallas'``;
+     on the doubly-periodic box (``bc_type='periodic'``) the FFT solve on
+     the reduced sub-grid, as plain ops on every path;
   5. on the split tier with rebasing, ``maybe_rebase``; t += dt.
 
 On a CUDA state the blocks run their CUDA kernels; on a CPU state they run
@@ -30,12 +32,16 @@ the plain PyTorch versions. dt stays a 0-d device tensor for the whole
 step, so a step never waits for the card, except where rebasing reads its
 trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step).
 
-The step takes one solid or more (two or more with the JAX package's
-two-solid stress: interior mode, det G clamped to ``two_solid_clamp``),
-pairwise contact and gravity, with semi-Lagrangian gather-free bilinear
-advection (CFL < 1), Neumann walls and constant density, and raises
-NotImplementedError, naming the ROADMAP item that ports it, for anything
-else: surface tension among them.
+The step takes no solid (the pure-fluid solver: no solid block, the
+constant blends Hf = 1, rho = rho_f and no solid stress into the RK4
+kernel), one solid or more (two or more with the JAX package's two-solid
+stress: interior mode, det G clamped to ``two_solid_clamp``), pairwise
+contact and gravity, with semi-Lagrangian gather-free bilinear advection
+(CFL < 1), Neumann walls or the doubly-periodic box (the periodic stencils
+in the momentum, the solid block clamped at the edge as in the JAX
+package, so a solid must keep ``periodic_seam_clearance_cells`` from the
+seam) and constant density, and raises NotImplementedError, naming the
+ROADMAP item that ports it, for anything else: surface tension among them.
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from pyrmt_tpu_torch.ops.levelset import (
 from pyrmt_tpu_torch.ops.poisson import (
     precompute_dct_matrices,
     precompute_poisson_eigenvalues,
+    precompute_poisson_eigenvalues_periodic,
 )
 from pyrmt_tpu_torch.ops.projection import pressure_projection
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
@@ -107,8 +114,12 @@ class RMTConfig:
     ``momentum_method`` 'auto' or 'pallas' runs the RK4 kernel and 'xla'
     the stage loop of ``physics.momentum_core``; on that loop
     ``use_pallas_rhs`` makes each stage's RHS the one-RHS kernel (ignored
-    under the RK4 kernel, as in JAX); ``projection_method='pallas'`` runs
-    the projection's stencil kernels ('auto' and 'xla' the plain ops). The
+    under the RK4 kernel, as in JAX, and on the periodic box);
+    ``projection_method='pallas'`` runs the projection's stencil kernels
+    under Neumann walls ('auto' and 'xla' the plain ops; the periodic box
+    runs its FFT projection as plain ops). With no solid 'auto' keeps the
+    RK4 kernel, where the JAX package keeps XLA's momentum (XLA folds the
+    constant blends; PyTorch cannot, and the kernel is faster). The
     fields that select or tune the TPU's other kernels (``rmt_method``,
     ``extrap_method``, ``dct_method``, ``rmt_panel_width``, ``rmt_tile``,
     ``kernel_slab_halo``) are accepted and do not change the port's path.
@@ -183,8 +194,6 @@ _OUTSIDE_SLICE = (
      lambda c: c.CFL >= 1.0, "modules item 14"),
     ("sl_interp='bicubic'", lambda c: c.sl_interp != "bilinear",
      "modules item 10"),
-    ("bc_type='periodic'", lambda c: c.bc_type != "neumann",
-     "modules item 13"),
     ("stress_band (band-mode stress)", lambda c: c.stress_band,
      "modules item 9"),
     ("surface tension", lambda c: c.gamma > 1e-12, "modules item 19"),
@@ -192,6 +201,7 @@ _OUTSIDE_SLICE = (
 )
 
 _KNOWN_VALUES = {
+    "bc_type": ("neumann", "periodic"),
     "rmt_method": ("auto", "xla", "pallas"),
     "momentum_method": ("auto", "xla", "pallas"),
     "extrap_method": ("auto", "xla", "sparse", "pallas"),
@@ -220,21 +230,75 @@ def check_narrow_band(w_t, dx, num_layers):
     return need
 
 
-def check_slice(cfg: RMTConfig, n_solids: int) -> None:
-    """Raise NotImplementedError for a configuration outside the ported
-    slice and ValueError for an unknown option value."""
+def check_slice(cfg: RMTConfig) -> None:
+    """Raise ValueError for an unknown option value, NotImplementedError for
+    a configuration outside the ported slice, then ValueError for the
+    balanced-force CSF off Neumann walls (the JAX package's order)."""
     for name, values in _KNOWN_VALUES.items():
         if getattr(cfg, name) not in values:
             raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one "
                              f"of {values}")
-    if n_solids < 1:
-        raise NotImplementedError(
-            "no solid: the pure-fluid step waits for ROADMAP modules item 18")
     for what, outside, item in _OUTSIDE_SLICE:
         if outside(cfg):
             raise NotImplementedError(
                 f"{what} is outside the ported slice; it waits for ROADMAP "
                 f"{item}")
+    if (cfg.st_method == "balanced" and cfg.gamma > 1e-12
+            and cfg.bc_type != "neumann"):
+        raise ValueError(
+            "st_method='balanced' requires the incremental Neumann "
+            "(Rhie-Chow) projection (bc_type='neumann')")
+
+
+def periodic_seam_clearance_cells(cfg: RMTConfig) -> int:
+    """Cells of clearance a solid needs from every domain edge under
+    ``bc_type='periodic'``: the extrapolation band (num_layers), the wider
+    of the Heaviside blend band and the bicubic band guard, and 2 cells of
+    gather and stencil reach. The solid block clamps its gathers and
+    stencils at the domain's edge rather than wrapping them (in both
+    packages), so a solid crossing the seam is rejected, not run."""
+    guard = cfg.sl_band_guard if cfg.sl_interp == "bicubic" else 0.0
+    band = max(math.ceil(cfg.w_t_cells), math.ceil(guard))
+    return cfg.num_layers + band + 2
+
+
+def _seam_ring(shape, k, device):
+    """Bool (Ny, Nx): the cells within k of a domain edge."""
+    ring = torch.zeros(shape, dtype=torch.bool, device=device)
+    ring[..., :k, :] = True
+    ring[..., -k:, :] = True
+    ring[..., :, :k] = True
+    ring[..., :, -k:] = True
+    return ring
+
+
+def solid_near_periodic_seam(phis, clear_cells: int):
+    """0-d bool tensor: a solid cell (phi <= 0) of any level set in
+    ``phis`` within ``clear_cells`` of a domain edge, the periodic seam. A
+    periodic run polls it on aux["phis"] beside ``diverged``: True means a
+    solid drifted into the clamped region and the run is no longer
+    trustworthy."""
+    ring = _seam_ring(phis.shape[-2:], int(clear_cells), phis.device)
+    return torch.any((phis <= 0.0) & ring)
+
+
+def check_periodic_seam_clearance(cfg: RMTConfig, phi_inits, dtype,
+                                  device="cuda"):
+    """Raise ValueError unless every initial solid clears the periodic seam
+    by ``periodic_seam_clearance_cells`` (``make_init_state`` calls it
+    under ``bc_type='periodic'``)."""
+    k = periodic_seam_clearance_cells(cfg)
+    X, Y = cfg.grid.coords(dtype=dtype, device=device)
+    ring = _seam_ring(cfg.grid.shape, k, device)
+    for i, pi in enumerate(phi_inits):
+        if bool(torch.any((pi(X, Y) <= 0.0) & ring)):
+            raise ValueError(
+                f"bc_type='periodic': solid {i} starts within {k} cells of "
+                "the periodic seam. A solid crossing the seam is not "
+                "supported (the solid block's gathers and stencils clamp at "
+                f"the domain's edge); keep solids >= {k} cells clear, or use "
+                "a larger domain. Poll sim.solid_near_periodic_seam during "
+                "the run to detect drift into the seam.")
 
 
 def stress_mode(cfg: RMTConfig, S: int) -> tuple[float, float]:
@@ -369,11 +433,12 @@ def make_step(
     """Build the FSI step for a fixed configuration.
 
     ``phi_inits`` holds one level-set function of the reference map per
-    solid; ``velocity_bc`` is one of ``bcs``. On the fused tier the CUDA
-    kernel needs each to be an ``ops.levelset.Disc``; on the split tier
-    (reinit, area fix or rebasing) any torch callable works. Returns
-    ``step(state, t_end) -> (state, aux)``; with rebasing, aux["rebased"]
-    holds the per-solid flags.
+    solid, none for the pure-fluid solver; ``velocity_bc`` is one of
+    ``bcs`` (``periodic_bc`` with ``bc_type='periodic'``). On the fused
+    tier the CUDA kernel needs each to be an ``ops.levelset.Disc``; on the
+    split tier (reinit, area fix or rebasing) any torch callable works.
+    Returns ``step(state, t_end) -> (state, aux)``; with rebasing,
+    aux["rebased"] holds the per-solid flags.
 
     ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl``,
     ``extrap_impl``, ``momentum_rhs_impl`` and ``projection_stencils_impl``
@@ -388,17 +453,25 @@ def make_step(
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
     """
-    check_slice(cfg, len(phi_inits))
+    check_slice(cfg)
     g = cfg.grid
     dx, dy = g.dx, g.dy
-    check_narrow_band(cfg.w_t, dx, cfg.num_layers)
+    phi_inits = tuple(phi_inits)
+    S = len(phi_inits)
+    if S > 0:
+        check_narrow_band(cfg.w_t, dx, cfg.num_layers)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phi_inits = tuple(phi_inits)
-    S = len(phi_inits)
-    eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype, device)
-    dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
+    periodic = cfg.bc_type == "periodic"
+    if periodic:
+        eig = precompute_poisson_eigenvalues_periodic(g.Nx, g.Ny, dx, dy,
+                                                      dtype, device)
+        dct_mats = None
+    else:
+        eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype,
+                                             device)
+        dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
     params = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
                           dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -473,6 +546,11 @@ def make_step(
                 torch.sum(one_mH * syy, dim=0))
 
     split = rmt_block_split_eligible(cfg, S)
+    # the pure-fluid step's block: no solid, the constant blends
+    empty = torch.zeros((0,) + g.shape, dtype=dtype, device=device)
+    fluid_block = (empty, torch.ones(g.shape, dtype=dtype, device=device),
+                   torch.full(g.shape, cfg.rho_f, dtype=dtype, device=device),
+                   torch.zeros(g.shape, dtype=dtype, device=device))
 
     def step(state: SimState, t_end):
         u, v, p = state.u, state.v, state.p
@@ -490,7 +568,10 @@ def make_step(
         active = dt > 0.0
         dt = torch.where(active, dt, one)
 
-        if split:
+        if S == 0:
+            e, Hf, rho_f, z = fluid_block
+            block = (state.X1, state.X2, e, e, e, e, e, Hf, rho_f, z, z, z)
+        elif split:
             block = split_block(u, v, state.X1, state.X2, state.phis0, dt)
         else:
             block = rmt_fn(u, v, state.X1, state.X2, dt, phi_inits=phi_inits,
@@ -503,7 +584,7 @@ def make_step(
         if cfg.eta_s > 0.0 and S == 1:
             # Kelvin-Voigt mask of one solid: (phi <= 0) (1 - Hf), Hf = H
             mkv = (phis[0] <= 0.0).to(dtype) * (1.0 - Hf)
-        elif cfg.eta_s > 0.0:
+        elif cfg.eta_s > 0.0 and S > 0:
             # of S solids: sum_i (phi_i <= 0) (1 - H_i)
             H = smoothed_heaviside(phis, cfg.w_t)
             mkv = torch.sum((phis <= 0.0).to(dtype) * (1.0 - H), dim=0)
@@ -515,10 +596,10 @@ def make_step(
         u_star, v_star = momentum_fn(
             u, v, p, sb_xx, sb_xy, sb_yy, Hf, rho_local, mkv, velocity_bc,
             eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f,
-            f_ext_x=f_x, f_ext_y=f_y)
+            f_ext_x=f_x, f_ext_y=f_y, periodic=periodic)
         u_new, v_new, p_new = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
-            dct_mats, stencils=stencils)
+            dct_mats, stencils=stencils, bc_type=cfg.bc_type)
 
         # On a no-op step the state stays exactly frozen; the aux fields
         # reflect the discarded trial step, as on the JAX fused path.
@@ -548,8 +629,12 @@ def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),
     """Initial state: reference maps seeded with the identity inside each
     solid and extrapolated ``num_layers`` cells into the fluid; with map
     rebasing, ``phis0`` holds each phi_init(X, Y) as it is, so the rebuild
-    at the identity map reproduces the analytic level set exactly."""
+    at the identity map reproduces the analytic level set exactly. With no
+    solid the stacks are (0, Ny, Nx). Under ``bc_type='periodic'`` each
+    solid must clear the seam (``check_periodic_seam_clearance``)."""
     g = cfg.grid
+    if cfg.bc_type == "periodic" and len(phi_inits) > 0:
+        check_periodic_seam_clearance(cfg, phi_inits, dtype, device)
     X, Y = g.coords(dtype=dtype, device=device)
     zeros = torch.zeros(g.shape, dtype=dtype, device=device)
     u = zeros if u0 is None else torch.as_tensor(u0, dtype=dtype, device=device)

@@ -179,7 +179,8 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
 
 TILE_KERNELS = ["rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
                 "rc_rhs", "grad_correct", "extrapolate_fused",
-                "rmt_block, two solids", "momentum_rk4, force"]
+                "rmt_block, two solids", "momentum_rk4, force",
+                "momentum_rk4, periodic"]
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +207,8 @@ def device_kernels_per_call():
         fn, margs, mkw = momentum_call(dev, shape, dtype)
         calls[("momentum_rk4, force", dtype)] = (fn, margs, dict(
             mkw, **force_fields(dev, shape, dtype)))
+        calls[("momentum_rk4, periodic", dtype)] = periodic_call(dev, shape,
+                                                                dtype)
         calls[("advext_block", dtype)] = (rb.advext_block_fused,
                                           *split_call(dev, shape, DISC, dtype))
         calls[("velocity_rhs", dtype)] = (mr.velocity_rhs_blended_fused,
@@ -250,9 +253,15 @@ def test_tile_kernel_call_runs_one_device_kernel(device_kernels_per_call,
     """One wrapper call of each tile kernel runs exactly one CUDA kernel
     on the card (torch.profiler), no copy and no other kernel (with two
     solids and with a force too); advext_block and extrapolate_fused run
-    two, their skip's flag pre-pass and their tile kernel."""
+    two, their skip's flag pre-pass and their tile kernel. On the periodic
+    box momentum_rk4's wrapper applies periodic_bc first (a few PyTorch
+    copies), then launches one CUDA kernel."""
     device = device_kernels_per_call[(kernel, dtype)]
     two = ("advext_block", "extrapolate_fused")
+    if kernel == "momentum_rk4, periodic":
+        assert sum("rk4_periodic_kernel" in n for n in device) == 1, device
+        assert sum("rk4_" in n for n in device) == 1, device
+        return
     assert len(device) == (2 if kernel in two else 1), device
 
 
@@ -984,3 +993,152 @@ def test_contact_kernel_path_matches_plain_path(dev, override):
                            gamma=0.0, k_rep=cfg.k_rep, w_c=cfg.w_c,
                            w_t=cfg.w_t)
     assert float(f[0].abs().max()) > 0.0  # the contact force acts
+
+
+# The periodic instantiation of momentum_rk4: overlap-consistent inputs
+# (the last row and column repeat the first), as the step gives them.
+
+def overlap(f):
+    """f with column Nx-1 set to column 0, then row Ny-1 to row 0."""
+    f = f.clone()
+    f[:, -1] = f[:, 0]
+    f[-1, :] = f[0, :]
+    return f
+
+
+def periodic_inputs(dev, shape, dtype=torch.float64, force=False):
+    """momentum_inputs' nine fields (and force_fields' force) made
+    overlap-consistent, with the keywords of a periodic call."""
+    cfg, fields, dt = momentum_inputs(dev, shape, dtype)
+    fields = tuple(overlap(f) for f in fields)
+    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+               mu_f=cfg.mu_f, periodic=True)
+    if force:
+        mkw.update({k: overlap(f) for k, f in
+                    force_fields(dev, shape, dtype).items()})
+    return fields, mkw
+
+
+def periodic_call(dev, shape, dtype):
+    """(momentum_rk4_fused, its arguments, its keywords) on the periodic
+    box."""
+    fields, mkw = periodic_inputs(dev, shape, dtype)
+    return mk.momentum_rk4_fused, (*fields, pt.periodic_bc), mkw
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(129, 129), (300, 9)])
+@pytest.mark.parametrize("eta_s", [0.0, 0.01])
+@pytest.mark.parametrize("force", [False, True], ids=["free", "force"])
+def test_periodic_momentum_kernel_matches_plain(dev, force, eta_s, shape):
+    """The periodic instantiation, one launch, bit for bit with the plain
+    periodic update in float64 and to 1e-5 of max(1, |plain|) in float32,
+    on grids narrower than its 8-cell halo too (an index wraps more than
+    once there)."""
+    for dtype in DTYPES:
+        fields, mkw = periodic_inputs(dev, shape, dtype, force)
+        mkw["eta_s"] = eta_s
+        before = (mk.launches, mk.periodic_launches)
+        out = mk.momentum_rk4_fused(*fields, pt.periodic_bc, **mkw)
+        ref = momentum_core(*fields, pt.periodic_bc, **mkw)
+        assert (mk.launches, mk.periodic_launches) == (before[0],
+                                                       before[1] + 1)
+        if dtype == torch.float32:
+            assert_close_f32(out, ref, 1e-5)
+        else:
+            assert_equal_to_plain(out, ref)
+        for o in out:  # the result is overlap-consistent
+            assert torch.equal(o[-1], o[0]) and torch.equal(o[:, -1], o[:, 0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_periodic_kernel_reads_the_reduced_velocity(dev, dtype):
+    """The wrapper's periodic_bc and the kernel's wrapped reads: a velocity
+    that is not overlap-consistent gives the result of its reduced grid
+    (rows and columns 0..N-2), as the plain update does after the BC."""
+    fields, mkw = periodic_inputs(dev, (65, 65), dtype)
+    u, v = fields[0].clone(), fields[1].clone()
+    u[-1, :] += 1.0
+    v[:, -1] -= 1.0
+    out = mk.momentum_rk4_fused(u, v, *fields[2:], pt.periodic_bc, **mkw)
+    ref = mk.momentum_rk4_fused(*fields, pt.periodic_bc, **mkw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_periodic_kernel_raises_on_what_it_does_not_take(dev):
+    fields, mkw = periodic_inputs(dev, (33, 33))
+    with pytest.raises(ValueError):  # the flag without the periodic BC
+        mk.momentum_rk4_fused(*fields, pt.noop_bc, **mkw)
+    with pytest.raises(ValueError):  # the periodic BC without the flag
+        mk.momentum_rk4_fused(*fields, pt.periodic_bc,
+                              **dict(mkw, periodic=False))
+    rho = fields[7]
+    with pytest.raises(ValueError):  # the projection kernels take walls
+        ps.grad_correct_fused(fields[2], fields[0], fields[1], rho,
+                              mkw["dt"], 0.1, 0.1, pt.periodic_bc)
+    assert not pt.projection_stencils_supported(pt.periodic_bc)
+
+
+def tg_velocity(cfg, dev, amp=0.5):
+    """bench.py --periodic's Taylor-Green seed, float64."""
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=dev)
+    return (amp * torch.sin(2 * math.pi * X) * torch.cos(2 * math.pi * Y),
+            -amp * torch.cos(2 * math.pi * X) * torch.sin(2 * math.pi * Y))
+
+
+@pytest.mark.parametrize("case", ["periodic_flagship", "periodic_split",
+                                  "lid_fluid", "tg_fluid", "tg_fluid_proj"])
+def test_periodic_and_fluid_kernel_paths_match_plain_paths(dev, case):
+    """Three float64 steps through the kernels and through the plain
+    versions, within 1e-10: the flagship on the periodic box with its
+    Taylor-Green seed (bench.py --periodic; also on the split tier), and
+    with no solid the lid cavity and the periodic Taylor-Green vortex
+    (also with projection_method='pallas', which the periodic box runs as
+    plain ops). The kernel path launches momentum_rk4 every step, its
+    periodic instantiation on the periodic box (and the solid block where
+    there is a solid)."""
+    grid = pt.Grid(N, N, 1.0, 1.0)
+    kw = dict(dtype=torch.float64, device=dev)
+    if case.startswith("periodic"):
+        cfg = pt.RMTConfig(grid=grid, mu_s=0.1, eta_s=0.01, mu_f=0.01,
+                           bc_type="periodic",
+                           phi_area_fix=case.endswith("split"))
+        solids, bc = (DISC,), pt.periodic_bc
+        u0, v0 = tg_velocity(cfg, dev)
+    elif case == "lid_fluid":
+        cfg = pt.RMTConfig(grid=grid, mu_f=0.01, CFL=0.2, dt_min_cap=1e-2)
+        solids, bc = (), pt.make_lid_bc(1.0)
+        zero = torch.zeros(grid.shape, **kw)
+        u0, v0 = bc(zero, zero)
+    else:
+        cfg = pt.RMTConfig(grid=grid, mu_f=0.01, CFL=0.3, dt_min_cap=1e-3,
+                           bc_type="periodic",
+                           projection_method=("pallas" if case.endswith("proj")
+                                              else "auto"))
+        solids, bc = (), pt.periodic_bc
+        u0, v0 = tg_velocity(cfg, dev)
+    step_k = pt.make_step(cfg, bc, solids, **kw)
+    step_p = pt.make_step(cfg, bc, solids, **kw,
+                          rmt_block_impl=rb.rmt_block_plain,
+                          momentum_rk4_impl=momentum_core,
+                          advext_impl=rb.advext_block_plain)
+    s_k = s_p = pt.make_init_state(cfg, solids, u0=u0, v0=v0, **kw)
+    def counts():
+        return (rb.launches, rb.advext_launches, mk.launches,
+                mk.periodic_launches, ps.rc_rhs_launches)
+
+    before = counts()
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    torch.cuda.synchronize()
+    fused = 3 if solids and not cfg.phi_area_fix else 0
+    split = 3 if cfg.phi_area_fix else 0
+    periodic = 3 if cfg.bc_type == "periodic" else 0
+    assert counts() == (before[0] + fused, before[1] + split,
+                        before[2] + 3 - periodic, before[3] + periodic,
+                        before[4])
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        diff = getattr(s_k, k) - getattr(s_p, k)
+        assert diff.numel() == 0 or float(diff.abs().max()) <= 1e-10, k
+    assert float(s_k.u.abs().max()) > 0.1

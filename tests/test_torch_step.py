@@ -135,16 +135,17 @@ def test_fixed_dt():
 
 
 # reinitialisation, the area fix, rebasing, the opt-in RHS and projection
-# kernels and gravity came into the slice: their entries hold them with a
-# feature still outside it
+# kernels, gravity and the periodic box came into the slice: their entries
+# hold them with a feature still outside it
 @pytest.mark.parametrize("override", [
-    dict(scheme="weno5"), dict(bc_type="periodic"),
+    dict(scheme="weno5"), dict(bc_type="periodic", sl_interp="bicubic"),
     dict(reinit_method="pde", sl_local=False),
     dict(sl_interp="bicubic"), dict(gamma=0.1),
-    dict(g_y=-1.0, bc_type="periodic"),
+    dict(g_y=-1.0, bc_type="periodic", variable_rho=True),
     dict(variable_rho=True), dict(stress_band=True),
     dict(phi_area_fix=True, sl_interp="bicubic"),
-    dict(map_rebase_minj=0.5, bc_type="periodic"), dict(CFL=1.5),
+    dict(map_rebase_minj=0.5, bc_type="periodic", stress_band=True),
+    dict(CFL=1.5),
     dict(momentum_method="xla", use_pallas_rhs=True, gamma=0.1),
     dict(projection_method="pallas", variable_rho=True),
     dict(dct_precision="default"),
@@ -162,16 +163,20 @@ def test_bad_configs_raise():
         pt.RMTConfig(grid=g, not_a_field=1.0)
     for bad in (dict(rmt_method="fast"), dict(reinit_method="bogus"),
                 dict(map_rebase_minj=0.5, map_rebase_rebuild="bogus"),
-                dict(st_method="bogus"), dict(st_curvature="bogus")):
+                dict(st_method="bogus"), dict(st_curvature="bogus"),
+                dict(bc_type="dirichlet")):
         with pytest.raises(ValueError):
             pt.make_step(pt.RMTConfig(grid=g, **bad), pt.make_lid_bc(1.0),
                          (DISC,), device=DEV)
     with pytest.raises(ValueError):  # 1 layer cannot cover the blend band
         pt.make_step(pt.RMTConfig(grid=g, num_layers=1), pt.make_lid_bc(1.0),
                      (DISC,), device=DEV)
-    with pytest.raises(NotImplementedError):  # no solid (modules item 18)
-        pt.make_step(pt.RMTConfig(grid=g), pt.make_lid_bc(1.0), (),
-                     device=DEV)
+    # no solid is the pure-fluid step (it was modules item 18)
+    step = pt.make_step(pt.RMTConfig(grid=g, mu_f=0.01), pt.make_lid_bc(1.0),
+                        (), dtype=torch.float64, device=DEV)
+    s, aux = step(pt.make_init_state(pt.RMTConfig(grid=g), (),
+                                     dtype=torch.float64, device=DEV), 1.0)
+    assert aux["J"].shape == (0, 16, 16) and float(s.u.abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("bad", [dict(st_method="bogus"),

@@ -237,7 +237,8 @@ def test_gravity_moves_the_heavier_discs_down():
 
 def test_configs_of_the_slice_build():
     """Two solids with contact and gravity build on both tiers; three
-    solids too; surface tension and zero solids still raise."""
+    solids too; surface tension still raises; with zero solids the same
+    configuration is the pure-fluid step, which gravity leaves at rest."""
     g = pt.Grid(32, 32, 1.0, 1.0)
     three = T_PHIS + (pt.Disc(0.52, 0.8, 0.12),)
     for extra in ({}, dict(phi_area_fix=True), dict(reinit_method="pde")):
@@ -250,5 +251,9 @@ def test_configs_of_the_slice_build():
     with pytest.raises(NotImplementedError, match="item 19"):
         pt.make_step(dataclasses.replace(cfg, gamma=0.1), pt.free_slip_box_bc,
                      T_PHIS, device=DEV)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        pt.make_step(cfg, pt.free_slip_box_bc, (), device=DEV)
+    step = pt.make_step(cfg, pt.free_slip_box_bc, (), dtype=torch.float64,
+                        device=DEV)
+    s, aux = step(pt.make_init_state(cfg, (), dtype=torch.float64,
+                                     device=DEV), 1.0)
+    assert aux["J"].shape == (0, 32, 32) and int(s.step) == 1
+    assert float(s.u.abs().max()) == 0.0 == float(s.v.abs().max())
