@@ -22,15 +22,20 @@ another sm_90a card) and the CUDA toolkit. Phases:
      periodic instantiation on overlap-consistent operands (with and
      without the force, eta_s 0 and 0.01) at N=256, 65x65, 129x129,
      203x301, 9x300 and 33x49 in both types and at N=1024 and 4096
-     float32; then the times
+     float32; the new modes of the two solid blocks at every one of those
+     sizes (MODES: rmt_block with the bicubic final sample, band-guarded
+     and raw, in the band-mode stress, and with two solids and the bicubic
+     sample; advext_block with the bicubic sample, guarded and raw); then
+     the times
      of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block,
      advext_block and extrapolate_fused also with every tile skipping; the
      two contact modes, the periodic instantiation beside the lid's, and
-     the FFT solve of the periodic projection, cuFFT, at N=1024), and the
-     kernels and device-busy ms per step of phases 4, 4b, 4c, 5, 8, 10 and
-     11's configurations (20 steps each);
+     the FFT solve of the periodic projection, cuFFT, at N=1024; the new
+     modes beside the bilinear rows), and the kernels and device-busy ms
+     per step of phases 4, 4b, 4c, 4d, 5, 8, 10 and 11's configurations (20
+     steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -38,6 +43,11 @@ another sm_90a card) and the CUDA toolkit. Phases:
      stencil kernels): 20 warm-up steps, one under sync-debug, 200 timed;
   4c. the same with momentum_method='xla', use_pallas_rhs=True added (the
      one-RHS kernel at each RK4 stage in place of the RK4 kernel);
+  4d. the flagship with sl_interp='bicubic' (bench.py --bicubic: the
+     bicubic instantiation of rmt_block, band-guarded) and with
+     stress_band=True, num_layers=4 (benchmarks/soft_disc_in_lid_driven.py's
+     setting: rmt_block's band mode): 20 warm-up steps, one under
+     sync-debug, 200 timed with the launch counts checked;
   5. the split tier at full width: the flagship with the area fix and PDE
      reinitialisation, 20 warm-up steps, one under sync-debug, 200 timed;
   6. rebasing at full width: make_rebase_runner on the flagship with
@@ -50,8 +60,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      area fix + PDE reinit with the projection's stencil kernels, for the
      contact configuration with touching contact bands, for it with
      gravity on the split tier (area fix), for the flagship on the
-     doubly-periodic box (bench.py --periodic), and with no solid for the
-     lid-driven cavity and the periodic Taylor-Green vortex;
+     doubly-periodic box (bench.py --periodic), with no solid for the
+     lid-driven cavity and the periodic Taylor-Green vortex, and for the
+     bicubic sample (the flagship, area fix on the split tier, the
+     periodic flagship) and the band-mode stress;
   8. contact: the head-on collision of two soft discs
      (benchmarks/two_disc_contact.py: free-slip box, k_rep = 2, the
      two-solid clamp 4) at N=1024 float32: 20 warm-up steps, one under
@@ -145,6 +157,8 @@ HAS_CONTACT = "stress_clamp" in inspect.signature(
     rb.rmt_block_fused).parameters
 HAS_PERIODIC = "periodic" in inspect.signature(
     mk.momentum_rk4_fused).parameters
+# The bicubic sample and the band-mode stress?
+HAS_BICUBIC = "sl_interp" in inspect.signature(rb.rmt_block_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -207,6 +221,13 @@ WORK = {  # name: (fields read, fields written, operations per cell)
     # written), the force without Kelvin-Voigt (u, v, p, three stresses,
     # Hf, rho and the two force fields read)
     "rmt_block, two solids": (6, 19, 400),
+    # the bicubic sample: 2 x 16 taps, their min/max and 10 cubic
+    # convolutions of ~12 operations a cell more than the bilinear one
+    "rmt_block, bicubic": (4, 12, 400),
+    "rmt_block, raw bicubic": (4, 12, 400),
+    "rmt_block, two solids bicubic": (6, 19, 800),
+    "advext_block, bicubic": (5, 2, 350),
+    "advext_block, raw bicubic": (5, 2, 350),
     "momentum_rk4, force": (10, 2, 400),
     "momentum_rk4_periodic": (9, 2, 400),
     # the periodic projection's FFT solve (a library call, cuFFT): rhs read,
@@ -221,6 +242,17 @@ WORK = {  # name: (fields read, fields written, operations per cell)
 # the profile rows of the contact configuration's modes: {row: kernel}
 CONTACT_MODES = {"rmt_block, two solids": "rmt_block",
                  "momentum_rk4, force": "momentum_rk4"}
+# the solid blocks' modes of the bicubic sample and the band-mode stress:
+# {profile row: kernel}; their bound is the bilinear rows' bytes (the same
+# fields read and written), with the bicubic sample's operations added
+MODES = {"rmt_block, bicubic": "rmt_block",
+         "rmt_block, raw bicubic": "rmt_block",
+         "rmt_block, band": "rmt_block",
+         "rmt_block, two solids bicubic": "rmt_block",
+         "advext_block, bicubic": "advext_block",
+         "advext_block, raw bicubic": "advext_block"}
+# the band guard of the flagship's bicubic sample: sl_band_guard's 3 cells
+GUARD_CELLS = 3.0
 # profile rows whose wrapper runs PyTorch kernels beside its own (the
 # periodic wrapper's periodic_bc, a few copies): {row: a part of the name
 # of its own device kernel}, which alone makes the row's device time
@@ -230,6 +262,10 @@ F32_OPS_PER_S = 67e12
 # the opt-in switches of phases 4c and 7
 BOTH_SWITCHES = dict(projection_method="pallas", momentum_method="xla",
                      use_pallas_rhs=True)
+# phase 4d's configurations: bench.py --bicubic, and the band-mode stress
+# of benchmarks/soft_disc_in_lid_driven.py
+NEW_CONFIGS = {"flagship bicubic": dict(sl_interp="bicubic"),
+               "flagship band": dict(stress_band=True, num_layers=4)}
 PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
                    momentum_rk4_impl=momentum_core,
                    advext_impl=rb.advext_block_plain,
@@ -242,10 +278,12 @@ OUT_NAMES = ("X1e", "X2e", "phi", "sxx", "sxy", "syy", "J", "Hf", "rho",
 
 
 def flagship(N, **overrides):
-    """The flagship configuration of __graft_entry__._flagship."""
-    return RMTConfig(grid=Grid(Nx=N, Ny=N, Lx=1.0, Ly=1.0), mu_s=0.1,
-                     eta_s=0.01, rho_s=1.0, mu_f=0.01, rho_f=1.0,
-                     num_layers=3, CFL=0.2, dt_min_cap=1e-3, **overrides)
+    """The flagship configuration of __graft_entry__._flagship, with
+    overrides."""
+    fields = dict(mu_s=0.1, eta_s=0.01, rho_s=1.0, mu_f=0.01, rho_f=1.0,
+                  num_layers=3, CFL=0.2, dt_min_cap=1e-3)
+    return RMTConfig(grid=Grid(Nx=N, Ny=N, Lx=1.0, Ly=1.0),
+                     **dict(fields, **overrides))
 
 
 def contact_config(N, **overrides):
@@ -418,15 +456,48 @@ def kernel_inputs(shape, dtype, device, seed=0, disc=FLAGSHIP_DISC):
                      disc=disc, p_corr=t(p_corr), fx=t(fx), fy=t(fy))
 
 
-def rmt_call(fn, cfg, d):
+def rmt_call(fn, cfg, d, **mode):
     return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["dt"],
               phi_inits=(d["disc"],), dx=cfg.grid.dx, dy=cfg.grid.dy,
-              num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"])
+              num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"],
+              **mode)
 
 
-def advext_call(fn, cfg, d):
+def advext_call(fn, cfg, d, **mode):
     return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["phis"], d["dt"],
-              dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=cfg.num_layers)
+              dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=cfg.num_layers,
+              **mode)
+
+
+def sample_mode(cfg, guarded=True):
+    """The bicubic final sample's keywords: band-guarded with the step's
+    default guard (GUARD_CELLS cells of the coarser spacing), or raw."""
+    g = cfg.grid
+    return dict(sl_interp="bicubic",
+                sl_guard=GUARD_CELLS * max(g.dx, g.dy) if guarded else None)
+
+
+def mode_calls(cfg, d, ccfg, cd):
+    """{MODES row: (wrapper, its plain version, a call of either)}: the
+    solid blocks' new modes on kernel_inputs' operands (the band mode with
+    the step's stress_band choice, w_cut = w_t and detg_clamp) and, for two
+    solids, contact_kernel_inputs'."""
+    band = dict(stress_w_cut=cfg.w_t, stress_clamp=cfg.detg_clamp)
+    rmt = (rb.rmt_block_fused, rb.rmt_block_plain)
+    adv = (rb.advext_block_fused, rb.advext_block_plain)
+    return {
+        "rmt_block, bicubic": (*rmt, lambda f: rmt_call(
+            f, cfg, d, **sample_mode(cfg))),
+        "rmt_block, raw bicubic": (*rmt, lambda f: rmt_call(
+            f, cfg, d, **sample_mode(cfg, False))),
+        "rmt_block, band": (*rmt, lambda f: rmt_call(f, cfg, d, **band)),
+        "rmt_block, two solids bicubic": (*rmt, lambda f: contact_rmt_call(
+            f, ccfg, cd, **sample_mode(ccfg))),
+        "advext_block, bicubic": (*adv, lambda f: advext_call(
+            f, cfg, d, **sample_mode(cfg))),
+        "advext_block, raw bicubic": (*adv, lambda f: advext_call(
+            f, cfg, d, **sample_mode(cfg, False))),
+    }
 
 
 def extrap_call(fn, cfg, d):
@@ -475,11 +546,11 @@ def contact_kernel_inputs(shape, dtype, device, seed=0):
                      X2s=X2.to(dtype).contiguous(), params=params)
 
 
-def contact_rmt_call(fn, cfg, d):
+def contact_rmt_call(fn, cfg, d, **mode):
     return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["dt"],
               phi_inits=TOUCHING_DISCS, dx=cfg.grid.dx, dy=cfg.grid.dy,
               num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"],
-              stress_clamp=cfg.two_solid_clamp)
+              stress_clamp=cfg.two_solid_clamp, **mode)
 
 
 def contact_momentum_args(cfg, d, rmt_out, eta_s):
@@ -547,20 +618,28 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
         f" {str(dtype)[6:]}" + ("" if disc == FLAGSHIP_DISC else " edge disc")
     worst = {}
 
-    def hold(name, outs, kern, plain, tol_f32=TOL_F32_RMT):
+    def hold(name, outs, kern, plain, tol_f32=TOL_F32_RMT, row=None):
         torch.cuda.synchronize()
         for out_name, a, b in zip(outs, kern, plain):
             if not bool(torch.isfinite(b).all()):
                 raise AssertionError(f"plain {name} {out_name} is not finite")
             err, scale = max_errs(a, b)
-            check_close(f"{tag} {name} {out_name}", err, scale, f64, tol_f32)
-            worst[name] = max(worst.get(name, 0.0), err)
+            check_close(f"{tag} {row or name} {out_name}", err, scale, f64,
+                        tol_f32)
+            for key in (name, row):
+                if key is not None:
+                    worst[key] = max(worst.get(key, 0.0), err)
 
     plain = rmt_call(rb.rmt_block_plain, cfg, d)
     hold("rmt_block", OUT_NAMES, rmt_call(rb.rmt_block_fused, cfg, d), plain)
     hold("advext_block", ("X1e", "X2e"),
          advext_call(rb.advext_block_fused, cfg, d),
          advext_call(rb.advext_block_plain, cfg, d))
+    # the new modes of both solid blocks, at every size
+    ccfg, cd = contact_kernel_inputs(shape, dtype, device)
+    for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd).items():
+        outs = OUT_NAMES if MODES[row] == "rmt_block" else ("X1e", "X2e")
+        hold(MODES[row], outs, call(kern), call(ref), row=row)
     hold("extrapolate_fused", ("X1e", "X2e"),
          extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
          extrap_call(extrapolate_reference_map, cfg, d))
@@ -599,7 +678,6 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
 
     # the contact configuration's modes: two solids with the clamp, and
     # the force of contact and gravity
-    ccfg, cd = contact_kernel_inputs(shape, dtype, device)
     cplain = contact_rmt_call(rb.rmt_block_plain, ccfg, cd)
     hold("rmt_block", [f"two solids {n}" for n in OUT_NAMES],
          contact_rmt_call(rb.rmt_block_fused, ccfg, cd), cplain)
@@ -654,6 +732,9 @@ def time_kernels(N, device, reps=20):
     pairs["momentum_rk4_periodic"] = (
         lambda: mk.momentum_rk4_fused(*pargs, bcs.periodic_bc, **pkw),
         lambda: momentum_core(*pargs, bcs.periodic_bc, **pkw))
+    ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
+    for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd).items():
+        pairs[row] = (lambda k=kern, c=call: c(k), lambda r=ref, c=call: c(r))
     times = {}
     for name, (kernel, plain) in pairs.items():
         p1 = time_ms(plain, reps)
@@ -743,6 +824,11 @@ def kernel_calls(N, device):
                 *pargs, bcs.periodic_bc, **pkw),
             "solve_poisson_fft": lambda: solve_poisson_fft(rhs_fft, eig),
         }
+    modes = {}
+    if HAS_BICUBIC:
+        ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
+        modes = {row: (lambda k=kern, c=call: c(k)) for row, (kern, _, call)
+                 in mode_calls(cfg, d, ccfg, cd).items()}
     return {
         "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
         # the map far from the disc everywhere: every tile takes the skip
@@ -763,6 +849,7 @@ def kernel_calls(N, device):
             ef.extrapolate_reference_map_fused, cfg, far),
         **contact,
         **periodic,
+        **modes,
     }
 
 
@@ -787,6 +874,9 @@ def step_groups(device, steps=20, warmup=10):
         configs.append((
             "contact", contact_config(1024), CONTACT_DISCS, free_slip_box_bc,
             lambda cfg: contact_state(cfg, CONTACT_DISCS, **kw)))
+    if HAS_BICUBIC:
+        configs += [(name, flagship(1024, **over), *flag)
+                    for name, over in NEW_CONFIGS.items()]
     if HAS_PERIODIC:
         configs.append((
             "periodic", flagship(1024, bc_type="periodic"), (FLAGSHIP_DISC,),
@@ -1171,8 +1261,8 @@ def main() -> int:
             errs["momentum_rk4_periodic"], compare_periodic(N, f32, device))
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
-    for name in (*KERNELS, *CONTACT_MODES):
-        want = DEVICE_KERNELS.get(name, 1)
+    for name in (*KERNELS, *CONTACT_MODES, *MODES):
+        want = DEVICE_KERNELS.get(MODES.get(name, name), 1)
         if prof[1024][name][1] != want or prof[4096][name][1] != want:
             raise AssertionError(
                 f"one {name} call ran {prof[1024][name][1]:g} device "
@@ -1219,6 +1309,24 @@ def main() -> int:
         for name in reported:
             main_launches[name] = launches[name]
 
+    # 4d. the flagship with the bicubic sample and with the band-mode stress
+    mode_launches = {}
+    for tag, overrides in NEW_CONFIGS.items():
+        _, state, aux, launches, wall, dt_sum, t0 = run_flagship(
+            1024, device, warmup=20, steps=steps, **overrides)
+        min_J, advanced = check_run(
+            tag, state, aux, launches,
+            expected_launches(rmt_block=steps, momentum_rk4=steps), dt_sum,
+            t0)
+        mode_launches[tag] = launches["rmt_block"]
+        print(f"[modes] {tag} {overrides} N=1024 float32: {steps} steps in "
+              f"{wall:.3f} s = {steps / wall:.1f} steps/s, "
+              f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
+              f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
+              f"launches {launches}; t advanced {advanced:.6f}; min J over "
+              f"the solid {min_J:.4f}; " + profile_line(step_prof[tag], wall,
+                                                       steps))
+
     # 5. the split tier at full width
     steps = 200
     cfg, state, aux, launches, wall, dt_sum, t0 = run_flagship(
@@ -1254,6 +1362,7 @@ def main() -> int:
     main_launches["extrapolate_fused"] = rebase["launches"]
 
     # 7. kernel path vs plain path
+    mode_paths = {}
     for what, overrides in (
             ("flagship", {}),
             ("area fix + PDE reinit",
@@ -1275,8 +1384,25 @@ def main() -> int:
             ("periodic flagship (bench.py --periodic)",
              dict(case="periodic")),
             ("lid-driven cavity, no solid", dict(case="lid")),
-            ("periodic Taylor-Green, no solid", dict(case="tg"))):
+            ("periodic Taylor-Green, no solid", dict(case="tg")),
+            ("flagship, bicubic sample (bench.py --bicubic)",
+             dict(sl_interp="bicubic")),
+            ("flagship, band-mode stress, num_layers=4",
+             dict(stress_band=True, num_layers=4)),
+            ("area fix, bicubic sample (split tier)",
+             dict(phi_area_fix=True, sl_interp="bicubic")),
+            ("periodic flagship, bicubic sample",
+             dict(case="periodic", sl_interp="bicubic")),
+            # the modes no timed phase runs: raw bicubic on both tiers, two
+            # solids with the bicubic sample
+            ("flagship, raw bicubic sample",
+             dict(sl_interp="bicubic", sl_band_guard=0.0)),
+            ("area fix, raw bicubic sample",
+             dict(phi_area_fix=True, sl_interp="bicubic", sl_band_guard=0.0)),
+            ("contact, bicubic sample",
+             dict(contact=True, sl_interp="bicubic"))):
         path_errs, path_launches = compare_paths(128, device, **overrides)
+        mode_paths[what] = path_launches
         print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
               f"path: " + ", ".join(f"{k} {e:.2e}"
                                     for k, e in path_errs.items())
@@ -1418,6 +1544,35 @@ def main() -> int:
             "bound_us": bound_us(row, 1024)[0],
             "device_us_N4096": prof[4096][row][0],
             "bound_us_N4096": bound_us(row, 4096)[0]}
+    # each solid block's modes: the entry itself is the flagship's (the
+    # bilinear sample, the interior-mode stress); a mode's launches are
+    # phase 4d's timed run's where it has one, else its [paths] run's
+    mode_runs = {
+        "rmt_block, bicubic": ("4d", mode_launches["flagship bicubic"]),
+        "rmt_block, band": ("4d", mode_launches["flagship band"]),
+        "rmt_block, raw bicubic": ("paths", mode_paths[
+            "flagship, raw bicubic sample"]["rmt_block"]),
+        "rmt_block, two solids bicubic": ("paths", mode_paths[
+            "contact, bicubic sample"]["rmt_block"]),
+        "advext_block, bicubic": ("paths", mode_paths[
+            "area fix, bicubic sample (split tier)"]["advext_block"]),
+        "advext_block, raw bicubic": ("paths", mode_paths[
+            "area fix, raw bicubic sample"]["advext_block"])}
+    for name, mode in (("rmt_block", "bilinear, interior stress"),
+                       ("advext_block", "bilinear")):
+        next(k for k in kernels if k["name"] == name)["mode"] = mode
+    for row, name in MODES.items():
+        entry = next(k for k in kernels if k["name"] == name)
+        phase, n = mode_runs[row]
+        entry.setdefault("modes", []).append({
+            "mode": row.split(", ")[1], "launches": n,
+            "launches_from": phase,
+            "max_abs_err": errs[row], "ms": times[row][0],
+            "plain_ms": times[row][1],
+            "bound_ms": 1e-3 * bound_us(row, 1024)[0],
+            "device_us": prof[1024][row][0],
+            "device_us_N4096": prof[4096][row][0],
+            "bound_us_N4096": bound_us(row, 4096)[0]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

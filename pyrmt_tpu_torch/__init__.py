@@ -46,6 +46,12 @@ from pyrmt_tpu_torch.kernels.projection_stencils import (
     rc_rhs_fused,
 )
 from pyrmt_tpu_torch.ops.contact import compute_contact_force
+from pyrmt_tpu_torch.ops.interp import (
+    bicubic_interpolate,
+    cubic_convolution,
+    gather_bicubic_local,
+    gather_bicubic_multi,
+)
 from pyrmt_tpu_torch.ops.levelset import Disc, apply_phi_BCs
 from pyrmt_tpu_torch.ops.poisson import (
     precompute_poisson_eigenvalues_periodic,
@@ -70,16 +76,20 @@ __all__ = [
     "RMTConfig",
     "SimState",
     "apply_phi_BCs",
+    "bicubic_interpolate",
     "compute_contact_force",
     "compute_kinetic_energy",
     "compute_strain_energy",
     "compute_viscous_dissipation",
+    "cubic_convolution",
     "disc_centroid",
     "diverged",
     "divergence_2d_interior",
     "external_forces",
     "extract_centerlines",
     "free_slip_box_bc",
+    "gather_bicubic_local",
+    "gather_bicubic_multi",
     "grad_correct_fused",
     "load_checkpoint",
     "load_snapshot",

@@ -1,10 +1,11 @@
 // The RMT solid pipeline of one step, on Hopper, in two entry points:
 //
 // pyrmt_rmt_block_*  the fused tier, in one launch: rebuild,
-//   shared-backtrace semi-Lagrangian RK4 advection, mask, layer-synchronous
-//   least-squares extrapolation, rebuild, neo-Hookean stress and J (det G
-//   clamped to [1/c, c] where the step clamps it: two solids and more),
-//   smoothed Heaviside and the mixture blends. S solids (1 to kMaxSolids),
+//   shared-backtrace semi-Lagrangian RK4 advection (bilinear or bicubic
+//   final sample), mask, layer-synchronous least-squares extrapolation,
+//   rebuild, neo-Hookean stress and J (interior or band mode; det G
+//   clamped to [1/c, c] where the step clamps it: two solids and more, or
+//   the band mode), smoothed Heaviside and the mixture blends. S solids (1 to kMaxSolids),
 //   each shaped as a Disc given by runtime scalars. Replaces
 //   pyrmt_tpu/kernels/rmt_block.py::rmt_block_fused (the pl.pallas_call at
 //   rmt_block.py:825); plain version
@@ -20,10 +21,11 @@
 // the state (X1, X2, known) of a panel of the tile plus 4L+1 cells each
 // side in shared memory (L = num_layers; the panels, tiles and layer
 // sweeps are panel_device.cuh's, shared with extrapolate_fused.cu):
-//   vote     is any cell of the panel widened by 1 solid (phi = disc(X)
-//            <= 0, or not finite) or fast enough that a backtrace may not
-//            be finite (|u| or |v| times 8 max(1, |dt|/dx, |dt|/dy) not
-//            below the type's largest value; dt not finite counts too)?
+//   vote     is any cell of the panel widened by the final sample's reach
+//            (1 cell, 2 for bicubic) solid (phi = disc(X) <= 0, or not
+//            finite) or fast enough that a backtrace may not be finite
+//            (|u| or |v| times 8 max(1, |dt|/dx, |dt|/dy) not below the
+//            type's largest value; dt not finite counts too)?
 //            __syncthreads_or over the block.
 //   skip     if not, every mask and known flag that can reach the tile is
 //            0, so the pipeline yields the zero map there exactly: the
@@ -34,16 +36,19 @@
 //            The tile-activity skip of the Pallas kernel
 //            (rmt_block.py:632-685), made exact for non-finite inputs too.
 //   advect   phi0 = disc(X) -> RK4 backtrace through three bilinear samples
-//            of (u, v) -> bilinear sample of X1, X2 -> times mask
-//            (phi0 <= 0); known = phi0 < 0: over the whole panel, reading
-//            u, v from the vote's copy and X1, X2 within +-1 cell
+//            of (u, v) -> bilinear sample of X1, X2 (bicubic: see below)
+//            -> times mask (phi0 <= 0); known = phi0 < 0: over the whole
+//            panel, reading u, v (panel widened by 1) from the vote's copy
+//            and X1, X2 from device memory within +-1 cell (+-2)
 //   layers   L sweeps ping-ponging the panel's state in shared memory; a
 //            sweep reads a 9x9 window, so sweep l is computed 4l cells in
 //            from the panel's inner edges. The frontier cells (a thin ring)
 //            are listed first and solved by consecutive threads: one lane
 //            per warp doing a 9x9 window sum wasted the other 31.
 //   post     phi = disc(Xe); stress with one-sided differences next to
-//            fluid (interior cells only); H(phi); Hf, rho, (1-H) sigma;
+//            fluid over phi <= 0 (interior mode), or central differences
+//            over phi < w_cut (band mode: a runtime operand, one uniform
+//            branch), interior cells only; H(phi); Hf, rho, (1-H) sigma;
 //            written for the tile's own cells (reads Xe at +-1)
 // With S >= 2 solids (a second instantiation; S = 1 compiles to the code
 // above) a tile runs vote, skip or advect, layers and post once per solid
@@ -66,6 +71,35 @@
 // resident block, and the blocks walk over the tiles (2 per SM), so every
 // num_layers runs.
 //
+// The bicubic final sample (kBicubic, a template parameter of both tile
+// kernels, so that the bilinear instantiations keep their code): the
+// 4x4 Catmull-Rom stencil of ops/interp.py::gather_bicubic_local at each
+// panel cell, clamped to its taps' min/max, each tap's global index
+// clipped into the grid (rmt_device.cuh's Bicubic); with the band guard
+// the bilinear sample where the target cell's pre-advection phi0 is not
+// below -sl_guard. The stage samples of (u, v) stay bilinear.
+//   halo     stays 4L + 1. The final sample reads X1, X2 from device
+//            memory, not from the panel, so its wider reach costs reads,
+//            not halo: the sweeps consume the advected map only at panel
+//            cells, each computed whole. (The Pallas kernel's 4L + 4 halo
+//            closes exactly for bicubic because its slab holds X itself.)
+//   vote     widened to the panel plus 2: every map value that a panel
+//            cell's sample reads. Raw bicubic samples a fluid cell too
+//            (times mask 0), and a non-finite map value within +-2 makes
+//            that NaN in the plain version. With the guard on, every
+//            fluid target (phi0 > 0 >= -sl_guard) takes the bilinear
+//            sample, within +-1; the one rule serves both. A finite
+//            phi = |X - c| - R bounds |X| (by ~1.8e19 in float32), far
+//            below what a Catmull-Rom sum (at most 144 times its largest
+//            tap) needs to stay finite, so the fused tier's phi test
+//            covers overflow too; the split tier reads phi as a field, so
+//            its pre-pass tests |X| * 256 against the largest value.
+//   rounding cubic_convolution's terms in the plain version's order;
+//            min, max and clamp propagate NaN as torch.minimum,
+//            torch.maximum and torch.clamp do; -sl_guard and w_cut are
+//            doubles rounded to T once, as PyTorch rounds a Python scalar
+//            compared with a tensor.
+//
 // The split tier's entry, pyrmt_advext_*, runs the same panels and layer
 // sweeps (panel_device.cuh) with phi read from the S fields phis[s], in one
 // tile kernel, after a pre-pass for its skip:
@@ -74,16 +108,18 @@
 //            0, a map value past half the type's largest, a velocity past
 //            the backtrace's bound); each input read once
 //   vote     a tile is active if dt is not finite or any flag over the
-//            panel widened by the advection's +-1 is set (at most 9 x 9
-//            bytes read: the flags dilated by the panel's reach, 8 cells
-//            coarse); an inactive tile writes X1e = X2e = 0 for every solid,
+//            panel widened by the final sample's reach (+-1, bicubic +-2)
+//            is set (at most 9 x 9 bytes read: the flags dilated by the
+//            panel's reach, 8 cells coarse); an inactive tile writes
+//            X1e = X2e = 0 for every solid,
 //            the plain version's value there (mask 0, no known cell, an
 //            empty frontier, 0 * finite = 0), and moves on
 //   advect   u, v over the widened panel into shared memory, the RK4
 //            backtrace once per cell for all S solids (the plain version
 //            advects the stack of all maps with one backtrace); per solid,
-//            the masked sample of X1s[s], X2s[s] with phis[s] (for S > 1
-//            the displacements wait in u and v's place)
+//            the masked sample of X1s[s], X2s[s] with phis[s], bilinear or
+//            bicubic with the guard taken from phis[s] (for S > 1 the
+//            displacements wait in u and v's place)
 //   layers   the fused tier's L sweeps, then the tile's own cells of
 //            x1e[s], x2e[s]
 // The pre-pass replaced a vote inside the tile kernel over the widened
@@ -92,7 +128,8 @@
 //
 // What bounds the fused tier on the H100: the byte bound is 2 + 2S fields
 // read and 7S + 5 written per cell (16 fields, 20.0 us at N=1024 float32
-// for S = 1; 25 and 31.3 us for S = 2); the kernel runs well above it
+// for S = 1; 25 and 31.3 us for S = 2; the bicubic and band modes move the
+// same fields, so the same bound); the kernel runs well above it
 // (PERF.md), held back by the skip tiles (a vote that reads four fields
 // over 3.5x the tile's cells, then the stores; per solid), by the tiles at
 // a disc, which recompute the backtrace over 3.3x their cells, and for
@@ -111,6 +148,7 @@
 namespace {
 
 using pyrmt::Disc;
+using pyrmt::Guard;
 using pyrmt::flag_bytes;
 using pyrmt::flag_cols;
 using pyrmt::for_panel;
@@ -143,6 +181,16 @@ struct Discs {
 template <typename T>
 struct Clamp {
   T lo, hi;
+  bool on;
+};
+
+// The stress's band mode (ops/stress.py, w_cut > 0): where on, the stress
+// is taken over phi < w_cut (w_cut rounded to T as the plain version's
+// comparison rounds it) with central differences on both axes; where off,
+// the interior mode.
+template <typename T>
+struct Band {
+  T w_cut;
   bool on;
 };
 
@@ -196,24 +244,32 @@ struct Post {
 
 // The post stage at cell (j, i), element n of a map whose rows are sy
 // apart: phi = disc(Xe); the interior-mode stress with one-sided
-// differences where exactly one neighbour along the axis is fluid; the
-// smoothed Heaviside and the one-solid blends.
+// differences where exactly one neighbour along the axis is fluid, or the
+// band mode's central differences over phi < w_cut (no disc evaluated at
+// the neighbours); the smoothed Heaviside and the one-solid blends.
 template <typename T>
 __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
                            int j, int i, int Ny, int Nx, const Disc<T>& disc,
                            T mu_s, T kappa, T rho_s, T rho_f, double dx,
-                           double dy, double w_t, const Clamp<T>& clamp) {
+                           double dy, double w_t, const Clamp<T>& clamp,
+                           const Band<T>& band) {
   const T x1 = X1[n], x2 = X2[n];
   const T ph = disc(x1, x2);
   T s_xx = T(0), s_xy = T(0), s_yy = T(0), jac = T(1);
   bool interior = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
-  if (interior && ph <= T(0)) {
+  if (interior && (band.on ? ph < band.w_cut : ph <= T(0))) {
     const size_t e = n + 1, w = n - 1, no = n + sy, so = n - sy;
     const T inv_dx = static_cast<T>(1.0 / dx), inv_dy = static_cast<T>(1.0 / dy);
     const T inv_2dx = static_cast<T>(1.0 / (2.0 * dx));
     const T inv_2dy = static_cast<T>(1.0 / (2.0 * dy));
-    bool lf = disc(X1[w], X2[w]) > T(0), rf = disc(X1[e], X2[e]) > T(0);
-    bool bf = disc(X1[so], X2[so]) > T(0), tf = disc(X1[no], X2[no]) > T(0);
+    // band mode: no neighbour counts as fluid, so both axes are central
+    bool lf = false, rf = false, bf = false, tf = false;
+    if (!band.on) {
+      lf = disc(X1[w], X2[w]) > T(0);
+      rf = disc(X1[e], X2[e]) > T(0);
+      bf = disc(X1[so], X2[so]) > T(0);
+      tf = disc(X1[no], X2[no]) > T(0);
+    }
     T g11, g21, g12, g22;
     if (lf && !rf) {
       g11 = (X1[e] - x1) * inv_dx;
@@ -268,23 +324,25 @@ __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
           omh * s_xx, omh * s_xy, omh * s_yy};
 }
 
-// A panel widened by the advection's +-1 reads, clipped to [0, n).
-__device__ inline Span widen(Span s, int n) {
-  s.lo = max(0, s.lo - 1);
-  s.hi = min(n, s.hi + 1);
+// A panel widened by r cells (the advection's reads), clipped to [0, n).
+__device__ inline Span widen(Span s, int n, int r = 1) {
+  s.lo = max(0, s.lo - r);
+  s.hi = min(n, s.hi + r);
   return s;
 }
 
-// The fused tier's tile kernel (the source note above); kMulti: S >= 2.
-template <typename T, bool kMulti>
+// The fused tier's tile kernel (the source note above); kMulti: S >= 2;
+// kBicubic: the bicubic final sample.
+template <typename T, bool kMulti, bool kBicubic>
 __global__ void __launch_bounds__(kThreads, 2)
     rmt_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ X1, const T* __restrict__ X2,
                     const T* __restrict__ dt_ptr,
                     const T* __restrict__ params, Discs<T> discs, int S,
-                    Clamp<T> clamp, Outs<T> o, int Ny, int Nx, double dx,
-                    double dy, int L, double w_t, Taps<T> tp, int tile,
-                    unsigned char* ws, size_t panel_stride) {
+                    Clamp<T> clamp, Band<T> band, Guard<T> guard, Outs<T> o,
+                    int Ny, int Nx, double dx, double dy, int L, double w_t,
+                    Taps<T> tp, int tile, unsigned char* ws,
+                    size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
@@ -303,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T zero[9] = {};
   auto zero_post = [&](const Disc<T>& disc, int at) {
     return post_at<T>(zero, zero, 4, 3, at, at, 3, 3, disc, mu_s, kappa,
-                      rho_s, rho_f, dx, dy, w_t, clamp);
+                      rho_s, rho_f, dx, dy, w_t, clamp, band);
   };
   Post<T> zero_in = zero_post(discs.d[0], 1);
   Post<T> zero_edge = zero_post(discs.d[0], 0);
@@ -351,6 +409,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
     const Span oy = own(ys), ox = own(xs);
     const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
+    // the vote's reach: the final sample's, +-2 for bicubic
+    const Span ry = kBicubic ? widen(ys, Ny, 2) : vy;
+    const Span rx = kBicubic ? widen(xs, Nx, 2) : vx;
 
     for (int s = 0; s < (kMulti ? S : 1); ++s) {
       const Disc<T> disc = discs.d[s];
@@ -361,14 +422,22 @@ __global__ void __launch_bounds__(kThreads, 2)
         zero_edge = zero_post(disc, 0);
       }
 
-      // vote over the panel widened by the advection's +-1 reads, keeping
-      // u and v there for the backtrace
+      // vote over the panel widened by the final sample's reach, keeping
+      // u and v over the panel widened by 1 for the backtrace
       bool active = dt_bad;
-      for_panel(vy, vx, 0, [&](int lj, int li) {
-        const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
+      for_panel(ry, rx, 0, [&](int lj, int li) {
+        const size_t g = static_cast<size_t>(ry.lo + lj) * Nx + (rx.lo + li);
         const T ug = u[g], vg = v[g];
-        P.us[lj * (W + 2) + li] = ug;
-        P.vs[lj * (W + 2) + li] = vg;
+        if constexpr (kBicubic) {
+          const int vj = ry.lo + lj - vy.lo, vi = rx.lo + li - vx.lo;
+          if (vj >= 0 && vj < vy.size() && vi >= 0 && vi < vx.size()) {
+            P.us[vj * (W + 2) + vi] = ug;
+            P.vs[vj * (W + 2) + vi] = vg;
+          }
+        } else {
+          P.us[lj * (W + 2) + li] = ug;
+          P.vs[lj * (W + 2) + li] = vg;
+        }
         const T ph = disc(X1s[g], X2s[g]);
         active |= !(ph > T(0) && ph <= big && fabs(ug) * vscale < big &&
                     fabs(vg) * vscale < big);
@@ -394,8 +463,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         T sx, sy;
         pyrmt::backtrace_at<T>(ut, vt, dt, j, i, Ny, Nx, dx, dy, sx, sy);
         bool known;
-        pyrmt::masked_sample<T>(x1g, x2g, sx, sy, disc(X1s[g], X2s[g]), j, i,
-                                Ny, Nx, P.x1(0)[l], P.x2(0)[l], known);
+        pyrmt::masked_sample<T, kBicubic>(x1g, x2g, sx, sy,
+                                          disc(X1s[g], X2s[g]), j, i, Ny, Nx,
+                                          P.x1(0)[l], P.x2(0)[l], known, guard);
         P.known(0)[l] = known;
       });
       __syncthreads();
@@ -409,7 +479,7 @@ __global__ void __launch_bounds__(kThreads, 2)
              post_at<T>(P.x1(e), P.x2(e),
                         static_cast<size_t>(j - ys.lo) * W + (i - xs.lo), W,
                         j, i, Ny, Nx, disc, mu_s, kappa, rho_s, rho_f, dx,
-                        dy, w_t, clamp));
+                        dy, w_t, clamp, band));
       });
       __syncthreads();  // before the next solid or tile overwrites the panel
     }
@@ -418,26 +488,29 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // Can a cell's inputs reach the split tier's output only as its zero map
 // (X1e = X2e = 0 where no solid is near)? Every phis[s] > 0; every map value
-// at most half the type's largest, so that a bilinear sample of them stays
-// finite; |u| and |v| below the backtrace's bound.
-template <typename T>
+// small enough that a sample of them stays finite: at most half the type's
+// largest for the bilinear one (its weights sum to 1), a 256th for the
+// bicubic one (a Catmull-Rom row of values up to M stays within 12 M, the
+// column of rows within 144 M); |u| and |v| below the backtrace's bound.
+template <typename T, bool kBicubic>
 __device__ bool quiet_at(T ug, T vg, const T* __restrict__ X1s,
                          const T* __restrict__ X2s,
                          const T* __restrict__ phis, size_t g, size_t N,
                          int S, T vscale) {
   const T big = largest<T>();
+  const T grow = kBicubic ? T(256) : T(2);
   bool q = (fabs(ug) * vscale < big) & (fabs(vg) * vscale < big);
   for (int s = 0; s < S; ++s) {
     const size_t n = s * N + g;
-    q &= (phis[n] > T(0)) & (fabs(X1s[n]) * T(2) < big) &
-         (fabs(X2s[n]) * T(2) < big);
+    q &= (phis[n] > T(0)) & (fabs(X1s[n]) * grow < big) &
+         (fabs(X2s[n]) * grow < big);
   }
   return q;
 }
 
 // The split tier's pre-pass: flags[fj, fi] = 1 where some cell of the 8x8
 // cells (fj, fi) is not quiet_at, else 0 (panel_device.cuh's flag_pass).
-template <typename T>
+template <typename T, bool kBicubic>
 __global__ void __launch_bounds__(kFlagTile * kFlag)
     advext_flag_kernel(const T* __restrict__ u, const T* __restrict__ v,
                        const T* __restrict__ X1s, const T* __restrict__ X2s,
@@ -448,14 +521,15 @@ __global__ void __launch_bounds__(kFlagTile * kFlag)
   const T vscale = vote_scale<T>(*dt_ptr, dx, dy);
   const size_t N = static_cast<size_t>(Ny) * Nx;
   pyrmt::flag_pass<1>(flags, Ny, Nx, [&](size_t g) {
-    return quiet_at<T>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale) ? 0u
-                                                                     : 1u;
+    return quiet_at<T, kBicubic>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale)
+               ? 0u
+               : 1u;
   });
 }
 
 // The split tier's tile kernel (the source note above). flags: the
-// pre-pass's.
-template <typename T>
+// pre-pass's; kBicubic: the bicubic final sample.
+template <typename T, bool kBicubic>
 __global__ void __launch_bounds__(kThreads, 2)
     advext_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                        const T* __restrict__ X1s, const T* __restrict__ X2s,
@@ -464,8 +538,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const unsigned char* __restrict__ flags,
                        T* __restrict__ x1e, T* __restrict__ x2e, int S,
                        int Ny, int Nx, double dx, double dy, int L,
-                       Taps<T> tp, int tile, unsigned char* ws,
-                       size_t panel_stride) {
+                       Guard<T> guard, Taps<T> tp, int tile,
+                       unsigned char* ws, size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
@@ -484,12 +558,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
     const Span oy = own(ys), ox = own(xs);
     const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
+    // the vote's reach: the final sample's, +-2 for bicubic
+    const Span ry = kBicubic ? widen(ys, Ny, 2) : vy;
+    const Span rx = kBicubic ? widen(xs, Nx, 2) : vx;
 
     // vote: the pre-pass's flags over the widened panel
     bool active = dt_bad;
-    const int fy0 = vy.lo / kFlag, fx0 = vx.lo / kFlag;
-    const int fw = (vx.hi - 1) / kFlag + 1 - fx0;
-    const int nf = ((vy.hi - 1) / kFlag + 1 - fy0) * fw;
+    const int fy0 = ry.lo / kFlag, fx0 = rx.lo / kFlag;
+    const int fw = (rx.hi - 1) / kFlag + 1 - fx0;
+    const int nf = ((ry.hi - 1) / kFlag + 1 - fy0) * fw;
     for (int f = tid; f < nf; f += kThreads)
       active |= flags[static_cast<size_t>(fy0 + f / fw) * flag_cols(Nx) +
                       fx0 + f % fw] != 0;
@@ -519,10 +596,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       const size_t l = static_cast<size_t>(lj) * W + li;
       const size_t n = s * N + static_cast<size_t>(j) * Nx + i;
       bool known;
-      pyrmt::masked_sample<T>(Rows<T>{X1s + s * N, static_cast<size_t>(Nx), 0, 0},
-                              Rows<T>{X2s + s * N, static_cast<size_t>(Nx), 0, 0},
-                              sx, sy, phis[n], j, i, Ny, Nx, P.x1(0)[l],
-                              P.x2(0)[l], known);
+      pyrmt::masked_sample<T, kBicubic>(
+          Rows<T>{X1s + s * N, static_cast<size_t>(Nx), 0, 0},
+          Rows<T>{X2s + s * N, static_cast<size_t>(Nx), 0, 0}, sx, sy,
+          phis[n], j, i, Ny, Nx, P.x1(0)[l], P.x2(0)[l], known, guard);
       P.known(0)[l] = known;
     };
     // the backtrace, once per cell for every solid: with one solid its
@@ -584,29 +661,58 @@ long long workspace_bytes(int Ny, int Nx, int num_layers, int sms) {
   return pyrmt::workspace_bytes<T>(Ny, Nx, 4 * num_layers + 1, true, sms);
 }
 
-// One instantiation's launch (kMulti: S >= 2).
-template <typename T, bool kMulti>
-int launch_tiles(const T* u, const T* v, const T* X1, const T* X2,
-                 const T* dt, const T* params, const Discs<T>& discs, int S,
-                 const Clamp<T>& clamp, const Outs<T>& o, void* ws, int Ny,
-                 int Nx, double dx, double dy, int num_layers, double w_t,
-                 const double* taps, int sms, void* stream_ptr) {
+// The fused tier's runtime operands, gathered for one instantiation's
+// launch.
+template <typename T>
+struct Fused {
+  const T *u, *v, *X1, *X2, *dt, *params;
+  Discs<T> discs;
+  int S;
+  Clamp<T> clamp;
+  Band<T> band;
+  Guard<T> guard;
+  Outs<T> o;
+  void* ws;
+  int Ny, Nx;
+  double dx, dy;
+  int num_layers;
+  double w_t;
+  const double* taps;
+  int sms;
+  void* stream;
+};
+
+// One instantiation's launch (kMulti: S >= 2; kBicubic: the bicubic final
+// sample).
+template <typename T, bool kMulti, bool kBicubic>
+int launch_tiles(const Fused<T>& a) {
   static size_t allowed = 48 * 1024;
-  const Plan p = rmt_plan<T>(num_layers);
+  const Plan p = rmt_plan<T>(a.num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti>, smem, allowed);
+  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti, kBicubic>, smem,
+                              allowed);
   if (err) return err;
-  rmt_tile_kernel<T, kMulti><<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy),
-                               smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      u, v, X1, X2, dt, params, discs, S, clamp, o, Ny, Nx, dx, dy,
-      num_layers, w_t, pyrmt::load_taps<T>(taps), p.tile,
-      p.in_smem ? nullptr : static_cast<unsigned char*>(ws), p.bytes);
+  rmt_tile_kernel<T, kMulti, kBicubic>
+      <<<num_blocks(p, a.Ny, a.Nx, a.sms), dim3(kBx, kBy), smem,
+         static_cast<cudaStream_t>(a.stream)>>>(
+          a.u, a.v, a.X1, a.X2, a.dt, a.params, a.discs, a.S, a.clamp,
+          a.band, a.guard, a.o, a.Ny, a.Nx, a.dx, a.dy, a.num_layers, a.w_t,
+          pyrmt::load_taps<T>(a.taps), p.tile,
+          p.in_smem ? nullptr : static_cast<unsigned char*>(a.ws), p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
 
+template <typename T, bool kMulti>
+int launch_sampler(const Fused<T>& a, bool bicubic) {
+  return bicubic ? launch_tiles<T, kMulti, true>(a)
+                 : launch_tiles<T, kMulti, false>(a);
+}
+
 // discs: S (x0, y0, R) host triples; clamp: det G's upper end, 0 for no
-// clamp, clamp_lo its lower end (1.0 / clamp in double); ws:
+// clamp, clamp_lo its lower end (1.0 / clamp in double); w_cut: the band
+// mode's cut, 0 for the interior mode; bicubic: the final sample, with
+// guarded the band guard bicubic where phi0 < guard_thr (-sl_guard); ws:
 // workspace_bytes(...) bytes of device memory (unused when 0); sms: the
 // card's SM count.
 template <typename T>
@@ -614,22 +720,21 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            const T* params, const Outs<T>& o, void* ws, int S,
            const double* discs, int Ny, int Nx, double dx, double dy,
            int num_layers, double w_t, double clamp, double clamp_lo,
+           double w_cut, int bicubic, int guarded, double guard_thr,
            const double* taps, int sms, void* stream_ptr) {
   if (S < 1 || S > kMaxSolids) return static_cast<int>(cudaErrorInvalidValue);
-  Discs<T> d{};
+  Fused<T> a{u, v, X1, X2, dt, params, Discs<T>{}, S,
+             Clamp<T>{static_cast<T>(clamp_lo), static_cast<T>(clamp),
+                      clamp > 0.0},
+             Band<T>{static_cast<T>(w_cut), w_cut > 0.0},
+             Guard<T>{static_cast<T>(guard_thr), guarded != 0}, o, ws, Ny, Nx,
+             dx, dy, num_layers, w_t, taps, sms, stream_ptr};
   for (int s = 0; s < S; ++s)
-    d.d[s] = Disc<T>{static_cast<T>(discs[3 * s]),
-                     static_cast<T>(discs[3 * s + 1]),
-                     static_cast<T>(discs[3 * s + 2])};
-  const Clamp<T> c{static_cast<T>(clamp_lo), static_cast<T>(clamp),
-                   clamp > 0.0};
-  if (S == 1)
-    return launch_tiles<T, false>(u, v, X1, X2, dt, params, d, S, c, o, ws,
-                                  Ny, Nx, dx, dy, num_layers, w_t, taps, sms,
-                                  stream_ptr);
-  return launch_tiles<T, true>(u, v, X1, X2, dt, params, d, S, c, o, ws, Ny,
-                               Nx, dx, dy, num_layers, w_t, taps, sms,
-                               stream_ptr);
+    a.discs.d[s] = Disc<T>{static_cast<T>(discs[3 * s]),
+                           static_cast<T>(discs[3 * s + 1]),
+                           static_cast<T>(discs[3 * s + 2])};
+  return S == 1 ? launch_sampler<T, false>(a, bicubic != 0)
+                : launch_sampler<T, true>(a, bicubic != 0);
 }
 
 // The split tier's device scratch: the skip flags, then the panels'
@@ -641,30 +746,32 @@ long long advext_scratch_bytes(int Ny, int Nx, int num_layers, int sms) {
 }
 
 // Split tier: the pre-pass, then the tile kernel. dt on the device;
-// scratch: advext_scratch_bytes(...) bytes.
-template <typename T>
+// scratch: advext_scratch_bytes(...) bytes; kBicubic: the bicubic final
+// sample under guard.
+template <typename T, bool kBicubic>
 int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                   const T* phis, const T* dt, T* x1e, T* x2e, void* scratch,
                   int S, int Ny, int Nx, double dx, double dy, int num_layers,
-                  const double* taps, int sms, void* stream_ptr) {
+                  const Guard<T>& guard, const double* taps, int sms,
+                  void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Plan p = rmt_plan<T>(num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(advext_tile_kernel<T>, smem, allowed);
+  int err = pyrmt::allow_smem(advext_tile_kernel<T, kBicubic>, smem, allowed);
   if (err) return err;
   unsigned char* flags = static_cast<unsigned char*>(scratch);
   unsigned char* ws = flags + flag_bytes(Ny, Nx);
   const dim3 grid(pyrmt::tiles_for(Nx, kFlagTile),
                   pyrmt::tiles_for(Ny, kFlagTile));
-  advext_flag_kernel<T><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
+  advext_flag_kernel<T, kBicubic><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
       u, v, X1s, X2s, phis, dt, flags, S, Ny, Nx, dx, dy);
   PYRMT_RETURN_IF_ERROR();
-  advext_tile_kernel<T><<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy), smem,
-                          stream>>>(
-      u, v, X1s, X2s, phis, dt, flags, x1e, x2e, S, Ny, Nx, dx, dy,
-      num_layers, pyrmt::load_taps<T>(taps), p.tile,
-      p.in_smem ? nullptr : ws, p.bytes);
+  advext_tile_kernel<T, kBicubic>
+      <<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy), smem, stream>>>(
+          u, v, X1s, X2s, phis, dt, flags, x1e, x2e, S, Ny, Nx, dx, dy,
+          num_layers, guard, pyrmt::load_taps<T>(taps), p.tile,
+          p.in_smem ? nullptr : ws, p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
@@ -681,12 +788,14 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                       T* sbxy, T* sbyy, void* ws, int S, const double* discs, \
                       int Ny, int Nx, double dx, double dy, int num_layers,   \
                       double w_t, double clamp, double clamp_lo,              \
-                      const double* taps, int sms, void* stream) {            \
+                      double w_cut, int bicubic, int guarded,                 \
+                      double guard_thr, const double* taps, int sms,          \
+                      void* stream) {                                         \
     const Outs<T> o{x1e, x2e, phi, sxx, sxy, syy, J, Hf, rho, sbxx, sbxy,     \
                     sbyy};                                                    \
     return launch<T>(u, v, X1, X2, dt, params, o, ws, S, discs, Ny, Nx, dx,   \
-                     dy, num_layers, w_t, clamp, clamp_lo, taps, sms,         \
-                     stream);                                                 \
+                     dy, num_layers, w_t, clamp, clamp_lo, w_cut, bicubic,    \
+                     guarded, guard_thr, taps, sms, stream);                  \
   }
 
 PYRMT_RMT_ENTRY(pyrmt_rmt_block_f32, pyrmt_rmt_block_workspace_f32, float)
@@ -700,10 +809,17 @@ PYRMT_RMT_ENTRY(pyrmt_rmt_block_f64, pyrmt_rmt_block_workspace_f64, double)
   extern "C" int NAME(const T* u, const T* v, const T* X1s, const T* X2s,     \
                       const T* phis, const T* dt, T* x1e, T* x2e,             \
                       void* scratch, int S, int Ny, int Nx, double dx,        \
-                      double dy, int num_layers, const double* taps, int sms, \
+                      double dy, int num_layers, int bicubic, int guarded,    \
+                      double guard_thr, const double* taps, int sms,          \
                       void* stream) {                                         \
-    return launch_advext<T>(u, v, X1s, X2s, phis, dt, x1e, x2e, scratch, S,   \
-                            Ny, Nx, dx, dy, num_layers, taps, sms, stream);   \
+    const Guard<T> g{static_cast<T>(guard_thr), guarded != 0};                \
+    return bicubic ? launch_advext<T, true>(u, v, X1s, X2s, phis, dt, x1e,    \
+                                            x2e, scratch, S, Ny, Nx, dx, dy,  \
+                                            num_layers, g, taps, sms, stream) \
+                   : launch_advext<T, false>(u, v, X1s, X2s, phis, dt, x1e,   \
+                                             x2e, scratch, S, Ny, Nx, dx, dy, \
+                                             num_layers, g, taps, sms,        \
+                                             stream);                         \
   }
 
 PYRMT_ADVEXT_ENTRY(pyrmt_advext_f32, pyrmt_advext_scratch_f32, float)

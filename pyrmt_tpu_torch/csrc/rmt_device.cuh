@@ -4,10 +4,13 @@
 // extrapolation); the panels and the layer sweeps over them are
 // panel_device.cuh's:
 //   Bilinear       ops/interp.py::gather_bilinear_local at one cell
+//   Bicubic        ops/interp.py::gather_bicubic_local at one cell
 //   backtrace_at   the shared RK4 backtrace of the map at one cell
 //   masked_sample  the advected map at one cell times the mask (phi <= 0),
 //                  and the known flag (phi < 0), given the cell's
-//                  pre-advection phi
+//                  pre-advection phi: the bilinear final sample, or with
+//                  kBicubic the bicubic one (bilinear where the band guard
+//                  rejects the cell)
 //   frontier_at, layer_at
 //                  one layer-synchronous least-squares extrapolation step at
 //                  one cell of a shared-memory panel
@@ -104,6 +107,89 @@ struct Bilinear {
   }
 };
 
+// torch.minimum, torch.maximum and torch.clamp(x, lo_tensor, hi_tensor) on
+// the card: a NaN operand gives NaN (fmin and fmax alone drop it).
+template <typename T>
+__device__ inline T nan_min(T a, T b) {
+  return a != a ? a : (b != b ? b : fmin(a, b));
+}
+template <typename T>
+__device__ inline T nan_max(T a, T b) {
+  return a != a ? a : (b != b ? b : fmax(a, b));
+}
+template <typename T>
+__device__ inline T nan_clamp(T x, T lo, T hi) {
+  return x != x ? x : (lo != lo ? lo : (hi != hi ? hi : fmin(fmax(x, lo), hi)));
+}
+
+// ops/interp.py::cubic_convolution, the terms in its order.
+template <typename T>
+__device__ inline T cubic_convolution(T v0, T v1, T v2, T v3, T t) {
+  const T a0 = T(-0.5) * v0 + T(1.5) * v1 - T(1.5) * v2 + T(0.5) * v3;
+  const T a1 = v0 - T(2.5) * v1 + T(2) * v2 - T(0.5) * v3;
+  const T a2 = T(-0.5) * v0 + T(0.5) * v2;
+  return ((a0 * t + a1) * t + a2) * t + v1;
+}
+
+// ops/interp.py::gather_bicubic_local at one cell: the displacement clipped
+// and the query clamped as Bilinear does, the 4x4 stencil based at i - 1
+// (i - 2 where the clipped displacement is negative) along each axis, every
+// tap's global index clipped into [0, N - 1] (the plain version's
+// edge-replicating shifts), Catmull-Rom row by row, then down the rows,
+// clamped to the 16 taps' min/max. Reads within +-2 cells. Where the band
+// guard rejects the cell, the bilinear sample at the clipped displacement
+// (Bilinear re-clips it, as the plain version's fallback does) replaces it.
+template <typename T>
+struct Bicubic {
+  int r[4], c[4];  // the stencil's rows and columns
+  T fx, fy, sx, sy;
+  int j, i, Ny, Nx;
+  bool finite;
+
+  __device__ Bicubic(int j_, int i_, T sx_, T sy_, int Ny_, int Nx_)
+      : j(j_), i(i_), Ny(Ny_), Nx(Nx_) {
+    finite = isfinite(sx_) && isfinite(sy_);
+    if (!finite) sx_ = sy_ = T(0);
+    const T lo = static_cast<T>(-1.0 + 1e-6), hi = static_cast<T>(1.0 - 1e-6);
+    sx_ = clampf(sx_, lo, hi);
+    sy_ = clampf(sy_, lo, hi);
+    const T gx = static_cast<T>(i), gy = static_cast<T>(j);
+    T x = clampf(gx + sx_, T(0), static_cast<T>(Nx - 1.0));
+    T y = clampf(gy + sy_, T(0), static_cast<T>(Ny - 1.0));
+    sx = x - gx;
+    sy = y - gy;
+    const bool neg_x = sx < T(0), neg_y = sy < T(0);
+    fx = neg_x ? sx + T(1) : sx;
+    fy = neg_y ? sy + T(1) : sy;
+    const int bx = i - (neg_x ? 2 : 1), by = j - (neg_y ? 2 : 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      r[k] = clampi(by + k, 0, Ny - 1);
+      c[k] = clampi(bx + k, 0, Nx - 1);
+    }
+  }
+
+  // the bicubic sample, or with use_bilinear the bilinear one
+  __device__ T operator()(const Rows<T>& f, bool use_bilinear) const {
+    if (!finite) return static_cast<T>(NAN);
+    if (use_bilinear) return Bilinear<T>(j, i, sx, sy, Ny, Nx)(f);
+    T lo = T(0), hi = T(0), rows[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      T v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        v[n] = f(r[m], c[n]);
+        lo = m == 0 && n == 0 ? v[n] : nan_min(lo, v[n]);
+        hi = m == 0 && n == 0 ? v[n] : nan_max(hi, v[n]);
+      }
+      rows[m] = cubic_convolution(v[0], v[1], v[2], v[3], fx);
+    }
+    return nan_clamp(cubic_convolution(rows[0], rows[1], rows[2], rows[3], fy),
+                     lo, hi);
+  }
+};
+
 // The RK4 backtrace of the map at cell (j, i) through three bilinear
 // samples of (u, v), each read within +-1 cell: the displacement (sx, sy),
 // in cells, of the final sample. One backtrace serves every field that
@@ -127,18 +213,37 @@ __device__ void backtrace_at(const Rows<T>& u, const Rows<T>& v, T dt, int j,
   sy = sixth * (k1y + T(2) * k2y + T(2) * k3y + k4y) * inv_dy;
 }
 
-// The advected map at cell (j, i) from its backtrace's displacement: the
-// bilinear sample of X1, X2 (read within +-1 cell) times mask (phi0 <= 0);
-// known = phi0 < 0, phi0 being the cell's pre-advection level set.
+// The band guard of the bicubic final sample: bicubic where the cell's
+// pre-advection phi0 < thr (thr = -sl_guard, rounded to T as the plain
+// version's comparison rounds it), bilinear elsewhere; everywhere bicubic
+// where off (raw bicubic).
 template <typename T>
+struct Guard {
+  T thr;
+  bool on;
+};
+
+// The advected map at cell (j, i) from its backtrace's displacement: the
+// bilinear sample of X1, X2 (read within +-1 cell), or with kBicubic the
+// bicubic one under the guard (within +-2), times mask (phi0 <= 0);
+// known = phi0 < 0, phi0 being the cell's pre-advection level set.
+template <typename T, bool kBicubic>
 __device__ void masked_sample(const Rows<T>& X1, const Rows<T>& X2, T sx,
                               T sy, T phi0, int j, int i, int Ny, int Nx,
-                              T& x1a, T& x2a, bool& known) {
+                              T& x1a, T& x2a, bool& known,
+                              const Guard<T>& guard) {
   const T mask = phi0 <= T(0) ? T(1) : T(0);
   known = phi0 < T(0);
-  Bilinear<T> bf(j, i, sx, sy, Ny, Nx);
-  x1a = bf(X1) * mask;
-  x2a = bf(X2) * mask;
+  if constexpr (kBicubic) {
+    const Bicubic<T> bc(j, i, sx, sy, Ny, Nx);
+    const bool bilinear = guard.on && !(phi0 < guard.thr);
+    x1a = bc(X1, bilinear) * mask;
+    x2a = bc(X2, bilinear) * mask;
+  } else {
+    Bilinear<T> bf(j, i, sx, sy, Ny, Nx);
+    x1a = bf(X1) * mask;
+    x2a = bf(X2) * mask;
+  }
 }
 
 // Is cell (j, i), element n of known flags (bytes) whose rows are sy

@@ -9,13 +9,17 @@ The fused tier (``rmt_block_fused``), per solid i of S:
     X1a, X2a = advect(X1, X2; u, v, dt) * (phi <= 0)
     X1e, X2e = extrapolate(X1a, X2a, phi)     (num_layers sweeps)
     phi2  = phi_init(X1e, X2e)
-    sigma, J = solid_cauchy_stress(X1e, X2e, phi2)   (interior mode; with
-               stress_clamp > 0 det G clamped to [1/clamp, clamp], the
-               step's two-solid collision clamp)
+    sigma, J = solid_cauchy_stress(X1e, X2e, phi2)   (interior mode, or
+               with stress_w_cut > 0 the band mode; with stress_clamp > 0
+               det G clamped to [1/clamp, clamp]: the band mode's clamp or
+               the step's two-solid collision clamp)
     H     = smoothed_heaviside(phi2, w_t)
 
 followed by the mixture sums Hf = sum_i H_i - (S - 1), rho and
-sum_i (1 - H_i) sigma_i. The
+sum_i (1 - H_i) sigma_i. The advection's final sample is bilinear, or with
+``sl_interp='bicubic'`` bicubic: with ``sl_guard`` (physical units) only
+where the target cell's pre-advection phi < -sl_guard, bilinear elsewhere
+(the band guard); with ``sl_guard=None`` everywhere (raw bicubic). The
 split tier's kernel A (``advext_block_fused``) runs only the advection and
 the extrapolation, with the pre-advection phi given: the step rebuilds,
 reinitialises and area-fixes phi around it. Both kernels are entry points
@@ -44,17 +48,33 @@ advext_launches = 0
 # The most solids the fused tier's kernel takes: their discs are kernel
 # arguments (kMaxSolids in csrc/rmt_block.cu).
 MAX_SOLIDS = 16
+# The advection's final samples: a template parameter of both tile kernels.
+SL_INTERPS = ("bilinear", "bicubic")
 
 
-def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
+def _check_interp(sl_interp):
+    if sl_interp not in SL_INTERPS:
+        raise ValueError(f"unknown sl_interp {sl_interp!r}: expected one of "
+                         f"{SL_INTERPS}")
+
+
+def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
+                       sl_interp="bilinear", sl_guard=None):
     """The split tier's advect and extrapolate block: the shared SL-RK4
-    backtrace of the (S, Ny, Nx) map stacks, times the mask (phis <= 0),
-    then ``num_layers`` extrapolation sweeps from the known cells
-    (phis < 0). Returns the stacks (X1e, X2e)."""
+    backtrace of the (S, Ny, Nx) map stacks, sampled by ``sl_interp`` under
+    the band guard ``sl_guard`` (bicubic where phis < -sl_guard), times the
+    mask (phis <= 0), then ``num_layers`` extrapolation sweeps from the
+    known cells (phis < 0). Returns the stacks (X1e, X2e)."""
+    _check_interp(sl_interp)
     S = X1s.shape[0]
     masks = (phis <= 0.0).to(u.dtype)
+    cubic_mask = None
+    if sl_interp == "bicubic" and sl_guard is not None:
+        guard = phis < -sl_guard  # at each target cell, for both components
+        cubic_mask = torch.cat([guard, guard])
     qs = advect_semilagrangian_rk4_local(
-        torch.cat([X1s, X2s]), u, v, dt, dx, dy)
+        torch.cat([X1s, X2s]), u, v, dt, dx, dy, interp=sl_interp,
+        cubic_mask=cubic_mask)
     X1a, X2a = qs[:S] * masks, qs[S:] * masks
     ext = [extrapolate_reference_map(X1a[i], X2a[i], phis[i], dx, dy,
                                      num_layers) for i in range(S)]
@@ -63,11 +83,14 @@ def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
 
 
 def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
-                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0):
+                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
+                    sl_interp="bilinear", sl_guard=None):
     """The composed ops. ``X1s``/``X2s`` are (S, Ny, Nx) stacks, ``dt`` a
     0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f];
     ``stress_w_cut`` and ``stress_clamp`` select the stress's variant, as
-    ``ops.stress.solid_cauchy_stress``'s ``w_cut`` and ``detg_clamp`` do.
+    ``ops.stress.solid_cauchy_stress``'s ``w_cut`` and ``detg_clamp`` do;
+    ``sl_interp`` and ``sl_guard`` the advection's final sample, as in
+    ``advext_block_plain``.
 
     Returns (X1e, X2e, phis, sxx_s, sxy_s, syy_s, J_s, Hf, rho_local,
     sig_sxx_el, sig_sxy_el, sig_syy_el): seven (S, Ny, Nx) stacks and five
@@ -78,7 +101,8 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     phis = torch.stack([rebuild_phi_from_reference_map(X1s[i], X2s[i], f)
                         for i, f in enumerate(phi_inits)])
     X1e, X2e = advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
-                                  num_layers=num_layers)
+                                  num_layers=num_layers, sl_interp=sl_interp,
+                                  sl_guard=sl_guard)
     phis = torch.stack([rebuild_phi_from_reference_map(X1e[i], X2e[i], f)
                         for i, f in enumerate(phi_inits)])
     stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, mu_s, kappa,
@@ -95,8 +119,8 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
             torch.sum(one_mH * syy, dim=0))
 
 
-def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers,
-                         stress_w_cut):
+def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
+                         num_layers):
     """Raise unless the operands are what the kernel takes; returns the
     discs' (x0, y0, R), one triple per solid."""
     Ny, Nx = u.shape
@@ -110,10 +134,6 @@ def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits, num_layers,
     _build.check_operands("rmt_block", u, {
         "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (S, Ny, Nx)),
         "X2s": (X2s, (S, Ny, Nx)), "dt": (dt, ()), "params": (params, (4,))})
-    if stress_w_cut > 0.0:
-        raise NotImplementedError(
-            "the rmt_block kernel computes the interior-mode stress; the band "
-            "mode (stress_w_cut > 0) waits for ROADMAP modules item 9")
     discs = []
     for f in phi_inits:
         spec = getattr(f, "kernel_spec", None)
@@ -132,14 +152,15 @@ def _cuda_lib():
     lib = _build.load("rmt_block")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
-        fn.argtypes = [P] * 19 + [I, P, I, I, D, D, I, D, D, D, P, I, P]
+        fn.argtypes = [P] * 19 + [I, P, I, I, D, D, I, D, D, D, D, I, I, D,
+                                  P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_rmt_block_workspace_f32,
                lib.pyrmt_rmt_block_workspace_f64):
         fn.argtypes = [I, I, I, I]
         fn.restype = ctypes.c_longlong
     for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
-        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, P, I, P]
+        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, I, I, D, P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_advext_scratch_f32, lib.pyrmt_advext_scratch_f64):
         fn.argtypes = [I] * 4
@@ -147,27 +168,37 @@ def _cuda_lib():
     return lib
 
 
+def _guard_operands(sl_interp, sl_guard):
+    """(bicubic, guarded, the guard's threshold -sl_guard) for a kernel."""
+    bicubic = sl_interp == "bicubic"
+    guarded = bicubic and sl_guard is not None
+    return int(bicubic), int(guarded), -float(sl_guard) if guarded else 0.0
+
+
 def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
-                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0):
+                    w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
+                    sl_interp="bilinear", sl_guard=None):
     """The solid block; same arguments and results as ``rmt_block_plain``.
 
     A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
     CUDA kernel, which takes 1 to ``MAX_SOLIDS`` solids whose level sets
-    carry ``kernel_spec = ('disc', x0, y0, R)``, and the interior-mode
-    stress with or without the clamp; anything else raises. dt and the
-    physics scalars are read on the device, so a call does not wait for
-    the card.
+    carry ``kernel_spec = ('disc', x0, y0, R)``, both stress modes with or
+    without the clamp and both final samples; anything else raises. dt
+    and the physics scalars are read on the device, so a call does not
+    wait for the card.
     """
     global launches
+    _check_interp(sl_interp)
     if u.device.type == "cpu":
         return rmt_block_plain(u, v, X1s, X2s, dt, phi_inits=phi_inits,
                                dx=dx, dy=dy, num_layers=num_layers, w_t=w_t,
                                params=params, stress_w_cut=stress_w_cut,
-                               stress_clamp=stress_clamp)
+                               stress_clamp=stress_clamp, sl_interp=sl_interp,
+                               sl_guard=sl_guard)
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
     discs = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
-                                 num_layers, stress_w_cut)
+                                 num_layers)
     lib = _cuda_lib()
     S = len(discs)
     Ny, Nx = u.shape
@@ -195,26 +226,31 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                                             *stacks, *fields)),
              None if ws is None else _build.pointer(ws), S, disc_args,
              Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
-             clamp, clamp_lo, window_taps(dx, dy), sms,
+             clamp, clamp_lo, max(float(stress_w_cut), 0.0),
+             *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy), sms,
              _build.stream_handle(u.device))
     _build.check(lib, err, "rmt_block kernel launch")
     launches += 1
     return (*stacks, *fields)
 
 
-def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
+def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
+                       sl_interp="bilinear", sl_guard=None):
     """The split tier's advect and extrapolate block; same arguments and
     results as ``advext_block_plain``.
 
     A CPU tensor goes to ``advext_block_plain``. A CUDA tensor goes to the
     CUDA kernel, which takes phi as a field, so any level set and any
-    number of solids; another dtype, shape or device raises. dt is read on
-    the device, so a call does not wait for the card.
+    number of solids, and both final samples; another dtype, shape or
+    device raises. dt is read on the device, so a call does not wait for
+    the card.
     """
     global advext_launches
+    _check_interp(sl_interp)
     if u.device.type == "cpu":
         return advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
-                                  num_layers=num_layers)
+                                  num_layers=num_layers, sl_interp=sl_interp,
+                                  sl_guard=sl_guard)
     if u.device.type != "cuda":
         raise ValueError(f"advext_block: no kernel for device {u.device}")
     Ny, Nx = u.shape
@@ -241,7 +277,8 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers):
     err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, phis, dt, x1e,
                                             x2e, scratch)),
              S, Ny, Nx, float(dx), float(dy), int(num_layers),
-             window_taps(dx, dy), sms, _build.stream_handle(u.device))
+             *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy), sms,
+             _build.stream_handle(u.device))
     _build.check(lib, err, "advext_block kernel launch")
     advext_launches += 1
     return x1e, x2e

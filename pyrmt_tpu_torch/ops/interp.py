@@ -1,6 +1,8 @@
-"""Bilinear sampling (counterpart of ``pyrmt_tpu.ops.interp``): the general
-gather at physical points and the gather-free sampling at sub-cell
-displacements. Bicubic sampling waits for ROADMAP modules item 10.
+"""Bilinear and bicubic (Catmull-Rom) sampling (counterpart of
+``pyrmt_tpu.ops.interp``): the general gathers at physical points and the
+gather-free samplings at sub-cell displacements. The bicubic samples are
+clamped to the min/max of their 4x4 stencil, and a ``cubic_mask`` (the
+reference map's band guard) takes the bilinear sample where it is False.
 """
 from __future__ import annotations
 
@@ -117,3 +119,141 @@ def gather_bilinear_local(us, sx, sy):
 
     out = torch.stack(vals)
     return torch.where(finite[None], out, torch.full_like(out, float("nan")))
+
+
+# The bicubic stencil's shifts: output[j, i] = f[j, i + k] (f[j + k, i]),
+# the index clipped into the grid, which reproduces the gathers' per-index
+# clipping for any overflow. fd's shifts already replicate the edge.
+_shift_x_pad = _shift_x
+_shift_y_pad = _shift_y
+
+
+def cubic_convolution(v0, v1, v2, v3, t):
+    """Catmull-Rom cubic along one axis, with the terms in the JAX
+    package's order (the CUDA sampler rounds the same way)."""
+    a0 = -0.5 * v0 + 1.5 * v1 - 1.5 * v2 + 0.5 * v3
+    a1 = v0 - 2.5 * v1 + 2.0 * v2 - 0.5 * v3
+    a2 = -0.5 * v0 + 0.5 * v2
+    return ((a0 * t + a1) * t + a2) * t + v1
+
+
+def gather_bicubic_local(us, sx, sy, cubic_mask=None):
+    """Bicubic sampling of a stack ``us`` (K, Ny, Nx) at per-cell displaced
+    points (i + sx[j, i], j + sy[j, i]) with |sx|, |sy| < 1.
+
+    The 4x4 stencil is among the 25 edge-clamped shifts of the field by up
+    to +-2, all taken before the per-cell select by the signs of the
+    displacement AT THE OUTPUT CELL (shifting a selected array would read a
+    neighbour's signs). The sample is clamped to its stencil's min/max;
+    where ``cubic_mask`` (bool, broadcastable to the output) is False the
+    bilinear sample at the clipped displacement is taken instead.
+    Displacements are clipped as in ``gather_bilinear_local``; non-finite
+    displacements give NaN.
+    """
+    K, Ny, Nx = us.shape
+    jj = torch.arange(Ny, dtype=sx.dtype, device=sx.device)[:, None]
+    ii = torch.arange(Nx, dtype=sx.dtype, device=sx.device)[None, :]
+
+    finite = torch.isfinite(sx) & torch.isfinite(sy)
+    zero = torch.zeros((), dtype=sx.dtype, device=sx.device)
+    sx = torch.where(finite, sx, zero)
+    sy = torch.where(finite, sy, zero)
+    eps = 1e-6
+    sx = torch.clamp(sx, -1.0 + eps, 1.0 - eps)
+    sy = torch.clamp(sy, -1.0 + eps, 1.0 - eps)
+    x = torch.clamp(ii + sx, 0.0, Nx - 1.0)
+    y = torch.clamp(jj + sy, 0.0, Ny - 1.0)
+    sx = x - ii
+    sy = y - jj
+
+    # floor(i + s): the stencil's base is i - 1 for s < 0, else i
+    neg_x = sx < 0.0
+    neg_y = sy < 0.0
+    fx = torch.where(neg_x, sx + 1.0, sx).to(us.dtype)
+    fy = torch.where(neg_y, sy + 1.0, sy).to(us.dtype)
+
+    vals = []
+    for k in range(K):
+        f = us[k]
+        sh = {}
+
+        def shifted(ky, kx, f=f, sh=sh):
+            if (ky, kx) not in sh:
+                sh[(ky, kx)] = _shift_x_pad(_shift_y_pad(f, ky), kx)
+            return sh[(ky, kx)]
+
+        local_min = local_max = None
+        rows = []
+        for m in range(4):
+            cols = []
+            for n in range(4):
+                v = torch.where(
+                    neg_y,
+                    torch.where(neg_x, shifted(m - 2, n - 2),
+                                shifted(m - 2, n - 1)),
+                    torch.where(neg_x, shifted(m - 1, n - 2),
+                                shifted(m - 1, n - 1)))
+                cols.append(v)
+                local_min = (v if local_min is None
+                             else torch.minimum(local_min, v))
+                local_max = (v if local_max is None
+                             else torch.maximum(local_max, v))
+            rows.append(cubic_convolution(*cols, fx))
+        out = cubic_convolution(*rows, fy)
+        vals.append(torch.clamp(out, local_min, local_max))
+
+    out = torch.stack(vals)
+    if cubic_mask is not None:
+        out = torch.where(cubic_mask, out, gather_bilinear_local(us, sx, sy))
+    return torch.where(finite[None], out, torch.full_like(out, float("nan")))
+
+
+def _bicubic_stencil(us, xq, yq, dx, dy):
+    """The clamped bicubic sample of the stack ``us`` at physical points,
+    and the mask of finite queries: the 4x4 stencil's global indices each
+    clipped into the grid."""
+    K, Ny, Nx = us.shape
+    x, y, finite = _prepare_queries(xq, yq, dx, dy, Nx, Ny)
+    ix = torch.floor(x).to(torch.int64)
+    iy = torch.floor(y).to(torch.int64)
+    fx = (x - ix).to(us.dtype)
+    fy = (y - iy).to(us.dtype)
+
+    rows = []
+    shape = (K,) + tuple(x.shape)
+    local_min = torch.full(shape, float("inf"), dtype=us.dtype,
+                           device=us.device)
+    local_max = torch.full(shape, float("-inf"), dtype=us.dtype,
+                           device=us.device)
+    for m in range(4):
+        yg = torch.clamp(iy - 1 + m, 0, Ny - 1)
+        cols = []
+        for n in range(4):
+            xg = torch.clamp(ix - 1 + n, 0, Nx - 1)
+            v = us[:, yg, xg]
+            cols.append(v)
+            local_min = torch.minimum(local_min, v)
+            local_max = torch.maximum(local_max, v)
+        rows.append(cubic_convolution(*cols, fx))
+    out = cubic_convolution(*rows, fy)
+    return torch.clamp(out, local_min, local_max), finite
+
+
+def gather_bicubic_multi(us, xq, yq, dx, dy, cubic_mask=None):
+    """Bicubic interpolation of a stack ``us`` (K, Ny, Nx) at the same
+    physical query points, with each field's sample clamped to its 4x4
+    stencil's min/max. Where ``cubic_mask`` is False the bilinear sample is
+    taken instead; a non-finite query gives NaN."""
+    out, finite = _bicubic_stencil(us, xq, yq, dx, dy)
+    if cubic_mask is not None:
+        out = torch.where(cubic_mask, out,
+                          gather_bilinear_multi(us, xq, yq, dx, dy))
+    return torch.where(finite, out, float("nan"))
+
+
+def bicubic_interpolate(u, xq, yq, dx, dy):
+    """Bicubic interpolation of ``u`` (Ny, Nx) at the physical points
+    (xq, yq), clamped to the stencil's min/max; a non-finite query gives
+    NaN."""
+    out, finite = _bicubic_stencil(u[None], xq, yq, dx, dy)
+    return torch.where(finite, out[0], float("nan"))

@@ -35,9 +35,12 @@ trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step).
 The step takes no solid (the pure-fluid solver: no solid block, the
 constant blends Hf = 1, rho = rho_f and no solid stress into the RK4
 kernel), one solid or more (two or more with the JAX package's two-solid
-stress: interior mode, det G clamped to ``two_solid_clamp``), pairwise
-contact and gravity, with semi-Lagrangian gather-free bilinear advection
-(CFL < 1), Neumann walls or the doubly-periodic box (the periodic stencils
+stress: interior mode, det G clamped to ``two_solid_clamp``; one solid with
+``stress_band`` the band-mode stress, clamped to ``detg_clamp``), pairwise
+contact and gravity, with semi-Lagrangian gather-free advection (CFL < 1)
+whose final sample is bilinear or, with ``sl_interp='bicubic'``, bicubic
+under the band guard ``sl_band_guard`` (raw with a guard of 0), Neumann
+walls or the doubly-periodic box (the periodic stencils
 in the momentum, the solid block clamped at the edge as in the JAX
 package, so a solid must keep ``periodic_seam_clearance_cells`` from the
 seam) and constant density, and raises NotImplementedError, naming the
@@ -48,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Callable, Sequence
 
 import torch
@@ -65,6 +69,7 @@ from pyrmt_tpu_torch.kernels.projection_stencils import (
     rc_rhs_plain,
 )
 from pyrmt_tpu_torch.kernels.rmt_block import (
+    SL_INTERPS,
     advext_block_fused,
     rmt_block_fused,
 )
@@ -192,10 +197,6 @@ _OUTSIDE_SLICE = (
     ("sl_local=False", lambda c: not c.sl_local, "modules item 14"),
     ("CFL >= 1 (the gather-free backtrace needs CFL < 1)",
      lambda c: c.CFL >= 1.0, "modules item 14"),
-    ("sl_interp='bicubic'", lambda c: c.sl_interp != "bilinear",
-     "modules item 10"),
-    ("stress_band (band-mode stress)", lambda c: c.stress_band,
-     "modules item 9"),
     ("surface tension", lambda c: c.gamma > 1e-12, "modules item 19"),
     ("variable_rho", lambda c: c.variable_rho, "modules item 12"),
 )
@@ -215,6 +216,7 @@ _KNOWN_VALUES = {
     # checked at any gamma, as the JAX package checks them
     "st_method": ("csf", "balanced"),
     "st_curvature": ("fd", "hf"),
+    "sl_interp": SL_INTERPS,
 }
 
 
@@ -303,18 +305,55 @@ def check_periodic_seam_clearance(cfg: RMTConfig, phi_inits, dtype,
 
 def stress_mode(cfg: RMTConfig, S: int) -> tuple[float, float]:
     """(w_cut, detg_clamp) of the solid stress, as the JAX step chooses
-    them (``pyrmt_tpu/sim.py:617-622``): two solids or more take the
-    interior stress with the collision clamp ``two_solid_clamp``, one the
-    interior stress unclamped (its ``stress_band`` mode waits for ROADMAP
-    modules item 9 and raises in ``check_slice``)."""
-    return (0.0, cfg.two_solid_clamp) if S >= 2 else (0.0, 0.0)
+    them (``pyrmt_tpu/sim.py:615-622``): two solids or more take the
+    interior stress with the collision clamp ``two_solid_clamp``; otherwise
+    ``stress_band`` takes the band mode (w_cut = w_t) with the clamp
+    ``detg_clamp``, and without it the interior stress is unclamped."""
+    if S >= 2:
+        return 0.0, cfg.two_solid_clamp
+    return (cfg.w_t, cfg.detg_clamp) if cfg.stress_band else (0.0, 0.0)
+
+
+def sl_band_guard(cfg: RMTConfig):
+    """The bicubic final sample's band guard in physical units, as the JAX
+    step computes it (``pyrmt_tpu/sim.py:866-868``): ``sl_band_guard``
+    cells of the coarser spacing; None for raw bicubic (guard 0) and for
+    the bilinear sample."""
+    g = cfg.grid
+    if cfg.sl_interp == "bicubic" and cfg.sl_band_guard > 0.0:
+        return cfg.sl_band_guard * max(g.dx, g.dy)
+    return None
+
+
+def warn_as_jax(cfg: RMTConfig, need: int) -> None:
+    """The JAX step's two warnings for a solid, in its order
+    (``pyrmt_tpu/sim.py:541-571``): the band-mode stress with fewer than
+    need + 1 extrapolation layers, and the bicubic band guard off the
+    gather-free sub-cell backtrace. ``need`` is ``check_narrow_band``'s
+    count. (While ``sl_local=False`` and CFL >= 1 stay outside the slice,
+    ``check_slice`` raises before the second can fire.)"""
+    if cfg.stress_band and cfg.num_layers < need + 1:
+        warnings.warn(
+            f"stress_band=True with num_layers={cfg.num_layers}: the "
+            f"banded stress reads the outermost extrapolation ring; "
+            f"use num_layers >= {need + 1} (= ceil(w_t/dx)+2) for "
+            f"stability on demanding flows (see benchmarks/README.md).",
+            stacklevel=3)
+    if (cfg.sl_interp == "bicubic" and cfg.sl_band_guard > 0.0
+            and (not cfg.sl_local or cfg.CFL >= 1.0)):
+        warnings.warn(
+            "sl_interp='bicubic' with sl_local=False or CFL >= 1: the "
+            "band guard assumes sub-cell departure displacements and "
+            "can under-cover here — raise sl_band_guard or use "
+            "bilinear.",
+            stacklevel=3)
 
 
 def _rmt_advect_fusible(cfg: RMTConfig, S: int) -> bool:
     """The base conditions of both fused tiers: semi-Lagrangian gather-free
     advection with a sub-cell (CFL < 1) backtrace."""
     return (S >= 1 and cfg.scheme == "semilagrangian" and cfg.sl_local
-            and cfg.sl_interp in ("bilinear", "bicubic") and cfg.CFL < 1.0)
+            and cfg.sl_interp in SL_INTERPS and cfg.CFL < 1.0)
 
 
 def rmt_block_fusible(cfg: RMTConfig, S: int) -> bool:
@@ -459,7 +498,7 @@ def make_step(
     phi_inits = tuple(phi_inits)
     S = len(phi_inits)
     if S > 0:
-        check_narrow_band(cfg.w_t, dx, cfg.num_layers)
+        warn_as_jax(cfg, check_narrow_band(cfg.w_t, dx, cfg.num_layers))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -511,6 +550,7 @@ def make_step(
         cfg, S, X, Y, extrap_impl or extrapolate_reference_map_fused)
         if _rebasing(cfg, S) else None)
     w_cut, clamp = stress_mode(cfg, S)
+    sample = dict(sl_interp=cfg.sl_interp, sl_guard=sl_band_guard(cfg))
     forces = functools.partial(
         body_forces, dx=dx, dy=dy, gamma=cfg.gamma, k_rep=cfg.k_rep,
         w_c=cfg.w_c, w_t=cfg.w_t, g_x=cfg.g_x, g_y=cfg.g_y,
@@ -528,7 +568,7 @@ def make_step(
         if fix_areas is not None:
             phis = fix_areas(phis)
         X1e, X2e = advext_fn(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
-                             num_layers=cfg.num_layers)
+                             num_layers=cfg.num_layers, **sample)
         phis = rebuild_phis(X1e, X2e, phis0)
         if fix_areas is not None:
             phis = fix_areas(phis)
@@ -577,7 +617,7 @@ def make_step(
             block = rmt_fn(u, v, state.X1, state.X2, dt, phi_inits=phi_inits,
                            dx=dx, dy=dy, num_layers=cfg.num_layers,
                            w_t=cfg.w_t, params=params, stress_w_cut=w_cut,
-                           stress_clamp=clamp)
+                           stress_clamp=clamp, **sample)
         (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
          sb_xx, sb_xy, sb_yy) = block
 

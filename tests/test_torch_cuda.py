@@ -293,8 +293,8 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
     _, args, kw = block_inputs(dev)
     with pytest.raises(ValueError):  # a level set without kernel_spec
         rb.rmt_block_fused(*args, **dict(kw, phi_inits=(lambda x, y: x,)))
-    with pytest.raises(NotImplementedError):  # the band-mode stress
-        rb.rmt_block_fused(*args, **dict(kw, stress_w_cut=0.05))
+    with pytest.raises(ValueError):  # a final sample it does not know
+        rb.rmt_block_fused(*args, **dict(kw, sl_interp="bicubic_raw"))
     with pytest.raises(ValueError):  # more solids than the kernel takes
         S = rb.MAX_SOLIDS + 1
         rb.rmt_block_fused(args[0], args[1], args[2].expand(S, -1, -1),
@@ -1142,3 +1142,310 @@ def test_periodic_and_fluid_kernel_paths_match_plain_paths(dev, case):
         diff = getattr(s_k, k) - getattr(s_p, k)
         assert diff.numel() == 0 or float(diff.abs().max()) <= 1e-10, k
     assert float(s_k.u.abs().max()) > 0.1
+
+
+# Bicubic sampling and the band-mode stress: the bicubic instantiations of
+# both tile kernels (band-guarded and raw) and the band mode's runtime
+# branch of rmt_block's post stage. The maps are bent by a smooth third of
+# a cell: on the identity map (linear inside the solid) the bicubic and
+# bilinear samples agree.
+
+GUARDS = {"guarded": 3.0, "raw": None}
+
+
+def bend(cfg, X1s, X2s):
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=X1s.device)
+    h = cfg.grid.dx / 3
+    b1 = h * torch.sin(3 * torch.pi * X) * torch.sin(2 * torch.pi * Y)
+    b2 = h * torch.sin(3 * torch.pi * Y) * torch.sin(2 * torch.pi * X)
+    return ((X1s + b1.to(X1s.dtype)).contiguous(),
+            (X2s - b2.to(X2s.dtype)).contiguous())
+
+
+def sample_kw(cfg, guard):
+    g = GUARDS[guard]
+    return dict(sl_interp="bicubic",
+                sl_guard=None if g is None else g * max(cfg.grid.dx,
+                                                        cfg.grid.dy))
+
+
+def bicubic_block(dev, shape, dtype=torch.float64, disc=DISC,
+                  guard="guarded"):
+    """(rmt_block's arguments, its keywords) with the bicubic sample on the
+    bent map."""
+    cfg, args, kw = block_inputs(dev, shape, dtype, disc)
+    args = [*args[:2], *bend(cfg, args[2], args[3]), args[4]]
+    return args, dict(kw, **sample_kw(cfg, guard))
+
+
+@pytest.mark.parametrize("guard", list(GUARDS))
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_bicubic_kernel_matches_plain(dev, shape, disc, guard):
+    """The fused tier's bicubic instantiation, one launch: float64 to 1e-11
+    (bit for bit expected), float32 to 1e-4 of max(1, |plain|); the edge
+    disc clips the stencil at the domain's edge."""
+    for dtype in DTYPES:
+        args, kw = bicubic_block(dev, shape, dtype, disc, guard)
+        before = rb.launches
+        out = rb.rmt_block_fused(*args, **kw)
+        ref = rb.rmt_block_plain(*args, **kw)
+        assert rb.launches == before + 1
+        if dtype == torch.float32:
+            assert_close_f32(out, ref, 1e-4)
+        else:
+            assert_equal_to_plain(out, ref)
+    if shape == (64, 64):  # the sample is not the bilinear one
+        bil = rb.rmt_block_plain(*args, **dict(kw, sl_interp="bilinear"))
+        assert float((ref[0] - bil[0]).abs().max()) > 1e-6
+
+
+def band_block(dev, shape, dtype=torch.float64, clamp=3.0):
+    """(rmt_block's arguments, its keywords) in band mode (w_cut = w_t)
+    with the clamp, on multi_call's squeezed map of one solid (det G down to
+    ~0.1, so the clamp bites)."""
+    args, kw = multi_call(dev, shape, dtype, (DISC,), clamp)
+    return args, dict(kw, stress_w_cut=kw["w_t"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_band_kernel_matches_plain(dev, shape, dtype):
+    """The band mode (stress_w_cut = w_t, clamp 3), one launch: float64 to
+    1e-11, float32 to 1e-4 of max(1, |plain|)."""
+    args, kw = band_block(dev, shape, dtype)
+    before = rb.launches
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    assert rb.launches == before + 1
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+def test_rmt_block_band_mode_reaches_past_the_solid(dev):
+    """The band mode stresses fluid cells within w_t of the interface
+    (central differences), which the interior mode leaves at 0; its clamp
+    holds J in [1/3, 3]; bit for bit with the plain version in both
+    modes."""
+    args, kw = band_block(dev, (64, 64))
+    band = rb.rmt_block_fused(*args, **kw)
+    interior = rb.rmt_block_fused(*args, **dict(kw, stress_w_cut=0.0,
+                                                stress_clamp=0.0))
+    assert_bit_for_bit(band, rb.rmt_block_plain(*args, **kw))
+    phi, sxx, J = band[2][0], band[3][0], band[6][0]
+    ring = (phi > 0.0) & (sxx != 0.0)
+    assert bool(ring.any()) and float(interior[3][0][ring].abs().max()) == 0
+    assert abs(float(J.max()) - 3.0) <= 1e-12
+    assert abs(float(J.min()) - 1.0 / 3.0) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["bicubic", "band"])
+@pytest.mark.parametrize("case", ["contact", "three"])
+def test_rmt_block_several_solids_bicubic_and_band(dev, case, mode, dtype):
+    """S solids with the clamp and the bicubic sample (the kMulti bicubic
+    instantiation), or in band mode: float64 to 1e-11, float32 to 1e-4."""
+    args, kw = multi_call(dev, (96, 130), dtype, SOLID_CASES[case])
+    if mode == "bicubic":
+        cfg = pt.RMTConfig(grid=pt.Grid(130, 96, 1.0, 1.0))
+        kw = dict(kw, **sample_kw(cfg, "guarded"))
+    else:
+        kw = dict(kw, stress_w_cut=kw["w_t"])
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layers", [1, 7, 12])
+def test_rmt_block_bicubic_takes_any_num_layers(dev, layers, dtype):
+    """The bicubic instantiation on the smaller tiles and on the panels in
+    the device-memory workspace, band mode on top."""
+    args, kw = bicubic_block(dev, (65, 97), dtype, guard="raw")
+    cfg, _, lkw = block_inputs(dev, (65, 97), dtype, num_layers=layers)
+    kw = dict(kw, num_layers=layers, stress_w_cut=lkw["w_t"],
+              stress_clamp=3.0)
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+def advext_bicubic(dev, shape, dtype=torch.float64, disc=DISC,
+                   guard="guarded", solids=None):
+    """(advext_block's arguments, its keywords) with the bicubic sample on
+    the bent maps."""
+    cfg, args = split_inputs(dev, shape, disc, dtype, solids)
+    X1, X2 = bend(cfg, args[2], args[3])
+    return ((*args[:2], X1, X2, *args[4:]),
+            dict(dx=cfg.grid.dx, dy=cfg.grid.dy, num_layers=3,
+                 **sample_kw(cfg, guard)))
+
+
+@pytest.mark.parametrize("guard", list(GUARDS))
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_advext_bicubic_kernel_matches_plain(dev, shape, disc, guard):
+    """The split tier's bicubic instantiation (pre-pass and tile kernel):
+    float64 to 1e-11, float32 to 1e-4 of max(1, |plain|)."""
+    for dtype in DTYPES:
+        args, kw = advext_bicubic(dev, shape, dtype, disc, guard)
+        before = rb.advext_launches
+        out = rb.advext_block_fused(*args, **kw)
+        ref = rb.advext_block_plain(*args, **kw)
+        assert rb.advext_launches == before + 1
+        if dtype == torch.float32:
+            assert_close_f32(out, ref, 1e-4)
+        else:
+            assert_equal_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("guard", list(GUARDS))
+def test_advext_bicubic_takes_two_solids(dev, guard, dtype):
+    """Two solids share the backtrace; each takes its own guard from its
+    own phi."""
+    solids = (DISC, pt.Disc(0.25, 0.3, 0.12))
+    args, kw = advext_bicubic(dev, (96, 130), dtype, guard=guard,
+                              solids=solids)
+    out = rb.advext_block_fused(*args, **kw)
+    ref = rb.advext_block_plain(*args, **kw)
+    if dtype == torch.float32:
+        assert_close_f32(out, ref, 1e-4)
+    else:
+        assert_equal_to_plain(out, ref)
+
+
+# a NaN in the map two cells outside the first 32 x 32 tile, far from the
+# disc at (0.6, 0.5): the raw bicubic sample of a fluid cell next to it is
+# NaN x 0 = NaN in the plain version
+NAN_AT = (5, 33)
+
+
+@pytest.mark.parametrize("what", ["X1_nan_2_out", "X2_inf_2_out", "u_nan",
+                                  "X1_huge", "dt_nan"])
+@pytest.mark.parametrize("guard", list(GUARDS))
+def test_bicubic_tile_skips_are_exact_for_any_input(dev, guard, what):
+    """Both kernels' bicubic skips: a non-finite map up to two cells beyond
+    a tile's reach, a non-finite velocity or dt, or a map value whose
+    bicubic sample could overflow send the tile down the full path, so the
+    kernels give the plain versions' values and NaNs (the guard takes the
+    bilinear sample at fluid cells, where NaN x 0 stays local)."""
+    args, kw = bicubic_block(dev, (160, 160), guard=guard)
+    sargs, skw = advext_bicubic(dev, (160, 160), guard=guard)
+    u, v, X1, X2, dt = [a.clone() for a in args]
+    su, sv, sX1, sX2, phis, sdt = [a.clone() for a in sargs]
+    if what == "X1_nan_2_out":
+        X1[(0, *NAN_AT)] = sX1[(0, *NAN_AT)] = float("nan")
+    elif what == "X2_inf_2_out":
+        X2[(0, *NAN_AT)] = sX2[(0, *NAN_AT)] = float("inf")
+    elif what == "u_nan":
+        u[NAN_AT] = su[NAN_AT] = float("nan")
+    elif what == "X1_huge":  # finite; a Catmull-Rom sum of it may not be
+        X1[(0, *NAN_AT)] = sX1[(0, *NAN_AT)] = 1e306
+    else:
+        dt = torch.full_like(dt, float("nan"))
+        sdt = torch.full_like(sdt, float("nan"))
+    for fn, plain, a, k in (
+            (rb.rmt_block_fused, rb.rmt_block_plain, (u, v, X1, X2, dt), kw),
+            (rb.advext_block_fused, rb.advext_block_plain,
+             (su, sv, sX1, sX2, phis, sdt), skw)):
+        out = fn(*a, **k)
+        ref = plain(*a, **k)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, rtol=0, atol=ATOL,
+                                       equal_nan=True)
+
+
+def between_floats(p, frac):
+    """A double frac of the way from the float32 p to the next float32 up:
+    the plain version's comparison with it rounds it to nearest."""
+    nxt = float(np.nextafter(np.float32(p), np.float32(np.inf)))
+    return float(p) + frac * (nxt - float(p))
+
+
+@pytest.mark.parametrize("frac", [0.4, 0.6])
+def test_thresholds_round_as_the_plain_versions(dev, frac):
+    """The guard's -sl_guard and the band's w_cut are Python doubles that
+    the plain versions compare with a float32 tensor, rounding them to the
+    nearest float32. With the threshold between a cell's phi p and the next
+    float32 up, 0.4 of the way rounds down to p (p < thr is false: the
+    bilinear sample, out of the band) and 0.6 up (true: bicubic, in the
+    band), in the kernels as in the plain versions, bit for bit."""
+    dtype = torch.float32
+
+    def cell_near(phi, target):
+        return tuple(torch.nonzero(
+            (phi - target).abs() == (phi - target).abs().min())[0].tolist())
+
+    # the split tier's guard at a cell's given phi
+    sargs, skw = advext_bicubic(dev, (64, 64), dtype)
+    at = cell_near(sargs[4][0], -1.5 * skw["dx"])
+    skw = dict(skw, sl_guard=-between_floats(float(sargs[4][0][at]), frac))
+    out = rb.advext_block_fused(*sargs, **skw)
+    assert_bit_for_bit(out, rb.advext_block_plain(*sargs, **skw))
+    bil = rb.advext_block_plain(*sargs, **dict(skw, sl_interp="bilinear"))
+    assert bool(out[0][0][at] != bil[0][0][at]) == (frac > 0.5)
+    # the fused tier's guard at a cell's pre-advection phi, disc(X)
+    args, kw = bicubic_block(dev, (64, 64), dtype)
+    phi0 = DISC(args[2][0], args[3][0])
+    at = cell_near(phi0, -1.5 * kw["dx"])
+    kw = dict(kw, sl_guard=-between_floats(float(phi0[at]), frac))
+    out = rb.rmt_block_fused(*args, **kw)
+    assert_bit_for_bit(out, rb.rmt_block_plain(*args, **kw))
+    bil = rb.rmt_block_plain(*args, **dict(kw, sl_interp="bilinear"))
+    assert bool(out[0][0][at] != bil[0][0][at]) == (frac > 0.5)
+    # the band's cut at a rebuilt phi in the band, outside the solid
+    bargs, bkw = band_block(dev, (64, 64), dtype)
+    ref = rb.rmt_block_plain(*bargs, **bkw)
+    cells = torch.nonzero((ref[2][0] > 0) & (ref[3][0] != 0))
+    at = tuple(cells[0].tolist())
+    bkw = dict(bkw, stress_w_cut=between_floats(float(ref[2][0][at]), frac))
+    out = rb.rmt_block_fused(*bargs, **bkw)
+    assert_bit_for_bit(out, rb.rmt_block_plain(*bargs, **bkw))
+    assert bool(out[3][0][at] != 0) == (frac > 0.5)
+
+
+@pytest.mark.parametrize("override", [
+    dict(sl_interp="bicubic"), dict(sl_interp="bicubic", sl_band_guard=0.0),
+    dict(stress_band=True, num_layers=4),
+    dict(sl_interp="bicubic", phi_area_fix=True),
+    dict(sl_interp="bicubic", bc_type="periodic"),
+    dict(stress_band=True, map_rebase_minj=10.0, num_layers=4),
+], ids=["bicubic", "raw_bicubic", "band", "bicubic_split",
+        "bicubic_periodic", "band_rebase"])
+def test_bicubic_and_band_kernel_paths_match_plain_paths(dev, override):
+    """Three float64 steps through the kernels and through the plain
+    versions, within 1e-10, with the new modes on both tiers; the kernel
+    path launches its solid block every step."""
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, **override)
+    kw = dict(dtype=torch.float64, device=dev)
+    periodic = cfg.bc_type == "periodic"
+    bc = pt.periodic_bc if periodic else pt.make_lid_bc(1.0)
+    u0, v0 = tg_velocity(cfg, dev) if periodic else (None, None)
+    step_k = pt.make_step(cfg, bc, (DISC,), **kw)
+    step_p = pt.make_step(cfg, bc, (DISC,), **kw,
+                          rmt_block_impl=rb.rmt_block_plain,
+                          momentum_rk4_impl=momentum_core,
+                          advext_impl=rb.advext_block_plain,
+                          extrap_impl=extrapolate_reference_map)
+    s_k = s_p = pt.make_init_state(cfg, (DISC,), u0=u0, v0=v0, **kw)
+    before = (rb.launches, rb.advext_launches)
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    split = pt.sim.rmt_block_split_eligible(cfg, 1)
+    assert (rb.launches, rb.advext_launches) == (
+        before[0] + (0 if split else 3), before[1] + (3 if split else 0))
+    for k in ("u", "v", "p", "X1", "X2", "t", "phis0"):
+        diff = (getattr(s_k, k) - getattr(s_p, k)).abs()
+        assert diff.numel() == 0 or float(diff.max()) <= 1e-10, k

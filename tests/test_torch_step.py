@@ -135,16 +135,19 @@ def test_fixed_dt():
 
 
 # reinitialisation, the area fix, rebasing, the opt-in RHS and projection
-# kernels, gravity and the periodic box came into the slice: their entries
-# hold them with a feature still outside it
+# kernels, gravity, the periodic box, bicubic sampling and the band-mode
+# stress came into the slice: their entries hold them with a feature still
+# outside it
 @pytest.mark.parametrize("override", [
-    dict(scheme="weno5"), dict(bc_type="periodic", sl_interp="bicubic"),
+    dict(scheme="weno5"),
+    dict(bc_type="periodic", sl_interp="bicubic", gamma=0.1),
     dict(reinit_method="pde", sl_local=False),
-    dict(sl_interp="bicubic"), dict(gamma=0.1),
+    dict(sl_interp="bicubic", sl_local=False), dict(gamma=0.1),
     dict(g_y=-1.0, bc_type="periodic", variable_rho=True),
-    dict(variable_rho=True), dict(stress_band=True),
-    dict(phi_area_fix=True, sl_interp="bicubic"),
-    dict(map_rebase_minj=0.5, bc_type="periodic", stress_band=True),
+    dict(variable_rho=True), dict(stress_band=True, variable_rho=True),
+    dict(phi_area_fix=True, sl_interp="bicubic", gamma=0.1),
+    dict(map_rebase_minj=0.5, bc_type="periodic", stress_band=True,
+         scheme="weno5"),
     dict(CFL=1.5),
     dict(momentum_method="xla", use_pallas_rhs=True, gamma=0.1),
     dict(projection_method="pallas", variable_rho=True),
