@@ -25,17 +25,19 @@ another sm_90a card) and the CUDA toolkit. Phases:
      float32; the new modes of the two solid blocks at every one of those
      sizes (MODES: rmt_block with the bicubic final sample, band-guarded
      and raw, in the band-mode stress, and with two solids and the bicubic
-     sample; advext_block with the bicubic sample, guarded and raw); then
-     the times
+     sample; advext_block with the bicubic sample, guarded and raw; rmt_block
+     with the capillary drop's ellipse, bilinear and bicubic (guarded and
+     raw) and in the band mode, and with a disc beside an ellipse in
+     contact range, bilinear and bicubic); then the times
      of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block,
      advext_block and extrapolate_fused also with every tile skipping; the
      two contact modes, the periodic instantiation beside the lid's, and
      the FFT solve of the periodic projection, cuFFT, at N=1024; the new
-     modes beside the bilinear rows), and the kernels and device-busy ms
-     per step of phases 4, 4b, 4c, 4d, 5, 8, 10 and 11's configurations (20
-     steps each);
+     modes beside the bilinear rows, the ellipse's among them), and the
+     kernels and device-busy ms per step of phases 4, 4b, 4c, 4d, 4e, 5, 8,
+     10 and 11's configurations (20 steps each);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -48,6 +50,13 @@ another sm_90a card) and the CUDA toolkit. Phases:
      stress_band=True, num_layers=4 (benchmarks/soft_disc_in_lid_driven.py's
      setting: rmt_block's band mode): 20 warm-up steps, one under
      sync-debug, 200 timed with the launch counts checked;
+  4e. the coupled capillary drop (benchmarks/capillary_drop_coupled.py:
+     the ellipse on the fused tier, gamma 0.1, the balanced CSF, free
+     slip) and the density-contrast disc (benchmarks/density_contrast_disc
+     .py: ratio 10, gravity, the variable-density CG with cg_tol 1e-6) at
+     N=1024 float32: the same protocol (the sync-debug step lifts the mode
+     around the CG's stopping-test reads alone), the CG's iterations and
+     host reads per step;
   5. the split tier at full width: the flagship with the area fix and PDE
      reinitialisation, 20 warm-up steps, one under sync-debug, 200 timed;
   6. rebasing at full width: make_rebase_runner on the flagship with
@@ -63,7 +72,13 @@ another sm_90a card) and the CUDA toolkit. Phases:
      doubly-periodic box (bench.py --periodic), with no solid for the
      lid-driven cavity and the periodic Taylor-Green vortex, and for the
      bicubic sample (the flagship, area fix on the split tier, the
-     periodic flagship) and the band-mode stress;
+     periodic flagship) and the band-mode stress, and for surface tension,
+     variable density and the faults the port repaired: the cell CSF, the
+     balanced CSF with kappa* and with the smoothed height function, the
+     capillary ellipse on the fused and (area fix) split tiers, the density
+     contrast, a disc beside an ellipse in contact, the lid BC without a
+     kernel_spec (the plain RK4 stage loop) and a rounded square (the split
+     tier); each line names the paths the step's blocks took;
   8. contact: the head-on collision of two soft discs
      (benchmarks/two_disc_contact.py: free-slip box, k_rep = 2, the
      two-solid clamp 4) at N=1024 float32: 20 warm-up steps, one under
@@ -82,7 +97,12 @@ another sm_90a card) and the CUDA toolkit. Phases:
      Taylor-Green decay at N=65 float64 to t = 0.5 (stable, decay-rate
      error < 1e-2, profile error < 5e-3, divergence < 1e-6), and Ghia's
      lid-driven cavity at Re = 100, N=65 float64 to the steady criterion
-     of benchmarks/lid_driven_cavity.py (centreline RMS < 5e-3).
+     of benchmarks/lid_driven_cavity.py (centreline RMS < 5e-3); then the
+     surface-tension and density-contrast gates through validation.py:
+     Laplace's law at N=48 float64 (the cell CSF's error < 1.5e-2, the
+     balanced CSF with kappa* strictly below it) and the heavy disc at N=48
+     float64 to t = 0.25 (sinks, CG iterations < 100, relative divergence
+     < 0.2).
 
 It then prints a JSON line of the kernels, the card's name and power limit
 as nvidia-smi gives them, and last one JSON line
@@ -129,6 +149,8 @@ from pyrmt_tpu_torch import (  # noqa: E402
     noop_bc,
 )
 from pyrmt_tpu_torch import bcs  # noqa: E402
+from pyrmt_tpu_torch.ops import levelset  # noqa: E402
+from pyrmt_tpu_torch.ops import poisson  # noqa: E402
 from pyrmt_tpu_torch.kernels import _build  # noqa: E402
 from pyrmt_tpu_torch.kernels import extrapolate_fused as ef  # noqa: E402
 from pyrmt_tpu_torch.kernels import momentum_rhs as mr  # noqa: E402
@@ -159,6 +181,9 @@ HAS_PERIODIC = "periodic" in inspect.signature(
     mk.momentum_rk4_fused).parameters
 # The bicubic sample and the band-mode stress?
 HAS_BICUBIC = "sl_interp" in inspect.signature(rb.rmt_block_fused).parameters
+# The ellipse level set in the fused tier's kernel, surface tension and
+# variable density?
+HAS_ST = hasattr(levelset, "Ellipse")
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -184,6 +209,13 @@ EDGE_DISC = Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
 # configuration of tests/test_sharding.py's contact test)
 CONTACT_DISCS = (Disc(0.30, 0.5, 0.15), Disc(0.70, 0.5, 0.15))
 TOUCHING_DISCS = (Disc(0.38, 0.5, 0.14), Disc(0.66, 0.5, 0.14))
+if HAS_ST:
+    # the capillary drop's ellipse (benchmarks/capillary_drop_coupled.py:
+    # R = 0.2, eccentricity 1.15: a = 0.23, b = 0.174), and a disc and an
+    # ellipse whose contact bands touch at x = 0.49
+    ELLIPSE = levelset.Ellipse(0.5, 0.5, 0.2 * 1.15, 0.2 / 1.15)
+    DISC_AND_ELLIPSE = (Disc(0.36, 0.5, 0.13),
+                        levelset.Ellipse(0.64, 0.52, 0.15, 0.11))
 CONTACT_V0 = 0.15
 # device kernels per wrapper call: advext_block's and extrapolate_fused's
 # flag pre-pass and tile kernel; one for the others
@@ -227,6 +259,11 @@ WORK = {  # name: (fields read, fields written, operations per cell)
     "rmt_block, raw bicubic": (4, 12, 400),
     "rmt_block, two solids bicubic": (6, 19, 800),
     "advext_block, bicubic": (5, 2, 350),
+    # the ellipse level set: the disc's fields, ~25 more operations per
+    # level-set evaluation (a few per cell: the vote, the advection's
+    # phi0, the post stage's phi and four neighbours)
+    "rmt_block, ellipse": (4, 12, 350),
+    "rmt_block, disc and ellipse": (6, 19, 550),
     "advext_block, raw bicubic": (5, 2, 350),
     "momentum_rk4, force": (10, 2, 400),
     "momentum_rk4_periodic": (9, 2, 400),
@@ -251,6 +288,18 @@ MODES = {"rmt_block, bicubic": "rmt_block",
          "rmt_block, two solids bicubic": "rmt_block",
          "advext_block, bicubic": "advext_block",
          "advext_block, raw bicubic": "advext_block"}
+# the ellipse level set's modes of rmt_block: the capillary drop's (one
+# ellipse, bilinear, interior stress) and a disc beside an ellipse (the
+# S >= 2 instantiation, the clamp), profiled and timed as MODES; the other
+# samples and stress modes checked against the plain version only
+if HAS_ST:
+    MODES.update({"rmt_block, ellipse": "rmt_block",
+                  "rmt_block, disc and ellipse": "rmt_block"})
+CHECKED = {"rmt_block, ellipse bicubic": "rmt_block",
+           "rmt_block, ellipse raw bicubic": "rmt_block",
+           "rmt_block, ellipse band": "rmt_block",
+           "rmt_block, disc and ellipse bicubic": "rmt_block"}
+
 # the band guard of the flagship's bicubic sample: sl_band_guard's 3 cells
 GUARD_CELLS = 3.0
 # profile rows whose wrapper runs PyTorch kernels beside its own (the
@@ -266,6 +315,8 @@ BOTH_SWITCHES = dict(projection_method="pallas", momentum_method="xla",
 # of benchmarks/soft_disc_in_lid_driven.py
 NEW_CONFIGS = {"flagship bicubic": dict(sl_interp="bicubic"),
                "flagship band": dict(stress_band=True, num_layers=4)}
+# the timed phase 4e's configurations
+ST_CONFIGS = ("capillary drop", "density contrast")
 PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
                    momentum_rk4_impl=momentum_core,
                    advext_impl=rb.advext_block_plain,
@@ -295,6 +346,61 @@ def contact_config(N, **overrides):
                   dt_min_cap=1e-3)
     return RMTConfig(grid=Grid(Nx=N, Ny=N, Lx=1.0, Ly=1.0),
                      **dict(fields, **overrides))
+
+
+def capillary_config(N, **overrides):
+    """The coupled capillary drop's configuration
+    (benchmarks/capillary_drop_coupled.py:84-90: mu_s = mu_f = 1e-3, gamma
+    0.1, the balanced CSF, CFL 0.4), with overrides; free-slip walls."""
+    fields = dict(mu_s=1e-3, kappa=0.0, rho_s=1.0, eta_s=0.0, mu_f=1e-3,
+                  rho_f=1.0, gamma=0.1, w_t_cells=2.0, st_method="balanced",
+                  num_layers=3, CFL=0.4, dt_min_cap=1e-3)
+    return RMTConfig(grid=Grid(Nx=N, Ny=N, Lx=1.0, Ly=1.0),
+                     **dict(fields, **overrides))
+
+
+def swirl_state(cfg, shapes, dtype, device, amp=0.05):
+    """make_init_state with a swirl u = amp sin(pi x) cos(pi y), v = -amp
+    cos(pi x) sin(pi y), so that an interface moves from the first step."""
+    X, Y = cfg.grid.coords(dtype=dtype, device=device)
+    return make_init_state(
+        cfg, shapes, u0=amp * torch.sin(math.pi * X) * torch.cos(math.pi * Y),
+        v0=-amp * torch.cos(math.pi * X) * torch.sin(math.pi * Y),
+        dtype=dtype, device=device)
+
+
+def lid_without_spec(u, v):
+    """The lid BC as a user writes it, with no kernel_spec: the step takes
+    the plain RK4 stage loop (and plain projection stencils)."""
+    return make_lid_bc(1.0)(u, v)
+
+
+def rounded_square(X1, X2):
+    """A rounded square at the flagship disc's place: a level set the
+    fused tier's kernel does not evaluate (the step takes the split
+    tier)."""
+    qx = torch.clamp(torch.abs(X1 - 0.6) - 0.1, min=0.0)
+    qy = torch.clamp(torch.abs(X2 - 0.5) - 0.1, min=0.0)
+    inside = torch.clamp(torch.maximum(torch.abs(X1 - 0.6),
+                                       torch.abs(X2 - 0.5)) - 0.1, max=0.0)
+    return torch.sqrt(qx * qx + qy * qy) + inside - 0.1
+
+
+def st_case(name, N, dtype, device):
+    """(cfg, bc, shapes, state) of phase 4e's configurations: the capillary
+    drop with its ellipse, and the density-contrast disc of
+    benchmarks/density_contrast_disc.py (ratio 10, g0 = 1, cg_tol 1e-6)
+    released at rest."""
+    from pyrmt_tpu_torch import validation
+
+    if name == "capillary drop":
+        cfg = capillary_config(N)
+        return (cfg, free_slip_box_bc, (ELLIPSE,),
+                make_init_state(cfg, (ELLIPSE,), dtype=dtype, device=device))
+    cfg = validation.density_contrast_config(N)
+    shapes = (validation.DENSITY_DISC,)
+    return (cfg, free_slip_box_bc, shapes,
+            make_init_state(cfg, shapes, dtype=dtype, device=device))
 
 
 def contact_state(cfg, discs, dtype, device, V0=CONTACT_V0):
@@ -390,6 +496,26 @@ def compare_periodic(shape, dtype, device):
     return worst
 
 
+def ptxas_lines(log):
+    """(entry, its stack, spills and registers) of each entry function of
+    an nvcc -Xptxas -v log, the entry's name demangled (c++filt) up to its
+    parameter list where the tool is there."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            try:
+                entry = subprocess.run(["c++filt", entry], capture_output=True,
+                                       text=True, check=True).stdout.strip()
+                entry = entry.replace("(anonymous namespace)::", "")
+                entry = entry.split("(")[0].replace("void ", "")
+            except (OSError, subprocess.CalledProcessError):
+                pass
+        elif entry and ("spill" in line or "registers" in line):
+            out.append((entry, line.split(":", 1)[-1].strip()))
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -477,15 +603,39 @@ def sample_mode(cfg, guarded=True):
                 sl_guard=GUARD_CELLS * max(g.dx, g.dy) if guarded else None)
 
 
-def mode_calls(cfg, d, ccfg, cd):
+def mode_calls(cfg, d, ccfg, cd, checked=False):
     """{MODES row: (wrapper, its plain version, a call of either)}: the
     solid blocks' new modes on kernel_inputs' operands (the band mode with
     the step's stress_band choice, w_cut = w_t and detg_clamp) and, for two
-    solids, contact_kernel_inputs'."""
+    solids, contact_kernel_inputs'; the ellipse's on kernel_inputs' and
+    contact_kernel_inputs' operands made for ELLIPSE and DISC_AND_ELLIPSE
+    (with ``checked`` the CHECKED rows too)."""
     band = dict(stress_w_cut=cfg.w_t, stress_clamp=cfg.detg_clamp)
     rmt = (rb.rmt_block_fused, rb.rmt_block_plain)
     adv = (rb.advext_block_fused, rb.advext_block_plain)
-    return {
+    ellipse = {}
+    if HAS_ST:
+        u = d["u"]
+        at = (tuple(u.shape), u.dtype, u.device)
+        ecfg, ed = kernel_inputs(*at, disc=ELLIPSE)
+        pcfg, pd = contact_kernel_inputs(*at, solids=DISC_AND_ELLIPSE)
+        ellipse = {
+            "rmt_block, ellipse": (*rmt, lambda f: rmt_call(f, ecfg, ed)),
+            "rmt_block, disc and ellipse": (*rmt, lambda f: contact_rmt_call(
+                f, pcfg, pd))}
+        if checked:
+            ellipse.update({
+                "rmt_block, ellipse bicubic": (*rmt, lambda f: rmt_call(
+                    f, ecfg, ed, **sample_mode(ecfg))),
+                "rmt_block, ellipse raw bicubic": (*rmt, lambda f: rmt_call(
+                    f, ecfg, ed, **sample_mode(ecfg, False))),
+                "rmt_block, ellipse band": (*rmt, lambda f: rmt_call(
+                    f, ecfg, ed, stress_w_cut=ecfg.w_t,
+                    stress_clamp=ecfg.detg_clamp)),
+                "rmt_block, disc and ellipse bicubic": (
+                    *rmt, lambda f: contact_rmt_call(f, pcfg, pd,
+                                                     **sample_mode(pcfg)))})
+    return {**ellipse,
         "rmt_block, bicubic": (*rmt, lambda f: rmt_call(
             f, cfg, d, **sample_mode(cfg))),
         "rmt_block, raw bicubic": (*rmt, lambda f: rmt_call(
@@ -519,20 +669,20 @@ def momentum_args(cfg, d, rmt_out, eta_s):
         eta_s=eta_s, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt, mu_f=cfg.mu_f)
 
 
-def contact_kernel_inputs(shape, dtype, device, seed=0):
+def contact_kernel_inputs(shape, dtype, device, seed=0,
+                          solids=TOUCHING_DISCS):
     """The contact modes' inputs: kernel_inputs' velocity, pressure and dt;
-    the contact configuration with the touching discs and rho_s = 1.2 (so
-    gravity's force is not 0), their maps from make_init_state with sine
-    waves of a tenth of the domain added: along x in the first (d X1/dx
-    from 0.05 to 1.95), along x and y in the second (-0.2 to 2.2, det G
-    up to 4.8), so det G leaves the clamp's [1/4, 4] at both ends; made in
-    float64 and cast."""
+    the contact configuration with the touching discs (or ``solids``) and
+    rho_s = 1.2 (so gravity's force is not 0), their maps from
+    make_init_state with sine waves of a tenth of the domain added: along
+    x in the first (d X1/dx from 0.05 to 1.95), along x and y in the
+    second (-0.2 to 2.2, det G up to 4.8), so det G leaves the clamp's
+    [1/4, 4] at both ends; made in float64 and cast."""
     _, d = kernel_inputs(shape, dtype, device, seed)
     Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
     cfg = dataclasses.replace(contact_config(Nx, rho_s=1.2),
                               grid=Grid(Nx=Nx, Ny=Ny, Lx=1.0, Ly=1.0))
-    s = make_init_state(cfg, TOUCHING_DISCS, dtype=torch.float64,
-                        device=device)
+    s = make_init_state(cfg, solids, dtype=torch.float64, device=device)
     X1, X2 = s.X1.clone(), s.X2.clone()
     # waves through 0 where the discs touch (x = 0.52), so the contact
     # force acts at every size
@@ -543,12 +693,13 @@ def contact_kernel_inputs(shape, dtype, device, seed=0):
     params = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
                           dtype=dtype, device=device)
     return cfg, dict(d, X1s=X1.to(dtype).contiguous(),
-                     X2s=X2.to(dtype).contiguous(), params=params)
+                     X2s=X2.to(dtype).contiguous(), params=params,
+                     solids=solids)
 
 
 def contact_rmt_call(fn, cfg, d, **mode):
     return fn(d["u"], d["v"], d["X1s"], d["X2s"], d["dt"],
-              phi_inits=TOUCHING_DISCS, dx=cfg.grid.dx, dy=cfg.grid.dy,
+              phi_inits=d["solids"], dx=cfg.grid.dx, dy=cfg.grid.dy,
               num_layers=cfg.num_layers, w_t=cfg.w_t, params=d["params"],
               stress_clamp=cfg.two_solid_clamp, **mode)
 
@@ -637,9 +788,11 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
          advext_call(rb.advext_block_plain, cfg, d))
     # the new modes of both solid blocks, at every size
     ccfg, cd = contact_kernel_inputs(shape, dtype, device)
-    for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd).items():
-        outs = OUT_NAMES if MODES[row] == "rmt_block" else ("X1e", "X2e")
-        hold(MODES[row], outs, call(kern), call(ref), row=row)
+    for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd,
+                                             checked=True).items():
+        kernel = MODES.get(row) or CHECKED[row]
+        outs = OUT_NAMES if kernel == "rmt_block" else ("X1e", "X2e")
+        hold(kernel, outs, call(kern), call(ref), row=row)
     hold("extrapolate_fused", ("X1e", "X2e"),
          extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
          extrap_call(extrapolate_reference_map, cfg, d))
@@ -877,6 +1030,10 @@ def step_groups(device, steps=20, warmup=10):
     if HAS_BICUBIC:
         configs += [(name, flagship(1024, **over), *flag)
                     for name, over in NEW_CONFIGS.items()]
+    if HAS_ST:
+        for name in ST_CONFIGS:
+            cfg, bc, shapes, state = st_case(name, 1024, **kw)
+            configs.append((name, cfg, shapes, bc, lambda cfg, s=state: s))
     if HAS_PERIODIC:
         configs.append((
             "periodic", flagship(1024, bc_type="periodic"), (FLAGSHIP_DISC,),
@@ -974,12 +1131,26 @@ def expected_launches(**launches):
 
 def step_without_sync(step, state, t_end):
     """One step under PyTorch's sync debug mode, which raises on a call
-    that waits for the card."""
+    that waits for the card. The variable-density CG's stopping test is
+    the one read allowed (``ops.poisson._host_read``, once every
+    ``CG_READ_EVERY`` iterations, counted in ``poisson.cg_host_reads``):
+    the mode is lifted around it alone."""
+    host_read = poisson._host_read
+
+    def allowed_read(flag):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return host_read(flag)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
+    poisson._host_read = allowed_read
     try:
         return step(state, t_end)
     finally:
+        poisson._host_read = host_read
         torch.cuda.set_sync_debug_mode("default")
 
 
@@ -995,24 +1166,32 @@ def run_flagship(N, device, warmup, steps, **overrides):
     return (cfg, *run_timed(step, state, device, warmup, steps))
 
 
-def run_timed(step, state, device, warmup, steps, t_end=8.0):
+def run_timed(step, state, device, warmup, steps, t_end=8.0, stats=None):
     """Warm-up steps, one step that must not synchronise with the host,
     then timed steps with the launch counts reset just before. Returns
     (state, aux, launches, seconds, sum of dts, t before the timed
-    steps)."""
+    steps); with variable density ``stats`` (a dict) receives the CG's
+    iterations and host reads per timed step."""
     for _ in range(warmup):
         state, aux = step(state, t_end)
     state, aux = step_without_sync(step, state, t_end)
     t0 = state.t.double()
     dt_sum = torch.zeros((), dtype=torch.float64, device=device)
+    cg_sum = torch.zeros((), dtype=torch.int64, device=device)
     torch.cuda.synchronize()
     reset_counts()
+    poisson.cg_host_reads = 0
     wall = time.perf_counter()
     for _ in range(steps):
         state, aux = step(state, t_end)
         dt_sum += aux["dt"].double()
+        if "cg_iters" in aux:
+            cg_sum += aux["cg_iters"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall
+    if stats is not None:
+        stats.update(cg_iters=int(cg_sum) / steps,
+                     host_reads=poisson.cg_host_reads / steps)
     return state, aux, counts(), wall, dt_sum, t0
 
 
@@ -1142,20 +1321,34 @@ def run_rebase(N, device, chunk=50, post_steps=20):
                 launches=rebase_counts["extrapolate_fused"])
 
 
-def compare_paths(N, device, steps=3, contact=False, case=None,
-                  **overrides):
+def compare_paths(N, device, steps=3, contact=False, case=None, bc=None,
+                  shapes=None, **overrides):
     """A few float64 steps through the kernels and through the plain
-    versions from the same state: the flagship with overrides, or with
-    ``contact`` the contact configuration with the touching discs (the
-    contact force acts from the first step), or the ``case`` 'periodic'
-    (the flagship on the periodic box with bench.py --periodic's seed),
-    'lid' or 'tg' (no solid: ``fluid_case``); returns the max-abs
-    differences and the kernel path's launches."""
+    versions from the same state: the flagship with overrides (and ``bc``
+    or ``shapes`` in place of its own), or with ``contact`` the contact
+    configuration with the touching discs (the contact force acts from the
+    first step; or ``shapes``), or the ``case`` 'periodic' (the flagship
+    on the periodic box with bench.py --periodic's seed), 'lid' or 'tg'
+    (no solid: ``fluid_case``), 'capillary' (``capillary_config`` with
+    ``shapes``, a swirl) or 'density' (the density-contrast disc); returns
+    the max-abs differences, the kernel path's launches and its step's
+    paths."""
     kw = dict(dtype=torch.float64, device=device)
     if contact:
         cfg = contact_config(N, **overrides)
-        bc, discs = free_slip_box_bc, TOUCHING_DISCS
+        bc, discs = free_slip_box_bc, shapes or TOUCHING_DISCS
         s_k = contact_state(cfg, discs, **kw)
+    elif case == "capillary":
+        cfg = capillary_config(N, **overrides)
+        bc, discs = free_slip_box_bc, shapes
+        s_k = swirl_state(cfg, discs, **kw)
+    elif case == "density":
+        from pyrmt_tpu_torch import validation
+
+        cfg = dataclasses.replace(validation.density_contrast_config(N),
+                                  **overrides)
+        bc, discs = free_slip_box_bc, (validation.DENSITY_DISC,)
+        s_k = make_init_state(cfg, discs, **kw)
     elif case == "periodic":
         cfg = flagship(N, bc_type="periodic", **overrides)
         bc, discs = bcs.periodic_bc, (FLAGSHIP_DISC,)
@@ -1165,7 +1358,7 @@ def compare_paths(N, device, steps=3, contact=False, case=None,
         discs = ()
     else:
         cfg = flagship(N, **overrides)
-        bc, discs = make_lid_bc(1.0), (FLAGSHIP_DISC,)
+        bc, discs = bc or make_lid_bc(1.0), shapes or (FLAGSHIP_DISC,)
         s_k = make_init_state(cfg, discs, **kw)
         rng = np.random.default_rng(1)
         x = np.linspace(0.0, 1.0, N)
@@ -1197,9 +1390,92 @@ def compare_paths(N, device, steps=3, contact=False, case=None,
     if not all(e <= 1e-10 for e in errs.values()):
         raise AssertionError(f"kernel path vs plain path {case} {overrides}: "
                              f"{errs}")
-    if case is not None and not float(s_k.u.abs().max()) > 0.1:
+    if case in ("periodic", "lid", "tg") and not float(
+            s_k.u.abs().max()) > 0.1:
         raise AssertionError(f"paths {case}: the flow did not move")
-    return errs, {k: n for k, n in counts().items() if n}
+    return errs, {k: n for k, n in counts().items() if n}, step_k.paths
+
+
+def st_gates(device):
+    """The JAX package's surface-tension and density-contrast gates on the
+    card, with its predicates and sizes (tests/test_validation_gates.py):
+    Laplace's law for the static drop at N=48 float64, 1200 steps, the
+    cell CSF within 1.5e-2 and the balanced CSF with kappa* strictly
+    closer; the heavy disc (ratio 10) at N=48 float64 to t = 0.25 sinking,
+    with at most 100 CG iterations a step and the relative divergence
+    below 0.2."""
+    from pyrmt_tpu_torch import validation
+
+    f64 = torch.float64
+    reset_counts()
+    csf = validation.laplace_drop(N=48, gamma=0.1, R=0.25, n_steps=1200,
+                                  dtype=f64, device=device)
+    bal = validation.laplace_drop(N=48, gamma=0.1, R=0.25, n_steps=1200,
+                                  st_method="balanced", kappa_interface=True,
+                                  dtype=f64, device=device)
+    rk4 = counts()["momentum_rk4"]
+    print(f"[gates] Laplace static drop N=48 float64, 1200 steps each: "
+          f"cell CSF dp {csf['dp']:.6f} against gamma/R {csf['target']:g} "
+          f"(rel err {csf['rel_err']:.4e} < 1.5e-2, {csf['wall_s']:.3f} s), "
+          f"balanced CSF + kappa* dp {bal['dp']:.6f} (rel err "
+          f"{bal['rel_err']:.4e}, below the cell CSF's; {bal['wall_s']:.3f} "
+          f"s); max spurious |u| {csf['max_u']:.3e} / {bal['max_u']:.3e}; "
+          f"momentum_rk4 launches {rk4}")
+    if not (csf["rel_err"] < 1.5e-2 and bal["rel_err"] < csf["rel_err"]
+            and rk4 == 2400):
+        raise AssertionError(f"Laplace gate: {csf} {bal}")
+    reset_counts()
+    poisson.cg_host_reads = 0
+    _, dens = validation.density_contrast(N=48, rho_ratio=10.0, t_end=0.25,
+                                          dtype=f64, device=device)
+    launches = counts()
+    print(f"[gates] density contrast (ratio 10) N=48 float64 to t=0.25: "
+          f"{dens['steps']} steps in {dens['wall_s']:.3f} s; final vc "
+          f"{dens['vc_final']:.5f} (< 0: sinks), CG iterations max "
+          f"{dens['cg_iters_max']:g} (< 100), mean {dens['cg_iters_mean']:.2f}"
+          f"; max_div_rel {dens['max_div_rel']:.4f} (< 0.2); early "
+          f"acceleration {dens['accel_early']:.4f} against the added-mass "
+          f"{dens['accel_added_mass']:.4f}; min J {dens['minJ']:.4f}; "
+          f"{poisson.cg_host_reads / dens['steps']:.2f} CG host reads per "
+          f"step; launches rmt_block {launches['rmt_block']}, momentum_rk4 "
+          f"{launches['momentum_rk4']}")
+    if not (dens["vc_final"] < 0 and dens["cg_iters_max"] < 100
+            and dens["max_div_rel"] < 0.2
+            and launches["rmt_block"] == launches["momentum_rk4"]
+            == dens["steps"]):
+        raise AssertionError(f"density-contrast gate: {dens} {launches}")
+
+
+def print_paths(what, path_errs, path_launches, paths):
+    print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
+          f"path: " + ", ".join(f"{k} {e:.2e}" for k, e in path_errs.items())
+          + f"; kernel path launches {path_launches}; paths {paths}")
+
+
+# phase 7's surface-tension, variable-density and fault cases: {line:
+# compare_paths keywords}
+ST_PATHS = {
+    "cell CSF, fd curvature (disc)": dict(
+        case="capillary", shapes=(FLAGSHIP_DISC,), st_method="csf"),
+    "balanced CSF, kappa* (disc)": dict(
+        case="capillary", shapes=(FLAGSHIP_DISC,), st_kappa_interface=True),
+    "balanced CSF, hf curvature, st_hf_smooth=2 (disc)": dict(
+        case="capillary", shapes=(FLAGSHIP_DISC,), st_curvature="hf",
+        st_hf_smooth=2),
+    "capillary ellipse (fused tier)": dict(
+        case="capillary", shapes=(ELLIPSE,) if HAS_ST else ()),
+    "capillary ellipse, phi_area_fix (split tier)": dict(
+        case="capillary", shapes=(ELLIPSE,) if HAS_ST else (),
+        phi_area_fix=True),
+    "density contrast (variable_rho, gravity, free slip)": dict(
+        case="density"),
+    "contact, a disc and an ellipse": dict(
+        contact=True, shapes=DISC_AND_ELLIPSE if HAS_ST else ()),
+    "flagship, lid BC without kernel_spec (F1)": dict(
+        bc=lid_without_spec, projection_method="pallas"),
+    "flagship shape as a rounded square (F2)": dict(
+        shapes=(rounded_square,)),
+}
 
 
 def main() -> int:
@@ -1223,9 +1499,8 @@ def main() -> int:
     for name in SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
+            for entry, line in ptxas_lines(log.read_text()):
+                print(f"[build] {name}: {entry}: {line}")
     if PROFILE_ONLY:
         prof, step_prof = profile_all(device)
         print(json.dumps({"profile": {
@@ -1327,6 +1602,35 @@ def main() -> int:
               f"the solid {min_J:.4f}; " + profile_line(step_prof[tag], wall,
                                                        steps))
 
+    # 4e. the coupled capillary drop and the density-contrast disc
+    st_launches = {}
+    for tag in ST_CONFIGS if HAS_ST else ():
+        cfg, bc, shapes, state = st_case(tag, 1024, torch.float32, device)
+        step = make_step(cfg, bc, shapes, dtype=torch.float32, device=device)
+        stats = {}
+        state, aux, launches, wall, dt_sum, t0 = run_timed(
+            step, state, device, warmup=20, steps=steps, stats=stats)
+        min_J, advanced = check_run(
+            tag, state, aux, launches,
+            expected_launches(rmt_block=steps, momentum_rk4=steps), dt_sum,
+            t0)
+        st_launches[tag] = launches
+        what = (f"ellipse a={ELLIPSE.a:.3g} b={ELLIPSE.b:.3g}, gamma "
+                f"{cfg.gamma}, {cfg.st_method} CSF"
+                if tag == "capillary drop" else
+                f"rho_s/rho_f {cfg.rho_s / cfg.rho_f:g}, g_y {cfg.g_y}, "
+                f"variable_rho, cg_tol {cfg.cg_tol:g}")
+        cg = (f"CG {stats['cg_iters']:.2f} iterations and "
+              f"{stats['host_reads']:.2f} host reads per step; "
+              if cfg.variable_rho else "")
+        print(f"[st] {tag} ({what}, free slip) N=1024 float32: {steps} "
+              f"steps in {wall:.3f} s = {steps / wall:.1f} steps/s, "
+              f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
+              f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
+              f"launches {launches}; paths {step.paths}; t advanced "
+              f"{advanced:.6f}; min J over the solid {min_J:.4f}; {cg}"
+              + profile_line(step_prof[tag], wall, steps))
+
     # 5. the split tier at full width
     steps = 200
     cfg, state, aux, launches, wall, dt_sum, t0 = run_flagship(
@@ -1372,11 +1676,7 @@ def main() -> int:
             ("area fix + PDE reinit + projection stencils",
              dict(phi_area_fix=True, reinit_method="pde",
                   projection_method="pallas"))):
-        path_errs, path_launches = compare_paths(128, device, **overrides)
-        print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
-              f"path: " + ", ".join(f"{k} {e:.2e}"
-                                    for k, e in path_errs.items())
-              + f"; kernel path launches {path_launches}")
+        print_paths(what, *compare_paths(128, device, **overrides))
     for what, overrides in (
             ("contact (touching discs)", dict(contact=True)),
             ("contact + gravity, split tier (area fix)",
@@ -1401,12 +1701,16 @@ def main() -> int:
              dict(phi_area_fix=True, sl_interp="bicubic", sl_band_guard=0.0)),
             ("contact, bicubic sample",
              dict(contact=True, sl_interp="bicubic"))):
-        path_errs, path_launches = compare_paths(128, device, **overrides)
+        path_errs, path_launches, paths = compare_paths(128, device,
+                                                        **overrides)
         mode_paths[what] = path_launches
-        print(f"[paths] N=128 float64 {what}, 3 steps kernel path vs plain "
-              f"path: " + ", ".join(f"{k} {e:.2e}"
-                                    for k, e in path_errs.items())
-              + f"; kernel path launches {path_launches}")
+        print_paths(what, path_errs, path_launches, paths)
+    if HAS_ST:
+        for what, overrides in ST_PATHS.items():
+            path_errs, path_launches, paths = compare_paths(
+                128, device, **overrides)
+            mode_paths[what] = path_launches
+            print_paths(what, path_errs, path_launches, paths)
 
     # 8. the contact configuration at full width
     steps = 200
@@ -1517,6 +1821,8 @@ def main() -> int:
             and ghia_launches == ghia["steps"]):
         raise AssertionError(f"Ghia gate: steps {ghia['steps']}, residual "
                              f"{ghia['residual']}, RMS {ghia.get('rms')}")
+    if HAS_ST:
+        st_gates(device)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -1558,6 +1864,12 @@ def main() -> int:
             "area fix, bicubic sample (split tier)"]["advext_block"]),
         "advext_block, raw bicubic": ("paths", mode_paths[
             "area fix, raw bicubic sample"]["advext_block"])}
+    if HAS_ST:
+        mode_runs.update({
+            "rmt_block, ellipse": ("4e", st_launches["capillary drop"][
+                "rmt_block"]),
+            "rmt_block, disc and ellipse": ("paths", mode_paths[
+                "contact, a disc and an ellipse"]["rmt_block"])})
     for name, mode in (("rmt_block", "bilinear, interior stress"),
                        ("advext_block", "bilinear")):
         next(k for k in kernels if k["name"] == name)["mode"] = mode
@@ -1573,6 +1885,9 @@ def main() -> int:
             "device_us": prof[1024][row][0],
             "device_us_N4096": prof[4096][row][0],
             "bound_us_N4096": bound_us(row, 4096)[0]})
+    entry = next(k for k in kernels if k["name"] == "rmt_block")
+    entry["checked_modes"] = {row.split(", ")[1]: errs[row]
+                              for row in CHECKED if row in errs}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ The entry points (``make_step``, ``make_init_state``,
 ``make_rebase_runner``, ``state_from_numpy``) run on the card unless the
 caller passes ``device="cpu"``. With no level set the step is the
 pure-fluid solver; ``bc_type='periodic'`` with ``periodic_bc`` runs the
-doubly-periodic box.
+doubly-periodic box; ``gamma > 0`` adds surface tension (the cell-centred
+or balanced-force CSF) and ``variable_rho=True`` the variable-density CG
+projection.
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -52,12 +54,22 @@ from pyrmt_tpu_torch.ops.interp import (
     gather_bicubic_local,
     gather_bicubic_multi,
 )
-from pyrmt_tpu_torch.ops.levelset import Disc, apply_phi_BCs
+from pyrmt_tpu_torch.ops.levelset import (
+    Disc,
+    Ellipse,
+    apply_phi_BCs,
+    compute_curvature,
+    compute_curvature_hf,
+    sharp_solid_fraction,
+)
 from pyrmt_tpu_torch.ops.poisson import (
+    apply_variable_poisson,
     precompute_poisson_eigenvalues_periodic,
     solve_poisson_fft,
+    solve_variable_poisson_cg,
+    solve_variable_poisson_cg_counted,
 )
-from pyrmt_tpu_torch.physics import external_forces
+from pyrmt_tpu_torch.physics import balanced_csf_forces, external_forces
 from pyrmt_tpu_torch.sim import (
     RMTConfig,
     SimState,
@@ -71,13 +83,18 @@ from pyrmt_tpu_torch.sim import (
 
 __all__ = [
     "Disc",
+    "Ellipse",
     "EnergyLogger",
     "Grid",
     "RMTConfig",
     "SimState",
     "apply_phi_BCs",
+    "apply_variable_poisson",
+    "balanced_csf_forces",
     "bicubic_interpolate",
     "compute_contact_force",
+    "compute_curvature",
+    "compute_curvature_hf",
     "compute_kinetic_energy",
     "compute_strain_energy",
     "compute_viscous_dissipation",
@@ -106,7 +123,10 @@ __all__ = [
     "run_until",
     "save_checkpoint",
     "save_snapshot",
+    "sharp_solid_fraction",
     "solve_poisson_fft",
+    "solve_variable_poisson_cg",
+    "solve_variable_poisson_cg_counted",
     "state_from_numpy",
     "state_to_numpy",
     "velocity_rhs_blended_fused",

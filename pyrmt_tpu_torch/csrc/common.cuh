@@ -90,6 +90,38 @@ struct Disc {
   }
 };
 
+// The quasi signed distance of ops/levelset.py's Ellipse, its operations in
+// its order: (r - 1) / (|(fx / a, fy / b)| / r + 1e-12), r = |(fx, fy)|
+// with 1e-30 under the root, fx = (x - x0) / a, fy = (y - y0) / b, each
+// division by a semi-axis a product by inv_a = 1.0 / a (in double, rounded
+// to T once, as PyTorch rounds the Python scalar).
+template <typename T>
+struct Ellipse {
+  T x0, y0, inv_a, inv_b;
+  __device__ T operator()(T x1, T x2) const {
+    const T fx = (x1 - x0) * inv_a;
+    const T fy = (x2 - y0) * inv_b;
+    const T r = sqrt(fx * fx + fy * fy + static_cast<T>(1e-30));
+    const T f = r - T(1);
+    const T ga = fx * inv_a;
+    const T gb = fy * inv_b;
+    const T grad = sqrt(ga * ga + gb * gb) / r + static_cast<T>(1e-12);
+    return f / grad;
+  }
+};
+
+// A solid's level set chosen at run time (kernels/rmt_block.py SHAPES):
+// kind 0 a Disc (p = R), 1 an Ellipse (p = inv_a, q = inv_b).
+template <typename T>
+struct Shape {
+  int kind;
+  T x0, y0, p, q;
+  __device__ T operator()(T x1, T x2) const {
+    return kind == 0 ? Disc<T>{x0, y0, p}(x1, x2)
+                     : Ellipse<T>{x0, y0, p, q}(x1, x2);
+  }
+};
+
 }  // namespace pyrmt
 
 extern "C" const char* pyrmt_cuda_error_string(int err) {

@@ -6,7 +6,7 @@
 //   rebuild, neo-Hookean stress and J (interior or band mode; det G
 //   clamped to [1/c, c] where the step clamps it: two solids and more, or
 //   the band mode), smoothed Heaviside and the mixture blends. S solids (1 to kMaxSolids),
-//   each shaped as a Disc given by runtime scalars. Replaces
+//   each a Disc or an Ellipse (common.cuh) given by runtime scalars. Replaces
 //   pyrmt_tpu/kernels/rmt_block.py::rmt_block_fused (the pl.pallas_call at
 //   rmt_block.py:825); plain version
 //   pyrmt_tpu_torch.kernels.rmt_block.rmt_block_plain.
@@ -22,7 +22,7 @@
 // side in shared memory (L = num_layers; the panels, tiles and layer
 // sweeps are panel_device.cuh's, shared with extrapolate_fused.cu):
 //   vote     is any cell of the panel widened by the final sample's reach
-//            (1 cell, 2 for bicubic) solid (phi = disc(X) <= 0, or not
+//            (1 cell, 2 for bicubic) solid (phi = shape(X) <= 0, or not
 //            finite) or fast enough that a backtrace may not be finite
 //            (|u| or |v| times 8 max(1, |dt|/dx, |dt|/dy) not below the
 //            type's largest value; dt not finite counts too)?
@@ -30,12 +30,12 @@
 //   skip     if not, every mask and known flag that can reach the tile is
 //            0, so the pipeline yields the zero map there exactly: the
 //            tile writes the post stage's own outputs for X1e = X2e = 0
-//            (any disc, one that holds the origin included), computed once
+//            (any shape, one that holds the origin included), computed once
 //            for an interior and once for an edge cell, the only two
 //            cases. The tile reads X1, X2, u, v and writes its 12 outputs.
 //            The tile-activity skip of the Pallas kernel
 //            (rmt_block.py:632-685), made exact for non-finite inputs too.
-//   advect   phi0 = disc(X) -> RK4 backtrace through three bilinear samples
+//   advect   phi0 = shape(X) -> RK4 backtrace through three bilinear samples
 //            of (u, v) -> bilinear sample of X1, X2 (bicubic: see below)
 //            -> times mask (phi0 <= 0); known = phi0 < 0: over the whole
 //            panel, reading u, v (panel widened by 1) from the vote's copy
@@ -45,7 +45,7 @@
 //            from the panel's inner edges. The frontier cells (a thin ring)
 //            are listed first and solved by consecutive threads: one lane
 //            per warp doing a 9x9 window sum wasted the other 31.
-//   post     phi = disc(Xe); stress with one-sided differences next to
+//   post     phi = shape(Xe); stress with one-sided differences next to
 //            fluid over phi <= 0 (interior mode), or central differences
 //            over phi < w_cut (band mode: a runtime operand, one uniform
 //            branch), interior cells only; H(phi); Hf, rho, (1-H) sigma;
@@ -60,6 +60,17 @@
 // zero map's terms, so every tile sums the plain version's terms: bit for
 // bit for S = 2 (a sum of two terms), to a few ulps for S > 2, where
 // torch.sum over the stack may add in another order.
+// The level set: the shape is a template parameter (Sh) of the tile kernel.
+// Discs alone compile to the code they had before the ellipse (Disc, for
+// S = 1 the flagship's and for S >= 2 the collision's); one ellipse is an
+// instantiation of its own (Ellipse), and S >= 2 solids with an ellipse
+// among them take each solid's kind at run time (Shape, a uniform branch
+// per solid: +12-18 % on two discs when every multi-solid call took it,
+// PERF.md). The skip needs
+// nothing of the shape: the vote reads the evaluated level set, and a finite
+// ellipse phi bounds |X| too (a finite r bounds |fx| by the root of the
+// type's largest value, so |X| by that times a), far below what a sample
+// needs to stay finite.
 // Tile: 32 x 32 output cells where the panel fits a block's 227 KB of
 // shared memory, else 16 x 16 or 8 x 8; 512 threads. At the flagship's
 // L = 3 the panel is 58 x 58 cells and, with u and v kept from the vote
@@ -148,6 +159,7 @@
 namespace {
 
 using pyrmt::Disc;
+using pyrmt::Ellipse;
 using pyrmt::Guard;
 using pyrmt::flag_bytes;
 using pyrmt::flag_cols;
@@ -164,16 +176,18 @@ using pyrmt::Panel;
 using pyrmt::Plan;
 using pyrmt::plan;
 using pyrmt::Rows;
+using pyrmt::Shape;
 using pyrmt::Span;
 using pyrmt::sweeps;
 using pyrmt::Taps;
 
 constexpr int kMaxSolids = 16;  // kernels/rmt_block.py MAX_SOLIDS
 
-// The fused tier's solids, passed by value.
-template <typename T>
-struct Discs {
-  Disc<T> d[kMaxSolids];
+// The fused tier's solids, passed by value: Disc<T> for discs alone,
+// Ellipse<T> for one ellipse, Shape<T> for S >= 2 with an ellipse.
+template <typename Sh>
+struct Shapes {
+  Sh d[kMaxSolids];
 };
 
 // The stress's det G clamp: [lo, hi] where on (lo from the host as the
@@ -243,13 +257,13 @@ struct Post {
 };
 
 // The post stage at cell (j, i), element n of a map whose rows are sy
-// apart: phi = disc(Xe); the interior-mode stress with one-sided
+// apart: phi = shape(Xe); the interior-mode stress with one-sided
 // differences where exactly one neighbour along the axis is fluid, or the
-// band mode's central differences over phi < w_cut (no disc evaluated at
+// band mode's central differences over phi < w_cut (no shape evaluated at
 // the neighbours); the smoothed Heaviside and the one-solid blends.
-template <typename T>
+template <typename T, typename Sh>
 __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
-                           int j, int i, int Ny, int Nx, const Disc<T>& disc,
+                           int j, int i, int Ny, int Nx, const Sh& disc,
                            T mu_s, T kappa, T rho_s, T rho_f, double dx,
                            double dy, double w_t, const Clamp<T>& clamp,
                            const Band<T>& band) {
@@ -332,13 +346,13 @@ __device__ inline Span widen(Span s, int n, int r = 1) {
 }
 
 // The fused tier's tile kernel (the source note above); kMulti: S >= 2;
-// kBicubic: the bicubic final sample.
-template <typename T, bool kMulti, bool kBicubic>
+// kBicubic: the bicubic final sample; Sh: the level sets' type.
+template <typename T, bool kMulti, bool kBicubic, typename Sh>
 __global__ void __launch_bounds__(kThreads, 2)
     rmt_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ X1, const T* __restrict__ X2,
                     const T* __restrict__ dt_ptr,
-                    const T* __restrict__ params, Discs<T> discs, int S,
+                    const T* __restrict__ params, Shapes<Sh> discs, int S,
                     Clamp<T> clamp, Band<T> band, Guard<T> guard, Outs<T> o,
                     int Ny, int Nx, double dx, double dy, int L, double w_t,
                     Taps<T> tp, int tile, unsigned char* ws,
@@ -359,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // a solid's zero map's outputs, at an interior cell and at an edge cell
   // (they differ only there); the post stage's own code on X1e = X2e = 0
   const T zero[9] = {};
-  auto zero_post = [&](const Disc<T>& disc, int at) {
+  auto zero_post = [&](const Sh& disc, int at) {
     return post_at<T>(zero, zero, 4, 3, at, at, 3, 3, disc, mu_s, kappa,
                       rho_s, rho_f, dx, dy, w_t, clamp, band);
   };
@@ -414,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Span rx = kBicubic ? widen(xs, Nx, 2) : vx;
 
     for (int s = 0; s < (kMulti ? S : 1); ++s) {
-      const Disc<T> disc = discs.d[s];
+      const Sh disc = discs.d[s];
       const T* X1s = X1 + s * N;
       const T* X2s = X2 + s * N;
       if constexpr (kMulti) {
@@ -666,7 +680,8 @@ long long workspace_bytes(int Ny, int Nx, int num_layers, int sms) {
 template <typename T>
 struct Fused {
   const T *u, *v, *X1, *X2, *dt, *params;
-  Discs<T> discs;
+  const int* kinds;
+  const double* shapes;
   int S;
   Clamp<T> clamp;
   Band<T> band;
@@ -682,20 +697,44 @@ struct Fused {
   void* stream;
 };
 
+// A solid's level set from the host's kind and four doubles (x0, y0, then
+// R for a disc, a and b for an ellipse).
+template <typename T>
+void set_shape(Disc<T>& d, int, const double* q) {
+  d = Disc<T>{static_cast<T>(q[0]), static_cast<T>(q[1]),
+              static_cast<T>(q[2])};
+}
+template <typename T>
+void set_shape(Ellipse<T>& e, int, const double* q) {
+  e = Ellipse<T>{static_cast<T>(q[0]), static_cast<T>(q[1]),
+                 static_cast<T>(1.0 / q[2]), static_cast<T>(1.0 / q[3])};
+}
+template <typename T>
+void set_shape(Shape<T>& s, int kind, const double* q) {
+  s.kind = kind;
+  s.x0 = static_cast<T>(q[0]);
+  s.y0 = static_cast<T>(q[1]);
+  s.p = static_cast<T>(kind == 0 ? q[2] : 1.0 / q[2]);
+  s.q = static_cast<T>(kind == 0 ? 0.0 : 1.0 / q[3]);
+}
+
 // One instantiation's launch (kMulti: S >= 2; kBicubic: the bicubic final
-// sample).
-template <typename T, bool kMulti, bool kBicubic>
+// sample; Sh: the level sets' type).
+template <typename T, bool kMulti, bool kBicubic, typename Sh>
 int launch_tiles(const Fused<T>& a) {
   static size_t allowed = 48 * 1024;
   const Plan p = rmt_plan<T>(a.num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti, kBicubic>, smem,
-                              allowed);
+  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti, kBicubic, Sh>,
+                              smem, allowed);
   if (err) return err;
-  rmt_tile_kernel<T, kMulti, kBicubic>
+  Shapes<Sh> shapes{};
+  for (int s = 0; s < a.S; ++s)
+    set_shape(shapes.d[s], a.kinds[s], a.shapes + 4 * s);
+  rmt_tile_kernel<T, kMulti, kBicubic, Sh>
       <<<num_blocks(p, a.Ny, a.Nx, a.sms), dim3(kBx, kBy), smem,
          static_cast<cudaStream_t>(a.stream)>>>(
-          a.u, a.v, a.X1, a.X2, a.dt, a.params, a.discs, a.S, a.clamp,
+          a.u, a.v, a.X1, a.X2, a.dt, a.params, shapes, a.S, a.clamp,
           a.band, a.guard, a.o, a.Ny, a.Nx, a.dx, a.dy, a.num_layers, a.w_t,
           pyrmt::load_taps<T>(a.taps), p.tile,
           p.in_smem ? nullptr : static_cast<unsigned char*>(a.ws), p.bytes);
@@ -703,13 +742,15 @@ int launch_tiles(const Fused<T>& a) {
   return 0;
 }
 
-template <typename T, bool kMulti>
+template <typename T, bool kMulti, typename Sh>
 int launch_sampler(const Fused<T>& a, bool bicubic) {
-  return bicubic ? launch_tiles<T, kMulti, true>(a)
-                 : launch_tiles<T, kMulti, false>(a);
+  return bicubic ? launch_tiles<T, kMulti, true, Sh>(a)
+                 : launch_tiles<T, kMulti, false, Sh>(a);
 }
 
-// discs: S (x0, y0, R) host triples; clamp: det G's upper end, 0 for no
+// kinds: S shape kinds (0 disc, 1 ellipse); shapes: 4 S host doubles, each
+// solid's (x0, y0, R, unused) or (x0, y0, a, b); clamp: det G's upper end,
+// 0 for no
 // clamp, clamp_lo its lower end (1.0 / clamp in double); w_cut: the band
 // mode's cut, 0 for the interior mode; bicubic: the final sample, with
 // guarded the band guard bicubic where phi0 < guard_thr (-sl_guard); ws:
@@ -718,23 +759,29 @@ int launch_sampler(const Fused<T>& a, bool bicubic) {
 template <typename T>
 int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            const T* params, const Outs<T>& o, void* ws, int S,
-           const double* discs, int Ny, int Nx, double dx, double dy,
+           const int* kinds, const double* shapes, int Ny, int Nx, double dx,
+           double dy,
            int num_layers, double w_t, double clamp, double clamp_lo,
            double w_cut, int bicubic, int guarded, double guard_thr,
            const double* taps, int sms, void* stream_ptr) {
   if (S < 1 || S > kMaxSolids) return static_cast<int>(cudaErrorInvalidValue);
-  Fused<T> a{u, v, X1, X2, dt, params, Discs<T>{}, S,
+  for (int s = 0; s < S; ++s)
+    if (kinds[s] != 0 && kinds[s] != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  Fused<T> a{u, v, X1, X2, dt, params, kinds, shapes, S,
              Clamp<T>{static_cast<T>(clamp_lo), static_cast<T>(clamp),
                       clamp > 0.0},
              Band<T>{static_cast<T>(w_cut), w_cut > 0.0},
              Guard<T>{static_cast<T>(guard_thr), guarded != 0}, o, ws, Ny, Nx,
              dx, dy, num_layers, w_t, taps, sms, stream_ptr};
-  for (int s = 0; s < S; ++s)
-    a.discs.d[s] = Disc<T>{static_cast<T>(discs[3 * s]),
-                           static_cast<T>(discs[3 * s + 1]),
-                           static_cast<T>(discs[3 * s + 2])};
-  return S == 1 ? launch_sampler<T, false>(a, bicubic != 0)
-                : launch_sampler<T, true>(a, bicubic != 0);
+  bool discs = true;
+  for (int s = 0; s < S; ++s) discs &= kinds[s] == 0;
+  const bool bc = bicubic != 0;
+  if (S > 1)
+    return discs ? launch_sampler<T, true, Disc<T>>(a, bc)
+                 : launch_sampler<T, true, Shape<T>>(a, bc);
+  return discs ? launch_sampler<T, false, Disc<T>>(a, bc)
+               : launch_sampler<T, false, Ellipse<T>>(a, bc);
 }
 
 // The split tier's device scratch: the skip flags, then the panels'
@@ -785,16 +832,18 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
   extern "C" int NAME(const T* u, const T* v, const T* X1, const T* X2,       \
                       const T* dt, const T* params, T* x1e, T* x2e, T* phi,   \
                       T* sxx, T* sxy, T* syy, T* J, T* Hf, T* rho, T* sbxx,   \
-                      T* sbxy, T* sbyy, void* ws, int S, const double* discs, \
-                      int Ny, int Nx, double dx, double dy, int num_layers,   \
+                      T* sbxy, T* sbyy, void* ws, int S, const int* kinds,    \
+                      const double* shapes, int Ny, int Nx, double dx,        \
+                      double dy, int num_layers,                              \
                       double w_t, double clamp, double clamp_lo,              \
                       double w_cut, int bicubic, int guarded,                 \
                       double guard_thr, const double* taps, int sms,          \
                       void* stream) {                                         \
     const Outs<T> o{x1e, x2e, phi, sxx, sxy, syy, J, Hf, rho, sbxx, sbxy,     \
                     sbyy};                                                    \
-    return launch<T>(u, v, X1, X2, dt, params, o, ws, S, discs, Ny, Nx, dx,   \
-                     dy, num_layers, w_t, clamp, clamp_lo, w_cut, bicubic,    \
+    return launch<T>(u, v, X1, X2, dt, params, o, ws, S, kinds, shapes, Ny,  \
+                     Nx, dx, dy, num_layers, w_t, clamp, clamp_lo, w_cut,     \
+                     bicubic,                                                 \
                      guarded, guard_thr, taps, sms, stream);                  \
   }
 

@@ -8,6 +8,18 @@ write and read the JAX package's ``.npz`` format (its ``_STATE_FIELDS``
 and ``phis0`` where the state has it), so a checkpoint written by either
 package loads in the other. Snapshots are HDF5 where h5py imports (a
 ``.h5`` path), else ``.npz``, as in the JAX package.
+
+A rebasing state (``map_rebase_minj > 0``) carries ``phis0``, which the
+'cond' rebuild compares with each solid's seed phi_init(X, Y) to tell
+whether the solid has rebased. The two packages' seeds may differ by an
+ulp in some cells (their square roots round apart). The port reads a
+phis0 within a few ulps of its seed as unrebased (``sim._make_rebuild``),
+so a JAX checkpoint resumes exactly; the JAX step compares exactly, so a
+port checkpoint of a rebasing run that has not rebased resumes in the
+JAX package on the sampled rebuild, which drifts from the analytic one
+at roundoff times the run's sensitivity. Resume such a run in the
+package that wrote it, or with ``map_rebase_rebuild='analytic'`` in JAX
+until its first rebase.
 """
 from __future__ import annotations
 

@@ -29,6 +29,14 @@ launches = 0
 periodic_launches = 0
 
 
+def momentum_rk4_supported(velocity_bc) -> bool:
+    """The kernel applies ``velocity_bc`` from its ``kernel_spec`` ('lid',
+    'free_slip', 'noop' or 'periodic'); the step takes the plain stage loop
+    for a BC without one, as the JAX step takes XLA's."""
+    spec = getattr(velocity_bc, "kernel_spec", None)
+    return spec is not None and spec[0] in _build.BC_CODES
+
+
 def _cuda_lib():
     lib = _build.load("momentum_rk4")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

@@ -45,9 +45,13 @@ from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 launches = 0
 advext_launches = 0
 
-# The most solids the fused tier's kernel takes: their discs are kernel
+# The most solids the fused tier's kernel takes: their level sets are kernel
 # arguments (kMaxSolids in csrc/rmt_block.cu).
 MAX_SOLIDS = 16
+# The level sets the fused tier's kernel evaluates: the first element of a
+# shape's kernel_spec, its index the kind code of csrc/common.cuh's Shape
+# (ops.levelset.Disc and Ellipse).
+SHAPES = ("disc", "ellipse")
 # The advection's final samples: a template parameter of both tile kernels.
 SL_INTERPS = ("bilinear", "bicubic")
 
@@ -119,10 +123,20 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
             torch.sum(one_mH * syy, dim=0))
 
 
+def rmt_block_supported(phi_inits) -> bool:
+    """The fused tier's kernel evaluates every level set: 1 to
+    ``MAX_SOLIDS`` solids, each with a ``kernel_spec`` of a kind in
+    ``SHAPES``. The step sends the other configurations to the split tier,
+    which takes phi as a field."""
+    return 1 <= len(phi_inits) <= MAX_SOLIDS and all(
+        (getattr(f, "kernel_spec", None) or ("",))[0] in SHAPES
+        for f in phi_inits)
+
+
 def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
                          num_layers):
-    """Raise unless the operands are what the kernel takes; returns the
-    discs' (x0, y0, R), one triple per solid."""
+    """Raise unless the operands are what the kernel takes; returns each
+    solid's (kind code, (x0, y0, R, 0) or (x0, y0, a, b))."""
     Ny, Nx = u.shape
     S = len(phi_inits)
     if Ny < 3 or Nx < 3:
@@ -134,26 +148,28 @@ def _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
     _build.check_operands("rmt_block", u, {
         "u": (u, (Ny, Nx)), "v": (v, (Ny, Nx)), "X1s": (X1s, (S, Ny, Nx)),
         "X2s": (X2s, (S, Ny, Nx)), "dt": (dt, ()), "params": (params, (4,))})
-    discs = []
+    shapes = []
     for f in phi_inits:
         spec = getattr(f, "kernel_spec", None)
-        if spec is None or spec[0] != "disc":
+        if spec is None or spec[0] not in SHAPES:
             raise ValueError(
                 "the rmt_block kernel evaluates the level sets from runtime "
                 "scalars and needs shapes with kernel_spec ('disc', x0, y0, "
-                f"R) (ops.levelset.Disc); got {f!r}")
-        discs.append(spec[1:])
+                "R) or ('ellipse', x0, y0, a, b) (ops.levelset.Disc, "
+                f"Ellipse); got {f!r}")
+        q = tuple(float(x) for x in spec[1:])
+        shapes.append((SHAPES.index(spec[0]), q + (0.0,) * (4 - len(q))))
     if num_layers < 1:
         raise ValueError("rmt_block kernel needs num_layers >= 1")
-    return discs
+    return shapes
 
 
 def _cuda_lib():
     lib = _build.load("rmt_block")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
-        fn.argtypes = [P] * 19 + [I, P, I, I, D, D, I, D, D, D, D, I, I, D,
-                                  P, I, P]
+        fn.argtypes = [P] * 19 + [I, P, P, I, I, D, D, I, D, D, D, D, I, I,
+                                  D, P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_rmt_block_workspace_f32,
                lib.pyrmt_rmt_block_workspace_f64):
@@ -182,8 +198,9 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
 
     A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
     CUDA kernel, which takes 1 to ``MAX_SOLIDS`` solids whose level sets
-    carry ``kernel_spec = ('disc', x0, y0, R)``, both stress modes with or
-    without the clamp and both final samples; anything else raises. dt
+    carry ``kernel_spec = ('disc', x0, y0, R)`` or ``('ellipse', x0, y0,
+    a, b)`` (``rmt_block_supported``), both stress modes with or without
+    the clamp and both final samples; anything else raises. dt
     and the physics scalars are read on the device, so a call does not
     wait for the card.
     """
@@ -197,10 +214,10 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                                sl_guard=sl_guard)
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
-    discs = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
-                                 num_layers)
+    shapes = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
+                                  num_layers)
     lib = _cuda_lib()
-    S = len(discs)
+    S = len(shapes)
     Ny, Nx = u.shape
     stacks = [torch.empty((S, Ny, Nx), dtype=u.dtype, device=u.device)
               for _ in range(7)]
@@ -215,8 +232,9 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                                                    sms)
     ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=u.device)
           if ws_bytes else None)
-    disc_args = (ctypes.c_double * (3 * S))(*(float(x) for d in discs
-                                              for x in d))
+    kinds = (ctypes.c_int * S)(*(k for k, _ in shapes))
+    shape_args = (ctypes.c_double * (4 * S))(*(x for _, q in shapes
+                                               for x in q))
     # the clamp's lower end as the plain version's torch.clamp takes it: a
     # Python double, rounded once to the tensor's type
     clamp = float(stress_clamp)
@@ -224,7 +242,8 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     fn = lib.pyrmt_rmt_block_f32 if f32 else lib.pyrmt_rmt_block_f64
     err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, dt, params,
                                             *stacks, *fields)),
-             None if ws is None else _build.pointer(ws), S, disc_args,
+             None if ws is None else _build.pointer(ws), S, kinds,
+             shape_args,
              Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
              clamp, clamp_lo, max(float(stress_w_cut), 0.0),
              *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy), sms,

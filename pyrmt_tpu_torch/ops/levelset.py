@@ -12,7 +12,13 @@ iteration, a Python loop of ``num_iters`` steps); 'fmm' (parallel fast
 sweeping: frontier cells frozen at their interpolated front distance, then
 two passes of the 4 Gauss-Seidel orderings, each traversal a loop over
 anti-diagonals with one vector op per diagonal). ``apply_phi_BCs`` is the
-3-cell periodic wrap of phi. Curvature waits for ROADMAP modules item 19.
+3-cell periodic wrap of phi.
+
+Curvature, for surface tension: ``compute_curvature`` (div(grad phi /
+|grad phi|)), the sharp solid fraction of each cell from the linear
+reconstruction of phi (``sharp_solid_fraction``) and the height-function
+estimate built on it (``compute_curvature_hf``), all elementwise and shift
+expressions in the JAX package's order, with its double-where guards.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import dataclasses
 import math
 
 import torch
+
+from pyrmt_tpu_torch.ops.fd import grad_central_x_2nd, grad_central_y_2nd
 
 
 def apply_phi_BCs(phi):
@@ -50,6 +58,38 @@ class Disc:
         ex = X1 - self.x0
         ey = X2 - self.y0
         return torch.sqrt(ex * ex + ey * ey) - self.R
+
+
+@dataclasses.dataclass(frozen=True)
+class Ellipse:
+    """The quasi signed distance of an ellipse with semi-axes a (along x)
+    and b: the implicit function r - 1, r = |((x - x0)/a, (y - y0)/b)|,
+    over its gradient's norm (``benchmarks/capillary_drop_coupled.py``'s
+    ``make_ellipse_phi_init``): exact on the ellipse, first-order distance
+    off it. Its operations are the JAX function's in its order, with each
+    division by a semi-axis a product by its reciprocal (the rounding the
+    CUDA kernel reproduces; a few ulps from the JAX function)."""
+
+    x0: float
+    y0: float
+    a: float
+    b: float
+
+    @property
+    def kernel_spec(self):
+        return ("ellipse", float(self.x0), float(self.y0), float(self.a),
+                float(self.b))
+
+    def __call__(self, X1, X2):
+        inv_a, inv_b = 1.0 / self.a, 1.0 / self.b
+        fx = (X1 - self.x0) * inv_a
+        fy = (X2 - self.y0) * inv_b
+        r = torch.sqrt(fx * fx + fy * fy + 1e-30)
+        f = r - 1.0
+        ga = fx * inv_a
+        gb = fy * inv_b
+        grad = torch.sqrt(ga * ga + gb * gb) / r + 1e-12
+        return f / grad
 
 
 def rebuild_phi_from_reference_map(X1, X2, phi_init_func):
@@ -96,15 +136,174 @@ def area_conserving_shift(phi, dx, dy, w_t, area_target, n_newton=2):
     return phi + c
 
 
+def compute_curvature(phi, dx, dy):
+    """kappa = div(grad phi / |grad phi|) with 2nd-order central stencils.
+    Where |grad phi|^2 < 1e-24 (a flat far field) the radicand is replaced
+    by 1 before the square root (the JAX function's AD-safe guard)."""
+    phi_x = grad_central_x_2nd(phi, dx)
+    phi_y = grad_central_y_2nd(phi, dy)
+    g2 = phi_x**2 + phi_y**2
+    g2 = torch.where(g2 < 1e-24, torch.ones_like(g2), g2)
+    grad_mag = torch.sqrt(g2) + 1e-12
+    nx = phi_x / grad_mag
+    ny = phi_y / grad_mag
+    return grad_central_x_2nd(nx, dx) + grad_central_y_2nd(ny, dy)
+
+
 def _edge_pad(phi):
     phi = torch.cat([phi[0:1, :], phi, phi[-1:, :]], dim=0)
     return torch.cat([phi[:, 0:1], phi, phi[:, -1:]], dim=1)
 
 
+def sharp_solid_fraction(phi, dx, dy):
+    """The sharp solid (phi < 0) fraction of each dx-by-dy cell from the
+    linear reconstruction of phi: the cell-centre distance s = phi / |grad
+    phi| and the normal give the closed form of Scardovelli and Zaleski
+    (1999), exact for a straight interface at any slope. Where the gradient
+    is flat (its 1-norm over the cell at most 1e-6 (dx + dy)) the fraction
+    is the sign indicator; the guards of the JAX function (the radicand and
+    the denominators replaced before use) are kept."""
+    gx = grad_central_x_2nd(phi, dx)
+    gy = grad_central_y_2nd(phi, dy)
+    g2 = gx * gx + gy * gy
+    g2 = torch.where(g2 < 1e-24, torch.ones_like(g2), g2)
+    gm = torch.sqrt(g2) + 1e-12
+    m1 = torch.abs(gx) / gm * dx
+    m2 = torch.abs(gy) / gm * dy
+    lo = torch.clamp(torch.minimum(m1, m2), min=1e-9 * (dx + dy))
+    mtot = m1 + m2
+    flat = mtot <= 1e-6 * (dx + dy)
+    hi = torch.where(flat, torch.full_like(gm, dx + dy),
+                     torch.maximum(m1, m2))
+    s = phi / gm
+    a = torch.minimum(torch.clamp(0.5 * mtot - s, min=0.0), mtot)
+    F1 = a * a / (2.0 * lo * hi)
+    F2 = (a - 0.5 * lo) / hi
+    F3 = 1.0 - (mtot - a) ** 2 / (2.0 * lo * hi)
+    F = torch.where(a < lo, F1, torch.where(a <= hi, F2, F3))
+    return torch.where(flat, (phi < 0.0).to(phi.dtype), F)
+
+
+def _pad_rows(f, k):
+    """f with its first and last rows repeated k times above and below."""
+    return torch.cat([f[:1, :].expand(k, -1), f, f[-1:, :].expand(k, -1)],
+                     dim=0)
+
+
+def _pad_cols(f, k):
+    return torch.cat([f[:, :1].expand(-1, k), f, f[:, -1:].expand(-1, k)],
+                     dim=1)
+
+
+def _fp_min_products(m, dim, fp, smooth):
+    """The least product of a column's bracket m with the brackets of the
+    columns the estimate reads (+-1 without smoothing, edge-replicated;
+    +-fp with it, the first and last fp rings marked invalid by -1)."""
+    if smooth == 0:
+        if dim == 1:
+            mp = _pad_cols(m, 1)
+            return torch.minimum(mp[:, :-2] * m, m * mp[:, 2:])
+        mp = _pad_rows(m, 1)
+        return torch.minimum(mp[:-2, :] * m, m * mp[2:, :])
+    pads = [m]
+    for k in range(1, fp + 1):
+        pads.append(torch.roll(m, k, dims=dim))
+        pads.append(torch.roll(m, -k, dims=dim))
+    mm = m * pads[1]
+    for q in pads[2:]:
+        mm = torch.minimum(mm, m * q)
+    n = m.shape[dim]
+    idx = torch.arange(n, device=m.device)
+    interior = (idx >= fp) & (idx < n - fp)
+    interior = interior[None, :] if dim == 1 else interior[:, None]
+    return torch.where(interior, mm, torch.full_like(mm, -1.0))
+
+
+def compute_curvature_hf(phi, dx, dy, hh, kappa_fallback, smooth=0):
+    """Height-function curvature (Cummins, Francois and Kothe 2005), the
+    JAX function's estimator and cascade: the sharp fractions c of
+    ``sharp_solid_fraction`` summed over columns of 2 hh + 1 cells along
+    each axis give the interface heights h, and kappa = -h'' / (1 +
+    h'^2)^(3/2). A column is valid where its bracket (c at its bottom
+    minus c at its top) times each neighbour's exceeds 0.81. With
+    ``smooth`` = 0 each cell takes the orientation its normal prefers
+    (|phi_y| >= |phi_x|: vertical columns), else the other valid one,
+    else ``kappa_fallback``; with ``smooth`` = s > 0 the heights are
+    filtered s times by a tangential [1, 2, 1] / 4 pass and the two
+    orientations blend convexly: validity ramps over the products' [0.9025,
+    0.98] times the weights phi_y^2 / |grad phi|^2 and its complement, the
+    rest of the weight on ``kappa_fallback``. The result is clamped to
+    |kappa| <= 1 / min(dx, dy). ``hh`` is a Python int."""
+    c = sharp_solid_fraction(phi, dx, dy)
+    Ny, Nx = c.shape
+    W = 2 * hh + 1
+    like = dict(dtype=c.dtype, device=c.device)
+    one = torch.ones((), **like)
+
+    # vertical columns: heights h(x) = sum_k c[i + k, j] dy
+    cpv = _pad_rows(c, hh)
+    h = sum(cpv[k:k + Ny, :] for k in range(W)) * dy
+    m_v = cpv[0:Ny, :] - cpv[2 * hh:2 * hh + Ny, :]
+    for _ in range(smooth):
+        hs = _pad_cols(h, 1)
+        h = 0.25 * (hs[:, :-2] + 2.0 * h + hs[:, 2:])
+    hp = _pad_cols(h, 1)
+    h_x = (hp[:, 2:] - hp[:, :-2]) / (2.0 * dx)
+    h_xx = (hp[:, 2:] - 2.0 * h + hp[:, :-2]) / (dx * dx)
+    kap_v = -h_xx / (one + h_x * h_x) ** 1.5
+
+    fp = 1 + smooth
+    thr = torch.tensor(0.81, **like)
+    mm_v = _fp_min_products(m_v, 1, fp, smooth)
+    valid_v = mm_v > thr
+
+    # horizontal columns: heights g(y) = sum_k c[i, j + k] dx
+    cph = _pad_cols(c, hh)
+    gsum = sum(cph[:, k:k + Nx] for k in range(W)) * dx
+    m_h = cph[:, 0:Nx] - cph[:, 2 * hh:2 * hh + Nx]
+    for _ in range(smooth):
+        gs = _pad_rows(gsum, 1)
+        gsum = 0.25 * (gs[:-2, :] + 2.0 * gsum + gs[2:, :])
+    gp = _pad_rows(gsum, 1)
+    g_y = (gp[2:, :] - gp[:-2, :]) / (2.0 * dy)
+    g_yy = (gp[2:, :] - 2.0 * gsum + gp[:-2, :]) / (dy * dy)
+    kap_h = -g_yy / (one + g_y * g_y) ** 1.5
+    mm_h = _fp_min_products(m_h, 0, fp, smooth)
+    valid_h = mm_h > thr
+
+    phi_x = grad_central_x_2nd(phi, dx)
+    phi_y = grad_central_y_2nd(phi, dy)
+    cap = torch.tensor(1.0 / min(dx, dy), **like)
+
+    if smooth:
+        lo = torch.tensor(0.9025, **like)
+        full = torch.tensor(0.98, **like)
+        w_v = torch.clamp((mm_v - lo) / (full - lo), 0.0, 1.0)
+        w_h = torch.clamp((mm_h - lo) / (full - lo), 0.0, 1.0)
+        g2 = phi_x * phi_x + phi_y * phi_y + torch.tensor(1e-30, **like)
+        qv = phi_y * phi_y / g2
+        wv = w_v * qv
+        wh = w_h * (one - qv)
+        # a zero weight must not read a non-finite column estimate
+        zero = torch.zeros_like(kap_v)
+        kap_v = torch.where(wv > 0.0, kap_v, zero)
+        kap_h = torch.where(wh > 0.0, kap_h, zero)
+        kap = wv * kap_v + wh * kap_h + (one - wv - wh) * kappa_fallback
+        return torch.minimum(torch.maximum(kap, -cap), cap)
+
+    prefer_v = torch.abs(phi_y) >= torch.abs(phi_x)
+    kap = torch.where(
+        prefer_v & valid_v, kap_v,
+        torch.where((~prefer_v) & valid_h, kap_h,
+                    torch.where(valid_v, kap_v,
+                                torch.where(valid_h, kap_h, kappa_fallback))))
+    return torch.minimum(torch.maximum(kap, -cap), cap)
+
+
 def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5):
     """Sussman-Smereka-Osher reinitialisation: ``num_iters`` Godunov-upwind
     pseudo-time steps with the smoothed sign of the input. The periodic
-    phi BC hook of the JAX function waits for ROADMAP modules item 13."""
+    phi BC hook of the JAX function waits for ROADMAP modules item 3."""
     sign0 = phi_in / torch.sqrt(phi_in**2 + dx**2)
     dt_reinit = dt_reinit_factor * min(dx, dy)
     mask_pos = sign0 > 0

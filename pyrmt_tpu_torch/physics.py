@@ -3,10 +3,12 @@
 
 The one-fluid mixture blends the stress tensors before the divergence:
 sigma = Hf sigma_f + sum_i (1 - H_i) sigma_s_i, with Hf = sum_i H_i - (S-1).
-The RHS takes an external force field: pairwise contact between solids
-(``external_forces``) and gravity, which ``body_forces`` adds. On the
+The RHS takes an external force field: surface tension, as the cell-centred
+CSF (``external_forces``) or the balanced-force CSF sampled at the faces
+(``balanced_csf_forces``), pairwise contact between solids and gravity,
+which ``body_forces`` assembles as the JAX step does. On the
 doubly-periodic box (``periodic=True``) every stencil is its overlap-grid
-wrap variant. Surface tension waits for ROADMAP modules item 19.
+wrap variant.
 """
 from __future__ import annotations
 
@@ -22,6 +24,11 @@ from pyrmt_tpu_torch.ops.fd import (
     grad_central_y_2nd,
     grad_central_y_2nd_periodic,
 )
+from pyrmt_tpu_torch.ops.levelset import (
+    compute_curvature,
+    compute_curvature_hf,
+)
+from pyrmt_tpu_torch.ops.stress import smoothed_heaviside
 
 
 def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
@@ -94,22 +101,52 @@ def velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f,
     return rhs_u, rhs_v
 
 
-def external_forces(phis, H_s, dx, dy, *, gamma, k_rep, w_c, w_t):
-    """The body forces that stay constant over the RK4 stages: pairwise
-    repulsive contact between the (S, Ny, Nx) level sets ``phis``, summed
-    over the pairs i < j, with half-width ``w_c`` (2 w_t when None).
-    Returns (f_ext_x, f_ext_y).
+def _solid_curvature(phi, dx, dy, w_t, curvature, kappa_interface,
+                     hf_smooth=0):
+    """One solid's curvature: the finite-difference div(grad phi / |grad
+    phi|); with ``kappa_interface`` projected to the nearest interface
+    point, kappa / (1 - phi kappa) with the denominator kept at |den| >=
+    0.25 (kappa*); with ``curvature='hf'`` the height-function estimate
+    where its columns are valid, the fd (or kappa*) value its fallback, over
+    columns of hh = max(3, ceil(sqrt(2) w_t / min(dx, dy)) + 2) cells each
+    side, smoothed with ``hf_smooth`` > 0."""
+    kap = compute_curvature(phi, dx, dy)
+    if kappa_interface:
+        den = 1.0 - phi * kap
+        den = torch.where(den >= 0.0, torch.clamp(den, min=0.25),
+                          torch.clamp(den, max=-0.25))
+        kap = kap / den
+    if curvature == "hf":
+        hh = max(3, int(np.ceil(np.sqrt(2.0) * w_t / min(dx, dy))) + 2)
+        kap = compute_curvature_hf(phi, dx, dy, hh, kap, smooth=hf_smooth)
+    return kap
 
-    Surface tension (gamma > 0), which would read the Heaviside stack
-    ``H_s``, waits for ROADMAP modules item 19 and raises."""
-    if gamma > 1e-12:
-        raise NotImplementedError(
-            "surface tension is outside the ported slice; it waits for "
-            "ROADMAP modules item 19")
+
+def external_forces(phis, H_s, dx, dy, *, gamma, k_rep, w_c, w_t,
+                    curvature="fd", kappa_interface=False, hf_smooth=0,
+                    st_enabled=None):
+    """The body forces that stay constant over the RK4 stages: the
+    cell-centred CSF surface tension -gamma kappa_i grad H_i of each solid
+    (``H_s``: the (S, Ny, Nx) Heaviside stack; the curvature as
+    ``_solid_curvature`` estimates it), then pairwise repulsive contact
+    between the level sets ``phis``, summed over the pairs i < j, with
+    half-width ``w_c`` (2 w_t when None). ``st_enabled`` switches surface
+    tension on or off whatever gamma is (None: gamma > 1e-12). Returns
+    (f_ext_x, f_ext_y)."""
     S = phis.shape[0]
     f_ext_x = torch.zeros(phis.shape[1:], dtype=phis.dtype,
                           device=phis.device)
     f_ext_y = torch.zeros_like(f_ext_x)
+    if st_enabled is None:
+        st_enabled = gamma > 1e-12
+    if st_enabled:
+        for i in range(S):
+            kap = _solid_curvature(phis[i], dx, dy, w_t, curvature,
+                                   kappa_interface, hf_smooth=hf_smooth)
+            dH_dx = grad_central_x_2nd(H_s[i], dx)
+            dH_dy = grad_central_y_2nd(H_s[i], dy)
+            f_ext_x = f_ext_x - gamma * kap * dH_dx
+            f_ext_y = f_ext_y - gamma * kap * dH_dy
     if k_rep > 0.0 and S >= 2:
         wc = (2.0 * w_t) if w_c is None else w_c
         for i in range(S):
@@ -121,22 +158,88 @@ def external_forces(phis, H_s, dx, dy, *, gamma, k_rep, w_c, w_t):
     return f_ext_x, f_ext_y
 
 
+def balanced_csf_forces(phis, H_s, dx, dy, gamma, kappas=None,
+                        kappa_interface=False, curvature="fd", w_t=None,
+                        hf_smooth=0):
+    """The balanced-force CSF (Francois et al. 2006 on the collocated
+    Rhie-Chow grid): the capillary force sampled compactly at the faces,
+    Fx_face = -gamma kappa_face (H_E - H_C) / dx with kappa_face the mean
+    of the two cells' curvatures, the same difference the face pressure
+    jump takes, and the cell force the mean of its two faces (zero beyond
+    the domain's edge), so that for a face-constant curvature p = gamma
+    kappa H + const balances it exactly. ``kappas`` ((S, Ny, Nx)) replaces
+    the estimated curvatures (projected as kappa* with
+    ``kappa_interface``). Returns (fx_cell, fy_cell, Fx_face, Fy_face),
+    the faces (Ny, Nx - 1) and (Ny - 1, Nx); the projection takes all four
+    as ``st_faces``."""
+    S = phis.shape[0]
+    Ny, Nx = phis.shape[1:]
+    like = dict(dtype=phis.dtype, device=phis.device)
+    Fx = torch.zeros((Ny, Nx - 1), **like)
+    Fy = torch.zeros((Ny - 1, Nx), **like)
+    for i in range(S):
+        if kappas is not None:
+            kap = kappas[i]
+            if kappa_interface:
+                den = 1.0 - phis[i] * kap
+                den = torch.where(den >= 0.0, torch.clamp(den, min=0.25),
+                                  torch.clamp(den, max=-0.25))
+                kap = kap / den
+        else:
+            kap = _solid_curvature(phis[i], dx, dy, w_t, curvature,
+                                   kappa_interface, hf_smooth=hf_smooth)
+        kx_f = 0.5 * (kap[:, :-1] + kap[:, 1:])
+        ky_f = 0.5 * (kap[:-1, :] + kap[1:, :])
+        Fx = Fx - gamma * kx_f * (H_s[i][:, 1:] - H_s[i][:, :-1]) / dx
+        Fy = Fy - gamma * ky_f * (H_s[i][1:, :] - H_s[i][:-1, :]) / dy
+    zx = torch.zeros((Ny, 1), **like)
+    zy = torch.zeros((1, Nx), **like)
+    Fx_pad = torch.cat([zx, Fx, zx], dim=1)
+    Fy_pad = torch.cat([zy, Fy, zy], dim=0)
+    fx_cell = 0.5 * (Fx_pad[:, :-1] + Fx_pad[:, 1:])
+    fy_cell = 0.5 * (Fy_pad[:-1, :] + Fy_pad[1:, :])
+    return fx_cell, fy_cell, Fx, Fy
+
+
 def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
-                g_x=0.0, g_y=0.0, g_rho_ref=1.0):
+                g_x=0.0, g_y=0.0, g_rho_ref=1.0, st_method="csf",
+                st_curvature="fd", st_kappa_interface=False, st_hf_smooth=0,
+                with_faces=False):
     """The step's stage-constant force (f_x, f_y), as the JAX step builds
-    it: ``external_forces`` where surface tension or contact is on, plus
-    gravity's (rho_local - g_rho_ref) g; (None, None) with neither."""
-    forces = gamma > 1e-12 or (k_rep > 0.0 and phis.shape[0] >= 2)
+    it: with surface tension (gamma > 1e-12) or contact, the balanced CSF
+    (``st_method='balanced'``) plus the contact of ``external_forces`` at
+    gamma 0, or ``external_forces`` with the cell CSF; then gravity's
+    (rho_local - g_rho_ref) g; (None, None) with none of them. The
+    Heaviside stack of the level sets ``phis`` feeds the CSF. With
+    ``with_faces`` returns (f_x, f_y, st_faces): the balanced CSF's
+    (Fx_face, Fy_face, fx_cell, fy_cell) for the projection, else None."""
+    S = phis.shape[0]
+    st = gamma > 1e-12 and S > 0
+    forces = st or (k_rep > 0.0 and S >= 2)
     gravity = g_x != 0.0 or g_y != 0.0
+    st_faces = None
     if forces:
-        fx, fy = external_forces(phis, None, dx, dy, gamma=gamma,
-                                 k_rep=k_rep, w_c=w_c, w_t=w_t)
+        H_s = smoothed_heaviside(phis, w_t) if st else None
+        kw = dict(k_rep=k_rep, w_c=w_c, w_t=w_t)
+        if st and st_method == "balanced":
+            fxc, fyc, Fxf, Fyf = balanced_csf_forces(
+                phis, H_s, dx, dy, gamma, kappa_interface=st_kappa_interface,
+                curvature=st_curvature, w_t=w_t, hf_smooth=st_hf_smooth)
+            cfx, cfy = external_forces(phis, H_s, dx, dy, gamma=0.0, **kw)
+            fx, fy = fxc + cfx, fyc + cfy
+            st_faces = (Fxf, Fyf, fxc, fyc)
+        else:
+            fx, fy = external_forces(
+                phis, H_s, dx, dy, gamma=gamma, curvature=st_curvature,
+                kappa_interface=st_kappa_interface, hf_smooth=st_hf_smooth,
+                st_enabled=st, **kw)
     if not gravity:
-        return (fx, fy) if forces else (None, None)
-    drho = rho_local - g_rho_ref
-    if not forces:
-        return drho * g_x, drho * g_y
-    return fx + drho * g_x, fy + drho * g_y
+        out = (fx, fy) if forces else (None, None)
+    else:
+        drho = rho_local - g_rho_ref
+        out = ((drho * g_x, drho * g_y) if not forces
+               else (fx + drho * g_x, fy + drho * g_y))
+    return (*out, st_faces) if with_faces else out
 
 
 def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,

@@ -13,38 +13,50 @@ One step of the ported slice:
        (rebuild, reinit, area fix) as plain ops, then
        ``advext_block_fused`` (advect, mask, extrapolate given phi), then
        the rebuild (+ area fix), stress and blends as plain ops;
-  3. the body forces, as plain ops: pairwise contact between two solids
-     or more (``k_rep > 0``, ``physics.external_forces``) and gravity
-     ((rho - rho_ref) g); then the RK4 momentum update: by default
-     (``momentum_method`` 'auto' or 'pallas') all four stages in
-     kernels/momentum_rk4.py; with ``momentum_method='xla'`` the stage loop
-     of ``physics.momentum_core``, whose stage RHS is kernels/momentum_rhs.py
-     with ``use_pallas_rhs``;
+  3. the body forces, as plain ops (``physics.body_forces``): surface
+     tension (``gamma > 0``: the cell-centred CSF, or with
+     ``st_method='balanced'`` the balanced-force CSF, whose face forces go
+     on to the projection), pairwise contact between two solids or more
+     (``k_rep > 0``) and gravity ((rho - rho_ref) g); then the RK4 momentum
+     update: by default (``momentum_method`` 'auto' or 'pallas') all four
+     stages in kernels/momentum_rk4.py where the kernel applies the BC
+     (``momentum_rk4_supported``), else and with ``momentum_method='xla'``
+     the stage loop of ``physics.momentum_core``, whose stage RHS is
+     kernels/momentum_rhs.py with ``use_pallas_rhs``;
   4. the projection: under Neumann walls the incremental Rhie-Chow
      projection with the DCT-I Poisson solve, its two stencil chains fused
-     into kernels/projection_stencils.py with ``projection_method='pallas'``;
-     on the doubly-periodic box (``bc_type='periodic'``) the FFT solve on
-     the reduced sub-grid, as plain ops on every path;
+     into kernels/projection_stencils.py with ``projection_method='pallas'``
+     (where the kernel applies the BC, with constant density and no face
+     forces), with ``variable_rho`` the DCT-preconditioned CG solve; on the
+     doubly-periodic box (``bc_type='periodic'``) the FFT solve on the
+     reduced sub-grid, as plain ops on every path;
   5. on the split tier with rebasing, ``maybe_rebase``; t += dt.
 
 On a CUDA state the blocks run their CUDA kernels; on a CPU state they run
 the plain PyTorch versions. dt stays a 0-d device tensor for the whole
 step, so a step never waits for the card, except where rebasing reads its
-trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step).
+trigger (``map_rebase_rebuild`` 'cond' or 'sampled': once per step) and
+where the variable-density CG reads its stopping test (once every
+``ops.poisson.CG_READ_EVERY`` iterations). The built step's ``paths``
+names the path each block takes.
 
 The step takes no solid (the pure-fluid solver: no solid block, the
 constant blends Hf = 1, rho = rho_f and no solid stress into the RK4
 kernel), one solid or more (two or more with the JAX package's two-solid
 stress: interior mode, det G clamped to ``two_solid_clamp``; one solid with
 ``stress_band`` the band-mode stress, clamped to ``detg_clamp``), pairwise
-contact and gravity, with semi-Lagrangian gather-free advection (CFL < 1)
+contact and gravity, surface tension (the cell-centred or balanced-force
+CSF) and variable density (the CG projection), with semi-Lagrangian
+gather-free advection (CFL < 1)
 whose final sample is bilinear or, with ``sl_interp='bicubic'``, bicubic
 under the band guard ``sl_band_guard`` (raw with a guard of 0), Neumann
 walls or the doubly-periodic box (the periodic stencils
 in the momentum, the solid block clamped at the edge as in the JAX
 package, so a solid must keep ``periodic_seam_clearance_cells`` from the
-seam) and constant density, and raises NotImplementedError, naming the
-ROADMAP item that ports it, for anything else: surface tension among them.
+seam), and raises NotImplementedError, naming the ROADMAP item that ports
+it, for anything else. The fused tier's kernel evaluates discs and
+ellipses (``ops.levelset.Disc``, ``Ellipse``), 16 at most; another level
+set, or more solids, takes the split tier, which reads phi as a field.
 """
 from __future__ import annotations
 
@@ -61,10 +73,14 @@ from pyrmt_tpu_torch.kernels.extrapolate_fused import (
     extrapolate_reference_map_fused,
 )
 from pyrmt_tpu_torch.kernels.momentum_rhs import velocity_rhs_blended_fused
-from pyrmt_tpu_torch.kernels.momentum_rk4 import momentum_rk4_fused
+from pyrmt_tpu_torch.kernels.momentum_rk4 import (
+    momentum_rk4_fused,
+    momentum_rk4_supported,
+)
 from pyrmt_tpu_torch.kernels.projection_stencils import (
     grad_correct_fused,
     grad_correct_plain,
+    projection_stencils_supported,
     rc_rhs_fused,
     rc_rhs_plain,
 )
@@ -72,6 +88,7 @@ from pyrmt_tpu_torch.kernels.rmt_block import (
     SL_INTERPS,
     advext_block_fused,
     rmt_block_fused,
+    rmt_block_supported,
 )
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.ops.interp import bilinear_interpolate
@@ -197,8 +214,6 @@ _OUTSIDE_SLICE = (
     ("sl_local=False", lambda c: not c.sl_local, "modules item 14"),
     ("CFL >= 1 (the gather-free backtrace needs CFL < 1)",
      lambda c: c.CFL >= 1.0, "modules item 14"),
-    ("surface tension", lambda c: c.gamma > 1e-12, "modules item 19"),
-    ("variable_rho", lambda c: c.variable_rho, "modules item 12"),
 )
 
 _KNOWN_VALUES = {
@@ -233,9 +248,8 @@ def check_narrow_band(w_t, dx, num_layers):
 
 
 def check_slice(cfg: RMTConfig) -> None:
-    """Raise ValueError for an unknown option value, NotImplementedError for
-    a configuration outside the ported slice, then ValueError for the
-    balanced-force CSF off Neumann walls (the JAX package's order)."""
+    """Raise ValueError for an unknown option value, then
+    NotImplementedError for a configuration outside the ported slice."""
     for name, values in _KNOWN_VALUES.items():
         if getattr(cfg, name) not in values:
             raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one "
@@ -245,11 +259,23 @@ def check_slice(cfg: RMTConfig) -> None:
             raise NotImplementedError(
                 f"{what} is outside the ported slice; it waits for ROADMAP "
                 f"{item}")
+
+
+def check_projection(cfg: RMTConfig) -> None:
+    """Raise ValueError for the balanced-force CSF off Neumann walls (the
+    JAX step's check, after its warnings), and for ``variable_rho`` off
+    them: the CG solve is the Neumann projection's (the JAX step fails on
+    that configuration too, reading CG statistics the periodic projection
+    does not return)."""
     if (cfg.st_method == "balanced" and cfg.gamma > 1e-12
             and cfg.bc_type != "neumann"):
         raise ValueError(
             "st_method='balanced' requires the incremental Neumann "
             "(Rhie-Chow) projection (bc_type='neumann')")
+    if cfg.variable_rho and cfg.bc_type != "neumann":
+        raise ValueError(
+            "variable_rho=True requires the Neumann projection "
+            "(bc_type='neumann'): its CG solve has no periodic counterpart")
 
 
 def periodic_seam_clearance_cells(cfg: RMTConfig) -> int:
@@ -326,12 +352,14 @@ def sl_band_guard(cfg: RMTConfig):
 
 
 def warn_as_jax(cfg: RMTConfig, need: int) -> None:
-    """The JAX step's two warnings for a solid, in its order
-    (``pyrmt_tpu/sim.py:541-571``): the band-mode stress with fewer than
-    need + 1 extrapolation layers, and the bicubic band guard off the
-    gather-free sub-cell backtrace. ``need`` is ``check_narrow_band``'s
-    count. (While ``sl_local=False`` and CFL >= 1 stay outside the slice,
-    ``check_slice`` raises before the second can fire.)"""
+    """The JAX step's three warnings for a solid, in its order
+    (``pyrmt_tpu/sim.py:541-599``): the band-mode stress with fewer than
+    need + 1 extrapolation layers, the bicubic band guard off the
+    gather-free sub-cell backtrace, and the raw height-function curvature
+    (``st_hf_smooth=0``) on the coupled moving interface. ``need`` is
+    ``check_narrow_band``'s count. (While ``sl_local=False`` and CFL >= 1
+    stay outside the slice, ``check_slice`` raises before the second can
+    fire.)"""
     if cfg.stress_band and cfg.num_layers < need + 1:
         warnings.warn(
             f"stress_band=True with num_layers={cfg.num_layers}: the "
@@ -346,6 +374,16 @@ def warn_as_jax(cfg: RMTConfig, need: int) -> None:
             "band guard assumes sub-cell departure displacements and "
             "can under-cover here — raise sl_band_guard or use "
             "bilinear.",
+            stacklevel=3)
+    if (cfg.st_curvature == "hf" and cfg.gamma > 1e-12
+            and cfg.st_hf_smooth == 0):
+        warnings.warn(
+            "st_curvature='hf' (raw, st_hf_smooth=0) on a COUPLED moving "
+            "interface: the raw height-function estimator is measured to "
+            "destabilise the coupled capillary case at t~0.44 "
+            "(benchmarks/README.md); set st_hf_smooth=2 (the stabilised "
+            "estimator) or use st_curvature='fd' with "
+            "st_kappa_interface=True (kappa*) for coupled flows.",
             stacklevel=3)
 
 
@@ -394,18 +432,32 @@ def _rebase_map(phi, X, Y, dx, dy, num_layers, extrap_fn):
     return X1, X2, phi0
 
 
+# How far (in ulps of the type, times |seed| + max |seed|) phis0 may lie
+# from a solid's seed phi_init(X, Y) and still read as it in 'cond' mode.
+SEED_ULPS = 4
+
+
 def _make_rebuild(cfg, phi_inits, X, Y, dtype):
     """``rebuild_phis(X1s, X2s, phis0)``: phi_i = phi0_i(xi_i). Without
     rebasing, and in map_rebase_rebuild 'analytic' mode, phi0_i is the
     analytic phi_inits[i]; in 'sampled' mode the bilinear sample of
     phis0[i]; in 'cond' mode the analytic rebuild until a rebase has
     rewritten phis0[i] and the sample after, both computed and selected on
-    the device, so the choice needs no host read."""
+    the device, so the choice needs no host read.
+
+    A rebase writes a redistanced level set, far from the seed in many
+    cells; a state made by the JAX package holds its own seeds, which may
+    round a few cells an ulp away from the port's. So phis0[i] reads as
+    the seed where it lies within ``SEED_ULPS`` ulps of it (of |seed| +
+    max |seed|, the scale of the square root's rounding) in every cell."""
     g = cfg.grid
     mode = cfg.map_rebase_rebuild if _rebasing(cfg, len(phi_inits)) \
         else "analytic"
     seeds = ([pi(X, Y).to(dtype) for pi in phi_inits] if mode == "cond"
              else None)
+    eps = torch.finfo(dtype).eps
+    tols = ([SEED_ULPS * eps * (sd.abs() + sd.abs().amax()) for sd in seeds]
+            if mode == "cond" else None)
 
     def rebuild_phis(X1s, X2s, phis0):
         outs = []
@@ -415,7 +467,8 @@ def _make_rebuild(cfg, phi_inits, X, Y, dtype):
                 continue
             phi = bilinear_interpolate(phis0[i], X1s[i], X2s[i], g.dx, g.dy)
             if mode == "cond":
-                phi = torch.where((phis0[i] != seeds[i]).any(), phi,
+                rebased = ~(torch.abs(phis0[i] - seeds[i]) <= tols[i])
+                phi = torch.where(rebased.any(), phi,
                                   phi_init(X1s[i], X2s[i]).to(dtype))
             outs.append(phi)
         return torch.stack(outs)
@@ -473,11 +526,19 @@ def make_step(
 
     ``phi_inits`` holds one level-set function of the reference map per
     solid, none for the pure-fluid solver; ``velocity_bc`` is one of
-    ``bcs`` (``periodic_bc`` with ``bc_type='periodic'``). On the fused
-    tier the CUDA kernel needs each to be an ``ops.levelset.Disc``; on the
-    split tier (reinit, area fix or rebasing) any torch callable works.
+    ``bcs`` (``periodic_bc`` with ``bc_type='periodic'``) or any BC
+    function. The fused tier's CUDA kernel evaluates 1 to 16
+    ``ops.levelset.Disc`` or ``Ellipse`` level sets
+    (``kernels.rmt_block.rmt_block_supported``); any other torch callable,
+    or more solids, runs the split tier, as reinit, the area fix and
+    rebasing do. The RK4 and projection-stencil kernels apply the BC from
+    its ``kernel_spec``; a BC without one runs their plain versions.
     Returns ``step(state, t_end) -> (state, aux)``; with rebasing,
-    aux["rebased"] holds the per-solid flags.
+    aux["rebased"] holds the per-solid flags, with ``variable_rho``
+    aux["cg_iters"] and aux["cg_relres"] the CG's. ``step.paths`` names
+    the path of each block: 'solid' ('fused', 'split' or 'none'),
+    'momentum' ('rk4 kernel', 'stage loop' or 'stage loop, rhs kernel'),
+    'projection' ('stencils', 'stencil kernels', 'faces', 'cg' or 'fft').
 
     ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl``,
     ``extrap_impl``, ``momentum_rhs_impl`` and ``projection_stencils_impl``
@@ -499,6 +560,7 @@ def make_step(
     S = len(phi_inits)
     if S > 0:
         warn_as_jax(cfg, check_narrow_band(cfg.w_t, dx, cfg.num_layers))
+    check_projection(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -522,18 +584,36 @@ def make_step(
     # the force of a step without one: none, or zero fields for the
     # one-RHS kernel, which takes them as the JAX step passes them
     f_none = None
-    if cfg.momentum_method != "xla":
+    # the RK4 kernel where it applies the BC (or a substitute is given), as
+    # the JAX step checks momentum_rk4_supported; else the stage loop
+    if cfg.momentum_method != "xla" and (
+            momentum_rk4_impl is not None
+            or momentum_rk4_supported(velocity_bc)):
         momentum_fn = momentum_rk4_impl or momentum_rk4_fused
+        momentum_path = "rk4 kernel"
     elif cfg.use_pallas_rhs:
         f_none = torch.zeros(g.shape, dtype=dtype, device=device)
         momentum_fn = functools.partial(
             momentum_core,
             rhs_fn=momentum_rhs_impl or velocity_rhs_blended_fused)
+        momentum_path = "stage loop, rhs kernel"
     else:
         momentum_fn = momentum_core
+        momentum_path = "stage loop"
+    st_faces_on = cfg.st_method == "balanced" and cfg.gamma > 1e-12 and S > 0
+    stencil_kernels = cfg.projection_method == "pallas" and (
+        projection_stencils_impl is not None
+        or projection_stencils_supported(velocity_bc))
     stencils = ((projection_stencils_impl or (rc_rhs_fused, grad_correct_fused))
-                if cfg.projection_method == "pallas"
-                else (rc_rhs_plain, grad_correct_plain))
+                if stencil_kernels else (rc_rhs_plain, grad_correct_plain))
+    if periodic:
+        projection_path = "fft"
+    elif cfg.variable_rho:
+        projection_path = "cg"
+    elif st_faces_on:
+        projection_path = "faces"
+    else:
+        projection_path = "stencil kernels" if stencil_kernels else "stencils"
 
     X, Y = g.coords(dtype=dtype, device=device)
     rebuild_phis = _make_rebuild(cfg, phi_inits, X, Y, dtype)
@@ -554,7 +634,10 @@ def make_step(
     forces = functools.partial(
         body_forces, dx=dx, dy=dy, gamma=cfg.gamma, k_rep=cfg.k_rep,
         w_c=cfg.w_c, w_t=cfg.w_t, g_x=cfg.g_x, g_y=cfg.g_y,
-        g_rho_ref=cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref)
+        g_rho_ref=cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref,
+        st_method=cfg.st_method, st_curvature=cfg.st_curvature,
+        st_kappa_interface=cfg.st_kappa_interface,
+        st_hf_smooth=cfg.st_hf_smooth, with_faces=True)
 
     def split_block(u, v, X1s, X2s, phis0, dt):
         """The split tier's solid block; the results of rmt_block_plain."""
@@ -585,7 +668,11 @@ def make_step(
                 torch.sum(one_mH * sxy, dim=0),
                 torch.sum(one_mH * syy, dim=0))
 
-    split = rmt_block_split_eligible(cfg, S)
+    # the split tier for phi post-processing, and for level sets the fused
+    # kernel does not evaluate (any callable, more than 16 solids)
+    split = rmt_block_split_eligible(cfg, S) or (
+        rmt_block_fusible(cfg, S) and rmt_block_impl is None
+        and not rmt_block_supported(phi_inits))
     # the pure-fluid step's block: no solid, the constant blends
     empty = torch.zeros((0,) + g.shape, dtype=dtype, device=device)
     fluid_block = (empty, torch.ones(g.shape, dtype=dtype, device=device),
@@ -630,16 +717,20 @@ def make_step(
             mkv = torch.sum((phis <= 0.0).to(dtype) * (1.0 - H), dim=0)
         else:
             mkv = torch.zeros_like(u)
-        f_x, f_y = forces(phis, rho_local)
+        f_x, f_y, st_faces = forces(phis, rho_local)
         if f_x is None:
             f_x = f_y = f_none
         u_star, v_star = momentum_fn(
             u, v, p, sb_xx, sb_xy, sb_yy, Hf, rho_local, mkv, velocity_bc,
             eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f,
             f_ext_x=f_x, f_ext_y=f_y, periodic=periodic)
-        u_new, v_new, p_new = pressure_projection(
+        proj = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
-            dct_mats, stencils=stencils, bc_type=cfg.bc_type)
+            dct_mats, stencils=stencils, bc_type=cfg.bc_type,
+            variable_rho=cfg.variable_rho, cg_tol=cfg.cg_tol,
+            cg_maxiter=cfg.cg_maxiter, cg_info=cfg.variable_rho,
+            st_faces=st_faces)
+        u_new, v_new, p_new = proj[:3]
 
         # On a no-op step the state stays exactly frozen; the aux fields
         # reflect the discarded trial step, as on the JAX fused path.
@@ -650,6 +741,8 @@ def make_step(
         X1s, X2s, phis0 = frz(X1e, state.X1), frz(X2e, state.X2), state.phis0
         aux = {"dt": dt_taken, "phis": phis, "J": J, "sxx": sxx, "sxy": sxy,
                "syy": syy, "rho_local": rho_local}
+        if cfg.variable_rho:
+            aux["cg_iters"], aux["cg_relres"] = proj[3]
         if maybe_rebase is not None:
             # after the step's physics, which used the pre-rebase maps
             X1s, X2s, phis0, aux["rebased"] = maybe_rebase(
@@ -661,6 +754,9 @@ def make_step(
         )
         return new_state, aux
 
+    step.paths = {"solid": "none" if S == 0 else ("split" if split
+                                                   else "fused"),
+                  "momentum": momentum_path, "projection": projection_path}
     return step
 
 
@@ -725,9 +821,14 @@ def run_until(step_fn, state: SimState, t_end, max_steps=10**8,
     return state, False
 
 
-def make_run_chunk(step_fn, n_steps: int):
+def make_run_chunk(step_fn, n_steps: int, donate: bool = False):
     """``run_chunk(state, t_end) -> (state, t)``: ``n_steps`` steps with no
-    host round-trip (steps past t_end are no-ops)."""
+    host round-trip (steps past t_end are no-ops). ``donate`` is the JAX
+    signature's: there it hands the input state's buffers to the output,
+    and the caller must chain states; here the caller chains states
+    either way (``state = run_chunk(state, t)[0]``), and no buffer is
+    freed early: each step makes new tensors and the caller's state stays
+    valid."""
 
     def run_chunk(state: SimState, t_end):
         for _ in range(n_steps):
@@ -759,7 +860,7 @@ class RebaseRunner:
     """
 
     def __init__(self, cfg, velocity_bc, phi_inits, n_steps,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", donate=False):
         self.phi_inits = tuple(phi_inits)
         S = len(self.phi_inits)
         if not _rebasing(cfg, S):
@@ -773,8 +874,8 @@ class RebaseRunner:
         self.post_step = make_step(
             dataclasses.replace(cfg, map_rebase_rebuild="sampled"),
             velocity_bc, self.phi_inits, **kw)
-        self._pre_chunk = make_run_chunk(self.pre_step, n_steps)
-        self._post_chunk = make_run_chunk(self.post_step, n_steps)
+        self._pre_chunk = make_run_chunk(self.pre_step, n_steps, donate)
+        self._post_chunk = make_run_chunk(self.post_step, n_steps, donate)
         self.X, self.Y = cfg.grid.coords(**kw)
         self._targets = (_area_targets(cfg, self.phi_inits, self.X, self.Y,
                                        dtype) if cfg.phi_area_fix else None)
@@ -829,6 +930,9 @@ class RebaseRunner:
 
 
 def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
-                       dtype=torch.float32, device="cuda") -> RebaseRunner:
-    """The chunked rebasing runner (see ``RebaseRunner``)."""
-    return RebaseRunner(cfg, velocity_bc, phi_inits, n_steps, dtype, device)
+                       dtype=torch.float32, device="cuda",
+                       donate: bool = False) -> RebaseRunner:
+    """The chunked rebasing runner (see ``RebaseRunner``); ``donate`` as
+    in ``make_run_chunk``."""
+    return RebaseRunner(cfg, velocity_bc, phi_inits, n_steps, dtype, device,
+                        donate)

@@ -124,7 +124,13 @@ def test_body_forces_without_contact_or_gravity():
 
 
 def test_surface_tension_raises():
+    """Surface tension beside contact (it raised before it was ported):
+    the CSF plus the contact of two solids, against JAX."""
     phis, _ = level_sets(2)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        external_forces(torch.tensor(phis), None, DX, DX, gamma=0.1,
-                        k_rep=2.0, w_c=None, w_t=W_T)
+    H = j_heaviside(jnp.asarray(phis), W_T)
+    ref = j_external_forces(jnp.asarray(phis), H, DX, DX, gamma=0.1,
+                            k_rep=2.0, w_c=None, w_t=W_T)
+    out = external_forces(torch.tensor(phis), torch.tensor(np.asarray(H)),
+                          DX, DX, gamma=0.1, k_rep=2.0, w_c=None, w_t=W_T)
+    for o, r in zip(out, ref):
+        assert_close_to_size(o, r)

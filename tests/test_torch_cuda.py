@@ -31,6 +31,14 @@ SHAPES = [(64, 64), (48, 80), (65, 65), (203, 301), (9, 300), (5, 5),
           (33, 49)]
 DISC = pt.Disc(0.6, 0.5, 0.2)
 EDGE_DISC = pt.Disc(0.08, 0.9, 0.15)  # clipped by the domain's edge
+# the capillary drop's ellipse (benchmarks/capillary_drop_coupled.py, R =
+# 0.2, eccentricity 1.15), and one off-centre, flat and clipped by the
+# domain's edge: no symmetry inside a tile
+ELLIPSE = pt.Ellipse(0.5, 0.5, 0.23, 0.174)
+EDGE_ELLIPSE = pt.Ellipse(0.13, 0.78, 0.21, 0.07)
+# a disc and an ellipse whose contact bands touch
+DISC_AND_ELLIPSE = (pt.Disc(0.36, 0.5, 0.13), pt.Ellipse(0.64, 0.52, 0.15,
+                                                         0.11))
 # float64 kernel vs plain version: the same IEEE operations in the same
 # order (nvcc --fmad=false) and agree bit for bit on the H100
 ATOL = 1e-11
@@ -180,7 +188,8 @@ def test_rmt_block_tile_skip_is_exact_for_any_input(dev, what):
 TILE_KERNELS = ["rmt_block", "momentum_rk4", "advext_block", "velocity_rhs",
                 "rc_rhs", "grad_correct", "extrapolate_fused",
                 "rmt_block, two solids", "momentum_rk4, force",
-                "momentum_rk4, periodic"]
+                "momentum_rk4, periodic", "rmt_block, ellipse",
+                "rmt_block, disc and ellipse"]
 
 
 @pytest.fixture(scope="module")
@@ -203,6 +212,13 @@ def device_kernels_per_call():
             dev, shape, dtype)[1:])
         calls[("rmt_block, two solids", dtype)] = (
             rb.rmt_block_fused, *multi_call(dev, shape, dtype, TWO_DISCS))
+        calls[("rmt_block, ellipse", dtype)] = (rb.rmt_block_fused,
+                                                *block_inputs(
+                                                    dev, shape, dtype,
+                                                    ELLIPSE)[1:])
+        calls[("rmt_block, disc and ellipse", dtype)] = (
+            rb.rmt_block_fused, *multi_call(dev, shape, dtype,
+                                            DISC_AND_ELLIPSE))
         calls[("momentum_rk4", dtype)] = momentum_call(dev, shape, dtype)
         fn, margs, mkw = momentum_call(dev, shape, dtype)
         calls[("momentum_rk4, force", dtype)] = (fn, margs, dict(
@@ -1449,3 +1465,201 @@ def test_bicubic_and_band_kernel_paths_match_plain_paths(dev, override):
     for k in ("u", "v", "p", "X1", "X2", "t", "phis0"):
         diff = (getattr(s_k, k) - getattr(s_p, k)).abs()
         assert diff.numel() == 0 or float(diff.max()) <= 1e-10, k
+
+
+# The ellipse level set in the fused tier's kernel
+
+
+ELLIPSE_MODES = {
+    "bilinear": {},
+    "bicubic": dict(sl_interp="bicubic", guard=True),
+    "raw_bicubic": dict(sl_interp="bicubic"),
+    "band": dict(band=True),
+}
+
+
+def ellipse_mode(cfg, mode):
+    """The rmt_block keywords of an ELLIPSE_MODES entry: the final sample
+    (the band guard 3 cells) and the stress mode (band: w_cut = w_t, the
+    clamp 3)."""
+    m = ELLIPSE_MODES[mode]
+    kw = {}
+    if "sl_interp" in m:
+        kw["sl_interp"] = m["sl_interp"]
+        kw["sl_guard"] = 3.0 * cfg.grid.dx if m.get("guard") else None
+    if m.get("band"):
+        kw.update(stress_w_cut=cfg.w_t, stress_clamp=3.0)
+    return kw
+
+
+def assert_bit_for_bit(out, ref):
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        torch.testing.assert_close(o, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", list(ELLIPSE_MODES))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ellipse", [ELLIPSE, EDGE_ELLIPSE],
+                         ids=["ellipse", "edge"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_ellipse_kernel_matches_plain(dev, shape, ellipse, dtype,
+                                                mode):
+    """One solid shaped as an Ellipse: the kernel's S = 1 ellipse
+    instantiations, bit for bit with the plain version in both types, in
+    each final sample and stress mode, one launch."""
+    cfg, args, kw = block_inputs(dev, shape, dtype, ellipse)
+    args = list(args)
+    X1 = args[2]
+    args[2] = torch.where(X1 != 0, X1 + 0.15 * (args[3] - ellipse.y0), X1)
+    kw = dict(kw, **ellipse_mode(cfg, mode))
+    before = rb.launches
+    out = rb.rmt_block_fused(*args, **kw)
+    assert rb.launches == before + 1
+    assert_bit_for_bit(out, rb.rmt_block_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "raw_bicubic"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rmt_block_disc_and_ellipse_match_plain(dev, shape, dtype, mode):
+    """A disc and an ellipse in contact range, with the two-solid clamp:
+    the S >= 2 instantiation taking each solid's shape at run time, bit
+    for bit with the plain version."""
+    args, kw = multi_call(dev, shape, dtype, DISC_AND_ELLIPSE)
+    cfg = pt.RMTConfig(grid=pt.Grid(shape[1], shape[0], 1.0, 1.0))
+    kw = dict(kw, **ellipse_mode(cfg, mode))
+    out = rb.rmt_block_fused(*args, **kw)
+    assert_bit_for_bit(out, rb.rmt_block_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("what", ["u_nan", "v_inf", "X1_nan", "X2_inf",
+                                  "X1_huge", "dt_nan"])
+@pytest.mark.parametrize("mode", ["bilinear", "raw_bicubic"])
+def test_rmt_block_ellipse_tile_skip_is_exact_for_any_input(dev, mode,
+                                                            what):
+    """The skip reads the evaluated level set, whatever its shape: a
+    non-finite (or huge) input far from the flat, clipped ellipse sends
+    its tile down the full path, so the kernel gives the plain version's
+    NaNs where that one does."""
+    cfg, args, kw = block_inputs(dev, (N, N), torch.float64, EDGE_ELLIPSE)
+    args = [a.clone() for a in args]
+    u, v, X1, X2, dt = args
+    at = (40, 50)  # far from the ellipse at (0.13, 0.78)
+    if what == "u_nan":
+        u[at] = float("nan")
+    elif what == "v_inf":
+        v[at] = float("inf")
+    elif what == "X1_nan":
+        X1[(0, *at)] = float("nan")
+    elif what == "X2_inf":
+        X2[(0, *at)] = float("inf")
+    elif what == "X1_huge":
+        X1[(0, *at)] = 1e300  # finite; the ellipse's r overflows
+    else:
+        args[4] = torch.full_like(dt, float("nan"))
+    kw = dict(kw, **ellipse_mode(cfg, mode))
+    out = rb.rmt_block_fused(*args, **kw)
+    ref = rb.rmt_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_bit_for_bit(out, ref)
+
+
+def lid_without_spec(u, v):
+    """The lid BC without a kernel_spec, as a user would write it."""
+    return pt.make_lid_bc(1.0)(u, v)
+
+
+def rounded_square(X1, X2):
+    qx = torch.clamp(torch.abs(X1 - 0.55) - 0.1, min=0.0)
+    qy = torch.clamp(torch.abs(X2 - 0.5) - 0.1, min=0.0)
+    inside = torch.clamp(torch.maximum(torch.abs(X1 - 0.55),
+                                       torch.abs(X2 - 0.5)) - 0.1, max=0.0)
+    return torch.sqrt(qx * qx + qy * qy) + inside - 0.05
+
+
+PLAIN = dict(rmt_block_impl=rb.rmt_block_plain, momentum_rk4_impl=momentum_core,
+             advext_impl=rb.advext_block_plain,
+             projection_stencils_impl=(ps.rc_rhs_plain, ps.grad_correct_plain))
+
+
+@pytest.mark.parametrize("projection", ["auto", "pallas"])
+def test_bc_without_spec_steps_on_the_stage_loop(dev, projection):
+    """F1: a BC without kernel_spec takes the plain RK4 stage loop and the
+    plain projection stencils on a CUDA state, where the kernels would
+    raise; three steps equal those of the lid BC with its spec through the
+    plain versions."""
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, projection_method=projection)
+    kw = dict(dtype=torch.float64, device=dev)
+    step = pt.make_step(cfg, lid_without_spec, (DISC,), **kw)
+    ref = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw, **PLAIN)
+    assert step.paths["momentum"] == "stage loop"
+    assert step.paths["projection"] == "stencils"
+    s = s_ref = pt.make_init_state(cfg, (DISC,), **kw)
+    before = (mk.launches, ps.grad_correct_launches, rb.launches)
+    for _ in range(3):
+        s, _ = step(s, 1.0)
+        s_ref, _ = ref(s_ref, 1.0)
+    assert (mk.launches, ps.grad_correct_launches) == before[:2]
+    assert rb.launches == before[2] + 3
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        assert float((getattr(s, k) - getattr(s_ref, k)).abs().max()) <= 1e-10
+
+
+def test_other_level_sets_step_on_the_split_tier(dev):
+    """F2: a level set the fused kernel does not evaluate takes the split
+    tier (advext_block's kernel) on a CUDA state; three steps equal the
+    plain fused path's."""
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01)
+    kw = dict(dtype=torch.float64, device=dev)
+    step = pt.make_step(cfg, pt.make_lid_bc(1.0), (rounded_square,), **kw)
+    ref = pt.make_step(cfg, pt.make_lid_bc(1.0), (rounded_square,), **kw,
+                       **PLAIN)
+    assert step.paths["solid"] == "split" and ref.paths["solid"] == "fused"
+    s = s_ref = pt.make_init_state(cfg, (rounded_square,), **kw)
+    before = (rb.launches, rb.advext_launches)
+    for _ in range(3):
+        s, _ = step(s, 1.0)
+        s_ref, _ = ref(s_ref, 1.0)
+    assert (rb.launches, rb.advext_launches) == (before[0], before[1] + 3)
+    for k in ("u", "v", "p", "X1", "X2", "t"):
+        assert float((getattr(s, k) - getattr(s_ref, k)).abs().max()) <= 1e-10
+    ell = pt.make_step(cfg, pt.make_lid_bc(1.0), (ELLIPSE,), **kw)
+    assert ell.paths["solid"] == "fused"
+
+
+def test_cg_count_on_the_card_equals_the_cpu_run(dev):
+    """The variable-density step's CG on the card stops at the iteration
+    the plain float64 run on the CPU stops at, from the same state, and
+    the two agree to roundoff; the stopping test is read on the host once
+    every CG_READ_EVERY iterations."""
+    from pyrmt_tpu_torch.ops import poisson
+    from pyrmt_tpu_torch.validation import (
+        DENSITY_DISC,
+        density_contrast_config,
+    )
+
+    cfg = density_contrast_config(64)
+    kw = dict(dtype=torch.float64)
+    step = pt.make_step(cfg, pt.free_slip_box_bc, (DENSITY_DISC,),
+                        device=dev, **kw)
+    s = pt.make_init_state(cfg, (DENSITY_DISC,), device=dev, **kw)
+    for _ in range(5):
+        s, _ = step(s, 1.0)
+    cpu_step = pt.make_step(cfg, pt.free_slip_box_bc, (DENSITY_DISC,),
+                            device="cpu", **kw)
+    s_cpu = pt.state_from_numpy(pt.state_to_numpy(s), device="cpu", **kw)
+    poisson.cg_host_reads = 0
+    s_gpu, aux = step(s, 1.0)
+    reads = poisson.cg_host_reads
+    s_cpu, aux_cpu = cpu_step(s_cpu, 1.0)
+    it = int(aux["cg_iters"])
+    assert it == int(aux_cpu["cg_iters"]) > 0
+    assert reads == -(-it // poisson.CG_READ_EVERY)
+    for k in ("u", "v", "p"):
+        ref = getattr(s_cpu, k)
+        err = float((getattr(s_gpu, k).cpu() - ref).abs().max())
+        assert err <= 1e-10 * max(1.0, float(ref.abs().max())), k

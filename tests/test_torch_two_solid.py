@@ -237,8 +237,9 @@ def test_gravity_moves_the_heavier_discs_down():
 
 def test_configs_of_the_slice_build():
     """Two solids with contact and gravity build on both tiers; three
-    solids too; surface tension still raises; with zero solids the same
-    configuration is the pure-fluid step, which gravity leaves at rest."""
+    solids too; with surface tension (the balanced CSF) too; with zero
+    solids the same configuration is the pure-fluid step, which gravity
+    leaves at rest."""
     g = pt.Grid(32, 32, 1.0, 1.0)
     three = T_PHIS + (pt.Disc(0.52, 0.8, 0.12),)
     for extra in ({}, dict(phi_area_fix=True), dict(reinit_method="pde")):
@@ -248,9 +249,13 @@ def test_configs_of_the_slice_build():
         s = pt.make_init_state(cfg, three, dtype=torch.float64, device=DEV)
         s, aux = step(s, 1.0)
         assert aux["J"].shape == (3, 32, 32) and not bool(pt.diverged(s))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        pt.make_step(dataclasses.replace(cfg, gamma=0.1), pt.free_slip_box_bc,
-                     T_PHIS, device=DEV)
+    st_cfg = dataclasses.replace(cfg, gamma=0.1, st_method="balanced")
+    step = pt.make_step(st_cfg, pt.free_slip_box_bc, T_PHIS,
+                        dtype=torch.float64, device=DEV)
+    s, aux = step(pt.make_init_state(st_cfg, T_PHIS, dtype=torch.float64,
+                                     device=DEV), 1.0)
+    assert step.paths["projection"] == "faces"
+    assert aux["J"].shape == (2, 32, 32) and not bool(pt.diverged(s))
     step = pt.make_step(cfg, pt.free_slip_box_bc, (), dtype=torch.float64,
                         device=DEV)
     s, aux = step(pt.make_init_state(cfg, (), dtype=torch.float64,
