@@ -28,7 +28,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      sample; advext_block with the bicubic sample, guarded and raw; rmt_block
      with the capillary drop's ellipse, bilinear and bicubic (guarded and
      raw) and in the band mode, and with a disc beside an ellipse in
-     contact range, bilinear and bicubic); then the times
+     contact range, bilinear and bicubic); extrapolate_fused on the masked
+     maps that one general-tier step hands it (the flagship with WENO5,
+     with central2, and with CFL 1.5 on the gather path, from a swirl) at
+     N=256, 203x301 (both types), 1024 and 4096 (float32); then the times
      of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block,
@@ -36,8 +39,9 @@ another sm_90a card) and the CUDA toolkit. Phases:
      two contact modes, the periodic instantiation beside the lid's, and
      the FFT solve of the periodic projection, cuFFT, at N=1024; the new
      modes beside the bilinear rows, the ellipse's among them), and the
-     kernels and device-busy ms per step of phases 4, 4b, 4c, 4d, 4e, 5, 8,
-     10 and 11's configurations (20 steps each);
+     kernels and device-busy ms per step of phases 4, 4b, 4c, 4d, 4e, 4f,
+     5, 8, 10 and 11's configurations (20 steps each; for 4f also
+     extrapolate_fused's device kernels and time per step);
   4. the flagship soft disc in the lid-driven cavity at N=1024 float32
      (the fused tier): 50 warm-up steps, one step under sync-debug, 500
      timed steps with the launch counts checked;
@@ -57,6 +61,11 @@ another sm_90a card) and the CUDA toolkit. Phases:
      N=1024 float32: the same protocol (the sync-debug step lifts the mode
      around the CG's stopping-test reads alone), the CG's iterations and
      host reads per step;
+  4f. the general tier at N=1024 float32: the flagship with
+     scheme='weno5', with scheme='central2' and with sl_local=False (the
+     advection as plain ops, extrapolate_fused once per solid): 10 warm-up
+     steps, one under sync-debug, 100 timed with the launch counts checked
+     (S extrapolate_fused and 1 momentum_rk4 per step, no solid block);
   5. the split tier at full width: the flagship with the area fix and PDE
      reinitialisation, 20 warm-up steps, one under sync-debug, 200 timed;
   6. rebasing at full width: make_rebase_runner on the flagship with
@@ -78,7 +87,12 @@ another sm_90a card) and the CUDA toolkit. Phases:
      capillary ellipse on the fused and (area fix) split tiers, the density
      contrast, a disc beside an ellipse in contact, the lid BC without a
      kernel_spec (the plain RK4 stage loop) and a rounded square (the split
-     tier); each line names the paths the step's blocks took;
+     tier), and for the general tier: the flagship with WENO5, with
+     central2, with sl_local=False (bilinear and bicubic) and with CFL 1.5
+     (a backtrace longer than a cell, checked), WENO5 with area fix and
+     PDE reinit, on the contact configuration and with a rebase on every
+     step, central2 on the periodic box; each line names the paths the
+     step's blocks took;
   8. contact: the head-on collision of two soft discs
      (benchmarks/two_disc_contact.py: free-slip box, k_rep = 2, the
      two-solid clamp 4) at N=1024 float32: 20 warm-up steps, one under
@@ -149,6 +163,7 @@ from pyrmt_tpu_torch import (  # noqa: E402
     noop_bc,
 )
 from pyrmt_tpu_torch import bcs  # noqa: E402
+from pyrmt_tpu_torch.ops import advect  # noqa: E402
 from pyrmt_tpu_torch.ops import levelset  # noqa: E402
 from pyrmt_tpu_torch.ops import poisson  # noqa: E402
 from pyrmt_tpu_torch.kernels import _build  # noqa: E402
@@ -184,6 +199,8 @@ HAS_BICUBIC = "sl_interp" in inspect.signature(rb.rmt_block_fused).parameters
 # The ellipse level set in the fused tier's kernel, surface tension and
 # variable density?
 HAS_ST = hasattr(levelset, "Ellipse")
+# The general tier: WENO5, central2, the gather path?
+HAS_GENERAL = hasattr(advect, "advect_weno5_rk3")
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -317,6 +334,22 @@ NEW_CONFIGS = {"flagship bicubic": dict(sl_interp="bicubic"),
                "flagship band": dict(stress_band=True, num_layers=4)}
 # the timed phase 4e's configurations
 ST_CONFIGS = ("capillary drop", "density contrast")
+# the general tier's configurations (phase 4f and its profile groups): the
+# flagship with each advection the gather-free backtrace does not take
+GENERAL_CONFIGS = {"weno5": dict(scheme="weno5"),
+                   "central2": dict(scheme="central2"),
+                   "gather": dict(sl_local=False)}
+# CFL >= 1 that the timestep's caps let through: the solid's P-wave limit
+# gives dt ~ 1.49 dx, so |u| = 1 moves the map 1.49 cells a step
+CFL_RECIPE = dict(CFL=1.5, mu_f=1e-4, mu_s=0.01, kappa=1.0, eta_s=0.0,
+                  dt_min_cap=1.0)
+# phase 3's general-tier steps whose masked maps extrapolate_fused takes:
+# {case: (flagship overrides, swirl amplitude)}
+GENERAL_MAPS = {"weno5": (dict(scheme="weno5"), 0.5),
+                "central2": (dict(scheme="central2"), 0.5),
+                "gather CFL 1.5": (CFL_RECIPE, 1.0)}
+# a part of the names of extrapolate_fused's two device kernels
+EXTRAP_KERNEL = "extrap_"
 PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
                    momentum_rk4_impl=momentum_core,
                    advext_impl=rb.advext_block_plain,
@@ -492,6 +525,54 @@ def compare_periodic(shape, dtype, device):
                 check_close(f"{tag} momentum_rk4 periodic"
                             f"{' force' if force else ''} eta_s={eta_s} "
                             f"{name}", err, scale, f64, TOL_F32_MOMENTUM)
+                worst = max(worst, err)
+    return worst
+
+
+def general_maps(shape, dtype, device, overrides, amp):
+    """The masked maps and level sets that one general-tier step hands to
+    its extrapolation: the flagship at ``shape`` with ``overrides`` from a
+    swirl of amplitude ``amp``, every block on its plain version. Returns
+    (cfg, [(X1, X2, phi) of each solid])."""
+    Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
+    cfg = dataclasses.replace(flagship(Nx, **overrides),
+                              grid=Grid(Nx=Nx, Ny=Ny, Lx=1.0, Ly=1.0))
+    seen = []
+
+    def record(X1, X2, phi, dx, dy, layers):
+        seen.append((X1, X2, phi))
+        return extrapolate_reference_map(X1, X2, phi, dx, dy, layers)
+
+    step = make_step(cfg, make_lid_bc(1.0), (FLAGSHIP_DISC,), dtype=dtype,
+                     device=device, **dict(PLAIN_IMPLS, extrap_impl=record))
+    if step.paths["solid"] != "general":
+        raise AssertionError(f"{overrides}: paths {step.paths}")
+    step(swirl_state(cfg, (FLAGSHIP_DISC,), dtype, device, amp), 8.0)
+    return cfg, seen
+
+
+def compare_general_extrap(shape, dtype, device):
+    """extrapolate_fused against its plain version on the masked maps of
+    one general-tier step of each GENERAL_MAPS case (WENO5's and
+    central2's banded fronts, the gather path's map moved 1.5 cells).
+    Returns the max-abs difference; raises past the tolerance."""
+    f64 = dtype == torch.float64
+    Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
+    tag = (f"N={Nx}" if Nx == Ny else f"{Ny}x{Nx}") + f" {str(dtype)[6:]}"
+    worst = 0.0
+    for case, (overrides, amp) in GENERAL_MAPS.items():
+        cfg, seen = general_maps(shape, dtype, device, overrides, amp)
+        g = cfg.grid
+        for X1, X2, phi in seen:
+            args = (X1, X2, phi, g.dx, g.dy, cfg.num_layers)
+            ref = extrapolate_reference_map(*args)
+            out = ef.extrapolate_reference_map_fused(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("X1e", "X2e"), out, ref):
+                err, scale = max_errs(a, b)
+                check_close(f"{tag} extrapolate_fused on the {case} step's "
+                            f"masked maps {name}", err, scale, f64,
+                            TOL_F32_RMT)
                 worst = max(worst, err)
     return worst
 
@@ -1010,9 +1091,10 @@ def step_groups(device, steps=20, warmup=10):
     """(name, fn) groups of `steps` steps each at N=1024 float32: the
     flagship, with the projection's stencil kernels, with both opt-in
     switches, the split tier (area fix + PDE reinit), the contact
-    configuration, the flagship on the periodic box and the pure-fluid lid
-    cavity (on the RK4 kernel and with momentum_method='xla'), each after
-    warm-up steps."""
+    configuration, the bicubic and band modes, the capillary drop and the
+    density contrast, the general tier's three configurations, the
+    flagship on the periodic box and the pure-fluid lid cavity (on the RK4
+    kernel and with momentum_method='xla'), each after warm-up steps."""
     groups = []
     kw = dict(dtype=torch.float32, device=device)
     flag = ((FLAGSHIP_DISC,), make_lid_bc(1.0),
@@ -1034,6 +1116,9 @@ def step_groups(device, steps=20, warmup=10):
         for name in ST_CONFIGS:
             cfg, bc, shapes, state = st_case(name, 1024, **kw)
             configs.append((name, cfg, shapes, bc, lambda cfg, s=state: s))
+    if HAS_GENERAL:
+        configs += [(f"general {name}", flagship(1024, **over), *flag)
+                    for name, over in GENERAL_CONFIGS.items()]
     if HAS_PERIODIC:
         configs.append((
             "periodic", flagship(1024, bc_type="periodic"), (FLAGSHIP_DISC,),
@@ -1060,7 +1145,8 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
     per call) and reps times (its device time per call) at each size, and
     the step groups. Returns ({N: {kernel: (device us per call,
     device kernels per call)}}, {step group: (kernels per step, copies
-    per step, device-busy ms per step)})."""
+    per step, device-busy ms per step, extrapolate_fused's device kernels
+    per step, their device ms per step)})."""
     groups = []
     for N in sizes:
         calls = kernel_calls(N, device)
@@ -1095,13 +1181,15 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
     for name, _ in steps:
         e = ev[name]
         copies = sum(x.name.startswith(("Memcpy", "Memset")) for x in e)
+        extrap = [x for x in e if EXTRAP_KERNEL in x.name]
         step_prof[name] = ((len(e) - copies) / 20, copies / 20,
-                           busy_us(e) / 20 / 1e3)
+                           busy_us(e) / 20 / 1e3, len(extrap) / 20,
+                           busy_us(extrap) / 20 / 1e3)
     return kern, step_prof
 
 
 def profile_line(prof, wall, steps):
-    kernels, copies, busy = prof
+    kernels, copies, busy = prof[:3]
     ms = 1e3 * wall / steps
     return (f"profile: {kernels:g} kernels + {copies:g} copies per step, "
             f"device busy {busy:.3f} ms/step (torch.profiler, 20 steps), "
@@ -1322,7 +1410,7 @@ def run_rebase(N, device, chunk=50, post_steps=20):
 
 
 def compare_paths(N, device, steps=3, contact=False, case=None, bc=None,
-                  shapes=None, **overrides):
+                  shapes=None, solid=None, min_cells=None, **overrides):
     """A few float64 steps through the kernels and through the plain
     versions from the same state: the flagship with overrides (and ``bc``
     or ``shapes`` in place of its own), or with ``contact`` the contact
@@ -1332,7 +1420,9 @@ def compare_paths(N, device, steps=3, contact=False, case=None, bc=None,
     (no solid: ``fluid_case``), 'capillary' (``capillary_config`` with
     ``shapes``, a swirl) or 'density' (the density-contrast disc); returns
     the max-abs differences, the kernel path's launches and its step's
-    paths."""
+    paths. ``solid`` is the solid block's path the step must take;
+    ``min_cells`` a displacement (max |u| dt / dx, in cells) that some
+    step's backtrace must pass."""
     kw = dict(dtype=torch.float64, device=device)
     if contact:
         cfg = contact_config(N, **overrides)
@@ -1371,11 +1461,19 @@ def compare_paths(N, device, steps=3, contact=False, case=None, bc=None,
     s_p = s_k
     step_k = make_step(cfg, bc, discs, **kw)
     step_p = make_step(cfg, bc, discs, **kw, **PLAIN_IMPLS)
+    if solid is not None and step_k.paths["solid"] != solid:
+        raise AssertionError(f"paths {overrides}: {step_k.paths}")
     reset_counts()
+    cells = 0.0
     for _ in range(steps):
+        u_max = torch.maximum(s_k.u.abs().max(), s_k.v.abs().max())
         s_k, aux = step_k(s_k, 8.0)
         s_p, _ = step_p(s_p, 8.0)
+        cells = max(cells, float(u_max * aux["dt"]) / cfg.grid.dx)
     torch.cuda.synchronize()
+    if min_cells is not None and not cells > min_cells:
+        raise AssertionError(f"paths {overrides}: the backtrace moved "
+                             f"{cells:.3f} cells, not more than {min_cells}")
     if contact:
         from pyrmt_tpu_torch.physics import external_forces
 
@@ -1478,6 +1576,23 @@ ST_PATHS = {
 }
 
 
+# phase 7's general-tier cases: {line: compare_paths keywords}
+GENERAL_PATHS = {
+    "flagship, scheme='weno5'": dict(scheme="weno5"),
+    "flagship, scheme='central2'": dict(scheme="central2"),
+    "flagship, sl_local=False, bilinear": dict(sl_local=False),
+    "flagship, sl_local=False, bicubic": dict(sl_local=False,
+                                              sl_interp="bicubic"),
+    "flagship, CFL=1.5 (the map moves more than a cell a step)": dict(
+        min_cells=1.0, **CFL_RECIPE),
+    "weno5 + area fix + PDE reinit": dict(
+        scheme="weno5", phi_area_fix=True, reinit_method="pde"),
+    "weno5, contact (touching discs)": dict(contact=True, scheme="weno5"),
+    "central2, periodic flagship": dict(case="periodic", scheme="central2"),
+    "weno5, rebase every step": dict(scheme="weno5", map_rebase_minj=10.0),
+}
+
+
 def main() -> int:
     # 1. probe
     if not torch.cuda.is_available():
@@ -1508,7 +1623,8 @@ def main() -> int:
                              "device_launches_per_call": prof[N][name][1],
                              "bound_us": bound_us(name, N)[0]}
                    for N in prof} for name in prof[1024]},
-            "steps": {name: dict(zip(("kernels", "copies", "busy_ms"), p))
+            "steps": {name: dict(zip(("kernels", "copies", "busy_ms",
+                                      "extrap_kernels", "extrap_busy_ms"), p))
                       for name, p in step_prof.items()},
             "root": PORT_ROOT}))
         print(card)
@@ -1534,6 +1650,15 @@ def main() -> int:
     for N in (1024, 4096):
         errs["momentum_rk4_periodic"] = max(
             errs["momentum_rk4_periodic"], compare_periodic(N, f32, device))
+    # extrapolate_fused on the general tier's maps
+    general_s = {"maps": time.perf_counter()}
+    errs["extrapolate_fused, general maps"] = 0.0
+    for shape, dtype in ((256, f64), (256, f32), ((203, 301), f64),
+                         ((203, 301), f32), (1024, f32), (4096, f32)):
+        errs["extrapolate_fused, general maps"] = max(
+            errs["extrapolate_fused, general maps"],
+            compare_general_extrap(shape, dtype, device))
+    general_s["maps"] = time.perf_counter() - general_s["maps"]
     times = time_kernels(1024, device)
     prof, step_prof = profile_all(device)
     for name in (*KERNELS, *CONTACT_MODES, *MODES):
@@ -1631,6 +1756,34 @@ def main() -> int:
               f"{advanced:.6f}; min J over the solid {min_J:.4f}; {cg}"
               + profile_line(step_prof[tag], wall, steps))
 
+    # 4f. the general tier: WENO5, central2 and the gather path as plain
+    # ops, each solid's extrapolation in extrapolate_fused
+    steps = 100
+    general = {}
+    general_s["4f"] = time.perf_counter()
+    for tag, overrides in GENERAL_CONFIGS.items():
+        _, state, aux, launches, wall, dt_sum, t0 = run_flagship(
+            1024, device, warmup=10, steps=steps, **overrides)
+        min_J, advanced = check_run(
+            f"general {tag}", state, aux, launches,
+            expected_launches(extrapolate_fused=steps, momentum_rk4=steps),
+            dt_sum, t0)
+        prof_row = step_prof[f"general {tag}"]
+        general[tag] = dict(launches=launches["extrapolate_fused"],
+                            steps_per_s=steps / wall,
+                            device_kernels_per_step=prof_row[3],
+                            device_share=prof_row[4] / prof_row[2])
+        print(f"[general] flagship {overrides} N=1024 float32: {steps} steps "
+              f"in {wall:.3f} s = {steps / wall:.1f} steps/s, "
+              f"{1e3 * wall / steps:.3f} ms/step (host clock, synchronised; "
+              f"phase 4's flagship {flagship_rate:.1f} steps/s) on '{card}'; "
+              f"launches {launches}; t advanced {advanced:.6f}; min J over "
+              f"the solid {min_J:.4f}; extrapolate_fused {prof_row[3]:g} "
+              f"device kernels and {1e3 * prof_row[4]:.2f} us per step, "
+              f"{prof_row[4] / prof_row[2]:.4f} of the device-busy time; "
+              + profile_line(prof_row, wall, steps))
+    general_s["4f"] = time.perf_counter() - general_s["4f"]
+
     # 5. the split tier at full width
     steps = 200
     cfg, state, aux, launches, wall, dt_sum, t0 = run_flagship(
@@ -1663,7 +1816,6 @@ def main() -> int:
           f"inside {rebase['J_err']:.2e}; 20 post-rebase steps in "
           f"{rebase['post_s']:.3f} s ({1e3 * rebase['post_s'] / 20:.3f} "
           f"ms/step), none rebased, min J {rebase['min_J_post']:.4f}")
-    main_launches["extrapolate_fused"] = rebase["launches"]
 
     # 7. kernel path vs plain path
     mode_paths = {}
@@ -1711,6 +1863,17 @@ def main() -> int:
                 128, device, **overrides)
             mode_paths[what] = path_launches
             print_paths(what, path_errs, path_launches, paths)
+    general_s["paths"] = time.perf_counter()
+    for what, overrides in GENERAL_PATHS.items():
+        path_errs, path_launches, paths = compare_paths(
+            128, device, solid="general", **overrides)
+        mode_paths[what] = path_launches
+        print_paths(what, path_errs, path_launches, paths)
+    general_s["paths"] = time.perf_counter() - general_s["paths"]
+    print(f"[general] wall seconds of the general tier's phases: "
+          f"extrapolate_fused on its maps {general_s['maps']:.1f}, phase 4f "
+          f"{general_s['4f']:.1f}, its [paths] lines {general_s['paths']:.1f}"
+          f" (its profile groups run inside phase 3's one session)")
 
     # 8. the contact configuration at full width
     steps = 200
@@ -1824,6 +1987,10 @@ def main() -> int:
     if HAS_ST:
         st_gates(device)
 
+    # the main path of extrapolate_fused is now the general tier's step
+    main_launches["extrapolate_fused"] = general["weno5"]["launches"]
+    gmaps = errs.pop("extrapolate_fused, general maps")
+    errs["extrapolate_fused"] = max(errs["extrapolate_fused"], gmaps)
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         bound, bound_by = bound_us(name, 1024)
@@ -1837,6 +2004,11 @@ def main() -> int:
             "device_launches_per_call": prof[1024][name][1],
             "device_us_N4096": prof[4096][name][0],
             "bound_us_N4096": bound_us(name, 4096)[0]})
+    entry = next(k for k in kernels if k["name"] == "extrapolate_fused")
+    entry.update(launches_from="[general] weno5 (S = 1, 100 steps)",
+                 rebase_launches=rebase["launches"],
+                 general_maps_max_abs_err=gmaps,
+                 general=general)
     entry = next(k for k in kernels if k["name"] == "momentum_rk4")
     entry["pure_fluid"] = {
         "launches": fluid["lid fluid"][1],

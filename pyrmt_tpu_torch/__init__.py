@@ -12,7 +12,10 @@ caller passes ``device="cpu"``. With no level set the step is the
 pure-fluid solver; ``bc_type='periodic'`` with ``periodic_bc`` runs the
 doubly-periodic box; ``gamma > 0`` adds surface tension (the cell-centred
 or balanced-force CSF) and ``variable_rho=True`` the variable-density CG
-projection.
+projection; ``scheme`` 'weno5' or 'central2', ``sl_local=False`` or
+CFL >= 1 run the general tier (the advection as plain ops, each solid's
+extrapolation in its CUDA kernel). ``velocity_RK4`` and
+``advect_semi_lagrangian_rk4`` are pyRMT's names, as in the JAX package.
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -47,6 +50,14 @@ from pyrmt_tpu_torch.kernels.projection_stencils import (
     projection_stencils_supported,
     rc_rhs_fused,
 )
+from pyrmt_tpu_torch.ops.advect import (
+    advect_central2_rk3,
+    advect_reference_map,
+    advect_reference_map_multi,
+    advect_semilagrangian_rk4,
+    advect_semilagrangian_rk4_multi,
+    advect_weno5_rk3,
+)
 from pyrmt_tpu_torch.ops.contact import compute_contact_force
 from pyrmt_tpu_torch.ops.interp import (
     bicubic_interpolate,
@@ -69,7 +80,12 @@ from pyrmt_tpu_torch.ops.poisson import (
     solve_variable_poisson_cg,
     solve_variable_poisson_cg_counted,
 )
-from pyrmt_tpu_torch.physics import balanced_csf_forces, external_forces
+from pyrmt_tpu_torch.physics import (
+    balanced_csf_forces,
+    external_forces,
+    momentum_step_rk4,
+    momentum_step_rk4_2solids,
+)
 from pyrmt_tpu_torch.sim import (
     RMTConfig,
     SimState,
@@ -81,6 +97,10 @@ from pyrmt_tpu_torch.sim import (
     run_until,
 )
 
+# pyRMT's names (the JAX package's aliases)
+velocity_RK4 = momentum_step_rk4
+advect_semi_lagrangian_rk4 = advect_semilagrangian_rk4
+
 __all__ = [
     "Disc",
     "Ellipse",
@@ -88,6 +108,13 @@ __all__ = [
     "Grid",
     "RMTConfig",
     "SimState",
+    "advect_central2_rk3",
+    "advect_reference_map",
+    "advect_reference_map_multi",
+    "advect_semi_lagrangian_rk4",
+    "advect_semilagrangian_rk4",
+    "advect_semilagrangian_rk4_multi",
+    "advect_weno5_rk3",
     "apply_phi_BCs",
     "apply_variable_poisson",
     "balanced_csf_forces",
@@ -115,6 +142,8 @@ __all__ = [
     "make_rebase_runner",
     "make_run_chunk",
     "make_step",
+    "momentum_step_rk4",
+    "momentum_step_rk4_2solids",
     "noop_bc",
     "periodic_bc",
     "precompute_poisson_eigenvalues_periodic",
@@ -129,5 +158,6 @@ __all__ = [
     "solve_variable_poisson_cg_counted",
     "state_from_numpy",
     "state_to_numpy",
+    "velocity_RK4",
     "velocity_rhs_blended_fused",
 ]

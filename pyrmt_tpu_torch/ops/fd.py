@@ -31,22 +31,26 @@ def grad_central_y_2nd(f, dy):
 
 
 def _shift_x(f, k):
-    """f shifted so output[j, i] = f[j, i + k]; out-of-range columns hold
-    edge values."""
+    """f shifted so output[..., j, i] = f[..., j, i + k]; out-of-range
+    columns hold edge values. ``f`` is (Ny, Nx) or a stack (..., Ny, Nx)."""
     if k == 0:
         return f
+    lead = f.shape[:-1]
     if k > 0:
-        return torch.cat([f[:, k:], f[:, -1:].expand(-1, k)], dim=1)
-    return torch.cat([f[:, :1].expand(-1, -k), f[:, :k]], dim=1)
+        return torch.cat([f[..., k:], f[..., -1:].expand(*lead, k)], dim=-1)
+    return torch.cat([f[..., :1].expand(*lead, -k), f[..., :k]], dim=-1)
 
 
 def _shift_y(f, k):
-    """f shifted so output[j, i] = f[j + k, i]; edge-padded."""
+    """f shifted so output[..., j, i] = f[..., j + k, i]; edge-padded."""
     if k == 0:
         return f
+    lead, nx = f.shape[:-2], f.shape[-1]
     if k > 0:
-        return torch.cat([f[k:, :], f[-1:, :].expand(k, -1)], dim=0)
-    return torch.cat([f[:1, :].expand(-k, -1), f[:k, :]], dim=0)
+        return torch.cat([f[..., k:, :], f[..., -1:, :].expand(*lead, k, nx)],
+                         dim=-2)
+    return torch.cat([f[..., :1, :].expand(*lead, -k, nx), f[..., :k, :]],
+                     dim=-2)
 
 
 def diff_upwind_3rd(f, u, h, axis):

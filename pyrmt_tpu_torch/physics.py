@@ -1,4 +1,5 @@
-"""Adaptive timestep, blended momentum RHS and the plain RK4 momentum update
+"""Adaptive timestep, blended momentum RHS, the plain RK4 momentum update and
+the n-solid momentum step from the maps that the general tier takes
 (counterpart of ``pyrmt_tpu.physics``).
 
 The one-fluid mixture blends the stress tensors before the divergence:
@@ -11,6 +12,8 @@ doubly-periodic box (``periodic=True``) every stencil is its overlap-grid
 wrap variant.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -28,7 +31,7 @@ from pyrmt_tpu_torch.ops.levelset import (
     compute_curvature,
     compute_curvature_hf,
 )
-from pyrmt_tpu_torch.ops.stress import smoothed_heaviside
+from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
 
 def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
@@ -294,3 +297,121 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     u_new = u + (dt * (1.0 / 6.0)) * (k1u + 2 * k2u + 2 * k3u + k4u)
     v_new = v + (dt * (1.0 / 6.0)) * (k1v + 2 * k2v + 2 * k3v + k4v)
     return velocity_bc(u_new, v_new)
+
+
+def momentum_step_rk4_multi(
+    u, v, p, X1s, X2s, phis, velocity_bc, *, mu_s, kappa, eta_s, dx, dy,
+    dt, rho_s, rho_f, mu_f, w_t, gamma=0.0, stress_w_cut=0.0,
+    stress_clamp=0.0, k_rep=0.0, w_c=None, g_x=0.0, g_y=0.0,
+    g_rho_ref=None, ext_override=None, st_curvature="fd",
+    st_kappa_interface=False, st_hf_smooth=0, use_pallas_rhs=False,
+    momentum_fn=None, periodic=False, st_enabled=None,
+):
+    """The n-solid RK4 momentum step from the maps: each solid's stress
+    and J from (X1s[i], X2s[i], phis[i]) ((S, Ny, Nx) stacks), the
+    mixture blends, the stage-constant force and the RK4 update. Returns
+    (u_new, v_new, sxx, sxy, syy, J), the last four (S, Ny, Nx).
+
+    The force is ``ext_override`` (f_x, f_y) where given (the step's
+    balanced CSF and contact), else the cell CSF and the contact of
+    ``external_forces`` (zero fields where neither acts), then gravity's
+    (rho_local - g_rho_ref) g (g_rho_ref None: rho_f), as in the JAX
+    package: the update always takes a force operand.
+
+    ``momentum_fn`` is the RK4 update, called as ``momentum_core``; by
+    default the RK4 kernel's wrapper where it applies ``velocity_bc``
+    (``momentum_rk4_supported``: the kernel on a CUDA tensor, the plain
+    update on a CPU one), else the plain stage loop, whose stage RHS is the
+    one-RHS kernel with ``use_pallas_rhs``.
+    """
+    S = X1s.shape[0]
+    stress = [solid_cauchy_stress(X1s[i], X2s[i], dx, dy, mu_s, kappa,
+                                  phis[i], w_cut=stress_w_cut,
+                                  detg_clamp=stress_clamp)
+              for i in range(S)]
+    sxx_s, sxy_s, syy_s, J_s = (torch.stack(c) for c in zip(*stress))
+
+    H_s = smoothed_heaviside(phis, w_t)
+    one_minus_H = 1.0 - H_s
+    Hf = torch.sum(H_s, dim=0) - (S - 1.0)
+    rho_local = Hf * rho_f + torch.sum(one_minus_H, dim=0) * rho_s
+    sig_sxx_el = torch.sum(one_minus_H * sxx_s, dim=0)
+    sig_sxy_el = torch.sum(one_minus_H * sxy_s, dim=0)
+    sig_syy_el = torch.sum(one_minus_H * syy_s, dim=0)
+
+    if ext_override is not None:
+        f_ext_x, f_ext_y = ext_override
+    else:
+        f_ext_x, f_ext_y = external_forces(
+            phis, H_s, dx, dy, gamma=gamma, k_rep=k_rep, w_c=w_c, w_t=w_t,
+            curvature=st_curvature, kappa_interface=st_kappa_interface,
+            hf_smooth=st_hf_smooth, st_enabled=st_enabled)
+    if g_x != 0.0 or g_y != 0.0:
+        drho = rho_local - (rho_f if g_rho_ref is None else g_rho_ref)
+        f_ext_x = f_ext_x + drho * g_x
+        f_ext_y = f_ext_y + drho * g_y
+
+    mkv = (torch.sum((phis <= 0.0).to(u.dtype) * one_minus_H, dim=0)
+           if eta_s > 0.0 else torch.zeros_like(u))
+
+    if momentum_fn is None:
+        momentum_fn = _default_momentum_fn(velocity_bc, use_pallas_rhs)
+    u_new, v_new = momentum_fn(
+        u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local, mkv,
+        velocity_bc, eta_s=eta_s, dx=dx, dy=dy, dt=dt, mu_f=mu_f,
+        f_ext_x=f_ext_x, f_ext_y=f_ext_y, periodic=periodic)
+    return u_new, v_new, sxx_s, sxy_s, syy_s, J_s
+
+
+def _default_momentum_fn(velocity_bc, use_pallas_rhs=False):
+    """``momentum_step_rk4_multi``'s RK4 update for ``velocity_bc``, as
+    ``make_step`` picks it under ``momentum_method`` 'auto': the RK4
+    kernel's wrapper where the kernel applies the BC, else the plain stage
+    loop, with the one-RHS kernel at each stage under ``use_pallas_rhs``
+    (imported here: the kernel wrappers import this module)."""
+    from pyrmt_tpu_torch.kernels.momentum_rhs import (
+        velocity_rhs_blended_fused,
+    )
+    from pyrmt_tpu_torch.kernels.momentum_rk4 import (
+        momentum_rk4_fused,
+        momentum_rk4_supported,
+    )
+
+    if momentum_rk4_supported(velocity_bc):
+        return momentum_rk4_fused
+    if use_pallas_rhs:
+        return functools.partial(momentum_core,
+                                 rhs_fn=velocity_rhs_blended_fused)
+    return momentum_core
+
+
+def momentum_step_rk4(u, v, p, X1, X2, velocity_bc, mu_s, kappa, eta_s, dx,
+                      dy, dt, rho_s, rho_f, phi, mu_f, w_t, gamma=0.0,
+                      stress_band=False, detg_clamp=3.0):
+    """One solid (pyRMT's ``velocity_RK4``): ``momentum_step_rk4_multi``
+    with the band-mode stress clamped to ``detg_clamp`` under
+    ``stress_band``. Returns (u, v, sxx, sxy, syy, J)."""
+    w_cut = w_t if stress_band else 0.0
+    clamp = detg_clamp if stress_band else 0.0
+    u_new, v_new, sxx_s, sxy_s, syy_s, J_s = momentum_step_rk4_multi(
+        u, v, p, X1[None], X2[None], phi[None], velocity_bc,
+        mu_s=mu_s, kappa=kappa, eta_s=eta_s, dx=dx, dy=dy, dt=dt,
+        rho_s=rho_s, rho_f=rho_f, mu_f=mu_f, w_t=w_t, gamma=gamma,
+        stress_w_cut=w_cut, stress_clamp=clamp)
+    return u_new, v_new, sxx_s[0], sxy_s[0], syy_s[0], J_s[0]
+
+
+def momentum_step_rk4_2solids(u, v, p, X1a, X2a, X1b, X2b, velocity_bc, mu_s,
+                              kappa, eta_s, dx, dy, dt, rho_s, rho_f, phi_a,
+                              phi_b, mu_f, w_t, k_rep=0.0, w_c=None,
+                              detg_clamp=4.0):
+    """Two solids (pyRMT's two-solid step): the interior stress with the
+    det G clamp, no Kelvin-Voigt term (``eta_s`` is not read, as in the
+    JAX package) and the contact force. Returns (u, v, min(J_a, J_b))."""
+    u_new, v_new, _, _, _, J_s = momentum_step_rk4_multi(
+        u, v, p, torch.stack([X1a, X1b]), torch.stack([X2a, X2b]),
+        torch.stack([phi_a, phi_b]), velocity_bc,
+        mu_s=mu_s, kappa=kappa, eta_s=0.0, dx=dx, dy=dy, dt=dt,
+        rho_s=rho_s, rho_f=rho_f, mu_f=mu_f, w_t=w_t, gamma=0.0,
+        stress_w_cut=0.0, stress_clamp=detg_clamp, k_rep=k_rep, w_c=w_c)
+    return u_new, v_new, torch.minimum(J_s[0], J_s[1])

@@ -3,16 +3,25 @@
 
     state', aux = step(state, t_end)
 
-One step of the ported slice:
+One step:
   1. adaptive dt (compute_timestep), clipped at t_end;
-  2. the RMT solid block, on one of two tiers:
-     - fused (no level-set post-processing): kernels/rmt_block.py
+  2. the RMT solid block, on one of three tiers:
+     - fused (semi-Lagrangian advection with the gather-free backtrace,
+       CFL < 1, and no level-set post-processing): kernels/rmt_block.py
        ``rmt_block_fused`` rebuilds, advects, masks, extrapolates,
        rebuilds, and computes the stress, Heaviside and mixture blends;
-     - split (reinitialisation, area fix or map rebasing): the phi chain
-       (rebuild, reinit, area fix) as plain ops, then
-       ``advext_block_fused`` (advect, mask, extrapolate given phi), then
-       the rebuild (+ area fix), stress and blends as plain ops;
+     - split (the same advection with reinitialisation, area fix or map
+       rebasing): the phi chain (rebuild, reinit, area fix) as plain ops,
+       then ``advext_block_fused`` (advect, mask, extrapolate given phi),
+       then the rebuild (+ area fix), stress and blends as plain ops;
+     - general (``scheme`` 'weno5' or 'central2', ``sl_local=False`` or
+       CFL >= 1), the JAX package's unfused step op for op: the phi chain,
+       the advection as plain ops (``ops.advect``: WENO5 or central2 with
+       SSP-RK3 over the 2S map components at once, or the RK4 backtrace
+       and the general gather), the mask, each solid's extrapolation in
+       kernels/extrapolate_fused.py, the maps frozen on a no-op step, the
+       rebuild (+ area fix), then the stress and blends with the momentum
+       (``physics.momentum_step_rk4_multi``);
   3. the body forces, as plain ops (``physics.body_forces``): surface
      tension (``gamma > 0``: the cell-centred CSF, or with
      ``st_method='balanced'`` the balanced-force CSF, whose face forces go
@@ -30,7 +39,7 @@ One step of the ported slice:
      forces), with ``variable_rho`` the DCT-preconditioned CG solve; on the
      doubly-periodic box (``bc_type='periodic'``) the FFT solve on the
      reduced sub-grid, as plain ops on every path;
-  5. on the split tier with rebasing, ``maybe_rebase``; t += dt.
+  5. with rebasing, ``maybe_rebase``; t += dt.
 
 On a CUDA state the blocks run their CUDA kernels; on a CPU state they run
 the plain PyTorch versions. dt stays a 0-d device tensor for the whole
@@ -46,17 +55,16 @@ kernel), one solid or more (two or more with the JAX package's two-solid
 stress: interior mode, det G clamped to ``two_solid_clamp``; one solid with
 ``stress_band`` the band-mode stress, clamped to ``detg_clamp``), pairwise
 contact and gravity, surface tension (the cell-centred or balanced-force
-CSF) and variable density (the CG projection), with semi-Lagrangian
-gather-free advection (CFL < 1)
-whose final sample is bilinear or, with ``sl_interp='bicubic'``, bicubic
-under the band guard ``sl_band_guard`` (raw with a guard of 0), Neumann
-walls or the doubly-periodic box (the periodic stencils
-in the momentum, the solid block clamped at the edge as in the JAX
-package, so a solid must keep ``periodic_seam_clearance_cells`` from the
-seam), and raises NotImplementedError, naming the ROADMAP item that ports
-it, for anything else. The fused tier's kernel evaluates discs and
-ellipses (``ops.levelset.Disc``, ``Ellipse``), 16 at most; another level
-set, or more solids, takes the split tier, which reads phi as a field.
+CSF) and variable density (the CG projection), with any of the JAX
+package's advection schemes: semi-Lagrangian (whose final sample is
+bilinear or, with ``sl_interp='bicubic'``, bicubic under the band guard
+``sl_band_guard``, raw with a guard of 0), WENO5 or central2 (banded by
+``w_cut``), on Neumann walls or the doubly-periodic box (the periodic
+stencils in the momentum, the solid block clamped at the edge as in the
+JAX package, so a solid must keep ``periodic_seam_clearance_cells`` from
+the seam). The fused tier's kernel evaluates discs and ellipses
+(``ops.levelset.Disc``, ``Ellipse``), 16 at most; another level set, or
+more solids, takes the split tier, which reads phi as a field.
 """
 from __future__ import annotations
 
@@ -90,6 +98,10 @@ from pyrmt_tpu_torch.kernels.rmt_block import (
     rmt_block_fused,
     rmt_block_supported,
 )
+from pyrmt_tpu_torch.ops.advect import (
+    advect_reference_map_multi,
+    check_scheme,
+)
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.ops.interp import bilinear_interpolate
 from pyrmt_tpu_torch.ops.levelset import (
@@ -109,6 +121,7 @@ from pyrmt_tpu_torch.physics import (
     body_forces,
     compute_timestep,
     momentum_core,
+    momentum_step_rk4_multi,
 )
 
 
@@ -146,7 +159,7 @@ class RMTConfig:
     ``extrap_method``, ``dct_method``, ``rmt_panel_width``, ``rmt_tile``,
     ``kernel_slab_halo``) are accepted and do not change the port's path.
     On every path the state's device chooses kernels (CUDA) or plain
-    versions (CPU). ``make_step`` checks the rest against the slice."""
+    versions (CPU). ``make_step`` checks the option values."""
 
     grid: Grid
     mu_s: float = 0.0
@@ -207,15 +220,6 @@ class RMTConfig:
         return self.w_c_cells * self.grid.dx
 
 
-# (what, is it outside the slice?, the ROADMAP item that ports it)
-_OUTSIDE_SLICE = (
-    ("scheme != 'semilagrangian'",
-     lambda c: c.scheme != "semilagrangian", "modules item 14"),
-    ("sl_local=False", lambda c: not c.sl_local, "modules item 14"),
-    ("CFL >= 1 (the gather-free backtrace needs CFL < 1)",
-     lambda c: c.CFL >= 1.0, "modules item 14"),
-)
-
 _KNOWN_VALUES = {
     "bc_type": ("neumann", "periodic"),
     "rmt_method": ("auto", "xla", "pallas"),
@@ -247,18 +251,13 @@ def check_narrow_band(w_t, dx, num_layers):
     return need
 
 
-def check_slice(cfg: RMTConfig) -> None:
-    """Raise ValueError for an unknown option value, then
-    NotImplementedError for a configuration outside the ported slice."""
+def check_options(cfg: RMTConfig) -> None:
+    """Raise ValueError for an unknown option value (an unknown ``scheme``
+    is ``make_step``'s, with the JAX package's message)."""
     for name, values in _KNOWN_VALUES.items():
         if getattr(cfg, name) not in values:
             raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one "
                              f"of {values}")
-    for what, outside, item in _OUTSIDE_SLICE:
-        if outside(cfg):
-            raise NotImplementedError(
-                f"{what} is outside the ported slice; it waits for ROADMAP "
-                f"{item}")
 
 
 def check_projection(cfg: RMTConfig) -> None:
@@ -357,9 +356,7 @@ def warn_as_jax(cfg: RMTConfig, need: int) -> None:
     need + 1 extrapolation layers, the bicubic band guard off the
     gather-free sub-cell backtrace, and the raw height-function curvature
     (``st_hf_smooth=0``) on the coupled moving interface. ``need`` is
-    ``check_narrow_band``'s count. (While ``sl_local=False`` and CFL >= 1
-    stay outside the slice, ``check_slice`` raises before the second can
-    fire.)"""
+    ``check_narrow_band``'s count."""
     if cfg.stress_band and cfg.num_layers < need + 1:
         warnings.warn(
             f"stress_band=True with num_layers={cfg.num_layers}: the "
@@ -535,13 +532,18 @@ def make_step(
     its ``kernel_spec``; a BC without one runs their plain versions.
     Returns ``step(state, t_end) -> (state, aux)``; with rebasing,
     aux["rebased"] holds the per-solid flags, with ``variable_rho``
-    aux["cg_iters"] and aux["cg_relres"] the CG's. ``step.paths`` names
-    the path of each block: 'solid' ('fused', 'split' or 'none'),
+    aux["cg_iters"] and aux["cg_relres"] the CG's. On a no-op step (past
+    t_end) the state stays as it was; aux holds the discarded trial step on
+    the fused and split tiers (as the JAX fused path) and the unchanged
+    maps' fields on the general tier (as the JAX unfused step).
+    ``step.paths`` names the path of each block: 'solid' ('fused',
+    'split', 'general' or 'none'),
     'momentum' ('rk4 kernel', 'stage loop' or 'stage loop, rhs kernel'),
     'projection' ('stencils', 'stencil kernels', 'faces', 'cg' or 'fft').
 
     ``rmt_block_impl``, ``momentum_rk4_impl``, ``advext_impl``,
-    ``extrap_impl``, ``momentum_rhs_impl`` and ``projection_stencils_impl``
+    ``extrap_impl`` (the general tier's extrapolation and the rebase's),
+    ``momentum_rhs_impl`` and ``projection_stencils_impl``
     substitute the kernel blocks with functions of the same signatures, for
     example the plain versions ``kernels.rmt_block.rmt_block_plain``,
     ``physics.momentum_core``, ``kernels.rmt_block.advext_block_plain``,
@@ -553,7 +555,7 @@ def make_step(
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
     """
-    check_slice(cfg)
+    check_options(cfg)
     g = cfg.grid
     dx, dy = g.dx, g.dy
     phi_inits = tuple(phi_inits)
@@ -561,6 +563,8 @@ def make_step(
     if S > 0:
         warn_as_jax(cfg, check_narrow_band(cfg.w_t, dx, cfg.num_layers))
     check_projection(cfg)
+    if S > 0:
+        check_scheme(cfg.scheme)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -626,21 +630,22 @@ def make_step(
                 area_conserving_shift(phis[i], dx, dy, cfg.w_t, targets[i])
                 for i in range(S)])
 
-    maybe_rebase = (_make_maybe_rebase(
-        cfg, S, X, Y, extrap_impl or extrapolate_reference_map_fused)
-        if _rebasing(cfg, S) else None)
+    extrap_fn = extrap_impl or extrapolate_reference_map_fused
+    maybe_rebase = (_make_maybe_rebase(cfg, S, X, Y, extrap_fn)
+                    if _rebasing(cfg, S) else None)
     w_cut, clamp = stress_mode(cfg, S)
     sample = dict(sl_interp=cfg.sl_interp, sl_guard=sl_band_guard(cfg))
+    g_rho_ref = cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref
     forces = functools.partial(
         body_forces, dx=dx, dy=dy, gamma=cfg.gamma, k_rep=cfg.k_rep,
         w_c=cfg.w_c, w_t=cfg.w_t, g_x=cfg.g_x, g_y=cfg.g_y,
-        g_rho_ref=cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref,
+        g_rho_ref=g_rho_ref,
         st_method=cfg.st_method, st_curvature=cfg.st_curvature,
         st_kappa_interface=cfg.st_kappa_interface,
         st_hf_smooth=cfg.st_hf_smooth, with_faces=True)
 
-    def split_block(u, v, X1s, X2s, phis0, dt):
-        """The split tier's solid block; the results of rmt_block_plain."""
+    def phi_chain(X1s, X2s, phis0):
+        """The pre-advection level sets: rebuild, reinit, area fix."""
         phis = rebuild_phis(X1s, X2s, phis0)
         if cfg.reinit_method != "none":
             phis = torch.stack([
@@ -650,6 +655,11 @@ def make_step(
                 for i in range(S)])
         if fix_areas is not None:
             phis = fix_areas(phis)
+        return phis
+
+    def split_block(u, v, X1s, X2s, phis0, dt):
+        """The split tier's solid block; the results of rmt_block_plain."""
+        phis = phi_chain(X1s, X2s, phis0)
         X1e, X2e = advext_fn(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
                              num_layers=cfg.num_layers, **sample)
         phis = rebuild_phis(X1e, X2e, phis0)
@@ -668,6 +678,77 @@ def make_step(
                 torch.sum(one_mH * sxy, dim=0),
                 torch.sum(one_mH * syy, dim=0))
 
+    guard = sl_band_guard(cfg)
+
+    def general_block(u, v, X1s, X2s, phis0, dt, active):
+        """The general tier's solid block, op for op the JAX package's
+        unfused step: the phi chain; the 2S map components advected by
+        ``cfg.scheme`` (semi-Lagrangian: one backtrace and the gather, the
+        bicubic band guard from the pre-advection phis; WENO5 and central2:
+        all 2S at once, each with its solid's phi); the mask; each solid's
+        extrapolation; the maps frozen on a no-op step; the rebuild and
+        area fix. Returns (X1s, X2s, phis)."""
+        phis = phi_chain(X1s, X2s, phis0)
+        qs = torch.cat([X1s, X2s])
+        if cfg.scheme == "semilagrangian":
+            cubic_mask = None
+            if guard is not None:
+                m = phis < -guard
+                cubic_mask = torch.cat([m, m])
+            qs = advect_reference_map_multi(
+                qs, u, v, X, Y, dt, dx, dy, None, cfg.scheme, cfg.w_cut,
+                sl_interp=cfg.sl_interp, sl_cubic_mask=cubic_mask)
+        else:
+            qs = advect_reference_map_multi(
+                qs, u, v, X, Y, dt, dx, dy, torch.cat([phis, phis]),
+                cfg.scheme, cfg.w_cut)
+        masks = (phis <= 0.0).to(dtype)
+        X1a, X2a = qs[:S] * masks, qs[S:] * masks
+        ext = [extrap_fn(X1a[i], X2a[i], phis[i], dx, dy, cfg.num_layers)
+               for i in range(S)]
+        # freeze before the rebuild, so that on a no-op step phi, the
+        # stress, J and the density come from the unchanged maps
+        X1s = torch.where(active, torch.stack([e[0] for e in ext]), X1s)
+        X2s = torch.where(active, torch.stack([e[1] for e in ext]), X2s)
+        phis = rebuild_phis(X1s, X2s, phis0)
+        if fix_areas is not None:
+            phis = fix_areas(phis)
+        return X1s, X2s, phis
+
+    st_forces = functools.partial(forces, g_x=0.0, g_y=0.0)
+
+    def general_tier(u, v, p, state, dt, active):
+        """The general tier's solid block, then its stress, blends, forces
+        and RK4 update (``physics.momentum_step_rk4_multi``), the balanced
+        CSF's forces built first, as the JAX step builds them, for the
+        projection. Returns (X1s, X2s, phis, sxx, sxy, syy, J, rho_local,
+        u*, v*, st_faces)."""
+        X1s, X2s, phis = general_block(u, v, state.X1, state.X2,
+                                       state.phis0, dt, active)
+        ext_override = st_faces = None
+        if st_faces_on:
+            fx, fy, st_faces = st_forces(phis, None)
+            ext_override = (fx, fy)
+        u_star, v_star, sxx, sxy, syy, J = momentum_step_rk4_multi(
+            u, v, p, X1s, X2s, phis, velocity_bc, mu_s=cfg.mu_s,
+            kappa=cfg.kappa, eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt,
+            rho_s=cfg.rho_s, rho_f=cfg.rho_f, mu_f=cfg.mu_f, w_t=cfg.w_t,
+            gamma=cfg.gamma, stress_w_cut=w_cut, stress_clamp=clamp,
+            st_enabled=cfg.gamma > 1e-12, k_rep=cfg.k_rep, w_c=cfg.w_c,
+            g_x=cfg.g_x, g_y=cfg.g_y, g_rho_ref=g_rho_ref,
+            ext_override=ext_override, st_curvature=cfg.st_curvature,
+            st_kappa_interface=cfg.st_kappa_interface,
+            st_hf_smooth=cfg.st_hf_smooth, momentum_fn=momentum_fn,
+            periodic=periodic)
+        H = smoothed_heaviside(phis, cfg.w_t)
+        Hf = torch.sum(H, dim=0) - (S - 1.0)
+        rho_local = Hf * cfg.rho_f + torch.sum(1.0 - H, dim=0) * cfg.rho_s
+        return (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
+                st_faces)
+
+    # the general tier for what the fused tiers' gather-free backtrace
+    # does not take: WENO5, central2, sl_local=False, CFL >= 1
+    general = S > 0 and not _rmt_advect_fusible(cfg, S)
     # the split tier for phi post-processing, and for level sets the fused
     # kernel does not evaluate (any callable, more than 16 solids)
     split = rmt_block_split_eligible(cfg, S) or (
@@ -679,22 +760,11 @@ def make_step(
                    torch.full(g.shape, cfg.rho_f, dtype=dtype, device=device),
                    torch.zeros(g.shape, dtype=dtype, device=device))
 
-    def step(state: SimState, t_end):
-        u, v, p = state.u, state.v, state.p
-        if fixed_dt is not None:
-            dt = fixed_dt
-        else:
-            dt = compute_timestep(
-                u, v, dx, dy, cfg.CFL, cfg.dt_min_cap, cfg.mu_s, cfg.rho_s,
-                cfg.gamma, cfg.rho_f, mu_f=cfg.mu_f, eta_s=cfg.eta_s,
-                kappa=cfg.kappa)
-        dt = torch.minimum(dt, torch.clamp(t_end - state.t, min=0.0)).to(dtype)
-        # Once t reaches t_end the clipped dt is 0 and rho*div/dt would be
-        # NaN: run the step with dt = 1 and freeze the state afterwards, so
-        # a loop can overrun t_end with no-op steps.
-        active = dt > 0.0
-        dt = torch.where(active, dt, one)
-
+    def block_tier(u, v, p, state, dt, active):
+        """The fused, split or pure-fluid solid block, then the body forces
+        and the RK4 update; on a no-op step the maps are frozen after, so
+        that the aux fields reflect the discarded trial step, as on the JAX
+        fused path. Returns what ``general_tier`` returns."""
         if S == 0:
             e, Hf, rho_f, z = fluid_block
             block = (state.X1, state.X2, e, e, e, e, e, Hf, rho_f, z, z, z)
@@ -724,6 +794,34 @@ def make_step(
             u, v, p, sb_xx, sb_xy, sb_yy, Hf, rho_local, mkv, velocity_bc,
             eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f,
             f_ext_x=f_x, f_ext_y=f_y, periodic=periodic)
+        X1s = torch.where(active, X1e, state.X1)
+        X2s = torch.where(active, X2e, state.X2)
+        return (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
+                st_faces)
+
+    solid_tier = general_tier if general else block_tier
+
+    def step(state: SimState, t_end):
+        u, v, p = state.u, state.v, state.p
+        if fixed_dt is not None:
+            dt = fixed_dt
+        else:
+            dt = compute_timestep(
+                u, v, dx, dy, cfg.CFL, cfg.dt_min_cap, cfg.mu_s, cfg.rho_s,
+                cfg.gamma, cfg.rho_f, mu_f=cfg.mu_f, eta_s=cfg.eta_s,
+                kappa=cfg.kappa)
+        dt = torch.minimum(dt, torch.clamp(t_end - state.t, min=0.0)).to(dtype)
+        # Once t reaches t_end the clipped dt is 0 and rho*div/dt would be
+        # NaN: run the step with dt = 1 and freeze the state afterwards, so
+        # a loop can overrun t_end with no-op steps.
+        active = dt > 0.0
+        dt = torch.where(active, dt, one)
+
+        def frz(new, old):
+            return torch.where(active, new, old)
+
+        (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
+         st_faces) = solid_tier(u, v, p, state, dt, active)
         proj = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
             dct_mats, stencils=stencils, bc_type=cfg.bc_type,
@@ -732,13 +830,9 @@ def make_step(
             st_faces=st_faces)
         u_new, v_new, p_new = proj[:3]
 
-        # On a no-op step the state stays exactly frozen; the aux fields
-        # reflect the discarded trial step, as on the JAX fused path.
-        def frz(new, old):
-            return torch.where(active, new, old)
-
+        # on a no-op step the state stays exactly frozen
         dt_taken = torch.where(active, dt, zero)
-        X1s, X2s, phis0 = frz(X1e, state.X1), frz(X2e, state.X2), state.phis0
+        phis0 = state.phis0
         aux = {"dt": dt_taken, "phis": phis, "J": J, "sxx": sxx, "sxy": sxy,
                "syy": syy, "rho_local": rho_local}
         if cfg.variable_rho:
@@ -754,8 +848,9 @@ def make_step(
         )
         return new_state, aux
 
-    step.paths = {"solid": "none" if S == 0 else ("split" if split
-                                                   else "fused"),
+    solid_path = ("none" if S == 0 else "general" if general
+                  else "split" if split else "fused")
+    step.paths = {"solid": solid_path,
                   "momentum": momentum_path, "projection": projection_path}
     return step
 

@@ -17,11 +17,10 @@ package.
   1e-15, the aux phi and J to 1e-12.
 - ``stress_mode`` makes the JAX step's choice for S in {0, 1, 2} with and
   without ``stress_band``, and the rebasing runner's least J follows it.
-- The JAX step's two warnings: the band mode with too few layers fires in
-  both packages with the same text; the bicubic guard off the sub-cell
-  backtrace fires in JAX, and in the port ``make_step`` raises for that
-  configuration first (it waits for ROADMAP modules item 14), while the
-  warning's code gives JAX's text.
+- The JAX step's two warnings: the band mode with too few layers, and the
+  bicubic guard off the sub-cell backtrace (``sl_local=False``, the
+  general tier), each fire from ``make_step`` in both packages with the
+  same text.
 """
 import dataclasses
 import math
@@ -185,13 +184,12 @@ def test_bicubic_guard_warning_as_in_jax():
     with pytest.warns(UserWarning, match="sl_interp='bicubic'") as jrec:
         jsim.make_step(jcfg, j_lid_bc(1.0), (j_phi,), dtype=jnp.float64)
     tcfg = port_config(jcfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.warns(UserWarning, match="sl_interp='bicubic'") as trec:
         pt.make_step(tcfg, pt.make_lid_bc(1.0), (pt.Disc(*DISC),),
                      dtype=torch.float64, device=DEV)
-    need = tsim.check_narrow_band(tcfg.w_t, tcfg.grid.dx, tcfg.num_layers)
-    with pytest.warns(UserWarning, match="sl_interp='bicubic'") as trec:
-        tsim.warn_as_jax(tcfg, need)
     assert [str(w.message) for w in trec] == [str(w.message) for w in jrec]
     with warnings.catch_warnings():  # the sub-cell backtrace: no warning
         warnings.simplefilter("error")
-        tsim.warn_as_jax(dataclasses.replace(tcfg, sl_local=True), need)
+        pt.make_step(dataclasses.replace(tcfg, sl_local=True),
+                     pt.make_lid_bc(1.0), (pt.Disc(*DISC),),
+                     dtype=torch.float64, device=DEV)

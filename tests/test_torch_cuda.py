@@ -1663,3 +1663,93 @@ def test_cg_count_on_the_card_equals_the_cpu_run(dev):
         ref = getattr(s_cpu, k)
         err = float((getattr(s_gpu, k).cpu() - ref).abs().max())
         assert err <= 1e-10 * max(1.0, float(ref.abs().max())), k
+
+
+# the general tier (WENO5, central2, the gather path; CFL 1.5 as the
+# timestep's caps let it through): flagship overrides
+GENERAL = {"weno5": dict(scheme="weno5"),
+           "central2": dict(scheme="central2"),
+           "gather": dict(sl_local=False),
+           "gather_cfl": dict(CFL=1.5, mu_f=1e-4, mu_s=0.01, kappa=1.0,
+                              eta_s=0.0, dt_min_cap=1.0)}
+
+
+def general_case(dev, case, dtype, n=N):
+    """The flagship with the general tier's ``case`` and a swirl, so that
+    the map moves from the first step."""
+    fields = dict(dict(mu_s=0.1, eta_s=0.01, mu_f=0.01), **GENERAL[case])
+    cfg = pt.RMTConfig(grid=pt.Grid(n, n, 1.0, 1.0), **fields)
+    X, Y = cfg.grid.coords(dtype=dtype, device=dev)
+    amp = 1.0 if case == "gather_cfl" else 0.5
+    s = pt.make_init_state(
+        cfg, (DISC,), u0=amp * torch.sin(math.pi * X) * torch.cos(math.pi * Y),
+        v0=-amp * torch.cos(math.pi * X) * torch.sin(math.pi * Y),
+        dtype=dtype, device=dev)
+    return cfg, s
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(GENERAL))
+def test_general_kernel_path_matches_plain_path(dev, case, dtype):
+    """Three general-tier steps through the kernels (extrapolate_fused once
+    per solid, momentum_rk4 once a step, no solid block) against the plain
+    path on the card: float64 to 1e-11, float32 to 1e-5 (u, v, p) and
+    1e-4 (the maps) of max(1, |plain|)."""
+    cfg, s = general_case(dev, case, dtype)
+    kw = dict(dtype=dtype, device=dev)
+    step_k = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw)
+    step_p = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                          momentum_rk4_impl=momentum_core,
+                          extrap_impl=extrapolate_reference_map)
+    assert step_k.paths["solid"] == "general"
+    before = (rb.launches, rb.advext_launches, ef.launches, mk.launches)
+    s_k = s_p = s
+    for _ in range(3):
+        s_k, _ = step_k(s_k, 1.0)
+        s_p, _ = step_p(s_p, 1.0)
+    assert (rb.launches, rb.advext_launches, ef.launches, mk.launches) == (
+        before[0], before[1], before[2] + 3, before[3] + 3)
+    for k in ("u", "v", "p", "X1", "X2"):
+        out, ref = getattr(s_k, k), getattr(s_p, k)
+        if dtype == torch.float64:
+            assert float((out - ref).abs().max()) <= ATOL, k
+        else:
+            assert_close_f32([out], [ref], 1e-4 if k[0] == "X" else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(GENERAL))
+def test_extrapolate_fused_on_general_tier_maps(dev, case, dtype):
+    """extrapolate_fused equals its plain version bit for bit on the masked
+    maps and level sets that a general-tier step hands it."""
+    cfg, s = general_case(dev, case, dtype, n=96)
+    seen = []
+
+    def record(X1, X2, phi, dx, dy, layers):
+        seen.append((X1, X2, phi, dx, dy, layers))
+        return extrapolate_reference_map(X1, X2, phi, dx, dy, layers)
+
+    step = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), dtype=dtype,
+                        device=dev, momentum_rk4_impl=momentum_core,
+                        extrap_impl=record)
+    for _ in range(2):
+        s, _ = step(s, 1.0)
+    assert len(seen) == 2
+    for args in seen:
+        assert_bit_for_bit(ef.extrapolate_reference_map_fused(*args),
+                           extrapolate_reference_map(*args))
+
+
+@pytest.mark.parametrize("case", list(GENERAL))
+def test_general_step_does_not_wait_for_the_card(dev, case):
+    cfg, s = general_case(dev, case, torch.float32)
+    step = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,),
+                        dtype=torch.float32, device=dev)
+    s, _ = step(s, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, aux = step(s, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(s.u).all()) and aux["J"].shape == (1, N, N)

@@ -9,7 +9,9 @@ no-op step only the state is compared: the port's aux reflects the trial
 step, as on the JAX fused path, and the JAX XLA path's does not.
 """
 import dataclasses
+import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ import torch
 import pyrmt_tpu.sim as jsim
 import pyrmt_tpu_torch as pt
 from __graft_entry__ import _flagship
+from pyrmt_tpu.bcs import make_lid_bc as j_lid_bc
+from pyrmt_tpu.grid import Grid as JGrid
 from pyrmt_tpu_torch.io import STATE_FIELDS, state_from_numpy, state_to_numpy
 
 torch.set_num_threads(1)
@@ -134,10 +138,18 @@ def test_fixed_dt():
     assert float(aux["dt"]) == 1e-4 and float(s.t) == 1e-4
 
 
-# reinitialisation, the area fix, rebasing, the opt-in RHS and projection
-# kernels, gravity, the periodic box, bicubic sampling, the band-mode
-# stress, surface tension and variable density came into the slice: their
-# entries hold them with a feature still outside it
+# The configurations that raised NotImplementedError while the general
+# tier (WENO5, central2, sl_local=False, CFL >= 1; ROADMAP modules item 14)
+# was outside the slice. Each now builds in both packages and steps as the
+# JAX step does (3 steps at N=16 from the JAX initial state; u, v, X1, X2
+# to 1e-12, p to 1e-11), or raises the exception class the JAX package
+# raises for it (a solid too near the periodic seam: ValueError; the port
+# raises variable_rho's off Neumann walls at make_step, the JAX step fails
+# on it later). dct_precision 'default' (deviation #6, the TPU's bf16 DCT)
+# stays a ValueError in the port alone. JAX's use_pallas_rhs step cannot
+# run on the CPU (its one-RHS kernel has no interpret switch there), so
+# the port's is held to JAX's step with the XLA RHS, which
+# tests/test_pallas.py pins the kernel to.
 @pytest.mark.parametrize("override", [
     dict(scheme="weno5"),
     dict(bc_type="periodic", sl_interp="bicubic", gamma=0.1, CFL=1.5),
@@ -157,9 +169,47 @@ def test_fixed_dt():
 ])
 def test_configs_outside_the_slice_raise(override):
     cfg = pt.RMTConfig(grid=pt.Grid(16, 16, 1.0, 1.0), **override)
-    err = ValueError if "dct_precision" in override else NotImplementedError
-    with pytest.raises(err):
-        pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), device=DEV)
+    if "dct_precision" in override:
+        with pytest.raises(ValueError):
+            pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), device=DEV)
+        return
+    jover = dict(override, use_pallas_rhs=False)
+    jcfg = jsim.RMTConfig(grid=JGrid(Nx=16, Ny=16, Lx=1.0, Ly=1.0),
+                          **dict(jover, rmt_method="xla",
+                                 momentum_method="xla", extrap_method="xla",
+                                 dct_method="fft"))
+    jphi = _flagship(16, jnp.float64)[2]
+    j_err = t_err = None
+    with warnings.catch_warnings(), jax.disable_jit():
+        warnings.simplefilter("ignore")  # the bicubic guard's, in both
+        try:
+            jstep = jsim.make_step(jcfg, j_lid_bc(1.0), jphi,
+                                   dtype=jnp.float64)
+            js = jsim.make_init_state(jcfg, jphi, dtype=jnp.float64)
+            js0 = jax_numpy(js)
+            for _ in range(3):
+                js, _ = jstep(js, jnp.asarray(1.0, jnp.float64))
+        except Exception as e:  # noqa: BLE001 - compared below
+            j_err = e
+        try:
+            tstep = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,),
+                                 dtype=torch.float64, device=DEV)
+            # raises where the JAX package's does (the periodic seam)
+            ts = pt.make_init_state(cfg, (DISC,), dtype=torch.float64,
+                                    device=DEV)
+            if j_err is None:
+                ts = state_from_numpy(js0, device=DEV, dtype=torch.float64)
+            for _ in range(3):
+                ts, _ = tstep(ts, 1.0)
+        except Exception as e:  # noqa: BLE001 - compared below
+            t_err = e
+    assert type(t_err) is type(j_err), (t_err, j_err)
+    if j_err is None:
+        assert tstep.paths["solid"] == "general"
+        tn, jn = state_to_numpy(ts), jax_numpy(js)
+        for k, atol in ATOL.items():
+            np.testing.assert_allclose(tn[k], jn[k], rtol=0, atol=atol,
+                                       err_msg=k)
 
 
 def test_bad_configs_raise():
