@@ -116,10 +116,33 @@ another sm_90a card) and the CUDA toolkit. Phases:
      Laplace's law at N=48 float64 (the cell CSF's error < 1.5e-2, the
      balanced CSF with kappa* strictly below it) and the heavy disc at N=48
      float64 to t = 0.25 (sinks, CG iterations < 100, relative divergence
-     < 0.2).
+     < 0.2);
+  13. gradients: every kernel wrapper is an autograd.Function whose
+     backward is its plain version's autograd. Seven [grad] lines, 3
+     float64 steps at N=128 (the flagship; with projection_method='pallas';
+     the area fix on the split tier; central2 on the general tier; both
+     opt-in switches; the density contrast, through the CG's implicit
+     adjoint; the capillary drop with gamma traced): d/d(mu_s) (traced) and
+     d/d(a factor on the initial velocity) through the kernels against the
+     plain path (relative 1e-12) and central differences of the kernel
+     path (1e-5), with the forward's launch counts and none in the
+     backward, and on the flagship make_rollout's checkpointed gradient;
+     one traced flagship step at N=1024 float32 with inputs requiring
+     gradients under sync-debug; make_diff_rollout of the flagship at
+     N=1024 float32 over 10 steps with mu_s traced (finite, the
+     plain-forward rollout's gradient to 1e-5, forward and backward
+     ms/step, peak memory); the inverse problem of
+     examples/differentiable_fsi.py (N=48 float64, 60 steps, a Taylor-Green
+     seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4 within 1 %, Adam
+     written inline, then secant iteration). Phase 3 also times each
+     kernel's backward (the plain twin's forward and autograd) at N=1024
+     float32 ([backward] lines).
 
-It then prints a JSON line of the kernels, the card's name and power limit
-as nvidia-smi gives them, and last one JSON line
+It then prints a [time] line of each phase's wall seconds, a JSON line of
+the kernels (with each kernel's backward ms and the largest relative
+gradient difference of phase 13) and of the full-width gradient run, the
+card's name and power limit as nvidia-smi gives them, and last one JSON
+line
 {"ok": true, "device": {...}}. Any failure raises before that line and
 exits nonzero; so does a machine without CUDA.
 
@@ -981,6 +1004,54 @@ def time_kernels(N, device, reps=20):
     return times
 
 
+def time_backward(N, device, times, reps=3):
+    """{kernel: device ms of one call's backward through its Function} at
+    N float32: the CUDA-event time of the wrapper's forward on inputs that
+    require gradients plus ``torch.autograd.backward`` of its outputs (the
+    plain twin's forward and autograd), less the kernel's forward time of
+    ``time_kernels``."""
+    cfg, d = kernel_inputs(N, torch.float32, device)
+    plain_out = rmt_call(rb.rmt_block_plain, cfg, d)
+    args, kw = momentum_args(cfg, d, plain_out, cfg.eta_s)
+    rc, gc, rhs = stencil_args(cfg, d, plain_out, args, kw["dt"])
+    dx, dy = cfg.grid.dx, cfg.grid.dy
+    bc = make_lid_bc(1.0)
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.detach().clone().requires_grad_(True)
+        return x
+
+    dd = {k: leaf(x) for k, x in d.items()}
+    args, kw = [leaf(x) for x in args], {k: leaf(x) for k, x in kw.items()}
+    rc, gc, rhs = ([leaf(x) for x in t] for t in (rc, gc, rhs))
+    calls = {
+        "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, dd),
+        "momentum_rk4": lambda: mk.momentum_rk4_fused(*args, bc, **kw),
+        "advext_block": lambda: advext_call(rb.advext_block_fused, cfg, dd),
+        "extrapolate_fused": lambda: extrap_call(
+            ef.extrapolate_reference_map_fused, cfg, dd),
+        "rc_rhs": lambda: ps.rc_rhs_fused(*rc, dx, dy),
+        "grad_correct": lambda: ps.grad_correct_fused(*gc, dx, dy, bc),
+        "velocity_rhs": lambda: mr.velocity_rhs_blended_fused(*rhs),
+    }
+    out = {}
+    for name, call in calls.items():
+        def fwd_bwd(call=call):
+            o = call()
+            o = (o,) if isinstance(o, torch.Tensor) else tuple(o)
+            torch.autograd.backward(o, [torch.ones_like(x) for x in o])
+
+        ms = time_ms(fwd_bwd, reps)
+        out[name] = ms - times[name][0]
+        print(f"[backward] N={N} float32 {name}: forward and backward "
+              f"through its Function {ms:.3f} ms (CUDA events, {reps} "
+              f"calls), the backward (the plain twin's forward and "
+              f"autograd) {out[name]:.3f} ms against the kernel's "
+              f"{times[name][0]:.4f} ms forward")
+    return out
+
+
 def profile_groups(groups):
     """Run each (name, fn) of groups in order inside one torch.profiler
     session, with a short spin kernel before each group and after the last
@@ -1593,18 +1664,336 @@ GENERAL_PATHS = {
 }
 
 
+# phase 13's [grad] lines: {line: (configuration, the traced scalar,
+# the kernels each step launches)}; "case" picks one of phase 7's
+# configurations
+GRAD_CASES = {
+    "flagship": (dict(), "mu_s", dict(rmt_block=1, momentum_rk4=1)),
+    "flagship, projection_method='pallas'": (
+        dict(projection_method="pallas"), "mu_s",
+        dict(rmt_block=1, momentum_rk4=1, rc_rhs=1, grad_correct=1)),
+    "area fix (split tier)": (dict(phi_area_fix=True), "mu_s",
+                              dict(advext_block=1, momentum_rk4=1)),
+    "central2 (general tier)": (dict(scheme="central2"), "mu_s",
+                                dict(extrapolate_fused=1, momentum_rk4=1)),
+    "opt-in RHS kernel (both switches)": (
+        BOTH_SWITCHES, "mu_s",
+        dict(rmt_block=1, velocity_rhs=4, rc_rhs=1, grad_correct=1)),
+    "density contrast (variable_rho: the CG adjoint)": (
+        dict(case="density"), "mu_s", dict(rmt_block=1, momentum_rk4=1)),
+    "capillary drop (balanced CSF), gamma traced": (
+        dict(case="capillary"), "gamma", dict(rmt_block=1, momentum_rk4=1)),
+}
+# relative bounds of phase 13: kernel path vs plain path (the same
+# trajectory; only the order of autograd's sums can differ), and vs a
+# central difference of the kernel path's loss
+GRAD_TOL_PLAIN = 1e-12
+GRAD_TOL_FD = 1e-5
+
+
+def energy(s):
+    return torch.sum(s.u ** 2 + s.v ** 2) + torch.sum(s.p ** 2)
+
+
+def grad_setup(over, N, dtype, device):
+    """(cfg, bc, shapes, state) of a [grad] line: the flagship with
+    overrides, the density contrast or the capillary drop, each from a
+    seeded swirl so that the velocity factor's derivative is not 0."""
+    over = dict(over)
+    case = over.pop("case", None)
+    if case == "density":
+        from pyrmt_tpu_torch import validation
+
+        cfg = validation.density_contrast_config(N)
+        bc, shapes, amp = free_slip_box_bc, (validation.DENSITY_DISC,), 0.05
+    elif case == "capillary":
+        cfg = capillary_config(N)
+        bc, shapes, amp = free_slip_box_bc, (ELLIPSE,), 0.05
+    else:
+        cfg = flagship(N, **over)
+        bc, shapes, amp = make_lid_bc(1.0), (FLAGSHIP_DISC,), 0.3
+    return cfg, bc, shapes, swirl_state(cfg, shapes, dtype, device, amp=amp)
+
+
+def rollout_loss(run, state, name, theta, scale, t_end=8.0):
+    """energy after ``run(state', t_end, {name: theta})``, state' the
+    state with its velocity times ``scale``."""
+    s = dataclasses.replace(state, u=state.u * scale, v=state.v * scale)
+    return energy(run(s, t_end, {name: theta}))
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def grad_case(what, device, N=128, steps=3):
+    """One [grad] line: d/d(theta) and d/d(velocity factor) of the energy
+    after ``steps`` float64 steps through the kernels (their Functions),
+    through the plain path, and by central differences of the kernel
+    path's forward. Returns ({kernel: launches}, the kernel path's largest
+    relative difference from the plain path's)."""
+    from pyrmt_tpu_torch import make_rollout
+
+    over, name, per_step = GRAD_CASES[what]
+    f64 = torch.float64
+    cfg, bc, shapes, state = grad_setup(over, N, f64, device)
+    kw = dict(dtype=f64, device=device, traced_params=(name,))
+    step_k = make_step(cfg, bc, shapes, **kw)
+    step_p = make_step(cfg, bc, shapes, **kw, **PLAIN_IMPLS)
+    theta0 = getattr(cfg, name)
+
+    def run_of(step):
+        def run(s, t_end, params):
+            for _ in range(steps):
+                s, _ = step(s, t_end, params)
+            return s
+        return run
+
+    def grads(run):
+        th = torch.tensor(theta0, dtype=f64, device=device,
+                          requires_grad=True)
+        sc = torch.tensor(1.0, dtype=f64, device=device, requires_grad=True)
+        L = rollout_loss(run, state, name, th, sc)
+        fwd = counts()
+        g = torch.autograd.grad(L, (th, sc))
+        return float(L.detach()), [float(x) for x in g], fwd, counts()
+
+    reset_counts()
+    L_k, g_k, fwd, bwd = grads(run_of(step_k))
+    want = expected_launches(**{k: n * steps for k, n in per_step.items()})
+    if fwd != want or bwd != fwd:
+        raise AssertionError(f"[grad] {what}: launches {fwd} in the forward "
+                             f"(expected {want}), {bwd} after the backward")
+    L_p, g_p, _, _ = grads(run_of(step_p))
+    fd = []
+    with torch.no_grad():
+        for i, h in ((0, 1e-4 * abs(theta0)), (1, 1e-5)):
+            vals = []
+            for sign in (1.0, -1.0):
+                th = theta0 + sign * h if i == 0 else theta0
+                sc = 1.0 + sign * h if i == 1 else 1.0
+                vals.append(float(rollout_loss(
+                    run_of(step_k), state, name,
+                    torch.tensor(th, dtype=f64, device=device),
+                    torch.tensor(sc, dtype=f64, device=device))))
+            fd.append((vals[0] - vals[1]) / (2 * h))
+    errs_p = [rel(a, b) for a, b in zip(g_k, g_p)]
+    errs_fd = [rel(a, b) for a, b in zip(g_k, fd)]
+    extra = ""
+    if what == "flagship":
+        # make_rollout's checkpoint: the recompute launches each step's
+        # kernels again, the gradient is the same
+        reset_counts()
+        roll = make_rollout(step_k, steps, remat=True)
+        L_r, g_r, fwd_r, bwd_r = grads(roll)
+        errs_p += [rel(a, b) for a, b in zip(g_r, g_k)]
+        twice = {k: 2 * n for k, n in fwd_r.items()}
+        if fwd_r != want or bwd_r != twice or L_r != L_k:
+            raise AssertionError(f"[grad] make_rollout: launches {fwd_r}, "
+                                 f"{bwd_r} after the backward")
+        extra = (f"; make_rollout(remat=True) the same gradient (rel "
+                 f"{max(errs_p[2:]):.1e}), its backward's recompute "
+                 f"launched {sum(fwd_r.values())} kernels again")
+    ok = (all(math.isfinite(g) and g != 0.0 for g in g_k) and L_k == L_p
+          and max(errs_p) <= GRAD_TOL_PLAIN and max(errs_fd) <= GRAD_TOL_FD)
+    print(f"[grad] N={N} float64 {what}, {steps} steps, loss {L_k:.10g}: "
+          f"d/d({name}) {g_k[0]:.12g} (plain path rel {errs_p[0]:.1e}, "
+          f"central difference {fd[0]:.12g} rel {errs_fd[0]:.1e}), "
+          f"d/d(velocity factor) {g_k[1]:.12g} (plain rel {errs_p[1]:.1e}, "
+          f"central difference rel {errs_fd[1]:.1e}); forward launches "
+          f"{ {k: n for k, n in fwd.items() if n} }, backward launches 0; "
+          f"paths {step_k.paths}{extra}")
+    if not ok:
+        raise AssertionError(f"[grad] {what}: kernels {g_k}, plain {g_p}, "
+                             f"central differences {fd}")
+    return {k: n for k, n in fwd.items() if n}, max(errs_p)
+
+
+def grad_full_width(device, card, N=1024, steps=10, warmup=20):
+    """make_diff_rollout of the flagship at N float32 over ``steps`` steps
+    with mu_s traced, from a state ``warmup`` steps into the lid-driven
+    flow: the loss and its gradient are finite, equal the plain-forward
+    rollout's (make_rollout over the plain path), and the forward and
+    backward times and the peak memory."""
+    from pyrmt_tpu_torch import (
+        make_diff_rollout,
+        make_diff_step,
+        make_rollout,
+    )
+
+    f32 = torch.float32
+    cfg = flagship(N)
+    bc, shapes = make_lid_bc(1.0), (FLAGSHIP_DISC,)
+    kw = dict(dtype=f32, device=device)
+    state = make_init_state(cfg, shapes, **kw)
+    warm = make_step(cfg, bc, shapes, **kw)
+    for _ in range(warmup):
+        state, _ = warm(state, 8.0)
+    runs = {
+        "kernels": make_diff_rollout(make_diff_step(
+            cfg, bc, shapes, **kw, param_names=("mu_s",)), steps,
+            with_params=True),
+        "plain": make_rollout(make_step(cfg, bc, shapes, **kw,
+                                        traced_params=("mu_s",),
+                                        **PLAIN_IMPLS), steps)}
+    out = {}
+    for tag, run in runs.items():
+        mu = torch.tensor(cfg.mu_s, dtype=f32, device=device,
+                          requires_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t = time.perf_counter()
+        L = rollout_loss(run, state, "mu_s", mu, 1.0) * cfg.grid.dx ** 2
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t
+        fwd = counts()
+        t = time.perf_counter()
+        (g,) = torch.autograd.grad(L, mu)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t
+        out[tag] = dict(loss=float(L), grad=float(g), fwd_ms=1e3 * t_fwd /
+                        steps, bwd_ms=1e3 * t_bwd / steps,
+                        peak_gib=(torch.cuda.max_memory_allocated() - base)
+                        / 2 ** 30, fwd=fwd, bwd=counts())
+    k, p = out["kernels"], out["plain"]
+    err = rel(k["grad"], p["grad"])
+    want = expected_launches(rmt_block=steps, momentum_rk4=steps)
+    print(f"[grad] full width: make_diff_rollout of the flagship N={N} "
+          f"float32, {steps} steps, mu_s traced, on '{card}': loss "
+          f"{k['loss']:.7g}, dL/dmu_s {k['grad']:.7g} (the plain-forward "
+          f"make_rollout's {p['grad']:.7g}, rel {err:.2e}); forward "
+          f"{k['fwd_ms']:.3f} ms/step (the kernels, autograd off), backward "
+          f"{k['bwd_ms']:.3f} ms/step (the plain twin's forward and "
+          f"autograd), peak memory above the state {k['peak_gib']:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); the plain-forward rollout: "
+          f"forward {p['fwd_ms']:.3f} ms/step, backward {p['bwd_ms']:.3f} "
+          f"ms/step (its checkpoint's recompute and autograd), peak "
+          f"{p['peak_gib']:.3f} GiB; launches {k['fwd']} forward, none in "
+          f"the backward (host clock, synchronised)")
+    if not (math.isfinite(k["loss"]) and math.isfinite(k["grad"])
+            and k["grad"] != 0.0 and err <= GRAD_TOL_FD
+            and k["fwd"] == want and k["bwd"] == want
+            and not any(p["fwd"].values())):
+        raise AssertionError(f"[grad] full width: {out}")
+    return k
+
+
+def inverse_problem(device, card, N=48, n_steps=60, mu_true=0.4,
+                    mu_guess=1.2):
+    """examples/differentiable_fsi.py on the card: a disc in a Taylor-Green
+    vortex between free-slip walls, fixed_dt 1.5e-3, float64; the observed
+    flow after ``n_steps`` steps at mu_true; from mu_guess, 10 Adam steps
+    (lr 0.15) on theta (mu_s = softplus(theta)), then secant iteration on
+    dL/dtheta, through make_diff_rollout with mu_s traced. Returns the
+    recovered mu_s."""
+    from pyrmt_tpu_torch import make_diff_rollout, make_diff_step
+
+    f64 = torch.float64
+    cfg = RMTConfig(grid=Grid(N, N, 1.0, 1.0), mu_s=mu_true, mu_f=0.02,
+                    rho_s=1.0, rho_f=1.0, fixed_dt=1.5e-3)
+    disc = Disc(0.5, 0.5, 0.2)
+    u0, v0 = tg_seed(cfg, f64, device)
+    kw = dict(dtype=f64, device=device)
+    state0 = make_init_state(cfg, (disc,), u0=u0, v0=v0, **kw)
+    dstep = make_diff_step(cfg, free_slip_box_bc, (disc,), **kw,
+                           param_names=("mu_s",))
+    roll = make_diff_rollout(dstep, n_steps, with_params=True)
+    area = cfg.grid.dx * cfg.grid.dy
+    with torch.no_grad():
+        obs = roll(state0, 1.0, {"mu_s": torch.tensor(mu_true, **kw)})
+
+    def value_and_grad(theta):
+        th = torch.tensor(theta, **kw, requires_grad=True)
+        mu = torch.nn.functional.softplus(th)
+        s = roll(state0, 1.0, {"mu_s": mu})
+        L = torch.sum((s.u - obs.u) ** 2 + (s.v - obs.v) ** 2) * area
+        (g,) = torch.autograd.grad(L, th)
+        return float(L), float(mu), float(g)
+
+    t0 = time.perf_counter()
+    reset_counts()
+    theta = math.log(math.expm1(mu_guess))
+    m = v = 0.0
+    b1, b2, lr, eps = 0.9, 0.999, 0.15, 1e-8
+    trace = []
+    for it in range(1, 11):  # Adam (optax.adam's defaults, lr 0.15)
+        L, mu, g = value_and_grad(theta)
+        trace.append((mu, L))
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        theta -= lr * (m / (1 - b1 ** it)) / (math.sqrt(v / (1 - b2 ** it))
+                                              + eps)
+    g_prev = theta_prev = None
+    for _ in range(8):  # secant iteration on g(theta) = dL/dtheta
+        L, mu, g = value_and_grad(theta)
+        trace.append((mu, L))
+        if g_prev is not None and g != g_prev:
+            step = -g * (theta - theta_prev) / (g - g_prev)
+        else:
+            step = -0.05 * math.copysign(1.0, g)
+        step = max(-0.5, min(0.5, step))
+        theta_prev, g_prev = theta, g
+        theta += step
+        if abs(step) < 1e-10:
+            break
+    wall = time.perf_counter() - t0
+    launches = counts()
+    mu_final = float(torch.nn.functional.softplus(
+        torch.tensor(theta, dtype=f64)))
+    err = abs(mu_final - mu_true) / mu_true
+    print(f"[inverse] examples/differentiable_fsi.py on '{card}': N={N} "
+          f"float64, {n_steps} steps a rollout, mu_s from {mu_guess} to "
+          f"{mu_final:.6f} (true {mu_true}, relative error {100 * err:.4f}% "
+          f"< 1%) in {len(trace)} gradient evaluations, {wall:.3f} s; loss "
+          f"{trace[0][1]:.3e} -> {trace[-1][1]:.3e}; launches {launches} "
+          f"(one rollout's forward each, none in the backward)")
+    if not (err < 0.01 and launches["rmt_block"] == n_steps * len(trace)):
+        raise AssertionError(f"[inverse] mu_s {mu_final}: {trace}")
+    return mu_final
+
+
+def grad_step_without_sync(device):
+    """One traced flagship step at N=1024 float32 with u, v and mu_s
+    requiring gradients under sync-debug 'error': the kernels' Functions
+    add no host read."""
+    f32 = torch.float32
+    cfg = flagship(1024)
+    kw = dict(dtype=f32, device=device)
+    step = make_step(cfg, make_lid_bc(1.0), (FLAGSHIP_DISC,), **kw,
+                     traced_params=("mu_s",))
+    s = make_init_state(cfg, (FLAGSHIP_DISC,), **kw)
+    s, _ = step(s, 8.0, {"mu_s": torch.tensor(0.1, **kw)})
+    s = dataclasses.replace(s, u=s.u.detach().requires_grad_(True),
+                            v=s.v.detach().requires_grad_(True))
+    mu = torch.tensor(0.1, **kw, requires_grad=True)
+    out, _ = step_without_sync(lambda st, t: step(st, t, {"mu_s": mu}), s,
+                               8.0)
+    if out.u.grad_fn is None:
+        raise AssertionError("the traced step lost its graph")
+    (g,) = torch.autograd.grad(energy(out), mu)
+    if not math.isfinite(float(g)):
+        raise AssertionError(f"sync-debug grad step: {float(g)}")
+    print(f"[grad] one traced flagship step N=1024 float32 with u, v and "
+          f"mu_s requiring gradients ran under sync-debug 'error' (no host "
+          f"read); its dE/dmu_s {float(g):.6g}")
+
+
 def main() -> int:
     # 1. probe
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    phase_s = []  # (phase, host clock at its start)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     card = nvidia_smi_line()
     print(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} "
           f"nvcc '{nvcc[-1]}' card '{card}'")
 
+    phase_s.append(("2", time.perf_counter()))
     # 2. build
     t = time.perf_counter()
     _build.load_all(SOURCES)
@@ -1630,6 +2019,7 @@ def main() -> int:
         print(card)
         return 0
 
+    phase_s.append(("3", time.perf_counter()))
     # 3. kernel vs plain on the card
     errs = {}
     f32, f64 = torch.float32, torch.float64
@@ -1660,6 +2050,7 @@ def main() -> int:
             compare_general_extrap(shape, dtype, device))
     general_s["maps"] = time.perf_counter() - general_s["maps"]
     times = time_kernels(1024, device)
+    backward_ms = time_backward(1024, device, times)
     prof, step_prof = profile_all(device)
     for name in (*KERNELS, *CONTACT_MODES, *MODES):
         want = DEVICE_KERNELS.get(MODES.get(name, name), 1)
@@ -1669,6 +2060,7 @@ def main() -> int:
                 f"kernels at N=1024, {prof[4096][name][1]:g} at N=4096; "
                 f"expected {want}")
 
+    phase_s.append(("4-4f", time.perf_counter()))
     # 4. the flagship slice (fused tier)
     steps = 500
     _, state, aux, launches, wall, dt_sum, t0 = run_flagship(
@@ -1784,6 +2176,7 @@ def main() -> int:
               + profile_line(prof_row, wall, steps))
     general_s["4f"] = time.perf_counter() - general_s["4f"]
 
+    phase_s.append(("5", time.perf_counter()))
     # 5. the split tier at full width
     steps = 200
     cfg, state, aux, launches, wall, dt_sum, t0 = run_flagship(
@@ -1807,6 +2200,7 @@ def main() -> int:
           + profile_line(step_prof["split"], wall, steps))
     main_launches["advext_block"] = launches["advext_block"]
 
+    phase_s.append(("6", time.perf_counter()))
     # 6. rebasing at full width
     rebase = run_rebase(1024, device)
     print(f"[rebase] flagship map_rebase_minj=0.5 N=1024 float32: 51 "
@@ -1817,6 +2211,7 @@ def main() -> int:
           f"{rebase['post_s']:.3f} s ({1e3 * rebase['post_s'] / 20:.3f} "
           f"ms/step), none rebased, min J {rebase['min_J_post']:.4f}")
 
+    phase_s.append(("7", time.perf_counter()))
     # 7. kernel path vs plain path
     mode_paths = {}
     for what, overrides in (
@@ -1875,6 +2270,7 @@ def main() -> int:
           f"{general_s['4f']:.1f}, its [paths] lines {general_s['paths']:.1f}"
           f" (its profile groups run inside phase 3's one session)")
 
+    phase_s.append(("8", time.perf_counter()))
     # 8. the contact configuration at full width
     steps = 200
     cfg = contact_config(1024)
@@ -1896,6 +2292,7 @@ def main() -> int:
           f"over the solids {min_J:.4f}; "
           + profile_line(step_prof["contact"], wall, steps))
 
+    phase_s.append(("9", time.perf_counter()))
     # 9. the collision to t = 0.6: no pass-through, J in (0.5, 1)
     R = CONTACT_DISCS[0].R
     gap, coll_J, coll_steps, coll_wall, coll_launches = run_collision(
@@ -1907,6 +2304,7 @@ def main() -> int:
         raise AssertionError(f"collision: gap {gap} (2R = {2 * R}), min J "
                              f"{coll_J} outside the gate")
 
+    phase_s.append(("10", time.perf_counter()))
     # 10. the flagship on the doubly-periodic box
     from pyrmt_tpu_torch import validation
     from pyrmt_tpu_torch.sim import (
@@ -1936,6 +2334,7 @@ def main() -> int:
           f"solid {min_J:.4f}; " + profile_line(step_prof["periodic"], wall,
                                                 steps))
 
+    phase_s.append(("11", time.perf_counter()))
     # 11. the pure-fluid lid cavity, on the RK4 kernel and with 'xla'
     fluid = {}
     for tag, over, expect in (
@@ -1954,6 +2353,7 @@ def main() -> int:
               f"(host clock, synchronised) on '{card}'; launches {launches}; "
               + profile_line(step_prof[tag], wall, steps))
 
+    phase_s.append(("12", time.perf_counter()))
     # 12. the JAX package's solid-free gates, on the card
     reset_counts()
     rows, tg = validation.taylor_green_decay(N=65, nu=0.01, t_end=0.5,
@@ -1987,6 +2387,22 @@ def main() -> int:
     if HAS_ST:
         st_gates(device)
 
+    phase_s.append(("13", time.perf_counter()))
+    # 13. gradients: the [grad] lines, the full width, the inverse problem
+    grad_errs = {}
+    for what in GRAD_CASES:
+        fwd, err = grad_case(what, device)
+        for name in fwd:
+            grad_errs[name] = max(grad_errs.get(name, 0.0), err)
+    grad_step_without_sync(device)
+    full = grad_full_width(device, card)
+    inverse_problem(device, card)
+
+    phase_s.append(("end", time.perf_counter()))
+    spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
+                      in zip(phase_s, phase_s[1:]))
+    print(f"[time] wall seconds per phase (host clock): {spans}; in all "
+          f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on")
     # the main path of extrapolate_fused is now the general tier's step
     main_launches["extrapolate_fused"] = general["weno5"]["launches"]
     gmaps = errs.pop("extrapolate_fused, general maps")
@@ -2003,7 +2419,13 @@ def main() -> int:
             "device_us": prof[1024][name][0], "bound_us": bound,
             "device_launches_per_call": prof[1024][name][1],
             "device_us_N4096": prof[4096][name][0],
-            "bound_us_N4096": bound_us(name, 4096)[0]})
+            "bound_us_N4096": bound_us(name, 4096)[0],
+            # phase 13: the largest relative difference of a gradient
+            # through the kernel's Function from the plain path's
+            "grad_max_rel_err": grad_errs.get(name),
+            # one call's backward at N=1024 float32: the plain twin's
+            # forward and autograd
+            "backward_ms": backward_ms.get(name)})
     entry = next(k for k in kernels if k["name"] == "extrapolate_fused")
     entry.update(launches_from="[general] weno5 (S = 1, 100 steps)",
                  rebase_launches=rebase["launches"],
@@ -2060,7 +2482,9 @@ def main() -> int:
     entry = next(k for k in kernels if k["name"] == "rmt_block")
     entry["checked_modes"] = {row.split(", ")[1]: errs[row]
                               for row in CHECKED if row in errs}
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "grad_full_width": {
+        k: full[k] for k in ("loss", "grad", "fwd_ms", "bwd_ms",
+                             "peak_gib")}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

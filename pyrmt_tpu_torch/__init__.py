@@ -14,8 +14,13 @@ doubly-periodic box; ``gamma > 0`` adds surface tension (the cell-centred
 or balanced-force CSF) and ``variable_rho=True`` the variable-density CG
 projection; ``scheme`` 'weno5' or 'central2', ``sl_local=False`` or
 CFL >= 1 run the general tier (the advection as plain ops, each solid's
-extrapolation in its CUDA kernel). ``velocity_RK4`` and
-``advect_semi_lagrangian_rk4`` are pyRMT's names, as in the JAX package.
+extrapolation in its CUDA kernel). The step differentiates: every kernel
+is an ``autograd.Function`` whose backward is its plain version's
+autograd, the variable-density CG has its implicit adjoint, and
+``make_step(traced_params=...)``, ``make_rollout``, ``make_diff_step``
+and ``make_diff_rollout`` are the JAX package's gradient API.
+``velocity_RK4`` and ``advect_semi_lagrangian_rk4`` are pyRMT's names, as
+in the JAX package.
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -26,6 +31,7 @@ from pyrmt_tpu_torch.bcs import (
     noop_bc,
     periodic_bc,
 )
+from pyrmt_tpu_torch.diff import make_diff_rollout, make_diff_step
 from pyrmt_tpu_torch.diagnostics import (
     compute_kinetic_energy,
     compute_strain_energy,
@@ -92,6 +98,7 @@ from pyrmt_tpu_torch.sim import (
     diverged,
     make_init_state,
     make_rebase_runner,
+    make_rollout,
     make_run_chunk,
     make_step,
     run_until,
@@ -137,9 +144,12 @@ __all__ = [
     "grad_correct_fused",
     "load_checkpoint",
     "load_snapshot",
+    "make_diff_rollout",
+    "make_diff_step",
     "make_init_state",
     "make_lid_bc",
     "make_rebase_runner",
+    "make_rollout",
     "make_run_chunk",
     "make_step",
     "momentum_step_rk4",

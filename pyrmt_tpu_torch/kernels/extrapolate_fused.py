@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.ops.extrapolate import (
     _kernels_1d,
     extrapolate_reference_map,
@@ -56,10 +56,18 @@ def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
     kernel (a flag pre-pass and a tile kernel on the current stream, which
     do not wait for the card); another dtype, shape or device raises.
+    Where an input requires a gradient the backward is the plain version's
+    autograd (``_autograd.launch``).
     """
-    global launches
     if X1.device.type == "cpu":
         return extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers)
+    return _autograd.launch(_extrapolate_cuda, extrapolate_reference_map,
+                            (X1, X2, phi, dx, dy, max_layers), {})
+
+
+def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers):
+    """One call of the kernel (two device kernels) on CUDA tensors."""
+    global launches
     if X1.device.type != "cuda":
         raise ValueError(f"extrapolate_fused: no kernel for device {X1.device}")
     Ny, Nx = X1.shape

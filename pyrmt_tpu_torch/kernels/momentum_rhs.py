@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.physics import velocity_rhs_blended
 
 # Times the wrapper launched the CUDA kernel (one per call on a CUDA
@@ -38,11 +38,21 @@ def velocity_rhs_blended_fused(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy,
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
     kernel; a grid under 5x5, another dtype, shape or device raises.
+    Where an input requires a gradient the backward is the plain version's
+    autograd (``_autograd.launch``).
     """
-    global launches
+    args = (u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f, Hf, rho_local,
+            f_ext_x, f_ext_y)
     if u.device.type == "cpu":
-        return velocity_rhs_blended(u, v, p, sig_sxx, sig_sxy, sig_syy, dx,
-                                    dy, mu_f, Hf, rho_local, f_ext_x, f_ext_y)
+        return velocity_rhs_blended(*args)
+    return _autograd.launch(_velocity_rhs_cuda, velocity_rhs_blended, args,
+                            {})
+
+
+def _velocity_rhs_cuda(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f, Hf,
+                       rho_local, f_ext_x, f_ext_y):
+    """One launch of the RHS kernel on CUDA tensors."""
+    global launches
     if u.device.type != "cuda":
         raise ValueError(f"velocity_rhs: no kernel for device {u.device}")
     Ny, Nx = u.shape

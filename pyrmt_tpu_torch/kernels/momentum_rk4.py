@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from pyrmt_tpu_torch.bcs import periodic_bc
-from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.physics import momentum_core
 
 # Times the wrapper launched the CUDA kernel (one per call on a CUDA
@@ -71,19 +71,31 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     the step they always are: p comes from the FFT solve's
     ``tile_overlap``, and a solid keeps ``periodic_seam_clearance_cells``
     from the seam, so the blends there are the fluid's constants.
+
+    Where an input requires a gradient the launch goes through
+    ``_autograd.launch``, with ``momentum_core`` as the backward.
     """
-    global launches, periodic_launches
     spec = getattr(velocity_bc, "kernel_spec", None)
     if periodic != (spec is not None and spec[0] == "periodic"):
         raise ValueError(f"momentum_rk4: periodic={periodic} with the BC "
                          f"spec {spec!r}")
     if periodic:
         u, v = periodic_bc(u, v)
+    args = (u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local, mkv,
+            velocity_bc)
+    kw = dict(eta_s=eta_s, dx=dx, dy=dy, dt=dt, mu_f=mu_f, f_ext_x=f_ext_x,
+              f_ext_y=f_ext_y, periodic=periodic)
     if u.device.type == "cpu":
-        return momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el,
-                             Hf, rho_local, mkv, velocity_bc, eta_s=eta_s,
-                             dx=dx, dy=dy, dt=dt, mu_f=mu_f, f_ext_x=f_ext_x,
-                             f_ext_y=f_ext_y, periodic=periodic)
+        return momentum_core(*args, **kw)
+    return _autograd.launch(_momentum_rk4_cuda, momentum_core, args, kw)
+
+
+def _momentum_rk4_cuda(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
+                       rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt,
+                       mu_f, f_ext_x, f_ext_y, periodic):
+    """One launch of the RK4 kernel on CUDA tensors, (u, v) already under
+    the periodic BC where ``periodic``."""
+    global launches, periodic_launches
     if u.device.type != "cuda":
         raise ValueError(f"momentum_rk4: no kernel for device {u.device}")
     bc, lid = _build.bc_operands("momentum_rk4", velocity_bc)

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.ops.poisson import (
     compute_divergence_rc,
     compute_pressure_gradient,
@@ -83,10 +83,18 @@ def rc_rhs_fused(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy):
     """``rc_rhs_plain`` with ``rho`` an (Ny, Nx) field and ``dt``,
     ``d_scalar`` 0-d tensors. A CPU tensor goes to the plain version, a
     CUDA tensor to the CUDA kernel; another dtype, shape or device raises.
+    Where an input requires a gradient the backward is the plain version's
+    autograd (``_autograd.launch``).
     """
-    global rc_rhs_launches
+    args = (a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy)
     if a_star.device.type == "cpu":
-        return rc_rhs_plain(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy)
+        return rc_rhs_plain(*args)
+    return _autograd.launch(_rc_rhs_cuda, rc_rhs_plain, args, {})
+
+
+def _rc_rhs_cuda(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy):
+    """One launch of the rc_rhs kernel on CUDA tensors."""
+    global rc_rhs_launches
     fields = {"a_star": a_star, "b_star": b_star, "p_prev": p_prev,
               "rho": rho, "dt": dt, "d_scalar": d_scalar}
     Ny, Nx = _check("rc_rhs", a_star, fields)
@@ -106,11 +114,17 @@ def grad_correct_fused(p_corr, a_star, b_star, rho, dt, dx, dy, velocity_bc):
     0-d tensor. A CPU tensor goes to the plain version. A CUDA tensor goes
     to the CUDA kernel, which applies the BC from
     ``velocity_bc.kernel_spec`` ('lid', 'free_slip' or 'noop'); another BC,
-    dtype, shape or device raises."""
-    global grad_correct_launches
+    dtype, shape or device raises. Where an input requires a gradient the
+    backward is the plain version's autograd (``_autograd.launch``)."""
+    args = (p_corr, a_star, b_star, rho, dt, dx, dy, velocity_bc)
     if a_star.device.type == "cpu":
-        return grad_correct_plain(p_corr, a_star, b_star, rho, dt, dx, dy,
-                                  velocity_bc)
+        return grad_correct_plain(*args)
+    return _autograd.launch(_grad_correct_cuda, grad_correct_plain, args, {})
+
+
+def _grad_correct_cuda(p_corr, a_star, b_star, rho, dt, dx, dy, velocity_bc):
+    """One launch of the grad_correct kernel on CUDA tensors."""
+    global grad_correct_launches
     bc, lid = _build.bc_operands("grad_correct", velocity_bc,
                                  _build.WALL_BCS)
     fields = {"p_corr": p_corr, "a_star": a_star, "b_star": b_star,

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from pyrmt_tpu_torch.kernels import _build
+from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.kernels.extrapolate_fused import window_taps
 from pyrmt_tpu_torch.ops.advect import advect_semilagrangian_rk4_local
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
@@ -202,16 +202,29 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     a, b)`` (``rmt_block_supported``), both stress modes with or without
     the clamp and both final samples; anything else raises. dt
     and the physics scalars are read on the device, so a call does not
-    wait for the card.
+    wait for the card, and ``params`` may carry traced values
+    (``make_step(traced_params=...)``).
+
+    Where an input requires a gradient the launch goes through
+    ``_autograd.launch``: the kernel forward, the autograd of
+    ``rmt_block_plain`` backward.
     """
-    global launches
     _check_interp(sl_interp)
+    kw = dict(phi_inits=phi_inits, dx=dx, dy=dy, num_layers=num_layers,
+              w_t=w_t, params=params, stress_w_cut=stress_w_cut,
+              stress_clamp=stress_clamp, sl_interp=sl_interp,
+              sl_guard=sl_guard)
     if u.device.type == "cpu":
-        return rmt_block_plain(u, v, X1s, X2s, dt, phi_inits=phi_inits,
-                               dx=dx, dy=dy, num_layers=num_layers, w_t=w_t,
-                               params=params, stress_w_cut=stress_w_cut,
-                               stress_clamp=stress_clamp, sl_interp=sl_interp,
-                               sl_guard=sl_guard)
+        return rmt_block_plain(u, v, X1s, X2s, dt, **kw)
+    return _autograd.launch(_rmt_block_cuda, rmt_block_plain,
+                            (u, v, X1s, X2s, dt), kw)
+
+
+def _rmt_block_cuda(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
+                    w_t, params, stress_w_cut, stress_clamp, sl_interp,
+                    sl_guard):
+    """One launch of the fused tier's kernel on CUDA tensors."""
+    global launches
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
     shapes = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
@@ -262,14 +275,22 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
     CUDA kernel, which takes phi as a field, so any level set and any
     number of solids, and both final samples; another dtype, shape or
     device raises. dt is read on the device, so a call does not wait for
-    the card.
+    the card. Where an input requires a gradient the backward is the
+    autograd of ``advext_block_plain`` (``_autograd.launch``).
     """
-    global advext_launches
     _check_interp(sl_interp)
+    kw = dict(dx=dx, dy=dy, num_layers=num_layers, sl_interp=sl_interp,
+              sl_guard=sl_guard)
     if u.device.type == "cpu":
-        return advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
-                                  num_layers=num_layers, sl_interp=sl_interp,
-                                  sl_guard=sl_guard)
+        return advext_block_plain(u, v, X1s, X2s, phis, dt, **kw)
+    return _autograd.launch(_advext_cuda, advext_block_plain,
+                            (u, v, X1s, X2s, phis, dt), kw)
+
+
+def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
+                 sl_guard):
+    """One launch of the split tier's kernel A on CUDA tensors."""
+    global advext_launches
     if u.device.type != "cuda":
         raise ValueError(f"advext_block: no kernel for device {u.device}")
     Ny, Nx = u.shape

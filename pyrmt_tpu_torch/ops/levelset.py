@@ -42,9 +42,21 @@ def apply_phi_BCs(phi):
     return phi
 
 
+def _norm(sq, *xs):
+    """sqrt(sq). Where a gradient flows to ``xs`` the double-where of the
+    JAX package (sqrt only of a positive operand, 0 elsewhere): the sqrt's
+    derivative at 0 is inf, and autograd's product with a zero cotangent
+    NaN. The two are equal bit for bit."""
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return torch.sqrt(sq)
+    pos = sq > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Disc:
-    """Signed distance to a circle: phi = |x - (x0, y0)| - R."""
+    """Signed distance to a circle: phi = |x - (x0, y0)| - R (its gradient
+    finite at the centre, ``_norm``)."""
 
     x0: float
     y0: float
@@ -57,7 +69,7 @@ class Disc:
     def __call__(self, X1, X2):
         ex = X1 - self.x0
         ey = X2 - self.y0
-        return torch.sqrt(ex * ex + ey * ey) - self.R
+        return _norm(ex * ex + ey * ey, X1, X2) - self.R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +100,7 @@ class Ellipse:
         f = r - 1.0
         ga = fx * inv_a
         gb = fy * inv_b
-        grad = torch.sqrt(ga * ga + gb * gb) / r + 1e-12
+        grad = _norm(ga * ga + gb * gb, X1, X2) / r + 1e-12
         return f / grad
 
 

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pyrmt_tpu_torch.kernels._autograd import needs_grad
+
 # the cell-centred gradients of the JAX module are the fd stencils
 from pyrmt_tpu_torch.ops.fd import grad_central_x_2nd as _grad_x_cc
 from pyrmt_tpu_torch.ops.fd import grad_central_y_2nd as _grad_y_cc
@@ -275,21 +277,11 @@ def _host_read(flag) -> bool:
     return bool(flag)
 
 
-def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
-                                      tol=1e-6, maxiter=200, dct_mats=None):
-    """Symmetrised preconditioned CG for the variable-density Neumann
-    Poisson problem grad.((1/rho) grad p) = rhs, as the JAX package solves
-    it: the system left-scaled by the trapezoidal weights D, the rhs
-    projected to zero weighted sum, the preconditioner the DCT solve of
-    the weighted residual with the constant mode zeroed; jax.scipy's CG
-    update order, stopping at ||r|| <= tol ||b|| or ``maxiter``
-    iterations. Returns (p, iters, relres): p de-meaned, the iteration
-    count (0-d int32) and ||r|| / ||b|| on the device.
-
-    The loop runs ``CG_READ_EVERY`` iterations per host read of the
-    stopping test; each iteration's updates are selected by the test on
-    the device, so x, r and the count freeze at the iteration where the
-    JAX loop stops, and the iterations past it change nothing."""
+def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
+                              dct_mats):
+    """The PCG loop (see ``solve_variable_poisson_cg_counted``). Autograd
+    never records it: the public entry hides it behind the implicit
+    adjoint ``_CGAdjoint``, as the JAX package hides its while loop."""
     read_every = CG_READ_EVERY
     w = _trapezoid_weights(rhs.shape, rhs.dtype, rhs.device)
     inv_w = 1.0 / w
@@ -334,6 +326,75 @@ def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
     relres = torch.sqrt(torch.sum(r * r)) / torch.clamp(
         bnorm, min=torch.finfo(rhs.dtype).tiny)
     return x - torch.mean(x), k, relres
+
+
+def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
+                                      tol=1e-6, maxiter=200, dct_mats=None):
+    """Symmetrised preconditioned CG for the variable-density Neumann
+    Poisson problem grad.((1/rho) grad p) = rhs, as the JAX package solves
+    it: the system left-scaled by the trapezoidal weights D, the rhs
+    projected to zero weighted sum, the preconditioner the DCT solve of
+    the weighted residual with the constant mode zeroed; jax.scipy's CG
+    update order, stopping at ||r|| <= tol ||b|| or ``maxiter``
+    iterations. Returns (p, iters, relres): p de-meaned, the iteration
+    count (0-d int32) and ||r|| / ||b|| on the device.
+
+    The loop runs ``CG_READ_EVERY`` iterations per host read of the
+    stopping test; each iteration's updates are selected by the test on
+    the device, so x, r and the count freeze at the iteration where the
+    JAX loop stops, and the iterations past it change nothing.
+
+    Where ``rhs`` or ``inv_rho`` requires a gradient the solve is the
+    implicit adjoint ``_CGAdjoint`` (the JAX package's custom VJP): the
+    loop runs without autograd, and the backward is one more CG solve;
+    iters and relres carry no gradient."""
+    if needs_grad((rhs, inv_rho)):
+        Cx, Cy = dct_mats
+        return _CGAdjoint.apply(rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy,
+                                tol, maxiter)
+    return _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol,
+                                     maxiter, dct_mats)
+
+
+class _CGAdjoint(torch.autograd.Function):
+    """The implicit-function adjoint of the CG solve (JAX:
+    ``pyrmt_tpu/ops/poisson.py::_variable_poisson_cg_bwd``). With S = D A
+    symmetric and p = S^+ P D rhs (P the de-meaning), the cotangent g of p
+    gives lambda from S lambda = P g, solved by the same PCG (the system
+    is self-adjoint); then d rhs = D lambda and d inv_rho = -(d/d inv_rho
+    [D A(inv_rho) p])^T lambda, one vector-Jacobian product of the
+    matrix-free operator. The forward saves the solution, not the
+    iterates: autograd never unrolls the loop, whose gradient would store
+    every iterate and differ from this one by O(tol). The eigenvalues and
+    the DCT matrices do not enter the converged solution and get none."""
+
+    @staticmethod
+    def forward(ctx, rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy, tol,
+                maxiter):
+        p, iters, relres = _variable_poisson_cg_core(
+            rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter, (Cx, Cy))
+        ctx.save_for_backward(p, inv_rho, eigenvalues, Cx, Cy)
+        ctx.consts = (dx, dy, tol, maxiter)
+        ctx.mark_non_differentiable(iters, relres)
+        return p, iters, relres
+
+    @staticmethod
+    def backward(ctx, ct_p, _ct_iters, _ct_relres):
+        p, inv_rho, eigenvalues, Cx, Cy = ctx.saved_tensors
+        dx, dy, tol, maxiter = ctx.consts
+        g = ct_p - torch.mean(ct_p)
+        w = _trapezoid_weights(p.shape, p.dtype, p.device)
+        # the core solves S lam = w (g / w) - mean = g
+        lam = _variable_poisson_cg_core(g / w, inv_rho, eigenvalues, dx, dy,
+                                        tol, maxiter, (Cx, Cy))[0]
+        grad_rhs = w * lam if ctx.needs_input_grad[0] else None
+        grad_inv_rho = None
+        if ctx.needs_input_grad[1]:
+            with torch.enable_grad():
+                ir = inv_rho.detach().requires_grad_(True)
+                grad_inv_rho = -torch.autograd.grad(
+                    w * apply_variable_poisson(p, ir, dx, dy), ir, lam)[0]
+        return grad_rhs, grad_inv_rho, None, None, None, None, None, None, None
 
 
 def solve_variable_poisson_cg(rhs, inv_rho, eigenvalues, dx, dy, tol=1e-6,

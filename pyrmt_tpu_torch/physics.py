@@ -14,6 +14,7 @@ wrap variant.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -34,14 +35,67 @@ from pyrmt_tpu_torch.ops.levelset import (
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
 
+def _speed_max(a, b):
+    """max |(a, b)| over the grid. Where a gradient flows to (a, b) the
+    norm is the double-where of the JAX package (sqrt only of a positive
+    operand, 0 elsewhere), so a from-rest field's backward stays finite
+    (sqrt's derivative at 0 is inf, and a zero cotangent times it NaN);
+    otherwise the one sqrt of the max. The two are equal bit for bit."""
+    sq = a * a + b * b
+    if not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return torch.sqrt(torch.amax(sq))
+    pos = sq > 0.0
+    return torch.amax(torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)),
+                                  0.0))
+
+
 def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
                      rho_f, mu_f=0.0, eta_s=0.0, kappa=0.0):
     """Adaptive dt: the least of the fluid advection CFL, the solid P-wave
     CFL, the Brackbill capillary limit, the viscous limit and dt_min_cap.
-    The physics scalars are Python floats; only the fluid CFL reads the
-    device, and the result stays a 0-d tensor."""
-    u_max = torch.sqrt(torch.amax(a * a + b * b))
+    Returns a 0-d tensor; only the fluid CFL reads the device.
+
+    The physics scalars are Python floats or, traced by
+    ``sim.make_step(traced_params=...)``, 0-d tensors. With floats the
+    static limits are computed on the host; with any tensor the JAX
+    package's tensor path runs on the device, its guards double-wheres
+    (the P-wave speed's argument kept >= 1e-30, the capillary and viscous
+    limits selected on the device), so that dt differentiates with respect
+    to every traced scalar."""
+    u_max = _speed_max(a, b)
     dt_fluid = CFL * dx / (u_max + 1e-6)
+
+    scalars = (mu_s, rho_s, gamma, rho_f, kappa)
+    if any(isinstance(x, torch.Tensor) for x in scalars):
+        mu_s, rho_s, gamma, rho_f, kappa = (
+            x if isinstance(x, torch.Tensor) else torch.full_like(u_max, x)
+            for x in scalars)
+        p_arg = (kappa + mu_s * 4.0 / 3.0) / (rho_s + 1e-12)
+        cs_solid = torch.sqrt(torch.clamp(p_arg, min=1e-30))
+        dt_solid = CFL * dx / (cs_solid + 1e-14)
+
+        # 1.0 is the float path's value of a disabled limit, not a cap
+        st_on = gamma > 1e-12
+        g_safe = torch.where(st_on, gamma, 1.0)
+        rho_avg = 0.5 * (rho_s + rho_f)
+        dt_st = torch.where(
+            st_on,
+            torch.sqrt((rho_avg * dx**3) / (2.0 * math.pi * g_safe)) * 0.5,
+            1.0)
+
+        # mu_f and eta_s are not traceable: the viscous limit's gate on
+        # them stays on the host
+        mu_max = max(mu_f, eta_s)
+        dt_static = torch.minimum(dt_solid, dt_st)
+        if mu_max > 1e-12:
+            rho_min = torch.minimum(rho_s, rho_f)
+            dt_visc = torch.where(rho_min > 1e-12,
+                                  CFL * rho_min * dx**2 / (4.0 * mu_max), 1.0)
+            dt_static = torch.clamp(torch.minimum(dt_static, dt_visc),
+                                    max=dt_min_cap)
+        else:
+            dt_static = torch.clamp(dt_static, max=min(1.0, dt_min_cap))
+        return torch.minimum(dt_fluid, dt_static).to(u_max.dtype)
 
     cs_solid = np.sqrt((kappa + mu_s * 4.0 / 3.0) / (rho_s + 1e-12))
     dt_solid = CFL * dx / (cs_solid + 1e-14)
@@ -207,9 +261,11 @@ def balanced_csf_forces(phis, H_s, dx, dy, gamma, kappas=None,
 def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
                 g_x=0.0, g_y=0.0, g_rho_ref=1.0, st_method="csf",
                 st_curvature="fd", st_kappa_interface=False, st_hf_smooth=0,
-                with_faces=False):
+                with_faces=False, st_enabled=None):
     """The step's stage-constant force (f_x, f_y), as the JAX step builds
-    it: with surface tension (gamma > 1e-12) or contact, the balanced CSF
+    it: with surface tension (``st_enabled``; None: gamma > 1e-12, which
+    needs a float gamma; a traced gamma comes with its configuration's
+    gate, as the JAX step gates it) or contact, the balanced CSF
     (``st_method='balanced'``) plus the contact of ``external_forces`` at
     gamma 0, or ``external_forces`` with the cell CSF; then gravity's
     (rho_local - g_rho_ref) g; (None, None) with none of them. The
@@ -217,7 +273,7 @@ def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
     ``with_faces`` returns (f_x, f_y, st_faces): the balanced CSF's
     (Fx_face, Fy_face, fx_cell, fy_cell) for the projection, else None."""
     S = phis.shape[0]
-    st = gamma > 1e-12 and S > 0
+    st = (gamma > 1e-12 if st_enabled is None else st_enabled) and S > 0
     forces = st or (k_rep > 0.0 and S >= 2)
     gravity = g_x != 0.0 or g_y != 0.0
     st_faces = None

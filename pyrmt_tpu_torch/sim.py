@@ -49,6 +49,13 @@ where the variable-density CG reads its stopping test (once every
 ``ops.poisson.CG_READ_EVERY`` iterations). The built step's ``paths``
 names the path each block takes.
 
+The step differentiates on either device: every kernel wrapper is an
+``autograd.Function`` whose backward is its plain version's autograd
+(``kernels._autograd``), and the CG has its implicit adjoint.
+``make_step(traced_params=...)`` takes physics scalars at run time,
+``make_rollout`` checkpoints a rollout step by step, and
+``diff.make_diff_step`` keeps only each step's inputs for the backward.
+
 The step takes no solid (the pure-fluid solver: no solid block, the
 constant blends Hf = 1, rho = rho_f and no solid stress into the RK4
 kernel), one solid or more (two or more with the JAX package's two-solid
@@ -75,6 +82,7 @@ import warnings
 from typing import Callable, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from pyrmt_tpu_torch.grid import Grid
 from pyrmt_tpu_torch.kernels.extrapolate_fused import (
@@ -506,6 +514,12 @@ def _make_maybe_rebase(cfg, S, X, Y, extrap_fn):
     return maybe_rebase
 
 
+# The physics scalars a step may take at run time (the JAX package's
+# ``_TRACEABLE_PARAMS``); mu_f, eta_s and k_rep select the kernels'
+# structure and stay configuration.
+_TRACEABLE_PARAMS = ("mu_s", "kappa", "gamma", "rho_s", "rho_f")
+
+
 def make_step(
     cfg: RMTConfig,
     velocity_bc: Callable,
@@ -518,6 +532,7 @@ def make_step(
     extrap_impl: Callable | None = None,
     momentum_rhs_impl: Callable | None = None,
     projection_stencils_impl: tuple[Callable, Callable] | None = None,
+    traced_params: tuple[str, ...] | None = None,
 ):
     """Build the FSI step for a fixed configuration.
 
@@ -552,10 +567,34 @@ def make_step(
     ``(kernels.projection_stencils.rc_rhs_plain, grad_correct_plain)`` to
     run the plain path on a CUDA state.
 
+    ``traced_params`` names physics scalars (of ``_TRACEABLE_PARAMS``:
+    mu_s, kappa, gamma, rho_s, rho_f) that the step takes at run time in
+    place of cfg's floats, as the JAX package's ``make_step`` does: the
+    step is then ``step(state, t_end, params) -> (state, aux)`` with
+    ``params`` a dict of 0-d tensors, one for each name (a key outside
+    the names raises), differentiable with respect to each of them (and
+    to ``t_end`` where it is a tensor). They reach the timestep, the
+    solid block's ``params`` operand (the fused tier's kernel reads it on
+    the device), the split and general tiers' stress and blends, the
+    surface tension and gravity's reference density (``g_rho_ref`` None:
+    rho_f). The structural choices (surface tension on or off, the tier,
+    the branches of the dt caps) follow cfg's values, so a traced value
+    must not cross its cfg twin's threshold (keep a traced gamma > 0 iff
+    cfg.gamma > 0). With ``traced_params=None`` the step computes what it
+    computes without the option, bit for bit. Every kernel differentiates
+    through its plain version (``kernels._autograd``); the
+    variable-density CG through its implicit adjoint.
+
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
     """
     check_options(cfg)
+    if traced_params is not None:
+        bad = set(traced_params) - set(_TRACEABLE_PARAMS)
+        if bad:
+            raise ValueError(
+                f"traced_params {sorted(bad)} not traceable; allowed: "
+                f"{_TRACEABLE_PARAMS}")
     g = cfg.grid
     dx, dy = g.dx, g.dy
     phi_inits = tuple(phi_inits)
@@ -577,8 +616,8 @@ def make_step(
         eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype,
                                              device)
         dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
-    params = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
-                          dtype=dtype, device=device)
+    params0 = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
+                           dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     fixed_dt = (None if cfg.fixed_dt is None else
@@ -635,14 +674,18 @@ def make_step(
                     if _rebasing(cfg, S) else None)
     w_cut, clamp = stress_mode(cfg, S)
     sample = dict(sl_interp=cfg.sl_interp, sl_guard=sl_band_guard(cfg))
-    g_rho_ref = cfg.rho_f if cfg.g_rho_ref is None else cfg.g_rho_ref
     forces = functools.partial(
-        body_forces, dx=dx, dy=dy, gamma=cfg.gamma, k_rep=cfg.k_rep,
+        body_forces, dx=dx, dy=dy, k_rep=cfg.k_rep,
         w_c=cfg.w_c, w_t=cfg.w_t, g_x=cfg.g_x, g_y=cfg.g_y,
-        g_rho_ref=g_rho_ref,
         st_method=cfg.st_method, st_curvature=cfg.st_curvature,
         st_kappa_interface=cfg.st_kappa_interface,
-        st_hf_smooth=cfg.st_hf_smooth, with_faces=True)
+        st_hf_smooth=cfg.st_hf_smooth, with_faces=True,
+        st_enabled=cfg.gamma > 1e-12)
+
+    def g_rho_ref(pp):
+        """Gravity's reference density: rho_f, traced or not, unless cfg
+        sets its own."""
+        return pp["rho_f"] if cfg.g_rho_ref is None else cfg.g_rho_ref
 
     def phi_chain(X1s, X2s, phis0):
         """The pre-advection level sets: rebuild, reinit, area fix."""
@@ -657,7 +700,7 @@ def make_step(
             phis = fix_areas(phis)
         return phis
 
-    def split_block(u, v, X1s, X2s, phis0, dt):
+    def split_block(u, v, X1s, X2s, phis0, dt, pp):
         """The split tier's solid block; the results of rmt_block_plain."""
         phis = phi_chain(X1s, X2s, phis0)
         X1e, X2e = advext_fn(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
@@ -665,14 +708,14 @@ def make_step(
         phis = rebuild_phis(X1e, X2e, phis0)
         if fix_areas is not None:
             phis = fix_areas(phis)
-        stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, cfg.mu_s,
-                                      cfg.kappa, phis[i], w_cut=w_cut,
+        stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, pp["mu_s"],
+                                      pp["kappa"], phis[i], w_cut=w_cut,
                                       detg_clamp=clamp) for i in range(S)]
         sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
         H = smoothed_heaviside(phis, cfg.w_t)
         one_mH = 1.0 - H
         Hf = torch.sum(H, dim=0) - (S - 1.0)
-        rho_local = Hf * cfg.rho_f + torch.sum(one_mH, dim=0) * cfg.rho_s
+        rho_local = Hf * pp["rho_f"] + torch.sum(one_mH, dim=0) * pp["rho_s"]
         return (X1e, X2e, phis, sxx, sxy, syy, J, Hf, rho_local,
                 torch.sum(one_mH * sxx, dim=0),
                 torch.sum(one_mH * sxy, dim=0),
@@ -717,7 +760,7 @@ def make_step(
 
     st_forces = functools.partial(forces, g_x=0.0, g_y=0.0)
 
-    def general_tier(u, v, p, state, dt, active):
+    def general_tier(u, v, p, state, dt, active, pp):
         """The general tier's solid block, then its stress, blends, forces
         and RK4 update (``physics.momentum_step_rk4_multi``), the balanced
         CSF's forces built first, as the JAX step builds them, for the
@@ -727,22 +770,24 @@ def make_step(
                                        state.phis0, dt, active)
         ext_override = st_faces = None
         if st_faces_on:
-            fx, fy, st_faces = st_forces(phis, None)
+            fx, fy, st_faces = st_forces(phis, None, gamma=pp["gamma"],
+                                         g_rho_ref=g_rho_ref(pp))
             ext_override = (fx, fy)
         u_star, v_star, sxx, sxy, syy, J = momentum_step_rk4_multi(
-            u, v, p, X1s, X2s, phis, velocity_bc, mu_s=cfg.mu_s,
-            kappa=cfg.kappa, eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt,
-            rho_s=cfg.rho_s, rho_f=cfg.rho_f, mu_f=cfg.mu_f, w_t=cfg.w_t,
-            gamma=cfg.gamma, stress_w_cut=w_cut, stress_clamp=clamp,
+            u, v, p, X1s, X2s, phis, velocity_bc, mu_s=pp["mu_s"],
+            kappa=pp["kappa"], eta_s=cfg.eta_s, dx=dx, dy=dy, dt=dt,
+            rho_s=pp["rho_s"], rho_f=pp["rho_f"], mu_f=cfg.mu_f, w_t=cfg.w_t,
+            gamma=pp["gamma"], stress_w_cut=w_cut, stress_clamp=clamp,
             st_enabled=cfg.gamma > 1e-12, k_rep=cfg.k_rep, w_c=cfg.w_c,
-            g_x=cfg.g_x, g_y=cfg.g_y, g_rho_ref=g_rho_ref,
+            g_x=cfg.g_x, g_y=cfg.g_y, g_rho_ref=g_rho_ref(pp),
             ext_override=ext_override, st_curvature=cfg.st_curvature,
             st_kappa_interface=cfg.st_kappa_interface,
             st_hf_smooth=cfg.st_hf_smooth, momentum_fn=momentum_fn,
             periodic=periodic)
         H = smoothed_heaviside(phis, cfg.w_t)
         Hf = torch.sum(H, dim=0) - (S - 1.0)
-        rho_local = Hf * cfg.rho_f + torch.sum(1.0 - H, dim=0) * cfg.rho_s
+        rho_local = (Hf * pp["rho_f"]
+                     + torch.sum(1.0 - H, dim=0) * pp["rho_s"])
         return (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
                 st_faces)
 
@@ -760,16 +805,19 @@ def make_step(
                    torch.full(g.shape, cfg.rho_f, dtype=dtype, device=device),
                    torch.zeros(g.shape, dtype=dtype, device=device))
 
-    def block_tier(u, v, p, state, dt, active):
+    def block_tier(u, v, p, state, dt, active, pp, params):
         """The fused, split or pure-fluid solid block, then the body forces
         and the RK4 update; on a no-op step the maps are frozen after, so
         that the aux fields reflect the discarded trial step, as on the JAX
         fused path. Returns what ``general_tier`` returns."""
         if S == 0:
             e, Hf, rho_f, z = fluid_block
+            if isinstance(pp["rho_f"], torch.Tensor):
+                rho_f = Hf * pp["rho_f"]
             block = (state.X1, state.X2, e, e, e, e, e, Hf, rho_f, z, z, z)
         elif split:
-            block = split_block(u, v, state.X1, state.X2, state.phis0, dt)
+            block = split_block(u, v, state.X1, state.X2, state.phis0, dt,
+                                pp)
         else:
             block = rmt_fn(u, v, state.X1, state.X2, dt, phi_inits=phi_inits,
                            dx=dx, dy=dy, num_layers=cfg.num_layers,
@@ -787,7 +835,8 @@ def make_step(
             mkv = torch.sum((phis <= 0.0).to(dtype) * (1.0 - H), dim=0)
         else:
             mkv = torch.zeros_like(u)
-        f_x, f_y, st_faces = forces(phis, rho_local)
+        f_x, f_y, st_faces = forces(phis, rho_local, gamma=pp["gamma"],
+                                    g_rho_ref=g_rho_ref(pp))
         if f_x is None:
             f_x = f_y = f_none
         u_star, v_star = momentum_fn(
@@ -799,17 +848,15 @@ def make_step(
         return (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
                 st_faces)
 
-    solid_tier = general_tier if general else block_tier
-
-    def step(state: SimState, t_end):
+    def _step(state: SimState, t_end, pp, params):
         u, v, p = state.u, state.v, state.p
         if fixed_dt is not None:
             dt = fixed_dt
         else:
             dt = compute_timestep(
-                u, v, dx, dy, cfg.CFL, cfg.dt_min_cap, cfg.mu_s, cfg.rho_s,
-                cfg.gamma, cfg.rho_f, mu_f=cfg.mu_f, eta_s=cfg.eta_s,
-                kappa=cfg.kappa)
+                u, v, dx, dy, cfg.CFL, cfg.dt_min_cap, pp["mu_s"],
+                pp["rho_s"], pp["gamma"], pp["rho_f"], mu_f=cfg.mu_f,
+                eta_s=cfg.eta_s, kappa=pp["kappa"])
         dt = torch.minimum(dt, torch.clamp(t_end - state.t, min=0.0)).to(dtype)
         # Once t reaches t_end the clipped dt is 0 and rho*div/dt would be
         # NaN: run the step with dt = 1 and freeze the state afterwards, so
@@ -821,7 +868,8 @@ def make_step(
             return torch.where(active, new, old)
 
         (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
-         st_faces) = solid_tier(u, v, p, state, dt, active)
+         st_faces) = (general_tier(u, v, p, state, dt, active, pp) if general
+                      else block_tier(u, v, p, state, dt, active, pp, params))
         proj = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
             dct_mats, stencils=stencils, bc_type=cfg.bc_type,
@@ -847,6 +895,29 @@ def make_step(
             step=state.step + active.to(torch.int32), phis0=phis0,
         )
         return new_state, aux
+
+    base = {k: getattr(cfg, k) for k in _TRACEABLE_PARAMS}
+    if traced_params is None:
+        def step(state: SimState, t_end):
+            return _step(state, t_end, base, params0)
+    else:
+        names = tuple(traced_params)
+        order = ("mu_s", "kappa", "rho_s", "rho_f")
+
+        def step(state: SimState, t_end, params):
+            extra = set(params) - set(names)
+            if extra:
+                raise ValueError(
+                    f"params {sorted(extra)} are not among the step's "
+                    f"traced_params {names}")
+            pp = dict(base)
+            for k in names:
+                pp[k] = torch.as_tensor(params[k], dtype=dtype, device=device)
+            # the solid block's operand [mu_s, kappa, rho_s, rho_f], the
+            # untraced entries cfg's (as the default build rounds them)
+            ops = torch.stack([pp[k] if k in names else params0[i]
+                               for i, k in enumerate(order)])
+            return _step(state, t_end, pp, ops)
 
     solid_path = ("none" if S == 0 else "general" if general
                   else "split" if split else "fused")
@@ -931,6 +1002,34 @@ def make_run_chunk(step_fn, n_steps: int, donate: bool = False):
         return state, state.t
 
     return run_chunk
+
+
+def make_rollout(step_fn, n_steps: int, remat: bool = True):
+    """A differentiable ``n_steps``-step rollout (the JAX package's
+    ``make_rollout``): ``rollout(state, t_end) -> state``, or
+    ``rollout(state, t_end, params)`` for a step built with
+    ``traced_params``. Its forward is ``make_run_chunk``'s, bit for bit.
+
+    With ``remat`` each step runs under ``torch.utils.checkpoint`` (not
+    reentrant): a backward pass keeps one state per step and recomputes
+    the step's inside from it, memory O(n_steps * state) in place of
+    every intermediate of every step. The recompute runs the step's
+    forward again, kernels included (their launch counters count it), and
+    then each kernel's backward, its plain version's autograd."""
+
+    def one(s, t_end, *params):
+        return step_fn(s, t_end, *params)[0]
+
+    def rollout(state: SimState, t_end, *params):
+        for _ in range(n_steps):
+            if remat:
+                state = torch.utils.checkpoint.checkpoint(
+                    one, state, t_end, *params, use_reentrant=False)
+            else:
+                state = one(state, t_end, *params)
+        return state
+
+    return rollout
 
 
 class RebaseRunner:

@@ -1753,3 +1753,209 @@ def test_general_step_does_not_wait_for_the_card(dev, case):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(s.u).all()) and aux["J"].shape == (1, N, N)
+
+
+# The kernels' gradient: every CUDA entry point is an autograd.Function
+# whose backward is its plain version's autograd (kernels/_autograd.py)
+
+PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
+                   momentum_rk4_impl=momentum_core,
+                   advext_impl=rb.advext_block_plain,
+                   extrap_impl=extrapolate_reference_map,
+                   momentum_rhs_impl=velocity_rhs_blended,
+                   projection_stencils_impl=(ps.rc_rhs_plain,
+                                             ps.grad_correct_plain))
+
+
+def grad_calls(dev, dtype, n=256):
+    """{entry point: (wrapper, plain version, args, kwargs)} on the
+    flagship's fields at n x n, the force and the periodic BC's modes of
+    the RK4 update among them."""
+    cfg, args, kw = block_inputs(dev, (n, n), dtype)
+    u, v, X1, X2, dt = args
+    blk = rb.rmt_block_plain(*args, **kw)
+    X1e, X2e, phis, Hf, rho = blk[0], blk[1], blk[2], blk[7], blk[8]
+    sxx, sxy, syy = blk[9:]
+    mkv = (phis[0] <= 0.0).to(dtype) * (1.0 - Hf)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    p = t(0.05 * rng.standard_normal((n, n)))
+    fx, fy = t(rng.standard_normal((2, n, n)))
+    g = cfg.grid
+    mom = dict(eta_s=0.01, dx=g.dx, dy=g.dy, dt=dt / 20, mu_f=cfg.mu_f)
+    fields = (u, v, p, sxx, sxy, syy, Hf, rho, mkv)
+    lid = pt.make_lid_bc(1.0)
+    d_scalar = dt / torch.mean(rho)
+    return {
+        "rmt_block": (rb.rmt_block_fused, rb.rmt_block_plain, args, kw),
+        "advext_block": (rb.advext_block_fused, rb.advext_block_plain,
+                         (u, v, X1, X2, phis, dt),
+                         dict(dx=g.dx, dy=g.dy, num_layers=3)),
+        "momentum_rk4": (mk.momentum_rk4_fused, momentum_core,
+                         (*fields, lid), mom),
+        "momentum_rk4, force": (mk.momentum_rk4_fused, momentum_core,
+                                (*fields, lid),
+                                dict(mom, f_ext_x=fx, f_ext_y=fy)),
+        # the wrapper applies periodic_bc to (u, v) before the update, and
+        # equals the plain update on overlap-consistent fields
+        "momentum_rk4, periodic": (
+            mk.momentum_rk4_fused,
+            lambda u, v, *rest, **k: momentum_core(*pt.periodic_bc(u, v),
+                                                   *rest, **k),
+            (*pt.periodic_bc(u, v), *(overlap_consistent(f)
+                                      for f in fields[2:]), pt.periodic_bc),
+            dict(mom, periodic=True)),
+        "extrapolate_fused": (ef.extrapolate_reference_map_fused,
+                              extrapolate_reference_map,
+                              (X1e[0] * (phis[0] <= 0.0), X2e[0], phis[0],
+                               g.dx, g.dy, 3), {}),
+        "rc_rhs": (ps.rc_rhs_fused, ps.rc_rhs_plain,
+                   (u, v, p, rho, dt, d_scalar, g.dx, g.dy), {}),
+        "grad_correct": (ps.grad_correct_fused, ps.grad_correct_plain,
+                         (p, u, v, rho, dt, g.dx, g.dy, lid), {}),
+        "velocity_rhs": (mr.velocity_rhs_blended_fused, velocity_rhs_blended,
+                         (u, v, p, sxx, sxy, syy, g.dx, g.dy, cfg.mu_f, Hf,
+                          rho, fx, fy), {}),
+    }
+
+
+def overlap_consistent(f):
+    """f with its last row and column copied from its first: a field of
+    the doubly-periodic overlap grid."""
+    f = f.clone()
+    f[-1, :] = f[0, :]
+    f[:, -1] = f[:, 0]
+    return f
+
+
+# The gradient through the kernels' Functions and the plain path's differ
+# only in the order in which autograd sums an input's contributions (the
+# Function sums the twin's before autograd adds them to the others'): on
+# the card 1e-15 to 5e-12 relative, reproducibly, on these losses.
+GRAD_RTOL = 1e-10
+
+GRAD_CALLS = ["rmt_block", "advext_block", "momentum_rk4",
+              "momentum_rk4, force", "momentum_rk4, periodic",
+              "extrapolate_fused", "rc_rhs", "grad_correct", "velocity_rhs"]
+
+
+def input_grads(fn, args, kwargs):
+    """The outputs of fn on fresh leaves of every float tensor argument,
+    and their gradients of a seeded weighted sum of the outputs."""
+    def leaf(a):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.detach().clone().requires_grad_(True)
+        return a
+    args = [leaf(a) for a in args]
+    kwargs = {k: leaf(a) for k, a in kwargs.items()}
+    out = fn(*args, **kwargs)
+    outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    rng = np.random.default_rng(1)
+    loss = sum(torch.sum(o * torch.tensor(rng.standard_normal(o.shape),
+                                          dtype=o.dtype, device=o.device))
+               for o in outs)
+    ins = [a for a in (*args, *kwargs.values())
+           if isinstance(a, torch.Tensor) and a.requires_grad]
+    return outs, torch.autograd.grad(loss, ins, allow_unused=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", GRAD_CALLS)
+def test_kernel_gradients_are_the_plain_twins(dev, name, dtype):
+    """Each wrapper with inputs that require a gradient: its outputs are
+    the kernel's (one launch, a _KernelFunction node) and its input
+    gradients those of the plain version's autograd, bit for bit; the
+    backward launches nothing."""
+    wrapper, plain, args, kwargs = grad_calls(dev, dtype)[name]
+    counters = lambda: [v for m in (rb, mk, ef, ps, mr) for k, v in
+                        sorted(vars(m).items()) if k.endswith("launches")]
+    n0 = counters()
+    outs, grads = input_grads(wrapper, args, kwargs)
+    n1 = counters()
+    assert sum(n1) - sum(n0) == 1
+    assert all(type(o.grad_fn).__name__.startswith("_KernelFunction")
+               for o in outs)
+    ref_outs, ref_grads = input_grads(plain, args, kwargs)
+    assert counters() == n1
+    outs = [o.detach() for o in outs]
+    ref_outs = [o.detach() for o in ref_outs]
+    if dtype == torch.float64:
+        assert_equal_to_plain(outs, ref_outs)
+    else:
+        assert_close_f32(outs, ref_outs, 1e-4)
+    assert any(r is not None and bool(torch.any(r != 0)) for r in ref_grads)
+    for g, r in zip(grads, ref_grads):
+        assert (g is None) == (r is None)
+        if r is not None:
+            assert torch.equal(g, r)
+
+
+def flagship_loss(dev, step, n_steps=3, N=128):
+    """L = sum(u^2 + v^2) + sum(p^2) after n_steps steps of the N x N
+    flagship from a seeded swirl, and (L, mu_s, the velocity factor)."""
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01)
+    s = pt.make_init_state(cfg, (DISC,), dtype=torch.float64, device=dev)
+    X, Y = cfg.grid.coords(dtype=torch.float64, device=dev)
+    mu = torch.tensor(0.1, dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    sc = torch.tensor(1.0, dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    s.u = 0.3 * sc * torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    s.v = -0.2 * sc * torch.sin(2 * math.pi * X) * torch.sin(math.pi * Y)
+    for _ in range(n_steps):
+        s, _ = step(s, 1.0, {"mu_s": mu})
+    return torch.sum(s.u ** 2 + s.v ** 2) + torch.sum(s.p ** 2), mu, sc
+
+
+def test_flagship_gradient_through_the_kernels_is_the_plain_paths(dev):
+    """F5: on the card a step's outputs lost every dependence through a
+    kernel, so d/d(mu_s) of a rollout through the kernels was silently
+    cut. It equals the plain path's on the card (N=128 float64, 3 steps;
+    GRAD_RTOL: the sums' order) and is nonzero."""
+    cfg = pt.RMTConfig(grid=pt.Grid(128, 128, 1.0, 1.0), mu_s=0.1,
+                       eta_s=0.01, mu_f=0.01)
+    kw = dict(dtype=torch.float64, device=dev, traced_params=("mu_s",))
+    step_k = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw)
+    step_p = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                          **PLAIN_IMPLS)
+    rb.launches = 0
+    L_k, mu_k, sc_k = flagship_loss(dev, step_k)
+    g_k = torch.autograd.grad(L_k, (mu_k, sc_k))
+    assert rb.launches == 3
+    L_p, mu_p, sc_p = flagship_loss(dev, step_p)
+    g_p = torch.autograd.grad(L_p, (mu_p, sc_p))
+    assert float(L_k) == float(L_p)
+    for a, b in zip(g_k, g_p):
+        assert float(b) != 0.0 and bool(torch.isfinite(a))
+        assert abs(float(a) - float(b)) <= GRAD_RTOL * abs(float(b))
+
+
+def test_diff_step_on_the_card_matches_make_rollout(dev):
+    """make_diff_rollout (kernel forward, plain twin backward) against
+    make_rollout through the kernels' Functions: the same gradient, and
+    a backward that launches no kernel."""
+    cfg = pt.RMTConfig(grid=pt.Grid(128, 128, 1.0, 1.0), mu_s=0.1,
+                       eta_s=0.01, mu_f=0.01)
+    kw = dict(dtype=torch.float64, device=dev)
+    dstep = pt.make_diff_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                              param_names=("mu_s",))
+    step = pt.make_step(cfg, pt.make_lid_bc(1.0), (DISC,), **kw,
+                        traced_params=("mu_s",))
+    droll = pt.make_diff_rollout(dstep, 3, with_params=True)
+    roll = pt.make_rollout(step, 3)
+    rb.launches = mk.launches = 0
+    L_d, mu_d, sc_d = flagship_loss(dev, lambda s, t, p: (droll(s, t, p),
+                                                          None), n_steps=1)
+    assert rb.launches == mk.launches == 3
+    g_d = torch.autograd.grad(L_d, (mu_d, sc_d))
+    assert rb.launches == mk.launches == 3
+    L_r, mu_r, sc_r = flagship_loss(dev, lambda s, t, p: (roll(s, t, p),
+                                                          None), n_steps=1)
+    g_r = torch.autograd.grad(L_r, (mu_r, sc_r))
+    # make_rollout's checkpoint recomputes each step's forward, kernels
+    # included
+    assert rb.launches == mk.launches == 9
+    assert float(L_d) == float(L_r)
+    for a, b in zip(g_d, g_r):
+        assert abs(float(a) - float(b)) <= GRAD_RTOL * abs(float(b))
