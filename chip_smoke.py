@@ -136,7 +136,30 @@ another sm_90a card) and the CUDA toolkit. Phases:
      seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4 within 1 %, Adam
      written inline, then secant iteration). Phase 3 also times each
      kernel's backward (the plain twin's forward and autograd) at N=1024
-     float32 ([backward] lines).
+     float32 ([backward] lines);
+  14. domain decomposition: (a) the sharding offsets of rmt_block
+     (bilinear, bicubic, two solids with the clamp), advext_block and
+     momentum_rk4 (under the lid, and with the contact and gravity force
+     under free slip), in one process: every block of the (4,1), (1,4),
+     (2,2) and (2,4) meshes of N=256 float64 and N=1024 float32 operands,
+     and of the (2,2) mesh of N=2048 float32 operands (the blocks that
+     (b)'s flagship gives its ranks), padded by its exchange halo with
+     zeros beyond the domain, through the wrapper with its offsets; the
+     blocks stitched must equal the unsharded kernel bit for bit, each
+     slab its plain twin with the same offsets within the phase-3 bounds;
+     the offset instantiations' times
+     on the (0, 0) block of the (2,2) mesh of N=2048 float32 (their device
+     times are phase 3's profile rows "..., offsets"); (b) the sharded
+     flagship in one gloo world of 4 processes on the card
+     (parallel.launch.run_world: the halo and the gathers through host
+     copies): N=2048 float32 on (2,2), 20 steps, within 1e-4 of
+     max(1, |field|) of the single-process step, and N=256 float64 on (2,2)
+     and (4,1), and a pure fluid on (2,2), 3 steps, within 1e-10 (u, v, p)
+     and 1e-11 (X); every rank launches the offset instantiation of each
+     kernel of its step once a step (the pure fluid's: momentum_rk4
+     alone). [shard] lines, each field's error beside its bound; the wall
+     ms/step of 4 processes sharing one card is a
+     correctness run's, not a scaling number.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
 the kernels (with each kernel's backward ms and the largest relative
@@ -224,6 +247,9 @@ HAS_BICUBIC = "sl_interp" in inspect.signature(rb.rmt_block_fused).parameters
 HAS_ST = hasattr(levelset, "Ellipse")
 # The general tier: WENO5, central2, the gather path?
 HAS_GENERAL = hasattr(advect, "advect_weno5_rk3")
+# The sharding offsets of the solid blocks and the RK4 kernel?
+HAS_OFFSETS = "row_offset" in inspect.signature(
+    rb.rmt_block_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -382,6 +408,19 @@ PLAIN_IMPLS = dict(rmt_block_impl=rb.rmt_block_plain,
                                              ps.grad_correct_plain))
 OUT_NAMES = ("X1e", "X2e", "phi", "sxx", "sxy", "syy", "J", "Hf", "rho",
              "sb_xx", "sb_xy", "sb_yy")
+# phase 14: the meshes whose blocks phase 14a cuts, and the offset
+# instantiations' profile rows, each timed on the (0, 0) block of the
+# (2, 2) mesh of an OFFSET_N field (N=1024 cells of it, the unsharded
+# row's, plus the halo of the exchange on its two cut sides): {row:
+# (kernel, a part of the names of its own device kernels, which alone
+# make the row's device time; the wrapper's zeroed outputs are memsets)}
+SHARD_MESHES = ((4, 1), (1, 4), (2, 2), (2, 4))
+OFFSET_N = 2048
+OFFSET_ROWS = {"rmt_block, offsets": ("rmt_block", "rmt_tile_kernel"),
+               "advext_block, offsets": ("advext_block", "advext_"),
+               "momentum_rk4, offsets": ("momentum_rk4", "rk4_kernel")}
+# phase 14b: 4 ranks on the one card
+SHARD_RANKS = 4
 
 
 def flagship(N, **overrides):
@@ -632,10 +671,20 @@ def bound_us(name, N, dtype=torch.float32):
     bounds it: 'bytes' or 'operations'); a profile row "kernel, case" takes
     its own work where WORK has it, else the kernel's."""
     read, written, ops = WORK.get(name) or WORK[name.split(",")[0]]
-    cells = N * N
+    cells_read = cells_written = N * N
+    if name in OFFSET_ROWS:
+        # the slab the row times: its cells inside the domain are read,
+        # and the kernel writes those farther than the stale depth from
+        # its two cuts (the wrapper's memset zeroes the rest)
+        kernel = OFFSET_ROWS[name][0]
+        depth = (8 if kernel == "momentum_rk4" else
+                 rb.cut_depth(flagship(N).num_layers))
+        cells_read = (N + offset_halo(kernel)) ** 2
+        cells_written = (N + offset_halo(kernel) - depth) ** 2
     item = torch.finfo(dtype).bits // 8
-    t_bytes = 1e6 * (read + written) * cells * item / HBM_BYTES_PER_S
-    t_ops = 1e6 * ops * cells / F32_OPS_PER_S
+    t_bytes = (1e6 * (read * cells_read + written * cells_written) * item
+               / HBM_BYTES_PER_S)
+    t_ops = 1e6 * ops * cells_written / F32_OPS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1134,6 +1183,9 @@ def kernel_calls(N, device):
         ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
         modes = {row: (lambda k=kern, c=call: c(k)) for row, (kern, _, call)
                  in mode_calls(cfg, d, ccfg, cd).items()}
+    if HAS_OFFSETS and 2 * N == OFFSET_N:
+        modes.update({row: kern for row, (kern, _) in
+                      offset_slab_calls(device).items()})
     return {
         "rmt_block": lambda: rmt_call(rb.rmt_block_fused, cfg, d),
         # the map far from the disc everywhere: every tile takes the skip
@@ -1218,9 +1270,9 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
     device kernels per call)}}, {step group: (kernels per step, copies
     per step, device-busy ms per step, extrapolate_fused's device kernels
     per step, their device ms per step)})."""
-    groups = []
+    groups, calls_at = [], {}
     for N in sizes:
-        calls = kernel_calls(N, device)
+        calls = calls_at[N] = kernel_calls(N, device)
         for name, fn in calls.items():
             fn()  # builds and warms up
             groups.append(((N, name, "one"), fn))
@@ -1229,12 +1281,14 @@ def profile_all(device, sizes=(1024, 4096), reps=20):
     steps = step_groups(device)
     ev = profile_groups(groups + steps)
     kern = {N: {} for N in sizes}
+    own_kernel = dict(OWN_KERNEL, **{row: part for row, (_, part)
+                                     in OFFSET_ROWS.items()})
     for N in sizes:
-        for name in calls:
+        for name in calls_at[N]:
             one, many = ev[(N, name, "one")], ev[(N, name, "reps")]
             extra = ""
-            if name in OWN_KERNEL:
-                own = OWN_KERNEL[name]
+            if name in own_kernel:
+                own = own_kernel[name]
                 others = sum(own not in e.name for e in one)
                 one = [e for e in one if own in e.name]
                 many = [e for e in many if own in e.name]
@@ -1980,6 +2034,274 @@ def grad_step_without_sync(device):
           f"read); its dE/dmu_s {float(g):.6g}")
 
 
+def offset_halo(kernel):
+    """The exchange halo of a kernel's sharded call: 4 num_layers + 4 of
+    the flagship's 3 layers for the solid blocks, 8 for the RK4 kernel."""
+    return 8 if kernel == "momentum_rk4" else 4 * 3 + 4
+
+
+def as_outs(out):
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
+def offset_cases(shape, dtype, device):
+    """Phase 14a's cases on kernel_inputs' operands (and the contact
+    configuration's): {name: (wrapper call, plain twin call, the whole
+    fields a call takes first, the exchange halo)}, each call
+    ``call(*fields, **offsets)``: rmt_block bilinear, bicubic (guarded) and
+    with two solids and the clamp, advext_block, momentum_rk4 under the
+    lid and with the contact and gravity force under free slip."""
+    cfg, d = kernel_inputs(shape, dtype, device)
+    ccfg, cd = contact_kernel_inputs(shape, dtype, device)
+    g = cfg.grid
+
+    def rmt(fn, c, dd, solids, **mode):
+        def call(u, v, X1s, X2s, **offs):
+            return fn(u, v, X1s, X2s, dd["dt"], phi_inits=solids, dx=g.dx,
+                      dy=g.dy, num_layers=c.num_layers, w_t=c.w_t,
+                      params=dd["params"], **mode, **offs)
+        return call
+
+    def adv(fn):
+        def call(u, v, X1s, X2s, phis, **offs):
+            return fn(u, v, X1s, X2s, phis, d["dt"], dx=g.dx, dy=g.dy,
+                      num_layers=cfg.num_layers, **offs)
+        return call
+
+    def mom(fn, bc, kw):
+        def call(*f, **offs):
+            force = (dict(f_ext_x=f[9], f_ext_y=f[10]) if len(f) > 9
+                     else {})
+            return fn(*f[:9], bc, **kw, **force, **offs)
+        return call
+
+    h_rmt, h_mom = offset_halo("rmt_block"), offset_halo("momentum_rk4")
+    rmt_fields = [d["u"], d["v"], d["X1s"], d["X2s"]]
+    plain = rmt_call(rb.rmt_block_plain, cfg, d)
+    args, kw = momentum_args(cfg, d, plain, cfg.eta_s)
+    cplain = contact_rmt_call(rb.rmt_block_plain, ccfg, cd)
+    cargs, ckw = contact_momentum_args(ccfg, cd, cplain, 0.0)
+    force = [ckw.pop("f_ext_x"), ckw.pop("f_ext_y")]
+    solids = (d["disc"],)
+    two = dict(stress_clamp=ccfg.two_solid_clamp)
+    lid = make_lid_bc(1.0)
+    pairs = (rb.rmt_block_fused, rb.rmt_block_plain)
+    return {
+        "rmt_block": (*(rmt(f, cfg, d, solids) for f in pairs), rmt_fields,
+                      h_rmt),
+        "rmt_block, bicubic": (*(rmt(f, cfg, d, solids, **sample_mode(cfg))
+                                 for f in pairs), rmt_fields, h_rmt),
+        "rmt_block, two solids": (
+            *(rmt(f, ccfg, cd, cd["solids"], **two) for f in pairs),
+            [cd["u"], cd["v"], cd["X1s"], cd["X2s"]], h_rmt),
+        "advext_block": (adv(rb.advext_block_fused),
+                         adv(rb.advext_block_plain),
+                         rmt_fields + [d["phis"]], h_rmt),
+        "momentum_rk4": (mom(mk.momentum_rk4_fused, lid, kw),
+                         mom(momentum_core, lid, kw), list(args), h_mom),
+        "momentum_rk4, force": (
+            mom(mk.momentum_rk4_fused, free_slip_box_bc, ckw),
+            mom(momentum_core, free_slip_box_bc, ckw),
+            list(cargs) + force, h_mom),
+    }
+
+
+def compare_offsets(shape, dtype, device, meshes=SHARD_MESHES):
+    """Phase 14a: every case of ``offset_cases`` on every block of each
+    of the ``meshes``, the block padded by its halo as the exchange pads it
+    (zeros beyond the domain, ``parallel.sharding.slab_of``), through the
+    wrapper with the block's offsets and through the plain twin with the
+    same; the kernel's blocks stitched must equal the unsharded kernel bit
+    for bit, and each slab (the cut's stale cells and the cells beyond the
+    domain 0 in both) its plain twin's within the phase-3 bounds. Returns
+    {kernel: (max-abs against the unsharded kernel, against the plain
+    twin)}."""
+    from pyrmt_tpu_torch.parallel.sharding import Mesh, slab_of
+
+    f64 = dtype == torch.float64
+    Ny, Nx = (shape, shape) if isinstance(shape, int) else shape
+    tag = (f"N={Nx}" if Nx == Ny else f"{Ny}x{Nx}") + f" {str(dtype)[6:]}"
+    worst = {}
+    for name, (kern, plain, fields, halo) in offset_cases(
+            shape, dtype, device).items():
+        kernel = name.split(",")[0]
+        tol = TOL_F32_MOMENTUM if kernel == "momentum_rk4" else TOL_F32_RMT
+        whole = as_outs(kern(*fields))
+        e_whole = e_plain = scale = 0.0
+        for mesh in meshes:
+            for iy in range(mesh[0]):
+                for ix in range(mesh[1]):
+                    slabs = [slab_of(f, mesh, (iy, ix), halo)
+                             for f in fields]
+                    offs = slabs[0][1]
+                    ko = as_outs(kern(*(a for a, _ in slabs), **offs))
+                    po = as_outs(plain(*(a for a, _ in slabs), **offs))
+                    m = Mesh(mesh, (iy, ix))
+                    rows, cols = m.block(Ny, Nx)
+                    for k, p, w in zip(ko, po, whole):
+                        e_whole = max(e_whole, float(
+                            (m.unpad(k, halo) - w[..., rows, cols])
+                            .abs().max()))
+                        err, sc = max_errs(k, p)
+                        e_plain, scale = max(e_plain, err), max(scale, sc)
+        torch.cuda.synchronize()
+        where = ", ".join(f"{a}x{b}" for a, b in meshes)
+        print(f"[shard] {tag} {name} on the blocks of the {where} "
+              f"mesh{'es' if len(meshes) > 1 else ''} with the offsets: "
+              f"stitched against the unsharded kernel max-abs "
+              f"{e_whole:.3e} (bit for bit expected); kernel against its "
+              f"plain twin max-abs {e_plain:.3e} (max |plain| {scale:.3g})")
+        if e_whole != 0.0:
+            raise AssertionError(f"{tag} {name}: the stitched slabs differ "
+                                 f"from the unsharded kernel by {e_whole}")
+        check_close(f"{tag} {name} with offsets, kernel vs plain twin",
+                    e_plain, scale, f64, tol)
+        prev = worst.get(kernel, (0.0, 0.0))
+        worst[kernel] = (max(prev[0], e_whole), max(prev[1], e_plain))
+    return worst
+
+
+def offset_slab_calls(device):
+    """{OFFSET_ROWS row: (wrapper call, plain twin call)} on the (0, 0)
+    block of the (2, 2) mesh of OFFSET_N float32 operands, padded by its
+    halo, with its offsets: the offset instantiations' profile rows and
+    times."""
+    from pyrmt_tpu_torch.parallel.sharding import slab_of
+
+    cases = offset_cases(OFFSET_N, torch.float32, device)
+    out = {}
+    for row, (kernel, _) in OFFSET_ROWS.items():
+        kern, plain, fields, halo = cases[kernel]
+        slabs = [slab_of(f, (2, 2), (0, 0), halo) for f in fields]
+        args, offs = [a for a, _ in slabs], slabs[0][1]
+        out[row] = (lambda k=kern, a=args, o=offs: k(*a, **o),
+                    lambda p=plain, a=args, o=offs: p(*a, **o))
+    return out
+
+
+def time_offsets(device, reps=20):
+    """{OFFSET_ROWS row: (kernel ms, plain ms)}: CUDA-event times of each
+    offset instantiation and its plain twin on its slab, in turns."""
+    times = {}
+    for row, (kernel, plain) in offset_slab_calls(device).items():
+        p1, k1, k2, p2 = (time_ms(f, reps) for f in
+                          (plain, kernel, kernel, plain))
+        times[row] = (0.5 * (k1 + k2), 0.5 * (p1 + p2))
+        print(f"[timing] (2,2) block of N={OFFSET_N} float32 {row}: kernel "
+              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    return times
+
+
+def sharded_runs(device, card):
+    """Phase 14b: the sharded step in one gloo world of SHARD_RANKS
+    processes on the one card (parallel.launch.run_world; gloo: the card
+    cannot host an NCCL world of more than one rank, so the halo and the
+    gathers go through host copies) against the single-process
+    ``make_step`` over the same steps: the flagship at N=2048 float32 on
+    the (2, 2) mesh, 2 untimed and 18 timed steps (within TOL_F32_RMT of
+    max(1, |field|)), and at N=256 float64 on (2, 2) and (4, 1), 3 steps,
+    and without the disc (a pure fluid) on (2, 2) (u, v and p within
+    1e-10, X1 and X2 within 1e-11: JAX's sharding tolerances). Every rank
+    must launch the offset instantiation of each kernel of its step (the
+    pure fluid's: the RK4 kernel alone) once a step. Returns the runs'
+    summaries."""
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    disc = (FLAGSHIP_DISC,)
+    runs = [("N=2048 float32 (2,2)", 2048, torch.float32, (2, 2), 2, 18,
+             disc),
+            ("N=256 float64 (2,2)", 256, torch.float64, (2, 2), 0, 3, disc),
+            ("N=256 float64 (4,1)", 256, torch.float64, (4, 1), 0, 3, disc),
+            ("N=256 float64 (2,2) pure fluid", 256, torch.float64, (2, 2),
+             0, 3, ())]
+    cases = [dict(cfg=flagship(N), velocity_bc=make_lid_bc(1.0),
+                  phi_inits=solids, steps=steps, warmup=warm,
+                  dtype=dtype, device="cuda", mesh_shape=mesh, t_end=8.0)
+             for _, N, dtype, mesh, warm, steps, solids in runs]
+    t0 = time.perf_counter()
+    results = run_world(SHARD_RANKS, "pyrmt_tpu_torch.parallel.launch:"
+                        "run_sharded", dict(cases=cases), backend="gloo",
+                        timeout=600.0)[0]
+    world_s = time.perf_counter() - t0
+    summary = {}
+    for (what, N, dtype, mesh, warm, steps, solids), r in zip(runs,
+                                                              results):
+        kw = dict(dtype=dtype, device=device)
+        cfg = flagship(N)
+        step = make_step(cfg, make_lid_bc(1.0), solids, **kw)
+        ref = make_init_state(cfg, solids, **kw)
+        for _ in range(warm + steps):
+            ref, _ = step(ref, 8.0)
+        f64 = dtype == torch.float64
+        errs, bounds = {}, {}
+        for k in ("u", "v", "p", "X1", "X2"):
+            want = getattr(ref, k).cpu().numpy()
+            if r["state"][k].shape != want.shape:
+                raise AssertionError(f"[shard] {what}: {k} gathered as "
+                                     f"{r['state'][k].shape}, not "
+                                     f"{want.shape}")
+            err = float(np.abs(r["state"][k] - want).max(initial=0.0))
+            scale = float(np.abs(want).max(initial=0.0))
+            bound = ((1e-11 if k in ("X1", "X2") else 1e-10) if f64
+                     else TOL_F32_RMT * max(1.0, scale))
+            errs[k], bounds[k] = err, (bound, scale)
+            if not err <= bound:
+                raise AssertionError(f"[shard] {what}: {k} differs from the "
+                                     f"single-process step by {err:.3e} > "
+                                     f"{bound:.3g}")
+        for rank, launches in enumerate(r["launches"]):
+            for kern in ("rmt_block", "momentum_rk4") if solids else (
+                    "momentum_rk4",):
+                n = launches[f"{kern}.offset_launches"]
+                if n != steps or launches[f"{kern}.launches"]:
+                    raise AssertionError(
+                        f"[shard] {what}: rank {rank} launched {kern}'s "
+                        f"offset instantiation {n} times in {steps} steps "
+                        f"({launches})")
+            if not solids and (launches["rmt_block.offset_launches"]
+                               or launches["rmt_block.launches"]):
+                raise AssertionError(f"[shard] {what}: rank {rank} launched "
+                                     f"rmt_block without a solid")
+        if not r["finite"]:
+            raise AssertionError(f"[shard] {what}: not finite")
+        ms = r["ms_per_step"]
+        print(f"[shard] {what}: {SHARD_RANKS} processes sharing one card "
+              f"({card}), a correctness run, not a scaling number; "
+              f"{steps} timed steps after {warm}, wall "
+              f"{min(ms):.1f}-{max(ms):.1f} ms/step over the ranks; "
+              f"max-abs against the single-process step: "
+              + ", ".join(f"{k} {e:.3e} of its bound {bounds[k][0]:.3g} "
+                          f"(max |{k}| {bounds[k][1]:.4g}), "
+                          f"{e / bounds[k][0]:.3g} of it"
+                          for k, e in errs.items())
+              + f"; paths {r['paths']}")
+        summary[what] = dict(errs=errs, bounds=bounds, ms_per_step=ms,
+                             paths=r["paths"], launches=r["launches"],
+                             steps=steps)
+    print(f"[shard] the world of {SHARD_RANKS} ranks took {world_s:.1f} s "
+          f"(start-up, the {len(runs)} runs, the gathers)")
+    return summary
+
+
+def phase14(device, card):
+    """Phase 14: the offset instantiations against the unsharded kernel and
+    their plain twins (14a) on the blocks of every SHARD_MESHES mesh at
+    N=256 float64 and N=1024 float32, and on the blocks of the (2, 2) mesh
+    of OFFSET_N float32 that phase 14b's flagship gives each rank; their
+    times; the sharded step (14b). Returns ({kernel: (max-abs stitched
+    against unsharded, against the plain twin)}, time_offsets' times,
+    sharded_runs' summary)."""
+    offset_errs = {}
+    for shape, dtype, meshes in ((256, torch.float64, SHARD_MESHES),
+                                 (1024, torch.float32, SHARD_MESHES),
+                                 (OFFSET_N, torch.float32, ((2, 2),))):
+        for kernel, e in compare_offsets(shape, dtype, device,
+                                         meshes).items():
+            prev = offset_errs.get(kernel, (0.0, 0.0))
+            offset_errs[kernel] = tuple(map(max, prev, e))
+    return offset_errs, time_offsets(device), sharded_runs(device, card)
+
+
 def main() -> int:
     # 1. probe
     if not torch.cuda.is_available():
@@ -2011,7 +2333,8 @@ def main() -> int:
             name: {f"N{N}": {"device_us": prof[N][name][0],
                              "device_launches_per_call": prof[N][name][1],
                              "bound_us": bound_us(name, N)[0]}
-                   for N in prof} for name in prof[1024]},
+                   for N in prof if name in prof[N]}
+            for name in prof[1024]},
             "steps": {name: dict(zip(("kernels", "copies", "busy_ms",
                                       "extrap_kernels", "extrap_busy_ms"), p))
                       for name, p in step_prof.items()},
@@ -2398,6 +2721,11 @@ def main() -> int:
     full = grad_full_width(device, card)
     inverse_problem(device, card)
 
+    phase_s.append(("14", time.perf_counter()))
+    # 14. the sharding offsets, kernel by kernel (14a), and the sharded
+    # step in a world of 4 ranks on the card (14b)
+    offset_errs, offset_times, shard = phase14(device, card)
+
     phase_s.append(("end", time.perf_counter()))
     spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
                       in zip(phase_s, phase_s[1:]))
@@ -2482,6 +2810,27 @@ def main() -> int:
     entry = next(k for k in kernels if k["name"] == "rmt_block")
     entry["checked_modes"] = {row.split(", ")[1]: errs[row]
                               for row in CHECKED if row in errs}
+    # the offset instantiations: their launches on the main path of this
+    # slice (phase 14b's sharded flagship at N=2048, all ranks; the
+    # sharded step runs no split tier, so advext_block's are 0 there and
+    # phase 14a alone drives it), their errors from phase 14a, their times
+    # on the (0, 0) block of the (2, 2) mesh of N=2048 float32
+    main_run = shard["N=2048 float32 (2,2)"]
+    for row, (name, _) in OFFSET_ROWS.items():
+        entry = next(k for k in kernels if k["name"] == name)
+        stitched, vs_plain = offset_errs[name]
+        entry.setdefault("modes", []).append({
+            "mode": "offsets, the (0, 0) block of the (2, 2) mesh of "
+                    f"N={OFFSET_N}",
+            "launches": sum(n.get(f"{name}.offset_launches", 0)
+                            for n in main_run["launches"]),
+            "launches_from": ("14b (4 ranks, 18 timed steps)"
+                              if name != "advext_block" else
+                              "none: checked in 14a"),
+            "max_abs_err": vs_plain, "stitched_max_abs_err": stitched,
+            "ms": offset_times[row][0], "plain_ms": offset_times[row][1],
+            "bound_ms": 1e-3 * bound_us(row, OFFSET_N // 2)[0],
+            "device_us": prof[1024][row][0]})
     print(json.dumps({"kernels": kernels, "grad_full_width": {
         k: full[k] for k in ("loss", "grad", "fwd_ms", "bwd_ms",
                              "peak_gib")}}))

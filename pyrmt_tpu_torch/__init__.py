@@ -19,6 +19,10 @@ is an ``autograd.Function`` whose backward is its plain version's
 autograd, the variable-density CG has its implicit adjoint, and
 ``make_step(traced_params=...)``, ``make_rollout``, ``make_diff_step``
 and ``make_diff_rollout`` are the JAX package's gradient API.
+``make_mesh``, ``state_sharding``, ``shard_state`` and
+``make_sharded_step`` (``parallel``) decompose the grid over the ranks of
+a ``torch.distributed`` world: one block per rank, the two kernels on
+exchanged halos with the sharding offsets, the rest as collectives.
 ``velocity_RK4`` and ``advect_semi_lagrangian_rk4`` are pyRMT's names, as
 in the JAX package.
 
@@ -86,6 +90,12 @@ from pyrmt_tpu_torch.ops.poisson import (
     solve_variable_poisson_cg,
     solve_variable_poisson_cg_counted,
 )
+from pyrmt_tpu_torch.parallel import (
+    make_mesh,
+    make_sharded_step,
+    shard_state,
+    state_sharding,
+)
 from pyrmt_tpu_torch.physics import (
     balanced_csf_forces,
     external_forces,
@@ -148,9 +158,11 @@ __all__ = [
     "make_diff_step",
     "make_init_state",
     "make_lid_bc",
+    "make_mesh",
     "make_rebase_runner",
     "make_rollout",
     "make_run_chunk",
+    "make_sharded_step",
     "make_step",
     "momentum_step_rk4",
     "momentum_step_rk4_2solids",
@@ -162,11 +174,13 @@ __all__ = [
     "run_until",
     "save_checkpoint",
     "save_snapshot",
+    "shard_state",
     "sharp_solid_fraction",
     "solve_poisson_fft",
     "solve_variable_poisson_cg",
     "solve_variable_poisson_cg_counted",
     "state_from_numpy",
+    "state_sharding",
     "state_to_numpy",
     "velocity_RK4",
     "velocity_rhs_blended_fused",

@@ -12,6 +12,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 #define PYRMT_RETURN_IF_ERROR()                      \
   do {                                               \
@@ -30,6 +31,30 @@ __device__ inline T clampf(T x, T lo, T hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// One axis of a field that may be one shard's slab of a larger grid (the
+// domain decomposition of pyrmt_tpu_torch/parallel): its valid cells
+// [0, n), the caller's pointers already at the first of them, cell l at
+// global index g0 + l of a domain of `total` cells. A slab's rows or
+// columns outside the domain (the zero halo beyond an edge shard) are not
+// among the valid cells: they are never data. The slab ends at a cut,
+// where a neighbour's cells follow that this slab does not hold, unless it
+// ends at the domain's edge. A whole field is Axis{n, 0, n}.
+struct Axis {
+  int n, g0, total;
+  __host__ __device__ bool cut_lo() const { return g0 > 0; }
+  __host__ __device__ bool cut_hi() const { return g0 + n < total; }
+};
+
+// The valid cells of a slab axis of `extent` cells whose cell 0 lies at
+// global index `offset` (negative for an edge shard's zero halo) of a
+// domain of `total` cells; `first` gets the slab index of the first valid
+// cell. n < 1: no valid cell.
+inline Axis slab_axis(int extent, int offset, int total, int& first) {
+  first = offset < 0 ? -offset : 0;
+  const int last = extent < total - offset ? extent : total - offset;
+  return Axis{last - first, offset + first, total};
+}
+
 // One axis of a tile kernel's tile. The block writes the cells [out_lo,
 // out_hi) and computes over the panel [lo, hi): the core [core_lo,
 // core_hi), which is the output cells widened to a whole tile where the
@@ -41,6 +66,8 @@ struct Span {
   int lo, hi, core_lo, core_hi, out_lo, out_hi, n;
 
   __device__ int size() const { return hi - lo; }
+  // the global index of panel index l (a whole field's: lo + l)
+  __device__ int global(int l) const { return lo + l; }
 
   // Panel index l lies in the panel, at least r cells in from each panel
   // edge that is not the domain's edge: a stage whose inputs are valid
@@ -60,6 +87,61 @@ __device__ inline Span tile_span(int t0, int t, int n, int halo) {
   s.lo = max(0, s.core_lo - halo);
   s.hi = min(n, s.core_hi + halo);
   return s;
+}
+
+// A Span on a slab axis (Axis): indices are the valid cells', panel index
+// l is at global index g0 + lo + l, and every edge or interior decision
+// takes that. edge_lo, edge_hi: the panel ends there at the domain's edge;
+// every other panel end (inside the field, or at the slab's cut) has
+// cells beyond it that the panel does not hold.
+struct SlabSpan {
+  int lo, hi, core_lo, core_hi, out_lo, out_hi, n, g0;
+  bool edge_lo, edge_hi;
+
+  __device__ int size() const { return hi - lo; }
+  __device__ int global(int l) const { return g0 + lo + l; }
+  __device__ bool inside(int l, int r) const {
+    return l < hi - lo && (edge_lo || l >= r) && (edge_hi || l < hi - lo - r);
+  }
+};
+
+// The tile at t0 on a slab axis: Span's panel, clipped to the domain's
+// edges and, at a cut, `reach` cells short of it (reach: how far beyond
+// the panel a stage reads device memory); its output cells kept `halo`
+// cells in from every panel end that is not the domain's edge, so that a
+// tile beside a cut writes only the cells it computes from the slab's
+// data (the others, the cut's stale cells, stay as the caller left them).
+__device__ inline SlabSpan slab_span(int t0, int t, const Axis& a, int halo,
+                                     int reach) {
+  SlabSpan s;
+  s.n = a.n;
+  s.g0 = a.g0;
+  s.out_lo = t0;
+  s.out_hi = min(t0 + t, a.n);
+  s.core_lo = max(0, min(t0, a.n - t));
+  s.core_hi = min(a.n, s.core_lo + t);
+  s.lo = max(a.cut_lo() ? reach : 0, s.core_lo - halo);
+  s.hi = min(a.cut_hi() ? a.n - reach : a.n, s.core_hi + halo);
+  s.edge_lo = s.lo == 0 && !a.cut_lo();
+  s.edge_hi = s.hi == a.n && !a.cut_hi();
+  if (!s.edge_lo) s.out_lo = max(s.out_lo, s.lo + halo);
+  if (!s.edge_hi) s.out_hi = min(s.out_hi, s.hi - halo);
+  return s;
+}
+
+// The span type of a tile kernel's instantiation: kSlab, a shard's slab
+// (SlabSpan); else a whole field (Span: the code of a kernel without
+// offsets, whose instantiation stays as it was), and its tile.
+template <bool kSlab>
+using SpanOf = typename std::conditional<kSlab, SlabSpan, Span>::type;
+
+template <bool kSlab>
+__device__ inline SpanOf<kSlab> span_of(int t0, int t, const Axis& a,
+                                        int halo, int reach) {
+  if constexpr (kSlab)
+    return slab_span(t0, t, a, halo, reach);
+  else
+    return tile_span(t0, t, a.n, halo);
 }
 
 __host__ __device__ inline unsigned tiles_for(int n, int t) {

@@ -71,7 +71,7 @@ template <typename T>
 __global__ void __launch_bounds__(kFlagTile * kFlag)
     extrap_flag_kernel(const T* __restrict__ phi,
                        unsigned char* __restrict__ flags, int Ny, int Nx) {
-  pyrmt::flag_pass<2>(flags, Ny, Nx,
+  pyrmt::flag_pass<2>(flags, Ny, Nx, Nx,
                       [&](size_t g) { return phi[g] < T(0) ? 1u : 2u; });
 }
 

@@ -64,10 +64,25 @@
 // closures' tests, and the shared-memory stencil reads, over ~2x the
 // cells. It runs well above the byte bound (PERF.md).
 //
+// The sharding offsets (the Pallas kernel's row_offset / Ny_total /
+// col_offset / Nx_total, for the domain decomposition of
+// pyrmt_tpu_torch/parallel): the fields are one shard's slab, element
+// (0, 0) at global (roff, coff), possibly negative, of an Nyt x Nxt domain
+// (walls only: the periodic box takes none). The tiles cover the slab's
+// valid cells (the zero halo beyond the domain is never read); in the
+// kSlab instantiations (SlabSpan) the BC, every closure and the interior
+// fast path take the global index, so a tile beside a cut is interior; a
+// panel ends at a cut and its stages shrink from there as from any inner
+// panel edge, so the tile writes only cells 8 in from the cut (the rest
+// stay 0, as the plain twin leaves them). A whole field takes the
+// instantiations without kSlab, whose code is the kernel's without
+// offsets.
+//
 // Built with --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
 // The halo recompute evaluates the same expressions on the same values.
+#include <initializer_list>
 #include <type_traits>
 
 #include "stencil_device.cuh"
@@ -75,6 +90,7 @@
 namespace {
 
 using pyrmt::At;
+using pyrmt::Axis;
 using pyrmt::bc_u;
 using pyrmt::bc_v;
 using pyrmt::Span;
@@ -114,6 +130,7 @@ struct WrapSpan {
   __device__ bool inside(int l, int r) const {
     return l >= r && l < hi - lo - r;
   }
+  __device__ int global(int l) const { return lo + l; }
   __device__ int at(int l) const {
     const int j = (lo + l) % period;
     return j < 0 ? j + period : j;
@@ -181,8 +198,8 @@ __device__ __forceinline__ void rk4_tile(
     const T* __restrict__ Hf, const T* __restrict__ rho,
     const T* __restrict__ mkv, const T* __restrict__ fx,
     const T* __restrict__ fy, T dt, T* __restrict__ u_new,
-    T* __restrict__ v_new, int Ny, int Nx, double dx, double dy,
-    double mu_f, double eta_s, int bc, T lid) {
+    T* __restrict__ v_new, size_t stride, int Ny, int Nx, double dx,
+    double dy, double mu_f, double eta_s, int bc, T lid) {
   using P = Panel<T>;
   constexpr bool kWrap = std::is_same<S, WrapSpan>::value;
   static_assert(!(kWrap && kEdge), "a periodic tile has no edge closures");
@@ -195,7 +212,9 @@ __device__ __forceinline__ void rk4_tile(
   T* Kv = Ku + P::N;
   T* Su = Kv + P::N;
   T* Sv = Su + P::N;
-  const size_t sy = static_cast<size_t>(Nx);
+  // Ny, Nx: the domain's extents; a cell's global index is the panel's
+  // origin g0 + lo plus its panel index
+  const size_t sy = stride;
   const int ny = kEdge ? Ny : 5, nx = kEdge ? Nx : 5;
   auto gidx = [&](int lj, int li) {
     if constexpr (kWrap)
@@ -203,8 +222,8 @@ __device__ __forceinline__ void rk4_tile(
     else
       return static_cast<size_t>(ys.lo + lj) * sy + (xs.lo + li);
   };
-  auto mj = [&](int lj) { return kEdge ? ys.lo + lj : 2; };
-  auto mi = [&](int li) { return kEdge ? xs.lo + li : 2; };
+  auto mj = [&](int lj) { return kEdge ? ys.global(lj) : 2; };
+  auto mi = [&](int li) { return kEdge ? xs.global(li) : 2; };
 
   for (int s = 0; s < 4; ++s) {
     const T h = s == 3 ? dt : T(0.5) * dt;
@@ -218,11 +237,11 @@ __device__ __forceinline__ void rk4_tile(
     __syncthreads();
     if (kEdge) {
       for_cells<T>(ys, xs, 2 * s, [&](int lj, int li) {
-        const int j = ys.lo + lj, i = xs.lo + li;
+        const int j = mj(lj), i = mi(li);
         if (j != 0 && j != Ny - 1 && i != 0 && i != Nx - 1) return;
-        const T bu = bc_u<T>(TileRaw<T>{Wu, ys.lo, xs.lo}, j, i, Ny, Nx, bc,
-                             lid);
-        const T bv = bc_v<T>(TileRaw<T>{Wv, ys.lo, xs.lo}, j, i, Ny, Nx, bc);
+        const int j0 = ys.global(0), i0 = xs.global(0);
+        const T bu = bc_u<T>(TileRaw<T>{Wu, j0, i0}, j, i, Ny, Nx, bc, lid);
+        const T bv = bc_v<T>(TileRaw<T>{Wv, j0, i0}, j, i, Ny, Nx, bc);
         Wu[lj * P::W + li] = bu;
         Wv[lj * P::W + li] = bv;
       });
@@ -296,8 +315,10 @@ __device__ __forceinline__ void rk4_tile(
     else
       g = gidx(lj, li);
     if (kEdge) {
-      u_new[g] = bc_u<T>(TileRaw<T>{Wu, ys.lo, xs.lo}, j, i, Ny, Nx, bc, lid);
-      v_new[g] = bc_v<T>(TileRaw<T>{Wv, ys.lo, xs.lo}, j, i, Ny, Nx, bc);
+      const int j0 = ys.global(0), i0 = xs.global(0);
+      u_new[g] = bc_u<T>(TileRaw<T>{Wu, j0, i0}, mj(lj), mi(li), Ny, Nx, bc,
+                         lid);
+      v_new[g] = bc_v<T>(TileRaw<T>{Wv, j0, i0}, mj(lj), mi(li), Ny, Nx, bc);
     } else {
       u_new[g] = Wu[lj * P::W + li];
       v_new[g] = Wv[lj * P::W + li];
@@ -305,7 +326,9 @@ __device__ __forceinline__ void rk4_tile(
   });
 }
 
-template <typename T, bool kExt>
+// kSlab: a shard's slab (SlabSpan: the global index decides every edge and
+// the BC; without it the code of a whole field).
+template <typename T, bool kExt, bool kSlab>
 __global__ void __launch_bounds__(kThreads, 2)
     rk4_kernel(const T* __restrict__ u0, const T* __restrict__ v0,
                const T* __restrict__ p, const T* __restrict__ sxx_el,
@@ -313,23 +336,28 @@ __global__ void __launch_bounds__(kThreads, 2)
                const T* __restrict__ Hf, const T* __restrict__ rho,
                const T* __restrict__ mkv, const T* __restrict__ fx,
                const T* __restrict__ fy, const T* __restrict__ dt_ptr,
-               T* __restrict__ u_new, T* __restrict__ v_new, int Ny, int Nx,
-               double dx, double dy, double mu_f, double eta_s, int bc,
-               T lid) {
+               T* __restrict__ u_new, T* __restrict__ v_new, Axis ay,
+               Axis ax, size_t stride, double dx, double dy, double mu_f,
+               double eta_s, int bc, T lid) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Span ys = pyrmt::tile_span(blockIdx.y * Tile<T>::Y, Tile<T>::Y, Ny,
-                                   kHalo);
-  const Span xs = pyrmt::tile_span(blockIdx.x * Tile<T>::X, Tile<T>::X, Nx,
-                                   kHalo);
+  // the panel stops at a cut: every stage reads device memory within the
+  // panel, the pressure within +-1 of cells 2 in (reach 0)
+  const auto ys = pyrmt::span_of<kSlab>(blockIdx.y * Tile<T>::Y, Tile<T>::Y,
+                                        ay, kHalo, 0);
+  const auto xs = pyrmt::span_of<kSlab>(blockIdx.x * Tile<T>::X, Tile<T>::X,
+                                        ax, kHalo, 0);
+  const int Ny = ay.total, Nx = ax.total;
   const T dt = *dt_ptr;
-  if (ys.lo >= 2 && ys.hi <= Ny - 2 && xs.lo >= 2 && xs.hi <= Nx - 2)
+  // the panel keeps 2 cells off the domain's edge (a cut is no edge)
+  if (ys.global(0) >= 2 && ys.global(ys.size()) <= Ny - 2 &&
+      xs.global(0) >= 2 && xs.global(xs.size()) <= Nx - 2)
     rk4_tile<T, false, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
-                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
-                             dx, dy, mu_f, eta_s, bc, lid);
+                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, stride,
+                             Ny, Nx, dx, dy, mu_f, eta_s, bc, lid);
   else
     rk4_tile<T, true, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
-                            Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
-                            dx, dy, mu_f, eta_s, bc, lid);
+                            Hf, rho, mkv, fx, fy, dt, u_new, v_new, stride,
+                            Ny, Nx, dx, dy, mu_f, eta_s, bc, lid);
 }
 
 // The periodic instantiation (BC kPeriodic): the interior tiles as in
@@ -343,74 +371,92 @@ __global__ void __launch_bounds__(kThreads, 2)
                         const T* __restrict__ Hf, const T* __restrict__ rho,
                         const T* __restrict__ mkv, const T* __restrict__ fx,
                         const T* __restrict__ fy, const T* __restrict__ dt_ptr,
-                        T* __restrict__ u_new, T* __restrict__ v_new, int Ny,
-                        int Nx, double dx, double dy, double mu_f,
-                        double eta_s, int bc, T lid) {
+                        T* __restrict__ u_new, T* __restrict__ v_new, Axis ay,
+                        Axis ax, size_t stride, double dx, double dy,
+                        double mu_f, double eta_s, int bc, T lid) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int Ny = ay.n, Nx = ax.n;  // a whole field: no offsets
   const int ty = blockIdx.y * Tile<T>::Y, tx = blockIdx.x * Tile<T>::X;
   const Span ys = pyrmt::tile_span(ty, Tile<T>::Y, Ny, kHalo);
   const Span xs = pyrmt::tile_span(tx, Tile<T>::X, Nx, kHalo);
   const T dt = *dt_ptr;
   if (ys.lo >= 2 && ys.hi <= Ny - 2 && xs.lo >= 2 && xs.hi <= Nx - 2)
     rk4_tile<T, false, kExt>(ys, xs, smem, u0, v0, p, sxx_el, sxy_el, syy_el,
-                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, Ny, Nx,
-                             dx, dy, mu_f, eta_s, bc, lid);
+                             Hf, rho, mkv, fx, fy, dt, u_new, v_new, stride,
+                             Ny, Nx, dx, dy, mu_f, eta_s, bc, lid);
   else
     rk4_tile<T, false, kExt>(wrap_span(ty, Tile<T>::Y, Ny, kHalo),
                              wrap_span(tx, Tile<T>::X, Nx, kHalo), smem, u0,
                              v0, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx,
-                             fy, dt, u_new, v_new, Ny, Nx, dx, dy, mu_f,
-                             eta_s, bc, lid);
+                             fy, dt, u_new, v_new, stride, Ny, Nx, dx, dy,
+                             mu_f, eta_s, bc, lid);
 }
 
-template <typename T, bool kExt, bool kPeriodic>
-int launch_tiles(const T* u, const T* v, const T* p, const T* sxx_el,
-                 const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
-                 const T* mkv, const T* fx, const T* fy, const T* dt,
-                 T* u_new, T* v_new, int Ny, int Nx, double dx, double dy,
-                 double mu_f, double eta_s, int bc, double lid,
-                 void* stream_ptr) {
+// The fields of one launch, from a slab's first valid cell.
+template <typename T>
+struct Fields {
+  const T *u, *v, *p, *sxx_el, *sxy_el, *syy_el, *Hf, *rho, *mkv, *fx, *fy,
+      *dt;
+  T *u_new, *v_new;
+};
+
+template <typename T, bool kExt, bool kPeriodic, bool kSlab>
+int launch_tiles(const Fields<T>& a, Axis ay, Axis ax, size_t stride,
+                 double dx, double dy, double mu_f, double eta_s, int bc,
+                 double lid, void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   const size_t smem = Panel<T>::kSmem;
-  auto kernel = kPeriodic ? rk4_periodic_kernel<T, kExt> : rk4_kernel<T, kExt>;
+  auto kernel = kPeriodic ? rk4_periodic_kernel<T, kExt>
+                          : rk4_kernel<T, kExt, kSlab>;
   int err = pyrmt::allow_smem(kernel, smem, allowed);
   if (err) return err;
-  const dim3 grid(pyrmt::tiles_for(Nx, Tile<T>::X),
-                  pyrmt::tiles_for(Ny, Tile<T>::Y));
+  const dim3 grid(pyrmt::tiles_for(ax.n, Tile<T>::X),
+                  pyrmt::tiles_for(ay.n, Tile<T>::Y));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-      u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx, fy, dt, u_new,
-      v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, static_cast<T>(lid));
+      a.u, a.v, a.p, a.sxx_el, a.sxy_el, a.syy_el, a.Hf, a.rho, a.mkv, a.fx,
+      a.fy, a.dt, a.u_new, a.v_new, ay, ax, stride, dx, dy, mu_f, eta_s, bc,
+      static_cast<T>(lid));
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
 
-// fx, fy: the external force, or both null for none.
+// fx, fy: the external force, or both null for none. Ny, Nx: the slab's
+// extents; roff, coff: the global (row, column) of its element (0, 0),
+// negative for an edge shard's zero halo; Nyt, Nxt: the domain's (a whole
+// field: 0, 0, Ny, Nx; the periodic box takes no other). The outputs are
+// written at the slab's valid cells at least 8 cells in from each cut.
 template <typename T>
-int launch(const T* u, const T* v, const T* p, const T* sxx_el,
-           const T* sxy_el, const T* syy_el, const T* Hf, const T* rho,
-           const T* mkv, const T* fx, const T* fy, const T* dt, T* u_new,
-           T* v_new, int Ny, int Nx, double dx, double dy, double mu_f,
-           double eta_s, int bc, double lid, void* stream_ptr) {
-  if (bc == pyrmt::kPeriodic) {
-    if (fx)
-      return launch_tiles<T, true, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
-                                         rho, mkv, fx, fy, dt, u_new, v_new,
-                                         Ny, Nx, dx, dy, mu_f, eta_s, bc,
-                                         lid, stream_ptr);
-    return launch_tiles<T, false, true>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
-                                        rho, mkv, nullptr, nullptr, dt,
-                                        u_new, v_new, Ny, Nx, dx, dy, mu_f,
-                                        eta_s, bc, lid, stream_ptr);
+int launch(Fields<T> a, int Ny, int Nx, int roff, int coff, int Nyt,
+           int Nxt, double dx, double dy, double mu_f, double eta_s, int bc,
+           double lid, void* stream_ptr) {
+  int fy, fx;
+  const Axis ay = pyrmt::slab_axis(Ny, roff, Nyt, fy);
+  const Axis ax = pyrmt::slab_axis(Nx, coff, Nxt, fx);
+  const bool whole = roff == 0 && coff == 0 && Nyt == Ny && Nxt == Nx;
+  if (ay.n < 1 || ax.n < 1 || (bc == pyrmt::kPeriodic && !whole))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t f = static_cast<size_t>(fy) * Nx + fx, stride = Nx;
+  for (const T** q : {&a.u, &a.v, &a.p, &a.sxx_el, &a.sxy_el, &a.syy_el,
+                      &a.Hf, &a.rho, &a.mkv})
+    *q += f;
+  if (a.fx) {
+    a.fx += f;
+    a.fy += f;
   }
-  if (fx)
-    return launch_tiles<T, true, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
-                                        rho, mkv, fx, fy, dt, u_new, v_new,
-                                        Ny, Nx, dx, dy, mu_f, eta_s, bc, lid,
-                                        stream_ptr);
-  return launch_tiles<T, false, false>(u, v, p, sxx_el, sxy_el, syy_el, Hf,
-                                       rho, mkv, nullptr, nullptr, dt, u_new,
-                                       v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc,
-                                       lid, stream_ptr);
+  a.u_new += f;
+  a.v_new += f;
+  if (bc == pyrmt::kPeriodic)
+    return a.fx ? launch_tiles<T, true, true, false>(a, ay, ax, stride, dx,
+                                                     dy, mu_f, eta_s, bc, lid,
+                                                     stream_ptr)
+                : launch_tiles<T, false, true, false>(a, ay, ax, stride, dx,
+                                                      dy, mu_f, eta_s, bc,
+                                                      lid, stream_ptr);
+  auto run = a.fx ? (whole ? launch_tiles<T, true, false, false>
+                           : launch_tiles<T, true, false, true>)
+                  : (whole ? launch_tiles<T, false, false, false>
+                           : launch_tiles<T, false, false, true>);
+  return run(a, ay, ax, stride, dx, dy, mu_f, eta_s, bc, lid, stream_ptr);
 }
 
 }  // namespace
@@ -420,11 +466,13 @@ int launch(const T* u, const T* v, const T* p, const T* sxx_el,
                       const T* sxy_el, const T* syy_el, const T* Hf,         \
                       const T* rho, const T* mkv, const T* fx, const T* fy,  \
                       const T* dt, T* u_new, T* v_new, int Ny, int Nx,       \
-                      double dx, double dy, double mu_f, double eta_s,       \
-                      int bc, double lid, void* stream) {                    \
-    return launch<T>(u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv, fx, fy,  \
-                     dt, u_new, v_new, Ny, Nx, dx, dy, mu_f, eta_s, bc, lid, \
-                     stream);                                                \
+                      int roff, int coff, int Nyt, int Nxt, double dx,       \
+                      double dy, double mu_f, double eta_s, int bc,          \
+                      double lid, void* stream) {                            \
+    return launch<T>(Fields<T>{u, v, p, sxx_el, sxy_el, syy_el, Hf, rho, mkv,  \
+                               fx, fy, dt, u_new, v_new},                    \
+                     Ny, Nx, roff, coff, Nyt, Nxt, dx, dy, mu_f, eta_s, bc,  \
+                     lid, stream);                                           \
   }
 
 PYRMT_MOMENTUM_ENTRY(pyrmt_momentum_rk4_f32, float)

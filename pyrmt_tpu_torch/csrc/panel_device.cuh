@@ -121,12 +121,14 @@ inline size_t flag_bytes(int Ny, int Nx) {
 }
 
 // The body of a flag pre-pass: flags[fj, fi] = the OR of bits_at(g) (kBits
-// bits) over the 8x8 cells (fj, fi), g a cell's index in the row-major
-// field. One block of kFlagTile x kFlag threads per 32 x 32 cells (4 x 4
-// flags); each thread reads one cell in each of 4 rows.
+// bits) over the 8x8 cells (fj, fi) of an Ny x Nx field whose rows are
+// `stride` apart, g = j * stride + i. One block of kFlagTile x kFlag
+// threads per 32 x 32 cells (4 x 4 flags); each thread reads one cell in
+// each of 4 rows.
 template <int kBits, typename F>
 __device__ __forceinline__ void flag_pass(unsigned char* __restrict__ flags,
-                                          int Ny, int Nx, F&& bits_at) {
+                                          int Ny, int Nx, size_t stride,
+                                          F&& bits_at) {
   constexpr int kPer = kFlagTile / kFlag;  // flags along a block's side
   __shared__ unsigned bits;                // kBits bits a flag
   const int tid = threadIdx.y * kFlagTile + threadIdx.x;
@@ -138,7 +140,7 @@ __device__ __forceinline__ void flag_pass(unsigned char* __restrict__ flags,
   for (int r = 0; r < kPer; ++r) {
     const int j = blockIdx.y * kFlagTile + r * kFlag + threadIdx.y;
     if (i < Nx && j < Ny)
-      mine |= bits_at(static_cast<size_t>(j) * Nx + i)
+      mine |= bits_at(static_cast<size_t>(j) * stride + i)
               << (kBits * (r * kPer + threadIdx.x / kFlag));
   }
   mine = __reduce_or_sync(0xffffffffu, mine);
@@ -153,8 +155,10 @@ __device__ __forceinline__ void flag_pass(unsigned char* __restrict__ flags,
   }
 }
 
-// The tile's own cells [out_lo, out_hi) of an axis, as a span of its own.
-__device__ inline Span own(Span s) {
+// The tile's own cells [out_lo, out_hi) of an axis, as a span of its own
+// (a Span or a SlabSpan).
+template <typename S>
+__device__ inline S own(S s) {
   s.lo = s.out_lo;
   s.hi = s.out_hi;
   return s;
@@ -162,9 +166,9 @@ __device__ inline Span own(Span s) {
 
 // f(lj, li) for each cell of a ph x pw panel, r cells in from its inner
 // edges: warps along the rows, kBy rows at a time.
-template <typename F>
-__device__ __forceinline__ void for_panel(const Span& ys, const Span& xs,
-                                          int r, F&& f) {
+template <typename S, typename F>
+__device__ __forceinline__ void for_panel(const S& ys, const S& xs, int r,
+                                          F&& f) {
   const int ph = ys.size(), pw = xs.size();
   for (int lj = threadIdx.y; lj < ph; lj += kBy) {
     if (!ys.inside(lj, r)) continue;
@@ -178,11 +182,11 @@ __device__ __forceinline__ void for_panel(const Span& ys, const Span& xs,
 // ring) are listed and then solved by consecutive threads (one lane per
 // warp doing a 9x9 window sum wasted the other 31). Returns the buffer
 // that holds the last sweep's state, valid 4L cells in from the panel's
-// inner edges. nfront: an int in shared memory.
-template <typename T>
-__device__ size_t sweeps(const Panel<T>& P, const Span& ys, const Span& xs,
-                         int L, int Ny, int Nx, const Taps<T>& tp,
-                         int& nfront) {
+// inner edges. Ny, Nx: the domain's extents (the spans' global indices
+// choose the domain's edge). nfront: an int in shared memory.
+template <typename T, typename S>
+__device__ size_t sweeps(const Panel<T>& P, const S& ys, const S& xs, int L,
+                         int Ny, int Nx, const Taps<T>& tp, int& nfront) {
   for (int layer = 1; layer <= L; ++layer) {
     const size_t src = (layer - 1) & 1, dst = layer & 1;
     const T* x1s = P.x1(src);
@@ -192,7 +196,8 @@ __device__ size_t sweeps(const Panel<T>& P, const Span& ys, const Span& xs,
     __syncthreads();
     for_panel(ys, xs, 4 * layer, [&](int lj, int li) {
       const size_t l = static_cast<size_t>(lj) * P.W + li;
-      if (frontier_at<T>(ks, l, P.W, ys.lo + lj, xs.lo + li, Ny, Nx)) {
+      if (frontier_at<T>(ks, l, P.W, ys.global(lj), xs.global(li), Ny,
+                         Nx)) {
         P.flist[atomicAdd(&nfront, 1)] = static_cast<int>(l);
       } else {
         P.x1(dst)[l] = x1s[l];
@@ -205,8 +210,8 @@ __device__ size_t sweeps(const Panel<T>& P, const Span& ys, const Span& xs,
          f += kThreads) {
       const int l = P.flist[f], lj = l / P.W, li = l - lj * P.W;
       T x1, x2, k;
-      layer_at<T>(x1s, x2s, ks, l, P.W, ys.lo + lj, xs.lo + li, Ny, Nx, tp,
-                  x1, x2, k);
+      layer_at<T>(x1s, x2s, ks, l, P.W, ys.global(lj), xs.global(li), Ny,
+                  Nx, tp, x1, x2, k);
       P.x1(dst)[l] = x1;
       P.x2(dst)[l] = x2;
       P.known(dst)[l] = k > T(0);

@@ -151,6 +151,21 @@
 // recompute the backtrace over 3.3x their cells and run the sweeps, take
 // most of the time (PERF.md).
 //
+// The sharding offsets (both entries; the domain decomposition of
+// pyrmt_tpu_torch/parallel, the Pallas kernels' row_offset / Ny_total /
+// col_offset / Nx_total): the inputs are one shard's slab, element (0, 0)
+// at global (roff, coff), possibly negative, of an Nyt x Nxt domain. The
+// launcher runs the tiles over the slab's valid cells (common.cuh's
+// slab_axis: the zero halo beyond the domain is never read); in the kSlab
+// instantiations (SlabSpan) every edge or interior decision, coordinate,
+// backtrace clip and the zero map's edge cells take the global index, so a
+// tile beside a cut is interior. At a cut the panel stops the advection's
+// reach (1, bicubic 2) short of the slab's end and the tile writes only
+// cells 4L + 1 further in: the cut's stale cells stay as the wrapper left
+// them (0, as the plain twin leaves them, kernels/rmt_block.py cut_depth).
+// A whole field (0, 0, Ny, Nx) takes the instantiations without kSlab,
+// whose code is the kernel's without offsets.
+//
 // Built with --fmad=false, and a division by a constant is a product by its
 // reciprocal here as in the plain PyTorch version, so every operation
 // rounds as there: the two agree bit for bit on the H100 (chip_smoke.py).
@@ -158,6 +173,7 @@
 
 namespace {
 
+using pyrmt::Axis;
 using pyrmt::Disc;
 using pyrmt::Ellipse;
 using pyrmt::Guard;
@@ -178,6 +194,7 @@ using pyrmt::plan;
 using pyrmt::Rows;
 using pyrmt::Shape;
 using pyrmt::Span;
+using pyrmt::SpanOf;
 using pyrmt::sweeps;
 using pyrmt::Taps;
 
@@ -338,32 +355,43 @@ __device__ Post<T> post_at(const T* X1, const T* X2, size_t n, size_t sy,
           omh * s_xx, omh * s_xy, omh * s_yy};
 }
 
-// A panel widened by r cells (the advection's reads), clipped to [0, n).
-__device__ inline Span widen(Span s, int n, int r = 1) {
+// A panel widened by r cells (the advection's reads), clipped to the
+// valid cells [0, n); at a cut the panel stops the advection's reach short
+// of the slab's end (slab_span), so the widened panel holds slab data.
+template <typename S>
+__device__ inline S widen(S s, int r = 1) {
   s.lo = max(0, s.lo - r);
-  s.hi = min(n, s.hi + r);
+  s.hi = min(s.n, s.hi + r);
   return s;
 }
 
 // The fused tier's tile kernel (the source note above); kMulti: S >= 2;
-// kBicubic: the bicubic final sample; Sh: the level sets' type.
-template <typename T, bool kMulti, bool kBicubic, typename Sh>
+// kBicubic: the bicubic final sample; Sh: the level sets' type; kSlab: a
+// shard's slab (SlabSpan: the global index decides every edge; without
+// it the code of a whole field).
+template <typename T, bool kMulti, bool kBicubic, typename Sh, bool kSlab>
 __global__ void __launch_bounds__(kThreads, 2)
     rmt_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ X1, const T* __restrict__ X2,
                     const T* __restrict__ dt_ptr,
                     const T* __restrict__ params, Shapes<Sh> discs, int S,
                     Clamp<T> clamp, Band<T> band, Guard<T> guard, Outs<T> o,
-                    int Ny, int Nx, double dx, double dy, int L, double w_t,
-                    Taps<T> tp, int tile, unsigned char* ws,
-                    size_t panel_stride) {
+                    int Ny, int Nx, Axis ay, Axis ax, double dx,
+                    double dy, int L, double w_t, Taps<T> tp, int tile,
+                    unsigned char* ws, size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
                    tile + 2 * halo, true);
   const int W = P.W;
+  // Ny, Nx: the slab's extents (a row is Nx apart, a field N); ny, nx its
+  // valid cells and NyT, NxT the domain's, the slab itself without kSlab
   const size_t N = static_cast<size_t>(Ny) * Nx;
+  const int ny = kSlab ? ay.n : Ny, nx = kSlab ? ax.n : Nx;
+  const int NyT = kSlab ? ay.total : Ny, NxT = kSlab ? ax.total : Nx;
+  const Axis yax = kSlab ? ay : Axis{Ny, 0, Ny};
+  const Axis xax = kSlab ? ax : Axis{Nx, 0, Nx};
   const T dt = *dt_ptr;
   const T mu_s = params[0], kappa = params[1], rho_s = params[2];
   const T rho_f = params[3];
@@ -415,17 +443,26 @@ __global__ void __launch_bounds__(kThreads, 2)
       o.sbyy[g] = c;
     }
   };
-  const int ntx = static_cast<int>(pyrmt::tiles_for(Nx, tile));
-  const int ntiles = static_cast<int>(num_tiles(Ny, Nx, tile));
+  const int ntx = static_cast<int>(pyrmt::tiles_for(nx, tile));
+  const int ntiles = static_cast<int>(num_tiles(ny, nx, tile));
+  // the advection's reach: its samples of u, v and the map, +-2 cells for
+  // the bicubic one
+  constexpr int reach = kBicubic ? 2 : 1;
+
+  // a whole field's map is read by the global index as it is
+  const int gy0 = kSlab ? ay.g0 : 0, gx0 = kSlab ? ax.g0 : 0;
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Span ys = pyrmt::tile_span((t / ntx) * tile, tile, Ny, halo);
-    const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
-    const Span oy = own(ys), ox = own(xs);
-    const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
+    using Sp = SpanOf<kSlab>;
+    const Sp ys = pyrmt::span_of<kSlab>((t / ntx) * tile, tile, yax, halo,
+                                        reach);
+    const Sp xs = pyrmt::span_of<kSlab>((t % ntx) * tile, tile, xax, halo,
+                                        reach);
+    const Sp oy = own(ys), ox = own(xs);
+    const Sp vy = widen(ys), vx = widen(xs);
     // the vote's reach: the final sample's, +-2 for bicubic
-    const Span ry = kBicubic ? widen(ys, Ny, 2) : vy;
-    const Span rx = kBicubic ? widen(xs, Nx, 2) : vx;
+    const Sp ry = kBicubic ? widen(ys, 2) : vy;
+    const Sp rx = kBicubic ? widen(xs, 2) : vx;
 
     for (int s = 0; s < (kMulti ? S : 1); ++s) {
       const Sh disc = discs.d[s];
@@ -440,7 +477,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       // u and v over the panel widened by 1 for the backtrace
       bool active = dt_bad;
       for_panel(ry, rx, 0, [&](int lj, int li) {
-        const size_t g = static_cast<size_t>(ry.lo + lj) * Nx + (rx.lo + li);
+        const size_t g =
+            static_cast<size_t>(ry.lo + lj) * Nx + (rx.lo + li);
         const T ug = u[g], vg = v[g];
         if constexpr (kBicubic) {
           const int vj = ry.lo + lj - vy.lo, vi = rx.lo + li - vx.lo;
@@ -458,33 +496,37 @@ __global__ void __launch_bounds__(kThreads, 2)
       });
       if (!__syncthreads_or(active)) {
         for_panel(oy, ox, 0, [&](int lj, int li) {
-          const int j = oy.lo + lj, i = ox.lo + li;
-          const bool in = j > 0 && j < Ny - 1 && i > 0 && i < Nx - 1;
-          emit(s, j, i, in ? zero_in : zero_edge);
+          const int gj = oy.global(lj), gi = ox.global(li);
+          const bool in = gj > 0 && gj < NyT - 1 && gi > 0 && gi < NxT - 1;
+          emit(s, oy.lo + lj, ox.lo + li, in ? zero_in : zero_edge);
         });
         continue;
       }
 
-      // advect over the whole panel, u and v from the vote's copy
-      const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-      const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-      const Rows<T> x1g{X1s, static_cast<size_t>(Nx), 0, 0};
-      const Rows<T> x2g{X2s, static_cast<size_t>(Nx), 0, 0};
+      // advect over the whole panel, u and v from the vote's copy; the
+      // samples by global index
+      const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.global(0),
+                       vx.global(0)};
+      const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.global(0),
+                       vx.global(0)};
+      const Rows<T> x1g{X1s, static_cast<size_t>(Nx), gy0, gx0};
+      const Rows<T> x2g{X2s, static_cast<size_t>(Nx), gy0, gx0};
       for_panel(ys, xs, 0, [&](int lj, int li) {
-        const int j = ys.lo + lj, i = xs.lo + li;
-        const size_t g = static_cast<size_t>(j) * Nx + i;
+        const int j = ys.global(lj), i = xs.global(li);
+        const size_t g =
+            static_cast<size_t>(ys.lo + lj) * Nx + (xs.lo + li);
         const size_t l = static_cast<size_t>(lj) * W + li;
         T sx, sy;
-        pyrmt::backtrace_at<T>(ut, vt, dt, j, i, Ny, Nx, dx, dy, sx, sy);
+        pyrmt::backtrace_at<T>(ut, vt, dt, j, i, NyT, NxT, dx, dy, sx, sy);
         bool known;
         pyrmt::masked_sample<T, kBicubic>(x1g, x2g, sx, sy,
-                                          disc(X1s[g], X2s[g]), j, i, Ny, Nx,
+                                          disc(X1s[g], X2s[g]), j, i, NyT, NxT,
                                           P.x1(0)[l], P.x2(0)[l], known, guard);
         P.known(0)[l] = known;
       });
       __syncthreads();
 
-      const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
+      const size_t e = sweeps<T>(P, ys, xs, L, NyT, NxT, tp, nfront);
 
       // post, for the tile's own cells
       for_panel(oy, ox, 0, [&](int lj, int li) {
@@ -492,8 +534,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         emit(s, j, i,
              post_at<T>(P.x1(e), P.x2(e),
                         static_cast<size_t>(j - ys.lo) * W + (i - xs.lo), W,
-                        j, i, Ny, Nx, disc, mu_s, kappa, rho_s, rho_f, dx,
-                        dy, w_t, clamp, band));
+                        oy.global(lj), ox.global(li), NyT, NxT, disc, mu_s,
+                        kappa, rho_s, rho_f, dx, dy, w_t, clamp, band));
       });
       __syncthreads();  // before the next solid or tile overwrites the panel
     }
@@ -531,10 +573,10 @@ __global__ void __launch_bounds__(kFlagTile * kFlag)
                        const T* __restrict__ phis,
                        const T* __restrict__ dt_ptr,
                        unsigned char* __restrict__ flags, int S, int Ny,
-                       int Nx, double dx, double dy) {
+                       int Nx, int ny, int nx, double dx, double dy) {
   const T vscale = vote_scale<T>(*dt_ptr, dx, dy);
   const size_t N = static_cast<size_t>(Ny) * Nx;
-  pyrmt::flag_pass<1>(flags, Ny, Nx, [&](size_t g) {
+  pyrmt::flag_pass<1>(flags, ny, nx, Nx, [&](size_t g) {
     return quiet_at<T, kBicubic>(u[g], v[g], X1s, X2s, phis, g, N, S, vscale)
                ? 0u
                : 1u;
@@ -542,8 +584,9 @@ __global__ void __launch_bounds__(kFlagTile * kFlag)
 }
 
 // The split tier's tile kernel (the source note above). flags: the
-// pre-pass's; kBicubic: the bicubic final sample.
-template <typename T, bool kBicubic>
+// pre-pass's; kBicubic: the bicubic final sample; kSlab as in the fused
+// tier's.
+template <typename T, bool kBicubic, bool kSlab>
 __global__ void __launch_bounds__(kThreads, 2)
     advext_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
                        const T* __restrict__ X1s, const T* __restrict__ X2s,
@@ -551,30 +594,44 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const T* __restrict__ dt_ptr,
                        const unsigned char* __restrict__ flags,
                        T* __restrict__ x1e, T* __restrict__ x2e, int S,
-                       int Ny, int Nx, double dx, double dy, int L,
-                       Guard<T> guard, Taps<T> tp, int tile,
-                       unsigned char* ws, size_t panel_stride) {
+                       int Ny, int Nx, Axis ay, Axis ax, double dx,
+                       double dy, int L, Guard<T> guard,
+                       Taps<T> tp, int tile, unsigned char* ws,
+                       size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
                    tile + 2 * halo, true);
   const int W = P.W;
+  // Ny, Nx: the slab's extents (a row is Nx apart, a field N); ny, nx its
+  // valid cells and NyT, NxT the domain's, the slab itself without kSlab
   const size_t N = static_cast<size_t>(Ny) * Nx;
+  const int ny = kSlab ? ay.n : Ny, nx = kSlab ? ax.n : Nx;
+  const int NyT = kSlab ? ay.total : Ny, NxT = kSlab ? ax.total : Nx;
+  const Axis yax = kSlab ? ay : Axis{Ny, 0, Ny};
+  const Axis xax = kSlab ? ax : Axis{Nx, 0, Nx};
   const T dt = *dt_ptr;
   const bool dt_bad = !isfinite(dt);
-  const int ntx = static_cast<int>(pyrmt::tiles_for(Nx, tile));
-  const int ntiles = static_cast<int>(num_tiles(Ny, Nx, tile));
+  const int ntx = static_cast<int>(pyrmt::tiles_for(nx, tile));
+  const int ntiles = static_cast<int>(num_tiles(ny, nx, tile));
   const int tid = threadIdx.y * kBx + threadIdx.x;
+  // the advection's reach, as in the fused tier
+  constexpr int reach = kBicubic ? 2 : 1;
+
+  const int gy0 = kSlab ? ay.g0 : 0, gx0 = kSlab ? ax.g0 : 0;
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Span ys = pyrmt::tile_span((t / ntx) * tile, tile, Ny, halo);
-    const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
-    const Span oy = own(ys), ox = own(xs);
-    const Span vy = widen(ys, Ny), vx = widen(xs, Nx);
+    using Sp = SpanOf<kSlab>;
+    const Sp ys = pyrmt::span_of<kSlab>((t / ntx) * tile, tile, yax, halo,
+                                        reach);
+    const Sp xs = pyrmt::span_of<kSlab>((t % ntx) * tile, tile, xax, halo,
+                                        reach);
+    const Sp oy = own(ys), ox = own(xs);
+    const Sp vy = widen(ys), vx = widen(xs);
     // the vote's reach: the final sample's, +-2 for bicubic
-    const Span ry = kBicubic ? widen(ys, Ny, 2) : vy;
-    const Span rx = kBicubic ? widen(xs, Nx, 2) : vx;
+    const Sp ry = kBicubic ? widen(ys, 2) : vy;
+    const Sp rx = kBicubic ? widen(xs, 2) : vx;
 
     // vote: the pre-pass's flags over the widened panel
     bool active = dt_bad;
@@ -582,13 +639,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int fw = (rx.hi - 1) / kFlag + 1 - fx0;
     const int nf = ((ry.hi - 1) / kFlag + 1 - fy0) * fw;
     for (int f = tid; f < nf; f += kThreads)
-      active |= flags[static_cast<size_t>(fy0 + f / fw) * flag_cols(Nx) +
+      active |= flags[static_cast<size_t>(fy0 + f / fw) * flag_cols(nx) +
                       fx0 + f % fw] != 0;
     if (!__syncthreads_or(active)) {
       for (int s = 0; s < S; ++s)
         for_panel(oy, ox, 0, [&](int lj, int li) {
-          const size_t n =
-              s * N + static_cast<size_t>(oy.lo + lj) * Nx + (ox.lo + li);
+          const size_t n = s * N +
+                           static_cast<size_t>(oy.lo + lj) * Nx +
+                           (ox.lo + li);
           x1e[n] = T(0);
           x2e[n] = T(0);
         });
@@ -597,7 +655,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // u and v over the widened panel into shared memory
     for_panel(vy, vx, 0, [&](int lj, int li) {
-      const size_t g = static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
+      const size_t g =
+          static_cast<size_t>(vy.lo + lj) * Nx + (vx.lo + li);
       P.us[lj * (W + 2) + li] = u[g];
       P.vs[lj * (W + 2) + li] = v[g];
     });
@@ -606,25 +665,29 @@ __global__ void __launch_bounds__(kThreads, 2)
     // the masked sample of solid s at panel cell (lj, li) from the
     // backtrace's displacement (sx, sy), into buffer 0
     auto sample = [&](int s, int lj, int li, T sx, T sy) {
-      const int j = ys.lo + lj, i = xs.lo + li;
       const size_t l = static_cast<size_t>(lj) * W + li;
-      const size_t n = s * N + static_cast<size_t>(j) * Nx + i;
+      const size_t n = s * N +
+                       static_cast<size_t>(ys.lo + lj) * Nx + (xs.lo + li);
       bool known;
       pyrmt::masked_sample<T, kBicubic>(
-          Rows<T>{X1s + s * N, static_cast<size_t>(Nx), 0, 0},
-          Rows<T>{X2s + s * N, static_cast<size_t>(Nx), 0, 0}, sx, sy,
-          phis[n], j, i, Ny, Nx, P.x1(0)[l], P.x2(0)[l], known, guard);
+          Rows<T>{X1s + s * N, static_cast<size_t>(Nx), gy0, gx0},
+          Rows<T>{X2s + s * N, static_cast<size_t>(Nx), gy0, gx0}, sx, sy,
+          phis[n],
+          ys.global(lj), xs.global(li), NyT, NxT, P.x1(0)[l], P.x2(0)[l],
+          known, guard);
       P.known(0)[l] = known;
     };
     // the backtrace, once per cell for every solid: with one solid its
     // sample at once; with more the displacement waits in buffer 1, then
     // (the backtraces done) in u and v's place
-    const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.lo, vx.lo};
-    const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.lo, vx.lo};
+    const Rows<T> ut{P.us, static_cast<size_t>(W + 2), vy.global(0),
+                     vx.global(0)};
+    const Rows<T> vt{P.vs, static_cast<size_t>(W + 2), vy.global(0),
+                     vx.global(0)};
     for_panel(ys, xs, 0, [&](int lj, int li) {
       T sx, sy;
-      pyrmt::backtrace_at<T>(ut, vt, dt, ys.lo + lj, xs.lo + li, Ny, Nx, dx,
-                             dy, sx, sy);
+      pyrmt::backtrace_at<T>(ut, vt, dt, ys.global(lj), xs.global(li), NyT,
+                             NxT, dx, dy, sx, sy);
       if (S == 1) {
         sample(0, lj, li, sx, sy);
       } else {
@@ -650,7 +713,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         });
         __syncthreads();
       }
-      const size_t e = sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
+      const size_t e = sweeps<T>(P, ys, xs, L, NyT, NxT, tp, nfront);
       for_panel(oy, ox, 0, [&](int lj, int li) {
         const int j = oy.lo + lj, i = ox.lo + li;
         const size_t l = static_cast<size_t>(j - ys.lo) * W + (i - xs.lo);
@@ -688,7 +751,8 @@ struct Fused {
   Guard<T> guard;
   Outs<T> o;
   void* ws;
-  int Ny, Nx;
+  int Ny, Nx;                  // the slab's extents
+  int roff, coff, Nyt, Nxt;    // the global index of its (0, 0); the domain
   double dx, dy;
   int num_layers;
   double w_t;
@@ -718,36 +782,79 @@ void set_shape(Shape<T>& s, int kind, const double* q) {
   s.q = static_cast<T>(kind == 0 ? 0.0 : 1.0 / q[3]);
 }
 
+// A slab's valid cells (common.cuh's slab_axis) for a launch: the axes
+// and the flat offset of the first valid cell.
+struct Slab {
+  Axis ay, ax;
+  size_t first;
+};
+
+inline Slab slab(int Ny, int Nx, int roff, int coff, int Nyt, int Nxt) {
+  int fy, fx;
+  Slab b;
+  b.ay = pyrmt::slab_axis(Ny, roff, Nyt, fy);
+  b.ax = pyrmt::slab_axis(Nx, coff, Nxt, fx);
+  b.first = static_cast<size_t>(fy) * Nx + fx;
+  return b;
+}
+
+// The outputs from a slab's first valid cell.
+template <typename T>
+Outs<T> shifted(const Outs<T>& o, size_t f) {
+  return {o.x1e + f, o.x2e + f, o.phi + f, o.sxx + f, o.sxy + f, o.syy + f,
+          o.J + f,   o.Hf + f,  o.rho + f, o.sbxx + f, o.sbxy + f,
+          o.sbyy + f};
+}
+
 // One instantiation's launch (kMulti: S >= 2; kBicubic: the bicubic final
 // sample; Sh: the level sets' type).
-template <typename T, bool kMulti, bool kBicubic, typename Sh>
+template <typename T, bool kMulti, bool kBicubic, typename Sh, bool kSlab>
 int launch_tiles(const Fused<T>& a) {
   static size_t allowed = 48 * 1024;
   const Plan p = rmt_plan<T>(a.num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti, kBicubic, Sh>,
+  int err = pyrmt::allow_smem(rmt_tile_kernel<T, kMulti, kBicubic, Sh, kSlab>,
                               smem, allowed);
   if (err) return err;
   Shapes<Sh> shapes{};
   for (int s = 0; s < a.S; ++s)
     set_shape(shapes.d[s], a.kinds[s], a.shapes + 4 * s);
-  rmt_tile_kernel<T, kMulti, kBicubic, Sh>
-      <<<num_blocks(p, a.Ny, a.Nx, a.sms), dim3(kBx, kBy), smem,
+  const Slab b = slab(a.Ny, a.Nx, a.roff, a.coff, a.Nyt, a.Nxt);
+  const size_t f = b.first;
+  rmt_tile_kernel<T, kMulti, kBicubic, Sh, kSlab>
+      <<<num_blocks(p, b.ay.n, b.ax.n, a.sms), dim3(kBx, kBy), smem,
          static_cast<cudaStream_t>(a.stream)>>>(
-          a.u, a.v, a.X1, a.X2, a.dt, a.params, shapes, a.S, a.clamp,
-          a.band, a.guard, a.o, a.Ny, a.Nx, a.dx, a.dy, a.num_layers, a.w_t,
+          a.u + f, a.v + f, a.X1 + f, a.X2 + f, a.dt, a.params, shapes, a.S,
+          a.clamp, a.band, a.guard, shifted(a.o, f), a.Ny, a.Nx, b.ay, b.ax,
+          a.dx, a.dy, a.num_layers, a.w_t,
           pyrmt::load_taps<T>(a.taps), p.tile,
           p.in_smem ? nullptr : static_cast<unsigned char*>(a.ws), p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
 
-template <typename T, bool kMulti, typename Sh>
-int launch_sampler(const Fused<T>& a, bool bicubic) {
-  return bicubic ? launch_tiles<T, kMulti, true, Sh>(a)
-                 : launch_tiles<T, kMulti, false, Sh>(a);
+// A slab: the instantiation that decides by the global index (a whole
+// field's operands, 0, 0, Ny, Nx, take the one without).
+template <typename T>
+bool is_slab(const Fused<T>& a) {
+  return a.roff != 0 || a.coff != 0 || a.Nyt != a.Ny || a.Nxt != a.Nx;
 }
 
+template <typename T, bool kMulti, typename Sh>
+int launch_sampler(const Fused<T>& a, bool bicubic) {
+  if (is_slab(a))
+    return bicubic ? launch_tiles<T, kMulti, true, Sh, true>(a)
+                   : launch_tiles<T, kMulti, false, Sh, true>(a);
+  return bicubic ? launch_tiles<T, kMulti, true, Sh, false>(a)
+                 : launch_tiles<T, kMulti, false, Sh, false>(a);
+}
+
+// Ny, Nx: the slab's extents; roff, coff: the global (row, column) of its
+// element (0, 0), negative for an edge shard's zero halo; Nyt, Nxt: the
+// domain's extents (a whole field: 0, 0, Ny, Nx). The slab must hold a
+// valid cell. Outputs are written at the valid cells that the slab's data
+// determines: every one without a cut, else those at least 4L + 1 cells
+// plus the advection's reach (1, bicubic 2) in from each cut.
 // kinds: S shape kinds (0 disc, 1 ellipse); shapes: 4 S host doubles, each
 // solid's (x0, y0, R, unused) or (x0, y0, a, b); clamp: det G's upper end,
 // 0 for no
@@ -759,12 +866,15 @@ int launch_sampler(const Fused<T>& a, bool bicubic) {
 template <typename T>
 int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            const T* params, const Outs<T>& o, void* ws, int S,
-           const int* kinds, const double* shapes, int Ny, int Nx, double dx,
-           double dy,
+           const int* kinds, const double* shapes, int Ny, int Nx, int roff,
+           int coff, int Nyt, int Nxt, double dx, double dy,
            int num_layers, double w_t, double clamp, double clamp_lo,
            double w_cut, int bicubic, int guarded, double guard_thr,
            const double* taps, int sms, void* stream_ptr) {
   if (S < 1 || S > kMaxSolids) return static_cast<int>(cudaErrorInvalidValue);
+  const Slab b = slab(Ny, Nx, roff, coff, Nyt, Nxt);
+  if (b.ay.n < 1 || b.ax.n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int s = 0; s < S; ++s)
     if (kinds[s] != 0 && kinds[s] != 1)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -773,7 +883,8 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
                       clamp > 0.0},
              Band<T>{static_cast<T>(w_cut), w_cut > 0.0},
              Guard<T>{static_cast<T>(guard_thr), guarded != 0}, o, ws, Ny, Nx,
-             dx, dy, num_layers, w_t, taps, sms, stream_ptr};
+             roff, coff, Nyt, Nxt, dx, dy, num_layers, w_t, taps, sms,
+             stream_ptr};
   bool discs = true;
   for (int s = 0; s < S; ++s) discs &= kinds[s] == 0;
   const bool bc = bicubic != 0;
@@ -795,30 +906,38 @@ long long advext_scratch_bytes(int Ny, int Nx, int num_layers, int sms) {
 // Split tier: the pre-pass, then the tile kernel. dt on the device;
 // scratch: advext_scratch_bytes(...) bytes; kBicubic: the bicubic final
 // sample under guard.
-template <typename T, bool kBicubic>
+template <typename T, bool kBicubic, bool kSlab>
 int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                   const T* phis, const T* dt, T* x1e, T* x2e, void* scratch,
-                  int S, int Ny, int Nx, double dx, double dy, int num_layers,
+                  int S, int Ny, int Nx, int roff, int coff, int Nyt,
+                  int Nxt, double dx, double dy, int num_layers,
                   const Guard<T>& guard, const double* taps, int sms,
                   void* stream_ptr) {
   static size_t allowed = 48 * 1024;
+  const Slab b = slab(Ny, Nx, roff, coff, Nyt, Nxt);
+  if (b.ay.n < 1 || b.ax.n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t f = b.first;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Plan p = rmt_plan<T>(num_layers);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(advext_tile_kernel<T, kBicubic>, smem, allowed);
+  int err = pyrmt::allow_smem(advext_tile_kernel<T, kBicubic, kSlab>, smem,
+                              allowed);
   if (err) return err;
   unsigned char* flags = static_cast<unsigned char*>(scratch);
   unsigned char* ws = flags + flag_bytes(Ny, Nx);
-  const dim3 grid(pyrmt::tiles_for(Nx, kFlagTile),
-                  pyrmt::tiles_for(Ny, kFlagTile));
+  const dim3 grid(pyrmt::tiles_for(b.ax.n, kFlagTile),
+                  pyrmt::tiles_for(b.ay.n, kFlagTile));
   advext_flag_kernel<T, kBicubic><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
-      u, v, X1s, X2s, phis, dt, flags, S, Ny, Nx, dx, dy);
+      u + f, v + f, X1s + f, X2s + f, phis + f, dt, flags, S, Ny, Nx, b.ay.n,
+      b.ax.n, dx, dy);
   PYRMT_RETURN_IF_ERROR();
-  advext_tile_kernel<T, kBicubic>
-      <<<num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy), smem, stream>>>(
-          u, v, X1s, X2s, phis, dt, flags, x1e, x2e, S, Ny, Nx, dx, dy,
-          num_layers, guard, pyrmt::load_taps<T>(taps), p.tile,
-          p.in_smem ? nullptr : ws, p.bytes);
+  advext_tile_kernel<T, kBicubic, kSlab>
+      <<<num_blocks(p, b.ay.n, b.ax.n, sms), dim3(kBx, kBy), smem, stream>>>(
+          u + f, v + f, X1s + f, X2s + f, phis + f, dt, flags, x1e + f,
+          x2e + f, S, Ny, Nx, b.ay, b.ax, dx, dy, num_layers,
+          guard, pyrmt::load_taps<T>(taps), p.tile, p.in_smem ? nullptr : ws,
+          p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
@@ -833,8 +952,9 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                       const T* dt, const T* params, T* x1e, T* x2e, T* phi,   \
                       T* sxx, T* sxy, T* syy, T* J, T* Hf, T* rho, T* sbxx,   \
                       T* sbxy, T* sbyy, void* ws, int S, const int* kinds,    \
-                      const double* shapes, int Ny, int Nx, double dx,        \
-                      double dy, int num_layers,                              \
+                      const double* shapes, int Ny, int Nx, int roff,         \
+                      int coff, int Nyt, int Nxt, double dx, double dy,       \
+                      int num_layers,                                         \
                       double w_t, double clamp, double clamp_lo,              \
                       double w_cut, int bicubic, int guarded,                 \
                       double guard_thr, const double* taps, int sms,          \
@@ -842,7 +962,8 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
     const Outs<T> o{x1e, x2e, phi, sxx, sxy, syy, J, Hf, rho, sbxx, sbxy,     \
                     sbyy};                                                    \
     return launch<T>(u, v, X1, X2, dt, params, o, ws, S, kinds, shapes, Ny,  \
-                     Nx, dx, dy, num_layers, w_t, clamp, clamp_lo, w_cut,     \
+                     Nx, roff, coff, Nyt, Nxt, dx, dy, num_layers, w_t,       \
+                     clamp, clamp_lo, w_cut,                                  \
                      bicubic,                                                 \
                      guarded, guard_thr, taps, sms, stream);                  \
   }
@@ -857,18 +978,19 @@ PYRMT_RMT_ENTRY(pyrmt_rmt_block_f64, pyrmt_rmt_block_workspace_f64, double)
   }                                                                           \
   extern "C" int NAME(const T* u, const T* v, const T* X1s, const T* X2s,     \
                       const T* phis, const T* dt, T* x1e, T* x2e,             \
-                      void* scratch, int S, int Ny, int Nx, double dx,        \
-                      double dy, int num_layers, int bicubic, int guarded,    \
+                      void* scratch, int S, int Ny, int Nx, int roff,         \
+                      int coff, int Nyt, int Nxt, double dx, double dy,       \
+                      int num_layers, int bicubic, int guarded,               \
                       double guard_thr, const double* taps, int sms,          \
                       void* stream) {                                         \
     const Guard<T> g{static_cast<T>(guard_thr), guarded != 0};                \
-    return bicubic ? launch_advext<T, true>(u, v, X1s, X2s, phis, dt, x1e,    \
-                                            x2e, scratch, S, Ny, Nx, dx, dy,  \
-                                            num_layers, g, taps, sms, stream) \
-                   : launch_advext<T, false>(u, v, X1s, X2s, phis, dt, x1e,   \
-                                             x2e, scratch, S, Ny, Nx, dx, dy, \
-                                             num_layers, g, taps, sms,        \
-                                             stream);                         \
+    const bool slab = roff != 0 || coff != 0 || Nyt != Ny || Nxt != Nx;       \
+    auto run = bicubic ? (slab ? launch_advext<T, true, true>                 \
+                               : launch_advext<T, true, false>)               \
+                       : (slab ? launch_advext<T, false, true>                \
+                               : launch_advext<T, false, false>);             \
+    return run(u, v, X1s, X2s, phis, dt, x1e, x2e, scratch, S, Ny, Nx, roff,  \
+               coff, Nyt, Nxt, dx, dy, num_layers, g, taps, sms, stream);     \
   }
 
 PYRMT_ADVEXT_ENTRY(pyrmt_advext_f32, pyrmt_advext_scratch_f32, float)

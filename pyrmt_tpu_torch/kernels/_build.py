@@ -167,3 +167,46 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(lib: ctypes.CDLL, fn, what: str, device, *args) -> None:
+    """Call the launcher ``fn(*args, stream)`` on ``device``'s current
+    stream with ``device`` the thread's current CUDA device, and raise on
+    its error code. The launchers run their kernels on the current device
+    (they never call cudaSetDevice), so a tensor on another card than the
+    thread's current one is launched on its own card this way."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, stream_handle(device))
+    check(lib, err, what)
+
+
+def outputs(shape, like, slab):
+    """A kernel's output tensor: zeros where the kernel leaves cells
+    unwritten (a slab: its cut's stale cells and the cells outside the
+    domain), else uninitialised."""
+    import torch
+
+    make = torch.zeros if slab else torch.empty
+    return make(shape, dtype=like.dtype, device=like.device)
+
+
+def slab_operands(shape, row_offset, Ny_total, col_offset, Nx_total):
+    """(the launchers' (roff, coff, Ny_total, Nx_total) of a slab of
+    ``shape`` (..., Ny, Nx), whether it is a slab): the global (row,
+    column) of its element (0, 0) and the domain's extents, a whole
+    field's (0, 0, Ny, Nx) where an axis has no offset. Raises ValueError
+    where the slab holds no cell of the domain (``ops.slab.slab_axis``)."""
+    from pyrmt_tpu_torch.ops.slab import slab_axis
+
+    Ny, Nx = shape[-2:]
+    out = []
+    for n, off, total in ((Ny, row_offset, Ny_total),
+                          (Nx, col_offset, Nx_total)):
+        off = 0 if off is None else int(off)
+        total = n if total is None else int(total)
+        slab_axis(n, off, total)
+        out.append((off, total))
+    ops = (out[0][0], out[1][0], out[0][1], out[1][1])
+    return ops, ops != (0, 0, Ny, Nx)

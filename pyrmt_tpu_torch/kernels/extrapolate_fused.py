@@ -88,9 +88,9 @@ def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers):
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=X1.device)
     fn = (lib.pyrmt_extrapolate_fused_f32 if f32
           else lib.pyrmt_extrapolate_fused_f64)
-    err = fn(*(_build.pointer(t) for t in (X1, X2, phi, x1e, x2e, scratch)),
-             Ny, Nx, int(max_layers), window_taps(dx, dy), sms,
-             _build.stream_handle(X1.device))
-    _build.check(lib, err, "extrapolate_fused kernel launch")
+    _build.launch(lib, fn, "extrapolate_fused kernel launch", X1.device,
+                  *(_build.pointer(t) for t in (X1, X2, phi, x1e, x2e,
+                                                scratch)),
+                  Ny, Nx, int(max_layers), window_taps(dx, dy), sms)
     launches += 1
     return x1e, x2e

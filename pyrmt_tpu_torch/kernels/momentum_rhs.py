@@ -69,9 +69,9 @@ def _velocity_rhs_cuda(u, v, p, sig_sxx, sig_sxy, sig_syy, dx, dy, mu_f, Hf,
     rhs_v = torch.empty_like(u)
     fn = (lib.pyrmt_momentum_rhs_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rhs_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), rhs_u, rhs_v)),
-             Ny, Nx, float(dx), float(dy), float(mu_f),
-             _build.stream_handle(u.device))
-    _build.check(lib, err, "velocity_rhs kernel launch")
+    _build.launch(lib, fn, "velocity_rhs kernel launch", u.device,
+                  *(_build.pointer(t) for t in (*fields.values(), rhs_u,
+                                                rhs_v)),
+                  Ny, Nx, float(dx), float(dy), float(mu_f))
     launches += 1
     return rhs_u, rhs_v

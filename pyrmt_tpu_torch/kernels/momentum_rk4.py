@@ -20,12 +20,15 @@ import torch
 
 from pyrmt_tpu_torch.bcs import periodic_bc
 from pyrmt_tpu_torch.kernels import _autograd, _build
-from pyrmt_tpu_torch.physics import momentum_core
+from pyrmt_tpu_torch.ops.slab import has_offsets
+from pyrmt_tpu_torch.physics import RK4_HALO, momentum_core
 
 # Times the wrapper launched the CUDA kernel (one per call on a CUDA
 # tensor): its wall instantiations (lid, free slip, no-op; with or without
-# the force) and its periodic ones. A caller may reset them to 0.
+# the force) on a whole field and on a shard's slab (the offsets), and its
+# periodic ones. A caller may reset them to 0.
 launches = 0
+offset_launches = 0
 periodic_launches = 0
 
 
@@ -41,16 +44,25 @@ def _cuda_lib():
     lib = _build.load("momentum_rk4")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_momentum_rk4_f32, lib.pyrmt_momentum_rk4_f64):
-        fn.argtypes = [P] * 14 + [I, I, D, D, D, D, I, D, P]
+        fn.argtypes = [P] * 14 + [I] * 6 + [D, D, D, D, I, D, P]
         fn.restype = I
     return lib
 
 
 def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                        rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt,
-                       mu_f, f_ext_x=None, f_ext_y=None, periodic=False):
+                       mu_f, f_ext_x=None, f_ext_y=None, periodic=False,
+                       row_offset=None, Ny_total=None, col_offset=None,
+                       Nx_total=None):
     """RK4 velocity update; same arguments and result as
     ``physics.momentum_core`` with ``dt`` a 0-d tensor.
+
+    ``row_offset``, ``Ny_total``, ``col_offset`` and ``Nx_total`` (the JAX
+    kernel's operands) make the fields one shard's slab, as in
+    ``kernels.rmt_block.rmt_block_fused``: the BC and every closure act at
+    the global domain's edge; the slab's cells outside the domain and the
+    ``RK4_HALO`` (8) cells next to a cut come out 0. The periodic box
+    takes no offsets (ValueError), as in the JAX package.
 
     A CPU tensor goes to ``momentum_core``. A CUDA tensor goes to the CUDA
     kernel, which applies the BC from ``velocity_bc.kernel_spec`` ('lid',
@@ -79,12 +91,17 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     if periodic != (spec is not None and spec[0] == "periodic"):
         raise ValueError(f"momentum_rk4: periodic={periodic} with the BC "
                          f"spec {spec!r}")
+    offsets = dict(row_offset=row_offset, Ny_total=Ny_total,
+                   col_offset=col_offset, Nx_total=Nx_total)
+    if periodic and has_offsets(**offsets):
+        raise ValueError("momentum_rk4: the periodic box takes no sharding "
+                         "offsets (its wrap is the whole field's)")
     if periodic:
         u, v = periodic_bc(u, v)
     args = (u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local, mkv,
             velocity_bc)
     kw = dict(eta_s=eta_s, dx=dx, dy=dy, dt=dt, mu_f=mu_f, f_ext_x=f_ext_x,
-              f_ext_y=f_ext_y, periodic=periodic)
+              f_ext_y=f_ext_y, periodic=periodic, **offsets)
     if u.device.type == "cpu":
         return momentum_core(*args, **kw)
     return _autograd.launch(_momentum_rk4_cuda, momentum_core, args, kw)
@@ -92,10 +109,11 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
 
 def _momentum_rk4_cuda(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                        rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt,
-                       mu_f, f_ext_x, f_ext_y, periodic):
+                       mu_f, f_ext_x, f_ext_y, periodic, row_offset, Ny_total,
+                       col_offset, Nx_total):
     """One launch of the RK4 kernel on CUDA tensors, (u, v) already under
     the periodic BC where ``periodic``."""
-    global launches, periodic_launches
+    global launches, offset_launches, periodic_launches
     if u.device.type != "cuda":
         raise ValueError(f"momentum_rk4: no kernel for device {u.device}")
     bc, lid = _build.bc_operands("momentum_rk4", velocity_bc)
@@ -113,20 +131,24 @@ def _momentum_rk4_cuda(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     _build.check_operands("momentum_rk4", u, {
         name: (t, () if name == "dt" else (Ny, Nx))
         for name, t in {**fields, **forces, "dt": dt}.items()})
+    offs, slab = _build.slab_operands(u.shape, row_offset, Ny_total,
+                                      col_offset, Nx_total)
     lib = _cuda_lib()
-    u_new = torch.empty_like(u)
-    v_new = torch.empty_like(u)
+    u_new = _build.outputs(u.shape, u, slab)
+    v_new = _build.outputs(u.shape, u, slab)
     fn = (lib.pyrmt_momentum_rk4_f32 if u.dtype == torch.float32
           else lib.pyrmt_momentum_rk4_f64)
     force_ptrs = ((None, None) if f_ext_x is None else
                   (_build.pointer(f_ext_x), _build.pointer(f_ext_y)))
-    err = fn(*(_build.pointer(t) for t in fields.values()), *force_ptrs,
-             *(_build.pointer(t) for t in (dt, u_new, v_new)),
-             Ny, Nx, float(dx), float(dy), float(mu_f), float(eta_s), bc, lid,
-             _build.stream_handle(u.device))
-    _build.check(lib, err, "momentum_rk4 kernel launch")
+    _build.launch(lib, fn, "momentum_rk4 kernel launch", u.device,
+                  *(_build.pointer(t) for t in fields.values()), *force_ptrs,
+                  *(_build.pointer(t) for t in (dt, u_new, v_new)),
+                  Ny, Nx, *offs, float(dx), float(dy), float(mu_f),
+                  float(eta_s), bc, lid)
     if periodic:
         periodic_launches += 1
+    elif slab:
+        offset_launches += 1
     else:
         launches += 1
     return u_new, v_new

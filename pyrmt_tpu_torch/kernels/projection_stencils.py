@@ -102,9 +102,9 @@ def _rc_rhs_cuda(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy):
     out = torch.empty_like(a_star)
     fn = (lib.pyrmt_rc_rhs_f32 if a_star.dtype == torch.float32
           else lib.pyrmt_rc_rhs_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), out)), Ny, Nx,
-             float(dx), float(dy), _build.stream_handle(a_star.device))
-    _build.check(lib, err, "rc_rhs kernel launch")
+    _build.launch(lib, fn, "rc_rhs kernel launch", a_star.device,
+                  *(_build.pointer(t) for t in (*fields.values(), out)), Ny,
+                  Nx, float(dx), float(dy))
     rc_rhs_launches += 1
     return out
 
@@ -135,9 +135,8 @@ def _grad_correct_cuda(p_corr, a_star, b_star, rho, dt, dx, dy, velocity_bc):
     b = torch.empty_like(a_star)
     fn = (lib.pyrmt_grad_correct_f32 if a_star.dtype == torch.float32
           else lib.pyrmt_grad_correct_f64)
-    err = fn(*(_build.pointer(t) for t in (*fields.values(), a, b)), Ny, Nx,
-             float(dx), float(dy), bc, lid,
-             _build.stream_handle(a_star.device))
-    _build.check(lib, err, "grad_correct kernel launch")
+    _build.launch(lib, fn, "grad_correct kernel launch", a_star.device,
+                  *(_build.pointer(t) for t in (*fields.values(), a, b)), Ny,
+                  Nx, float(dx), float(dy), bc, lid)
     grad_correct_launches += 1
     return a, b

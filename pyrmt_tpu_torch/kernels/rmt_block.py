@@ -37,13 +37,16 @@ from pyrmt_tpu_torch.kernels.extrapolate_fused import window_taps
 from pyrmt_tpu_torch.ops.advect import advect_semilagrangian_rk4_local
 from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
 from pyrmt_tpu_torch.ops.levelset import rebuild_phi_from_reference_map
+from pyrmt_tpu_torch.ops.slab import has_offsets, on_slab
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
 # Times each wrapper launched its CUDA kernel (one per call on a CUDA
-# tensor): rmt_block_fused and advext_block_fused. A caller may reset them
-# to 0.
+# tensor): rmt_block_fused and advext_block_fused on a whole field, and
+# each on a shard's slab (the offsets). A caller may reset them to 0.
 launches = 0
 advext_launches = 0
+offset_launches = 0
+advext_offset_launches = 0
 
 # The most solids the fused tier's kernel takes: their level sets are kernel
 # arguments (kMaxSolids in csrc/rmt_block.cu).
@@ -62,14 +65,40 @@ def _check_interp(sl_interp):
                          f"{SL_INTERPS}")
 
 
+def cut_depth(num_layers, sl_interp="bilinear"):
+    """Cells from a slab's cut whose results both blocks leave at 0 (the
+    kernels do not compute them: they depend on cells beyond the cut): the
+    advection's reach (1 cell, bicubic 2), the 4-cell reach of each
+    extrapolation sweep and the post stage's 1. The sharded step's halo,
+    4 num_layers + 4, covers it."""
+    return 4 * num_layers + 1 + (2 if sl_interp == "bicubic" else 1)
+
+
 def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
-                       sl_interp="bilinear", sl_guard=None):
+                       sl_interp="bilinear", sl_guard=None, row_offset=None,
+                       Ny_total=None, col_offset=None, Nx_total=None,
+                       origin=None):
     """The split tier's advect and extrapolate block: the shared SL-RK4
     backtrace of the (S, Ny, Nx) map stacks, sampled by ``sl_interp`` under
     the band guard ``sl_guard`` (bicubic where phis < -sl_guard), times the
     mask (phis <= 0), then ``num_layers`` extrapolation sweeps from the
-    known cells (phis < 0). Returns the stacks (X1e, X2e)."""
+    known cells (phis < 0). Returns the stacks (X1e, X2e).
+
+    ``row_offset``, ``Ny_total``, ``col_offset``, ``Nx_total`` (the JAX
+    kernel's operands) make the inputs one shard's slab
+    (``ops.slab.on_slab``): the results at the domain's cells, 0 within
+    ``cut_depth`` of a cut and outside the domain, as the kernel leaves
+    them. ``origin`` is ``on_slab``'s: the global cell of the arrays'
+    (0, 0), for the samples' rounding."""
     _check_interp(sl_interp)
+    if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
+        return on_slab(
+            advext_block_plain, (u, v, X1s, X2s, phis, dt),
+            dict(dx=dx, dy=dy, num_layers=num_layers, sl_interp=sl_interp,
+                 sl_guard=sl_guard),
+            row_offset=row_offset, Ny_total=Ny_total, col_offset=col_offset,
+            Nx_total=Nx_total, stale=cut_depth(num_layers, sl_interp),
+            origin=True)
     S = X1s.shape[0]
     masks = (phis <= 0.0).to(u.dtype)
     cubic_mask = None
@@ -78,7 +107,7 @@ def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
         cubic_mask = torch.cat([guard, guard])
     qs = advect_semilagrangian_rk4_local(
         torch.cat([X1s, X2s]), u, v, dt, dx, dy, interp=sl_interp,
-        cubic_mask=cubic_mask)
+        cubic_mask=cubic_mask, origin=origin)
     X1a, X2a = qs[:S] * masks, qs[S:] * masks
     ext = [extrapolate_reference_map(X1a[i], X2a[i], phis[i], dx, dy,
                                      num_layers) for i in range(S)]
@@ -88,7 +117,9 @@ def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
 
 def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
-                    sl_interp="bilinear", sl_guard=None):
+                    sl_interp="bilinear", sl_guard=None, row_offset=None,
+                    Ny_total=None, col_offset=None, Nx_total=None,
+                    origin=None):
     """The composed ops. ``X1s``/``X2s`` are (S, Ny, Nx) stacks, ``dt`` a
     0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f];
     ``stress_w_cut`` and ``stress_clamp`` select the stress's variant, as
@@ -99,14 +130,27 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     Returns (X1e, X2e, phis, sxx_s, sxy_s, syy_s, J_s, Hf, rho_local,
     sig_sxx_el, sig_sxy_el, sig_syy_el): seven (S, Ny, Nx) stacks and five
     (Ny, Nx) fields.
+
+    The offsets make the inputs a shard's slab, as in
+    ``advext_block_plain``.
     """
+    if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
+        return on_slab(
+            rmt_block_plain, (u, v, X1s, X2s, dt),
+            dict(phi_inits=phi_inits, dx=dx, dy=dy, num_layers=num_layers,
+                 w_t=w_t, params=params, stress_w_cut=stress_w_cut,
+                 stress_clamp=stress_clamp, sl_interp=sl_interp,
+                 sl_guard=sl_guard),
+            row_offset=row_offset, Ny_total=Ny_total, col_offset=col_offset,
+            Nx_total=Nx_total, stale=cut_depth(num_layers, sl_interp),
+            origin=True)
     mu_s, kappa, rho_s, rho_f = params.unbind()
     S = X1s.shape[0]
     phis = torch.stack([rebuild_phi_from_reference_map(X1s[i], X2s[i], f)
                         for i, f in enumerate(phi_inits)])
     X1e, X2e = advext_block_plain(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
                                   num_layers=num_layers, sl_interp=sl_interp,
-                                  sl_guard=sl_guard)
+                                  sl_guard=sl_guard, origin=origin)
     phis = torch.stack([rebuild_phi_from_reference_map(X1e[i], X2e[i], f)
                         for i, f in enumerate(phi_inits)])
     stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, mu_s, kappa,
@@ -168,15 +212,16 @@ def _cuda_lib():
     lib = _build.load("rmt_block")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
-        fn.argtypes = [P] * 19 + [I, P, P, I, I, D, D, I, D, D, D, D, I, I,
-                                  D, P, I, P]
+        fn.argtypes = [P] * 19 + [I, P, P, I, I, I, I, I, I, D, D, I, D, D,
+                                  D, D, I, I, D, P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_rmt_block_workspace_f32,
                lib.pyrmt_rmt_block_workspace_f64):
         fn.argtypes = [I, I, I, I]
         fn.restype = ctypes.c_longlong
     for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
-        fn.argtypes = [P] * 9 + [I, I, I, D, D, I, I, I, D, P, I, P]
+        fn.argtypes = [P] * 9 + [I, I, I, I, I, I, I, D, D, I, I, I, D, P,
+                                 I, P]
         fn.restype = I
     for fn in (lib.pyrmt_advext_scratch_f32, lib.pyrmt_advext_scratch_f64):
         fn.argtypes = [I] * 4
@@ -193,7 +238,8 @@ def _guard_operands(sl_interp, sl_guard):
 
 def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
-                    sl_interp="bilinear", sl_guard=None):
+                    sl_interp="bilinear", sl_guard=None, row_offset=None,
+                    Ny_total=None, col_offset=None, Nx_total=None):
     """The solid block; same arguments and results as ``rmt_block_plain``.
 
     A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
@@ -205,6 +251,15 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     wait for the card, and ``params`` may carry traced values
     (``make_step(traced_params=...)``).
 
+    ``row_offset``, ``Ny_total``, ``col_offset`` and ``Nx_total`` (the JAX
+    kernel's operands, None for a whole field) make the inputs one shard's
+    slab: element (0, 0) is global cell (row_offset, col_offset), possibly
+    negative, of a Ny_total x Nx_total domain. Every edge or interior
+    decision, coordinate and clip then takes the global index; rows and
+    columns outside the domain are never read and come out 0, and so do
+    the ``cut_depth`` cells next to a cut, which depend on cells the slab
+    does not hold (the plain version's result with the same operands).
+
     Where an input requires a gradient the launch goes through
     ``_autograd.launch``: the kernel forward, the autograd of
     ``rmt_block_plain`` backward.
@@ -213,7 +268,8 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     kw = dict(phi_inits=phi_inits, dx=dx, dy=dy, num_layers=num_layers,
               w_t=w_t, params=params, stress_w_cut=stress_w_cut,
               stress_clamp=stress_clamp, sl_interp=sl_interp,
-              sl_guard=sl_guard)
+              sl_guard=sl_guard, row_offset=row_offset, Ny_total=Ny_total,
+              col_offset=col_offset, Nx_total=Nx_total)
     if u.device.type == "cpu":
         return rmt_block_plain(u, v, X1s, X2s, dt, **kw)
     return _autograd.launch(_rmt_block_cuda, rmt_block_plain,
@@ -222,20 +278,20 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
 
 def _rmt_block_cuda(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut, stress_clamp, sl_interp,
-                    sl_guard):
+                    sl_guard, row_offset, Ny_total, col_offset, Nx_total):
     """One launch of the fused tier's kernel on CUDA tensors."""
-    global launches
+    global launches, offset_launches
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
     shapes = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
                                   num_layers)
+    offs, slab = _build.slab_operands(u.shape, row_offset, Ny_total,
+                                      col_offset, Nx_total)
     lib = _cuda_lib()
     S = len(shapes)
     Ny, Nx = u.shape
-    stacks = [torch.empty((S, Ny, Nx), dtype=u.dtype, device=u.device)
-              for _ in range(7)]
-    fields = [torch.empty((Ny, Nx), dtype=u.dtype, device=u.device)
-              for _ in range(5)]
+    stacks = [_build.outputs((S, Ny, Nx), u, slab) for _ in range(7)]
+    fields = [_build.outputs((Ny, Nx), u, slab) for _ in range(5)]
     f32 = u.dtype == torch.float32
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     # device memory for the panels only where they do not fit a block's
@@ -253,21 +309,25 @@ def _rmt_block_cuda(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     clamp = float(stress_clamp)
     clamp_lo = 1.0 / clamp if clamp > 0.0 else 0.0
     fn = lib.pyrmt_rmt_block_f32 if f32 else lib.pyrmt_rmt_block_f64
-    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, dt, params,
-                                            *stacks, *fields)),
-             None if ws is None else _build.pointer(ws), S, kinds,
-             shape_args,
-             Ny, Nx, float(dx), float(dy), int(num_layers), float(w_t),
-             clamp, clamp_lo, max(float(stress_w_cut), 0.0),
-             *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy), sms,
-             _build.stream_handle(u.device))
-    _build.check(lib, err, "rmt_block kernel launch")
-    launches += 1
+    _build.launch(lib, fn, "rmt_block kernel launch", u.device,
+                  *(_build.pointer(t) for t in (u, v, X1s, X2s, dt, params,
+                                                *stacks, *fields)),
+                  None if ws is None else _build.pointer(ws), S, kinds,
+                  shape_args, Ny, Nx, *offs, float(dx), float(dy),
+                  int(num_layers), float(w_t), clamp, clamp_lo,
+                  max(float(stress_w_cut), 0.0),
+                  *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy),
+                  sms)
+    if slab:
+        offset_launches += 1
+    else:
+        launches += 1
     return (*stacks, *fields)
 
 
 def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
-                       sl_interp="bilinear", sl_guard=None):
+                       sl_interp="bilinear", sl_guard=None, row_offset=None,
+                       Ny_total=None, col_offset=None, Nx_total=None):
     """The split tier's advect and extrapolate block; same arguments and
     results as ``advext_block_plain``.
 
@@ -276,11 +336,13 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
     number of solids, and both final samples; another dtype, shape or
     device raises. dt is read on the device, so a call does not wait for
     the card. Where an input requires a gradient the backward is the
-    autograd of ``advext_block_plain`` (``_autograd.launch``).
+    autograd of ``advext_block_plain`` (``_autograd.launch``). The offsets
+    make the inputs a shard's slab, as in ``rmt_block_fused``.
     """
     _check_interp(sl_interp)
     kw = dict(dx=dx, dy=dy, num_layers=num_layers, sl_interp=sl_interp,
-              sl_guard=sl_guard)
+              sl_guard=sl_guard, row_offset=row_offset, Ny_total=Ny_total,
+              col_offset=col_offset, Nx_total=Nx_total)
     if u.device.type == "cpu":
         return advext_block_plain(u, v, X1s, X2s, phis, dt, **kw)
     return _autograd.launch(_advext_cuda, advext_block_plain,
@@ -288,9 +350,9 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
 
 
 def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
-                 sl_guard):
+                 sl_guard, row_offset, Ny_total, col_offset, Nx_total):
     """One launch of the split tier's kernel A on CUDA tensors."""
-    global advext_launches
+    global advext_launches, advext_offset_launches
     if u.device.type != "cuda":
         raise ValueError(f"advext_block: no kernel for device {u.device}")
     Ny, Nx = u.shape
@@ -304,9 +366,11 @@ def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
                          f"3x3, not {Ny}x{Nx}")
     if num_layers < 1:
         raise ValueError("advext_block kernel needs num_layers >= 1")
+    offs, slab = _build.slab_operands(u.shape, row_offset, Ny_total,
+                                      col_offset, Nx_total)
     lib = _cuda_lib()
-    x1e = torch.empty_like(X1s)
-    x2e = torch.empty_like(X1s)
+    x1e = _build.outputs(X1s.shape, u, slab)
+    x2e = _build.outputs(X1s.shape, u, slab)
     f32 = u.dtype == torch.float32
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     # the pre-pass's flags, and the panels' workspace past ~10 layers
@@ -314,11 +378,14 @@ def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
               lib.pyrmt_advext_scratch_f64)(Ny, Nx, int(num_layers), sms)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=u.device)
     fn = lib.pyrmt_advext_f32 if f32 else lib.pyrmt_advext_f64
-    err = fn(*(_build.pointer(t) for t in (u, v, X1s, X2s, phis, dt, x1e,
-                                            x2e, scratch)),
-             S, Ny, Nx, float(dx), float(dy), int(num_layers),
-             *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy), sms,
-             _build.stream_handle(u.device))
-    _build.check(lib, err, "advext_block kernel launch")
-    advext_launches += 1
+    _build.launch(lib, fn, "advext_block kernel launch", u.device,
+                  *(_build.pointer(t) for t in (u, v, X1s, X2s, phis, dt,
+                                                x1e, x2e, scratch)),
+                  S, Ny, Nx, *offs, float(dx), float(dy), int(num_layers),
+                  *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy),
+                  sms)
+    if slab:
+        advext_offset_launches += 1
+    else:
+        advext_launches += 1
     return x1e, x2e

@@ -94,7 +94,7 @@ def advect_semilagrangian_rk4(q, a, b, X, Y, dt, dx, dy):
 
 
 def advect_semilagrangian_rk4_local(qs, a, b, dt, dx, dy, interp="bilinear",
-                                    cubic_mask=None):
+                                    cubic_mask=None, origin=None):
     """Advect the stack ``qs`` (K, Ny, Nx) by the velocity (a, b) over
     ``dt`` with one shared RK4 backtrace.
 
@@ -103,7 +103,8 @@ def advect_semilagrangian_rk4_local(qs, a, b, dt, dx, dy, interp="bilinear",
     three stage samples of (a, b) stay bilinear. Valid while the backtrace
     stays inside the 3x3 neighbourhood, which the adaptive timestep
     guarantees for CFL < 1: every stage velocity is a convex combination of
-    grid values. ``dt`` may be a float or a 0-d tensor.
+    grid values. ``dt`` may be a float or a 0-d tensor. ``origin`` makes
+    the fields a slab of a larger domain (``interp.gather_bilinear_local``).
     """
     _check_interp(interp)
     ab = torch.stack([a, b])
@@ -112,18 +113,19 @@ def advect_semilagrangian_rk4_local(qs, a, b, dt, dx, dy, interp="bilinear",
 
     k1x, k1y = a, b
     k2x, k2y = gather_bilinear_local(
-        ab, -0.5 * dt * k1x * inv_dx, -0.5 * dt * k1y * inv_dy)
+        ab, -0.5 * dt * k1x * inv_dx, -0.5 * dt * k1y * inv_dy, origin)
     k3x, k3y = gather_bilinear_local(
-        ab, -0.5 * dt * k2x * inv_dx, -0.5 * dt * k2y * inv_dy)
+        ab, -0.5 * dt * k2x * inv_dx, -0.5 * dt * k2y * inv_dy, origin)
     k4x, k4y = gather_bilinear_local(
-        ab, -dt * k3x * inv_dx, -dt * k3y * inv_dy)
+        ab, -dt * k3x * inv_dx, -dt * k3y * inv_dy, origin)
 
     # dt * (-1/6), not -(dt / 6): the CUDA kernel rounds the same way
     sx = dt * (-1.0 / 6.0) * (k1x + 2 * k2x + 2 * k3x + k4x) * inv_dx
     sy = dt * (-1.0 / 6.0) * (k1y + 2 * k2y + 2 * k3y + k4y) * inv_dy
     if interp == "bicubic":
-        return gather_bicubic_local(qs, sx, sy, cubic_mask=cubic_mask)
-    return gather_bilinear_local(qs, sx, sy)
+        return gather_bicubic_local(qs, sx, sy, cubic_mask=cubic_mask,
+                                    origin=origin)
+    return gather_bilinear_local(qs, sx, sy, origin)
 
 
 # ── WENO5 reconstruction ─────────────────────────────────────────────────

@@ -52,18 +52,33 @@ def gather_bilinear_multi(us, xq, yq, dx, dy):
     return torch.where(finite, out, float("nan"))
 
 
-def gather_bilinear_local(us, sx, sy):
+def _cell_indices(shape, origin, like):
+    """The global (row, column) indices of a (Ny, Nx) array as ``like``'s
+    dtype, (Ny, 1) and (1, Nx), and the domain's extents: the array itself,
+    or with ``origin`` = (row, col, Ny_total, Nx_total) a slab whose
+    element (0, 0) is cell (row, col) of a Ny_total x Nx_total domain."""
+    Ny, Nx = shape
+    j0, i0, Nyt, Nxt = (0, 0, Ny, Nx) if origin is None else origin
+    kw = dict(dtype=like.dtype, device=like.device)
+    return (torch.arange(j0, j0 + Ny, **kw)[:, None],
+            torch.arange(i0, i0 + Nx, **kw)[None, :], Nyt, Nxt)
+
+
+def gather_bilinear_local(us, sx, sy, origin=None):
     """Bilinear sampling of a stack ``us`` (K, Ny, Nx) at per-cell displaced
     points (i + sx[j, i], j + sy[j, i]) with |sx|, |sy| < 1.
 
     The 4 corners are among the 9 edge-clamped shifts of the field and are
     selected per cell by the signs of the displacement AT THE OUTPUT CELL.
     Displacements are clipped into (-1, 1) and queries clamped into the
-    domain; non-finite displacements give NaN.
+    domain; non-finite displacements give NaN. ``origin`` (row, col,
+    Ny_total, Nx_total) makes ``us`` a slab of a larger domain (a shard's,
+    ``ops.slab``): the indices and the clamps are then the domain's, as the
+    CUDA kernel's, so a slab's samples round as the whole field's; at the
+    slab's own edges the shifts replicate the edge.
     """
     K, Ny, Nx = us.shape
-    jj = torch.arange(Ny, dtype=sx.dtype, device=sx.device)[:, None]
-    ii = torch.arange(Nx, dtype=sx.dtype, device=sx.device)[None, :]
+    jj, ii, Ny, Nx = _cell_indices((Ny, Nx), origin, sx)
 
     finite = torch.isfinite(sx) & torch.isfinite(sy)
     zero = torch.zeros((), dtype=sx.dtype, device=sx.device)
@@ -137,7 +152,7 @@ def cubic_convolution(v0, v1, v2, v3, t):
     return ((a0 * t + a1) * t + a2) * t + v1
 
 
-def gather_bicubic_local(us, sx, sy, cubic_mask=None):
+def gather_bicubic_local(us, sx, sy, cubic_mask=None, origin=None):
     """Bicubic sampling of a stack ``us`` (K, Ny, Nx) at per-cell displaced
     points (i + sx[j, i], j + sy[j, i]) with |sx|, |sy| < 1.
 
@@ -148,11 +163,10 @@ def gather_bicubic_local(us, sx, sy, cubic_mask=None):
     where ``cubic_mask`` (bool, broadcastable to the output) is False the
     bilinear sample at the clipped displacement is taken instead.
     Displacements are clipped as in ``gather_bilinear_local``; non-finite
-    displacements give NaN.
+    displacements give NaN. ``origin`` as in ``gather_bilinear_local``.
     """
     K, Ny, Nx = us.shape
-    jj = torch.arange(Ny, dtype=sx.dtype, device=sx.device)[:, None]
-    ii = torch.arange(Nx, dtype=sx.dtype, device=sx.device)[None, :]
+    jj, ii, Ny, Nx = _cell_indices((Ny, Nx), origin, sx)
 
     finite = torch.isfinite(sx) & torch.isfinite(sy)
     zero = torch.zeros((), dtype=sx.dtype, device=sx.device)
@@ -204,7 +218,8 @@ def gather_bicubic_local(us, sx, sy, cubic_mask=None):
 
     out = torch.stack(vals)
     if cubic_mask is not None:
-        out = torch.where(cubic_mask, out, gather_bilinear_local(us, sx, sy))
+        out = torch.where(cubic_mask, out,
+                          gather_bilinear_local(us, sx, sy, origin))
     return torch.where(finite[None], out, torch.full_like(out, float("nan")))
 
 

@@ -63,18 +63,36 @@ def precompute_poisson_eigenvalues(Nx, Ny, dx, dy, dtype=torch.float64,
     return torch.as_tensor(eig, dtype=dtype, device=device)
 
 
-def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True):
+def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True,
+                      mesh=None):
     """Direct Neumann solve: forward DCT-I, divide by the eigenvalues,
     inverse DCT-I (the forward transform over 4 (Nx-1)(Ny-1)), de-mean.
     ``demean=False`` leaves the mean, as the variable-density CG's
     preconditioner needs (it zeroes the constant mode by an infinite
-    eigenvalue instead, which keeps it symmetric)."""
+    eigenvalue instead, which keeps it symmetric).
+
+    With a ``mesh`` (``parallel.sharding``) ``rhs_2d`` and ``eigenvalues``
+    are this rank's block, and ``dct_mats`` this rank's rows of C_x and
+    C_y ((lx, Nx), (ly, Ny)): each product C_y @ f @ C_x^T is this rank's
+    rows of C_y times the column strip of f gathered over the ranks that
+    share its columns, then the row strip of that gathered over the ranks
+    that share its rows, times its rows of C_x transposed; the mean is
+    the whole grid's. A block of a matrix product need not round as the
+    whole product does."""
     Cx, Cy = dct_mats
-    Ny, Nx = rhs_2d.shape
-    rhs_hat = Cy @ rhs_2d @ Cx.T
-    p_hat = rhs_hat / eigenvalues
-    p = (Cy @ p_hat @ Cx.T) / (4.0 * (Nx - 1) * (Ny - 1))
-    return p - torch.mean(p) if demean else p
+    Ny, Nx = Cy.shape[1], Cx.shape[1]
+    if mesh is None:
+        rhs_hat = Cy @ rhs_2d @ Cx.T
+        p_hat = rhs_hat / eigenvalues
+        p = (Cy @ p_hat @ Cx.T) / (4.0 * (Nx - 1) * (Ny - 1))
+        return p - torch.mean(p) if demean else p
+
+    def transform(f):
+        return mesh.gather_cols(Cy @ mesh.gather_rows(f)) @ Cx.T
+
+    p_hat = transform(rhs_2d) / eigenvalues
+    p = transform(p_hat) / (4.0 * (Nx - 1) * (Ny - 1))
+    return p - mesh.mean(p) if demean else p
 
 
 def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,

@@ -41,7 +41,8 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
                         eigenvalues, dct_mats,
                         stencils=(rc_rhs_plain, grad_correct_plain),
                         bc_type="neumann", variable_rho=False, cg_tol=1e-6,
-                        cg_maxiter=200, cg_info=False, st_faces=None):
+                        cg_maxiter=200, cg_info=False, st_faces=None,
+                        mesh=None):
     """Project (a*, b*) onto a discretely divergence-free field.
 
     ``bc_type='neumann'``: ``eigenvalues`` and ``dct_mats`` are the DCT
@@ -56,9 +57,21 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
     ``precompute_poisson_eigenvalues_periodic``; ``dct_mats`` and
     ``stencils`` are not read; the density enters the solve as its mean.
     Returns (a, b, p), or (a, b, p, (cg_iters, cg_relres)) with
-    ``cg_info`` (which needs ``variable_rho``)."""
+    ``cg_info`` (which needs ``variable_rho``).
+
+    With a ``mesh`` (``parallel.sharding``) the fields are this rank's
+    block of the grid, ``eigenvalues`` and ``dct_mats`` its block and rows
+    (``solve_poisson_dct``): the stencil pair runs on slabs with a halo
+    (``Mesh.stencil``), the DCT solve is distributed and the means are the
+    whole grid's. Neumann walls at constant density without face forces
+    only (NotImplementedError)."""
     if cg_info and not variable_rho:
         raise ValueError("cg_info=True requires variable_rho=True")
+    if mesh is not None and (bc_type != "neumann" or variable_rho
+                             or st_faces is not None):
+        raise NotImplementedError(
+            "the sharded projection takes Neumann walls at constant density "
+            "without face forces")
     if st_faces is not None and bc_type != "neumann":
         raise ValueError(
             "balanced-force st_faces requires the incremental Neumann "
@@ -90,12 +103,19 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
                                          dct_mats)
         grad_correct = grad_correct_plain
     else:
-        rc_rhs, grad_correct = stencils
-        d_scalar = dt / torch.mean(rho)
+        rc_rhs, grad_correct = (stencils if mesh is None else
+                                tuple(mesh.stencil(f) for f in stencils))
+        d_scalar = dt / _mean(rho, mesh)
         rhs_2d = rc_rhs(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy)
-        p_correction = solve_poisson_dct(rhs_2d, eigenvalues, dct_mats)
+        p_correction = solve_poisson_dct(rhs_2d, eigenvalues, dct_mats,
+                                         mesh=mesh)
     a, b = grad_correct(p_correction, a_star, b_star, rho, dt, dx, dy,
                         velocity_bc)
     p = p_prev + p_correction
-    p = p - torch.mean(p)
+    p = p - _mean(p, mesh)
     return (a, b, p, cg_stats) if cg_info else (a, b, p)
+
+
+def _mean(f, mesh):
+    """The mean of f over the grid: of a rank's block with a mesh."""
+    return torch.mean(f) if mesh is None else mesh.mean(f)

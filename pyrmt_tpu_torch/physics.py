@@ -32,16 +32,27 @@ from pyrmt_tpu_torch.ops.levelset import (
     compute_curvature,
     compute_curvature_hf,
 )
+from pyrmt_tpu_torch.ops.slab import has_offsets, on_slab
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
+# How far the RK4 update reads: each of its four stages reads the one
+# before at up to +-2 cells (the 3rd-order upwind, and the stress's central
+# difference of a central difference). The JAX kernel's _HALO.
+RK4_HALO = 8
 
-def _speed_max(a, b):
+
+def _speed_max(a, b, mesh=None):
     """max |(a, b)| over the grid. Where a gradient flows to (a, b) the
     norm is the double-where of the JAX package (sqrt only of a positive
     operand, 0 elsewhere), so a from-rest field's backward stays finite
     (sqrt's derivative at 0 is inf, and a zero cotangent times it NaN);
-    otherwise the one sqrt of the max. The two are equal bit for bit."""
+    otherwise the one sqrt of the max. The two are equal bit for bit.
+    With a ``mesh`` (``parallel.sharding``) (a, b) are this rank's block
+    and the max is an all-reduce over the ranks, on the device: every
+    rank gets the whole grid's value, bit for bit."""
     sq = a * a + b * b
+    if mesh is not None:
+        return torch.sqrt(mesh.max(torch.amax(sq)))
     if not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
         return torch.sqrt(torch.amax(sq))
     pos = sq > 0.0
@@ -50,7 +61,7 @@ def _speed_max(a, b):
 
 
 def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
-                     rho_f, mu_f=0.0, eta_s=0.0, kappa=0.0):
+                     rho_f, mu_f=0.0, eta_s=0.0, kappa=0.0, mesh=None):
     """Adaptive dt: the least of the fluid advection CFL, the solid P-wave
     CFL, the Brackbill capillary limit, the viscous limit and dt_min_cap.
     Returns a 0-d tensor; only the fluid CFL reads the device.
@@ -61,8 +72,9 @@ def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,
     package's tensor path runs on the device, its guards double-wheres
     (the P-wave speed's argument kept >= 1e-30, the capillary and viscous
     limits selected on the device), so that dt differentiates with respect
-    to every traced scalar."""
-    u_max = _speed_max(a, b)
+    to every traced scalar. With a ``mesh`` (a, b) are a rank's block
+    (``_speed_max``)."""
+    u_max = _speed_max(a, b, mesh)
     dt_fluid = CFL * dx / (u_max + 1e-6)
 
     scalars = (mu_s, rho_s, gamma, rho_f, kappa)
@@ -304,7 +316,8 @@ def body_forces(phis, rho_local, dx, dy, *, gamma, k_rep, w_c, w_t,
 def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
                   rho_local, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f,
                   f_ext_x=None, f_ext_y=None, rhs_fn=velocity_rhs_blended,
-                  periodic=False):
+                  periodic=False, row_offset=None, Ny_total=None,
+                  col_offset=None, Nx_total=None):
     """Plain RK4 velocity update from pre-blended fields, with the velocity
     BC applied to every stage input and to the result.
 
@@ -318,7 +331,24 @@ def momentum_core(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     wrap stencils and the plain RHS, whatever ``rhs_fn`` is: the JAX
     package skips its one-RHS kernel on the periodic box. The CUDA
     counterpart of the whole update is kernels/momentum_rk4.py.
+
+    ``row_offset``, ``Ny_total``, ``col_offset``, ``Nx_total`` make the
+    fields one shard's slab (``ops.slab.on_slab``; the JAX kernel's
+    operands): the update of the domain's cells, with the BC at the
+    domain's edge, and 0 within ``RK4_HALO`` cells of a cut and outside the
+    domain, as the CUDA kernel leaves them. Not on the periodic box.
     """
+    if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
+        if periodic:
+            raise ValueError("momentum_core: the periodic box takes no "
+                             "sharding offsets")
+        return on_slab(
+            momentum_core, (u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
+                            rho_local, mkv, velocity_bc),
+            dict(eta_s=eta_s, dx=dx, dy=dy, dt=dt, mu_f=mu_f,
+                 f_ext_x=f_ext_x, f_ext_y=f_ext_y, rhs_fn=rhs_fn),
+            row_offset=row_offset, Ny_total=Ny_total, col_offset=col_offset,
+            Nx_total=Nx_total, stale=RK4_HALO)
     rhs_kw = {} if f_ext_x is None else dict(f_ext_x=f_ext_x, f_ext_y=f_ext_y)
     if periodic:
         gx2, gy2 = grad_central_x_2nd_periodic, grad_central_y_2nd_periodic

@@ -533,6 +533,7 @@ def make_step(
     momentum_rhs_impl: Callable | None = None,
     projection_stencils_impl: tuple[Callable, Callable] | None = None,
     traced_params: tuple[str, ...] | None = None,
+    mesh=None,
 ):
     """Build the FSI step for a fixed configuration.
 
@@ -587,6 +588,14 @@ def make_step(
 
     Building a step turns TF32 off for matmuls and cuDNN: the DCT solve's
     matrix products must run in full float32.
+
+    ``mesh`` (a ``parallel.sharding.Mesh``; ``parallel.make_sharded_step``
+    builds it so, with the sharded solid-block and RK4 hooks) makes the
+    step one rank's of a domain decomposition: the state is the rank's
+    block of the grid, the adaptive dt's max and the projection's means
+    are over all ranks, the DCT solve is distributed, and the contact
+    force and the projection's stencils run on halo slabs. Without one the
+    step is the single-device step and communicates nothing.
     """
     check_options(cfg)
     if traced_params is not None:
@@ -616,6 +625,14 @@ def make_step(
         eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype,
                                              device)
         dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
+    # the grid of this step's fields: a rank's block with a mesh
+    shape = g.shape
+    if mesh is not None:
+        rows, cols = mesh.block(g.Ny, g.Nx)
+        eig = eig[rows, cols].contiguous()
+        dct_mats = (dct_mats[0][cols].contiguous(),
+                    dct_mats[1][rows].contiguous())
+        shape = eig.shape
     params0 = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
                            dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -635,7 +652,7 @@ def make_step(
         momentum_fn = momentum_rk4_impl or momentum_rk4_fused
         momentum_path = "rk4 kernel"
     elif cfg.use_pallas_rhs:
-        f_none = torch.zeros(g.shape, dtype=dtype, device=device)
+        f_none = torch.zeros(shape, dtype=dtype, device=device)
         momentum_fn = functools.partial(
             momentum_core,
             rhs_fn=momentum_rhs_impl or velocity_rhs_blended_fused)
@@ -659,6 +676,8 @@ def make_step(
         projection_path = "stencil kernels" if stencil_kernels else "stencils"
 
     X, Y = g.coords(dtype=dtype, device=device)
+    if mesh is not None:
+        X, Y = X[rows, cols].contiguous(), Y[rows, cols].contiguous()
     rebuild_phis = _make_rebuild(cfg, phi_inits, X, Y, dtype)
     fix_areas = None
     if cfg.phi_area_fix:
@@ -681,6 +700,9 @@ def make_step(
         st_kappa_interface=cfg.st_kappa_interface,
         st_hf_smooth=cfg.st_hf_smooth, with_faces=True,
         st_enabled=cfg.gamma > 1e-12)
+    if mesh is not None and cfg.k_rep > 0.0 and S >= 2:
+        # the contact force's stencils on halo slabs (gravity is pointwise)
+        forces = _on_mesh_slabs(mesh, forces)
 
     def g_rho_ref(pp):
         """Gravity's reference density: rho_f, traced or not, unless cfg
@@ -800,10 +822,10 @@ def make_step(
         rmt_block_fusible(cfg, S) and rmt_block_impl is None
         and not rmt_block_supported(phi_inits))
     # the pure-fluid step's block: no solid, the constant blends
-    empty = torch.zeros((0,) + g.shape, dtype=dtype, device=device)
-    fluid_block = (empty, torch.ones(g.shape, dtype=dtype, device=device),
-                   torch.full(g.shape, cfg.rho_f, dtype=dtype, device=device),
-                   torch.zeros(g.shape, dtype=dtype, device=device))
+    empty = torch.zeros((0,) + shape, dtype=dtype, device=device)
+    fluid_block = (empty, torch.ones(shape, dtype=dtype, device=device),
+                   torch.full(shape, cfg.rho_f, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
     def block_tier(u, v, p, state, dt, active, pp, params):
         """The fused, split or pure-fluid solid block, then the body forces
@@ -856,7 +878,7 @@ def make_step(
             dt = compute_timestep(
                 u, v, dx, dy, cfg.CFL, cfg.dt_min_cap, pp["mu_s"],
                 pp["rho_s"], pp["gamma"], pp["rho_f"], mu_f=cfg.mu_f,
-                eta_s=cfg.eta_s, kappa=pp["kappa"])
+                eta_s=cfg.eta_s, kappa=pp["kappa"], mesh=mesh)
         dt = torch.minimum(dt, torch.clamp(t_end - state.t, min=0.0)).to(dtype)
         # Once t reaches t_end the clipped dt is 0 and rho*div/dt would be
         # NaN: run the step with dt = 1 and freeze the state afterwards, so
@@ -875,7 +897,7 @@ def make_step(
             dct_mats, stencils=stencils, bc_type=cfg.bc_type,
             variable_rho=cfg.variable_rho, cg_tol=cfg.cg_tol,
             cg_maxiter=cfg.cg_maxiter, cg_info=cfg.variable_rho,
-            st_faces=st_faces)
+            st_faces=st_faces, mesh=mesh)
         u_new, v_new, p_new = proj[:3]
 
         # on a no-op step the state stays exactly frozen
@@ -924,6 +946,18 @@ def make_step(
     step.paths = {"solid": solid_path,
                   "momentum": momentum_path, "projection": projection_path}
     return step
+
+
+def _on_mesh_slabs(mesh, forces):
+    """``body_forces`` (the step's partial) on a rank's block: the level
+    sets and the density padded by the mesh's stencil halo, the forces
+    computed on the slab (the contact force's central differences reach
+    1 cell), cut back to the block."""
+
+    def run(phis, rho_local, **kw):
+        return mesh.stencil(lambda p, r: forces(p, r, **kw))(phis, rho_local)
+
+    return run
 
 
 def make_init_state(cfg: RMTConfig, phi_inits: Sequence[Callable] = (),

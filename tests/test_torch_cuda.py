@@ -1959,3 +1959,141 @@ def test_diff_step_on_the_card_matches_make_rollout(dev):
     assert float(L_d) == float(L_r)
     for a, b in zip(g_d, g_r):
         assert abs(float(a) - float(b)) <= GRAD_RTOL * abs(float(b))
+
+
+# The sharding offsets (parallel/sharding.py): each block of a mesh,
+# padded by its exchange halo with zeros beyond the domain, through the
+# kernel with its offsets. Square and ragged grids (204 x 300: blocks of
+# 102 x 75 and 51 x 300 against the tiles' 32 and 48), the disc inside the
+# domain (the edge tiles skip) and clipped by its edge.
+OFFSET_SHAPES = [(64, 64), (204, 300)]
+OFFSET_MESHES = [(2, 2), (4, 1), (1, 4), (2, 4)]
+
+
+def offset_case(dev, kernel, shape, disc, dtype):
+    """(kernel call, plain call, whole fields, halo, float32 bound): each
+    call ``call(*fields, **offsets)``."""
+    _, args, kw = block_inputs(dev, shape, dtype, disc)
+    if kernel == "rmt_block":
+        return (lambda *f, **o: rb.rmt_block_fused(*f, args[4], **kw, **o),
+                lambda *f, **o: rb.rmt_block_plain(*f, args[4], **kw, **o),
+                list(args[:4]), 16, 1e-4)
+    if kernel == "advext_block":
+        phis = disc(args[2][0], args[3][0])[None].contiguous()
+        akw = dict(dx=kw["dx"], dy=kw["dy"], num_layers=kw["num_layers"])
+        return (lambda *f, **o: rb.advext_block_fused(*f, args[4], **akw,
+                                                       **o),
+                lambda *f, **o: rb.advext_block_plain(*f, args[4], **akw,
+                                                       **o),
+                list(args[:4]) + [phis], 16, 1e-4)
+    cfg, fields, dt = momentum_inputs(dev, shape, dtype)
+    mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+               mu_f=cfg.mu_f)
+    bc = pt.free_slip_box_bc
+    return (lambda *f, **o: mk.momentum_rk4_fused(*f, bc, **mkw, **o),
+            lambda *f, **o: momentum_core(*f, bc, **mkw, **o),
+            list(fields), 8, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
+@pytest.mark.parametrize("shape", OFFSET_SHAPES)
+@pytest.mark.parametrize("kernel", ["rmt_block", "advext_block",
+                                    "momentum_rk4"])
+def test_offsets_stitched_slabs_equal_the_unsharded_kernel(
+        dev, kernel, shape, disc, dtype):
+    """The kernel's blocks stitched equal the unsharded kernel bit for bit;
+    each slab equals its plain twin with the same offsets (0 at the cut's
+    stale cells and beyond the domain in both)."""
+    from pyrmt_tpu_torch.parallel.sharding import Mesh, slab_of
+
+    kern, plain, fields, halo, rel = offset_case(dev, kernel, shape, disc,
+                                                 dtype)
+
+    def outs(o):
+        return (o,) if isinstance(o, torch.Tensor) else tuple(o)
+
+    whole = outs(kern(*fields))
+    counter = "offset_launches" if kernel != "advext_block" else \
+        "advext_offset_launches"
+    mod = mk if kernel == "momentum_rk4" else rb
+    for mesh in OFFSET_MESHES:
+        for iy in range(mesh[0]):
+            for ix in range(mesh[1]):
+                slabs = [slab_of(f, mesh, (iy, ix), halo) for f in fields]
+                offs = slabs[0][1]
+                before = getattr(mod, counter)
+                ko = outs(kern(*(a for a, _ in slabs), **offs))
+                assert getattr(mod, counter) == before + 1
+                po = outs(plain(*(a for a, _ in slabs), **offs))
+                torch.cuda.synchronize()
+                m = Mesh(mesh, (iy, ix))
+                rows, cols = m.block(*shape)
+                for k, p, w in zip(ko, po, whole):
+                    assert torch.equal(m.unpad(k, halo), w[..., rows, cols])
+                    scale = (1.0 if dtype == torch.float64
+                             else rel * max(1.0, float(p.abs().max())))
+                    bound = ATOL if dtype == torch.float64 else scale
+                    assert float((k - p).abs().max()) <= bound
+
+
+def test_kernels_launch_inside_their_tensors_device(dev, monkeypatch):
+    """Every launch enters ``torch.cuda.device`` of its tensors' device
+    (the launchers run on the current device), and runs there."""
+    real = torch.cuda.device
+    seen = []
+
+    class Recording:
+        def __init__(self, device):
+            self.inner = real(device)
+            self.device = torch.device(device)
+
+        def __enter__(self):
+            self.inner.__enter__()
+            seen.append((self.device, torch.cuda.current_device()))
+
+        def __exit__(self, *exc):
+            return self.inner.__exit__(*exc)
+
+    _, args, kw = block_inputs(dev, (64, 64))
+    cfg, fields, dt = momentum_inputs(dev, (64, 64))
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device", Recording)
+        rb.rmt_block_fused(*args, **kw)
+        mk.momentum_rk4_fused(*fields, pt.free_slip_box_bc, eta_s=0.0,
+                              dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
+                              mu_f=cfg.mu_f)
+    torch.cuda.synchronize()
+    assert len(seen) == 2
+    assert all(d == dev and cur == dev.index for d, cur in seen)
+
+
+def test_sharded_pure_fluid_step_launches_the_rk4_kernel(dev):
+    """A pure-fluid sharded step (no solid, so no solid-block kernel) on
+    the card takes the RK4 kernel's offset instantiation once a step on
+    every rank, and matches the single-process step: a gloo world of 2
+    ranks sharing the card, the (1, 2) mesh."""
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, rho_s=1.0, num_layers=3, CFL=0.2,
+                       dt_min_cap=1e-3)
+    bc, steps = pt.make_lid_bc(1.0), 3
+    r = run_world(2, "pyrmt_tpu_torch.parallel.launch:run_sharded", dict(
+        cases=[dict(cfg=cfg, velocity_bc=bc, phi_inits=(), steps=steps,
+                    dtype=torch.float64, device="cuda", mesh_shape=(1, 2))]),
+        backend="gloo")[0][0]
+    assert r["paths"]["momentum"].startswith("rk4 kernel")
+    for launches in r["launches"]:
+        assert launches["momentum_rk4.offset_launches"] == steps
+        assert launches["momentum_rk4.launches"] == 0
+        assert launches["rmt_block.offset_launches"] == 0
+    step = pt.make_step(cfg, bc, (), dtype=torch.float64, device=dev)
+    ref = pt.make_init_state(cfg, (), dtype=torch.float64, device=dev)
+    t_end = torch.tensor(1.0, dtype=torch.float64, device=dev)
+    for _ in range(steps):
+        ref, _ = step(ref, t_end)
+    for k in ("u", "v", "p"):
+        want = getattr(ref, k).cpu().numpy()
+        assert np.abs(r["state"][k] - want).max() <= 1e-10, k
+    assert r["state"]["X1"].shape == (0, N, N)
