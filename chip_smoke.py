@@ -150,15 +150,26 @@ another sm_90a card) and the CUDA toolkit. Phases:
      the offset instantiations' times
      on the (0, 0) block of the (2,2) mesh of N=2048 float32 (their device
      times are phase 3's profile rows "..., offsets"); (b) the sharded
-     flagship in one gloo world of 4 processes on the card
+     step in one gloo world of 4 processes on the card
      (parallel.launch.run_world: the halo and the gathers through host
-     copies): N=2048 float32 on (2,2), 20 steps, within 1e-4 of
-     max(1, |field|) of the single-process step, and N=256 float64 on (2,2)
-     and (4,1), and a pure fluid on (2,2), 3 steps, within 1e-10 (u, v, p)
-     and 1e-11 (X); every rank launches the offset instantiation of each
-     kernel of its step once a step (the pure fluid's: momentum_rk4
-     alone). [shard] lines, each field's error beside its bound; the wall
-     ms/step of 4 processes sharing one card is a
+     copies) against the single-process step from the same state: at
+     N=2048 float32 on (2,2), within 1e-4 of max(1, |field|), the
+     flagship (20 steps), the density contrast (the CG, 10 steps, each
+     step's iterations beside the single process's, within one), the
+     split tier (area fix + PDE reinit, 10 steps) and the periodic
+     flagship (10 steps), each beside a float64 single-process run (how
+     far either float32 step lies from it); at N=256 float64 on (2,2) and
+     (4,1), 3 steps, within 1e-10 (u, v, p) and 1e-11 (X): the flagship,
+     the density contrast (iterations equal), the split tier, the
+     periodic Taylor-Green pure fluid, and a pure fluid under the lid on
+     (2,2); at N=128 float64 on (2,2) the 'fmm' reinit and the
+     always-firing rebase (3 steps). Every rank launches the offset
+     instantiation of each kernel of its step once a step (rmt_block on
+     the fused tier, advext_block on the split tier, momentum_rk4 under
+     walls; the periodic box's momentum is the plain stage loop, as in
+     JAX) and extrapolate_fused once a rebase. [shard] lines, each
+     field's error beside its bound; the wall ms/step of 4 processes
+     sharing one card is a
      correctness run's, not a scaling number.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
@@ -2192,56 +2203,142 @@ def time_offsets(device, reps=20):
     return times
 
 
+def shard_case(kind, N, dtype, device):
+    """(cfg, bc, shapes, initial state, t_end) of a phase 14b run: the
+    flagship (at rest, the lid driving), a pure fluid in the lid cavity,
+    the density contrast of phase 4e (ratio 10, g 1, CG tol 1e-6, the
+    disc at rest), the split tier (the flagship with the area fix and PDE
+    reinitialisation), the periodic flagship (bench.py --periodic: the
+    Taylor-Green seed), the periodic Taylor-Green pure fluid, the 'fmm'
+    reinitialisation, and the always-firing rebase of
+    tests/test_rebase.py's sharded test (map_rebase_minj 10, a
+    Taylor-Green swirl of 0.3, free slip, t_end 10)."""
+    from pyrmt_tpu_torch import validation
+
+    kw = dict(dtype=dtype, device=device)
+    lid, disc = make_lid_bc(1.0), (FLAGSHIP_DISC,)
+    if kind in ("flagship", "pure fluid", "split", "fmm"):
+        over = {"split": dict(phi_area_fix=True, reinit_method="pde"),
+                "fmm": dict(reinit_method="fmm")}.get(kind, {})
+        cfg = flagship(N, **over)
+        shapes = () if kind == "pure fluid" else disc
+        return cfg, lid, shapes, make_init_state(cfg, shapes, **kw), 8.0
+    if kind == "density contrast":
+        cfg, bc, shapes, state = st_case(kind, N, **kw)
+        return cfg, bc, shapes, state, 8.0
+    if kind == "periodic":
+        cfg = flagship(N, bc_type="periodic")
+        return cfg, bcs.periodic_bc, disc, periodic_state(cfg, **kw), 8.0
+    if kind == "periodic TG":
+        cfg, bc, state = fluid_case("tg", N, **kw)
+        return cfg, bc, (), state, 8.0
+    cfg = flagship(N, mu_s=0.05, eta_s=0.0, CFL=0.3, map_rebase_minj=10.0)
+    shapes = (Disc(0.5, 0.5, 0.22),)
+    return (cfg, free_slip_box_bc, shapes,
+            swirl_state(cfg, shapes, dtype, device, amp=0.3), 10.0)
+
+
+# phase 14b's runs: (what, kind, N, dtype, mesh, untimed steps, timed
+# steps); the float32 runs at N=2048 on (2, 2), each beside a float64
+# single-process run
+SHARD_RUNS = (
+    [("N=2048 float32 (2,2)", "flagship", 2048, torch.float32, (2, 2), 2,
+      18)]
+    + [(f"N=2048 float32 (2,2) {kind}", kind, 2048, torch.float32, (2, 2),
+        0, 10) for kind in ("density contrast", "split", "periodic")]
+    + [(f"N=256 float64 ({a},{b})" + ("" if kind == "flagship" else
+                                        f" {kind}"), kind, 256,
+        torch.float64, (a, b), 0, 3)
+       for kind, meshes in (("flagship", ((2, 2), (4, 1))),
+                            ("pure fluid", ((2, 2),)),
+                            ("density contrast", ((2, 2), (4, 1))),
+                            ("split", ((2, 2), (4, 1))),
+                            ("periodic TG", ((2, 2), (4, 1))))
+       for a, b in meshes]
+    + [(f"N=128 float64 (2,2) {kind}", kind, 128, torch.float64, (2, 2),
+        0, 3) for kind in ("fmm", "rebase")])
+SPLIT_KINDS = ("split", "fmm", "rebase")
+
+
+def shard_launches(what, kind, steps, launches):
+    """Raise unless each rank launched the offset instantiation of each
+    kernel of its step once a step and no other: rmt_block's on the fused
+    tier, advext_block's on the split tier, momentum_rk4's under walls
+    (the periodic box's momentum is the plain stage loop, as in JAX), and
+    extrapolate_fused's unsharded kernel once a rebase."""
+    solid = kind not in ("pure fluid", "periodic TG")
+    want = {"rmt_block.offset_launches":
+            steps if solid and kind not in SPLIT_KINDS else 0,
+            "rmt_block.advext_offset_launches":
+            steps if kind in SPLIT_KINDS else 0,
+            "momentum_rk4.offset_launches":
+            0 if kind.startswith("periodic") else steps,
+            "extrapolate_fused.launches": steps if kind == "rebase" else 0}
+    for rank, n in enumerate(launches):
+        got = {k: n.get(k, 0) for k in want}
+        others = {k: v for k, v in n.items() if k not in want and v}
+        if got != want or others:
+            raise AssertionError(f"[shard] {what}: rank {rank} launched "
+                                 f"{n}, not {want} in {steps} steps")
+
+
 def sharded_runs(device, card):
     """Phase 14b: the sharded step in one gloo world of SHARD_RANKS
     processes on the one card (parallel.launch.run_world; gloo: the card
     cannot host an NCCL world of more than one rank, so the halo and the
     gathers go through host copies) against the single-process
-    ``make_step`` over the same steps: the flagship at N=2048 float32 on
-    the (2, 2) mesh, 2 untimed and 18 timed steps (within TOL_F32_RMT of
-    max(1, |field|)), and at N=256 float64 on (2, 2) and (4, 1), 3 steps,
-    and without the disc (a pure fluid) on (2, 2) (u, v and p within
-    1e-10, X1 and X2 within 1e-11: JAX's sharding tolerances). Every rank
-    must launch the offset instantiation of each kernel of its step (the
-    pure fluid's: the RK4 kernel alone) once a step. Returns the runs'
-    summaries."""
+    ``make_step`` over the same steps, from the same state: each run of
+    SHARD_RUNS, float32 within TOL_F32_RMT of max(1, |field|), float64
+    within 1e-10 (u, v, p) and 1e-11 (X1, X2: JAX's sharding tolerances);
+    the CG's iterations of each step beside the single process's (equal
+    in float64, within one in float32); every rank launching each kernel
+    of its step's path once a step (``shard_launches``). Beside each
+    float32 run a float64 single-process run from the same state: how far
+    each float32 step lies from it. Returns the runs' summaries."""
+    from pyrmt_tpu_torch.io import state_from_numpy, state_to_numpy
     from pyrmt_tpu_torch.parallel.launch import run_world
 
-    disc = (FLAGSHIP_DISC,)
-    runs = [("N=2048 float32 (2,2)", 2048, torch.float32, (2, 2), 2, 18,
-             disc),
-            ("N=256 float64 (2,2)", 256, torch.float64, (2, 2), 0, 3, disc),
-            ("N=256 float64 (4,1)", 256, torch.float64, (4, 1), 0, 3, disc),
-            ("N=256 float64 (2,2) pure fluid", 256, torch.float64, (2, 2),
-             0, 3, ())]
-    cases = [dict(cfg=flagship(N), velocity_bc=make_lid_bc(1.0),
-                  phi_inits=solids, steps=steps, warmup=warm,
-                  dtype=dtype, device="cuda", mesh_shape=mesh, t_end=8.0)
-             for _, N, dtype, mesh, warm, steps, solids in runs]
+    cases, starts = [], []
+    for what, kind, N, dtype, mesh, warm, steps in SHARD_RUNS:
+        cfg, bc, shapes, state, t_end = shard_case(kind, N, dtype, device)
+        state0 = state_to_numpy(state)
+        starts.append((cfg, bc, shapes, state0, t_end))
+        cases.append(dict(cfg=cfg, velocity_bc=bc, phi_inits=shapes,
+                          steps=steps, warmup=warm, dtype=dtype,
+                          device=torch.device(device).type, mesh_shape=mesh,
+                          t_end=t_end, state0=state0))
     t0 = time.perf_counter()
     results = run_world(SHARD_RANKS, "pyrmt_tpu_torch.parallel.launch:"
                         "run_sharded", dict(cases=cases), backend="gloo",
-                        timeout=600.0)[0]
+                        timeout=900.0)[0]
     world_s = time.perf_counter() - t0
+    fields = ("u", "v", "p", "X1", "X2")
     summary = {}
-    for (what, N, dtype, mesh, warm, steps, solids), r in zip(runs,
-                                                              results):
-        kw = dict(dtype=dtype, device=device)
-        cfg = flagship(N)
-        step = make_step(cfg, make_lid_bc(1.0), solids, **kw)
-        ref = make_init_state(cfg, solids, **kw)
-        for _ in range(warm + steps):
-            ref, _ = step(ref, 8.0)
+    for (what, kind, N, dtype, mesh, warm, steps), (cfg, bc, shapes, state0,
+                                                    t_end), r in zip(
+            SHARD_RUNS, starts, results):
         f64 = dtype == torch.float64
+        refs = {}
+        for ref_dtype in (dtype,) if f64 else (dtype, torch.float64):
+            kw = dict(dtype=ref_dtype, device=device)
+            step = make_step(cfg, bc, shapes, **kw)
+            ref = state_from_numpy(state0, **kw)
+            iters = []
+            for n in range(warm + steps):
+                ref, aux = step(ref, t_end)
+                if n >= warm and "cg_iters" in aux:
+                    iters.append(int(aux["cg_iters"]))
+            refs[ref_dtype] = ({k: getattr(ref, k).cpu().numpy()
+                                for k in fields}, iters)
+        want, iters = refs[dtype]
         errs, bounds = {}, {}
-        for k in ("u", "v", "p", "X1", "X2"):
-            want = getattr(ref, k).cpu().numpy()
-            if r["state"][k].shape != want.shape:
+        for k in fields:
+            if r["state"][k].shape != want[k].shape:
                 raise AssertionError(f"[shard] {what}: {k} gathered as "
                                      f"{r['state'][k].shape}, not "
-                                     f"{want.shape}")
-            err = float(np.abs(r["state"][k] - want).max(initial=0.0))
-            scale = float(np.abs(want).max(initial=0.0))
+                                     f"{want[k].shape}")
+            err = float(np.abs(r["state"][k] - want[k]).max(initial=0.0))
+            scale = float(np.abs(want[k]).max(initial=0.0))
             bound = ((1e-11 if k in ("X1", "X2") else 1e-10) if f64
                      else TOL_F32_RMT * max(1.0, scale))
             errs[k], bounds[k] = err, (bound, scale)
@@ -2249,21 +2346,40 @@ def sharded_runs(device, card):
                 raise AssertionError(f"[shard] {what}: {k} differs from the "
                                      f"single-process step by {err:.3e} > "
                                      f"{bound:.3g}")
-        for rank, launches in enumerate(r["launches"]):
-            for kern in ("rmt_block", "momentum_rk4") if solids else (
-                    "momentum_rk4",):
-                n = launches[f"{kern}.offset_launches"]
-                if n != steps or launches[f"{kern}.launches"]:
-                    raise AssertionError(
-                        f"[shard] {what}: rank {rank} launched {kern}'s "
-                        f"offset instantiation {n} times in {steps} steps "
-                        f"({launches})")
-            if not solids and (launches["rmt_block.offset_launches"]
-                               or launches["rmt_block.launches"]):
-                raise AssertionError(f"[shard] {what}: rank {rank} launched "
-                                     f"rmt_block without a solid")
+        shard_launches(what, kind, steps, r["launches"])
         if not r["finite"]:
             raise AssertionError(f"[shard] {what}: not finite")
+        extra = ""
+        if r["cg_iters"] is not None:
+            worst = max(abs(a - b) for a, b in zip(r["cg_iters"], iters))
+            if worst > (0 if f64 else 1):
+                raise AssertionError(f"[shard] {what}: CG iterations "
+                                     f"{r['cg_iters']} against the single "
+                                     f"process's {iters}")
+            extra += (f"; CG iterations a step {r['cg_iters']}, the single "
+                      f"process's {iters}")
+        if r["rebased"] is not None:
+            if r["rebased"] != [[True]] * steps:
+                raise AssertionError(f"[shard] {what}: rebased "
+                                     f"{r['rebased']}, not on every step")
+            extra += f"; rebased on each of the {steps} steps"
+        if kind in SPLIT_KINDS:
+            extra += ("; advext_block's offset instantiation "
+                      + "/".join(str(n["rmt_block.advext_offset_launches"])
+                                 for n in r["launches"])
+                      + f" launches over the ranks in {steps} steps")
+        vs64 = {}
+        if not f64:
+            want64 = refs[torch.float64][0]
+            vs64 = {k: (float(np.abs(r["state"][k] - want64[k]).max(
+                        initial=0.0)), float(np.abs(want[k] - want64[k]).max(
+                            initial=0.0))) for k in fields}
+            extra += ("; against a float64 single-process step, the "
+                      "sharded / single-process float32 max-abs: "
+                      + ", ".join(f"{k} {a:.3e} / {b:.3e}"
+                                  for k, (a, b) in vs64.items()))
+            if refs[torch.float64][1]:
+                extra += f" (its CG iterations {refs[torch.float64][1]})"
         ms = r["ms_per_step"]
         print(f"[shard] {what}: {SHARD_RANKS} processes sharing one card "
               f"({card}), a correctness run, not a scaling number; "
@@ -2274,12 +2390,13 @@ def sharded_runs(device, card):
                           f"(max |{k}| {bounds[k][1]:.4g}), "
                           f"{e / bounds[k][0]:.3g} of it"
                           for k, e in errs.items())
-              + f"; paths {r['paths']}")
+              + extra + f"; paths {r['paths']}")
         summary[what] = dict(errs=errs, bounds=bounds, ms_per_step=ms,
                              paths=r["paths"], launches=r["launches"],
-                             steps=steps)
+                             steps=steps, vs_float64=vs64,
+                             cg_iters=r["cg_iters"])
     print(f"[shard] the world of {SHARD_RANKS} ranks took {world_s:.1f} s "
-          f"(start-up, the {len(runs)} runs, the gathers)")
+          f"(start-up, the {len(SHARD_RUNS)} runs, the gathers)")
     return summary
 
 
@@ -2729,8 +2846,11 @@ def main() -> int:
     phase_s.append(("end", time.perf_counter()))
     spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
                       in zip(phase_s, phase_s[1:]))
+    p14 = phase_s[-1][1] - phase_s[-2][1]
     print(f"[time] wall seconds per phase (host clock): {spans}; in all "
-          f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on")
+          f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on; phase "
+          f"14 {p14:.1f} s, {'within' if p14 <= 150.0 else 'past'} its aim "
+          f"of 150 s")
     # the main path of extrapolate_fused is now the general tier's step
     main_launches["extrapolate_fused"] = general["weno5"]["launches"]
     gmaps = errs.pop("extrapolate_fused, general maps")
@@ -2810,23 +2930,27 @@ def main() -> int:
     entry = next(k for k in kernels if k["name"] == "rmt_block")
     entry["checked_modes"] = {row.split(", ")[1]: errs[row]
                               for row in CHECKED if row in errs}
-    # the offset instantiations: their launches on the main path of this
-    # slice (phase 14b's sharded flagship at N=2048, all ranks; the
-    # sharded step runs no split tier, so advext_block's are 0 there and
-    # phase 14a alone drives it), their errors from phase 14a, their times
-    # on the (0, 0) block of the (2, 2) mesh of N=2048 float32
-    main_run = shard["N=2048 float32 (2,2)"]
+    # the offset instantiations: their launches on the main paths of the
+    # sharded slices (phase 14b at N=2048 float32, all ranks: the flagship
+    # for rmt_block and momentum_rk4, the split tier for advext_block),
+    # their errors from phase 14a, their times on the (0, 0) block of the
+    # (2, 2) mesh of N=2048 float32
+    offset_runs = {"rmt_block": ("N=2048 float32 (2,2)",
+                                 "rmt_block.offset_launches"),
+                   "momentum_rk4": ("N=2048 float32 (2,2)",
+                                    "momentum_rk4.offset_launches"),
+                   "advext_block": ("N=2048 float32 (2,2) split",
+                                    "rmt_block.advext_offset_launches")}
     for row, (name, _) in OFFSET_ROWS.items():
         entry = next(k for k in kernels if k["name"] == name)
         stitched, vs_plain = offset_errs[name]
+        run, key = offset_runs[name]
         entry.setdefault("modes", []).append({
             "mode": "offsets, the (0, 0) block of the (2, 2) mesh of "
                     f"N={OFFSET_N}",
-            "launches": sum(n.get(f"{name}.offset_launches", 0)
-                            for n in main_run["launches"]),
-            "launches_from": ("14b (4 ranks, 18 timed steps)"
-                              if name != "advext_block" else
-                              "none: checked in 14a"),
+            "launches": sum(n[key] for n in shard[run]["launches"]),
+            "launches_from": f"14b {run} ({SHARD_RANKS} ranks, "
+                             f"{shard[run]['steps']} timed steps)",
             "max_abs_err": vs_plain, "stitched_max_abs_err": stitched,
             "ms": offset_times[row][0], "plain_ms": offset_times[row][1],
             "bound_ms": 1e-3 * bound_us(row, OFFSET_N // 2)[0],

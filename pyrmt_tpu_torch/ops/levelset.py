@@ -23,6 +23,7 @@ expressions in the JAX package's order, with its double-where guards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -117,13 +118,19 @@ def _smoothed_H(x):
     return torch.where(x < -1.0, 0.0, H)
 
 
+def _total(t, mesh):
+    """sum(t): over the whole grid from the ranks' blocks with a mesh."""
+    return torch.sum(t) if mesh is None else mesh.sum(torch.sum(t))
+
+
 def smoothed_solid_area(phi, dx, dy, w_t):
     """Smoothed solid (phi < 0) area  A = sum(1 - H_{w_t}(phi)) dx dy, as a
     0-d tensor."""
     return torch.sum(1.0 - _smoothed_H(phi / w_t)) * (dx * dy)
 
 
-def area_conserving_shift(phi, dx, dy, w_t, area_target, n_newton=2):
+def area_conserving_shift(phi, dx, dy, w_t, area_target, n_newton=2,
+                          mesh=None):
     """Return ``phi + c`` with the scalar ``c`` from ``n_newton`` Newton
     steps on A(phi + c) = ``area_target`` (a Python float):
 
@@ -131,17 +138,18 @@ def area_conserving_shift(phi, dx, dy, w_t, area_target, n_newton=2):
 
     Where the interface has vanished (P <= 1e-8) the step is 0. ``c`` stays
     on the device: the guard is a select, so the call never waits for the
-    card.
+    card. With a ``mesh`` ``phi`` is this rank's block and the area and
+    the perimeter are sums over the ranks, the same on each of them.
     """
     c = torch.zeros((), dtype=phi.dtype, device=phi.device)
     cell = dx * dy
     p_floor = 1e-8
     for _ in range(n_newton):
         x = (phi + c) / w_t
-        area = torch.sum(1.0 - _smoothed_H(x)) * cell
+        area = _total(1.0 - _smoothed_H(x), mesh) * cell
         dH = torch.where(torch.abs(x) < 1.0,
                          (0.5 / w_t) * (1.0 + torch.cos(math.pi * x)), 0.0)
-        perim = torch.sum(dH) * cell
+        perim = _total(dH, mesh) * cell
         ok = perim > p_floor
         c = c + torch.where(
             ok, (area - area_target) / torch.clamp(perim, min=p_floor), 0.0)
@@ -312,37 +320,64 @@ def compute_curvature_hf(phi, dx, dy, hh, kappa_fallback, smooth=0):
     return torch.minimum(torch.maximum(kap, -cap), cap)
 
 
-def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5):
+def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5,
+                         mesh=None):
     """Sussman-Smereka-Osher reinitialisation: ``num_iters`` Godunov-upwind
     pseudo-time steps with the smoothed sign of the input. The periodic
-    phi BC hook of the JAX function waits for ROADMAP modules item 3."""
+    phi BC hook of the JAX function waits for ROADMAP modules item 3.
+
+    With a ``mesh`` (``parallel.sharding``) ``phi_in`` is this rank's
+    block: the iterations run ``REINIT_CHUNK`` at a time on slabs padded
+    by as many exchanged cells (``Mesh.stencil``: the edge pad at the
+    domain's edge only), each iteration reading one cell further."""
     sign0 = phi_in / torch.sqrt(phi_in**2 + dx**2)
     dt_reinit = dt_reinit_factor * min(dx, dy)
-    mask_pos = sign0 > 0
-    mask_neg = sign0 < 0
 
-    phi = phi_in
-    for _ in range(num_iters):
-        pp = _edge_pad(phi)
-        Dx_m = (pp[1:-1, 1:-1] - pp[1:-1, 0:-2]) / dx
-        Dx_p = (pp[1:-1, 2:] - pp[1:-1, 1:-1]) / dx
-        Dy_m = (pp[1:-1, 1:-1] - pp[0:-2, 1:-1]) / dy
-        Dy_p = (pp[2:, 1:-1] - pp[1:-1, 1:-1]) / dy
+    def iterate(phi, sign0, n):
+        mask_pos = sign0 > 0
+        mask_neg = sign0 < 0
+        for _ in range(n):
+            phi = _pde_iteration(phi, sign0, mask_pos, mask_neg, dx, dy,
+                                 dt_reinit)
+        return phi
 
-        gx_pos = torch.maximum(torch.clamp(Dx_m, min=0.0) ** 2,
-                               torch.clamp(Dx_p, max=0.0) ** 2)
-        gy_pos = torch.maximum(torch.clamp(Dy_m, min=0.0) ** 2,
-                               torch.clamp(Dy_p, max=0.0) ** 2)
-        gx_neg = torch.maximum(torch.clamp(Dx_m, max=0.0) ** 2,
-                               torch.clamp(Dx_p, min=0.0) ** 2)
-        gy_neg = torch.maximum(torch.clamp(Dy_m, max=0.0) ** 2,
-                               torch.clamp(Dy_p, min=0.0) ** 2)
-
-        gx = torch.where(mask_pos, gx_pos, torch.where(mask_neg, gx_neg, 0.0))
-        gy = torch.where(mask_pos, gy_pos, torch.where(mask_neg, gy_neg, 0.0))
-        grad_mag = torch.sqrt(gx + gy)
-        phi = phi - dt_reinit * sign0 * (grad_mag - 1.0)
+    if mesh is None:
+        return iterate(phi_in, sign0, num_iters)
+    phi, done = phi_in, 0
+    while done < num_iters:
+        n = min(REINIT_CHUNK, num_iters - done)
+        phi = mesh.stencil(functools.partial(iterate, n=n), halo=n)(phi,
+                                                                    sign0)
+        done += n
     return phi
+
+
+# Iterations of the sharded PDE reinitialisation per halo exchange (and
+# the exchanged halo's depth).
+REINIT_CHUNK = 8
+
+
+def _pde_iteration(phi, sign0, mask_pos, mask_neg, dx, dy, dt_reinit):
+    """One Godunov-upwind pseudo-time step of ``reinitialize_phi_PDE``."""
+    pp = _edge_pad(phi)
+    Dx_m = (pp[1:-1, 1:-1] - pp[1:-1, 0:-2]) / dx
+    Dx_p = (pp[1:-1, 2:] - pp[1:-1, 1:-1]) / dx
+    Dy_m = (pp[1:-1, 1:-1] - pp[0:-2, 1:-1]) / dy
+    Dy_p = (pp[2:, 1:-1] - pp[1:-1, 1:-1]) / dy
+
+    gx_pos = torch.maximum(torch.clamp(Dx_m, min=0.0) ** 2,
+                           torch.clamp(Dx_p, max=0.0) ** 2)
+    gy_pos = torch.maximum(torch.clamp(Dy_m, min=0.0) ** 2,
+                           torch.clamp(Dy_p, max=0.0) ** 2)
+    gx_neg = torch.maximum(torch.clamp(Dx_m, max=0.0) ** 2,
+                           torch.clamp(Dx_p, min=0.0) ** 2)
+    gy_neg = torch.maximum(torch.clamp(Dy_m, max=0.0) ** 2,
+                           torch.clamp(Dy_p, min=0.0) ** 2)
+
+    gx = torch.where(mask_pos, gx_pos, torch.where(mask_neg, gx_neg, 0.0))
+    gy = torch.where(mask_pos, gy_pos, torch.where(mask_neg, gy_neg, 0.0))
+    grad_mag = torch.sqrt(gx + gy)
+    return phi - dt_reinit * sign0 * (grad_mag - 1.0)
 
 
 def _eikonal_update(a, b, hx, hy, big):
@@ -446,13 +481,23 @@ def reinitialize_phi_fsm(phi, dx, dy, n_passes=2):
 
 
 def reinitialize_level_set(phi, dx, dy, method="none", num_iters=20,
-                           dt_reinit_factor=0.2):
-    """Switchable reinitialisation: 'none', 'pde' or 'fmm'."""
+                           dt_reinit_factor=0.2, mesh=None):
+    """Switchable reinitialisation: 'none', 'pde' or 'fmm'. With a ``mesh``
+    (``parallel.sharding``) ``phi`` is this rank's block: 'pde' runs on
+    exchanged halo slabs (``reinitialize_phi_PDE``); 'fmm', a sweep over
+    the whole grid whose edges and cap are the whole grid's, runs on the
+    whole phi gathered on every rank, of which each keeps its block."""
     if method == "none":
         return phi
     if method == "pde":
-        return reinitialize_phi_PDE(phi, dx, dy, num_iters, dt_reinit_factor)
+        return reinitialize_phi_PDE(phi, dx, dy, num_iters, dt_reinit_factor,
+                                    mesh=mesh)
     if method == "fmm":
-        return reinitialize_phi_fsm(phi, dx, dy)
+        if mesh is None:
+            return reinitialize_phi_fsm(phi, dx, dy)
+        ly, lx = phi.shape
+        rows, cols = mesh.block(ly * mesh.shape[0], lx * mesh.shape[1])
+        return reinitialize_phi_fsm(mesh.gather(phi), dx, dy)[
+            rows, cols].contiguous()
     raise ValueError(
         f"Unknown reinit method {method!r} (expected 'none', 'pde' or 'fmm')")

@@ -22,6 +22,8 @@ device, so the solve stops at the iteration the JAX package's
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import numpy as np
@@ -77,8 +79,8 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True,
     rows of C_y times the column strip of f gathered over the ranks that
     share its columns, then the row strip of that gathered over the ranks
     that share its rows, times its rows of C_x transposed; the mean is
-    the whole grid's. A block of a matrix product need not round as the
-    whole product does."""
+    the whole grid's. On CUDA tensors the products go through cuBLASLt
+    (``_block_products``)."""
     Cx, Cy = dct_mats
     Ny, Nx = Cy.shape[1], Cx.shape[1]
     if mesh is None:
@@ -90,9 +92,32 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True,
     def transform(f):
         return mesh.gather_cols(Cy @ mesh.gather_rows(f)) @ Cx.T
 
-    p_hat = transform(rhs_2d) / eigenvalues
-    p = transform(p_hat) / (4.0 * (Nx - 1) * (Ny - 1))
+    with _block_products(rhs_2d):
+        p_hat = transform(rhs_2d) / eigenvalues
+        p = transform(p_hat) / (4.0 * (Nx - 1) * (Ny - 1))
     return p - mesh.mean(p) if demean else p
+
+
+@contextlib.contextmanager
+def _block_products(like):
+    """cuBLASLt for the matrix products of a rank's rows where ``like`` is
+    a CUDA tensor, the preferred BLAS library restored after. On the H100
+    its float32 products of a rank's rows of C_y or C_x equal the rows of
+    the whole products of the single-device solve (default cuBLAS) bit for
+    bit at N=2048 on the (2, 2), (4, 1), (1, 4) and (2, 4) meshes, where
+    cuBLAS's differ by up to 1e-4 of their size, as much as a float32 solve
+    differs from a float64 one; at N=1024 the first of them still differs
+    (PERF.md section 6). Float64 products agree bit for bit under
+    either."""
+    if like.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_blas_library()
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_blas_library(prev)
 
 
 def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
@@ -186,12 +211,25 @@ def tile_overlap(field_reduced, Ny, Nx):
     return torch.cat([top, top[0:1, :]], dim=0)
 
 
-def solve_poisson_fft(rhs_full, eigenvalues_periodic):
+def solve_poisson_fft(rhs_full, eigenvalues_periodic, mesh=None):
     """Direct periodic Poisson solve on the reduced sub-grid: de-mean, an
     FFT along x then y (complex64 for float32, complex128 for float64, as
     ``jnp.fft`` makes them), divide by the symbol, zero the null modes, the
-    inverse FFTs, the real part tiled to the overlap grid, de-mean."""
+    inverse FFTs, the real part tiled to the overlap grid, de-mean.
+
+    With a ``mesh`` (``parallel.sharding``) ``rhs_full`` is this rank's
+    block of the overlap grid and ``eigenvalues_periodic`` the whole
+    reduced grid's pair. The overlap row and column belong to the last
+    rank along each axis, so that rank's block of the reduced grid is a
+    row or a column short. Each 1D FFT runs along whole rows or whole
+    columns: the row strip of the ranks that share this rank's rows
+    (``Mesh.gather_cols``), or the column strip of those that share its
+    columns, of which each rank keeps its own columns or rows; the
+    overlap row and column come from their owners (``Mesh.overlap_copy``)
+    and the means are the whole grid's."""
     eig, null = eigenvalues_periodic
+    if mesh is not None:
+        return _solve_poisson_fft_mesh(rhs_full, eig, null, mesh)
     Ny, Nx = rhs_full.shape
     r = rhs_full[:-1, :-1]
     r = r - torch.mean(r)
@@ -203,9 +241,63 @@ def solve_poisson_fft(rhs_full, eigenvalues_periodic):
     return p - torch.mean(p)
 
 
-def compute_divergence_periodic(a_star, b_star, dx, dy):
+def _reduced_block(mesh, ly, lx):
+    """This rank's block of the reduced (Ny - 1, Nx - 1) grid: (its first
+    row, its rows, its first column, its columns)."""
+    (ry, rx), (iy, ix) = mesh.shape, mesh.coords
+    return (iy * ly, ly - (iy == ry - 1), ix * lx, lx - (ix == rx - 1))
+
+
+def _strip(mesh, z, rows):
+    """The whole rows (``rows``) or whole columns of the reduced grid from
+    the ranks' blocks ``z`` of it (real or complex): the last rank's short
+    block padded to gather, the pad cut off."""
+    cplx = z.is_complex()
+    parts = torch.stack([z.real, z.imag]) if cplx else z
+    (ry, rx), (iy, ix) = mesh.shape, mesh.coords
+    if rows:
+        full = z.shape[-1] + (ix == rx - 1)
+        parts = mesh.gather_cols(F.pad(parts, (0, full - z.shape[-1])))
+        parts = parts[..., :full * rx - 1]
+    else:
+        full = z.shape[-2] + (iy == ry - 1)
+        parts = mesh.gather_rows(F.pad(parts,
+                                       (0, 0, 0, full - z.shape[-2])))
+        parts = parts[..., :full * ry - 1, :]
+    return torch.complex(parts[0], parts[1]) if cplx else parts
+
+
+def _solve_poisson_fft_mesh(rhs, eig, null, mesh):
+    ly, lx = rhs.shape
+    r0, nr, c0, nc = _reduced_block(mesh, ly, lx)
+    Ny_r, Nx_r = eig.shape
+    r = rhs[:nr, :nc]
+    r = r - mesh.sum(torch.sum(r)) / (Ny_r * Nx_r)
+    fx = torch.fft.fft(_strip(mesh, r, rows=True), dim=1)[:, c0:c0 + nc]
+    rhat = torch.fft.fft(_strip(mesh, fx, rows=False), dim=0)
+    cols = slice(c0, c0 + nc)
+    phat = rhat / eig[:, cols].to(rhat.real.dtype)
+    phat = torch.where(null[:, cols], 0.0, phat)
+    gx = torch.fft.ifft(_strip(mesh, phat[r0:r0 + nr], rows=True),
+                        dim=1)[:, c0:c0 + nc]
+    g = torch.fft.ifft(_strip(mesh, gx, rows=False), dim=0)[r0:r0 + nr]
+    p = F.pad(g.real.to(rhs.dtype), (0, lx - nc, 0, ly - nr))
+    p = mesh.overlap_copy([p], tile=True)[0]
+    return p - mesh.mean(p)
+
+
+def compute_divergence_periodic(a_star, b_star, dx, dy, mesh=None):
     """Wide central divergence with the periodic wrap on the reduced
-    sub-grid, tiled to the overlap grid."""
+    sub-grid, tiled to the overlap grid. With a ``mesh`` the interior
+    central differences of this rank's block padded by a 1-cell wrap halo
+    (``Mesh.pad(wrap=True)``); the overlap row and column then read the
+    neighbours of row and column 0, so they equal them where the fields
+    are overlap-consistent (the velocity BC's copy makes them so)."""
+    if mesh is not None:
+        sa, sb = mesh.pad([a_star, b_star], 1, wrap=True)
+        dudx = (sa[1:-1, 2:] - sa[1:-1, :-2]) / (2.0 * dx)
+        dvdy = (sb[2:, 1:-1] - sb[:-2, 1:-1]) / (2.0 * dy)
+        return dudx + dvdy
     Ny, Nx = a_star.shape
     au = a_star[:-1, :-1]
     bv = b_star[:-1, :-1]
@@ -214,9 +306,14 @@ def compute_divergence_periodic(a_star, b_star, dx, dy):
     return tile_overlap(dudx + dvdy, Ny, Nx)
 
 
-def compute_pressure_gradient_periodic(p, dx, dy):
+def compute_pressure_gradient_periodic(p, dx, dy, mesh=None):
     """Wide central pressure gradient with the periodic wrap, tiled to the
-    overlap grid."""
+    overlap grid; with a ``mesh`` on this rank's block, as
+    ``compute_divergence_periodic``."""
+    if mesh is not None:
+        s = mesh.pad([p], 1, wrap=True)[0]
+        return ((s[1:-1, 2:] - s[1:-1, :-2]) / (2.0 * dx),
+                (s[2:, 1:-1] - s[:-2, 1:-1]) / (2.0 * dy))
     Ny, Nx = p.shape
     pr = p[:-1, :-1]
     dpdx = (torch.roll(pr, -1, 1) - torch.roll(pr, 1, 1)) / (2.0 * dx)
@@ -296,32 +393,59 @@ def _host_read(flag) -> bool:
 
 
 def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
-                              dct_mats):
+                              dct_mats, mesh=None):
     """The PCG loop (see ``solve_variable_poisson_cg_counted``). Autograd
     never records it: the public entry hides it behind the implicit
     adjoint ``_CGAdjoint``, as the JAX package hides its while loop."""
     read_every = CG_READ_EVERY
-    w = _trapezoid_weights(rhs.shape, rhs.dtype, rhs.device)
+    if mesh is None:
+        w = _trapezoid_weights(rhs.shape, rhs.dtype, rhs.device)
+        eig_pre = _pin_null_mode(eigenvalues)
+        apply = functools.partial(apply_variable_poisson, dx=dx, dy=dy)
+
+        def total(t):
+            return torch.sum(t)
+
+        def mean(t):
+            return torch.mean(t)
+    else:
+        # the whole grid's weights, the null mode pinned on the rank that
+        # holds global (0, 0), the matvec on 1-cell halo slabs and every
+        # dot product a sum over the ranks, the same on each of them
+        ly, lx = rhs.shape
+        (ry, rx), (iy, ix) = mesh.shape, mesh.coords
+        rows, cols = mesh.block(ly * ry, lx * rx)
+        w = _trapezoid_weights((ly * ry, lx * rx), rhs.dtype,
+                               rhs.device)[rows, cols]
+        eig_pre = (_pin_null_mode(eigenvalues) if (iy, ix) == (0, 0)
+                   else eigenvalues)
+        apply = mesh.stencil(functools.partial(apply_variable_poisson,
+                                               dx=dx, dy=dy), halo=1)
+
+        def total(t):
+            return mesh.sum(torch.sum(t))
+
+        mean = mesh.mean
     inv_w = 1.0 / w
-    eig_pre = _pin_null_mode(eigenvalues)
 
     def matvec(p):
-        return w * apply_variable_poisson(p, inv_rho, dx, dy)
+        return w * apply(p, inv_rho)
 
     def precond(r):
-        return solve_poisson_dct(r * inv_w, eig_pre, dct_mats, demean=False)
+        return solve_poisson_dct(r * inv_w, eig_pre, dct_mats, demean=False,
+                                 mesh=mesh)
 
     b = w * rhs
-    b = b - torch.mean(b)
-    bnorm = torch.sqrt(torch.sum(b * b))
+    b = b - mean(b)
+    bnorm = torch.sqrt(total(b * b))
     atol2 = tol * bnorm
 
     def going(r, k):
-        return (torch.sqrt(torch.sum(r * r)) > atol2) & (k < maxiter)
+        return (torch.sqrt(total(r * r)) > atol2) & (k < maxiter)
 
     r = b
     z = precond(r)
-    gamma = torch.sum(r * z)
+    gamma = total(r * z)
     d = z
     x = torch.zeros_like(b)
     k = torch.zeros((), dtype=torch.int32, device=rhs.device)
@@ -329,11 +453,11 @@ def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
         for _ in range(read_every):
             go = going(r, k)
             Ad = matvec(d)
-            alpha = gamma / torch.sum(d * Ad)
+            alpha = gamma / total(d * Ad)
             x = torch.where(go, x + alpha * d, x)
             r_new = r - alpha * Ad
             z = precond(r_new)
-            gamma_new = torch.sum(r_new * z)
+            gamma_new = total(r_new * z)
             beta = gamma_new / gamma
             d = torch.where(go, z + beta * d, d)
             r = torch.where(go, r_new, r)
@@ -341,13 +465,14 @@ def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
             k = k + go.to(torch.int32)
         if not _host_read(going(r, k)):
             break
-    relres = torch.sqrt(torch.sum(r * r)) / torch.clamp(
+    relres = torch.sqrt(total(r * r)) / torch.clamp(
         bnorm, min=torch.finfo(rhs.dtype).tiny)
-    return x - torch.mean(x), k, relres
+    return x - mean(x), k, relres
 
 
 def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
-                                      tol=1e-6, maxiter=200, dct_mats=None):
+                                      tol=1e-6, maxiter=200, dct_mats=None,
+                                      mesh=None):
     """Symmetrised preconditioned CG for the variable-density Neumann
     Poisson problem grad.((1/rho) grad p) = rhs, as the JAX package solves
     it: the system left-scaled by the trapezoidal weights D, the rhs
@@ -365,13 +490,27 @@ def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
     Where ``rhs`` or ``inv_rho`` requires a gradient the solve is the
     implicit adjoint ``_CGAdjoint`` (the JAX package's custom VJP): the
     loop runs without autograd, and the backward is one more CG solve;
-    iters and relres carry no gradient."""
+    iters and relres carry no gradient.
+
+    With a ``mesh`` (``parallel.sharding``) ``rhs``, ``inv_rho`` and
+    ``eigenvalues`` are this rank's block and ``dct_mats`` its rows
+    (``solve_poisson_dct``): the matvec runs on slabs with a 1-cell halo
+    (``Mesh.stencil``: the ghost mirror at the domain's edge only), the
+    weights are the whole grid's, only the rank that holds global (0, 0)
+    pins the constant mode, and each dot product and norm is a sum over
+    the ranks added in rank order, so every rank reads the same stopping
+    test and count. A sum over the ranks need not round as one sum does.
+    No gradient under a mesh (NotImplementedError)."""
     if needs_grad((rhs, inv_rho)):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded CG solve has no gradient (sharded "
+                "traced_params wait for ROADMAP modules item 16)")
         Cx, Cy = dct_mats
         return _CGAdjoint.apply(rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy,
                                 tol, maxiter)
     return _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol,
-                                     maxiter, dct_mats)
+                                     maxiter, dct_mats, mesh)
 
 
 class _CGAdjoint(torch.autograd.Function):

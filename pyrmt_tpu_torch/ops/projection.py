@@ -61,59 +61,68 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
 
     With a ``mesh`` (``parallel.sharding``) the fields are this rank's
     block of the grid, ``eigenvalues`` and ``dct_mats`` its block and rows
-    (``solve_poisson_dct``): the stencil pair runs on slabs with a halo
-    (``Mesh.stencil``), the DCT solve is distributed and the means are the
-    whole grid's. Neumann walls at constant density without face forces
-    only (NotImplementedError)."""
+    (``solve_poisson_dct``); on the periodic box ``eigenvalues`` is the
+    whole reduced grid's pair (``solve_poisson_fft``). The Neumann
+    stencils run on slabs with a halo (``Mesh.stencil``), the periodic
+    ones on wrap-padded slabs, the DCT, CG and FFT solves are distributed,
+    the means are the whole grid's, and the periodic BC's overlap copy
+    crosses ranks (``Mesh.overlap_copy``: the sharded periodic box takes
+    ``bcs.periodic_bc``). The balanced CSF's face forces are not sharded
+    (NotImplementedError)."""
     if cg_info and not variable_rho:
         raise ValueError("cg_info=True requires variable_rho=True")
-    if mesh is not None and (bc_type != "neumann" or variable_rho
-                             or st_faces is not None):
+    if mesh is not None and st_faces is not None:
         raise NotImplementedError(
-            "the sharded projection takes Neumann walls at constant density "
-            "without face forces")
+            "the sharded projection takes no balanced-CSF face forces")
     if st_faces is not None and bc_type != "neumann":
         raise ValueError(
             "balanced-force st_faces requires the incremental Neumann "
             "(Rhie-Chow) projection")
     if bc_type == "periodic":
-        divU = compute_divergence_periodic(a_star, b_star, dx, dy)
-        rhs_2d = torch.mean(rho) * divU / dt
-        p_correction = solve_poisson_fft(rhs_2d, eigenvalues)
-        dpdx, dpdy = compute_pressure_gradient_periodic(p_correction, dx, dy)
-        a, b = velocity_bc(a_star - (dt / rho) * dpdx,
-                           b_star - (dt / rho) * dpdy)
+        divU = compute_divergence_periodic(a_star, b_star, dx, dy, mesh=mesh)
+        rhs_2d = _mean(rho, mesh) * divU / dt
+        p_correction = solve_poisson_fft(rhs_2d, eigenvalues, mesh=mesh)
+        dpdx, dpdy = compute_pressure_gradient_periodic(p_correction, dx, dy,
+                                                        mesh=mesh)
+        a, b = a_star - (dt / rho) * dpdx, b_star - (dt / rho) * dpdy
+        a, b = (velocity_bc(a, b) if mesh is None
+                else mesh.overlap_copy([a, b]))
         p = p_prev + p_correction
-        return a, b, p - torch.mean(p)
+        return a, b, p - _mean(p, mesh)
     if bc_type != "neumann":
         raise ValueError(f"unknown bc_type {bc_type!r}")
     cg_stats = None
+    grad_correct = grad_correct_plain
     if variable_rho:
-        divU = compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
-                                     variable_rho=True, st_faces=st_faces)
+        divU = _stencil(lambda a, b, pp, r: compute_divergence_rc(
+            a, b, pp, dt, r, dx, dy, variable_rho=True, st_faces=st_faces),
+            mesh)(a_star, b_star, p_prev, rho)
         p_correction, iters, relres = solve_variable_poisson_cg_counted(
             divU / dt, 1.0 / rho, eigenvalues, dx, dy, tol=cg_tol,
-            maxiter=cg_maxiter, dct_mats=dct_mats)
+            maxiter=cg_maxiter, dct_mats=dct_mats, mesh=mesh)
         cg_stats = (iters, relres)
-        grad_correct = grad_correct_plain
     elif st_faces is not None:
         divU = compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
                                      st_faces=st_faces)
         p_correction = solve_poisson_dct(rho * divU / dt, eigenvalues,
                                          dct_mats)
-        grad_correct = grad_correct_plain
     else:
-        rc_rhs, grad_correct = (stencils if mesh is None else
-                                tuple(mesh.stencil(f) for f in stencils))
+        rc_rhs, grad_correct = stencils
         d_scalar = dt / _mean(rho, mesh)
-        rhs_2d = rc_rhs(a_star, b_star, p_prev, rho, dt, d_scalar, dx, dy)
+        rhs_2d = _stencil(rc_rhs, mesh)(a_star, b_star, p_prev, rho, dt,
+                                        d_scalar, dx, dy)
         p_correction = solve_poisson_dct(rhs_2d, eigenvalues, dct_mats,
                                          mesh=mesh)
-    a, b = grad_correct(p_correction, a_star, b_star, rho, dt, dx, dy,
-                        velocity_bc)
+    a, b = _stencil(grad_correct, mesh)(p_correction, a_star, b_star, rho,
+                                        dt, dx, dy, velocity_bc)
     p = p_prev + p_correction
     p = p - _mean(p, mesh)
     return (a, b, p, cg_stats) if cg_info else (a, b, p)
+
+
+def _stencil(fn, mesh):
+    """fn, or with a mesh fn on this rank's halo slabs (``Mesh.stencil``)."""
+    return fn if mesh is None else mesh.stencil(fn)
 
 
 def _mean(f, mesh):

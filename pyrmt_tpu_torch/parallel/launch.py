@@ -112,7 +112,8 @@ def _rank_main(work: str, rank: int, world: int, backend: str) -> None:
 
 def run_sharded(cases):
     """A rank body: for each case (a dict of ``sharded_case``'s keywords),
-    a sharded run gathered back; returns the list of their results on rank
+    a sharded run gathered back, on a mesh of the world's ranks or of its
+    first ones (``mesh_shape``); returns the list of their results on rank
     0, None on the others."""
     import torch.distributed as dist
 
@@ -124,16 +125,21 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
                  mesh_shape=None, rmt_method=None, state0=None, t_end=1.0,
                  warmup=0):
     """``steps`` steps of ``make_sharded_step`` on this world's mesh (near
-    square, or ``mesh_shape``) from ``make_init_state`` or from ``state0``
+    square, or ``mesh_shape``, of the world's first ranks where it holds
+    fewer: the others return None at once) from ``make_init_state`` or
+    from ``state0``
     (a whole state as numpy arrays, ``io.state_to_numpy``'s), after
     ``warmup`` steps that are not timed; returns
     the gathered final state as numpy arrays, the step's paths, each
-    rank's wall milliseconds a step (the host clock, synchronised) and
-    each rank's launches of each kernel over the timed steps."""
+    rank's wall milliseconds a step (the host clock, synchronised), each
+    rank's launches of each kernel over the timed steps, and each timed
+    step's aux['cg_iters'] (variable density) and aux['rebased'] (map
+    rebasing) as rank 0 read them (None without)."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from pyrmt_tpu_torch.kernels import extrapolate_fused as ef
     from pyrmt_tpu_torch.kernels import momentum_rk4 as mk
     from pyrmt_tpu_torch.kernels import rmt_block as rb
     from pyrmt_tpu_torch.parallel.sharding import (
@@ -145,6 +151,8 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
     from pyrmt_tpu_torch.sim import make_init_state
 
     mesh = make_mesh(shape=mesh_shape)
+    if mesh is None:  # a mesh of fewer ranks than the world's
+        return None
     kw = dict(dtype=dtype, device=device)
     step, shard = make_sharded_step(cfg, velocity_bc, phi_inits, mesh,
                                     rmt_method=rmt_method, **kw)
@@ -156,32 +164,46 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
     t = torch.as_tensor(t_end, dtype=dtype, device=device)
     for _ in range(warmup):
         state, _ = step(state, t)
-    names = ("launches", "offset_launches")
-    for mod in (rb, mk):
+    counters = {"rmt_block": (rb, ("launches", "offset_launches",
+                                   "advext_launches",
+                                   "advext_offset_launches")),
+                "momentum_rk4": (mk, ("launches", "offset_launches")),
+                "extrapolate_fused": (ef, ("launches",))}
+    for mod, names in counters.values():
         for n in names:
             setattr(mod, n, 0)
     sync = torch.cuda.synchronize if state.u.is_cuda else (lambda: None)
     sync()
+    auxes = []
     t0 = time.perf_counter()
     for _ in range(steps):
         state, aux = step(state, t)
+        auxes.append({k: aux[k] for k in ("cg_iters", "rebased")
+                      if k in aux})
     sync()
     ms = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
-    launches = {f"{m}.{n}": getattr(mod, n) for m, mod in
-                (("rmt_block", rb), ("momentum_rk4", mk)) for n in names}
-    per_rank = [None] * dist.get_world_size()
-    dist.all_gather_object(per_rank, (ms, launches))
+    launches = {f"{m}.{n}": getattr(mod, n)
+                for m, (mod, names) in counters.items() for n in names}
+    per_rank = [None] * mesh.size
+    dist.all_gather_object(per_rank, (ms, launches), group=mesh.group)
     whole = gather_state(state, mesh)
     phis = (mesh.gather(aux["phis"]) if aux["phis"].numel() else
             aux["phis"].new_zeros((0,) + tuple(whole.u.shape)))
     arrays = {k: getattr(whole, k).detach().cpu().numpy()
-              for k in ("u", "v", "p", "X1", "X2", "t", "step")}
+              for k in ("u", "v", "p", "X1", "X2", "t", "step", "phis0")}
     arrays["phis"] = phis.detach().cpu().numpy()
+
+    def per_step(key, read):
+        return ([read(a[key]) for a in auxes] if auxes and key in auxes[0]
+                else None)
+
     return dict(state=arrays, paths=dict(step.paths),
                 ms_per_step=[r[0] for r in per_rank],
                 launches=[r[1] for r in per_rank], mesh=mesh.shape,
                 dt=float(aux["dt"]), finite=bool(np.isfinite(
-                    arrays["u"]).all()))
+                    arrays["u"]).all()),
+                cg_iters=per_step("cg_iters", int),
+                rebased=per_step("rebased", lambda r: r.tolist()))
 
 
 if __name__ == "__main__":

@@ -454,7 +454,10 @@ def _make_rebuild(cfg, phi_inits, X, Y, dtype):
     cells; a state made by the JAX package holds its own seeds, which may
     round a few cells an ulp away from the port's. So phis0[i] reads as
     the seed where it lies within ``SEED_ULPS`` ulps of it (of |seed| +
-    max |seed|, the scale of the square root's rounding) in every cell."""
+    max |seed|, the scale of the square root's rounding) in every cell.
+
+    X, Y and phis0 are the whole grid's (a rank's step of a domain
+    decomposition gathers phis0), the maps may be a block of it."""
     g = cfg.grid
     mode = cfg.map_rebase_rebuild if _rebasing(cfg, len(phi_inits)) \
         else "analytic"
@@ -481,12 +484,19 @@ def _make_rebuild(cfg, phi_inits, X, Y, dtype):
     return rebuild_phis
 
 
-def _make_maybe_rebase(cfg, S, X, Y, extrap_fn):
+def _make_maybe_rebase(cfg, S, X, Y, extrap_fn, mesh=None):
     """``maybe_rebase(X1s, X2s, phis, J_s, phis0, active)`` ->
     (X1s, X2s, phis0, rebased): where a solid's least J over phi <= 0
     drops below ``cfg.map_rebase_minj`` on an active step, reset its map
     to the identity against its redistanced level set (``_rebase_map``).
-    J = 1 at the identity, so a rebase cannot re-trigger at once.
+    J = 1 at the identity, so a rebase cannot re-trigger at once. X, Y
+    are the whole grid's coordinates.
+
+    With a ``mesh`` (``parallel.sharding``) the fields are this rank's
+    block: the least J is a min over the ranks, so every rank reads the
+    same trigger, and a rebase redistances and extrapolates the whole
+    level set gathered on every rank (the fast sweep and its cap are the
+    whole grid's), of which each keeps its block.
 
     The JAX package selects the rebase with ``lax.cond`` on the device;
     here the step reads the S trigger flags on the host, once per step,
@@ -502,13 +512,19 @@ def _make_maybe_rebase(cfg, S, X, Y, extrap_fn):
                                                 device=X1s.device)
         minJ = torch.amin(torch.where(phis <= 0.0, J_s, float("inf")),
                           dim=(1, 2))
+        if mesh is not None:
+            minJ = mesh.min(minJ)
         trig = (minJ < cfg.map_rebase_minj) & active
         fire = trig.tolist()  # the step's one host read
         if not any(fire):
             return X1s, X2s, phis0, trig
-        outs = [_rebase_map(phis[i], X, Y, g.dx, g.dy, cfg.num_layers,
-                            extrap_fn) if fire[i]
-                else (X1s[i], X2s[i], phis0[i]) for i in range(S)]
+        block = (slice(None), slice(None))
+        if mesh is not None:
+            phis = mesh.gather(phis)
+            block = mesh.block(*phis.shape[-2:])
+        outs = [tuple(f[block] for f in _rebase_map(
+                    phis[i], X, Y, g.dx, g.dy, cfg.num_layers, extrap_fn))
+                if fire[i] else (X1s[i], X2s[i], phis0[i]) for i in range(S)]
         return (*(torch.stack(c) for c in zip(*outs)), trig)
 
     return maybe_rebase
@@ -592,9 +608,13 @@ def make_step(
     ``mesh`` (a ``parallel.sharding.Mesh``; ``parallel.make_sharded_step``
     builds it so, with the sharded solid-block and RK4 hooks) makes the
     step one rank's of a domain decomposition: the state is the rank's
-    block of the grid, the adaptive dt's max and the projection's means
-    are over all ranks, the DCT solve is distributed, and the contact
-    force and the projection's stencils run on halo slabs. Without one the
+    block of the grid, the adaptive dt's max, the projection's means, the
+    CG's dot products, the area fix's sums and a rebase's least J are
+    over all ranks, the DCT and FFT solves are distributed, the contact
+    force, the projection's and the split tier's stencils and the PDE
+    reinitialisation run on halo slabs (the periodic box's on wrap-padded
+    ones), and the fast sweeps ('fmm', a rebase) and the rebuild's sample
+    of phis0 take the whole field gathered on every rank. Without one the
     step is the single-device step and communicates nothing.
     """
     check_options(cfg)
@@ -625,14 +645,17 @@ def make_step(
         eig = precompute_poisson_eigenvalues(g.Nx, g.Ny, dx, dy, dtype,
                                              device)
         dct_mats = precompute_dct_matrices(g.Nx, g.Ny, dtype, device)
-    # the grid of this step's fields: a rank's block with a mesh
+    # the grid of this step's fields: a rank's block with a mesh, whose
+    # DCT solve takes its block of the eigenvalues and its rows of C_x and
+    # C_y (the FFT solve the whole reduced grid's eigenvalues)
     shape = g.shape
     if mesh is not None:
         rows, cols = mesh.block(g.Ny, g.Nx)
-        eig = eig[rows, cols].contiguous()
-        dct_mats = (dct_mats[0][cols].contiguous(),
-                    dct_mats[1][rows].contiguous())
-        shape = eig.shape
+        if not periodic:
+            eig = eig[rows, cols].contiguous()
+            dct_mats = (dct_mats[0][cols].contiguous(),
+                        dct_mats[1][rows].contiguous())
+        shape = (rows.stop - rows.start, cols.stop - cols.start)
     params0 = torch.tensor([cfg.mu_s, cfg.kappa, cfg.rho_s, cfg.rho_f],
                            dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -675,21 +698,29 @@ def make_step(
     else:
         projection_path = "stencil kernels" if stencil_kernels else "stencils"
 
-    X, Y = g.coords(dtype=dtype, device=device)
+    # the whole grid's coordinates, and the block's with a mesh: the seeds,
+    # the area targets and a rebase are the whole grid's
+    Xw, Yw = g.coords(dtype=dtype, device=device)
+    X, Y = Xw, Yw
     if mesh is not None:
         X, Y = X[rows, cols].contiguous(), Y[rows, cols].contiguous()
-    rebuild_phis = _make_rebuild(cfg, phi_inits, X, Y, dtype)
+    rebuild_phis = _make_rebuild(cfg, phi_inits, Xw, Yw, dtype)
+    # the rebuild samples phis0 at the maps' points, anywhere in the
+    # domain: a rank's step gathers the whole phis0 for it
+    gather_phis0 = (mesh is not None and _rebasing(cfg, S)
+                    and cfg.map_rebase_rebuild != "analytic")
     fix_areas = None
     if cfg.phi_area_fix:
-        targets = _area_targets(cfg, phi_inits, X, Y, dtype)
+        targets = _area_targets(cfg, phi_inits, Xw, Yw, dtype)
 
         def fix_areas(phis):
             return torch.stack([
-                area_conserving_shift(phis[i], dx, dy, cfg.w_t, targets[i])
+                area_conserving_shift(phis[i], dx, dy, cfg.w_t, targets[i],
+                                      mesh=mesh)
                 for i in range(S)])
 
     extrap_fn = extrap_impl or extrapolate_reference_map_fused
-    maybe_rebase = (_make_maybe_rebase(cfg, S, X, Y, extrap_fn)
+    maybe_rebase = (_make_maybe_rebase(cfg, S, Xw, Yw, extrap_fn, mesh)
                     if _rebasing(cfg, S) else None)
     w_cut, clamp = stress_mode(cfg, S)
     sample = dict(sl_interp=cfg.sl_interp, sl_guard=sl_band_guard(cfg))
@@ -716,24 +747,35 @@ def make_step(
             phis = torch.stack([
                 reinitialize_level_set(phis[i], dx, dy,
                                        method=cfg.reinit_method,
-                                       num_iters=cfg.reinit_iters)
+                                       num_iters=cfg.reinit_iters, mesh=mesh)
                 for i in range(S)])
         if fix_areas is not None:
             phis = fix_areas(phis)
         return phis
 
+    def stresses(X1e, X2e, phis, pp):
+        """Each solid's stress and J, stacked."""
+        stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, pp["mu_s"],
+                                      pp["kappa"], phis[i], w_cut=w_cut,
+                                      detg_clamp=clamp) for i in range(S)]
+        return tuple(torch.stack(c) for c in zip(*stress))
+
     def split_block(u, v, X1s, X2s, phis0, dt, pp):
-        """The split tier's solid block; the results of rmt_block_plain."""
+        """The split tier's solid block; the results of rmt_block_plain.
+        With a mesh the stress's stencils run on halo slabs."""
+        if gather_phis0:
+            phis0 = mesh.gather(phis0)
         phis = phi_chain(X1s, X2s, phis0)
         X1e, X2e = advext_fn(u, v, X1s, X2s, phis, dt, dx=dx, dy=dy,
                              num_layers=cfg.num_layers, **sample)
         phis = rebuild_phis(X1e, X2e, phis0)
         if fix_areas is not None:
             phis = fix_areas(phis)
-        stress = [solid_cauchy_stress(X1e[i], X2e[i], dx, dy, pp["mu_s"],
-                                      pp["kappa"], phis[i], w_cut=w_cut,
-                                      detg_clamp=clamp) for i in range(S)]
-        sxx, sxy, syy, J = (torch.stack(c) for c in zip(*stress))
+        if mesh is None:
+            sxx, sxy, syy, J = stresses(X1e, X2e, phis, pp)
+        else:
+            sxx, sxy, syy, J = mesh.stencil(
+                lambda a, b, c: stresses(a, b, c, pp))(X1e, X2e, phis)
         H = smoothed_heaviside(phis, cfg.w_t)
         one_mH = 1.0 - H
         Hf = torch.sum(H, dim=0) - (S - 1.0)

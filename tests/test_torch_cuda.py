@@ -2097,3 +2097,127 @@ def test_sharded_pure_fluid_step_launches_the_rk4_kernel(dev):
         want = getattr(ref, k).cpu().numpy()
         assert np.abs(r["state"][k] - want).max() <= 1e-10, k
     assert r["state"]["X1"].shape == (0, N, N)
+
+
+def advext_sharded_rank(shape, mesh_shape, dtype):
+    """A rank body (``launch.run_world``; the test puts this file's
+    directory on the ranks' path): ``make_advext_block_sharded`` on this
+    rank's block of ``block_inputs``' fields, whose halo the ranks
+    exchange; returns the gathered results and the rank's launches of the
+    offset instantiation."""
+    from pyrmt_tpu_torch.parallel.sharding import (
+        make_advext_block_sharded,
+        make_mesh,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, args, kw = block_inputs(dev, shape, dtype)
+    phis = DISC(args[2][0], args[3][0])[None].contiguous()
+    mesh = make_mesh(shape=mesh_shape)
+    rows, cols = mesh.block(*shape)
+    impl = make_advext_block_sharded(mesh, *shape, kw["num_layers"])
+    rb.advext_offset_launches = 0
+    outs = impl(*(f[..., rows, cols].contiguous()
+                  for f in (*args[:4], phis)), args[4], dx=kw["dx"],
+                dy=kw["dy"], num_layers=kw["num_layers"])
+    torch.cuda.synchronize()
+    return ([mesh.gather(o).cpu() for o in outs], rb.advext_offset_launches)
+
+
+def _run_on_ranks(n, target, kwargs):
+    """run_world with this file's directory on the ranks' path."""
+    import os
+    from pathlib import Path
+
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    here = str(Path(__file__).resolve().parent)
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (here, old) if p)
+    try:
+        return run_world(n, target, kwargs, backend="gloo")
+    finally:
+        if old is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_advext_block_sharded_stitches_to_the_unsharded_kernel(dev, dtype):
+    """``make_advext_block_sharded`` on the (2, 2) blocks of a 64 x 64
+    field, its halo exchanged by 4 ranks sharing the card (gloo): the
+    blocks gathered equal the unsharded advext_block kernel bit for bit,
+    and each rank launches the offset instantiation once."""
+    shape = (N, N)
+    results = _run_on_ranks(4, "test_torch_cuda:advext_sharded_rank",
+                            dict(shape=shape, mesh_shape=(2, 2),
+                                 dtype=dtype))
+    _, args, kw = block_inputs(dev, shape, dtype)
+    phis = DISC(args[2][0], args[3][0])[None].contiguous()
+    whole = rb.advext_block_fused(*args[:4], phis, args[4], dx=kw["dx"],
+                                  dy=kw["dy"], num_layers=kw["num_layers"])
+    for outs, launches in results:
+        assert launches == 1
+        for got, want in zip(outs, whole):
+            assert torch.equal(got, want.cpu())
+
+
+def test_sharded_split_step_launches_advext_block(dev):
+    """A sharded split-tier step (the area fix with PDE reinit) on the
+    card names the advext_block kernel in its paths, launches its offset
+    instantiation once a step on every rank, and matches the
+    single-process step: 4 ranks sharing the card, the (2, 2) mesh."""
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.05, mu_f=0.01,
+                       phi_area_fix=True, reinit_method="pde")
+    bc, steps = pt.make_lid_bc(1.0), 3
+    r = run_world(4, "pyrmt_tpu_torch.parallel.launch:run_sharded", dict(
+        cases=[dict(cfg=cfg, velocity_bc=bc, phi_inits=(DISC,), steps=steps,
+                    dtype=torch.float64, device="cuda", mesh_shape=(2, 2))]),
+        backend="gloo")[0][0]
+    assert r["paths"]["solid"] == ("split, advext_block kernel on slabs "
+                                   "with offsets")
+    for launches in r["launches"]:
+        assert launches["rmt_block.advext_offset_launches"] == steps
+        assert launches["rmt_block.advext_launches"] == 0
+        assert launches["rmt_block.offset_launches"] == 0
+        assert launches["momentum_rk4.offset_launches"] == steps
+    step = pt.make_step(cfg, bc, (DISC,), dtype=torch.float64, device=dev)
+    ref = pt.make_init_state(cfg, (DISC,), dtype=torch.float64, device=dev)
+    for _ in range(steps):
+        ref, _ = step(ref, 1.0)
+    for k, tol in (("u", 1e-10), ("v", 1e-10), ("p", 1e-10), ("X1", 1e-11),
+                   ("X2", 1e-11)):
+        want = getattr(ref, k).cpu().numpy()
+        assert np.abs(r["state"][k] - want).max() <= tol, k
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1), (1, 4), (2, 4)])
+def test_dct_block_products_round_as_the_whole_solve(dev, mesh):
+    """The distributed DCT solve's products of a rank's rows of C_y and
+    C_x (``ops.poisson._block_products``: cuBLASLt) equal the rows of the
+    single-device solve's whole products bit for bit at N=2048 float32,
+    the size of chip_smoke's float32 sharded runs."""
+    from pyrmt_tpu_torch.ops.poisson import (
+        _block_products,
+        precompute_dct_matrices,
+    )
+
+    n = 2048
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Cx, Cy = precompute_dct_matrices(n, n, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    f = torch.randn(n, n, generator=g, device=dev)
+    first = Cy @ f
+    second = first @ Cx.T
+    ly, lx = n // mesh[0], n // mesh[1]
+    with _block_products(f):
+        for iy in range(mesh[0]):
+            for ix in range(mesh[1]):
+                rows = slice(iy * ly, (iy + 1) * ly)
+                cols = slice(ix * lx, (ix + 1) * lx)
+                assert torch.equal(Cy[rows] @ f[:, cols], first[rows, cols])
+                assert torch.equal(first[rows] @ Cx[cols].T,
+                                   second[rows, cols])

@@ -23,7 +23,8 @@ tolerances (2 steps: u, v and p 1e-10, X1 and X2 1e-11; 12 steps: 1e-9 and
 Without a world: ``mesh_shape``'s factoring, the two ValueErrors of an
 explicit 'pallas' (a mesh too tight for the halo, a configuration the
 fused tier does not take) and the NotImplementedError of each
-configuration that JAX shards by GSPMD alone. tests/test_torch_sharding_
+configuration that JAX shards by GSPMD alone and the port does not shard
+yet (test_torch_sharding_gspmd.py runs the others). tests/test_torch_sharding_
 pallas.py and test_torch_sharding_pallas_2d.py hold the (4, 1) and (2, 2)
 meshes to JAX's sharded step.
 """
@@ -201,33 +202,20 @@ def test_sharded_pallas_unfusible_config_raises():
                           device=DEV)
 
 
-def _rounded_square(X1, X2):
-    return torch.maximum(torch.abs(X1 - 0.5), torch.abs(X2 - 0.5)) - 0.2
-
-
-@pytest.mark.parametrize("what", ["variable_rho", "periodic", "reinit",
-                                  "area fix", "weno5", "rebasing",
-                                  "surface tension", "traced_params",
-                                  "level set"])
+@pytest.mark.parametrize("what", ["weno5", "central2", "surface tension",
+                                  "traced_params"])
 def test_gspmd_only_configuration_raises(what):
-    """Each configuration that JAX shards by GSPMD alone waits for a later
-    slice: NotImplementedError, naming the ROADMAP item."""
+    """Each configuration that JAX shards by GSPMD alone and the port does
+    not shard yet (the general tier, surface tension, traced_params)
+    waits for a later slice: NotImplementedError, naming the ROADMAP
+    item. tests/test_torch_sharding_gspmd.py runs the others."""
     bc, shapes, kw = pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),), {}
-    cfg = {"variable_rho": _cfg(variable_rho=True),
-           "periodic": _cfg(bc_type="periodic"),
-           "reinit": _cfg(reinit_method="pde"),
-           "area fix": _cfg(phi_area_fix=True),
-           "weno5": _cfg(scheme="weno5"),
-           "rebasing": _cfg(map_rebase_minj=0.5),
+    cfg = {"weno5": _cfg(scheme="weno5"),
+           "central2": _cfg(scheme="central2"),
            "surface tension": _cfg(gamma=0.1),
-           "traced_params": _cfg(),
-           "level set": _cfg()}[what]
-    if what == "periodic":
-        bc = pt.periodic_bc
+           "traced_params": _cfg()}[what]
     if what == "traced_params":
         kw = dict(traced_params=("mu_s",))
-    if what == "level set":
-        shapes = (_rounded_square,)
     with pytest.raises(NotImplementedError, match="modules item 16"):
         make_sharded_step(cfg, bc, shapes, Mesh((2, 4)), dtype=torch.float64,
                           device=DEV, **kw)
