@@ -16,14 +16,15 @@ another sm_90a card) and the CUDA toolkit. Phases:
      solid-block kernels and the extrapolation), grad_correct under the
      lid, free-slip and no-op BCs, velocity_rhs with a random external
      force; all seven also on ragged grids (203x301, 9x300, 33x49) in both
-     types and at N=4096 float32; the contact configuration's two modes,
+     types and at N=4096 float32 (there the seven alone: their modes' rows
+     at N=1024 hold the same code); the contact configuration's two modes,
      rmt_block with two solids and the two-solid clamp and momentum_rk4
      with the contact and gravity force, at the same sizes; momentum_rk4's
      periodic instantiation on overlap-consistent operands (with and
      without the force, eta_s 0 and 0.01) at N=256, 65x65, 129x129,
-     203x301, 9x300 and 33x49 in both types and at N=1024 and 4096
-     float32; the new modes of the two solid blocks at every one of those
-     sizes (MODES: rmt_block with the bicubic final sample, band-guarded
+     203x301, 9x300 and 33x49 in both types and at N=1024 float32; the new
+     modes of the two solid blocks at every one of those sizes but N=4096
+     (MODES: rmt_block with the bicubic final sample, band-guarded
      and raw, in the band-mode stress, and with two solids and the bicubic
      sample; advext_block with the bicubic sample, guarded and raw; rmt_block
      with the capillary drop's ellipse, bilinear and bicubic (guarded and
@@ -31,7 +32,7 @@ another sm_90a card) and the CUDA toolkit. Phases:
      contact range, bilinear and bicubic); extrapolate_fused on the masked
      maps that one general-tier step hands it (the flagship with WENO5,
      with central2, and with CFL 1.5 on the gather path, from a swirl) at
-     N=256, 203x301 (both types), 1024 and 4096 (float32); then the times
+     N=256, 203x301 (both types) and 1024 (float32); then the times
      of kernel and plain version at N=1024 (CUDA events), and in one
      torch.profiler session each kernel's device time and device kernels
      per call at N=1024 and N=4096 beside its bound (rmt_block,
@@ -133,12 +134,13 @@ another sm_90a card) and the CUDA toolkit. Phases:
      plain-forward rollout's gradient to 1e-5, forward and backward
      ms/step, peak memory); the inverse problem of
      examples/differentiable_fsi.py (N=48 float64, 60 steps, a Taylor-Green
-     seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4 within 1 %, Adam
-     written inline, then secant iteration). Phase 3 also times each
-     kernel's backward (the plain twin's forward and autograd) at N=1024
-     float32 ([backward] lines);
+     seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4 within 1 %, two
+     Adam steps written inline, then secant iteration). Phase 3 also
+     times each kernel's backward (the plain twin's forward and autograd)
+     at N=1024 float32 ([backward] lines);
   14. domain decomposition: (a) the sharding offsets of rmt_block
-     (bilinear, bicubic, two solids with the clamp), advext_block and
+     (bilinear, bicubic, two solids with the clamp, the capillary drop's
+     ellipse, a disc beside an ellipse with the clamp), advext_block and
      momentum_rk4 (under the lid, and with the contact and gravity force
      under free slip), in one process: every block of the (4,1), (1,4),
      (2,2) and (2,4) meshes of N=256 float64 and N=1024 float32 operands,
@@ -147,26 +149,30 @@ another sm_90a card) and the CUDA toolkit. Phases:
      zeros beyond the domain, through the wrapper with its offsets; the
      blocks stitched must equal the unsharded kernel bit for bit, each
      slab its plain twin with the same offsets within the phase-3 bounds;
-     the offset instantiations' times
-     on the (0, 0) block of the (2,2) mesh of N=2048 float32 (their device
-     times are phase 3's profile rows "..., offsets"); (b) the sharded
-     step in one gloo world of 4 processes on the card
+     the offset instantiations' times (rmt_block's with a disc and with
+     the ellipse) on the (0, 0) block of the (2,2) mesh of N=2048 float32
+     (their device times are phase 3's profile rows "..., offsets"); (b)
+     the sharded step in one gloo world of 4 processes on the card
      (parallel.launch.run_world: the halo and the gathers through host
      copies) against the single-process step from the same state: at
      N=2048 float32 on (2,2), within 1e-4 of max(1, |field|), the
      flagship (20 steps), the density contrast (the CG, 10 steps, each
      step's iterations beside the single process's, within one), the
-     split tier (area fix + PDE reinit, 10 steps) and the periodic
-     flagship (10 steps), each beside a float64 single-process run (how
-     far either float32 step lies from it); at N=256 float64 on (2,2) and
-     (4,1), 3 steps, within 1e-10 (u, v, p) and 1e-11 (X): the flagship,
-     the density contrast (iterations equal), the split tier, the
-     periodic Taylor-Green pure fluid, and a pure fluid under the lid on
-     (2,2); at N=128 float64 on (2,2) the 'fmm' reinit and the
+     split tier (area fix + PDE reinit, 10 steps), the periodic
+     flagship (10 steps) and the capillary drop (phase 4e's: the
+     ellipse, the balanced CSF, free slip; 10 steps), each beside a
+     float64 single-process run (how far either float32 step lies from
+     it); at N=256 float64 on (2,2) and (4,1), 3 steps, within 1e-10 (u,
+     v, p) and 1e-11 (X): the flagship, the density contrast (iterations
+     equal), the split tier, the periodic Taylor-Green pure fluid, the
+     capillary drop, and on (2,2) a pure fluid under the lid and the
+     capillary drop's split-tier twin (the cell CSF with kappa*, the area
+     fix); at N=128 float64 on (2,2) the 'fmm' reinit and the
      always-firing rebase (3 steps). Every rank launches the offset
      instantiation of each kernel of its step once a step (rmt_block on
-     the fused tier, advext_block on the split tier, momentum_rk4 under
-     walls; the periodic box's momentum is the plain stage loop, as in
+     the fused tier, the ellipse's in the capillary drop, advext_block on
+     the split tier, momentum_rk4 under walls, with the force where the
+     step has one; the periodic box's momentum is the plain stage loop, as in
      JAX) and extrapolate_fused once a rebase. [shard] lines, each
      field's error beside its bound; the wall ms/step of 4 processes
      sharing one card is a
@@ -340,6 +346,7 @@ WORK = {  # name: (fields read, fields written, operations per cell)
     # level-set evaluation (a few per cell: the vote, the advection's
     # phi0, the post stage's phi and four neighbours)
     "rmt_block, ellipse": (4, 12, 350),
+    "rmt_block, ellipse offsets": (4, 12, 350),
     "rmt_block, disc and ellipse": (6, 19, 550),
     "advext_block, raw bicubic": (5, 2, 350),
     "momentum_rk4, force": (10, 2, 400),
@@ -423,11 +430,14 @@ OUT_NAMES = ("X1e", "X2e", "phi", "sxx", "sxy", "syy", "J", "Hf", "rho",
 # instantiations' profile rows, each timed on the (0, 0) block of the
 # (2, 2) mesh of an OFFSET_N field (N=1024 cells of it, the unsharded
 # row's, plus the halo of the exchange on its two cut sides): {row:
-# (kernel, a part of the names of its own device kernels, which alone
-# make the row's device time; the wrapper's zeroed outputs are memsets)}
+# (the offset_cases case, a part of the names of its own device kernels,
+# which alone make the row's device time; the wrapper's zeroed outputs
+# are memsets)}
 SHARD_MESHES = ((4, 1), (1, 4), (2, 2), (2, 4))
 OFFSET_N = 2048
 OFFSET_ROWS = {"rmt_block, offsets": ("rmt_block", "rmt_tile_kernel"),
+               "rmt_block, ellipse offsets": ("rmt_block, ellipse",
+                                              "rmt_tile_kernel"),
                "advext_block, offsets": ("advext_block", "advext_"),
                "momentum_rk4, offsets": ("momentum_rk4", "rk4_kernel")}
 # phase 14b: 4 ranks on the one card
@@ -922,9 +932,10 @@ def check_close(what, err, scale, f64, tol_f32):
         raise AssertionError(f"{what} differs by {err:.3e} > {bound:.3g}")
 
 
-def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
+def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC, modes=True):
     """The kernels against their plain versions on the same tensors (the
-    momentum and stencil kernels for the flagship disc only). Returns
+    momentum and stencil kernels for the flagship disc only; the solid
+    blocks' modes and the contact configuration's with ``modes``). Returns
     {kernel: max-abs over its outputs}; raises past the tolerance."""
     f64 = dtype == torch.float64
     cfg, d = kernel_inputs(shape, dtype, device, disc=disc)
@@ -950,13 +961,14 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
     hold("advext_block", ("X1e", "X2e"),
          advext_call(rb.advext_block_fused, cfg, d),
          advext_call(rb.advext_block_plain, cfg, d))
-    # the new modes of both solid blocks, at every size
-    ccfg, cd = contact_kernel_inputs(shape, dtype, device)
-    for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd,
-                                             checked=True).items():
-        kernel = MODES.get(row) or CHECKED[row]
-        outs = OUT_NAMES if kernel == "rmt_block" else ("X1e", "X2e")
-        hold(kernel, outs, call(kern), call(ref), row=row)
+    # the new modes of both solid blocks
+    if modes:
+        ccfg, cd = contact_kernel_inputs(shape, dtype, device)
+        for row, (kern, ref, call) in mode_calls(cfg, d, ccfg, cd,
+                                                 checked=True).items():
+            kernel = MODES.get(row) or CHECKED[row]
+            outs = OUT_NAMES if kernel == "rmt_block" else ("X1e", "X2e")
+            hold(kernel, outs, call(kern), call(ref), row=row)
     hold("extrapolate_fused", ("X1e", "X2e"),
          extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
          extrap_call(extrapolate_reference_map, cfg, d))
@@ -992,6 +1004,8 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC):
                                ("noop", noop_bc, cfg.eta_s)):
         args, kw = momentum_args(cfg, d, plain, eta_s)
         hold_momentum(f"momentum_rk4 {bc_name} eta_s={eta_s}", args, bc, kw)
+    if not modes:
+        return worst
 
     # the contact configuration's modes: two solids with the clamp, and
     # the force of contact and gravity
@@ -1946,13 +1960,14 @@ def grad_full_width(device, card, N=1024, steps=10, warmup=20):
 
 
 def inverse_problem(device, card, N=48, n_steps=60, mu_true=0.4,
-                    mu_guess=1.2):
+                    mu_guess=1.2, adam_steps=2):
     """examples/differentiable_fsi.py on the card: a disc in a Taylor-Green
     vortex between free-slip walls, fixed_dt 1.5e-3, float64; the observed
-    flow after ``n_steps`` steps at mu_true; from mu_guess, 10 Adam steps
-    (lr 0.15) on theta (mu_s = softplus(theta)), then secant iteration on
-    dL/dtheta, through make_diff_rollout with mu_s traced. Returns the
-    recovered mu_s."""
+    flow after ``n_steps`` steps at mu_true; from mu_guess, ``adam_steps``
+    Adam steps (lr 0.15) on theta (mu_s = softplus(theta)), then at most 8
+    of secant iteration on dL/dtheta, through make_diff_rollout with mu_s
+    traced: at most 10 gradient evaluations in all. Returns the recovered
+    mu_s."""
     from pyrmt_tpu_torch import make_diff_rollout, make_diff_step
 
     f64 = torch.float64
@@ -1983,7 +1998,7 @@ def inverse_problem(device, card, N=48, n_steps=60, mu_true=0.4,
     m = v = 0.0
     b1, b2, lr, eps = 0.9, 0.999, 0.15, 1e-8
     trace = []
-    for it in range(1, 11):  # Adam (optax.adam's defaults, lr 0.15)
+    for it in range(1, adam_steps + 1):  # Adam (optax's defaults, lr 0.15)
         L, mu, g = value_and_grad(theta)
         trace.append((mu, L))
         m = b1 * m + (1 - b1) * g
@@ -2059,11 +2074,16 @@ def offset_cases(shape, dtype, device):
     """Phase 14a's cases on kernel_inputs' operands (and the contact
     configuration's): {name: (wrapper call, plain twin call, the whole
     fields a call takes first, the exchange halo)}, each call
-    ``call(*fields, **offsets)``: rmt_block bilinear, bicubic (guarded) and
-    with two solids and the clamp, advext_block, momentum_rk4 under the
-    lid and with the contact and gravity force under free slip."""
+    ``call(*fields, **offsets)``: rmt_block bilinear, bicubic (guarded),
+    with two solids and the clamp, with the capillary drop's ellipse and
+    with a disc beside an ellipse (the clamp; phase 3's ellipse operands),
+    advext_block, momentum_rk4 under the lid and with the contact and
+    gravity force under free slip."""
     cfg, d = kernel_inputs(shape, dtype, device)
     ccfg, cd = contact_kernel_inputs(shape, dtype, device)
+    ecfg, ed = kernel_inputs(shape, dtype, device, disc=ELLIPSE)
+    pcfg, pd = contact_kernel_inputs(shape, dtype, device,
+                                     solids=DISC_AND_ELLIPSE)
     g = cfg.grid
 
     def rmt(fn, c, dd, solids, **mode):
@@ -2105,6 +2125,13 @@ def offset_cases(shape, dtype, device):
         "rmt_block, two solids": (
             *(rmt(f, ccfg, cd, cd["solids"], **two) for f in pairs),
             [cd["u"], cd["v"], cd["X1s"], cd["X2s"]], h_rmt),
+        "rmt_block, ellipse": (
+            *(rmt(f, ecfg, ed, (ELLIPSE,)) for f in pairs),
+            [ed["u"], ed["v"], ed["X1s"], ed["X2s"]], h_rmt),
+        "rmt_block, disc and ellipse": (
+            *(rmt(f, pcfg, pd, pd["solids"],
+                  stress_clamp=pcfg.two_solid_clamp) for f in pairs),
+            [pd["u"], pd["v"], pd["X1s"], pd["X2s"]], h_rmt),
         "advext_block": (adv(rb.advext_block_fused),
                          adv(rb.advext_block_plain),
                          rmt_fields + [d["phis"]], h_rmt),
@@ -2125,7 +2152,7 @@ def compare_offsets(shape, dtype, device, meshes=SHARD_MESHES):
     same; the kernel's blocks stitched must equal the unsharded kernel bit
     for bit, and each slab (the cut's stale cells and the cells beyond the
     domain 0 in both) its plain twin's within the phase-3 bounds. Returns
-    {kernel: (max-abs against the unsharded kernel, against the plain
+    {case: (max-abs against the unsharded kernel, against the plain
     twin)}."""
     from pyrmt_tpu_torch.parallel.sharding import Mesh, slab_of
 
@@ -2167,8 +2194,7 @@ def compare_offsets(shape, dtype, device, meshes=SHARD_MESHES):
                                  f"from the unsharded kernel by {e_whole}")
         check_close(f"{tag} {name} with offsets, kernel vs plain twin",
                     e_plain, scale, f64, tol)
-        prev = worst.get(kernel, (0.0, 0.0))
-        worst[kernel] = (max(prev[0], e_whole), max(prev[1], e_plain))
+        worst[name] = (e_whole, e_plain)
     return worst
 
 
@@ -2181,8 +2207,8 @@ def offset_slab_calls(device):
 
     cases = offset_cases(OFFSET_N, torch.float32, device)
     out = {}
-    for row, (kernel, _) in OFFSET_ROWS.items():
-        kern, plain, fields, halo = cases[kernel]
+    for row, (case, _) in OFFSET_ROWS.items():
+        kern, plain, fields, halo = cases[case]
         slabs = [slab_of(f, (2, 2), (0, 0), halo) for f in fields]
         args, offs = [a for a, _ in slabs], slabs[0][1]
         out[row] = (lambda k=kern, a=args, o=offs: k(*a, **o),
@@ -2207,10 +2233,12 @@ def shard_case(kind, N, dtype, device):
     """(cfg, bc, shapes, initial state, t_end) of a phase 14b run: the
     flagship (at rest, the lid driving), a pure fluid in the lid cavity,
     the density contrast of phase 4e (ratio 10, g 1, CG tol 1e-6, the
-    disc at rest), the split tier (the flagship with the area fix and PDE
-    reinitialisation), the periodic flagship (bench.py --periodic: the
-    Taylor-Green seed), the periodic Taylor-Green pure fluid, the 'fmm'
-    reinitialisation, and the always-firing rebase of
+    disc at rest), the capillary drop of phase 4e (the ellipse at rest,
+    the balanced CSF, free slip) and its split-tier twin (the cell CSF
+    with kappa* and the area fix), the split tier (the flagship with the
+    area fix and PDE reinitialisation), the periodic flagship (bench.py
+    --periodic: the Taylor-Green seed), the periodic Taylor-Green pure
+    fluid, the 'fmm' reinitialisation, and the always-firing rebase of
     tests/test_rebase.py's sharded test (map_rebase_minj 10, a
     Taylor-Green swirl of 0.3, free slip, t_end 10)."""
     from pyrmt_tpu_torch import validation
@@ -2223,9 +2251,14 @@ def shard_case(kind, N, dtype, device):
         cfg = flagship(N, **over)
         shapes = () if kind == "pure fluid" else disc
         return cfg, lid, shapes, make_init_state(cfg, shapes, **kw), 8.0
-    if kind == "density contrast":
+    if kind in ("density contrast", "capillary drop"):
         cfg, bc, shapes, state = st_case(kind, N, **kw)
         return cfg, bc, shapes, state, 8.0
+    if kind == "capillary split":
+        cfg = capillary_config(N, st_method="csf", st_kappa_interface=True,
+                               phi_area_fix=True)
+        return (cfg, free_slip_box_bc, (ELLIPSE,),
+                make_init_state(cfg, (ELLIPSE,), **kw), 8.0)
     if kind == "periodic":
         cfg = flagship(N, bc_type="periodic")
         return cfg, bcs.periodic_bc, disc, periodic_state(cfg, **kw), 8.0
@@ -2245,7 +2278,8 @@ SHARD_RUNS = (
     [("N=2048 float32 (2,2)", "flagship", 2048, torch.float32, (2, 2), 2,
       18)]
     + [(f"N=2048 float32 (2,2) {kind}", kind, 2048, torch.float32, (2, 2),
-        0, 10) for kind in ("density contrast", "split", "periodic")]
+        0, 10) for kind in ("density contrast", "split", "periodic",
+                            "capillary drop")]
     + [(f"N=256 float64 ({a},{b})" + ("" if kind == "flagship" else
                                         f" {kind}"), kind, 256,
         torch.float64, (a, b), 0, 3)
@@ -2253,11 +2287,13 @@ SHARD_RUNS = (
                             ("pure fluid", ((2, 2),)),
                             ("density contrast", ((2, 2), (4, 1))),
                             ("split", ((2, 2), (4, 1))),
-                            ("periodic TG", ((2, 2), (4, 1))))
+                            ("periodic TG", ((2, 2), (4, 1))),
+                            ("capillary drop", ((2, 2), (4, 1))),
+                            ("capillary split", ((2, 2),)))
        for a, b in meshes]
     + [(f"N=128 float64 (2,2) {kind}", kind, 128, torch.float64, (2, 2),
         0, 3) for kind in ("fmm", "rebase")])
-SPLIT_KINDS = ("split", "fmm", "rebase")
+SPLIT_KINDS = ("split", "fmm", "rebase", "capillary split")
 
 
 def shard_launches(what, kind, steps, launches):
@@ -2363,6 +2399,14 @@ def sharded_runs(device, card):
                 raise AssertionError(f"[shard] {what}: rebased "
                                      f"{r['rebased']}, not on every step")
             extra += f"; rebased on each of the {steps} steps"
+        if kind == "capillary drop":
+            extra += ("; rmt_block's ellipse offset instantiation "
+                      + "/".join(str(n["rmt_block.offset_launches"])
+                                 for n in r["launches"])
+                      + " and momentum_rk4's force offset instantiation "
+                      + "/".join(str(n["momentum_rk4.offset_launches"])
+                                 for n in r["launches"])
+                      + f" launches over the ranks in {steps} steps")
         if kind in SPLIT_KINDS:
             extra += ("; advext_block's offset instantiation "
                       + "/".join(str(n["rmt_block.advext_offset_launches"])
@@ -2405,17 +2449,17 @@ def phase14(device, card):
     their plain twins (14a) on the blocks of every SHARD_MESHES mesh at
     N=256 float64 and N=1024 float32, and on the blocks of the (2, 2) mesh
     of OFFSET_N float32 that phase 14b's flagship gives each rank; their
-    times; the sharded step (14b). Returns ({kernel: (max-abs stitched
-    against unsharded, against the plain twin)}, time_offsets' times,
-    sharded_runs' summary)."""
+    times; the sharded step (14b). Returns ({offset_cases case: (max-abs
+    stitched against unsharded, against the plain twin)}, time_offsets'
+    times, sharded_runs' summary)."""
     offset_errs = {}
     for shape, dtype, meshes in ((256, torch.float64, SHARD_MESHES),
                                  (1024, torch.float32, SHARD_MESHES),
                                  (OFFSET_N, torch.float32, ((2, 2),))):
-        for kernel, e in compare_offsets(shape, dtype, device,
-                                         meshes).items():
-            prev = offset_errs.get(kernel, (0.0, 0.0))
-            offset_errs[kernel] = tuple(map(max, prev, e))
+        for case, e in compare_offsets(shape, dtype, device,
+                                       meshes).items():
+            prev = offset_errs.get(case, (0.0, 0.0))
+            offset_errs[case] = tuple(map(max, prev, e))
     return offset_errs, time_offsets(device), sharded_runs(device, card)
 
 
@@ -2469,7 +2513,10 @@ def main() -> int:
             ((203, 301), f64, FLAGSHIP_DISC), ((203, 301), f32, FLAGSHIP_DISC),
             ((9, 300), f64, FLAGSHIP_DISC), ((33, 49), f32, FLAGSHIP_DISC),
             (1024, f32, FLAGSHIP_DISC), (4096, f32, FLAGSHIP_DISC)):
-        for name, e in compare_kernels(shape, dtype, device, disc).items():
+        # at N=4096 the seven kernels alone: their modes' N=1024 rows hold
+        # the same code
+        for name, e in compare_kernels(shape, dtype, device, disc,
+                                       modes=shape != 4096).items():
             errs[name] = max(errs.get(name, 0.0), e)
     errs["momentum_rk4_periodic"] = 0.0
     for shape in (256, 65, 129, (203, 301), (9, 300), (33, 49)):
@@ -2477,14 +2524,13 @@ def main() -> int:
             errs["momentum_rk4_periodic"] = max(
                 errs["momentum_rk4_periodic"],
                 compare_periodic(shape, dtype, device))
-    for N in (1024, 4096):
-        errs["momentum_rk4_periodic"] = max(
-            errs["momentum_rk4_periodic"], compare_periodic(N, f32, device))
+    errs["momentum_rk4_periodic"] = max(
+        errs["momentum_rk4_periodic"], compare_periodic(1024, f32, device))
     # extrapolate_fused on the general tier's maps
     general_s = {"maps": time.perf_counter()}
     errs["extrapolate_fused, general maps"] = 0.0
     for shape, dtype in ((256, f64), (256, f32), ((203, 301), f64),
-                         ((203, 301), f32), (1024, f32), (4096, f32)):
+                         ((203, 301), f32), (1024, f32)):
         errs["extrapolate_fused, general maps"] = max(
             errs["extrapolate_fused, general maps"],
             compare_general_extrap(shape, dtype, device))
@@ -2932,22 +2978,32 @@ def main() -> int:
                               for row in CHECKED if row in errs}
     # the offset instantiations: their launches on the main paths of the
     # sharded slices (phase 14b at N=2048 float32, all ranks: the flagship
-    # for rmt_block and momentum_rk4, the split tier for advext_block),
-    # their errors from phase 14a, their times on the (0, 0) block of the
-    # (2, 2) mesh of N=2048 float32
-    offset_runs = {"rmt_block": ("N=2048 float32 (2,2)",
-                                 "rmt_block.offset_launches"),
-                   "momentum_rk4": ("N=2048 float32 (2,2)",
-                                    "momentum_rk4.offset_launches"),
-                   "advext_block": ("N=2048 float32 (2,2) split",
-                                    "rmt_block.advext_offset_launches")}
-    for row, (name, _) in OFFSET_ROWS.items():
+    # for rmt_block and momentum_rk4, the capillary drop for rmt_block's
+    # ellipse, the split tier for advext_block), their errors from phase
+    # 14a (a kernel's row: over all its cases), their times on the (0, 0)
+    # block of the (2, 2) mesh of N=2048 float32
+    offset_runs = {"rmt_block, offsets": ("N=2048 float32 (2,2)",
+                                          "rmt_block.offset_launches"),
+                   "rmt_block, ellipse offsets": (
+                       "N=2048 float32 (2,2) capillary drop",
+                       "rmt_block.offset_launches"),
+                   "momentum_rk4, offsets": ("N=2048 float32 (2,2)",
+                                             "momentum_rk4.offset_launches"),
+                   "advext_block, offsets": (
+                       "N=2048 float32 (2,2) split",
+                       "rmt_block.advext_offset_launches")}
+    for row, (case, _) in OFFSET_ROWS.items():
+        name = case.split(",")[0]
         entry = next(k for k in kernels if k["name"] == name)
-        stitched, vs_plain = offset_errs[name]
-        run, key = offset_runs[name]
+        of_kernel = [e for c, e in offset_errs.items()
+                     if c.split(",")[0] == name]
+        stitched, vs_plain = (offset_errs[case] if case != name else
+                              (max(e[0] for e in of_kernel),
+                               max(e[1] for e in of_kernel)))
+        run, key = offset_runs[row]
         entry.setdefault("modes", []).append({
-            "mode": "offsets, the (0, 0) block of the (2, 2) mesh of "
-                    f"N={OFFSET_N}",
+            "mode": f"{row.split(', ')[1]}, the (0, 0) block of the (2, 2) "
+                    f"mesh of N={OFFSET_N}",
             "launches": sum(n[key] for n in shard[run]["launches"]),
             "launches_from": f"14b {run} ({SHARD_RANKS} ranks, "
                              f"{shard[run]['steps']} timed steps)",

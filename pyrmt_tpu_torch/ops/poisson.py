@@ -164,6 +164,23 @@ def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
     return F.pad(div_i, (1, 1, 1, 1))
 
 
+def faces_to_cells(st_faces):
+    """The balanced CSF's ``st_faces`` (Fx_face (Ny, Nx - 1), Fy_face
+    (Ny - 1, Nx), fx_cell, fy_cell) as four (Ny, Nx) fields, the layout of
+    a rank's block in a domain decomposition: each cell's east and north
+    face (x, y growing with the column and the row), 0 in the last column
+    and row, where the face lies beyond the domain."""
+    Fx, Fy, fx_cell, fy_cell = st_faces
+    return F.pad(Fx, (0, 1)), F.pad(Fy, (0, 0, 0, 1)), fx_cell, fy_cell
+
+
+def faces_from_cells(fields):
+    """``faces_to_cells``'s inverse: the faces of the whole fields (or of a
+    slab, ``ops.slab.on_slab``), the last column and row dropped."""
+    Fx, Fy, fx_cell, fy_cell = fields
+    return Fx[:, :-1], Fy[:-1, :], fx_cell, fy_cell
+
+
 def compute_pressure_gradient(p, dx, dy):
     """Central interior and one-sided boundary pressure gradient; the
     tangential component is zero on the boundary rows and columns, as in the

@@ -31,6 +31,7 @@ from pyrmt_tpu_torch.ops.poisson import (
     compute_divergence_periodic,
     compute_divergence_rc,
     compute_pressure_gradient_periodic,
+    faces_from_cells,
     solve_poisson_dct,
     solve_poisson_fft,
     solve_variable_poisson_cg_counted,
@@ -67,13 +68,12 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
     ones on wrap-padded slabs, the DCT, CG and FFT solves are distributed,
     the means are the whole grid's, and the periodic BC's overlap copy
     crosses ranks (``Mesh.overlap_copy``: the sharded periodic box takes
-    ``bcs.periodic_bc``). The balanced CSF's face forces are not sharded
-    (NotImplementedError)."""
+    ``bcs.periodic_bc``). The balanced CSF's face forces then come as a
+    rank's block of the four fields of ``ops.poisson.faces_to_cells``
+    (each cell's east and north face), and enter the Rhie-Chow faces on
+    the same halo slabs as the velocity and the pressure."""
     if cg_info and not variable_rho:
         raise ValueError("cg_info=True requires variable_rho=True")
-    if mesh is not None and st_faces is not None:
-        raise NotImplementedError(
-            "the sharded projection takes no balanced-CSF face forces")
     if st_faces is not None and bc_type != "neumann":
         raise ValueError(
             "balanced-force st_faces requires the incremental Neumann "
@@ -93,19 +93,31 @@ def pressure_projection(a_star, b_star, dx, dy, dt, rho, velocity_bc, p_prev,
         raise ValueError(f"unknown bc_type {bc_type!r}")
     cg_stats = None
     grad_correct = grad_correct_plain
-    if variable_rho:
-        divU = _stencil(lambda a, b, pp, r: compute_divergence_rc(
-            a, b, pp, dt, r, dx, dy, variable_rho=True, st_faces=st_faces),
-            mesh)(a_star, b_star, p_prev, rho)
-        p_correction, iters, relres = solve_variable_poisson_cg_counted(
-            divU / dt, 1.0 / rho, eigenvalues, dx, dy, tol=cg_tol,
-            maxiter=cg_maxiter, dct_mats=dct_mats, mesh=mesh)
-        cg_stats = (iters, relres)
-    elif st_faces is not None:
-        divU = compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
-                                     st_faces=st_faces)
-        p_correction = solve_poisson_dct(rho * divU / dt, eigenvalues,
-                                         dct_mats)
+    if variable_rho or st_faces is not None:
+        # the plain Rhie-Chow chain with the face terms, the face forces
+        # passed as fields so that a rank's slab holds its halo of them
+        faces = () if st_faces is None else tuple(st_faces)
+        d_scalar = (None if variable_rho or mesh is None
+                    else dt / _mean(rho, mesh))
+
+        def divergence(a, b, pp, r, *f):
+            if f and mesh is not None:
+                f = faces_from_cells(f)
+            return compute_divergence_rc(a, b, pp, dt, r, dx, dy,
+                                         variable_rho=variable_rho,
+                                         st_faces=f or None,
+                                         d_scalar=d_scalar)
+
+        divU = _stencil(divergence, mesh)(a_star, b_star, p_prev, rho,
+                                          *faces)
+        if variable_rho:
+            p_correction, iters, relres = solve_variable_poisson_cg_counted(
+                divU / dt, 1.0 / rho, eigenvalues, dx, dy, tol=cg_tol,
+                maxiter=cg_maxiter, dct_mats=dct_mats, mesh=mesh)
+            cg_stats = (iters, relres)
+        else:
+            p_correction = solve_poisson_dct(rho * divU / dt, eigenvalues,
+                                             dct_mats, mesh=mesh)
     else:
         rc_rhs, grad_correct = stencils
         d_scalar = dt / _mean(rho, mesh)

@@ -16,6 +16,18 @@ explicit collective or a halo exchange:
     (``Mesh.stencil``), the BC and the one-sided closures at the global
     domain's edge only; the PDE reinitialisation 8 iterations per
     exchange of an 8-cell halo;
+  * surface tension (walls): the body forces on a block plus the force's
+    reach (``force_halo``: 2 cells for the fd curvature and kappa*, hh +
+    1 for the height function, one more for the balanced CSF's faces),
+    the curvatures' edge replication and closures at the global domain's
+    edge only. A rank holds the balanced CSF's faces as four (ly, lx)
+    fields (``ops.poisson.faces_to_cells``): each cell's east face Fx
+    and north face Fy, 0 in the global domain's last column and row,
+    where the face lies beyond the domain, and the cell forces, each the
+    mean of its two faces with the zero face beyond the domain's edge as
+    on one device. The projection exchanges them with the velocity and
+    the pressure and takes the faces back off its slabs
+    (``faces_from_cells``);
   * the max speed of the adaptive dt is an all-reduce (MAX), so dt, t and
     the no-op decision are the same on every rank, and so is a rebase's
     least J (MIN);
@@ -48,9 +60,11 @@ says so; NCCL (one rank per card) exchanges on the device.
 
 The configurations that JAX's shard_map path takes are sharded, and of
 those that only GSPMD shards in JAX the variable-density CG, the split
-tier (reinit, area fix, map rebasing, any level set) and the
-doubly-periodic box. The general tier, surface tension and
-``traced_params`` raise NotImplementedError (``check_slice``).
+tier (reinit, area fix, map rebasing, any level set), the
+doubly-periodic box and surface tension on walls (the cell and the
+balanced CSF, fd, kappa* and height-function curvature). The general
+tier, ``traced_params`` and surface tension on the periodic box raise
+NotImplementedError (``check_slice``).
 """
 from __future__ import annotations
 
@@ -66,6 +80,22 @@ import torch.distributed as dist
 STENCIL_HALO = 2
 # where the configurations outside this slice are to be ported
 ROADMAP_ITEM = "ROADMAP.md section 2, modules item 16"
+
+
+def force_halo(cfg) -> int:
+    """The halo of the step's body forces on a rank's block: the contact
+    force reads 1 cell, gravity none, surface tension (gamma > 0) as far
+    as ``physics.surface_tension_reach`` says (the fd curvature and
+    kappa* 2 cells, the height function hh + 1, the balanced CSF's faces
+    one more); at least ``STENCIL_HALO``."""
+    from pyrmt_tpu_torch.physics import surface_tension_reach
+
+    g = cfg.grid
+    reach = 0
+    if cfg.gamma > 1e-12:
+        reach = surface_tension_reach(g.dx, g.dy, cfg.w_t, cfg.st_method,
+                                      cfg.st_curvature, cfg.st_hf_smooth)
+    return max(STENCIL_HALO, reach)
 
 
 @dataclasses.dataclass
@@ -586,24 +616,26 @@ def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
 
 def check_slice(cfg, velocity_bc, phi_inits, traced_params=None) -> None:
     """Raise NotImplementedError for a configuration that this port does
-    not shard yet (JAX shards it by GSPMD alone): the general tier,
-    surface tension and ``traced_params``; ValueError for a periodic box
-    whose BC and ``bc_type`` disagree (the sharded box's overlap copy is
+    not shard yet (JAX shards it by GSPMD alone), naming its ROADMAP item:
+    ``traced_params`` (16.6), the general tier (16.4) and surface tension
+    on the periodic box (16.7); ValueError for a periodic box whose BC and
+    ``bc_type`` disagree (the sharded box's overlap copy is
     ``bcs.periodic_bc``'s)."""
     from pyrmt_tpu_torch.sim import _rmt_advect_fusible
 
     S = len(phi_inits)
     why = None
     if traced_params is not None:
-        why = "traced_params (sharded gradients)"
-    elif cfg.gamma > 1e-12:
-        why = "surface tension"
+        why = "traced_params (sharded gradients)", 6
     elif S > 0 and not _rmt_advect_fusible(cfg, S):
-        why = "the general tier (WENO5, central2, sl_local=False, CFL >= 1)"
+        why = ("the general tier (WENO5, central2, sl_local=False, "
+               "CFL >= 1)"), 4
+    elif cfg.gamma > 1e-12 and cfg.bc_type == "periodic":
+        why = "surface tension on the periodic box", 7
     if why is not None:
         raise NotImplementedError(
-            f"the sharded step does not yet take {why}: JAX shards it by "
-            f"GSPMD alone; see {ROADMAP_ITEM}")
+            f"the sharded step does not yet take {why[0]}: JAX shards it "
+            f"by GSPMD alone; see {ROADMAP_ITEM}.{why[1]}")
     wrap_bc = (getattr(velocity_bc, "kernel_spec", None) or ("",))[0] \
         == "periodic"
     if wrap_bc != (cfg.bc_type == "periodic"):
@@ -642,8 +674,12 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     the pure fluid; the fused tier (1 to 16 discs or ellipses, bilinear
     or bicubic); the split tier (reinit 'pde' on exchanged halos, 'fmm'
     on the gathered level set, the area fix, map rebasing, any level
-    set); contact and gravity; the Neumann DCT projection and the
-    variable-density CG. ``check_slice`` raises for the rest.
+    set); contact and gravity; surface tension on walls (the cell CSF or
+    the balanced CSF with its face forces, any curvature; the forces on
+    ``force_halo`` slabs, ``step.paths['forces']``); the Neumann DCT
+    projection and the variable-density CG. ``check_slice`` raises for
+    the rest. A split axis's blocks must hold the largest halo the step
+    exchanges (the ValueError names it).
     """
     from pyrmt_tpu_torch.kernels.rmt_block import (
         advext_block_plain,
@@ -681,7 +717,8 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     # level set the fused kernel does not evaluate
     split = rmt_block_split_eligible(cfg, S) or (
         rmt_block_fusible(cfg, S) and not rmt_block_supported(phi_inits))
-    halo = max(4 * cfg.num_layers + 4 if S else 0, RK4_HALO, STENCIL_HALO,
+    halo = max(4 * cfg.num_layers + 4 if S else 0, RK4_HALO,
+               force_halo(cfg),
                REINIT_CHUNK if split and cfg.reinit_method == "pde" else 0)
     # the periodic box's wrap halo (the RK4 stage loop's 8 cells) goes
     # along both axes, and its edge rank sends the cells beside its
@@ -730,8 +767,16 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
                 f"rk4 {'kernel' if mom_kernel else 'plain twin'} on {where}")
     projection = {"fft": "wrap-padded stencils, distributed FFT",
                   "cg": "stencils on halo slabs, CG with a distributed DCT "
-                        "preconditioner"}.get(
+                        "preconditioner",
+                  "faces": "stencils and face forces on halo slabs, "
+                           "distributed DCT"}.get(
         step.paths["projection"], "stencils on halo slabs, distributed DCT")
+    if cfg.gamma > 1e-12 and S > 0:
+        csf = ("balanced CSF, faces in the block layout"
+               if cfg.st_method == "balanced" else "cell CSF")
+        step.paths["forces"] = (f"surface tension ({csf}, "
+                                f"{cfg.st_curvature} curvature) on "
+                                f"{force_halo(cfg)}-cell halo slabs")
     step.paths.update(
         solid=solid, momentum=momentum, projection=projection,
         mesh=f"{mesh.shape[0]}x{mesh.shape[1]} {mesh.backend}",

@@ -186,9 +186,33 @@ def _solid_curvature(phi, dx, dy, w_t, curvature, kappa_interface,
                           torch.clamp(den, max=-0.25))
         kap = kap / den
     if curvature == "hf":
-        hh = max(3, int(np.ceil(np.sqrt(2.0) * w_t / min(dx, dy))) + 2)
-        kap = compute_curvature_hf(phi, dx, dy, hh, kap, smooth=hf_smooth)
+        kap = compute_curvature_hf(phi, dx, dy, hf_half_height(w_t, dx, dy),
+                                   kap, smooth=hf_smooth)
     return kap
+
+
+def hf_half_height(w_t, dx, dy) -> int:
+    """The height function's columns: hh = max(3, ceil(sqrt(2) w_t /
+    min(dx, dy)) + 2) cells each side of a cell."""
+    return max(3, int(np.ceil(np.sqrt(2.0) * w_t / min(dx, dy))) + 2)
+
+
+def surface_tension_reach(dx, dy, w_t, st_method="csf", st_curvature="fd",
+                          st_hf_smooth=0) -> int:
+    """How many cells away along either axis the surface-tension force of
+    a cell (and with ``st_method='balanced'`` its east and north faces)
+    reads phi, away from the domain's edge: the fd curvature 2 (the central
+    difference of the normal, itself one of phi; kappa* is pointwise);
+    the height function hh + 1 (its columns of the sharp fractions, which
+    read phi at +-1), and st_hf_smooth + 2 across them (the tangential
+    smoothing passes, then h' and h'', or the brackets' least product over
+    +-(1 + st_hf_smooth) columns); the cell CSF's grad H 1; the balanced
+    CSF's faces one more than the curvature (the face's mean of its two
+    cells), its cell force the mean of two faces."""
+    kap = 2
+    if st_curvature == "hf":
+        kap = max(kap, hf_half_height(w_t, dx, dy) + 1, st_hf_smooth + 2)
+    return kap + 1 if st_method == "balanced" else kap
 
 
 def external_forces(phis, H_s, dx, dy, *, gamma, k_rep, w_c, w_t,

@@ -119,6 +119,7 @@ from pyrmt_tpu_torch.ops.levelset import (
     smoothed_solid_area,
 )
 from pyrmt_tpu_torch.ops.poisson import (
+    faces_to_cells,
     precompute_dct_matrices,
     precompute_poisson_eigenvalues,
     precompute_poisson_eigenvalues_periodic,
@@ -611,11 +612,13 @@ def make_step(
     block of the grid, the adaptive dt's max, the projection's means, the
     CG's dot products, the area fix's sums and a rebase's least J are
     over all ranks, the DCT and FFT solves are distributed, the contact
-    force, the projection's and the split tier's stencils and the PDE
-    reinitialisation run on halo slabs (the periodic box's on wrap-padded
-    ones), and the fast sweeps ('fmm', a rebase) and the rebuild's sample
-    of phis0 take the whole field gathered on every rank. Without one the
-    step is the single-device step and communicates nothing.
+    force and surface tension (the balanced CSF's faces in the block
+    layout of ``ops.poisson.faces_to_cells``), the projection's and the
+    split tier's stencils and the PDE reinitialisation run on halo slabs
+    (the periodic box's on wrap-padded ones), and the fast sweeps ('fmm',
+    a rebase) and the rebuild's sample of phis0 take the whole field
+    gathered on every rank. Without one the step is the single-device
+    step and communicates nothing.
     """
     check_options(cfg)
     if traced_params is not None:
@@ -731,9 +734,13 @@ def make_step(
         st_kappa_interface=cfg.st_kappa_interface,
         st_hf_smooth=cfg.st_hf_smooth, with_faces=True,
         st_enabled=cfg.gamma > 1e-12)
-    if mesh is not None and cfg.k_rep > 0.0 and S >= 2:
-        # the contact force's stencils on halo slabs (gravity is pointwise)
-        forces = _on_mesh_slabs(mesh, forces)
+    if mesh is not None and ((cfg.gamma > 1e-12 and S > 0)
+                             or (cfg.k_rep > 0.0 and S >= 2)):
+        # the surface tension's and the contact force's stencils on halo
+        # slabs (gravity is pointwise)
+        from pyrmt_tpu_torch.parallel.sharding import force_halo
+
+        forces = _on_mesh_slabs(mesh, forces, force_halo(cfg))
 
     def g_rho_ref(pp):
         """Gravity's reference density: rho_f, traced or not, unless cfg
@@ -990,14 +997,24 @@ def make_step(
     return step
 
 
-def _on_mesh_slabs(mesh, forces):
+def _on_mesh_slabs(mesh, forces, halo):
     """``body_forces`` (the step's partial) on a rank's block: the level
-    sets and the density padded by the mesh's stencil halo, the forces
-    computed on the slab (the contact force's central differences reach
-    1 cell), cut back to the block."""
+    sets and the density padded by ``halo`` cells
+    (``parallel.sharding.force_halo``), the forces computed on the slab
+    (``ops.slab.on_slab``: the curvatures' one-sided closures and edge
+    replication at the domain's edge only), cut back to the block; the
+    balanced CSF's faces in the block layout of
+    ``ops.poisson.faces_to_cells``, which the sharded projection takes."""
+
+    def on_slab(phis, rho_local, **kw):
+        f_x, f_y, st_faces = forces(phis, rho_local, **kw)
+        return (f_x, f_y) + (() if st_faces is None
+                             else faces_to_cells(st_faces))
 
     def run(phis, rho_local, **kw):
-        return mesh.stencil(lambda p, r: forces(p, r, **kw))(phis, rho_local)
+        out = mesh.stencil(functools.partial(on_slab, **kw), halo)(
+            phis, rho_local)
+        return out[0], out[1], (tuple(out[2:]) or None)
 
     return run
 

@@ -6,6 +6,7 @@ without it; there, skip the repository's conftest (it sets jax up):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -2192,6 +2193,50 @@ def test_sharded_split_step_launches_advext_block(dev):
                    ("X2", 1e-11)):
         want = getattr(ref, k).cpu().numpy()
         assert np.abs(r["state"][k] - want).max() <= tol, k
+
+
+def test_sharded_capillary_drop_launches_the_ellipse_offsets(dev):
+    """The sharded capillary drop (the ellipse, gamma 0.1, the balanced
+    CSF, free slip) on the card: the fused tier's rmt_block launches its
+    ellipse offset instantiation and momentum_rk4 its force offset
+    instantiation once a step on every rank; the split tier (the cell CSF,
+    kappa*, the area fix) advext_block's offsets; both match the
+    single-process step: 4 ranks sharing the card, the (2, 2) mesh."""
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=1e-3, mu_f=1e-3,
+                       gamma=0.1, st_method="balanced", CFL=0.4)
+    split = dataclasses.replace(cfg, st_method="csf",
+                                st_kappa_interface=True, phi_area_fix=True)
+    ell, bc, steps = (pt.Ellipse(0.5, 0.5, 0.23, 0.174),
+                      pt.free_slip_box_bc, 3)
+    cases = [dict(cfg=c, velocity_bc=bc, phi_inits=(ell,), steps=steps,
+                  dtype=torch.float64, device="cuda", mesh_shape=(2, 2))
+             for c in (cfg, split)]
+    runs = run_world(4, "pyrmt_tpu_torch.parallel.launch:run_sharded",
+                     dict(cases=cases), backend="gloo")[0]
+    for c, r in zip((cfg, split), runs):
+        fused = c is cfg
+        assert r["paths"]["solid"] == (
+            "fused, kernel on slabs with offsets" if fused else
+            "split, advext_block kernel on slabs with offsets")
+        assert r["paths"]["momentum"] == "rk4 kernel on slabs with offsets"
+        for launches in r["launches"]:
+            assert launches["rmt_block.offset_launches"] == (
+                steps if fused else 0)
+            assert launches["rmt_block.advext_offset_launches"] == (
+                0 if fused else steps)
+            assert launches["momentum_rk4.offset_launches"] == steps
+            assert launches["rmt_block.launches"] == 0
+            assert launches["momentum_rk4.launches"] == 0
+        step = pt.make_step(c, bc, (ell,), dtype=torch.float64, device=dev)
+        ref = pt.make_init_state(c, (ell,), dtype=torch.float64, device=dev)
+        for _ in range(steps):
+            ref, _ = step(ref, 1.0)
+        for k, tol in (("u", 1e-10), ("v", 1e-10), ("p", 1e-10),
+                       ("X1", 1e-11), ("X2", 1e-11)):
+            want = getattr(ref, k).cpu().numpy()
+            assert np.abs(r["state"][k] - want).max() <= tol, k
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (4, 1), (1, 4), (2, 4)])

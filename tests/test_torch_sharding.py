@@ -206,14 +206,18 @@ def test_sharded_pallas_unfusible_config_raises():
                                   "traced_params"])
 def test_gspmd_only_configuration_raises(what):
     """Each configuration that JAX shards by GSPMD alone and the port does
-    not shard yet (the general tier, surface tension, traced_params)
-    waits for a later slice: NotImplementedError, naming the ROADMAP
-    item. tests/test_torch_sharding_gspmd.py runs the others."""
+    not shard yet (the general tier, surface tension on the periodic box,
+    traced_params) waits for a later slice: NotImplementedError, naming
+    the ROADMAP item. tests/test_torch_sharding_gspmd.py and
+    tests/test_torch_sharding_st.py run the others (surface tension on
+    walls among them)."""
     bc, shapes, kw = pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),), {}
     cfg = {"weno5": _cfg(scheme="weno5"),
            "central2": _cfg(scheme="central2"),
-           "surface tension": _cfg(gamma=0.1),
+           "surface tension": _cfg(gamma=0.1, bc_type="periodic"),
            "traced_params": _cfg()}[what]
+    if what == "surface tension":
+        bc = pt.periodic_bc
     if what == "traced_params":
         kw = dict(traced_params=("mu_s",))
     with pytest.raises(NotImplementedError, match="modules item 16"):
