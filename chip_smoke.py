@@ -140,9 +140,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      at N=1024 float32 ([backward] lines);
   14. domain decomposition: (a) the sharding offsets of rmt_block
      (bilinear, bicubic, two solids with the clamp, the capillary drop's
-     ellipse, a disc beside an ellipse with the clamp), advext_block and
+     ellipse, a disc beside an ellipse with the clamp), advext_block,
      momentum_rk4 (under the lid, and with the contact and gravity force
-     under free slip), in one process: every block of the (4,1), (1,4),
+     under free slip) and extrapolate_fused (on the masked maps of a WENO5
+     general-tier step), in one process: every block of the (4,1), (1,4),
      (2,2) and (2,4) meshes of N=256 float64 and N=1024 float32 operands,
      and of the (2,2) mesh of N=2048 float32 operands (the blocks that
      (b)'s flagship gives its ranks), padded by its exchange halo with
@@ -150,7 +151,8 @@ another sm_90a card) and the CUDA toolkit. Phases:
      blocks stitched must equal the unsharded kernel bit for bit, each
      slab its plain twin with the same offsets within the phase-3 bounds;
      the offset instantiations' times (rmt_block's with a disc and with
-     the ellipse) on the (0, 0) block of the (2,2) mesh of N=2048 float32
+     the ellipse, extrapolate_fused's) on the (0, 0) block of the (2,2)
+     mesh of N=2048 float32
      (their device times are phase 3's profile rows "..., offsets"); (b)
      the sharded step in one gloo world of 4 processes on the card
      (parallel.launch.run_world: the halo and the gathers through host
@@ -159,19 +161,23 @@ another sm_90a card) and the CUDA toolkit. Phases:
      flagship (20 steps), the density contrast (the CG, 10 steps, each
      step's iterations beside the single process's, within one), the
      split tier (area fix + PDE reinit, 10 steps), the periodic
-     flagship (10 steps) and the capillary drop (phase 4e's: the
-     ellipse, the balanced CSF, free slip; 10 steps), each beside a
+     flagship (10 steps), the capillary drop (phase 4e's: the
+     ellipse, the balanced CSF, free slip; 10 steps) and the general
+     tier's WENO5 flagship (from a swirl; 10 steps), each beside a
      float64 single-process run (how far either float32 step lies from
      it); at N=256 float64 on (2,2) and (4,1), 3 steps, within 1e-10 (u,
      v, p) and 1e-11 (X): the flagship, the density contrast (iterations
      equal), the split tier, the periodic Taylor-Green pure fluid, the
-     capillary drop, and on (2,2) a pure fluid under the lid and the
+     capillary drop, the general tier (WENO5, central2, the gather path
+     bilinear and bicubic, central2 on the periodic box), and on (2,2) a
+     pure fluid under the lid and the
      capillary drop's split-tier twin (the cell CSF with kappa*, the area
      fix); at N=128 float64 on (2,2) the 'fmm' reinit and the
      always-firing rebase (3 steps). Every rank launches the offset
      instantiation of each kernel of its step once a step (rmt_block on
      the fused tier, the ellipse's in the capillary drop, advext_block on
-     the split tier, momentum_rk4 under walls, with the force where the
+     the split tier, extrapolate_fused once per solid on the general
+     tier, momentum_rk4 under walls, with the force where the
      step has one; the periodic box's momentum is the plain stage loop, as in
      JAX) and extrapolate_fused once a rebase. [shard] lines, each
      field's error beside its bound; the wall ms/step of 4 processes
@@ -264,9 +270,12 @@ HAS_BICUBIC = "sl_interp" in inspect.signature(rb.rmt_block_fused).parameters
 HAS_ST = hasattr(levelset, "Ellipse")
 # The general tier: WENO5, central2, the gather path?
 HAS_GENERAL = hasattr(advect, "advect_weno5_rk3")
-# The sharding offsets of the solid blocks and the RK4 kernel?
+# The sharding offsets of the solid blocks and the RK4 kernel? Of
+# extrapolate_fused?
 HAS_OFFSETS = "row_offset" in inspect.signature(
     rb.rmt_block_fused).parameters
+HAS_EXTRAP_OFFSETS = "row_offset" in inspect.signature(
+    ef.extrapolate_reference_map_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -439,7 +448,9 @@ OFFSET_ROWS = {"rmt_block, offsets": ("rmt_block", "rmt_tile_kernel"),
                "rmt_block, ellipse offsets": ("rmt_block, ellipse",
                                               "rmt_tile_kernel"),
                "advext_block, offsets": ("advext_block", "advext_"),
-               "momentum_rk4, offsets": ("momentum_rk4", "rk4_kernel")}
+               "momentum_rk4, offsets": ("momentum_rk4", "rk4_kernel"),
+               "extrapolate_fused, offsets": ("extrapolate_fused",
+                                              EXTRAP_KERNEL)}
 # phase 14b: 4 ranks on the one card
 SHARD_RANKS = 4
 
@@ -698,8 +709,9 @@ def bound_us(name, N, dtype=torch.float32):
         # and the kernel writes those farther than the stale depth from
         # its two cuts (the wrapper's memset zeroes the rest)
         kernel = OFFSET_ROWS[name][0]
-        depth = (8 if kernel == "momentum_rk4" else
-                 rb.cut_depth(flagship(N).num_layers))
+        layers = flagship(N).num_layers
+        depth = {"momentum_rk4": 8, "extrapolate_fused": 4 * layers}.get(
+            kernel, rb.cut_depth(layers))
         cells_read = (N + offset_halo(kernel)) ** 2
         cells_written = (N + offset_halo(kernel) - depth) ** 2
     item = torch.finfo(dtype).bits // 8
@@ -2062,8 +2074,10 @@ def grad_step_without_sync(device):
 
 def offset_halo(kernel):
     """The exchange halo of a kernel's sharded call: 4 num_layers + 4 of
-    the flagship's 3 layers for the solid blocks, 8 for the RK4 kernel."""
-    return 8 if kernel == "momentum_rk4" else 4 * 3 + 4
+    the flagship's 3 layers for the solid blocks, 4 num_layers for the
+    extrapolation, 8 for the RK4 kernel."""
+    return {"momentum_rk4": 8, "extrapolate_fused": 4 * 3}.get(kernel,
+                                                               4 * 3 + 4)
 
 
 def as_outs(out):
@@ -2078,7 +2092,8 @@ def offset_cases(shape, dtype, device):
     with two solids and the clamp, with the capillary drop's ellipse and
     with a disc beside an ellipse (the clamp; phase 3's ellipse operands),
     advext_block, momentum_rk4 under the lid and with the contact and
-    gravity force under free slip."""
+    gravity force under free slip, and extrapolate_fused on the masked
+    maps that a WENO5 general-tier step hands it (``general_maps``)."""
     cfg, d = kernel_inputs(shape, dtype, device)
     ccfg, cd = contact_kernel_inputs(shape, dtype, device)
     ecfg, ed = kernel_inputs(shape, dtype, device, disc=ELLIPSE)
@@ -2117,6 +2132,16 @@ def offset_cases(shape, dtype, device):
     two = dict(stress_clamp=ccfg.two_solid_clamp)
     lid = make_lid_bc(1.0)
     pairs = (rb.rmt_block_fused, rb.rmt_block_plain)
+    extrap = {}
+    if HAS_EXTRAP_OFFSETS:
+        gcfg, seen = general_maps(shape, dtype, device,
+                                  *GENERAL_MAPS["weno5"])
+        ext = (gcfg.grid.dx, gcfg.grid.dy, gcfg.num_layers)
+        extrap["extrapolate_fused"] = (
+            lambda *f, **o: ef.extrapolate_reference_map_fused(*f, *ext,
+                                                               **o),
+            lambda *f, **o: extrapolate_reference_map(*f, *ext, **o),
+            list(seen[0]), offset_halo("extrapolate_fused"))
     return {
         "rmt_block": (*(rmt(f, cfg, d, solids) for f in pairs), rmt_fields,
                       h_rmt),
@@ -2141,6 +2166,7 @@ def offset_cases(shape, dtype, device):
             mom(mk.momentum_rk4_fused, free_slip_box_bc, ckw),
             mom(momentum_core, free_slip_box_bc, ckw),
             list(cargs) + force, h_mom),
+        **extrap,
     }
 
 
@@ -2208,6 +2234,8 @@ def offset_slab_calls(device):
     cases = offset_cases(OFFSET_N, torch.float32, device)
     out = {}
     for row, (case, _) in OFFSET_ROWS.items():
+        if case not in cases:  # an older package's --profile-kernels
+            continue
         kern, plain, fields, halo = cases[case]
         slabs = [slab_of(f, (2, 2), (0, 0), halo) for f in fields]
         args, offs = [a for a, _ in slabs], slabs[0][1]
@@ -2238,13 +2266,19 @@ def shard_case(kind, N, dtype, device):
     with kappa* and the area fix), the split tier (the flagship with the
     area fix and PDE reinitialisation), the periodic flagship (bench.py
     --periodic: the Taylor-Green seed), the periodic Taylor-Green pure
-    fluid, the 'fmm' reinitialisation, and the always-firing rebase of
+    fluid, the 'fmm' reinitialisation, the always-firing rebase of
     tests/test_rebase.py's sharded test (map_rebase_minj 10, a
-    Taylor-Green swirl of 0.3, free slip, t_end 10)."""
-    from pyrmt_tpu_torch import validation
-
+    Taylor-Green swirl of 0.3, free slip, t_end 10), and the general tier
+    (GENERAL_KINDS): the flagship with WENO5, central2, the gather path
+    bilinear and bicubic from a swirl of 0.5, and central2 on the periodic
+    box from the Taylor-Green seed."""
     kw = dict(dtype=dtype, device=device)
     lid, disc = make_lid_bc(1.0), (FLAGSHIP_DISC,)
+    if kind in GENERAL_KINDS:
+        cfg = flagship(N, **GENERAL_KINDS[kind])
+        if kind == "periodic central2":
+            return cfg, bcs.periodic_bc, disc, periodic_state(cfg, **kw), 8.0
+        return cfg, lid, disc, swirl_state(cfg, disc, amp=0.5, **kw), 8.0
     if kind in ("flagship", "pure fluid", "split", "fmm"):
         over = {"split": dict(phi_area_fix=True, reinit_method="pde"),
                 "fmm": dict(reinit_method="fmm")}.get(kind, {})
@@ -2271,6 +2305,14 @@ def shard_case(kind, N, dtype, device):
             swirl_state(cfg, shapes, dtype, device, amp=0.3), 10.0)
 
 
+# phase 14b's general-tier runs: {kind: flagship overrides}
+GENERAL_KINDS = {"weno5": dict(scheme="weno5"),
+                 "central2": dict(scheme="central2"),
+                 "gather": dict(sl_local=False),
+                 "gather bicubic": dict(sl_local=False,
+                                        sl_interp="bicubic"),
+                 "periodic central2": dict(scheme="central2",
+                                           bc_type="periodic")}
 # phase 14b's runs: (what, kind, N, dtype, mesh, untimed steps, timed
 # steps); the float32 runs at N=2048 on (2, 2), each beside a float64
 # single-process run
@@ -2279,7 +2321,7 @@ SHARD_RUNS = (
       18)]
     + [(f"N=2048 float32 (2,2) {kind}", kind, 2048, torch.float32, (2, 2),
         0, 10) for kind in ("density contrast", "split", "periodic",
-                            "capillary drop")]
+                            "capillary drop", "weno5")]
     + [(f"N=256 float64 ({a},{b})" + ("" if kind == "flagship" else
                                         f" {kind}"), kind, 256,
         torch.float64, (a, b), 0, 3)
@@ -2289,7 +2331,9 @@ SHARD_RUNS = (
                             ("split", ((2, 2), (4, 1))),
                             ("periodic TG", ((2, 2), (4, 1))),
                             ("capillary drop", ((2, 2), (4, 1))),
-                            ("capillary split", ((2, 2),)))
+                            ("capillary split", ((2, 2),)),
+                            *((kind, ((2, 2), (4, 1)))
+                              for kind in GENERAL_KINDS))
        for a, b in meshes]
     + [(f"N=128 float64 (2,2) {kind}", kind, 128, torch.float64, (2, 2),
         0, 3) for kind in ("fmm", "rebase")])
@@ -2299,17 +2343,20 @@ SPLIT_KINDS = ("split", "fmm", "rebase", "capillary split")
 def shard_launches(what, kind, steps, launches):
     """Raise unless each rank launched the offset instantiation of each
     kernel of its step once a step and no other: rmt_block's on the fused
-    tier, advext_block's on the split tier, momentum_rk4's under walls
-    (the periodic box's momentum is the plain stage loop, as in JAX), and
+    tier, advext_block's on the split tier, extrapolate_fused's once per
+    solid on the general tier, momentum_rk4's under walls (the periodic
+    box's momentum is the plain stage loop, as in JAX), and
     extrapolate_fused's unsharded kernel once a rebase."""
     solid = kind not in ("pure fluid", "periodic TG")
-    want = {"rmt_block.offset_launches":
-            steps if solid and kind not in SPLIT_KINDS else 0,
+    fused = solid and kind not in SPLIT_KINDS and kind not in GENERAL_KINDS
+    want = {"rmt_block.offset_launches": steps if fused else 0,
             "rmt_block.advext_offset_launches":
             steps if kind in SPLIT_KINDS else 0,
             "momentum_rk4.offset_launches":
             0 if kind.startswith("periodic") else steps,
-            "extrapolate_fused.launches": steps if kind == "rebase" else 0}
+            "extrapolate_fused.launches": steps if kind == "rebase" else 0,
+            "extrapolate_fused.offset_launches":
+            steps if kind in GENERAL_KINDS else 0}
     for rank, n in enumerate(launches):
         got = {k: n.get(k, 0) for k in want}
         others = {k: v for k, v in n.items() if k not in want and v}
@@ -2410,6 +2457,14 @@ def sharded_runs(device, card):
         if kind in SPLIT_KINDS:
             extra += ("; advext_block's offset instantiation "
                       + "/".join(str(n["rmt_block.advext_offset_launches"])
+                                 for n in r["launches"])
+                      + f" launches over the ranks in {steps} steps")
+        if kind in GENERAL_KINDS:
+            extra += ("; extrapolate_fused's offset instantiation "
+                      + "/".join(str(n["extrapolate_fused.offset_launches"])
+                                 for n in r["launches"])
+                      + " and momentum_rk4's "
+                      + "/".join(str(n["momentum_rk4.offset_launches"])
                                  for n in r["launches"])
                       + f" launches over the ranks in {steps} steps")
         vs64 = {}
@@ -2895,8 +2950,8 @@ def main() -> int:
     p14 = phase_s[-1][1] - phase_s[-2][1]
     print(f"[time] wall seconds per phase (host clock): {spans}; in all "
           f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on; phase "
-          f"14 {p14:.1f} s, {'within' if p14 <= 150.0 else 'past'} its aim "
-          f"of 150 s")
+          f"14 {p14:.1f} s, {'within' if p14 <= 200.0 else 'past'} its aim "
+          f"of 200 s")
     # the main path of extrapolate_fused is now the general tier's step
     main_launches["extrapolate_fused"] = general["weno5"]["launches"]
     gmaps = errs.pop("extrapolate_fused, general maps")
@@ -2991,7 +3046,10 @@ def main() -> int:
                                              "momentum_rk4.offset_launches"),
                    "advext_block, offsets": (
                        "N=2048 float32 (2,2) split",
-                       "rmt_block.advext_offset_launches")}
+                       "rmt_block.advext_offset_launches"),
+                   "extrapolate_fused, offsets": (
+                       "N=2048 float32 (2,2) weno5",
+                       "extrapolate_fused.offset_launches")}
     for row, (case, _) in OFFSET_ROWS.items():
         name = case.split(",")[0]
         entry = next(k for k in kernels if k["name"] == name)

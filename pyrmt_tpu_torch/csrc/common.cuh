@@ -77,6 +77,23 @@ struct Span {
   }
 };
 
+// A slab's valid cells (slab_axis) for a launch: the axes and the flat
+// offset of the first valid cell in a slab of Ny x Nx cells whose (0, 0)
+// is global cell (roff, coff) of an Nyt x Nxt domain.
+struct Slab {
+  Axis ay, ax;
+  size_t first;
+};
+
+inline Slab slab(int Ny, int Nx, int roff, int coff, int Nyt, int Nxt) {
+  int fy, fx;
+  Slab b;
+  b.ay = slab_axis(Ny, roff, Nyt, fy);
+  b.ax = slab_axis(Nx, coff, Nxt, fx);
+  b.first = static_cast<size_t>(fy) * Nx + fx;
+  return b;
+}
+
 __device__ inline Span tile_span(int t0, int t, int n, int halo) {
   Span s;
   s.n = n;

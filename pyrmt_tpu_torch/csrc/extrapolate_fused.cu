@@ -45,12 +45,29 @@
 // device-memory workspace after the flags, so every max_layers runs; with
 // max_layers = 0 every tile copies.
 //
+// The sharding offsets (the domain decomposition of
+// pyrmt_tpu_torch/parallel; the semantics of rmt_block.cu's): the inputs
+// are one shard's slab, element (0, 0) at global (roff, coff), possibly
+// negative, of an Nyt x Nxt domain. The launcher runs the pre-pass and the
+// tiles over the slab's valid cells (common.cuh's slab_axis: the zero halo
+// beyond the domain is never read); in the kSlab instantiation (SlabSpan)
+// the interior predicate and the window's zero taps take the global index
+// and the domain's extents, so a cell beside a cut is interior and its
+// window reads the slab's cells there. A tile writes only the cells 4L or
+// more in from a cut (the sweeps read 4 cells a layer): the cut's stale
+// cells stay as the wrapper left them (0, as the plain twin leaves them).
+// The vote reads the flags of the valid cells; an output cell 4L from a
+// cut widened by L stays inside them, so the copy stays exact. A whole
+// field (0, 0, Ny, Nx) takes the instantiation without kSlab, whose code
+// is the kernel's without offsets.
+//
 // Built with --fmad=false: the sums and the solve round as in the plain
 // PyTorch version, so the two agree bit for bit (chip_smoke.py).
 #include "panel_device.cuh"
 
 namespace {
 
+using pyrmt::Axis;
 using pyrmt::flag_bytes;
 using pyrmt::flag_cols;
 using pyrmt::kBx;
@@ -60,44 +77,58 @@ using pyrmt::kFlagTile;
 using pyrmt::kThreads;
 using pyrmt::Panel;
 using pyrmt::Plan;
-using pyrmt::Span;
+using pyrmt::Slab;
+using pyrmt::SpanOf;
 using pyrmt::Taps;
 
 constexpr int kOwn = pyrmt::kMaxTile * pyrmt::kMaxTile / kThreads;  // cells
 
 // The pre-pass: flags[fj, fi] = (some cell of the 8x8 cells (fj, fi)
-// known) | (some cell not known) << 1 (panel_device.cuh's flag_pass).
+// known) | (some cell not known) << 1 (panel_device.cuh's flag_pass), over
+// ny x nx cells whose rows are `stride` apart.
 template <typename T>
 __global__ void __launch_bounds__(kFlagTile * kFlag)
     extrap_flag_kernel(const T* __restrict__ phi,
-                       unsigned char* __restrict__ flags, int Ny, int Nx) {
-  pyrmt::flag_pass<2>(flags, Ny, Nx, Nx,
+                       unsigned char* __restrict__ flags, int ny, int nx,
+                       int stride) {
+  pyrmt::flag_pass<2>(flags, ny, nx, stride,
                       [&](size_t g) { return phi[g] < T(0) ? 1u : 2u; });
 }
 
-// The tile kernel (the source note above). flags: the pre-pass's.
-template <typename T>
+// The tile kernel (the source note above). flags: the pre-pass's; Ny, Nx:
+// the slab's extents (a row is Nx apart); ay, ax: its valid cells, the
+// pointers at the first of them (kSlab; without it the whole field).
+template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kThreads, 2)
     extrap_tile_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
                        const T* __restrict__ phi,
                        const unsigned char* __restrict__ flags,
                        T* __restrict__ x1e, T* __restrict__ x2e, int Ny,
-                       int Nx, int L, Taps<T> tp, int tile, unsigned char* ws,
-                       size_t panel_stride) {
+                       int Nx, Axis ay, Axis ax, int L, Taps<T> tp, int tile,
+                       unsigned char* ws, size_t panel_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L;
   const Panel<T> P(ws ? ws + blockIdx.x * panel_stride : smem,
                    tile + 2 * halo, false);
   const int W = P.W;
-  const int ntx = static_cast<int>(pyrmt::tiles_for(Nx, tile));
-  const int ntiles = static_cast<int>(pyrmt::num_tiles(Ny, Nx, tile));
+  // ny, nx: the valid cells; NyT, NxT: the domain's extents
+  const int ny = kSlab ? ay.n : Ny, nx = kSlab ? ax.n : Nx;
+  const int NyT = kSlab ? ay.total : Ny, NxT = kSlab ? ax.total : Nx;
+  const Axis yax = kSlab ? ay : Axis{Ny, 0, Ny};
+  const Axis xax = kSlab ? ax : Axis{Nx, 0, Nx};
+  const int ntx = static_cast<int>(pyrmt::tiles_for(nx, tile));
+  const int ntiles = static_cast<int>(pyrmt::num_tiles(ny, nx, tile));
   const int tid = threadIdx.y * kBx + threadIdx.x;
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Span ys = pyrmt::tile_span((t / ntx) * tile, tile, Ny, halo);
-    const Span xs = pyrmt::tile_span((t % ntx) * tile, tile, Nx, halo);
-    const Span oy = pyrmt::own(ys), ox = pyrmt::own(xs);
+    using Sp = SpanOf<kSlab>;
+    // the sweeps read no cell beyond the panel: no reach to keep from a cut
+    const Sp ys = pyrmt::span_of<kSlab>((t / ntx) * tile, tile, yax, halo, 0);
+    const Sp xs = pyrmt::span_of<kSlab>((t % ntx) * tile, tile, xax, halo, 0);
+    const Sp oy = pyrmt::own(ys), ox = pyrmt::own(xs);
+    // a slab's tile within 4L of a cut may own no cell (a uniform skip)
+    if (kSlab && (oy.size() <= 0 || ox.size() <= 0)) continue;
     const int ow = ox.size(), n_own = oy.size() * ow;
 
     // own: the thread's cells of the tile, q = tid + r * kThreads
@@ -114,14 +145,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 
     // vote: the flags of the tile widened by L (own tiles start at a
-    // multiple of 8 cells, so their flags hold their own cells only)
+    // multiple of 8 cells, so their flags hold their own cells only; beside
+    // a cut a few more, and the vote errs towards the sweeps, which are
+    // exact)
     const int fy = max(0, oy.lo - L) / kFlag, fx = max(0, ox.lo - L) / kFlag;
-    const int fh = (min(Ny, oy.hi + L) - 1) / kFlag + 1 - fy;
-    const int fw = (min(Nx, ox.hi + L) - 1) / kFlag + 1 - fx;
+    const int fh = (min(ny, oy.hi + L) - 1) / kFlag + 1 - fy;
+    const int fw = (min(nx, ox.hi + L) - 1) / kFlag + 1 - fx;
     bool unknown = false, known = false;
     for (int q = tid; q < fh * fw; q += kThreads) {
       const int fj = fy + q / fw, fi = fx + q % fw;
-      const unsigned b = flags[static_cast<size_t>(fj) * flag_cols(Nx) + fi];
+      const unsigned b = flags[static_cast<size_t>(fj) * flag_cols(nx) + fi];
       known |= (b & 1u) != 0;
       unknown |= (b & 2u) != 0 && fj >= oy.lo / kFlag &&
                  fj <= (oy.hi - 1) / kFlag && fi >= ox.lo / kFlag &&
@@ -153,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       P.known(0)[l] = phi[g] < T(0);
     });
     __syncthreads();
-    const size_t e = pyrmt::sweeps<T>(P, ys, xs, L, Ny, Nx, tp, nfront);
+    const size_t e = pyrmt::sweeps<T>(P, ys, xs, L, NyT, NxT, tp, nfront);
     pyrmt::for_panel(oy, ox, 0, [&](int lj, int li) {
       const int j = oy.lo + lj, i = ox.lo + li;
       const size_t l = static_cast<size_t>(j - ys.lo) * W + (i - xs.lo);
@@ -174,31 +207,53 @@ long long scratch_bytes(int Ny, int Nx, int max_layers, int sms) {
          pyrmt::workspace_bytes<T>(Ny, Nx, 4 * max_layers, false, sms);
 }
 
-// The pre-pass, then the tile kernel. scratch: scratch_bytes(...) bytes of
-// device memory; sms: the card's SM count.
-template <typename T>
-int launch(const T* X1, const T* X2, const T* phi, T* x1e, T* x2e,
-           void* scratch, int Ny, int Nx, int max_layers, const double* taps,
-           int sms, void* stream_ptr) {
+// The pre-pass, then the tile kernel, over the slab's valid cells (a
+// whole field's: all of them). scratch: scratch_bytes(...) bytes of device
+// memory; sms: the card's SM count.
+template <typename T, bool kSlab>
+int launch_tiles(const T* X1, const T* X2, const T* phi, T* x1e, T* x2e,
+                 void* scratch, int Ny, int Nx, const Slab& b, int max_layers,
+                 const double* taps, int sms, void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Plan p = pyrmt::plan<T>(4 * max_layers, false);
   const size_t smem = p.in_smem ? p.bytes : 0;
-  int err = pyrmt::allow_smem(extrap_tile_kernel<T>, smem, allowed);
+  int err = pyrmt::allow_smem(extrap_tile_kernel<T, kSlab>, smem, allowed);
   if (err) return err;
+  const size_t f = b.first;
+  const int ny = b.ay.n, nx = b.ax.n;
   unsigned char* flags = static_cast<unsigned char*>(scratch);
-  const dim3 grid(pyrmt::tiles_for(Nx, kFlagTile),
-                  pyrmt::tiles_for(Ny, kFlagTile));
+  const dim3 grid(pyrmt::tiles_for(nx, kFlagTile),
+                  pyrmt::tiles_for(ny, kFlagTile));
   extrap_flag_kernel<T><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
-      phi, flags, Ny, Nx);
+      phi + f, flags, ny, nx, Nx);
   PYRMT_RETURN_IF_ERROR();
-  extrap_tile_kernel<T><<<pyrmt::num_blocks(p, Ny, Nx, sms), dim3(kBx, kBy),
-                          smem, stream>>>(
-      X1, X2, phi, flags, x1e, x2e, Ny, Nx, max_layers,
-      pyrmt::load_taps<T>(taps), p.tile,
-      p.in_smem ? nullptr : flags + flag_bytes(Ny, Nx), p.bytes);
+  extrap_tile_kernel<T, kSlab>
+      <<<pyrmt::num_blocks(p, ny, nx, sms), dim3(kBx, kBy), smem, stream>>>(
+          X1 + f, X2 + f, phi + f, flags, x1e + f, x2e + f, Ny, Nx, b.ay,
+          b.ax, max_layers, pyrmt::load_taps<T>(taps), p.tile,
+          p.in_smem ? nullptr : flags + flag_bytes(Ny, Nx), p.bytes);
   PYRMT_RETURN_IF_ERROR();
   return 0;
+}
+
+// Ny, Nx: the slab's extents; roff, coff: the global (row, column) of its
+// element (0, 0), negative for an edge shard's zero halo; Nyt, Nxt: the
+// domain's extents (a whole field: 0, 0, Ny, Nx). The slab must hold a
+// valid cell. Outputs are written at the valid cells 4 max_layers or more
+// in from each cut (every valid cell without a cut).
+template <typename T>
+int launch(const T* X1, const T* X2, const T* phi, T* x1e, T* x2e,
+           void* scratch, int Ny, int Nx, int roff, int coff, int Nyt,
+           int Nxt, int max_layers, const double* taps, int sms,
+           void* stream) {
+  const Slab b = pyrmt::slab(Ny, Nx, roff, coff, Nyt, Nxt);
+  if (b.ay.n < 1 || b.ax.n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool slab = roff != 0 || coff != 0 || Nyt != Ny || Nxt != Nx;
+  return (slab ? launch_tiles<T, true> : launch_tiles<T, false>)(
+      X1, X2, phi, x1e, x2e, scratch, Ny, Nx, b, max_layers, taps, sms,
+      stream);
 }
 
 }  // namespace
@@ -209,10 +264,11 @@ int launch(const T* X1, const T* X2, const T* phi, T* x1e, T* x2e,
     return scratch_bytes<T>(Ny, Nx, max_layers, sms);                         \
   }                                                                           \
   extern "C" int NAME(const T* X1, const T* X2, const T* phi, T* x1e,         \
-                      T* x2e, void* scratch, int Ny, int Nx, int max_layers,  \
+                      T* x2e, void* scratch, int Ny, int Nx, int roff,        \
+                      int coff, int Nyt, int Nxt, int max_layers,             \
                       const double* taps, int sms, void* stream) {            \
-    return launch<T>(X1, X2, phi, x1e, x2e, scratch, Ny, Nx, max_layers,      \
-                     taps, sms, stream);                                      \
+    return launch<T>(X1, X2, phi, x1e, x2e, scratch, Ny, Nx, roff, coff, Nyt, \
+                     Nxt, max_layers, taps, sms, stream);                     \
   }
 
 PYRMT_EXTRAP_ENTRY(pyrmt_extrapolate_fused_f32,

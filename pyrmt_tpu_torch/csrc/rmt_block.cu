@@ -193,6 +193,8 @@ using pyrmt::Plan;
 using pyrmt::plan;
 using pyrmt::Rows;
 using pyrmt::Shape;
+using pyrmt::Slab;
+using pyrmt::slab;
 using pyrmt::Span;
 using pyrmt::SpanOf;
 using pyrmt::sweeps;
@@ -780,22 +782,6 @@ void set_shape(Shape<T>& s, int kind, const double* q) {
   s.y0 = static_cast<T>(q[1]);
   s.p = static_cast<T>(kind == 0 ? q[2] : 1.0 / q[2]);
   s.q = static_cast<T>(kind == 0 ? 0.0 : 1.0 / q[3]);
-}
-
-// A slab's valid cells (common.cuh's slab_axis) for a launch: the axes
-// and the flat offset of the first valid cell.
-struct Slab {
-  Axis ay, ax;
-  size_t first;
-};
-
-inline Slab slab(int Ny, int Nx, int roff, int coff, int Nyt, int Nxt) {
-  int fy, fx;
-  Slab b;
-  b.ay = pyrmt::slab_axis(Ny, roff, Nyt, fy);
-  b.ax = pyrmt::slab_axis(Nx, coff, Nxt, fx);
-  b.first = static_cast<size_t>(fy) * Nx + fx;
-  return b;
 }
 
 // The outputs from a slab's first valid cell.

@@ -4,8 +4,10 @@ its CUDA kernel (counterpart of
 
 The plain version is ``ops.extrapolate.extrapolate_reference_map``; the
 kernel is ``csrc/extrapolate_fused.cu``, whose source note says what it
-replaces and what bounds it. It runs where a map is extrapolated from
-scratch: at every map-rebase event.
+replaces and what bounds it. It runs on every step of the general tier,
+once per solid, and at every map-rebase event; with the sharding offsets
+on a rank's block of a domain decomposition
+(``parallel.sharding.make_extrapolate_sharded``).
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from pyrmt_tpu_torch.ops.extrapolate import (
 )
 
 # Times the wrapper launched the CUDA kernel (one per call on a CUDA
-# tensor). A caller may reset it to 0.
+# tensor): on a whole field, and on a shard's slab (the offsets). A caller
+# may reset them to 0.
 launches = 0
+offset_launches = 0
 
 
 def window_taps(dx, dy):
@@ -39,7 +43,7 @@ def _cuda_lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.pyrmt_extrapolate_fused_f32,
                lib.pyrmt_extrapolate_fused_f64):
-        fn.argtypes = [P] * 6 + [I, I, I, P, I, P]
+        fn.argtypes = [P] * 6 + [I] * 7 + [P, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_extrapolate_fused_scratch_f32,
                lib.pyrmt_extrapolate_fused_scratch_f64):
@@ -48,7 +52,9 @@ def _cuda_lib():
     return lib
 
 
-def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
+def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers, *,
+                                    row_offset=None, Ny_total=None,
+                                    col_offset=None, Nx_total=None):
     """Extrapolate (X1, X2) from the solid (phi < 0) ``max_layers`` cells
     into the fluid; same arguments and result as
     ``extrapolate_reference_map``.
@@ -57,17 +63,25 @@ def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers):
     kernel (a flag pre-pass and a tile kernel on the current stream, which
     do not wait for the card); another dtype, shape or device raises.
     Where an input requires a gradient the backward is the plain version's
-    autograd (``_autograd.launch``).
+    autograd (``_autograd.launch``). ``row_offset``, ``Ny_total``,
+    ``col_offset``, ``Nx_total`` make the inputs a shard's slab, as in
+    ``kernels.rmt_block.rmt_block_fused``: the results at the domain's
+    cells, 0 within 4 ``max_layers`` cells of a cut and outside the domain,
+    as ``extrapolate_reference_map`` with the same offsets gives them.
     """
+    kw = dict(row_offset=row_offset, Ny_total=Ny_total,
+              col_offset=col_offset, Nx_total=Nx_total)
     if X1.device.type == "cpu":
-        return extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers)
+        return extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers,
+                                         **kw)
     return _autograd.launch(_extrapolate_cuda, extrapolate_reference_map,
-                            (X1, X2, phi, dx, dy, max_layers), {})
+                            (X1, X2, phi, dx, dy, max_layers), kw)
 
 
-def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers):
+def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers, *, row_offset,
+                      Ny_total, col_offset, Nx_total):
     """One call of the kernel (two device kernels) on CUDA tensors."""
-    global launches
+    global launches, offset_launches
     if X1.device.type != "cuda":
         raise ValueError(f"extrapolate_fused: no kernel for device {X1.device}")
     Ny, Nx = X1.shape
@@ -75,9 +89,11 @@ def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers):
         "X1": (X1, (Ny, Nx)), "X2": (X2, (Ny, Nx)), "phi": (phi, (Ny, Nx))})
     if max_layers < 0:
         raise ValueError(f"extrapolate_fused: max_layers={max_layers} < 0")
+    offs, slab = _build.slab_operands(X1.shape, row_offset, Ny_total,
+                                      col_offset, Nx_total)
     lib = _cuda_lib()
-    x1e = torch.empty_like(X1)
-    x2e = torch.empty_like(X1)
+    x1e = _build.outputs((Ny, Nx), X1, slab)
+    x2e = _build.outputs((Ny, Nx), X1, slab)
     f32 = X1.dtype == torch.float32
     sms = torch.cuda.get_device_properties(X1.device).multi_processor_count
     # the pre-pass's flags, and the panels' workspace where a panel does not
@@ -91,6 +107,9 @@ def _extrapolate_cuda(X1, X2, phi, dx, dy, max_layers):
     _build.launch(lib, fn, "extrapolate_fused kernel launch", X1.device,
                   *(_build.pointer(t) for t in (X1, X2, phi, x1e, x2e,
                                                 scratch)),
-                  Ny, Nx, int(max_layers), window_taps(dx, dy), sms)
-    launches += 1
+                  Ny, Nx, *offs, int(max_layers), window_taps(dx, dy), sms)
+    if slab:
+        offset_launches += 1
+    else:
+        launches += 1
     return x1e, x2e

@@ -19,6 +19,14 @@ for all) gives each field the numbers it gets alone. The near-edge
 fallbacks are the JAX package's, and so is its fix of the right-biased
 minus face (docs/DESIGN.md, deviation #2). The index masks are
 ``torch.arange`` on the operand's device: no step waits for the card.
+Each SSP-RK3 stage reads 3 cells (WENO5) or 1 (central2) around a cell,
+so a shard's block padded by three times that (``RK3_REACH``) gets the
+whole field's values: the slab ends at the domain's edge
+(``ops.slab.on_slab``), where its index is the domain's, and the
+fallbacks and margins at a cut fall in the halo that is cut off.
+
+The gather path's block (``advect_semilagrangian_rk4_multi`` with
+``at``): the fields whole, the nodes a block of them.
 """
 from __future__ import annotations
 
@@ -33,6 +41,9 @@ from pyrmt_tpu_torch.ops.interp import (
 )
 
 SCHEMES = ("semilagrangian", "central2", "weno5")
+# How far the three SSP-RK3 stages of a scheme read around a cell: 3 x 3
+# cells for WENO5, 3 x 1 for central2 (the halo of a shard's slab)
+RK3_REACH = {"weno5": 9, "central2": 3}
 
 
 def _check_interp(interp):
@@ -53,13 +64,15 @@ def check_scheme(scheme):
 # ── Semi-Lagrangian RK4 ──────────────────────────────────────────────────
 
 
-def backtrace_rk4(a, b, X, Y, dt, dx, dy):
+def backtrace_rk4(a, b, X, Y, dt, dx, dy, at=None):
     """RK4 departure points of the grid nodes (X, Y) for the velocity
     (a, b) over ``dt``: the stage velocities are bilinear samples of
     (a, b) at the intermediate points (the first stage's are (a, b)
-    themselves). Returns (X_back, Y_back)."""
+    themselves). ``at`` = (rows, cols): (X, Y) are those nodes of the grid
+    of (a, b) (a rank's block), whose first stage is (a, b) there.
+    Returns (X_back, Y_back)."""
     ab = torch.stack([a, b])
-    k1x, k1y = a, b
+    k1x, k1y = (a, b) if at is None else (a[at], b[at])
     k2x, k2y = gather_bilinear_multi(ab, X - 0.5 * dt * k1x,
                                      Y - 0.5 * dt * k1y, dx, dy)
     k3x, k3y = gather_bilinear_multi(ab, X - 0.5 * dt * k2x,
@@ -71,15 +84,18 @@ def backtrace_rk4(a, b, X, Y, dt, dx, dy):
 
 
 def advect_semilagrangian_rk4_multi(qs, a, b, X, Y, dt, dx, dy,
-                                    interp="bilinear", cubic_mask=None):
+                                    interp="bilinear", cubic_mask=None,
+                                    at=None):
     """Advect the stack ``qs`` (K, Ny, Nx) with one shared RK4 backtrace
     (``backtrace_rk4``) and a gather at the departure points, however far
     they lie: bilinear, or with ``interp='bicubic'`` Catmull-Rom clamped to
     its stencil, bilinear where ``cubic_mask`` is False (the band guard).
     A non-finite departure point gives NaN; the others are clamped into
-    the domain."""
+    the domain. ``at`` = (rows, cols): the fields are the whole grid's and
+    (X, Y), ``cubic_mask`` and the result those nodes' (a rank's block of
+    a domain decomposition), each node's value the whole grid's."""
     _check_interp(interp)
-    X_back, Y_back = backtrace_rk4(a, b, X, Y, dt, dx, dy)
+    X_back, Y_back = backtrace_rk4(a, b, X, Y, dt, dx, dy, at)
     if interp == "bicubic":
         return gather_bicubic_multi(qs, X_back, Y_back, dx, dy,
                                     cubic_mask=cubic_mask)
@@ -250,17 +266,21 @@ def advect_central2_rk3(q, a, b, dx, dy, dt, phi, w_cut=0.0):
 
 def advect_reference_map_multi(qs, a, b, X, Y, dt, dx, dy, phi,
                                scheme="semilagrangian", w_cut=0.0,
-                               sl_interp="bilinear", sl_cubic_mask=None):
+                               sl_interp="bilinear", sl_cubic_mask=None,
+                               sl_at=None):
     """Advect the stack ``qs`` (K, Ny, Nx) with ``scheme``.
     'semilagrangian' samples with ``sl_interp`` (bicubic under the band
-    guard ``sl_cubic_mask``) and ignores ``phi``; 'central2' and 'weno5'
-    band with ``phi`` and ``w_cut``, ``phi`` (Ny, Nx) for every field or
-    (K, Ny, Nx), one per field, and evaluate the whole stack at once."""
+    guard ``sl_cubic_mask``) at the nodes ``sl_at`` of
+    ``advect_semilagrangian_rk4_multi`` and ignores ``phi``; 'central2' and
+    'weno5' band with ``phi`` and ``w_cut``, ``phi`` (Ny, Nx) for every
+    field or (K, Ny, Nx), one per field, and evaluate the whole stack at
+    once."""
     check_scheme(scheme)
     if scheme == "semilagrangian":
         return advect_semilagrangian_rk4_multi(qs, a, b, X, Y, dt, dx, dy,
                                                interp=sl_interp,
-                                               cubic_mask=sl_cubic_mask)
+                                               cubic_mask=sl_cubic_mask,
+                                               at=sl_at)
     rk3 = advect_central2_rk3 if scheme == "central2" else advect_weno5_rk3
     return rk3(qs, a, b, dx, dy, dt, phi, w_cut)
 

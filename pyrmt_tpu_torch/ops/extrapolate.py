@@ -7,6 +7,7 @@ a Gaussian-weighted least-squares plane fit over the known cells of its 9x9
 window, fitted in cell-offset coordinates. The sweeps are layer-synchronous
 (all frontier cells fit against the previous layer only): docs/DESIGN.md
 deviation #1, kept on purpose. Window taps outside the domain read zero.
+With the sharding offsets the fields are a shard's slab (``ops.slab``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from pyrmt_tpu_torch.ops.fd import _shift_x, _shift_y, solve3x3_sym
+from pyrmt_tpu_torch.ops.slab import has_offsets, on_slab
 
 _WIN = 4  # window half-width: 9x9 window
 
@@ -111,9 +113,24 @@ def _dense_layer(X1e, X2e, known, frontier, fx, fy):
             known | accept)
 
 
-def extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers):
+def extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers, *,
+                              row_offset=None, Ny_total=None,
+                              col_offset=None, Nx_total=None):
     """Extrapolate (X1, X2) from the solid (phi < 0) ``max_layers`` cells
-    into the fluid. Returns (X1_ext, X2_ext)."""
+    into the fluid. Returns (X1_ext, X2_ext).
+
+    ``row_offset``, ``Ny_total``, ``col_offset``, ``Nx_total`` (the JAX
+    kernels' sharding operands) make the fields one shard's slab
+    (``ops.slab.on_slab``): the interior predicate and the window's zero
+    taps are the domain's, and the results are 0 within 4 ``max_layers``
+    cells of a cut (each sweep reads a 9x9 window: 4 cells) and outside
+    the domain, as the CUDA kernel leaves them."""
+    if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
+        return on_slab(extrapolate_reference_map, (X1, X2, phi),
+                       dict(dx=dx, dy=dy, max_layers=max_layers),
+                       row_offset=row_offset, Ny_total=Ny_total,
+                       col_offset=col_offset, Nx_total=Nx_total,
+                       stale=4 * max_layers)
     Ny, Nx = X1.shape
     fx, fy = _kernels_1d(dx, dy)
     interior = _interior_mask(Ny, Nx, X1.device)

@@ -168,7 +168,7 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
                                    "advext_launches",
                                    "advext_offset_launches")),
                 "momentum_rk4": (mk, ("launches", "offset_launches")),
-                "extrapolate_fused": (ef, ("launches",))}
+                "extrapolate_fused": (ef, ("launches", "offset_launches"))}
     for mod, names in counters.values():
         for n in names:
             setattr(mod, n, 0)

@@ -8,11 +8,21 @@ lies outside its two shard_mapped kernels; here each of those becomes an
 explicit collective or a halo exchange:
 
   * the kernels (``make_rmt_block_sharded``, ``make_advext_block_sharded``
-    for the split tier, ``make_momentum_rk4_sharded``) run per rank on its
-    block plus an exchanged halo (4 num_layers + 4 cells, and 8), with the
+    for the split tier, ``make_extrapolate_sharded`` for the general
+    tier, ``make_momentum_rk4_sharded``) run per rank on its block plus an
+    exchanged halo (4 num_layers + 4 cells, 4 num_layers, and 8), with the
     sharding offsets, as in JAX; their plain twins take the same offsets;
-  * the stencils of the projection, the contact force and the split
-    tier's stress run on a block plus a 1- or 2-cell halo
+  * the general tier's WENO5 and central2 run on a block plus the reach
+    of their three SSP-RK3 stages (``ops.advect.RK3_REACH``: 9 and 3
+    cells, one exchange; the near-edge fallbacks at a cut fall in the
+    halo that is cut off); the shifts are edge-clamped at the domain's
+    edge, on the periodic box too (the solid machinery never wraps), so
+    the halo beyond the domain is zeros, not the wrap halo; the gather
+    path (``sl_local=False``,
+    CFL >= 1) gathers u, v and the maps whole and backtraces and samples
+    the block's own nodes;
+  * the stencils of the projection, the contact force and the split and
+    general tiers' stress run on a block plus a 1- or 2-cell halo
     (``Mesh.stencil``), the BC and the one-sided closures at the global
     domain's edge only; the PDE reinitialisation 8 iterations per
     exchange of an 8-cell halo;
@@ -61,10 +71,12 @@ says so; NCCL (one rank per card) exchanges on the device.
 The configurations that JAX's shard_map path takes are sharded, and of
 those that only GSPMD shards in JAX the variable-density CG, the split
 tier (reinit, area fix, map rebasing, any level set), the
-doubly-periodic box and surface tension on walls (the cell and the
-balanced CSF, fd, kappa* and height-function curvature). The general
-tier, ``traced_params`` and surface tension on the periodic box raise
-NotImplementedError (``check_slice``).
+doubly-periodic box, surface tension on walls (the cell and the
+balanced CSF, fd, kappa* and height-function curvature) and the general
+tier (WENO5, central2, the gather path for ``sl_local=False`` and
+CFL >= 1, with everything the other tiers take). ``traced_params`` and
+surface tension on the periodic box raise NotImplementedError
+(``check_slice``).
 """
 from __future__ import annotations
 
@@ -519,6 +531,35 @@ def make_advext_block_sharded(mesh: Mesh, Ny: int, Nx: int, num_layers: int,
     return advext_impl
 
 
+def make_extrapolate_sharded(mesh: Mesh, Ny: int, Nx: int, num_layers: int,
+                             impl=None):
+    """The general tier's extrapolation on a rank's block (``sim.make_step``
+    builds it around its ``extrap_impl`` under a mesh): ``impl`` (default
+    ``kernels.extrapolate_fused.extrapolate_reference_map_fused``: the
+    kernel on a CUDA block, its plain twin on a CPU one;
+    ``ops.extrapolate.extrapolate_reference_map`` for the plain twin on
+    either) on the block of X1, X2 and phi padded by the sweeps' reach,
+    4 num_layers exchanged cells on both mesh axes, with the sharding
+    offsets, the halo cut off the two results."""
+    from pyrmt_tpu_torch.kernels.extrapolate_fused import (
+        extrapolate_reference_map_fused,
+    )
+
+    impl = impl or extrapolate_reference_map_fused
+    halo = 4 * num_layers
+    offsets = mesh.offsets(Ny, Nx, halo)
+
+    def extrap_impl(X1, X2, phi, dx, dy, max_layers):
+        if max_layers > num_layers:
+            raise ValueError(f"a halo of {halo} cells holds {num_layers} "
+                             f"extrapolation layers, not {max_layers}")
+        outs = impl(*mesh.pad([X1, X2, phi], halo), dx, dy, max_layers,
+                    **offsets)
+        return tuple(mesh.unpad(o, halo) for o in outs)
+
+    return extrap_impl
+
+
 def make_momentum_rk4_sharded(mesh: Mesh, Ny: int, Nx: int, impl=None):
     """A ``momentum_rk4_impl`` for ``sim.make_step``: ``impl`` (default
     ``kernels.momentum_rk4.momentum_rk4_fused``; ``physics.momentum_core``
@@ -599,6 +640,14 @@ def advext_block_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
     return S >= 1 and _local(mesh, Ny, Nx, 4 * num_layers + 4) is not None
 
 
+def extrapolate_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
+                                  num_layers: int, S: int):
+    """The sharded extrapolation kernel needs at least one solid, the grid
+    to divide both mesh axes and blocks of at least its exchange halo
+    (4 num_layers) along each split axis."""
+    return S >= 1 and _local(mesh, Ny, Nx, 4 * num_layers) is not None
+
+
 def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
                                    velocity_bc):
     """The sharded RK4 kernel needs a wall BC with a ``kernel_spec`` (the
@@ -617,19 +666,12 @@ def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
 def check_slice(cfg, velocity_bc, phi_inits, traced_params=None) -> None:
     """Raise NotImplementedError for a configuration that this port does
     not shard yet (JAX shards it by GSPMD alone), naming its ROADMAP item:
-    ``traced_params`` (16.6), the general tier (16.4) and surface tension
-    on the periodic box (16.7); ValueError for a periodic box whose BC and
-    ``bc_type`` disagree (the sharded box's overlap copy is
-    ``bcs.periodic_bc``'s)."""
-    from pyrmt_tpu_torch.sim import _rmt_advect_fusible
-
-    S = len(phi_inits)
+    ``traced_params`` (16.6) and surface tension on the periodic box
+    (16.7); ValueError for a periodic box whose BC and ``bc_type``
+    disagree (the sharded box's overlap copy is ``bcs.periodic_bc``'s)."""
     why = None
     if traced_params is not None:
         why = "traced_params (sharded gradients)", 6
-    elif S > 0 and not _rmt_advect_fusible(cfg, S):
-        why = ("the general tier (WENO5, central2, sl_local=False, "
-               "CFL >= 1)"), 4
     elif cfg.gamma > 1e-12 and cfg.bc_type == "periodic":
         why = "surface tension on the periodic box", 7
     if why is not None:
@@ -658,9 +700,12 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     ``momentum_rk4_sharded_supported``); 'xla' runs their plain twins
     with the same offsets; None picks 'pallas' on a CUDA state where it
     is supported, else 'xla', and on a CUDA state the RK4 kernel wherever
-    it is supported (a pure-fluid step too) and the split tier's
-    ``advext_block`` kernel (``make_advext_block_sharded``). An explicit
-    'pallas' that is not supported (the split tier among others) raises
+    it is supported (a pure-fluid step too), the split tier's
+    ``advext_block`` kernel (``make_advext_block_sharded``) and the
+    general tier's ``extrapolate_fused`` kernel
+    (``make_extrapolate_sharded``; an explicit 'xla' runs its plain twin,
+    on the general tier and at a rebase). An explicit 'pallas' that is not
+    supported (the split and general tiers among others) raises
     ValueError, as in JAX. Everything else runs as plain ops
     (``extrap_method``, ``projection_method``, ``use_pallas_rhs`` forced
     to their plain paths, as JAX forces them) with the collectives of the
@@ -674,10 +719,13 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     the pure fluid; the fused tier (1 to 16 discs or ellipses, bilinear
     or bicubic); the split tier (reinit 'pde' on exchanged halos, 'fmm'
     on the gathered level set, the area fix, map rebasing, any level
-    set); contact and gravity; surface tension on walls (the cell CSF or
-    the balanced CSF with its face forces, any curvature; the forces on
-    ``force_halo`` slabs, ``step.paths['forces']``); the Neumann DCT
-    projection and the variable-density CG. ``check_slice`` raises for
+    set); the general tier (WENO5 and central2 on slabs of their reach,
+    the gather path on the gathered fields, ``extrapolate_fused`` on
+    slabs with offsets; with the phi chain, rebasing, CFL >= 1, walls or
+    the periodic box); contact and gravity; surface tension on walls (the
+    cell CSF or the balanced CSF with its face forces, any curvature; the
+    forces on ``force_halo`` slabs, ``step.paths['forces']``); the Neumann
+    DCT projection and the variable-density CG. ``check_slice`` raises for
     the rest. A split axis's blocks must hold the largest halo the step
     exchanges (the ValueError names it).
     """
@@ -686,9 +734,12 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         rmt_block_plain,
         rmt_block_supported,
     )
+    from pyrmt_tpu_torch.ops.advect import RK3_REACH
+    from pyrmt_tpu_torch.ops.extrapolate import extrapolate_reference_map
     from pyrmt_tpu_torch.ops.levelset import REINIT_CHUNK
     from pyrmt_tpu_torch.physics import RK4_HALO, momentum_core
     from pyrmt_tpu_torch.sim import (
+        _rmt_advect_fusible,
         make_step,
         rmt_block_fusible,
         rmt_block_split_eligible,
@@ -717,9 +768,12 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     # level set the fused kernel does not evaluate
     split = rmt_block_split_eligible(cfg, S) or (
         rmt_block_fusible(cfg, S) and not rmt_block_supported(phi_inits))
+    # the general tier: what the gather-free backtrace does not take
+    general = S > 0 and not _rmt_advect_fusible(cfg, S)
     halo = max(4 * cfg.num_layers + 4 if S else 0, RK4_HALO,
                force_halo(cfg),
-               REINIT_CHUNK if split and cfg.reinit_method == "pde" else 0)
+               REINIT_CHUNK if S and cfg.reinit_method == "pde" else 0,
+               RK3_REACH.get(cfg.scheme, 0) if general else 0)
     # the periodic box's wrap halo (the RK4 stage loop's 8 cells) goes
     # along both axes, and its edge rank sends the cells beside its
     # overlap cell
@@ -738,6 +792,10 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         momentum_rk4_sharded_supported(mesh, Ny, Nx, velocity_bc)
     adv_kernel = auto and on_card and split and \
         advext_block_sharded_supported(mesh, Ny, Nx, cfg.num_layers, S)
+    # extrapolate_fused on the general tier's blocks and at a rebase, on
+    # the whole field
+    ext_kernel = auto and on_card and extrapolate_sharded_supported(
+        mesh, Ny, Nx, cfg.num_layers, S)
     rmt_impl = make_rmt_block_sharded(
         mesh, Ny, Nx, cfg.num_layers, impl=None if kernels
         else rmt_block_plain)
@@ -754,10 +812,16 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     step = make_step(cfg, velocity_bc, phi_inits, dtype=dtype, device=device,
                      rmt_block_impl=None if split else rmt_impl,
                      momentum_rk4_impl=mom_impl, advext_impl=adv_impl,
-                     mesh=mesh)
+                     extrap_impl=None if ext_kernel
+                     else extrapolate_reference_map, mesh=mesh)
     where = "slabs with offsets"
     if S == 0:
         solid = "none"
+    elif general:
+        scheme = (cfg.scheme if cfg.scheme != "semilagrangian" else
+                  f"semilagrangian {cfg.sl_interp}, gathered fields")
+        solid = (f"general, {scheme}, extrapolate_fused "
+                 f"{'kernel' if ext_kernel else 'plain twin'} on {where}")
     elif split:
         solid = (f"split, advext_block "
                  f"{'kernel' if adv_kernel else 'plain twin'} on {where}")

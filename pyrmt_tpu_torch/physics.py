@@ -415,7 +415,7 @@ def momentum_step_rk4_multi(
     stress_clamp=0.0, k_rep=0.0, w_c=None, g_x=0.0, g_y=0.0,
     g_rho_ref=None, ext_override=None, st_curvature="fd",
     st_kappa_interface=False, st_hf_smooth=0, use_pallas_rhs=False,
-    momentum_fn=None, periodic=False, st_enabled=None,
+    momentum_fn=None, periodic=False, st_enabled=None, mesh=None,
 ):
     """The n-solid RK4 momentum step from the maps: each solid's stress
     and J from (X1s[i], X2s[i], phis[i]) ((S, Ny, Nx) stacks), the
@@ -433,13 +433,26 @@ def momentum_step_rk4_multi(
     (``momentum_rk4_supported``: the kernel on a CUDA tensor, the plain
     update on a CPU one), else the plain stage loop, whose stage RHS is the
     one-RHS kernel with ``use_pallas_rhs``.
+
+    With a ``mesh`` (``parallel.sharding``) the fields are a rank's block:
+    the stress runs on slabs of ``STENCIL_HALO`` exchanged cells, cut back
+    to the block (``Mesh.stencil``); a force that reads neighbours (the
+    CSF, the contact) comes as ``ext_override``, built on slabs of its
+    reach, and ``momentum_fn`` is the sharded update
+    (``parallel.sharding.make_momentum_rk4_sharded``).
     """
     S = X1s.shape[0]
-    stress = [solid_cauchy_stress(X1s[i], X2s[i], dx, dy, mu_s, kappa,
-                                  phis[i], w_cut=stress_w_cut,
-                                  detg_clamp=stress_clamp)
-              for i in range(S)]
-    sxx_s, sxy_s, syy_s, J_s = (torch.stack(c) for c in zip(*stress))
+
+    def stresses(X1s, X2s, phis):
+        stress = [solid_cauchy_stress(X1s[i], X2s[i], dx, dy, mu_s, kappa,
+                                      phis[i], w_cut=stress_w_cut,
+                                      detg_clamp=stress_clamp)
+                  for i in range(S)]
+        return tuple(torch.stack(c) for c in zip(*stress))
+
+    if mesh is not None:
+        stresses = mesh.stencil(stresses)
+    sxx_s, sxy_s, syy_s, J_s = stresses(X1s, X2s, phis)
 
     H_s = smoothed_heaviside(phis, w_t)
     one_minus_H = 1.0 - H_s

@@ -107,6 +107,7 @@ from pyrmt_tpu_torch.kernels.rmt_block import (
     rmt_block_supported,
 )
 from pyrmt_tpu_torch.ops.advect import (
+    RK3_REACH,
     advect_reference_map_multi,
     check_scheme,
 )
@@ -614,9 +615,15 @@ def make_step(
     over all ranks, the DCT and FFT solves are distributed, the contact
     force and surface tension (the balanced CSF's faces in the block
     layout of ``ops.poisson.faces_to_cells``), the projection's and the
-    split tier's stencils and the PDE reinitialisation run on halo slabs
-    (the periodic box's on wrap-padded ones), and the fast sweeps ('fmm',
-    a rebase) and the rebuild's sample of phis0 take the whole field
+    split and general tiers' stencils and the PDE reinitialisation run on
+    halo slabs (the periodic box's on wrap-padded ones), the general
+    tier's WENO5 and central2 on slabs of their three stages' reach
+    (``ops.advect.RK3_REACH``, the edge-clamped shifts' zero halo beyond
+    the domain on the periodic box too, as the solid machinery never
+    wraps) and its extrapolation on slabs with the sharding offsets
+    (``parallel.sharding.make_extrapolate_sharded`` around
+    ``extrap_impl``), and the gather path, the fast sweeps ('fmm', a
+    rebase) and the rebuild's sample of phis0 take the whole field
     gathered on every rank. Without one the step is the single-device
     step and communicates nothing.
     """
@@ -725,6 +732,18 @@ def make_step(
     extrap_fn = extrap_impl or extrapolate_reference_map_fused
     maybe_rebase = (_make_maybe_rebase(cfg, S, Xw, Yw, extrap_fn, mesh)
                     if _rebasing(cfg, S) else None)
+    # the general tier for what the fused tiers' gather-free backtrace
+    # does not take: WENO5, central2, sl_local=False, CFL >= 1
+    general = S > 0 and not _rmt_advect_fusible(cfg, S)
+    # the general tier's extrapolation: a rank's on its block padded by
+    # the sweeps' reach, with the sharding offsets (a rebase extrapolates
+    # the whole gathered field)
+    block_extrap = extrap_fn
+    if mesh is not None and general:
+        from pyrmt_tpu_torch.parallel.sharding import make_extrapolate_sharded
+
+        block_extrap = make_extrapolate_sharded(mesh, g.Ny, g.Nx,
+                                                cfg.num_layers, extrap_fn)
     w_cut, clamp = stress_mode(cfg, S)
     sample = dict(sl_interp=cfg.sl_interp, sl_guard=sl_band_guard(cfg))
     forces = functools.partial(
@@ -734,10 +753,11 @@ def make_step(
         st_kappa_interface=cfg.st_kappa_interface,
         st_hf_smooth=cfg.st_hf_smooth, with_faces=True,
         st_enabled=cfg.gamma > 1e-12)
-    if mesh is not None and ((cfg.gamma > 1e-12 and S > 0)
-                             or (cfg.k_rep > 0.0 and S >= 2)):
-        # the surface tension's and the contact force's stencils on halo
-        # slabs (gravity is pointwise)
+    # the surface tension's and the contact force's stencils on halo slabs
+    # (gravity is pointwise)
+    mesh_forces = mesh is not None and ((cfg.gamma > 1e-12 and S > 0)
+                                        or (cfg.k_rep > 0.0 and S >= 2))
+    if mesh_forces:
         from pyrmt_tpu_torch.parallel.sharding import force_halo
 
         forces = _on_mesh_slabs(mesh, forces, force_halo(cfg))
@@ -801,25 +821,36 @@ def make_step(
         bicubic band guard from the pre-advection phis; WENO5 and central2:
         all 2S at once, each with its solid's phi); the mask; each solid's
         extrapolation; the maps frozen on a no-op step; the rebuild and
-        area fix. Returns (X1s, X2s, phis)."""
+        area fix. Returns (X1s, X2s, phis). With a mesh, a rank's block:
+        the gather path backtraces and samples the block's nodes from the
+        whole fields (the departure points may lie anywhere); WENO5 and
+        central2 run on slabs of their three stages' reach (one
+        exchange); the extrapolation is ``block_extrap``."""
+        if gather_phis0:
+            phis0 = mesh.gather(phis0)
         phis = phi_chain(X1s, X2s, phis0)
-        qs = torch.cat([X1s, X2s])
-        if cfg.scheme == "semilagrangian":
-            cubic_mask = None
-            if guard is not None:
-                m = phis < -guard
-                cubic_mask = torch.cat([m, m])
-            qs = advect_reference_map_multi(
-                qs, u, v, X, Y, dt, dx, dy, None, cfg.scheme, cfg.w_cut,
-                sl_interp=cfg.sl_interp, sl_cubic_mask=cubic_mask)
+        qs, phi2 = torch.cat([X1s, X2s]), torch.cat([phis, phis])
+        cubic_mask = None
+        if cfg.scheme == "semilagrangian" and guard is not None:
+            m = phis < -guard
+            cubic_mask = torch.cat([m, m])
+
+        def advect(qs, a, b, phi, at=None):
+            return advect_reference_map_multi(
+                qs, a, b, X, Y, dt, dx, dy, phi, cfg.scheme, cfg.w_cut,
+                sl_interp=cfg.sl_interp, sl_cubic_mask=cubic_mask, sl_at=at)
+
+        if mesh is None:
+            qs = advect(qs, u, v, phi2)
+        elif cfg.scheme == "semilagrangian":
+            qs = advect(*(mesh.gather(f) for f in (qs, u, v)), None,
+                        at=(rows, cols))
         else:
-            qs = advect_reference_map_multi(
-                qs, u, v, X, Y, dt, dx, dy, torch.cat([phis, phis]),
-                cfg.scheme, cfg.w_cut)
+            qs = mesh.stencil(advect, RK3_REACH[cfg.scheme])(qs, u, v, phi2)
         masks = (phis <= 0.0).to(dtype)
         X1a, X2a = qs[:S] * masks, qs[S:] * masks
-        ext = [extrap_fn(X1a[i], X2a[i], phis[i], dx, dy, cfg.num_layers)
-               for i in range(S)]
+        ext = [block_extrap(X1a[i], X2a[i], phis[i], dx, dy,
+                            cfg.num_layers) for i in range(S)]
         # freeze before the rebuild, so that on a no-op step phi, the
         # stress, J and the density come from the unchanged maps
         X1s = torch.where(active, torch.stack([e[0] for e in ext]), X1s)
@@ -835,12 +866,13 @@ def make_step(
         """The general tier's solid block, then its stress, blends, forces
         and RK4 update (``physics.momentum_step_rk4_multi``), the balanced
         CSF's forces built first, as the JAX step builds them, for the
-        projection. Returns (X1s, X2s, phis, sxx, sxy, syy, J, rho_local,
+        projection, and on a mesh any force that reads neighbours (on
+        ``force_halo`` slabs). Returns (X1s, X2s, phis, sxx, sxy, syy, J, rho_local,
         u*, v*, st_faces)."""
         X1s, X2s, phis = general_block(u, v, state.X1, state.X2,
                                        state.phis0, dt, active)
         ext_override = st_faces = None
-        if st_faces_on:
+        if st_faces_on or mesh_forces:
             fx, fy, st_faces = st_forces(phis, None, gamma=pp["gamma"],
                                          g_rho_ref=g_rho_ref(pp))
             ext_override = (fx, fy)
@@ -854,7 +886,7 @@ def make_step(
             ext_override=ext_override, st_curvature=cfg.st_curvature,
             st_kappa_interface=cfg.st_kappa_interface,
             st_hf_smooth=cfg.st_hf_smooth, momentum_fn=momentum_fn,
-            periodic=periodic)
+            periodic=periodic, mesh=mesh)
         H = smoothed_heaviside(phis, cfg.w_t)
         Hf = torch.sum(H, dim=0) - (S - 1.0)
         rho_local = (Hf * pp["rho_f"]
@@ -862,9 +894,6 @@ def make_step(
         return (X1s, X2s, phis, sxx, sxy, syy, J, rho_local, u_star, v_star,
                 st_faces)
 
-    # the general tier for what the fused tiers' gather-free backtrace
-    # does not take: WENO5, central2, sl_local=False, CFL >= 1
-    general = S > 0 and not _rmt_advect_fusible(cfg, S)
     # the split tier for phi post-processing, and for level sets the fused
     # kernel does not evaluate (any callable, more than 16 solids)
     split = rmt_block_split_eligible(cfg, S) or (

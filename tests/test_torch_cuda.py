@@ -1987,6 +1987,17 @@ def offset_case(dev, kernel, shape, disc, dtype):
                 lambda *f, **o: rb.advext_block_plain(*f, args[4], **akw,
                                                        **o),
                 list(args[:4]) + [phis], 16, 1e-4)
+    if kernel == "extrapolate_fused":
+        # the masked maps a general-tier step hands it; its halo, the
+        # sweeps' 4 num_layers cells
+        X1, X2 = args[2][0], args[3][0]
+        phi = disc(X1, X2)
+        mask = (phi <= 0.0).to(dtype)
+        ekw = (kw["dx"], kw["dy"], kw["num_layers"])
+        return (lambda *f, **o: ef.extrapolate_reference_map_fused(
+                    *f, *ekw, **o),
+                lambda *f, **o: extrapolate_reference_map(*f, *ekw, **o),
+                [X1 * mask, X2 * mask, phi], 4 * kw["num_layers"], 1e-4)
     cfg, fields, dt = momentum_inputs(dev, shape, dtype)
     mkw = dict(eta_s=0.01, dx=cfg.grid.dx, dy=cfg.grid.dy, dt=dt,
                mu_f=cfg.mu_f)
@@ -2000,7 +2011,7 @@ def offset_case(dev, kernel, shape, disc, dtype):
 @pytest.mark.parametrize("disc", [DISC, EDGE_DISC], ids=["disc", "edge"])
 @pytest.mark.parametrize("shape", OFFSET_SHAPES)
 @pytest.mark.parametrize("kernel", ["rmt_block", "advext_block",
-                                    "momentum_rk4"])
+                                    "momentum_rk4", "extrapolate_fused"])
 def test_offsets_stitched_slabs_equal_the_unsharded_kernel(
         dev, kernel, shape, disc, dtype):
     """The kernel's blocks stitched equal the unsharded kernel bit for bit;
@@ -2017,7 +2028,7 @@ def test_offsets_stitched_slabs_equal_the_unsharded_kernel(
     whole = outs(kern(*fields))
     counter = "offset_launches" if kernel != "advext_block" else \
         "advext_offset_launches"
-    mod = mk if kernel == "momentum_rk4" else rb
+    mod = {"momentum_rk4": mk, "extrapolate_fused": ef}.get(kernel, rb)
     for mesh in OFFSET_MESHES:
         for iy in range(mesh[0]):
             for ix in range(mesh[1]):
@@ -2185,6 +2196,40 @@ def test_sharded_split_step_launches_advext_block(dev):
         assert launches["rmt_block.advext_launches"] == 0
         assert launches["rmt_block.offset_launches"] == 0
         assert launches["momentum_rk4.offset_launches"] == steps
+    step = pt.make_step(cfg, bc, (DISC,), dtype=torch.float64, device=dev)
+    ref = pt.make_init_state(cfg, (DISC,), dtype=torch.float64, device=dev)
+    for _ in range(steps):
+        ref, _ = step(ref, 1.0)
+    for k, tol in (("u", 1e-10), ("v", 1e-10), ("p", 1e-10), ("X1", 1e-11),
+                   ("X2", 1e-11)):
+        want = getattr(ref, k).cpu().numpy()
+        assert np.abs(r["state"][k] - want).max() <= tol, k
+
+
+def test_sharded_weno5_step_launches_extrapolate_fused_offsets(dev):
+    """A sharded general-tier step (the flagship with WENO5) on the card
+    names extrapolate_fused's kernel on slabs with offsets in its paths,
+    launches its offset instantiation once per solid a step and the RK4
+    kernel's once a step on every rank, no solid block, and matches the
+    single-process step: 4 ranks sharing the card, the (2, 2) mesh."""
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    cfg = pt.RMTConfig(grid=pt.Grid(N, N, 1.0, 1.0), mu_s=0.1, eta_s=0.01,
+                       mu_f=0.01, scheme="weno5")
+    bc, steps = pt.make_lid_bc(1.0), 3
+    r = run_world(4, "pyrmt_tpu_torch.parallel.launch:run_sharded", dict(
+        cases=[dict(cfg=cfg, velocity_bc=bc, phi_inits=(DISC,), steps=steps,
+                    dtype=torch.float64, device="cuda", mesh_shape=(2, 2))]),
+        backend="gloo")[0][0]
+    assert r["paths"]["solid"] == ("general, weno5, extrapolate_fused "
+                                   "kernel on slabs with offsets")
+    assert r["paths"]["momentum"] == "rk4 kernel on slabs with offsets"
+    for launches in r["launches"]:
+        assert launches["extrapolate_fused.offset_launches"] == steps
+        assert launches["extrapolate_fused.launches"] == 0
+        assert launches["momentum_rk4.offset_launches"] == steps
+        assert launches["rmt_block.offset_launches"] == 0
+        assert launches["rmt_block.advext_offset_launches"] == 0
     step = pt.make_step(cfg, bc, (DISC,), dtype=torch.float64, device=dev)
     ref = pt.make_init_state(cfg, (DISC,), dtype=torch.float64, device=dev)
     for _ in range(steps):

@@ -206,20 +206,59 @@ def test_sharded_pallas_unfusible_config_raises():
                                   "traced_params"])
 def test_gspmd_only_configuration_raises(what):
     """Each configuration that JAX shards by GSPMD alone and the port does
-    not shard yet (the general tier, surface tension on the periodic box,
-    traced_params) waits for a later slice: NotImplementedError, naming
-    the ROADMAP item. tests/test_torch_sharding_gspmd.py and
-    tests/test_torch_sharding_st.py run the others (surface tension on
-    walls among them)."""
+    not shard yet (surface tension on the periodic box, traced_params)
+    waits for a later slice: NotImplementedError, naming the ROADMAP item,
+    on the general tier too ('weno5': traced_params with WENO5, 'central2':
+    surface tension on the periodic box with central2).
+    tests/test_torch_sharding_gspmd.py, tests/test_torch_sharding_st.py and
+    tests/test_torch_sharding_general*.py run the others (surface tension
+    on walls and the general tier among them)."""
     bc, shapes, kw = pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),), {}
     cfg = {"weno5": _cfg(scheme="weno5"),
-           "central2": _cfg(scheme="central2"),
+           "central2": _cfg(scheme="central2", gamma=0.1,
+                            bc_type="periodic"),
            "surface tension": _cfg(gamma=0.1, bc_type="periodic"),
            "traced_params": _cfg()}[what]
-    if what == "surface tension":
+    if what in ("surface tension", "central2"):
         bc = pt.periodic_bc
-    if what == "traced_params":
+    if what in ("traced_params", "weno5"):
         kw = dict(traced_params=("mu_s",))
-    with pytest.raises(NotImplementedError, match="modules item 16"):
+    item = "6" if "traced_params" in kw else "7"
+    with pytest.raises(NotImplementedError,
+                       match=rf"modules item 16\.{item}"):
         make_sharded_step(cfg, bc, shapes, Mesh((2, 4)), dtype=torch.float64,
                           device=DEV, **kw)
+
+
+@pytest.mark.parametrize("over, scheme", [
+    (dict(scheme="weno5"), "weno5"),
+    (dict(scheme="central2", bc_type="periodic"), "central2"),
+    (dict(sl_local=False, sl_interp="bicubic"),
+     "semilagrangian bicubic, gathered fields"),
+    (dict(CFL=1.5), "semilagrangian bilinear, gathered fields")])
+def test_sharded_general_tier_builds_and_names_its_paths(over, scheme):
+    """The general tier shards: the step builds on a mesh and names the
+    tier, the scheme and extrapolate_fused's path (the plain twin on a CPU
+    state)."""
+    bc = pt.periodic_bc if over.get("bc_type") == "periodic" \
+        else pt.free_slip_box_bc
+    step, _ = make_sharded_step(_cfg(**over), bc, (pt.Disc(0.5, 0.5, 0.2),),
+                                Mesh((2, 4)), dtype=torch.float64,
+                                device=DEV)
+    assert step.paths["solid"] == (
+        f"general, {scheme}, extrapolate_fused plain twin on slabs with "
+        "offsets")
+
+
+def test_sharded_weno5_blocks_must_hold_its_reach():
+    """With one extrapolation layer (a sharp blend, w_t 0, which one layer
+    covers) the largest halo is WENO5's 9 cells (its three stages'
+    reach): blocks of 8 rows raise, naming it; central2's 3 fit."""
+    cfg = _cfg(scheme="weno5", num_layers=1, w_t_cells=0.0)
+    with pytest.raises(ValueError, match="halo of 9 cells"):
+        make_sharded_step(cfg, pt.free_slip_box_bc,
+                          (pt.Disc(0.5, 0.5, 0.2),), Mesh((8, 1)),
+                          dtype=torch.float64, device=DEV)
+    make_sharded_step(dataclasses.replace(cfg, scheme="central2"),
+                      pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),),
+                      Mesh((8, 1)), dtype=torch.float64, device=DEV)
