@@ -182,7 +182,21 @@ another sm_90a card) and the CUDA toolkit. Phases:
      JAX) and extrapolate_fused once a rebase. [shard] lines, each
      field's error beside its bound; the wall ms/step of 4 processes
      sharing one card is a
-     correctness run's, not a scaling number.
+     correctness run's, not a scaling number; (c) the sharded step's
+     gradients in the same kind of world (parallel.launch.
+     run_sharded_grads: the ranks' summed block energies differentiated
+     with respect to a factor on the initial velocity and the traced
+     mu_s, make_sharded_step(traced_params=...)): at N=256 float64 on
+     (2,2), 3 steps, the flagship and the flagship from rest, the density
+     contrast (the sharded CG's adjoint), the split tier (area fix + PDE
+     reinit), the periodic flagship, WENO5, the capillary drop and the
+     head-on collision, each within 1e-10 of one process's gradient
+     through the unsharded kernels, every rank's forward launching each
+     offset instantiation of its path 3 times and its backward none; the
+     flagship at N=2048 float32 on (2,2), 3 steps: forward and backward
+     ms/step and peak memory a rank, the sharded gradient's distance from
+     one process's float64 gradient no more than twice the
+     single-process float32's. [shardgrad] lines.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
 the kernels (with each kernel's backward ms and the largest relative
@@ -2518,6 +2532,192 @@ def phase14(device, card):
     return offset_errs, time_offsets(device), sharded_runs(device, card)
 
 
+# phase 14c: the sharded step's gradients, each case's kind (shard_launches'
+# kind of its launches), every case tracing mu_s
+SHARD_GRAD_KINDS = {"flagship": "flagship", "flagship from rest": "flagship",
+                    "density contrast": "density contrast",
+                    "split": "split", "periodic": "periodic",
+                    "weno5": "weno5", "capillary drop": "capillary drop",
+                    "contact": "contact"}
+SHARD_GRAD_TRACED = ("mu_s",)
+SHARD_GRAD_STEPS = 3
+SHARD_GRAD_TOL = 1e-10
+# the float32 distance below which no two float32 gradients are told
+# apart (rounding alone put a sharded and a single-process float32
+# gradient 1e-7 to 3e-7 from float64 at N=64 on the CPU)
+SHARD_GRAD_F32_FLOOR = 1e-5
+
+
+def grad_shard_case(kind, N, dtype, device):
+    """(cfg, bc, shapes, initial state, t_end) of a phase 14c case: the
+    flagship and the split tier (area fix, PDE reinit) from a swirl of 0.3
+    under the lid; the flagship from rest (the lid row's tied max speed
+    across the blocks); the density contrast and the capillary drop from a
+    swirl of 0.05; the periodic flagship and WENO5 as phase 14b runs them;
+    the head-on collision's two discs approaching."""
+    kw = dict(dtype=dtype, device=device)
+    if kind in ("periodic", "weno5"):
+        return shard_case(kind, N, dtype, device)
+    if kind == "flagship from rest":
+        return shard_case("flagship", N, dtype, device)
+    if kind == "contact":
+        cfg = contact_config(N)
+        return (cfg, free_slip_box_bc, CONTACT_DISCS,
+                contact_state(cfg, CONTACT_DISCS, **kw), 8.0)
+    if kind in ("flagship", "split"):
+        cfg = flagship(N, **({} if kind == "flagship" else dict(
+            phi_area_fix=True, reinit_method="pde")))
+        shapes = (FLAGSHIP_DISC,)
+        return (cfg, make_lid_bc(1.0), shapes,
+                swirl_state(cfg, shapes, amp=0.3, **kw), 8.0)
+    cfg, bc, shapes, _ = st_case(kind, N, **kw)
+    return cfg, bc, shapes, swirl_state(cfg, shapes, amp=0.05, **kw), 8.0
+
+
+def single_grads(cfg, bc, shapes, state, t_end, steps, dtype, device):
+    """One process's gradients of the energy after ``steps`` steps of
+    ``make_step`` (the unsharded kernels on the card) with respect to a
+    factor on the initial velocity and the traced mu_s: (loss, {name:
+    gradient}), as ``parallel.launch.sharded_grad_case`` defines them."""
+    from pyrmt_tpu_torch.parallel.launch import block_energy
+
+    kw = dict(dtype=dtype, device=device)
+    step = make_step(cfg, bc, shapes, traced_params=SHARD_GRAD_TRACED, **kw)
+    leaves = {"scale": torch.ones((), **kw)}
+    leaves.update({k: torch.tensor(getattr(cfg, k), **kw)
+                   for k in SHARD_GRAD_TRACED})
+    for x in leaves.values():
+        x.requires_grad_(True)
+    s = dataclasses.replace(state, u=state.u * leaves["scale"],
+                            v=state.v * leaves["scale"])
+    t = torch.as_tensor(t_end, **kw)
+    for _ in range(steps):
+        s = step(s, t, {k: leaves[k] for k in SHARD_GRAD_TRACED})[0]
+    loss = block_energy(s)
+    loss.backward()
+    return loss.item(), {k: x.grad.item() for k, x in leaves.items()}
+
+
+def sharded_grads(device, card, N=256, big=2048):
+    """Phase 14c: the sharded step's gradients (``parallel.launch.
+    run_sharded_grads``) in one gloo world of SHARD_RANKS processes on the
+    one card, host-staged, the loss the ranks' summed block energies.
+    Each SHARD_GRAD_KINDS case at N float64 on (2, 2), SHARD_GRAD_STEPS
+    steps through the offset kernels: d/d(velocity factor) and d/d(mu_s)
+    within SHARD_GRAD_TOL of one process's through the unsharded kernels,
+    nonzero (from rest the factor on zero has none); each rank's forward
+    launching each offset instantiation of its path once a step
+    (``shard_launches``), its backward none. The flagship at ``big``
+    float32 on (2, 2): forward and backward ms/step and peak memory a
+    rank, and the sharded gradient's distance from one process's float64
+    gradient no more than twice the single-process float32's (or than
+    SHARD_GRAD_F32_FLOOR, where both are rounding). Returns the
+    summary."""
+    from pyrmt_tpu_torch.io import state_to_numpy
+    from pyrmt_tpu_torch.parallel.launch import run_world
+
+    f64, f32 = torch.float64, torch.float32
+    dev = torch.device(device).type
+    runs = [(f"N={N} float64 (2,2) {name}", name, N, f64)
+            for name in SHARD_GRAD_KINDS]
+    runs.append((f"N={big} float32 (2,2) flagship", "flagship", big, f32))
+    cases, starts = [], []
+    for what, name, n, dtype in runs:
+        cfg, bc, shapes, state, t_end = grad_shard_case(name, n, dtype,
+                                                        device)
+        starts.append((cfg, bc, shapes, state, t_end))
+        cases.append(dict(cfg=cfg, velocity_bc=bc, phi_inits=shapes,
+                          steps=SHARD_GRAD_STEPS, dtype=dtype, device=dev,
+                          mesh_shape=(2, 2), state0=state_to_numpy(state),
+                          t_end=t_end, traced_params=SHARD_GRAD_TRACED))
+    t0 = time.perf_counter()
+    results = run_world(SHARD_RANKS, "pyrmt_tpu_torch.parallel.launch:"
+                        "run_sharded_grads", dict(cases=cases),
+                        backend="gloo", timeout=600.0)[0]
+    world_s = time.perf_counter() - t0
+    summary = {}
+    for (what, name, n, dtype), (cfg, bc, shapes, state, t_end), r in zip(
+            runs, starts, results):
+        if r["paths"]["grad"] != "adjoint collectives, host-staged":
+            raise AssertionError(f"[shardgrad] {what}: paths {r['paths']}")
+        if r["grad_spread"] != 0.0:
+            raise AssertionError(f"[shardgrad] {what}: the ranks' leaves "
+                                 f"differ by {r['grad_spread']}")
+        shard_launches(what, SHARD_GRAD_KINDS[name], SHARD_GRAD_STEPS,
+                       r["fwd_launches"])
+        if any(v for b in r["bwd_launches"] for v in b.values()):
+            raise AssertionError(f"[shardgrad] {what}: the backward "
+                                 f"launched {r['bwd_launches']}")
+        ms = (f"forward {min(r['fwd_ms']):.1f}-{max(r['fwd_ms']):.1f}, "
+              f"backward {min(r['bwd_ms']):.1f}-{max(r['bwd_ms']):.1f} "
+              f"ms/step a rank")
+        fwd = "/".join(str(sum(v for v in b.values()))
+                       for b in r["fwd_launches"])
+        if dtype == f64:
+            loss, want = single_grads(cfg, bc, shapes, state, t_end,
+                                      SHARD_GRAD_STEPS, dtype, device)
+            errs = {}
+            for k, g in r["grads"].items():
+                if not np.isfinite(g):
+                    raise AssertionError(f"[shardgrad] {what}: d/d{k} {g}")
+                if k == "scale" and name == "flagship from rest":
+                    if g != 0.0 or want[k] != 0.0:
+                        raise AssertionError(f"[shardgrad] {what}: from "
+                                             f"rest d/dscale {g}, {want[k]}")
+                    continue
+                errs[k] = rel(g, want[k])
+                if not (want[k] != 0.0 and errs[k] <= SHARD_GRAD_TOL):
+                    raise AssertionError(
+                        f"[shardgrad] {what}: d/d{k} {g!r} against one "
+                        f"process's {want[k]!r} (relative {errs[k]:.3e})")
+            print(f"[shardgrad] {what}: {SHARD_RANKS} processes sharing one "
+                  f"card ({card}), host-staged, {SHARD_GRAD_STEPS} steps; "
+                  + ", ".join(f"d/d{k} {g!r} (one process {want[k]!r}, "
+                              f"relative {errs[k]:.3e})" if k in errs else
+                              f"d/d{k} {g!r} (from rest)"
+                              for k, g in r["grads"].items())
+                  + f", bound {SHARD_GRAD_TOL:g}; loss {r['loss']!r} (one "
+                  f"process {loss!r}); forward kernel launches a rank "
+                  f"{fwd} ({r['fwd_launches'][0]}), backward 0; {ms}")
+            summary[what] = dict(errs=errs, fwd_ms=r["fwd_ms"],
+                                 bwd_ms=r["bwd_ms"],
+                                 fwd_launches=r["fwd_launches"])
+            continue
+        single = {}
+        for ref in (f32, f64):
+            s = state if ref == dtype else dataclasses.replace(
+                state, **{k: getattr(state, k).to(ref) for k in
+                          ("u", "v", "p", "X1", "X2", "t", "phis0")})
+            single[ref] = single_grads(cfg, bc, shapes, s, t_end,
+                                       SHARD_GRAD_STEPS, ref, device)[1]
+        dists = {}
+        for k, g in r["grads"].items():
+            d_shard = rel(g, single[f64][k])
+            d_single = rel(single[f32][k], single[f64][k])
+            dists[k] = (d_shard, d_single)
+            if not (np.isfinite(g) and d_shard <= 2.0 * max(
+                    d_single, SHARD_GRAD_F32_FLOOR)):
+                raise AssertionError(
+                    f"[shardgrad] {what}: d/d{k} {g!r} lies {d_shard:.3e} "
+                    f"from one process's float64 {single[f64][k]!r}, past "
+                    f"twice the single-process float32's {d_single:.3e} "
+                    f"(or {SHARD_GRAD_F32_FLOOR:g})")
+        peak = [b / 2**30 for b in r["peak_bytes"]]
+        print(f"[shardgrad] {what}: {SHARD_RANKS} processes sharing one card "
+              f"({card}), host-staged, {SHARD_GRAD_STEPS} steps; {ms}; peak "
+              f"memory {min(peak):.3f}-{max(peak):.3f} GiB a rank "
+              f"(max_memory_allocated); forward kernel launches a rank "
+              f"{fwd}, backward 0; relative distance from one process's "
+              f"float64 gradient, sharded / single-process float32: "
+              + ", ".join(f"d/d{k} {a:.3e} / {b:.3e}"
+                          for k, (a, b) in dists.items()))
+        summary[what] = dict(fwd_ms=r["fwd_ms"], bwd_ms=r["bwd_ms"],
+                             peak_gib=peak, distance=dists)
+    print(f"[shardgrad] the world of {SHARD_RANKS} ranks took {world_s:.1f} "
+          f"s (start-up, the {len(runs)} cases' forward and backward)")
+    return summary
+
+
 def main() -> int:
     # 1. probe
     if not torch.cuda.is_available():
@@ -2944,14 +3144,20 @@ def main() -> int:
     # step in a world of 4 ranks on the card (14b)
     offset_errs, offset_times, shard = phase14(device, card)
 
+    phase_s.append(("14c", time.perf_counter()))
+    # 14c. the sharded step's gradients in a world of 4 ranks on the card
+    shard_grad = sharded_grads(device, card)
+
     phase_s.append(("end", time.perf_counter()))
     spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
                       in zip(phase_s, phase_s[1:]))
-    p14 = phase_s[-1][1] - phase_s[-2][1]
+    p14 = phase_s[-2][1] - phase_s[-3][1]
+    p14c = phase_s[-1][1] - phase_s[-2][1]
     print(f"[time] wall seconds per phase (host clock): {spans}; in all "
           f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on; phase "
           f"14 {p14:.1f} s, {'within' if p14 <= 200.0 else 'past'} its aim "
-          f"of 200 s")
+          f"of 200 s; phase 14c {p14c:.1f} s, "
+          f"{'within' if p14c <= 150.0 else 'past'} its aim of 150 s")
     # the main path of extrapolate_fused is now the general tier's step
     main_launches["extrapolate_fused"] = general["weno5"]["launches"]
     gmaps = errs.pop("extrapolate_fused, general maps")
@@ -3071,7 +3277,7 @@ def main() -> int:
             "device_us": prof[1024][row][0]})
     print(json.dumps({"kernels": kernels, "grad_full_width": {
         k: full[k] for k in ("loss", "grad", "fwd_ms", "bwd_ms",
-                             "peak_gib")}}))
+                             "peak_gib")}, "shard_grad": shard_grad}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,11 @@ autograd, the variable-density CG has its implicit adjoint, and
 and ``make_diff_rollout`` are the JAX package's gradient API.
 ``make_mesh``, ``state_sharding``, ``shard_state`` and
 ``make_sharded_step`` (``parallel``) decompose the grid over the ranks of
-a ``torch.distributed`` world: one block per rank, the two kernels on
-exchanged halos with the sharding offsets, the rest as collectives.
+a ``torch.distributed`` world: one block per rank, the kernels on
+exchanged halos with the sharding offsets, the rest as collectives. The
+sharded step differentiates too: every collective has its adjoint, the
+traced scalars enter through ``Mesh.replicate``, and the global loss is
+the sum of the ranks' block losses (``parallel.sharding``'s note).
 ``velocity_RK4`` and ``advect_semi_lagrangian_rk4`` are pyRMT's names, as
 in the JAX package.
 

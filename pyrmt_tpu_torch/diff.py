@@ -78,7 +78,11 @@ def make_diff_step(
     ``rmt_block_impl`` and ``momentum_rk4_impl`` substitute the kernel
     blocks of the forward step (as in ``make_step``). ``variable_rho``
     works too: the CG differentiates through its implicit adjoint, one more
-    CG solve per step of the backward."""
+    CG solve per step of the backward.
+
+    Single-device, as in the JAX package: it builds its own steps, with no
+    mesh. A sharded step differentiates as it is
+    (``parallel.make_sharded_step``, with ``sim.make_rollout``)."""
     fwd = make_step(cfg, velocity_bc, phi_inits, dtype=dtype, device=device,
                     rmt_block_impl=rmt_block_impl,
                     momentum_rk4_impl=momentum_rk4_impl,
@@ -132,7 +136,7 @@ def make_diff_rollout(dstep, n_steps: int, with_params: bool = False):
     t_end)``, or with ``with_params`` (for a ``param_names`` step)
     ``rollout(state, t_end, params)``. Values are the kernels'
     trajectory; gradients the plain twin's along it, with one state per
-    step kept for the backward."""
+    step kept for the backward. Single-device, as ``make_diff_step``."""
 
     if with_params:
         def rollout(state: SimState, t_end, params):

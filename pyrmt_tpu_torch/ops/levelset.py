@@ -376,7 +376,9 @@ def _pde_iteration(phi, sign0, mask_pos, mask_neg, dx, dy, dt_reinit):
 
     gx = torch.where(mask_pos, gx_pos, torch.where(mask_neg, gx_neg, 0.0))
     gy = torch.where(mask_pos, gy_pos, torch.where(mask_neg, gy_neg, 0.0))
-    grad_mag = torch.sqrt(gx + gy)
+    # the double-where where a gradient flows: on a mesh's slab the
+    # discarded cells by a cut can have a zero upwind gradient
+    grad_mag = _norm(gx + gy, phi)
     return phi - dt_reinit * sign0 * (grad_mag - 1.0)
 
 

@@ -401,6 +401,26 @@ def _trapezoid_weights(shape, dtype, device):
     return axis(Ny)[:, None] * axis(Nx)[None, :]
 
 
+def _block_weights(like, mesh):
+    """The whole grid's trapezoid weights cut to the block of ``like``
+    (this rank's, with a ``mesh``)."""
+    if mesh is None:
+        return _trapezoid_weights(like.shape, like.dtype, like.device)
+    ly, lx = like.shape
+    ry, rx = mesh.shape
+    rows, cols = mesh.block(ly * ry, lx * rx)
+    return _trapezoid_weights((ly * ry, lx * rx), like.dtype,
+                              like.device)[rows, cols]
+
+
+def _block_operator(mesh, dx, dy):
+    """``apply_variable_poisson(p, inv_rho)``; with a ``mesh`` on this
+    rank's blocks padded by a 1-cell halo (``Mesh.stencil``: the ghost
+    mirror at the domain's edge only)."""
+    op = functools.partial(apply_variable_poisson, dx=dx, dy=dy)
+    return op if mesh is None else mesh.stencil(op, halo=1)
+
+
 def _host_read(flag) -> bool:
     """The CG's stopping test on the host: the solve's one kind of wait
     for the card."""
@@ -415,29 +435,17 @@ def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
     never records it: the public entry hides it behind the implicit
     adjoint ``_CGAdjoint``, as the JAX package hides its while loop."""
     read_every = CG_READ_EVERY
+    # with a mesh: the whole grid's weights, the null mode pinned on the
+    # rank that holds global (0, 0), the matvec on 1-cell halo slabs and
+    # every dot product a sum over the ranks, the same on each of them
+    w = _block_weights(rhs, mesh)
+    apply = _block_operator(mesh, dx, dy)
     if mesh is None:
-        w = _trapezoid_weights(rhs.shape, rhs.dtype, rhs.device)
         eig_pre = _pin_null_mode(eigenvalues)
-        apply = functools.partial(apply_variable_poisson, dx=dx, dy=dy)
-
-        def total(t):
-            return torch.sum(t)
-
-        def mean(t):
-            return torch.mean(t)
+        total, mean = torch.sum, torch.mean
     else:
-        # the whole grid's weights, the null mode pinned on the rank that
-        # holds global (0, 0), the matvec on 1-cell halo slabs and every
-        # dot product a sum over the ranks, the same on each of them
-        ly, lx = rhs.shape
-        (ry, rx), (iy, ix) = mesh.shape, mesh.coords
-        rows, cols = mesh.block(ly * ry, lx * rx)
-        w = _trapezoid_weights((ly * ry, lx * rx), rhs.dtype,
-                               rhs.device)[rows, cols]
-        eig_pre = (_pin_null_mode(eigenvalues) if (iy, ix) == (0, 0)
+        eig_pre = (_pin_null_mode(eigenvalues) if mesh.coords == (0, 0)
                    else eigenvalues)
-        apply = mesh.stencil(functools.partial(apply_variable_poisson,
-                                               dx=dx, dy=dy), halo=1)
 
         def total(t):
             return mesh.sum(torch.sum(t))
@@ -517,15 +525,11 @@ def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
     pins the constant mode, and each dot product and norm is a sum over
     the ranks added in rank order, so every rank reads the same stopping
     test and count. A sum over the ranks need not round as one sum does.
-    No gradient under a mesh (NotImplementedError)."""
+    Its implicit adjoint runs on the same sharded pieces."""
     if needs_grad((rhs, inv_rho)):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded CG solve has no gradient (sharded "
-                "traced_params wait for ROADMAP modules item 16)")
         Cx, Cy = dct_mats
         return _CGAdjoint.apply(rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy,
-                                tol, maxiter)
+                                tol, maxiter, mesh)
     return _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol,
                                      maxiter, dct_mats, mesh)
 
@@ -540,35 +544,42 @@ class _CGAdjoint(torch.autograd.Function):
     matrix-free operator. The forward saves the solution, not the
     iterates: autograd never unrolls the loop, whose gradient would store
     every iterate and differ from this one by O(tol). The eigenvalues and
-    the DCT matrices do not enter the converged solution and get none."""
+    the DCT matrices do not enter the converged solution and get none.
+
+    With a ``mesh`` (JAX's backward under GSPMD) the backward takes the
+    forward's sharded pieces: the cotangent's mean over the whole grid,
+    the whole grid's weights cut to the block, the sharded solve (the null
+    mode pinned on the rank of global (0, 0)) and the operator's VJP on
+    1-cell halo slabs, whose exchange's adjoint returns the halo's
+    gradient to the neighbours."""
 
     @staticmethod
     def forward(ctx, rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy, tol,
-                maxiter):
+                maxiter, mesh=None):
         p, iters, relres = _variable_poisson_cg_core(
-            rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter, (Cx, Cy))
+            rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter, (Cx, Cy), mesh)
         ctx.save_for_backward(p, inv_rho, eigenvalues, Cx, Cy)
-        ctx.consts = (dx, dy, tol, maxiter)
+        ctx.consts = (dx, dy, tol, maxiter, mesh)
         ctx.mark_non_differentiable(iters, relres)
         return p, iters, relres
 
     @staticmethod
     def backward(ctx, ct_p, _ct_iters, _ct_relres):
         p, inv_rho, eigenvalues, Cx, Cy = ctx.saved_tensors
-        dx, dy, tol, maxiter = ctx.consts
-        g = ct_p - torch.mean(ct_p)
-        w = _trapezoid_weights(p.shape, p.dtype, p.device)
+        dx, dy, tol, maxiter, mesh = ctx.consts
+        g = ct_p - (torch.mean(ct_p) if mesh is None else mesh.mean(ct_p))
+        w = _block_weights(p, mesh)
         # the core solves S lam = w (g / w) - mean = g
         lam = _variable_poisson_cg_core(g / w, inv_rho, eigenvalues, dx, dy,
-                                        tol, maxiter, (Cx, Cy))[0]
+                                        tol, maxiter, (Cx, Cy), mesh)[0]
         grad_rhs = w * lam if ctx.needs_input_grad[0] else None
         grad_inv_rho = None
         if ctx.needs_input_grad[1]:
             with torch.enable_grad():
                 ir = inv_rho.detach().requires_grad_(True)
                 grad_inv_rho = -torch.autograd.grad(
-                    w * apply_variable_poisson(p, ir, dx, dy), ir, lam)[0]
-        return grad_rhs, grad_inv_rho, None, None, None, None, None, None, None
+                    w * _block_operator(mesh, dx, dy)(p, ir), ir, lam)[0]
+        return (grad_rhs, grad_inv_rho) + (None,) * 8
 
 
 def solve_variable_poisson_cg(rhs, inv_rho, eigenvalues, dx, dy, tol=1e-6,

@@ -20,6 +20,12 @@ does not hold; ``stale`` sets that many cells from each cut to 0, as the
 CUDA kernels leave them. The ghost keeps the depth of that region the
 kernels': a function that applies a BC or a one-sided closure at its array
 edge does so at the ghost, which holds no data anyway.
+
+Where a gradient flows the ghost is the linear extrapolation of the last
+two cells in place of 0. No kept result reads it, so the values are the
+same; but the backward of a discarded result at a zero ghost can be 0
+times an infinite derivative (a division by a zero density), a NaN that
+the stencils' sums then carry into kept cells.
 """
 from __future__ import annotations
 
@@ -48,6 +54,23 @@ def has_offsets(row_offset, Ny_total, col_offset, Nx_total):
                                        Nx_total))
 
 
+def _extend(a, ghosts):
+    """``a`` with ``ghosts`` = (left, right, top, bottom) cells (0 or 1)
+    each the linear extrapolation of the two cells before it (the one cell
+    repeated where an axis holds one), the columns first."""
+    for dim, (lo, hi) in ((-1, ghosts[:2]), (-2, ghosts[2:])):
+        n = a.shape[dim]
+        parts = [a]
+        if lo:
+            e = a.narrow(dim, 0, 1)
+            parts.insert(0, 2.0 * e - a.narrow(dim, 1, 1) if n > 1 else e)
+        if hi:
+            e = a.narrow(dim, n - 1, 1)
+            parts.append(2.0 * e - a.narrow(dim, n - 2, 1) if n > 1 else e)
+        a = torch.cat(parts, dim=dim)
+    return a
+
+
 def on_slab(fn, args, kwargs, *, row_offset=None, Ny_total=None,
             col_offset=None, Nx_total=None, stale=0, origin=False):
     """``fn(*args, **kwargs)`` on the valid cells of the slab ``args[0]``
@@ -59,6 +82,9 @@ def on_slab(fn, args, kwargs, *, row_offset=None, Ny_total=None,
     arrays' element (0, 0) and the domain's extents."""
     shape = tuple(args[0].shape[-2:])
     Ny, Nx = shape
+    smooth = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad
+        for a in (*args, *kwargs.values()))
     ylo, yhi, gy, cy0, cy1 = slab_axis(Ny, row_offset, Ny_total)
     xlo, xhi, gx, cx0, cx1 = slab_axis(Nx, col_offset, Nx_total)
     ghosts = (int(cx0), int(cx1), int(cy0), int(cy1))
@@ -67,7 +93,10 @@ def on_slab(fn, args, kwargs, *, row_offset=None, Ny_total=None,
         if not (isinstance(a, torch.Tensor) and a.dim() >= 2
                 and tuple(a.shape[-2:]) == shape):
             return a
-        return F.pad(a[..., ylo:yhi, xlo:xhi], ghosts)
+        a = a[..., ylo:yhi, xlo:xhi]
+        if smooth and a.is_floating_point():
+            return _extend(a, ghosts)
+        return F.pad(a, ghosts)
 
     if origin:
         kwargs = dict(kwargs, origin=(

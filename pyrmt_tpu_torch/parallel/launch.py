@@ -19,7 +19,8 @@ that fails or outlasts ``timeout`` raises, and every rank process is
 stopped before it returns.
 
 ``run_sharded`` is a rank body: a sharded run of the step from a whole
-initial state, gathered back.
+initial state, gathered back. ``run_sharded_grads`` is one too: the
+gradients of a sharded run's loss (``sharded_grad_case``).
 """
 from __future__ import annotations
 
@@ -139,9 +140,6 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
     import torch
     import torch.distributed as dist
 
-    from pyrmt_tpu_torch.kernels import extrapolate_fused as ef
-    from pyrmt_tpu_torch.kernels import momentum_rk4 as mk
-    from pyrmt_tpu_torch.kernels import rmt_block as rb
     from pyrmt_tpu_torch.parallel.sharding import (
         gather_state,
         make_mesh,
@@ -164,14 +162,8 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
     t = torch.as_tensor(t_end, dtype=dtype, device=device)
     for _ in range(warmup):
         state, _ = step(state, t)
-    counters = {"rmt_block": (rb, ("launches", "offset_launches",
-                                   "advext_launches",
-                                   "advext_offset_launches")),
-                "momentum_rk4": (mk, ("launches", "offset_launches")),
-                "extrapolate_fused": (ef, ("launches", "offset_launches"))}
-    for mod, names in counters.values():
-        for n in names:
-            setattr(mod, n, 0)
+    counters = _counters()
+    _read_counts(counters, reset=True)
     sync = torch.cuda.synchronize if state.u.is_cuda else (lambda: None)
     sync()
     auxes = []
@@ -182,8 +174,7 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
                       if k in aux})
     sync()
     ms = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
-    launches = {f"{m}.{n}": getattr(mod, n)
-                for m, (mod, names) in counters.items() for n in names}
+    launches = _read_counts(counters)
     per_rank = [None] * mesh.size
     dist.all_gather_object(per_rank, (ms, launches), group=mesh.group)
     whole = gather_state(state, mesh)
@@ -204,6 +195,141 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
                     arrays["u"]).all()),
                 cg_iters=per_step("cg_iters", int),
                 rebased=per_step("rebased", lambda r: r.tolist()))
+
+
+# the launch counters of the kernels on the sharded paths
+COUNTERS = {"rmt_block": ("launches", "offset_launches", "advext_launches",
+                           "advext_offset_launches"),
+            "momentum_rk4": ("launches", "offset_launches"),
+            "extrapolate_fused": ("launches", "offset_launches")}
+
+
+def _counters():
+    """{name: (kernel module, its launch counters)} of ``COUNTERS``."""
+    import importlib
+
+    return {m: (importlib.import_module(f"pyrmt_tpu_torch.kernels.{m}"), ns)
+            for m, ns in COUNTERS.items()}
+
+
+def _read_counts(counters, reset=False):
+    """{'module.counter': launches} of ``_counters()``'s counters, each
+    set to 0 after it is read with ``reset``."""
+    out = {}
+    for m, (mod, names) in counters.items():
+        for n in names:
+            out[f"{m}.{n}"] = getattr(mod, n)
+            if reset:
+                setattr(mod, n, 0)
+    return out
+
+
+def run_sharded_grads(cases):
+    """A rank body: ``sharded_grad_case`` for each case; the list of
+    their results on rank 0, None on the others."""
+    import torch.distributed as dist
+
+    out = [sharded_grad_case(**case) for case in cases]
+    return out if dist.get_rank() == 0 else None
+
+
+def block_energy(state):
+    """sum(u^2 + v^2) + sum(p^2) of a state (a rank's block: its share of
+    the global loss)."""
+    import torch
+
+    return (torch.sum(state.u ** 2 + state.v ** 2)
+            + torch.sum(state.p ** 2))
+
+
+def sharded_grad_case(cfg, velocity_bc, phi_inits, steps, dtype,
+                      device="cuda", mesh_shape=None, rmt_method=None,
+                      state0=None, t_end=1.0, traced_params=(),
+                      loss="blocks", rollout=False):
+    """The gradients of a sharded run under the loss contract
+    (``parallel.sharding``'s note): the state's velocity times a factor
+    ``scale`` (1), then ``steps`` steps of ``make_sharded_step`` with the
+    scalars ``traced_params`` traced at cfg's values, through
+    ``sim.make_rollout`` with ``rollout``. The global loss is
+    ``block_energy`` of the final state, as the sum of the ranks' block
+    losses (``loss='blocks'``) or on the gathered state divided by the
+    mesh's size on each rank (``loss='gathered'``).
+
+    Returns the global loss, d/d(scale) and d/d(each traced scalar) (each
+    rank's leaf holds the whole gradient: the largest difference between
+    the ranks' is returned too), the paths, and each rank's forward and
+    backward milliseconds (the host clock, synchronised), kernel launches
+    and peak device memory (CUDA: ``max_memory_allocated``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from pyrmt_tpu_torch.io import state_from_numpy
+    from pyrmt_tpu_torch.parallel.sharding import (
+        gather_state,
+        make_mesh,
+        make_sharded_step,
+    )
+    from pyrmt_tpu_torch.sim import make_init_state, make_rollout
+
+    mesh = make_mesh(shape=mesh_shape)
+    if mesh is None:
+        return None
+    kw = dict(dtype=dtype, device=device)
+    traced = tuple(traced_params)
+    step, shard = make_sharded_step(cfg, velocity_bc, phi_inits, mesh,
+                                    rmt_method=rmt_method,
+                                    traced_params=traced or None, **kw)
+    state = (make_init_state(cfg, phi_inits, **kw) if state0 is None
+             else state_from_numpy(state0, **kw))
+    state = shard(state)
+    leaves = {"scale": torch.ones((), **kw)}
+    leaves.update({k: torch.tensor(getattr(cfg, k), **kw) for k in traced})
+    for x in leaves.values():
+        x.requires_grad_(True)
+    t = torch.as_tensor(t_end, **kw)
+    extra = ({k: leaves[k] for k in traced},) if traced else ()
+    cuda = state.u.is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = _counters()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _read_counts(counters, reset=True)
+    sync()
+    t0 = time.perf_counter()
+    scale = mesh.replicate(leaves["scale"])
+    s = dataclasses.replace(state, u=state.u * scale, v=state.v * scale)
+    if rollout:
+        s = make_rollout(step, steps)(s, t, *extra)
+    else:
+        for _ in range(steps):
+            s = step(s, t, *extra)[0]
+    if loss == "blocks":
+        value = block_energy(s)
+    else:
+        value = block_energy(gather_state(s, mesh)) / mesh.size
+    sync()
+    t1 = time.perf_counter()
+    fwd = _read_counts(counters, reset=True)
+    value.backward()
+    sync()
+    t2 = time.perf_counter()
+    bwd = _read_counts(counters)
+    grads = {k: x.grad.item() for k, x in leaves.items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    per_rank = [None] * mesh.size
+    dist.all_gather_object(per_rank, (value.item(), grads, 1e3 * (t1 - t0)
+                                      / steps, 1e3 * (t2 - t1) / steps,
+                                      fwd, bwd, peak), group=mesh.group)
+    spread = max(abs(r[1][k] - grads[k]) for r in per_rank for k in grads)
+    return dict(loss=sum(r[0] for r in per_rank), grads=grads,
+                grad_spread=spread, paths=dict(step.paths), mesh=mesh.shape,
+                fwd_ms=[r[2] for r in per_rank],
+                bwd_ms=[r[3] for r in per_rank],
+                fwd_launches=[r[4] for r in per_rank],
+                bwd_launches=[r[5] for r in per_rank],
+                peak_bytes=[r[6] for r in per_rank])
 
 
 if __name__ == "__main__":

@@ -74,9 +74,31 @@ tier (reinit, area fix, map rebasing, any level set), the
 doubly-periodic box, surface tension on walls (the cell and the
 balanced CSF, fd, kappa* and height-function curvature) and the general
 tier (WENO5, central2, the gather path for ``sl_local=False`` and
-CFL >= 1, with everything the other tiers take). ``traced_params`` and
-surface tension on the periodic box raise NotImplementedError
-(``check_slice``).
+CFL >= 1, with everything the other tiers take). Surface tension on the
+periodic box raises NotImplementedError (``check_slice``).
+
+Gradients (JAX's are GSPMD's). Every collective above is an
+autograd.Function where a gradient flows: its forward is the plain
+collective, bit for bit, and its backward the adjoint, itself a
+collective: a halo's gradient goes back to the rank that sent the cells
+and is added there; the overlap copy's back to row 0 and column 0; a
+gather's is reduce-scattered; a max's or min's and a sum's are the
+ranks' gradients summed in rank order (a max's shared among the cells
+that attain it, on all ranks, as on one device); ``replicate`` (a traced
+scalar's way into the step) is the identity whose gradient is that sum.
+The kernels' backward is their plain twins' with the same offsets
+(``kernels._autograd``), the CG's its implicit adjoint on the same
+sharded pieces. With autograd off, or no input requiring a gradient,
+the plain collectives run: the same kernels and messages as without.
+
+The loss contract: the global loss is the sum of the ranks' local
+losses, each on the rank's own block (a loss on ``gather_state``, whose
+gather differentiates, counts once per rank: divide it by the mesh's
+size). Every rank calls ``backward`` on its local loss, in the same
+order, since the adjoints are collectives; each rank's copy of a traced
+scalar then holds the whole gradient. ``sim.make_rollout`` composes: its
+recompute reruns the forward's collectives inside the backward, on every
+rank in the same order.
 """
 from __future__ import annotations
 
@@ -87,10 +109,13 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from pyrmt_tpu_torch.kernels._autograd import needs_grad
+
 # the halo of the step's plain stencils: the projection's Rhie-Chow
 # divergence reads 2 cells, its gradient and the contact force's 1
 STENCIL_HALO = 2
-# where the configurations outside this slice are to be ported
+# where the configuration outside this slice, surface tension on the
+# periodic box (16.7), is to be ported
 ROADMAP_ITEM = "ROADMAP.md section 2, modules item 16"
 
 
@@ -162,6 +187,10 @@ class Mesh:
             Nx_total=Nx if rx > 1 else None)
 
     # -- communication ------------------------------------------------------
+    # Each primitive is the plain torch.distributed call where no gradient
+    # flows (``needs_grad``), else an autograd.Function with the same
+    # forward whose backward is the adjoint collective (the module note's
+    # loss contract).
 
     def _host(self, t):
         return t.cpu() if self.staged(t.device) else t
@@ -197,6 +226,14 @@ class Mesh:
             i += n
         return out
 
+    @staticmethod
+    def _ends(m, halo, i, n, wrap):
+        """Where the cells that go down (to rank i - 1) and up (to rank
+        i + 1) start along an axis of ``m`` cells: past the edge of a
+        wrap, the cells beside the overlap cell."""
+        return (1 if wrap and i == 0 else 0,
+                m - halo - (1 if wrap and i == n - 1 else 0))
+
     def _exchange(self, f, halo, axis, i, n, peer, wrap=False):
         """f with ``halo`` cells of each neighbour along ``axis`` on either
         side: the last cells of rank i - 1 before, the first of rank i + 1
@@ -208,33 +245,62 @@ class Mesh:
         if m < halo + wrap:
             raise ValueError(f"a block of {m} cells cannot give its "
                              f"neighbours a halo of {halo}")
-        # what goes down (to rank i - 1) and up (to rank i + 1): past the
-        # edge of a wrap, the cells beside the overlap cell
-        down = f.narrow(axis, 1 if wrap and i == 0 else 0, halo)
-        up = f.narrow(axis, m - halo - (1 if wrap and i == n - 1 else 0),
-                      halo)
-        if n == 1:
+        s_down, s_up = self._ends(m, halo, i, n, wrap)
+        down, up = f.narrow(axis, s_down, halo), f.narrow(axis, s_up, halo)
+        if n == 1:  # views of f: autograd differentiates the wrap
             parts = (up, down) if wrap else (torch.zeros_like(up),
                                              torch.zeros_like(down))
             return torch.cat([parts[0], f, parts[1]], dim=axis)
+        if needs_grad((f,)):
+            return _Exchange.apply(f, self, halo, axis, i, n, peer, wrap)
         down, up = self._host(down.contiguous()), self._host(up.contiguous())
+        before, after = self._swap(down, up, i, n, peer, wrap, (1, 2))
+        return torch.cat([self._back(before, f), f, self._back(after, f)],
+                         dim=axis)
+
+    def _swap(self, down, up, i, n, peer, wrap, tags):
+        """Send ``down`` to rank i - 1 and ``up`` to rank i + 1 of an axis
+        of ``n`` ranks (past the domain's edge only with ``wrap``); returns
+        (what rank i - 1 sent up, what rank i + 1 sent down), zeros where
+        no neighbour sends. ``tags`` tell apart the two messages between
+        the ranks of a 2-rank wrap; NCCL matches a pair's messages in this
+        order."""
         before, after = torch.zeros_like(up), torch.zeros_like(down)
         lo, hi = wrap or i > 0, wrap or i < n - 1
         below, above = peer((i - 1) % n), peer((i + 1) % n)
-        # tags tell apart the two messages between the ranks of a 2-rank
-        # wrap; NCCL matches a pair's messages in this order
         ops = []
         if lo:
-            ops.append(dist.P2POp(dist.isend, down, below, self.group, 1))
+            ops.append(dist.P2POp(dist.isend, down, below, self.group,
+                                  tags[0]))
         if hi:
-            ops += [dist.P2POp(dist.irecv, after, above, self.group, 1),
-                    dist.P2POp(dist.isend, up, above, self.group, 2)]
+            ops += [dist.P2POp(dist.irecv, after, above, self.group,
+                               tags[0]),
+                    dist.P2POp(dist.isend, up, above, self.group, tags[1])]
         if lo:
-            ops.append(dist.P2POp(dist.irecv, before, below, self.group, 2))
+            ops.append(dist.P2POp(dist.irecv, before, below, self.group,
+                                  tags[1]))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return torch.cat([self._back(before, f), f, self._back(after, f)],
-                         dim=axis)
+        return before, after
+
+    def _exchange_adjoint(self, g, halo, axis, i, n, peer, wrap):
+        """The adjoint of ``_exchange`` (n > 1): each halo's gradient goes
+        back to the rank that sent its cells and is added there into the
+        cells it sent; the zero halo beyond the domain returns nothing."""
+        m = g.shape[axis] - 2 * halo
+        s_down, s_up = self._ends(m, halo, i, n, wrap)
+        # the halo before came from rank i - 1's up cells, the one after
+        # from rank i + 1's down cells: their gradients go back that way
+        from_below, from_above = self._swap(
+            self._host(g.narrow(axis, 0, halo).contiguous()),
+            self._host(g.narrow(axis, halo + m, halo).contiguous()),
+            i, n, peer, wrap, (3, 4))
+        out = g.narrow(axis, halo, m).clone()
+        if wrap or i > 0:
+            out.narrow(axis, s_down, halo).add_(self._back(from_below, g))
+        if wrap or i < n - 1:
+            out.narrow(axis, s_up, halo).add_(self._back(from_above, g))
+        return out
 
     def unpad(self, o, halo: int, wrap: bool = False):
         """The block of a slab padded by ``halo`` (JAX's ``_unpad``): along
@@ -254,8 +320,14 @@ class Mesh:
         takes the old (0, Nx - 1)), or with ``tile`` as it is after it
         (``ops.poisson.tile_overlap``'s: the corner takes (0, 0)). Returns
         new tensors."""
-        (ry, rx), (iy, ix) = self.shape, self.coords
         f = torch.stack(fields)
+        f = (_OverlapCopy.apply(f, self, tile) if needs_grad((f,))
+             else self._overlap_copy(f, tile))
+        return list(f.unbind(0))
+
+    def _overlap_copy(self, f, tile):
+        """``overlap_copy`` on the stack ``f``, in place."""
+        (ry, rx), (iy, ix) = self.shape, self.coords
         row0 = f[..., :1, :].clone() if iy == 0 and not tile else None
         col = self._send_line(f[..., :, :1] if ix == 0 else None,
                               (iy, 0), (iy, rx - 1), f, -1)
@@ -266,7 +338,34 @@ class Mesh:
         row = self._send_line(row0, (0, ix), (ry - 1, ix), f, -2)
         if iy == ry - 1:
             f[..., -1:, :] = row
-        return list(f.unbind(0))
+        return f
+
+    def _overlap_copy_adjoint(self, g, tile):
+        """The adjoint of ``_overlap_copy``: its two copies in reverse
+        order, each overwritten line's gradient sent back to the rank it
+        came from and added to its row 0 or column 0 (the overwritten
+        line's own input gets 0). Without ``tile`` the row copy read row 0
+        before the column copy, so its gradient is added after the
+        column's."""
+        (ry, rx), (iy, ix) = self.shape, self.coords
+        g = g.clone()
+        last = None
+        if iy == ry - 1:
+            last = g[..., -1:, :].clone()
+            g[..., -1:, :] = 0.0
+        row = self._send_line(last, (ry - 1, ix), (0, ix), g, -2)
+        if iy == 0 and tile:
+            g[..., :1, :] += row
+        last = None
+        if ix == rx - 1:
+            last = g[..., :, -1:].clone()
+            g[..., :, -1:] = 0.0
+        col = self._send_line(last, (iy, rx - 1), (iy, 0), g, -1)
+        if ix == 0:
+            g[..., :, :1] += col
+        if iy == 0 and not tile:
+            g[..., :1, :] += row
+        return g
 
     def _send_line(self, line, src, dst, like, axis):
         """The tensor ``line`` (``like``'s shape, one cell along ``axis``)
@@ -286,54 +385,87 @@ class Mesh:
         dist.recv(t, self.rank_at(*src), self.group)
         return self._back(t, like)
 
-    def _gather(self, t, group, n, axis):
-        if n == 1:
-            return t
+    def _all_gather(self, t, group, n):
+        """Every rank's ``t`` of ``group`` (``n`` ranks) in rank order, on
+        the host where staged."""
         parts = [torch.empty_like(self._host(t)) for _ in range(n)]
         dist.all_gather(parts, self._host(t.contiguous()), group=group)
-        return self._back(torch.cat(parts, dim=axis), t)
+        return parts
+
+    def _rank_sum(self, t, group=None, n=None, part=None):
+        """The sum over the ranks of ``group`` (default the mesh's) of
+        their ``t``, or of ``part(t)``, added in rank order, on every rank:
+        the adjoint of a result that the ranks hold alike."""
+        parts = self._all_gather(t, group or self.group, n or self.size)
+        part = part or (lambda p: p)
+        total = part(parts[0])
+        for p in parts[1:]:
+            total = total + part(p)
+        return self._back(total.contiguous(), t)
+
+    def _gather(self, t, group, n, axis, k):
+        """The blocks of the ``n`` ranks of ``group``, this rank the
+        ``k``-th, put together along ``axis``."""
+        if n == 1:
+            return t
+        if needs_grad((t,)):
+            return _Gather.apply(t, self, group, n, axis, k)
+        return self._back(torch.cat(self._all_gather(t, group, n),
+                                    dim=axis), t)
 
     def gather_rows(self, f):
         """The column strip (..., Ny, lx): the blocks of the ranks that
         share this rank's ix, in iy order."""
-        return self._gather(f, self.col_group, self.shape[0], -2)
+        return self._gather(f, self.col_group, self.shape[0], -2,
+                            self.coords[0])
 
     def gather_cols(self, f):
         """The row strip (..., ly, Nx): the blocks of the ranks that share
         this rank's iy, in ix order."""
-        return self._gather(f, self.row_group, self.shape[1], -1)
+        return self._gather(f, self.row_group, self.shape[1], -1,
+                            self.coords[1])
 
     def gather(self, f):
         """The whole field from every rank's block (on every rank)."""
         return self.gather_cols(self.gather_rows(f))
 
-    def _reduce(self, x, op):
+    def _reduce(self, x, op, count=None):
+        if needs_grad((x,)):
+            return _Extremum.apply(x, count, self, op)
         t = self._host(x.reshape(-1).clone())
         dist.all_reduce(t, op=op, group=self.group)
         return self._back(t, x).reshape(x.shape)
 
-    def max(self, x):
-        """The elementwise max of ``x`` over the ranks, on the device."""
-        return self._reduce(x, dist.ReduceOp.MAX)
+    def max(self, x, count=None):
+        """The elementwise max of ``x`` over the ranks, on the device.
+        ``count``: where x is a reduction of this rank's block, how many
+        of its cells attain it (default 1). The gradient of a value that
+        several cells attain, on one rank or on several, is shared equally
+        among them, as ``torch.amax`` shares it on one device."""
+        return self._reduce(x, dist.ReduceOp.MAX, count)
 
-    def min(self, x):
-        """The elementwise min of ``x`` over the ranks, on the device."""
-        return self._reduce(x, dist.ReduceOp.MIN)
+    def min(self, x, count=None):
+        """The elementwise min of ``x`` over the ranks, on the device
+        (``count`` as in ``max``)."""
+        return self._reduce(x, dist.ReduceOp.MIN, count)
 
     def sum(self, x):
         """The 0-d sum of ``x`` over the ranks, added in rank order on every
         rank, so that every rank holds the same value."""
-        t = self._host(x.reshape(1))
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
-        return self._back(total, x).reshape(())
+        if needs_grad((x,)):
+            return _Sum.apply(x, self)
+        return self._rank_sum(x.reshape(1)).reshape(())
 
     def mean(self, f):
         """The mean of a field over the whole grid from the blocks."""
         return self.sum(torch.sum(f)) / (f.numel() * self.size)
+
+    def replicate(self, x):
+        """``x``, a value that every rank holds alike (a traced physics
+        scalar): the identity, whose gradient is the ranks' gradients
+        summed in rank order, so that each rank's copy of a leaf gets the
+        whole gradient of the global loss."""
+        return _Replicate.apply(x, self) if needs_grad((x,)) else x
 
     def stencil(self, fn, halo: int = STENCIL_HALO):
         """``fn`` (a plain op of whole fields: its array edges are the
@@ -367,6 +499,107 @@ class Mesh:
             return self.unpad(out, halo)
 
         return run
+
+
+# -- the collectives' adjoints ---------------------------------------------
+# Each Function's forward is the plain collective (autograd is off inside
+# it); its backward is a collective too, which every rank of the group
+# enters in the same order: the ranks build the same graph, and autograd
+# runs its nodes in the reverse of their creation order.
+
+
+class _Exchange(torch.autograd.Function):
+    """``Mesh._exchange`` along one axis (n > 1)."""
+
+    @staticmethod
+    def forward(ctx, f, mesh, halo, axis, i, n, peer, wrap):
+        ctx.args = (mesh, halo, axis, i, n, peer, wrap)
+        return mesh._exchange(f, halo, axis, i, n, peer, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, *args = ctx.args
+        return (mesh._exchange_adjoint(g, *args),) + (None,) * 7
+
+
+class _OverlapCopy(torch.autograd.Function):
+    """``Mesh.overlap_copy`` on the stack of its fields."""
+
+    @staticmethod
+    def forward(ctx, f, mesh, tile):
+        ctx.args = (mesh, tile)
+        return mesh._overlap_copy(f.clone(), tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, tile = ctx.args
+        return mesh._overlap_copy_adjoint(g, tile), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """``Mesh._gather``; backward the reduce-scatter: each rank's block of
+    the group's gradients, added in rank order."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, group, n, axis, k):
+        ctx.args = (mesh, group, n, axis, k, t.shape[axis])
+        return mesh._gather(t, group, n, axis, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, group, n, axis, k, m = ctx.args
+        block = mesh._rank_sum(g, group, n,
+                               part=lambda p: p.narrow(axis, k * m, m))
+        return (block,) + (None,) * 5
+
+
+class _Extremum(torch.autograd.Function):
+    """``Mesh.max`` / ``min``; backward: the ranks' gradients summed in
+    rank order, shared among the cells that attain the result over all
+    ranks (``count`` of them on this rank where x attains it)."""
+
+    @staticmethod
+    def forward(ctx, x, count, mesh, op):
+        y = mesh._reduce(x, op)
+        hit = (x == y).to(x.dtype)
+        if count is not None:
+            hit = hit * count.to(x.dtype)
+        ctx.mesh = mesh
+        ctx.save_for_backward(hit)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        hit, = ctx.saved_tensors
+        both = ctx.mesh._rank_sum(torch.stack([g, hit]))
+        return both[0] * hit / both[1], None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """``Mesh.sum``; backward: the ranks' gradients summed in rank order,
+    to every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.shape = mesh, x.shape
+        return mesh.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._rank_sum(g).reshape(ctx.shape), None
+
+
+class _Replicate(torch.autograd.Function):
+    """``Mesh.replicate``: the identity; backward as ``_Sum``'s."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._rank_sum(g), None
 
 
 def mesh_shape(n: int) -> tuple[int, int]:
@@ -663,21 +896,17 @@ def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
             and momentum_rk4_supported(velocity_bc))
 
 
-def check_slice(cfg, velocity_bc, phi_inits, traced_params=None) -> None:
-    """Raise NotImplementedError for a configuration that this port does
+def check_slice(cfg, velocity_bc, phi_inits) -> None:
+    """Raise NotImplementedError for the configuration that this port does
     not shard yet (JAX shards it by GSPMD alone), naming its ROADMAP item:
-    ``traced_params`` (16.6) and surface tension on the periodic box
-    (16.7); ValueError for a periodic box whose BC and ``bc_type``
-    disagree (the sharded box's overlap copy is ``bcs.periodic_bc``'s)."""
-    why = None
-    if traced_params is not None:
-        why = "traced_params (sharded gradients)", 6
-    elif cfg.gamma > 1e-12 and cfg.bc_type == "periodic":
-        why = "surface tension on the periodic box", 7
-    if why is not None:
+    surface tension on the periodic box (16.7); ValueError for a periodic
+    box whose BC and ``bc_type`` disagree (the sharded box's overlap copy
+    is ``bcs.periodic_bc``'s)."""
+    if cfg.gamma > 1e-12 and cfg.bc_type == "periodic":
         raise NotImplementedError(
-            f"the sharded step does not yet take {why[0]}: JAX shards it "
-            f"by GSPMD alone; see {ROADMAP_ITEM}.{why[1]}")
+            "the sharded step does not yet take surface tension on the "
+            "periodic box: JAX shards it by GSPMD alone; see "
+            f"{ROADMAP_ITEM}.7")
     wrap_bc = (getattr(velocity_bc, "kernel_spec", None) or ("",))[0] \
         == "periodic"
     if wrap_bc != (cfg.bc_type == "periodic"):
@@ -710,8 +939,18 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     (``extrap_method``, ``projection_method``, ``use_pallas_rhs`` forced
     to their plain paths, as JAX forces them) with the collectives of the
     module note. ``step.paths`` gains 'mesh' (the mesh and the process
-    group's backend) and 'halo' ('host-staged' where the exchanges and
-    gathers go through host copies, else 'direct').
+    group's backend), 'halo' ('host-staged' where the exchanges and
+    gathers go through host copies, else 'direct') and 'grad' (the
+    adjoint collectives, host-staged or direct as the halo).
+
+    ``traced_params`` (of ``sim._TRACEABLE_PARAMS``; another name raises
+    ValueError) makes it ``step(state, t_end, params)``, as
+    ``sim.make_step``'s traced step: each scalar enters through
+    ``Mesh.replicate``, so each rank's leaf gets the whole gradient of the
+    global loss (the module note's contract); the kernels are the same as
+    without, their offset instantiations taking the scalars as their
+    device operand. The step differentiates with respect to the state and
+    the traced scalars on every configuration it takes.
 
     Sharded: walls (any BC; the kernels' where it has a ``kernel_spec``)
     and the doubly-periodic box (``bcs.periodic_bc``, its momentum the
@@ -762,7 +1001,7 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         raise ValueError(
             "sharded solid-block kernel unsupported for this config/mesh/"
             "grid; see sim.rmt_block_fusible + rmt_block_sharded_supported")
-    check_slice(cfg, velocity_bc, phi_inits, traced_params)
+    check_slice(cfg, velocity_bc, phi_inits)
     periodic = cfg.bc_type == "periodic"
     # the split tier, as make_step picks it: post-processing of phi, or a
     # level set the fused kernel does not evaluate
@@ -809,11 +1048,22 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         projection_method="xla", use_pallas_rhs=False)
     # no solid-block hook on the split tier: make_step then sends a level
     # set the fused kernel does not evaluate there
-    step = make_step(cfg, velocity_bc, phi_inits, dtype=dtype, device=device,
-                     rmt_block_impl=None if split else rmt_impl,
-                     momentum_rk4_impl=mom_impl, advext_impl=adv_impl,
-                     extrap_impl=None if ext_kernel
-                     else extrapolate_reference_map, mesh=mesh)
+    block_step = make_step(
+        cfg, velocity_bc, phi_inits, dtype=dtype, device=device,
+        rmt_block_impl=None if split else rmt_impl,
+        momentum_rk4_impl=mom_impl, advext_impl=adv_impl,
+        extrap_impl=None if ext_kernel else extrapolate_reference_map,
+        traced_params=traced_params, mesh=mesh)
+    step = block_step
+    if traced_params is not None:
+        def step(state, t_end, params):
+            # every rank's copy of a traced scalar gets the whole gradient
+            return block_step(state, t_end, {
+                k: mesh.replicate(torch.as_tensor(v, dtype=dtype,
+                                                  device=device))
+                for k, v in params.items()})
+
+        step.paths = block_step.paths
     where = "slabs with offsets"
     if S == 0:
         solid = "none"
@@ -841,10 +1091,11 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         step.paths["forces"] = (f"surface tension ({csf}, "
                                 f"{cfg.st_curvature} curvature) on "
                                 f"{force_halo(cfg)}-cell halo slabs")
+    staged = "host-staged" if mesh.staged(device) else "direct"
     step.paths.update(
         solid=solid, momentum=momentum, projection=projection,
         mesh=f"{mesh.shape[0]}x{mesh.shape[1]} {mesh.backend}",
-        halo="host-staged" if mesh.staged(device) else "direct")
+        halo=staged, grad=f"adjoint collectives, {staged}")
 
     def shard(state):
         return shard_state(state, mesh)

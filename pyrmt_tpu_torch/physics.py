@@ -49,15 +49,19 @@ def _speed_max(a, b, mesh=None):
     otherwise the one sqrt of the max. The two are equal bit for bit.
     With a ``mesh`` (``parallel.sharding``) (a, b) are this rank's block
     and the max is an all-reduce over the ranks, on the device: every
-    rank gets the whole grid's value, bit for bit."""
+    rank gets the whole grid's value, bit for bit; a gradient is shared
+    among the cells of all ranks that attain it (``Mesh.max``'s count),
+    as on one device."""
     sq = a * a + b * b
-    if mesh is not None:
-        return torch.sqrt(mesh.max(torch.amax(sq)))
     if not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
-        return torch.sqrt(torch.amax(sq))
+        m = torch.amax(sq)
+        return torch.sqrt(m if mesh is None else mesh.max(m))
     pos = sq > 0.0
-    return torch.amax(torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)),
-                                  0.0))
+    speed = torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+    m = torch.amax(speed)
+    if mesh is None:
+        return m
+    return mesh.max(m, count=torch.sum(speed == m))
 
 
 def compute_timestep(a, b, dx, dy, CFL, dt_min_cap, mu_s, rho_s, gamma,

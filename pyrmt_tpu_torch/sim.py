@@ -1137,7 +1137,10 @@ def make_rollout(step_fn, n_steps: int, remat: bool = True):
     the step's inside from it, memory O(n_steps * state) in place of
     every intermediate of every step. The recompute runs the step's
     forward again, kernels included (their launch counters count it), and
-    then each kernel's backward, its plain version's autograd."""
+    then each kernel's backward, its plain version's autograd. Over a
+    sharded step (``parallel.make_sharded_step``) the recompute reruns the
+    forward's collectives inside the backward, on every rank in the same
+    order."""
 
     def one(s, t_end, *params):
         return step_fn(s, t_end, *params)[0]

@@ -205,15 +205,18 @@ def test_sharded_pallas_unfusible_config_raises():
 @pytest.mark.parametrize("what", ["weno5", "central2", "surface tension",
                                   "traced_params"])
 def test_gspmd_only_configuration_raises(what):
-    """Each configuration that JAX shards by GSPMD alone and the port does
-    not shard yet (surface tension on the periodic box, traced_params)
-    waits for a later slice: NotImplementedError, naming the ROADMAP item,
-    on the general tier too ('weno5': traced_params with WENO5, 'central2':
-    surface tension on the periodic box with central2).
-    tests/test_torch_sharding_gspmd.py, tests/test_torch_sharding_st.py and
-    tests/test_torch_sharding_general*.py run the others (surface tension
-    on walls and the general tier among them)."""
-    bc, shapes, kw = pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),), {}
+    """The configuration that JAX shards by GSPMD alone and the port does
+    not shard yet (surface tension on the periodic box) waits for a later
+    slice: NotImplementedError, naming the ROADMAP item, on the general
+    tier too ('central2': surface tension on the periodic box with
+    central2). ``traced_params`` shards ('traced_params', and 'weno5':
+    traced_params with WENO5): the step builds and names its adjoint
+    collectives in ``paths['grad']`` (tests/test_torch_sharding_grad*.py
+    run its gradients). tests/test_torch_sharding_gspmd.py,
+    tests/test_torch_sharding_st.py and tests/test_torch_sharding_general*.py
+    run the others (surface tension on walls and the general tier among
+    them)."""
+    bc, shapes = pt.free_slip_box_bc, (pt.Disc(0.5, 0.5, 0.2),)
     cfg = {"weno5": _cfg(scheme="weno5"),
            "central2": _cfg(scheme="central2", gamma=0.1,
                             bc_type="periodic"),
@@ -222,12 +225,15 @@ def test_gspmd_only_configuration_raises(what):
     if what in ("surface tension", "central2"):
         bc = pt.periodic_bc
     if what in ("traced_params", "weno5"):
-        kw = dict(traced_params=("mu_s",))
-    item = "6" if "traced_params" in kw else "7"
+        step, _ = make_sharded_step(cfg, bc, shapes, Mesh((2, 4)),
+                                    dtype=torch.float64, device=DEV,
+                                    traced_params=("mu_s",))
+        assert step.paths["grad"] == "adjoint collectives, direct"
+        return
     with pytest.raises(NotImplementedError,
-                       match=rf"modules item 16\.{item}"):
+                       match=r"modules item 16\.7"):
         make_sharded_step(cfg, bc, shapes, Mesh((2, 4)), dtype=torch.float64,
-                          device=DEV, **kw)
+                          device=DEV)
 
 
 @pytest.mark.parametrize("over, scheme", [
