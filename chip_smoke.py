@@ -133,9 +133,10 @@ another sm_90a card) and the CUDA toolkit. Phases:
      N=1024 float32 over 10 steps with mu_s traced (finite, the
      plain-forward rollout's gradient to 1e-5, forward and backward
      ms/step, peak memory); the inverse problem of
-     examples/differentiable_fsi.py (N=48 float64, 60 steps, a Taylor-Green
-     seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4 within 1 %, two
-     Adam steps written inline, then secant iteration). Phase 3 also
+     examples/differentiable_fsi.py through its twin,
+     pyrmt_tpu_torch.examples.differentiable_fsi (N=48 float64, 60 steps,
+     a Taylor-Green seed, fixed_dt 1.5e-3: mu_s from 1.2 back to 0.4
+     within 1 %, two Adam steps, then secant iteration). Phase 3 also
      times each kernel's backward (the plain twin's forward and autograd)
      at N=1024 float32 ([backward] lines);
   14. domain decomposition: (a) the sharding offsets of rmt_block
@@ -162,20 +163,23 @@ another sm_90a card) and the CUDA toolkit. Phases:
      step's iterations beside the single process's, within one), the
      split tier (area fix + PDE reinit, 10 steps), the periodic
      flagship (10 steps), the capillary drop (phase 4e's: the
-     ellipse, the balanced CSF, free slip; 10 steps) and the general
+     ellipse, the balanced CSF, free slip; 10 steps), the periodic
+     capillary drop (the ellipse, gamma 0.1, the cell CSF with kappa*, on
+     the doubly-periodic box; 10 steps) and the general
      tier's WENO5 flagship (from a swirl; 10 steps), each beside a
      float64 single-process run (how far either float32 step lies from
      it); at N=256 float64 on (2,2) and (4,1), 3 steps, within 1e-10 (u,
      v, p) and 1e-11 (X): the flagship, the density contrast (iterations
      equal), the split tier, the periodic Taylor-Green pure fluid, the
-     capillary drop, the general tier (WENO5, central2, the gather path
-     bilinear and bicubic, central2 on the periodic box), and on (2,2) a
+     capillary drop and the periodic capillary drop, the general tier
+     (WENO5, central2, the gather path bilinear and bicubic, central2 on
+     the periodic box), and on (2,2) a
      pure fluid under the lid and the
      capillary drop's split-tier twin (the cell CSF with kappa*, the area
      fix); at N=128 float64 on (2,2) the 'fmm' reinit and the
      always-firing rebase (3 steps). Every rank launches the offset
      instantiation of each kernel of its step once a step (rmt_block on
-     the fused tier, the ellipse's in the capillary drop, advext_block on
+     the fused tier, the ellipse's in both capillary drops, advext_block on
      the split tier, extrapolate_fused once per solid on the general
      tier, momentum_rk4 under walls, with the force where the
      step has one; the periodic box's momentum is the plain stage loop, as in
@@ -189,7 +193,8 @@ another sm_90a card) and the CUDA toolkit. Phases:
      mu_s, make_sharded_step(traced_params=...)): at N=256 float64 on
      (2,2), 3 steps, the flagship and the flagship from rest, the density
      contrast (the sharded CG's adjoint), the split tier (area fix + PDE
-     reinit), the periodic flagship, WENO5, the capillary drop and the
+     reinit), the periodic flagship, WENO5, the capillary drop, the
+     periodic capillary drop and the
      head-on collision, each within 1e-10 of one process's gradient
      through the unsharded kernels, every rank's forward launching each
      offset instantiation of its path 3 times and its backward none; the
@@ -197,10 +202,32 @@ another sm_90a card) and the CUDA toolkit. Phases:
      ms/step and peak memory a rank, the sharded gradient's distance from
      one process's float64 gradient no more than twice the
      single-process float32's. [shardgrad] lines.
+  15. the validation suite (pyrmt_tpu_torch.validation, the JAX package's
+     benchmarks/*.py drivers) on the card, in 3 processes sharing it, each
+     gate a hard check, float32 unless the protocol runs float64: the soft
+     disc in the lid-driven cavity at N=128 to t = 8 (mean deviation from
+     Sugiyama's track below 0.008; Kolahduz's and the orbit's x-extent
+     printed), the disc in Taylor-Green at N=128 to t = 1 (energy drift
+     within 0.5 points of the JAX driver's float64 -2.96 %), the contact
+     gate of tests/test_validation_gates.py (N=48 float64 to t = 0.6: least
+     gap above 2R, 0.5 < min J < 1) and the published N=64 run to t = 1.5,
+     the Taylor-Green collision at the driver's defaults (no pass-through,
+     a rebound, no divergence), the sedimentation gate (N=48, S=3, R=0.1,
+     float64 to t = 0.25: stable, no pass-through, a monotone mean height,
+     CG iterations below 100, area drift below 0.05), the coupled
+     capillary drop at N=128 with the balanced CSF and kappa* to t = 4.5
+     (stable, the n=2 period within 10 % of Rayleigh's 1.026), the
+     convergence study at the driver's defaults in float64 (each order
+     within 1e-4 of JAX's on the CPU); rmt_block launched once a step in
+     every case; then, alone on the card, profiling.stage_breakdown and
+     ablation_breakdown (500-step chunks) at N=1024 float32. [valid]
+     lines, each case's numbers beside its gate, its wall seconds and
+     steps/s.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
 the kernels (with each kernel's backward ms and the largest relative
-gradient difference of phase 13) and of the full-width gradient run, the
+gradient difference of phase 13), of the full-width gradient run and of
+phase 15's runs and profiling rows, the
 card's name and power limit as nvidia-smi gives them, and last one JSON
 line
 {"ok": true, "device": {...}}. Any failure raises before that line and
@@ -216,6 +243,7 @@ without the contact modes profiles the rest).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -1987,77 +2015,33 @@ def grad_full_width(device, card, N=1024, steps=10, warmup=20):
 
 def inverse_problem(device, card, N=48, n_steps=60, mu_true=0.4,
                     mu_guess=1.2, adam_steps=2):
-    """examples/differentiable_fsi.py on the card: a disc in a Taylor-Green
-    vortex between free-slip walls, fixed_dt 1.5e-3, float64; the observed
-    flow after ``n_steps`` steps at mu_true; from mu_guess, ``adam_steps``
-    Adam steps (lr 0.15) on theta (mu_s = softplus(theta)), then at most 8
-    of secant iteration on dL/dtheta, through make_diff_rollout with mu_s
-    traced: at most 10 gradient evaluations in all. Returns the recovered
-    mu_s."""
-    from pyrmt_tpu_torch import make_diff_rollout, make_diff_step
+    """The inverse problem of examples/differentiable_fsi.py on the card,
+    through its twin ``pyrmt_tpu_torch.examples.differentiable_fsi.
+    recover_mu_s``: a disc in a Taylor-Green vortex between free-slip
+    walls, fixed_dt 1.5e-3, float64; the observed flow after ``n_steps``
+    steps at mu_true; from mu_guess, ``adam_steps`` Adam steps (lr 0.15)
+    on theta (mu_s = softplus(theta)), then at most 8 of secant iteration
+    on dL/dtheta, through make_diff_rollout with mu_s traced: at most 10
+    gradient evaluations in all. Returns the recovered mu_s."""
+    from pyrmt_tpu_torch.examples.differentiable_fsi import recover_mu_s
 
-    f64 = torch.float64
-    cfg = RMTConfig(grid=Grid(N, N, 1.0, 1.0), mu_s=mu_true, mu_f=0.02,
-                    rho_s=1.0, rho_f=1.0, fixed_dt=1.5e-3)
-    disc = Disc(0.5, 0.5, 0.2)
-    u0, v0 = tg_seed(cfg, f64, device)
-    kw = dict(dtype=f64, device=device)
-    state0 = make_init_state(cfg, (disc,), u0=u0, v0=v0, **kw)
-    dstep = make_diff_step(cfg, free_slip_box_bc, (disc,), **kw,
-                           param_names=("mu_s",))
-    roll = make_diff_rollout(dstep, n_steps, with_params=True)
-    area = cfg.grid.dx * cfg.grid.dy
-    with torch.no_grad():
-        obs = roll(state0, 1.0, {"mu_s": torch.tensor(mu_true, **kw)})
-
-    def value_and_grad(theta):
-        th = torch.tensor(theta, **kw, requires_grad=True)
-        mu = torch.nn.functional.softplus(th)
-        s = roll(state0, 1.0, {"mu_s": mu})
-        L = torch.sum((s.u - obs.u) ** 2 + (s.v - obs.v) ** 2) * area
-        (g,) = torch.autograd.grad(L, th)
-        return float(L), float(mu), float(g)
-
-    t0 = time.perf_counter()
     reset_counts()
-    theta = math.log(math.expm1(mu_guess))
-    m = v = 0.0
-    b1, b2, lr, eps = 0.9, 0.999, 0.15, 1e-8
-    trace = []
-    for it in range(1, adam_steps + 1):  # Adam (optax's defaults, lr 0.15)
-        L, mu, g = value_and_grad(theta)
-        trace.append((mu, L))
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        theta -= lr * (m / (1 - b1 ** it)) / (math.sqrt(v / (1 - b2 ** it))
-                                              + eps)
-    g_prev = theta_prev = None
-    for _ in range(8):  # secant iteration on g(theta) = dL/dtheta
-        L, mu, g = value_and_grad(theta)
-        trace.append((mu, L))
-        if g_prev is not None and g != g_prev:
-            step = -g * (theta - theta_prev) / (g - g_prev)
-        else:
-            step = -0.05 * math.copysign(1.0, g)
-        step = max(-0.5, min(0.5, step))
-        theta_prev, g_prev = theta, g
-        theta += step
-        if abs(step) < 1e-10:
-            break
-    wall = time.perf_counter() - t0
+    out = recover_mu_s(N=N, n_steps=n_steps, mu_true=mu_true,
+                       mu_guess=mu_guess, adam_steps=adam_steps,
+                       dtype=torch.float64, device=device, verbose=False)
     launches = counts()
-    mu_final = float(torch.nn.functional.softplus(
-        torch.tensor(theta, dtype=f64)))
-    err = abs(mu_final - mu_true) / mu_true
-    print(f"[inverse] examples/differentiable_fsi.py on '{card}': N={N} "
-          f"float64, {n_steps} steps a rollout, mu_s from {mu_guess} to "
-          f"{mu_final:.6f} (true {mu_true}, relative error {100 * err:.4f}% "
-          f"< 1%) in {len(trace)} gradient evaluations, {wall:.3f} s; loss "
-          f"{trace[0][1]:.3e} -> {trace[-1][1]:.3e}; launches {launches} "
-          f"(one rollout's forward each, none in the backward)")
-    if not (err < 0.01 and launches["rmt_block"] == n_steps * len(trace)):
-        raise AssertionError(f"[inverse] mu_s {mu_final}: {trace}")
-    return mu_final
+    trace, err = out["trace"], out["rel_err"]
+    print(f"[inverse] examples/differentiable_fsi.py's twin on '{card}': "
+          f"N={N} float64, {n_steps} steps a rollout, mu_s from {mu_guess} "
+          f"to {out['mu_s']:.6f} (true {mu_true}, relative error "
+          f"{100 * err:.4f}% < 1%) in {len(trace)} gradient evaluations, "
+          f"{out['wall_s']:.3f} s; loss {trace[0][1]:.3e} -> "
+          f"{trace[-1][1]:.3e}; launches {launches} (one rollout's forward "
+          f"each and the observation's, none in the backward)")
+    if not (err < 0.01
+            and launches["rmt_block"] == n_steps * (len(trace) + 1)):
+        raise AssertionError(f"[inverse] mu_s {out['mu_s']}: {trace}")
+    return out["mu_s"]
 
 
 def grad_step_without_sync(device):
@@ -2279,13 +2263,14 @@ def shard_case(kind, N, dtype, device):
     the balanced CSF, free slip) and its split-tier twin (the cell CSF
     with kappa* and the area fix), the split tier (the flagship with the
     area fix and PDE reinitialisation), the periodic flagship (bench.py
-    --periodic: the Taylor-Green seed), the periodic Taylor-Green pure
-    fluid, the 'fmm' reinitialisation, the always-firing rebase of
-    tests/test_rebase.py's sharded test (map_rebase_minj 10, a
-    Taylor-Green swirl of 0.3, free slip, t_end 10), and the general tier
-    (GENERAL_KINDS): the flagship with WENO5, central2, the gather path
-    bilinear and bicubic from a swirl of 0.5, and central2 on the periodic
-    box from the Taylor-Green seed."""
+    --periodic: the Taylor-Green seed), the periodic capillary drop (the
+    ellipse at rest, gamma 0.1, the cell CSF with kappa*), the periodic
+    Taylor-Green pure fluid, the 'fmm' reinitialisation, the
+    always-firing rebase of tests/test_rebase.py's sharded test
+    (map_rebase_minj 10, a Taylor-Green swirl of 0.3, free slip, t_end
+    10), and the general tier (GENERAL_KINDS): the flagship with WENO5,
+    central2, the gather path bilinear and bicubic from a swirl of 0.5,
+    and central2 on the periodic box from the Taylor-Green seed."""
     kw = dict(dtype=dtype, device=device)
     lid, disc = make_lid_bc(1.0), (FLAGSHIP_DISC,)
     if kind in GENERAL_KINDS:
@@ -2310,6 +2295,11 @@ def shard_case(kind, N, dtype, device):
     if kind == "periodic":
         cfg = flagship(N, bc_type="periodic")
         return cfg, bcs.periodic_bc, disc, periodic_state(cfg, **kw), 8.0
+    if kind == "periodic capillary":
+        cfg = capillary_config(N, st_method="csf", st_kappa_interface=True,
+                               bc_type="periodic")
+        return (cfg, bcs.periodic_bc, (ELLIPSE,),
+                make_init_state(cfg, (ELLIPSE,), **kw), 8.0)
     if kind == "periodic TG":
         cfg, bc, state = fluid_case("tg", N, **kw)
         return cfg, bc, (), state, 8.0
@@ -2335,7 +2325,8 @@ SHARD_RUNS = (
       18)]
     + [(f"N=2048 float32 (2,2) {kind}", kind, 2048, torch.float32, (2, 2),
         0, 10) for kind in ("density contrast", "split", "periodic",
-                            "capillary drop", "weno5")]
+                            "capillary drop", "periodic capillary",
+                            "weno5")]
     + [(f"N=256 float64 ({a},{b})" + ("" if kind == "flagship" else
                                         f" {kind}"), kind, 256,
         torch.float64, (a, b), 0, 3)
@@ -2345,6 +2336,7 @@ SHARD_RUNS = (
                             ("split", ((2, 2), (4, 1))),
                             ("periodic TG", ((2, 2), (4, 1))),
                             ("capillary drop", ((2, 2), (4, 1))),
+                            ("periodic capillary", ((2, 2), (4, 1))),
                             ("capillary split", ((2, 2),)),
                             *((kind, ((2, 2), (4, 1)))
                               for kind in GENERAL_KINDS))
@@ -2460,7 +2452,7 @@ def sharded_runs(device, card):
                 raise AssertionError(f"[shard] {what}: rebased "
                                      f"{r['rebased']}, not on every step")
             extra += f"; rebased on each of the {steps} steps"
-        if kind == "capillary drop":
+        if kind in ("capillary drop", "periodic capillary"):
             extra += ("; rmt_block's ellipse offset instantiation "
                       + "/".join(str(n["rmt_block.offset_launches"])
                                  for n in r["launches"])
@@ -2538,6 +2530,7 @@ SHARD_GRAD_KINDS = {"flagship": "flagship", "flagship from rest": "flagship",
                     "density contrast": "density contrast",
                     "split": "split", "periodic": "periodic",
                     "weno5": "weno5", "capillary drop": "capillary drop",
+                    "periodic capillary": "periodic capillary",
                     "contact": "contact"}
 SHARD_GRAD_TRACED = ("mu_s",)
 SHARD_GRAD_STEPS = 3
@@ -2554,10 +2547,16 @@ def grad_shard_case(kind, N, dtype, device):
     under the lid; the flagship from rest (the lid row's tied max speed
     across the blocks); the density contrast and the capillary drop from a
     swirl of 0.05; the periodic flagship and WENO5 as phase 14b runs them;
-    the head-on collision's two discs approaching."""
+    the periodic capillary drop of phase 14b from a Taylor-Green swirl of
+    0.05; the head-on collision's two discs approaching."""
     kw = dict(dtype=dtype, device=device)
     if kind in ("periodic", "weno5"):
         return shard_case(kind, N, dtype, device)
+    if kind == "periodic capillary":
+        cfg, bc, shapes, _, t_end = shard_case(kind, N, dtype, device)
+        u0, v0 = tg_seed(cfg, amp=0.05, **kw)
+        return (cfg, bc, shapes,
+                make_init_state(cfg, shapes, u0=u0, v0=v0, **kw), t_end)
     if kind == "flagship from rest":
         return shard_case("flagship", N, dtype, device)
     if kind == "contact":
@@ -2716,6 +2715,196 @@ def sharded_grads(device, card, N=256, big=2048):
     print(f"[shardgrad] the world of {SHARD_RANKS} ranks took {world_s:.1f} "
           f"s (start-up, the {len(runs)} cases' forward and backward)")
     return summary
+
+
+# phase 15: the figures of the JAX drivers, float64 on the CPU (jax 0.9.0),
+# that the card's runs are held to: benchmarks/disc_in_taylor_green.py::run
+# at N=128 to t = 1, and benchmarks/convergence_taylor_green.py::run at its
+# defaults (grids 32, 64, 128 against 256, dt 1e-4, t = 0.25)
+JAX_TG_DRIFT = -2.963801366402927
+JAX_CONVERGENCE_ORDERS = {"|u|": 1.3224971051757255, "p": 0.8361854098708396,
+                          "X1": 1.8992752519497669, "ke": 3.4669321449590305,
+                          "se": 2.322422181144293}
+# phase 15's cases: (what, validation function, keywords); float32 unless
+# the protocol runs float64
+VALID_CASES = (
+    ("soft disc in the lid-driven cavity N=128 float32 to t=8",
+     "soft_disc_in_lid_driven", dict(N=128, t_end=8.0)),
+    ("Taylor-Green collision N=128 float32 to t=2", "two_disc_tg_collision",
+     dict(N=128, t_end=2.0)),
+    ("capillary drop N=128 float32, balanced CSF + kappa*, to t=4.5",
+     "capillary_drop_coupled", dict(N=128, kappa_interface=True)),
+    ("disc in Taylor-Green N=128 float32 to t=1", "disc_in_taylor_green",
+     dict(N=128, t_end=1.0)),
+    ("convergence float64, grids 32, 64, 128 against 256, dt 1e-4, t=0.25",
+     "convergence_taylor_green", dict(dtype=torch.float64)),
+    ("two-disc contact N=64 float32 to t=1.5", "two_disc_contact",
+     dict(N=64, t_end=1.5)),
+    ("two-disc contact gate N=48 float64 to t=0.6", "two_disc_contact",
+     dict(N=48, t_end=0.6, dtype=torch.float64)),
+    ("sedimentation gate N=48 S=3 R=0.1 float64 to t=0.25",
+     "sedimentation_pack", dict(N=48, S=3, R=0.1, t_end=0.25,
+                                dtype=torch.float64)),
+)
+ABLATION = "profiling.ablation_breakdown N=1024 float32"
+# the pool's jobs, longest first: the cases and the ablation
+VALID_JOBS = VALID_CASES[:2] + ((ABLATION, "ablation",
+                                 dict(N=1024, dtype=torch.float32)),) \
+    + VALID_CASES[2:]
+VALID_WORKERS = 5
+
+
+def valid_case(fn, kw, device):
+    """A phase 15 job in a process of its own: (summary, launches) of the
+    validation case ``fn``, or ({row: ms a step}, launches) of
+    ``profiling.ablation_breakdown`` where ``fn`` is 'ablation'."""
+    from pyrmt_tpu_torch import profiling, validation
+
+    reset_counts()
+    if fn == "ablation":
+        summary = profiling.ablation_breakdown(device=device, verbose=False,
+                                               **kw)
+    else:
+        _, summary = getattr(validation, fn)(device=device, **kw)
+    return summary, counts()
+
+
+@contextlib.contextmanager
+def valid_jobs(device, jobs=VALID_JOBS, workers=VALID_WORKERS):
+    """Phase 15's ``jobs`` started in ``workers`` spawned processes;
+    yields ``results()``, which waits for them and returns ({what:
+    (summary, launches)}, wall seconds since the start). Leaving the block
+    waits for the jobs still running."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    dev = torch.device(device).type
+    with ProcessPoolExecutor(workers,
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = {what: pool.submit(valid_case, fn, kw, dev)
+                   for what, fn, kw in jobs}
+
+        def results():
+            out = {what: f.result() for what, f in futures.items()}
+            return out, time.perf_counter() - t0
+
+        try:
+            yield results
+        finally:
+            for f in futures.values():
+                f.cancel()
+
+
+def print_valid(results, card, workers=VALID_WORKERS):
+    """A [valid] line a case: its numbers beside its gate, its time and
+    launches. Returns the cases whose gate failed, or whose solid block
+    did not run rmt_block once a step."""
+    failed = []
+    for what, (s, launches) in results.items():
+        line, ok = valid_gate(what, s)
+        ok = ok and launches["rmt_block"] == s["steps"]
+        print(f"[valid] {what}: {line}; {s['steps']} steps in "
+              f"{s['wall_s']:.3f} s = {s['steps_per_s']:.1f} steps/s, "
+              f"{1e3 * s['wall_s'] / s['steps']:.3f} ms/step (host clock, "
+              f"{workers} processes sharing '{card}' beside phase 12); "
+              f"launches "
+              f"{ {k: n for k, n in launches.items() if n} }"
+              + ("" if ok else " FAILED"))
+        if not ok:
+            failed.append(what)
+    return failed
+
+
+def valid_gate(what, s):
+    """(the case's numbers beside its gate, passed)."""
+    if what.startswith("capillary"):
+        return (f"period {s['period']:.4f} against Rayleigh's "
+                f"{s['period_rayleigh']:.4f} (rel err "
+                f"{s['period_rel_err']:.4f} < 0.1), stable {s['stable']}, "
+                f"area drift {s['area_drift']:.4e}, envelope "
+                f"{s['envelope_ratio']:.3f}, tail Ca {s['ca_tail']:.3e}",
+                s["stable"] and s["period_rel_err"] < 0.1)
+    if what.startswith("disc in"):
+        return (f"total energy drift {s['drift']:.4f} % against the JAX "
+                f"driver's float64 {JAX_TG_DRIFT:.4f} % (within 0.5 "
+                f"points)", s["stable"] and abs(s["drift"] - JAX_TG_DRIFT)
+                < 0.5)
+    if what.startswith("convergence"):
+        errs = {k: abs(s["orders"][k] - o)
+                for k, o in JAX_CONVERGENCE_ORDERS.items()}
+        return ("orders " + ", ".join(
+            f"{k} {s['orders'][k]:.6f} (JAX {o:.6f}, off {errs[k]:.2e})"
+            for k, o in JAX_CONVERGENCE_ORDERS.items()) + " (within 1e-4); "
+            "Richardson ke " + ", ".join(
+                f"->N={n}: {p:.3f}" for n, p in s["richardson"]["ke"]),
+            max(errs.values()) < 1e-4)
+    if what.startswith("soft disc"):
+        d = s["deviations"]
+        return (f"mean deviation from Sugiyama's track "
+                f"{d['Sugiyama2011']:.5f} (< 0.008; TPU float32 0.0052), "
+                f"from Kolahduz's {d['Kolahduz2023']:.5f}, orbit x-extent "
+                f"{s['x_extent']:.4f}", s["stable"]
+                and d["Sugiyama2011"] < 0.008)
+    if what.startswith("Taylor-Green collision"):
+        return (f"least gap {s['gmin']:.4f} (> 0), rebound {s['rebound']}, "
+                f"diverged {s['diverged']}, min J {s['minJ']:.4f}",
+                s["no_passthrough"] and s["rebound"] and not s["diverged"])
+    if what.startswith("two-disc contact gate"):
+        return (f"least gap {s['gmin']:.4f} (> 2R = 0.3), min J "
+                f"{s['minJ']:.4f} (in (0.5, 1))", s["gmin"] > 0.3
+                and 0.5 < s["minJ"] < 1.0)
+    if what.startswith("two-disc contact"):
+        return (f"min J {s['minJ']:.4f} (published 0.685 TPU float32, 0.689 "
+                f"CPU float64), least gap {s['gmin']:.4f} (> 2R = 0.3)",
+                s["stable"] and s["gmin"] > 0.3)
+    return (f"stable {s['stable']}, no pass-through {s['no_passthrough']} "
+            f"(least distance {s['dmin']:.4f} > {s['gap_floor']:.4f}), "
+            f"monotone mean height {s['ybar_monotone']}, CG iterations max "
+            f"{s['cg_iters_max']:g} (< 100), area drift "
+            f"{s['area_drift']:.4e} (< 0.05)", s["stable"]
+            and s["no_passthrough"] and s["ybar_monotone"]
+            and s["cg_iters_max"] < 100 and s["area_drift"] < 0.05)
+
+
+def validation_suite(device, card, results, jobs_s):
+    """Phase 15: the JAX package's validation drivers through
+    ``pyrmt_tpu_torch.validation`` on the card (VALID_CASES), run by
+    ``valid_jobs`` in VALID_WORKERS processes of their own beside phase 12
+    (``results``, ``jobs_s``), each case's gate a hard check: the soft
+    disc's mean deviation from Sugiyama's track below 0.008; the disc in
+    Taylor-Green's energy drift within 0.5 points of the JAX driver's
+    float64 figure; the contact gate (least gap above 2R, 0.5 < min J < 1)
+    and the published N=64 run; the Taylor-Green collision's no
+    pass-through, rebound and no divergence; the sedimentation gate; the
+    capillary drop's period within 10 % of Rayleigh's; the convergence
+    orders within 1e-4 of JAX's. Every case's solid block on the fused
+    tier: rmt_block launched once a step. ``profiling.ablation_breakdown``
+    at N=1024 float32 ran among the jobs; ``profiling.stage_breakdown``
+    at N=1024 float32 runs here, alone on the card. Returns the profiling
+    rows."""
+    from pyrmt_tpu_torch import profiling
+
+    results = dict(results)
+    ablation, ab_launches = results.pop(ABLATION)
+    failed = print_valid(results, card)
+    print(f"[valid] the {len(results) + 1} jobs took {jobs_s:.1f} s in "
+          f"{VALID_WORKERS} processes beside phase 12")
+    if failed:
+        raise AssertionError(f"[valid] gates failed: {failed}")
+    print(f"[valid] {ABLATION} on '{card}' (CUDA events over 500 steps "
+          f"after 20, ms a step; {VALID_WORKERS} processes sharing the card "
+          f"beside phase 12): "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in ablation.items())
+          + f"; launches {ab_launches}")
+    reset_counts()
+    stages = profiling.stage_breakdown(N=1024, dtype=torch.float32,
+                                       device=device, verbose=False)
+    print(f"[valid] profiling.stage_breakdown N=1024 float32 on '{card}' "
+          f"(CUDA events, ms a call, alone on the card): "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in stages.items())
+          + f"; launches {counts()}")
+    return dict(stages=stages, ablation=ablation)
 
 
 def main() -> int:
@@ -3095,38 +3284,43 @@ def main() -> int:
               + profile_line(step_prof[tag], wall, steps))
 
     phase_s.append(("12", time.perf_counter()))
-    # 12. the JAX package's solid-free gates, on the card
-    reset_counts()
-    rows, tg = validation.taylor_green_decay(N=65, nu=0.01, t_end=0.5,
-                                             dtype=f64, device=device)
-    tg_launches = counts()["momentum_rk4_periodic"]
-    print(f"[gates] periodic Taylor-Green N=65 float64 to t=0.5: "
-          f"{tg['steps']} steps in {tg['wall_s']:.3f} s; stable "
-          f"{tg['stable']}, decay rate {tg['rate']:.6f} against "
-          f"{tg['rate_exact']:.6f} (rel err {tg['rate_rel_err']:.3e} < 1e-2), "
-          f"profile rel err {tg['profile_rel_err']:.3e} (< 5e-3), max|div| "
-          f"{tg['maxdiv']:.3e} (< 1e-6); momentum_rk4 periodic launches "
-          f"{tg_launches}")
-    if not (tg["stable"] and tg["rate_rel_err"] < 1e-2
-            and tg["profile_rel_err"] < 5e-3 and tg["maxdiv"] < 1e-6
-            and tg_launches == tg["steps"]):
-        raise AssertionError(f"Taylor-Green gate: {tg}")
-    reset_counts()
-    ghia = validation.lid_driven_cavity(
-        Re=100.0, N=65, dtype=f64, device=device,
-        ghia_csv=os.path.join(PORT_ROOT, "data", "plot_u_y_Ghia100.csv"))
-    ghia_launches = counts()["momentum_rk4"]
-    print(f"[gates] Ghia lid-driven cavity Re=100 N=65 float64: "
-          f"{ghia['steps']} steps in {ghia['wall_s']:.3f} s to t = "
-          f"{ghia['t']:.4f}, steady residual {ghia['residual']:.3e} (< 2e-5); "
-          f"centreline RMS against Ghia {ghia['rms']:.4e} (< 5e-3); "
-          f"momentum_rk4 launches {ghia_launches}")
-    if not (ghia["steady"] and ghia["rms"] < 5e-3
-            and ghia_launches == ghia["steps"]):
-        raise AssertionError(f"Ghia gate: steps {ghia['steps']}, residual "
-                             f"{ghia['residual']}, RMS {ghia.get('rms')}")
-    if HAS_ST:
-        st_gates(device)
+    # 12. the JAX package's gates, on the card, beside phase 15's jobs in
+    # processes of their own (gates of correctness alone: their wall
+    # seconds are a shared host's)
+    with valid_jobs(device) as valid_results:
+        reset_counts()
+        rows, tg = validation.taylor_green_decay(N=65, nu=0.01, t_end=0.5,
+                                                 dtype=f64, device=device)
+        tg_launches = counts()["momentum_rk4_periodic"]
+        print(f"[gates] periodic Taylor-Green N=65 float64 to t=0.5: "
+              f"{tg['steps']} steps in {tg['wall_s']:.3f} s; stable "
+              f"{tg['stable']}, decay rate {tg['rate']:.6f} against "
+              f"{tg['rate_exact']:.6f} (rel err {tg['rate_rel_err']:.3e} "
+              f"< 1e-2), profile rel err {tg['profile_rel_err']:.3e} "
+              f"(< 5e-3), max|div| {tg['maxdiv']:.3e} (< 1e-6); "
+              f"momentum_rk4 periodic launches {tg_launches}")
+        if not (tg["stable"] and tg["rate_rel_err"] < 1e-2
+                and tg["profile_rel_err"] < 5e-3 and tg["maxdiv"] < 1e-6
+                and tg_launches == tg["steps"]):
+            raise AssertionError(f"Taylor-Green gate: {tg}")
+        reset_counts()
+        ghia = validation.lid_driven_cavity(
+            Re=100.0, N=65, dtype=f64, device=device,
+            ghia_csv=os.path.join(PORT_ROOT, "data", "plot_u_y_Ghia100.csv"))
+        ghia_launches = counts()["momentum_rk4"]
+        print(f"[gates] Ghia lid-driven cavity Re=100 N=65 float64: "
+              f"{ghia['steps']} steps in {ghia['wall_s']:.3f} s to t = "
+              f"{ghia['t']:.4f}, steady residual {ghia['residual']:.3e} "
+              f"(< 2e-5); centreline RMS against Ghia {ghia['rms']:.4e} "
+              f"(< 5e-3); "
+              f"momentum_rk4 launches {ghia_launches}")
+        if not (ghia["steady"] and ghia["rms"] < 5e-3
+                and ghia_launches == ghia["steps"]):
+            raise AssertionError(f"Ghia gate: steps {ghia['steps']}, residual "
+                                 f"{ghia['residual']}, RMS {ghia.get('rms')}")
+        if HAS_ST:
+            st_gates(device)
+        valid, valid_s = valid_results()
 
     phase_s.append(("13", time.perf_counter()))
     # 13. gradients: the [grad] lines, the full width, the inverse problem
@@ -3148,16 +3342,22 @@ def main() -> int:
     # 14c. the sharded step's gradients in a world of 4 ranks on the card
     shard_grad = sharded_grads(device, card)
 
+    phase_s.append(("15", time.perf_counter()))
+    # 15. the validation suite's gates (its jobs ran beside phase 12) and
+    # the stage breakdown
+    valid_prof = validation_suite(device, card, valid, valid_s)
+
     phase_s.append(("end", time.perf_counter()))
     spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
                       in zip(phase_s, phase_s[1:]))
-    p14 = phase_s[-2][1] - phase_s[-3][1]
-    p14c = phase_s[-1][1] - phase_s[-2][1]
+    took = {a: t1 - t0 for (a, t0), (_, t1) in zip(phase_s, phase_s[1:])}
     print(f"[time] wall seconds per phase (host clock): {spans}; in all "
-          f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on; phase "
-          f"14 {p14:.1f} s, {'within' if p14 <= 200.0 else 'past'} its aim "
-          f"of 200 s; phase 14c {p14c:.1f} s, "
-          f"{'within' if p14c <= 150.0 else 'past'} its aim of 150 s")
+          f"{phase_s[-1][1] - phase_s[0][1]:.1f} from the build on; "
+          + "; ".join(f"phase {a} {took[a]:.1f} s, "
+                      f"{'within' if took[a] <= aim else 'past'} its aim of "
+                      f"{aim:g} s" for a, aim in (("14", 200.0),
+                                                  ("14c", 150.0),
+                                                  ("15", 200.0))))
     # the main path of extrapolate_fused is now the general tier's step
     main_launches["extrapolate_fused"] = general["weno5"]["launches"]
     gmaps = errs.pop("extrapolate_fused, general maps")
@@ -3277,7 +3477,12 @@ def main() -> int:
             "device_us": prof[1024][row][0]})
     print(json.dumps({"kernels": kernels, "grad_full_width": {
         k: full[k] for k in ("loss", "grad", "fwd_ms", "bwd_ms",
-                             "peak_gib")}, "shard_grad": shard_grad}))
+                             "peak_gib")}, "shard_grad": shard_grad,
+        "validation": {what: {k: s[k] for k in ("steps", "wall_s",
+                                                "steps_per_s")}
+                       for what, (s, _) in valid.items()
+                       if what != ABLATION},
+        "profiling": valid_prof}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,17 +26,19 @@ explicit collective or a halo exchange:
     (``Mesh.stencil``), the BC and the one-sided closures at the global
     domain's edge only; the PDE reinitialisation 8 iterations per
     exchange of an 8-cell halo;
-  * surface tension (walls): the body forces on a block plus the force's
+  * surface tension: the body forces on a block plus the force's
     reach (``force_halo``: 2 cells for the fd curvature and kappa*, hh +
     1 for the height function, one more for the balanced CSF's faces),
     the curvatures' edge replication and closures at the global domain's
-    edge only. A rank holds the balanced CSF's faces as four (ly, lx)
-    fields (``ops.poisson.faces_to_cells``): each cell's east face Fx
-    and north face Fy, 0 in the global domain's last column and row,
-    where the face lies beyond the domain, and the cell forces, each the
-    mean of its two faces with the zero face beyond the domain's edge as
-    on one device. The projection exchanges them with the velocity and
-    the pressure and takes the faces back off its slabs
+    edge only, on the periodic box too (the edge halo of walls, never
+    the wrap halo: JAX's step computes the force with the one-sided
+    stencils there as well). A rank holds the balanced CSF's faces as
+    four (ly, lx) fields (``ops.poisson.faces_to_cells``): each cell's
+    east face Fx and north face Fy, 0 in the global domain's last column
+    and row, where the face lies beyond the domain, and the cell forces,
+    each the mean of its two faces with the zero face beyond the domain's
+    edge as on one device. The projection exchanges them with the velocity
+    and the pressure and takes the faces back off its slabs
     (``faces_from_cells``);
   * the max speed of the adaptive dt is an all-reduce (MAX), so dt, t and
     the no-op decision are the same on every rank, and so is a rebase's
@@ -72,10 +74,11 @@ The configurations that JAX's shard_map path takes are sharded, and of
 those that only GSPMD shards in JAX the variable-density CG, the split
 tier (reinit, area fix, map rebasing, any level set), the
 doubly-periodic box, surface tension on walls (the cell and the
-balanced CSF, fd, kappa* and height-function curvature) and the general
-tier (WENO5, central2, the gather path for ``sl_local=False`` and
-CFL >= 1, with everything the other tiers take). Surface tension on the
-periodic box raises NotImplementedError (``check_slice``).
+balanced CSF, fd, kappa* and height-function curvature) and on the
+periodic box (the cell CSF; the balanced CSF off walls raises, as in
+JAX) and the general tier (WENO5, central2, the gather path for
+``sl_local=False`` and CFL >= 1, with everything the other tiers take):
+every configuration of ``sim.make_step``.
 
 Gradients (JAX's are GSPMD's). Every collective above is an
 autograd.Function where a gradient flows: its forward is the plain
@@ -114,9 +117,6 @@ from pyrmt_tpu_torch.kernels._autograd import needs_grad
 # the halo of the step's plain stencils: the projection's Rhie-Chow
 # divergence reads 2 cells, its gradient and the contact force's 1
 STENCIL_HALO = 2
-# where the configuration outside this slice, surface tension on the
-# periodic box (16.7), is to be ported
-ROADMAP_ITEM = "ROADMAP.md section 2, modules item 16"
 
 
 def force_halo(cfg) -> int:
@@ -805,8 +805,16 @@ def make_momentum_rk4_sharded(mesh: Mesh, Ny: int, Nx: int, impl=None):
     JAX keeps XLA there: the overlap copy of u and v across the ranks
     (``Mesh.overlap_copy``, the periodic BC), the fields padded by an
     8-cell wrap halo on both axes, the stage loop on the slabs (its wrap
-    stencils read the halo, its BC the identity: the stage values stay
-    overlap-consistent), the halo cut off and the overlap copy again."""
+    stencils read the halo, its BC the identity), the halo cut off and
+    the overlap copy again. The one-device loop applies the BC to every
+    stage's values, so its overlap lines take the values computed at row
+    and column 0; the slab loop computes them where they lie. They agree
+    when the stage's pointwise factors agree there: u and v, the density
+    and the force (the stencils read the same neighbours from either
+    line). So the density and the force get the overlap copy too: the
+    force, which the one-sided stencils compute on the whole grid
+    (``force_halo`` slabs with the edge halo), is not overlap-consistent
+    where an interface nears the seam."""
     from pyrmt_tpu_torch.bcs import noop_bc
     from pyrmt_tpu_torch.kernels.momentum_rk4 import momentum_rk4_fused
     from pyrmt_tpu_torch.physics import RK4_HALO, momentum_core
@@ -818,7 +826,10 @@ def make_momentum_rk4_sharded(mesh: Mesh, Ny: int, Nx: int, impl=None):
     def momentum_impl(u, v, p, sxx, sxy, syy, Hf, rho, mkv, velocity_bc, *,
                       f_ext_x=None, f_ext_y=None, periodic=False, **kw):
         if periodic:
-            u, v = mesh.overlap_copy([u, v])
+            forced = [f_ext_x, f_ext_y] if f_ext_x is not None else []
+            u, v, rho, *forced = mesh.overlap_copy([u, v, rho] + forced)
+            if forced:
+                f_ext_x, f_ext_y = forced
         fields = [u, v, p, sxx, sxy, syy, Hf, rho, mkv]
         if f_ext_x is not None:
             fields += [f_ext_x, f_ext_y]
@@ -896,17 +907,9 @@ def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
             and momentum_rk4_supported(velocity_bc))
 
 
-def check_slice(cfg, velocity_bc, phi_inits) -> None:
-    """Raise NotImplementedError for the configuration that this port does
-    not shard yet (JAX shards it by GSPMD alone), naming its ROADMAP item:
-    surface tension on the periodic box (16.7); ValueError for a periodic
-    box whose BC and ``bc_type`` disagree (the sharded box's overlap copy
-    is ``bcs.periodic_bc``'s)."""
-    if cfg.gamma > 1e-12 and cfg.bc_type == "periodic":
-        raise NotImplementedError(
-            "the sharded step does not yet take surface tension on the "
-            "periodic box: JAX shards it by GSPMD alone; see "
-            f"{ROADMAP_ITEM}.7")
+def check_periodic_bc(cfg, velocity_bc) -> None:
+    """Raise ValueError for a periodic box whose BC and ``bc_type``
+    disagree (the sharded box's overlap copy is ``bcs.periodic_bc``'s)."""
     wrap_bc = (getattr(velocity_bc, "kernel_spec", None) or ("",))[0] \
         == "periodic"
     if wrap_bc != (cfg.bc_type == "periodic"):
@@ -962,11 +965,13 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     the gather path on the gathered fields, ``extrapolate_fused`` on
     slabs with offsets; with the phi chain, rebasing, CFL >= 1, walls or
     the periodic box); contact and gravity; surface tension on walls (the
-    cell CSF or the balanced CSF with its face forces, any curvature; the
-    forces on ``force_halo`` slabs, ``step.paths['forces']``); the Neumann
-    DCT projection and the variable-density CG. ``check_slice`` raises for
-    the rest. A split axis's blocks must hold the largest halo the step
-    exchanges (the ValueError names it).
+    cell CSF or the balanced CSF with its face forces, any curvature) and
+    on the periodic box (the cell CSF, any curvature; the balanced CSF
+    raises off walls, as ``sim.make_step`` does), the forces on
+    ``force_halo`` slabs with the edge halo, ``step.paths['forces']``;
+    the Neumann DCT projection and the variable-density CG. A split
+    axis's blocks must hold the largest halo the step exchanges (the
+    ValueError names it).
     """
     from pyrmt_tpu_torch.kernels.rmt_block import (
         advext_block_plain,
@@ -1001,7 +1006,7 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
         raise ValueError(
             "sharded solid-block kernel unsupported for this config/mesh/"
             "grid; see sim.rmt_block_fusible + rmt_block_sharded_supported")
-    check_slice(cfg, velocity_bc, phi_inits)
+    check_periodic_bc(cfg, velocity_bc)
     periodic = cfg.bc_type == "periodic"
     # the split tier, as make_step picks it: post-processing of phi, or a
     # level set the fused kernel does not evaluate

@@ -1,5 +1,5 @@
-"""The JAX package's validation gates, as functions of the port (the cores
-of ``benchmarks/periodic_taylor_green.py::run``,
+"""Four of the JAX package's validation drivers, as functions of the port
+(the cores of ``benchmarks/periodic_taylor_green.py::run``,
 ``benchmarks/lid_driven_cavity.py::run``,
 ``benchmarks/surface_tension_drop.py::run`` and
 ``benchmarks/density_contrast_disc.py::run``, without their file output).

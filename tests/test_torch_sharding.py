@@ -22,9 +22,9 @@ tolerances (2 steps: u, v and p 1e-10, X1 and X2 1e-11; 12 steps: 1e-9 and
 
 Without a world: ``mesh_shape``'s factoring, the two ValueErrors of an
 explicit 'pallas' (a mesh too tight for the halo, a configuration the
-fused tier does not take) and the NotImplementedError of each
-configuration that JAX shards by GSPMD alone and the port does not shard
-yet (test_torch_sharding_gspmd.py runs the others). tests/test_torch_sharding_
+fused tier does not take) and the configurations that JAX shards by
+GSPMD alone, which build on a mesh (test_torch_sharding_gspmd.py and
+test_torch_sharding_st*.py run them). tests/test_torch_sharding_
 pallas.py and test_torch_sharding_pallas_2d.py hold the (4, 1) and (2, 2)
 meshes to JAX's sharded step.
 """
@@ -205,14 +205,16 @@ def test_sharded_pallas_unfusible_config_raises():
 @pytest.mark.parametrize("what", ["weno5", "central2", "surface tension",
                                   "traced_params"])
 def test_gspmd_only_configuration_raises(what):
-    """The configuration that JAX shards by GSPMD alone and the port does
-    not shard yet (surface tension on the periodic box) waits for a later
-    slice: NotImplementedError, naming the ROADMAP item, on the general
-    tier too ('central2': surface tension on the periodic box with
-    central2). ``traced_params`` shards ('traced_params', and 'weno5':
-    traced_params with WENO5): the step builds and names its adjoint
-    collectives in ``paths['grad']`` (tests/test_torch_sharding_grad*.py
-    run its gradients). tests/test_torch_sharding_gspmd.py,
+    """Every configuration that JAX shards by GSPMD alone now shards, the
+    last of them surface tension on the periodic box ('surface tension',
+    and 'central2': surface tension on the periodic box with central2):
+    the step builds and names the forces' path, on ``force_halo`` slabs
+    with the edge halo, and the periodic box's stage loop. ``traced_params``
+    shards ('traced_params', and 'weno5': traced_params with WENO5): the
+    step builds and names its adjoint collectives in ``paths['grad']``
+    (tests/test_torch_sharding_grad*.py run its gradients).
+    tests/test_torch_sharding_st_periodic.py runs surface tension on the
+    periodic box against JAX; tests/test_torch_sharding_gspmd.py,
     tests/test_torch_sharding_st.py and tests/test_torch_sharding_general*.py
     run the others (surface tension on walls and the general tier among
     them)."""
@@ -230,10 +232,11 @@ def test_gspmd_only_configuration_raises(what):
                                     traced_params=("mu_s",))
         assert step.paths["grad"] == "adjoint collectives, direct"
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"modules item 16\.7"):
-        make_sharded_step(cfg, bc, shapes, Mesh((2, 4)), dtype=torch.float64,
-                          device=DEV)
+    step, _ = make_sharded_step(cfg, bc, shapes, Mesh((2, 4)),
+                                dtype=torch.float64, device=DEV)
+    assert step.paths["forces"] == (
+        "surface tension (cell CSF, fd curvature) on 2-cell halo slabs")
+    assert step.paths["momentum"] == "stage loop on wrap-padded slabs"
 
 
 @pytest.mark.parametrize("over, scheme", [
