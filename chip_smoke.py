@@ -29,7 +29,12 @@ another sm_90a card) and the CUDA toolkit. Phases:
      sample; advext_block with the bicubic sample, guarded and raw; rmt_block
      with the capillary drop's ellipse, bilinear and bicubic (guarded and
      raw) and in the band mode, and with a disc beside an ellipse in
-     contact range, bilinear and bicubic); extrapolate_fused on the masked
+     contact range, bilinear and bicubic; NO_SKIP: rmt_block with the disc,
+     the ellipse, two solids, the bicubic sample and the band mode, and
+     advext_block, each with tile_skip=False, the JAX kernels' switch that
+     runs the full pipeline on every tile: against the plain version and,
+     bit for bit, against the skipping kernel); extrapolate_fused on the
+     masked
      maps that one general-tier step hands it (the flagship with WENO5,
      with central2, and with CFL 1.5 on the gather path, from a swirl) at
      N=256, 203x301 (both types) and 1024 (float32); then the times
@@ -39,7 +44,8 @@ another sm_90a card) and the CUDA toolkit. Phases:
      advext_block and extrapolate_fused also with every tile skipping; the
      two contact modes, the periodic instantiation beside the lid's, and
      the FFT solve of the periodic projection, cuFFT, at N=1024; the new
-     modes beside the bilinear rows, the ellipse's among them), and the
+     modes beside the bilinear rows, the ellipse's among them, the
+     tile_skip=False rows beside the skipping ones: [skip] lines), and the
      kernels and device-busy ms per step of phases 4, 4b, 4c, 4d, 4e, 4f,
      5, 8, 10 and 11's configurations (20 steps each; for 4f also
      extrapolate_fused's device kernels and time per step);
@@ -218,11 +224,22 @@ another sm_90a card) and the CUDA toolkit. Phases:
      capillary drop at N=128 with the balanced CSF and kappa* to t = 4.5
      (stable, the n=2 period within 10 % of Rayleigh's 1.026), the
      convergence study at the driver's defaults in float64 (each order
-     within 1e-4 of JAX's on the CPU); rmt_block launched once a step in
-     every case; then, alone on the card, profiling.stage_breakdown and
-     ablation_breakdown (500-step chunks) at N=1024 float32. [valid]
-     lines, each case's numbers beside its gate, its wall seconds and
-     steps/s.
+     within 1e-4 of JAX's on the CPU), the periodic Taylor-Green vortex
+     with the --solid disc at N=129 to t = 0.5 (stable, the disc's
+     centroid drift under a cell; the KE-rate error printed); rmt_block
+     launched once a step in every case; ablation_breakdown (500-step
+     chunks, each row's launch counts read after it, JAX's
+     tile_skip=False row among them: rmt_block with the skip off 520
+     times, every other row and every main-path run of phases 4-15 0
+     times, each launch with tile_skip=False counted by the wrappers'
+     no-skip counters) at N=1024
+     float32 among the jobs; then, alone on the card,
+     profiling.stage_breakdown, and the [surface] line: the names this
+     slice added (the 4th-order stencils, create_grid, the FFT DCT-I and
+     its matrix form, build_poisson_matrix, compute_divergence, the FFT
+     path of solve_poisson_dct, reinitialize_phi_fmm) on CUDA tensors
+     against the same calls on the CPU. [valid] lines, each case's numbers
+     beside its gate, its wall seconds and steps/s.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
 the kernels (with each kernel's backward ms and the largest relative
@@ -245,6 +262,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import inspect
 import json
 import math
@@ -318,6 +336,9 @@ HAS_OFFSETS = "row_offset" in inspect.signature(
     rb.rmt_block_fused).parameters
 HAS_EXTRAP_OFFSETS = "row_offset" in inspect.signature(
     ef.extrapolate_reference_map_fused).parameters
+# The solid blocks' tile_skip switch?
+HAS_TILE_SKIP = "tile_skip" in inspect.signature(
+    rb.rmt_block_fused).parameters
 
 # Tolerances of kernel vs plain version on the same inputs. Both evaluate
 # the same IEEE operations in the same order (nvcc --fmad=false; a
@@ -430,6 +451,25 @@ MODES = {"rmt_block, bicubic": "rmt_block",
 if HAS_ST:
     MODES.update({"rmt_block, ellipse": "rmt_block",
                   "rmt_block, disc and ellipse": "rmt_block"})
+# the solid blocks with tile_skip=False (the JAX kernels' switch: the full
+# pipeline on every tile), each held to the plain version and, bit for bit,
+# to the skipping kernel, and profiled and timed beside it: {profile row:
+# the skipping row it equals}; the bound is the skipping row's (the same
+# bytes and operations)
+NO_SKIP = {"rmt_block, no tile skip": "rmt_block",
+           "rmt_block, ellipse, no tile skip": "rmt_block, ellipse",
+           "rmt_block, two solids, no tile skip": "rmt_block, two solids",
+           "rmt_block, bicubic, no tile skip": "rmt_block, bicubic",
+           "rmt_block, band, no tile skip": "rmt_block, band",
+           "advext_block, no tile skip": "advext_block"} \
+    if HAS_TILE_SKIP else {}
+# the launches with tile_skip=False, counted in counts() beside the
+# kernels' own: {kernel: its counts() key}. No main path launches any: each
+# run that check_run, shard_launches or print_valid reads adds its counts
+# to MAIN_NO_SKIP (which reports them) and must show 0.
+NO_SKIP_COUNTS = {"rmt_block": "rmt_block, no tile skip",
+                  "advext_block": "advext_block, no tile skip"}
+MAIN_NO_SKIP = {"runs": 0, **dict.fromkeys(NO_SKIP_COUNTS.values(), 0)}
 CHECKED = {"rmt_block, ellipse bicubic": "rmt_block",
            "rmt_block, ellipse raw bicubic": "rmt_block",
            "rmt_block, ellipse band": "rmt_block",
@@ -743,7 +783,9 @@ def nvidia_smi_line():
 def bound_us(name, N, dtype=torch.float32):
     """(the least device time of one call at N x N in microseconds, what
     bounds it: 'bytes' or 'operations'); a profile row "kernel, case" takes
-    its own work where WORK has it, else the kernel's."""
+    its own work where WORK has it, else the kernel's; a NO_SKIP row its
+    skipping row's."""
+    name = NO_SKIP.get(name, name)
     read, written, ops = WORK.get(name) or WORK[name.split(",")[0]]
     cells_read = cells_written = N * N
     if name in OFFSET_ROWS:
@@ -876,6 +918,40 @@ def mode_calls(cfg, d, ccfg, cd, checked=False):
         "advext_block, raw bicubic": (*adv, lambda f: advext_call(
             f, cfg, d, **sample_mode(cfg, False))),
     }
+
+
+def no_skip(kern):
+    """The wrapper with the JAX kernels' tile_skip=False."""
+    return functools.partial(kern, tile_skip=False)
+
+
+def skip_calls(cfg, d, ccfg, cd):
+    """{NO_SKIP's skipping row: (wrapper, its plain version, a call of
+    either)} on kernel_inputs' and contact_kernel_inputs' operands."""
+    rmt = (rb.rmt_block_fused, rb.rmt_block_plain)
+    calls = {"rmt_block": (*rmt, lambda f: rmt_call(f, cfg, d)),
+             "advext_block": (rb.advext_block_fused, rb.advext_block_plain,
+                              lambda f: advext_call(f, cfg, d)),
+             "rmt_block, two solids": (*rmt, lambda f: contact_rmt_call(
+                 f, ccfg, cd))}
+    modes = mode_calls(cfg, d, ccfg, cd)
+    return {of: calls.get(of) or modes[of] for of in NO_SKIP.values()}
+
+
+def check_skip_exact(what, full, skip):
+    """tile_skip=False's outputs against the skipping kernel's: returns
+    the largest difference (NaN against NaN counts 0) and raises unless
+    they are equal bit for bit."""
+    torch.cuda.synchronize()
+    diff = 0.0
+    for a, b in zip(full, skip):
+        both = torch.isnan(a) & torch.isnan(b)
+        diff = max(diff, float(torch.where(both, 0.0, (a - b).abs()).max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{what}: {m}")
+    print(f"[kernels] {what}: equals tile_skip=True bit for bit (max-abs "
+          f"{diff:.1e})")
+    return diff
 
 
 def extrap_call(fn, cfg, d):
@@ -1023,6 +1099,18 @@ def compare_kernels(shape, dtype, device, disc=FLAGSHIP_DISC, modes=True):
             kernel = MODES.get(row) or CHECKED[row]
             outs = OUT_NAMES if kernel == "rmt_block" else ("X1e", "X2e")
             hold(kernel, outs, call(kern), call(ref), row=row)
+        # tile_skip=False: against the plain version, and bit for bit
+        # against the skipping kernel
+        base = skip_calls(cfg, d, ccfg, cd) if NO_SKIP else {}
+        for row, of in NO_SKIP.items():
+            kern, ref, call = base[of]
+            kernel = row.split(",")[0]
+            outs = OUT_NAMES if kernel == "rmt_block" else ("X1e", "X2e")
+            full = call(no_skip(kern))
+            hold(kernel, outs, full, call(ref), row=row)
+            key = f"{row} vs skip"
+            worst[key] = max(worst.get(key, 0.0), check_skip_exact(
+                f"{tag} {row}", full, call(kern)))
     hold("extrapolate_fused", ("X1e", "X2e"),
          extrap_call(ef.extrapolate_reference_map_fused, cfg, d),
          extrap_call(extrapolate_reference_map, cfg, d))
@@ -1086,7 +1174,12 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(N, device, reps=20):
+# calls a CUDA-event time averages (the wrappers' times are host-bound;
+# the device times come from the profile)
+TIMED_REPS = 10
+
+
+def time_kernels(N, device, reps=TIMED_REPS):
     """Kernel and plain times at the flagship's N and float32, in turns
     (plain, kernel, kernel, plain); each reported time is the mean of its
     two turns."""
@@ -1129,6 +1222,21 @@ def time_kernels(N, device, reps=20):
         times[name] = (0.5 * (k1 + k2), 0.5 * (p1 + p2))
         print(f"[timing] N={N} float32 {name}: kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.4f}/{p2:.4f} ms")
+    # tile_skip=False in turns with the skipping kernel (skip, full, full,
+    # skip): (full ms, the plain version's ms, the skip's ms); the plain
+    # version is the skipping row's, timed above where it has a row
+    base = skip_calls(cfg, d, ccfg, cd) if NO_SKIP else {}
+    for row, of in NO_SKIP.items():
+        kern, ref, call = base[of]
+        s1 = time_ms(lambda: call(kern), reps)
+        f1 = time_ms(lambda: call(no_skip(kern)), reps)
+        f2 = time_ms(lambda: call(no_skip(kern)), reps)
+        s2 = time_ms(lambda: call(kern), reps)
+        plain = times[of][1] if of in times else time_ms(lambda: call(ref),
+                                                         reps)
+        times[row] = (0.5 * (f1 + f2), plain, 0.5 * (s1 + s2))
+        print(f"[timing] N={N} float32 {row}: kernel {f1:.4f}/{f2:.4f} ms, "
+              f"with the skip {s1:.4f}/{s2:.4f} ms, plain {plain:.4f} ms")
     return times
 
 
@@ -1262,6 +1370,11 @@ def kernel_calls(N, device):
         ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
         modes = {row: (lambda k=kern, c=call: c(k)) for row, (kern, _, call)
                  in mode_calls(cfg, d, ccfg, cd).items()}
+    if NO_SKIP:
+        ccfg, cd = contact_kernel_inputs(N, torch.float32, device)
+        base = skip_calls(cfg, d, ccfg, cd)
+        modes.update({row: (lambda k=base[of][0], c=base[of][2]: c(
+            no_skip(k))) for row, of in NO_SKIP.items()})
     if HAS_OFFSETS and 2 * N == OFFSET_N:
         modes.update({row: kern for row, (kern, _) in
                       offset_slab_calls(device).items()})
@@ -1404,6 +1517,7 @@ def reset_counts():
     rb.launches = rb.advext_launches = mk.launches = ef.launches = 0
     ps.rc_rhs_launches = ps.grad_correct_launches = mr.launches = 0
     mk.periodic_launches = 0
+    rb.no_skip_launches = rb.advext_no_skip_launches = 0
 
 
 def counts():
@@ -1413,12 +1527,29 @@ def counts():
             "extrapolate_fused": ef.launches,
             "rc_rhs": ps.rc_rhs_launches,
             "grad_correct": ps.grad_correct_launches,
-            "velocity_rhs": mr.launches}
+            "velocity_rhs": mr.launches,
+            NO_SKIP_COUNTS["rmt_block"]: getattr(rb, "no_skip_launches", 0),
+            NO_SKIP_COUNTS["advext_block"]: getattr(
+                rb, "advext_no_skip_launches", 0)}
 
 
 def expected_launches(**launches):
-    """The launch counts of a run: the named ones, 0 for the rest."""
-    return {name: launches.get(name, 0) for name in KERNELS}
+    """The launch counts of a run: the named ones, 0 for the rest (the
+    tile_skip=False counts among them)."""
+    return {name: launches.get(name, 0)
+            for name in (*KERNELS, *NO_SKIP_COUNTS.values())}
+
+
+def main_path_no_skip(*runs):
+    """Add the tile_skip=False counts of main-path runs (counts() dicts) to
+    MAIN_NO_SKIP; raise if one launched a kernel with the skip off."""
+    for launches in runs:
+        MAIN_NO_SKIP["runs"] += 1
+        for key in NO_SKIP_COUNTS.values():
+            MAIN_NO_SKIP[key] += launches.get(key, 0)
+            if launches.get(key, 0):
+                raise AssertionError(f"a main-path run launched {key!r}: "
+                                     f"{launches}")
 
 
 def step_without_sync(step, state, t_end):
@@ -1544,6 +1675,7 @@ def check_state(state, aux, what):
 def check_run(what, state, aux, launches, expect, dt_sum, t0):
     if launches != expect:
         raise AssertionError(f"{what}: launches {launches}, expected {expect}")
+    main_path_no_skip(launches)
     min_J = check_state(state, aux, what)
     advanced = float(state.t.double() - t0)
     if not abs(advanced - float(dt_sum)) <= 1e-4 * max(advanced, 1e-6):
@@ -1695,7 +1827,9 @@ def compare_paths(N, device, steps=3, contact=False, case=None, bc=None,
     if case in ("periodic", "lid", "tg") and not float(
             s_k.u.abs().max()) > 0.1:
         raise AssertionError(f"paths {case}: the flow did not move")
-    return errs, {k: n for k, n in counts().items() if n}, step_k.paths
+    launches = counts()
+    main_path_no_skip(launches)
+    return errs, {k: n for k, n in launches.items() if n}, step_k.paths
 
 
 def st_gates(device):
@@ -1731,6 +1865,7 @@ def st_gates(device):
     _, dens = validation.density_contrast(N=48, rho_ratio=10.0, t_end=0.25,
                                           dtype=f64, device=device)
     launches = counts()
+    main_path_no_skip(launches)
     print(f"[gates] density contrast (ratio 10) N=48 float64 to t=0.25: "
           f"{dens['steps']} steps in {dens['wall_s']:.3f} s; final vc "
           f"{dens['vc_final']:.5f} (< 0: sinks), CG iterations max "
@@ -2030,6 +2165,7 @@ def inverse_problem(device, card, N=48, n_steps=60, mu_true=0.4,
                        mu_guess=mu_guess, adam_steps=adam_steps,
                        dtype=torch.float64, device=device, verbose=False)
     launches = counts()
+    main_path_no_skip(launches)
     trace, err = out["trace"], out["rel_err"]
     print(f"[inverse] examples/differentiable_fsi.py's twin on '{card}': "
           f"N={N} float64, {n_steps} steps a rollout, mu_s from {mu_guess} "
@@ -2242,7 +2378,7 @@ def offset_slab_calls(device):
     return out
 
 
-def time_offsets(device, reps=20):
+def time_offsets(device, reps=TIMED_REPS):
     """{OFFSET_ROWS row: (kernel ms, plain ms)}: CUDA-event times of each
     offset instantiation and its plain twin on its slab, in turns."""
     times = {}
@@ -2369,6 +2505,11 @@ def shard_launches(what, kind, steps, launches):
         if got != want or others:
             raise AssertionError(f"[shard] {what}: rank {rank} launched "
                                  f"{n}, not {want} in {steps} steps")
+        main_path_no_skip({
+            NO_SKIP_COUNTS["rmt_block"]: n.get("rmt_block.no_skip_launches",
+                                               0),
+            NO_SKIP_COUNTS["advext_block"]: n.get(
+                "rmt_block.advext_no_skip_launches", 0)})
 
 
 def sharded_runs(device, card):
@@ -2745,8 +2886,13 @@ VALID_CASES = (
     ("sedimentation gate N=48 S=3 R=0.1 float64 to t=0.25",
      "sedimentation_pack", dict(N=48, S=3, R=0.1, t_end=0.25,
                                 dtype=torch.float64)),
+    ("periodic Taylor-Green --solid N=129 float32 to t=0.5",
+     "taylor_green_decay", dict(N=129, t_end=0.5, with_solid=True,
+                                dtype=torch.float32)),
 )
 ABLATION = "profiling.ablation_breakdown N=1024 float32"
+# its row that runs rmt_block with tile_skip=False
+ABLATION_NO_SKIP = "tile_skip=False (no solid-free skip)"
 # the pool's jobs, longest first: the cases and the ablation
 VALID_JOBS = VALID_CASES[:2] + ((ABLATION, "ablation",
                                  dict(N=1024, dtype=torch.float32)),) \
@@ -2756,17 +2902,23 @@ VALID_WORKERS = 5
 
 def valid_case(fn, kw, device):
     """A phase 15 job in a process of its own: (summary, launches) of the
-    validation case ``fn``, or ({row: ms a step}, launches) of
-    ``profiling.ablation_breakdown`` where ``fn`` is 'ablation'."""
+    validation case ``fn``, or ({row: ms a step}, {row: launches}) of
+    ``profiling.ablation_breakdown`` where ``fn`` is 'ablation' (each row's
+    counts read and reset after its timed chunk)."""
     from pyrmt_tpu_torch import profiling, validation
 
     reset_counts()
-    if fn == "ablation":
-        summary = profiling.ablation_breakdown(device=device, verbose=False,
-                                               **kw)
-    else:
+    if fn != "ablation":
         _, summary = getattr(validation, fn)(device=device, **kw)
-    return summary, counts()
+        return summary, counts()
+    launches = {}
+
+    def row_launches(row):
+        launches[row] = {k: n for k, n in counts().items() if n}
+        reset_counts()
+
+    return profiling.ablation_breakdown(device=device, verbose=False,
+                                        on_row=row_launches, **kw), launches
 
 
 @contextlib.contextmanager
@@ -2804,6 +2956,7 @@ def print_valid(results, card, workers=VALID_WORKERS):
     for what, (s, launches) in results.items():
         line, ok = valid_gate(what, s)
         ok = ok and launches["rmt_block"] == s["steps"]
+        main_path_no_skip(launches)
         print(f"[valid] {what}: {line}; {s['steps']} steps in "
               f"{s['wall_s']:.3f} s = {s['steps_per_s']:.1f} steps/s, "
               f"{1e3 * s['wall_s'] / s['steps']:.3f} ms/step (host clock, "
@@ -2818,6 +2971,12 @@ def print_valid(results, card, workers=VALID_WORKERS):
 
 def valid_gate(what, s):
     """(the case's numbers beside its gate, passed)."""
+    if what.startswith("periodic Taylor-Green"):
+        return (f"stable {s['stable']}, the disc's centroid drift "
+                f"{s['centroid_drift_cells']:.3e} cells (< 1: sub-cell), "
+                f"KE decay rate {s['rate']:.6f} against "
+                f"{s['rate_exact']:.6f} (rel err {s['rate_rel_err']:.4e})",
+                s["stable"] and s["centroid_drift_cells"] < 1.0)
     if what.startswith("capillary"):
         return (f"period {s['period']:.4f} against Rayleigh's "
                 f"{s['period_rayleigh']:.4f} (rel err "
@@ -2867,6 +3026,80 @@ def valid_gate(what, s):
             and s["cg_iters_max"] < 100 and s["area_drift"] < 0.05)
 
 
+def surface_check(device, card):
+    """The names this slice added to the surface on CUDA tensors against
+    the same calls on the CPU, float64: the 4th-order stencils and
+    lap_2nd, create_grid (bit for bit), the FFT DCT-I (cuFFT) and its
+    matrix form, build_poisson_matrix (its entries bit for bit, its
+    product with a field), compute_divergence, the FFT path of
+    solve_poisson_dct and reinitialize_phi_fmm (200 iterations). Prints
+    one [surface] line; raises past a bound (1e-12 of the field's size:
+    cuFFT and cuBLAS sum in another order than the CPU's)."""
+    import pyrmt_tpu_torch as pt
+
+    rng = np.random.default_rng(7)
+    n, m = 129, 97
+    dx, dy = 1.0 / (m - 1), 1.0 / (n - 1)
+    f0 = rng.standard_normal((n, m))
+    g0 = rng.standard_normal((n, m))
+    eig = [poisson.precompute_poisson_eigenvalues(m, n, dx, dy,
+                                                  torch.float64, dev)
+           for dev in (device, "cpu")]
+    mats = [poisson.precompute_dct_matrices(m, n, torch.float64, dev)
+            for dev in (device, "cpu")]
+    X, Y = (torch.tensor(a) for a in np.meshgrid(np.linspace(0, 1, m),
+                                                 np.linspace(0, 1, n)))
+    phi0 = (torch.sqrt((X - 0.55) ** 2 + (Y - 0.5) ** 2) ** 1.3
+            - 0.2).numpy()
+    calls = {
+        "grad_central_x_4th": lambda k, f, g: pt.grad_central_x_4th(f, dx),
+        "grad_central_y_4th": lambda k, f, g: pt.grad_central_y_4th(f, dy),
+        "lap_2nd": lambda k, f, g: pt.lap_2nd(f, dx, dy),
+        "dct1_2d": lambda k, f, g: poisson.dct1_2d(f),
+        "idct1_2d": lambda k, f, g: poisson.idct1_2d(f),
+        "dct1_2d_matmul": lambda k, f, g: pt.dct1_2d_matmul(f, mats[k]),
+        "idct1_2d_matmul": lambda k, f, g: poisson.idct1_2d_matmul(
+            f, mats[k]),
+        "compute_divergence": lambda k, f, g: poisson.compute_divergence(
+            f, g, dx, dy),
+        "solve_poisson_dct (FFT)": lambda k, f, g: pt.solve_poisson_dct(
+            f, eig[k]),
+        "build_poisson_matrix @ f": lambda k, f, g: (
+            pt.build_poisson_matrix(m, n, dx, dy, device=f.device)
+            @ f.reshape(-1, 1)).reshape(n, m),
+        "reinitialize_phi_fmm": lambda k, f, g: pt.reinitialize_phi_fmm(
+            torch.tensor(phi0, device=f.device), dx, dy),
+    }
+    errs = {}
+    for name, fn in calls.items():
+        outs = [fn(k, torch.tensor(f0, device=dev),
+                   torch.tensor(g0, device=dev))
+                for k, dev in enumerate((device, "cpu"))]
+        err = float((outs[0].cpu() - outs[1]).abs().max())
+        scale = max(1.0, float(outs[1].abs().max()))
+        errs[name] = err / scale
+        if not err <= 1e-12 * scale:
+            raise AssertionError(f"[surface] {name}: CUDA and CPU differ by "
+                                 f"{err:.3e} of {scale:.3e}")
+    cuda_grid = pt.create_grid(m, n, 1.0, 1.0, dtype=torch.float64)
+    cpu_grid = pt.create_grid(m, n, 1.0, 1.0, dtype=torch.float64,
+                              device="cpu")
+    A = pt.build_poisson_matrix(m, n, dx, dy, device=device)
+    exact = (cuda_grid[0].device.type == "cuda"
+             and all(torch.equal(a.cpu(), b)
+                     for a, b in zip(cuda_grid[:2], cpu_grid[:2]))
+             and cuda_grid[2:] == cpu_grid[2:]
+             and torch.equal(A.to_dense().cpu(), pt.build_poisson_matrix(
+                 m, n, dx, dy, device="cpu").to_dense()))
+    if not exact:
+        raise AssertionError("[surface] create_grid or build_poisson_matrix "
+                             "on the card differs from the CPU's")
+    print(f"[surface] {n}x{m} float64 on '{card}' against the CPU, the "
+          f"largest difference over max(1, |CPU|) (bound 1e-12): "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + "; create_grid and build_poisson_matrix's entries bit for bit")
+
+
 def validation_suite(device, card, results, jobs_s):
     """Phase 15: the JAX package's validation drivers through
     ``pyrmt_tpu_torch.validation`` on the card (VALID_CASES), run by
@@ -2897,6 +3130,15 @@ def validation_suite(device, card, results, jobs_s):
           f"beside phase 12): "
           + ", ".join(f"{k} {ms:.4f}" for k, ms in ablation.items())
           + f"; launches {ab_launches}")
+    # the no-skip row runs rmt_block with tile_skip=False once a step,
+    # warm-up included, and no other row runs it with the skip off
+    for row, n in ab_launches.items():
+        key = NO_SKIP_COUNTS["rmt_block"]
+        want = 520 if row == ABLATION_NO_SKIP else 0
+        if HAS_TILE_SKIP and (n.get(key, 0) != want or (
+                want and n.get("rmt_block") != want)):
+            raise AssertionError(f"the ablation's {row!r} row launched "
+                                 f"{n}, not {want} of {key!r}")
     reset_counts()
     stages = profiling.stage_breakdown(N=1024, dtype=torch.float32,
                                        device=device, verbose=False)
@@ -2904,7 +3146,9 @@ def validation_suite(device, card, results, jobs_s):
           f"(CUDA events, ms a call, alone on the card): "
           + ", ".join(f"{k} {ms:.4f}" for k, ms in stages.items())
           + f"; launches {counts()}")
-    return dict(stages=stages, ablation=ablation)
+    surface_check(device, card)
+    return dict(stages=stages, ablation=ablation,
+                ablation_launches=ab_launches)
 
 
 def main() -> int:
@@ -2982,13 +3226,22 @@ def main() -> int:
     times = time_kernels(1024, device)
     backward_ms = time_backward(1024, device, times)
     prof, step_prof = profile_all(device)
-    for name in (*KERNELS, *CONTACT_MODES, *MODES):
-        want = DEVICE_KERNELS.get(MODES.get(name, name), 1)
+    for name in (*KERNELS, *CONTACT_MODES, *MODES, *NO_SKIP):
+        # tile_skip=False runs no flag pre-pass: one device kernel a call
+        want = 1 if name in NO_SKIP else DEVICE_KERNELS.get(
+            MODES.get(name, name), 1)
         if prof[1024][name][1] != want or prof[4096][name][1] != want:
             raise AssertionError(
                 f"one {name} call ran {prof[1024][name][1]:g} device "
                 f"kernels at N=1024, {prof[4096][name][1]:g} at N=4096; "
                 f"expected {want}")
+    for row, of in NO_SKIP.items():
+        print(f"[skip] {of}: tile_skip=False " + ", ".join(
+            f"N={N} {prof[N][row][0]:.2f} us against {prof[N][of][0]:.2f} "
+            f"us with the skip ({prof[N][row][0] / prof[N][of][0]:.2f}x)"
+            for N in (1024, 4096)) + " of device time (torch.profiler, "
+            "float32); CUDA events at N=1024: "
+            f"{times[row][0]:.4f} ms against {times[row][2]:.4f} ms")
 
     phase_s.append(("4-4f", time.perf_counter()))
     # 4. the flagship slice (fused tier)
@@ -3433,6 +3686,36 @@ def main() -> int:
             "bound_ms": 1e-3 * bound_us(row, 1024)[0],
             "device_us": prof[1024][row][0],
             "device_us_N4096": prof[4096][row][0],
+            "bound_us_N4096": bound_us(row, 4096)[0]})
+    # tile_skip=False, each count read from the runs: the disc's launches
+    # the ablation's no-skip row's; every mode's main-path launches the
+    # no-skip counter's sum over the main-path runs read (MAIN_NO_SKIP)
+    ab_row = valid_prof["ablation_launches"].get(ABLATION_NO_SKIP, {})
+    for row, of in NO_SKIP.items():
+        name = row.split(",")[0]
+        key = NO_SKIP_COUNTS[name]
+        disc = row == NO_SKIP_COUNTS["rmt_block"]  # the ablation's mode
+        main = (f"the {key!r} count over the {MAIN_NO_SKIP['runs']} "
+                f"main-path runs read (phases 4-15)")
+        entry = next(k for k in kernels if k["name"] == name)
+        entry.setdefault("modes", []).append({
+            "mode": row.split(", ", 1)[1],
+            "launches": ab_row.get(key, 0) if disc else MAIN_NO_SKIP[key],
+            "launches_from": (f"15 {ABLATION} row {ABLATION_NO_SKIP!r}, "
+                              f"its {key!r} count" if disc else main),
+            "main_path_launches": MAIN_NO_SKIP[key],
+            "main_path_launches_from": main,
+            "max_abs_err": errs[row],
+            "skip_max_abs_diff": errs[f"{row} vs skip"],
+            "ms": times[row][0], "plain_ms": times[row][1],
+            "skip_ms": times[row][2],
+            "bound_ms": 1e-3 * bound_us(row, 1024)[0],
+            "bound_by": bound_us(row, 1024)[1],
+            "library_ms": None,
+            "device_us": prof[1024][row][0],
+            "skip_device_us": prof[1024][of][0],
+            "device_us_N4096": prof[4096][row][0],
+            "skip_device_us_N4096": prof[4096][of][0],
             "bound_us_N4096": bound_us(row, 4096)[0]})
     entry = next(k for k in kernels if k["name"] == "rmt_block")
     entry["checked_modes"] = {row.split(", ")[1]: errs[row]

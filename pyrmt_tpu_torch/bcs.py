@@ -70,3 +70,17 @@ def noop_bc(u, v):
 
 
 noop_bc.kernel_spec = ("noop",)
+
+
+def bc_of_spec(spec):
+    """The velocity BC whose ``kernel_spec`` is ``spec``: the JAX kernels'
+    static ``bc_spec``, ('lid', U), ('free_slip',), ('periodic',) or
+    ('noop',)."""
+    kind = spec[0]
+    if kind == "lid":
+        return make_lid_bc(spec[1])
+    bcs = {"free_slip": free_slip_box_bc, "periodic": periodic_bc,
+           "noop": noop_bc}
+    if kind not in bcs:
+        raise ValueError(f"no velocity BC has the kernel_spec {spec!r}")
+    return bcs[kind]

@@ -35,6 +35,9 @@
 //            cases. The tile reads X1, X2, u, v and writes its 12 outputs.
 //            The tile-activity skip of the Pallas kernel
 //            (rmt_block.py:632-685), made exact for non-finite inputs too.
+//            The tile_skip operand 0 (the JAX kernel's tile_skip=False,
+//            rmt_block.py:628-630) makes every tile active: the same
+//            results, since the skip is exact; it times the skip.
 //   advect   phi0 = shape(X) -> RK4 backtrace through three bilinear samples
 //            of (u, v) -> bilinear sample of X1, X2 (bicubic: see below)
 //            -> times mask (phi0 <= 0); known = phi0 < 0: over the whole
@@ -125,6 +128,8 @@
 //            X1e = X2e = 0 for every solid,
 //            the plain version's value there (mask 0, no known cell, an
 //            empty frontier, 0 * finite = 0), and moves on
+//            (tile_skip 0: no pre-pass, every tile active, as the JAX
+//            kernel's tile_skip=False, rmt_block.py:973-975)
 //   advect   u, v over the widened panel into shared memory, the RK4
 //            backtrace once per cell for all S solids (the plain version
 //            advects the stack of all maps with one backtrace); per solid,
@@ -380,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                     Clamp<T> clamp, Band<T> band, Guard<T> guard, Outs<T> o,
                     int Ny, int Nx, Axis ay, Axis ax, double dx,
                     double dy, int L, double w_t, Taps<T> tp, int tile,
-                    unsigned char* ws, size_t panel_stride) {
+                    unsigned char* ws, size_t panel_stride, bool skip) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
@@ -476,8 +481,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 
       // vote over the panel widened by the final sample's reach, keeping
-      // u and v over the panel widened by 1 for the backtrace
-      bool active = dt_bad;
+      // u and v over the panel widened by 1 for the backtrace; without
+      // the skip every tile is active
+      bool active = dt_bad || !skip;
       for_panel(ry, rx, 0, [&](int lj, int li) {
         const size_t g =
             static_cast<size_t>(ry.lo + lj) * Nx + (rx.lo + li);
@@ -599,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        int Ny, int Nx, Axis ay, Axis ax, double dx,
                        double dy, int L, Guard<T> guard,
                        Taps<T> tp, int tile, unsigned char* ws,
-                       size_t panel_stride) {
+                       size_t panel_stride, bool skip) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nfront;
   const int halo = 4 * L + 1;
@@ -635,12 +641,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Sp ry = kBicubic ? widen(ys, 2) : vy;
     const Sp rx = kBicubic ? widen(xs, 2) : vx;
 
-    // vote: the pre-pass's flags over the widened panel
-    bool active = dt_bad;
+    // vote: the pre-pass's flags over the widened panel; without the skip
+    // every tile is active and no pre-pass ran
+    bool active = dt_bad || !skip;
     const int fy0 = ry.lo / kFlag, fx0 = rx.lo / kFlag;
     const int fw = (rx.hi - 1) / kFlag + 1 - fx0;
     const int nf = ((ry.hi - 1) / kFlag + 1 - fy0) * fw;
-    for (int f = tid; f < nf; f += kThreads)
+    for (int f = tid; skip && f < nf; f += kThreads)
       active |= flags[static_cast<size_t>(fy0 + f / fw) * flag_cols(nx) +
                       fx0 + f % fw] != 0;
     if (!__syncthreads_or(active)) {
@@ -761,6 +768,7 @@ struct Fused {
   const double* taps;
   int sms;
   void* stream;
+  bool skip;  // the solid-free tiles' skip (tile_skip)
 };
 
 // A solid's level set from the host's kind and four doubles (x0, y0, then
@@ -814,7 +822,8 @@ int launch_tiles(const Fused<T>& a) {
           a.clamp, a.band, a.guard, shifted(a.o, f), a.Ny, a.Nx, b.ay, b.ax,
           a.dx, a.dy, a.num_layers, a.w_t,
           pyrmt::load_taps<T>(a.taps), p.tile,
-          p.in_smem ? nullptr : static_cast<unsigned char*>(a.ws), p.bytes);
+          p.in_smem ? nullptr : static_cast<unsigned char*>(a.ws), p.bytes,
+          a.skip);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
@@ -848,7 +857,8 @@ int launch_sampler(const Fused<T>& a, bool bicubic) {
 // mode's cut, 0 for the interior mode; bicubic: the final sample, with
 // guarded the band guard bicubic where phi0 < guard_thr (-sl_guard); ws:
 // workspace_bytes(...) bytes of device memory (unused when 0); sms: the
-// card's SM count.
+// card's SM count; tile_skip: 0 runs the full pipeline on every tile (the
+// JAX kernel's tile_skip=False), the results the same.
 template <typename T>
 int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            const T* params, const Outs<T>& o, void* ws, int S,
@@ -856,7 +866,7 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
            int coff, int Nyt, int Nxt, double dx, double dy,
            int num_layers, double w_t, double clamp, double clamp_lo,
            double w_cut, int bicubic, int guarded, double guard_thr,
-           const double* taps, int sms, void* stream_ptr) {
+           const double* taps, int sms, int tile_skip, void* stream_ptr) {
   if (S < 1 || S > kMaxSolids) return static_cast<int>(cudaErrorInvalidValue);
   const Slab b = slab(Ny, Nx, roff, coff, Nyt, Nxt);
   if (b.ay.n < 1 || b.ax.n < 1)
@@ -870,7 +880,7 @@ int launch(const T* u, const T* v, const T* X1, const T* X2, const T* dt,
              Band<T>{static_cast<T>(w_cut), w_cut > 0.0},
              Guard<T>{static_cast<T>(guard_thr), guarded != 0}, o, ws, Ny, Nx,
              roff, coff, Nyt, Nxt, dx, dy, num_layers, w_t, taps, sms,
-             stream_ptr};
+             stream_ptr, tile_skip != 0};
   bool discs = true;
   for (int s = 0; s < S; ++s) discs &= kinds[s] == 0;
   const bool bc = bicubic != 0;
@@ -891,14 +901,15 @@ long long advext_scratch_bytes(int Ny, int Nx, int num_layers, int sms) {
 
 // Split tier: the pre-pass, then the tile kernel. dt on the device;
 // scratch: advext_scratch_bytes(...) bytes; kBicubic: the bicubic final
-// sample under guard.
+// sample under guard; skip false: no pre-pass, every tile runs the full
+// pipeline (the JAX kernel's tile_skip=False).
 template <typename T, bool kBicubic, bool kSlab>
 int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                   const T* phis, const T* dt, T* x1e, T* x2e, void* scratch,
                   int S, int Ny, int Nx, int roff, int coff, int Nyt,
                   int Nxt, double dx, double dy, int num_layers,
                   const Guard<T>& guard, const double* taps, int sms,
-                  void* stream_ptr) {
+                  bool skip, void* stream_ptr) {
   static size_t allowed = 48 * 1024;
   const Slab b = slab(Ny, Nx, roff, coff, Nyt, Nxt);
   if (b.ay.n < 1 || b.ax.n < 1)
@@ -914,16 +925,19 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
   unsigned char* ws = flags + flag_bytes(Ny, Nx);
   const dim3 grid(pyrmt::tiles_for(b.ax.n, kFlagTile),
                   pyrmt::tiles_for(b.ay.n, kFlagTile));
-  advext_flag_kernel<T, kBicubic><<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
-      u + f, v + f, X1s + f, X2s + f, phis + f, dt, flags, S, Ny, Nx, b.ay.n,
-      b.ax.n, dx, dy);
-  PYRMT_RETURN_IF_ERROR();
+  if (skip) {
+    advext_flag_kernel<T, kBicubic>
+        <<<grid, dim3(kFlagTile, kFlag), 0, stream>>>(
+            u + f, v + f, X1s + f, X2s + f, phis + f, dt, flags, S, Ny, Nx,
+            b.ay.n, b.ax.n, dx, dy);
+    PYRMT_RETURN_IF_ERROR();
+  }
   advext_tile_kernel<T, kBicubic, kSlab>
       <<<num_blocks(p, b.ay.n, b.ax.n, sms), dim3(kBx, kBy), smem, stream>>>(
           u + f, v + f, X1s + f, X2s + f, phis + f, dt, flags, x1e + f,
           x2e + f, S, Ny, Nx, b.ay, b.ax, dx, dy, num_layers,
           guard, pyrmt::load_taps<T>(taps), p.tile, p.in_smem ? nullptr : ws,
-          p.bytes);
+          p.bytes, skip);
   PYRMT_RETURN_IF_ERROR();
   return 0;
 }
@@ -944,14 +958,14 @@ int launch_advext(const T* u, const T* v, const T* X1s, const T* X2s,
                       double w_t, double clamp, double clamp_lo,              \
                       double w_cut, int bicubic, int guarded,                 \
                       double guard_thr, const double* taps, int sms,          \
-                      void* stream) {                                         \
+                      int tile_skip, void* stream) {                          \
     const Outs<T> o{x1e, x2e, phi, sxx, sxy, syy, J, Hf, rho, sbxx, sbxy,     \
                     sbyy};                                                    \
     return launch<T>(u, v, X1, X2, dt, params, o, ws, S, kinds, shapes, Ny,  \
                      Nx, roff, coff, Nyt, Nxt, dx, dy, num_layers, w_t,       \
                      clamp, clamp_lo, w_cut,                                  \
                      bicubic,                                                 \
-                     guarded, guard_thr, taps, sms, stream);                  \
+                     guarded, guard_thr, taps, sms, tile_skip, stream);       \
   }
 
 PYRMT_RMT_ENTRY(pyrmt_rmt_block_f32, pyrmt_rmt_block_workspace_f32, float)
@@ -968,7 +982,7 @@ PYRMT_RMT_ENTRY(pyrmt_rmt_block_f64, pyrmt_rmt_block_workspace_f64, double)
                       int coff, int Nyt, int Nxt, double dx, double dy,       \
                       int num_layers, int bicubic, int guarded,               \
                       double guard_thr, const double* taps, int sms,          \
-                      void* stream) {                                         \
+                      int tile_skip, void* stream) {                          \
     const Guard<T> g{static_cast<T>(guard_thr), guarded != 0};                \
     const bool slab = roff != 0 || coff != 0 || Nyt != Ny || Nxt != Nx;       \
     auto run = bicubic ? (slab ? launch_advext<T, true, true>                 \
@@ -976,7 +990,8 @@ PYRMT_RMT_ENTRY(pyrmt_rmt_block_f64, pyrmt_rmt_block_workspace_f64, double)
                        : (slab ? launch_advext<T, false, true>                \
                                : launch_advext<T, false, false>);             \
     return run(u, v, X1s, X2s, phis, dt, x1e, x2e, scratch, S, Ny, Nx, roff,  \
-               coff, Nyt, Nxt, dx, dy, num_layers, g, taps, sms, stream);     \
+               coff, Nyt, Nxt, dx, dy, num_layers, g, taps, sms,              \
+               tile_skip != 0, stream);                                       \
   }
 
 PYRMT_ADVEXT_ENTRY(pyrmt_advext_f32, pyrmt_advext_scratch_f32, float)

@@ -64,10 +64,11 @@ def make_diff_step(
     velocity_bc: Callable,
     phi_inits: Sequence[Callable] = (),
     dtype=torch.float32,
-    device="cuda",
     rmt_block_impl: Callable | None = None,
     momentum_rk4_impl: Callable | None = None,
     param_names: tuple[str, ...] | None = None,
+    *,
+    device="cuda",
 ):
     """Build ``dstep(state, t_end) -> SimState``: the kernels' forward, the
     plain twin's backward. With ``param_names`` (of

@@ -51,3 +51,12 @@ def _linspace(stop, num, dtype, device):
     x = torch.cat([torch.arange(div, dtype=dtype) * (stop_t * (one / div_t)),
                    stop_t.reshape(1)])
     return x.to(device)
+
+
+def create_grid(Nx, Ny, Lx, Ly, dtype=torch.float32, device="cuda"):
+    """The JAX package's helper: (X, Y, dx, dy), the coordinates of
+    ``Grid.coords`` on ``device`` (the card unless told otherwise) and the
+    spacings as Python floats."""
+    g = Grid(Nx=Nx, Ny=Ny, Lx=Lx, Ly=Ly)
+    X, Y = g.coords(dtype=dtype, device=device)
+    return X, Y, g.dx, g.dy

@@ -52,7 +52,8 @@ def _cuda_lib():
     return lib
 
 
-def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers, *,
+def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers,
+                                    tile=None, interpret=False, *,
                                     row_offset=None, Ny_total=None,
                                     col_offset=None, Nx_total=None):
     """Extrapolate (X1, X2) from the solid (phi < 0) ``max_layers`` cells
@@ -68,6 +69,8 @@ def extrapolate_reference_map_fused(X1, X2, phi, dx, dy, max_layers, *,
     ``kernels.rmt_block.rmt_block_fused``: the results at the domain's
     cells, 0 within 4 ``max_layers`` cells of a cut and outside the domain,
     as ``extrapolate_reference_map`` with the same offsets gives them.
+    ``tile`` and ``interpret`` are the JAX kernel's TPU tiling and Pallas
+    switch, accepted and ignored.
     """
     kw = dict(row_offset=row_offset, Ny_total=Ny_total,
               col_offset=col_offset, Nx_total=Nx_total)

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from pyrmt_tpu_torch.bcs import periodic_bc
+from pyrmt_tpu_torch.bcs import bc_of_spec, periodic_bc
 from pyrmt_tpu_torch.kernels import _autograd, _build
 from pyrmt_tpu_torch.ops.slab import has_offsets
 from pyrmt_tpu_torch.physics import RK4_HALO, momentum_core
@@ -105,6 +105,29 @@ def momentum_rk4_fused(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
     if u.device.type == "cpu":
         return momentum_core(*args, **kw)
     return _autograd.launch(_momentum_rk4_cuda, momentum_core, args, kw)
+
+
+def momentum_rk4_pallas(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,
+                        rho_local, f_ext_x, f_ext_y, mkv, dt, dx, dy, mu_f,
+                        eta_s, bc_spec, tile=None, interpret=False,
+                        row_offset=None, Ny_total=None, col_offset=None,
+                        Nx_total=None, has_ext=True, slab_halo=False):
+    """``momentum_rk4_fused`` under the JAX kernel's name and parameters,
+    in its order: the BC given as its ``kernel_spec`` (``bc_spec``), the
+    force fields before ``mkv``, ``dt`` a number or a 0-d tensor.
+    ``has_ext=False`` drops the force fields, as the JAX kernel does (the
+    caller guarantees they are zero); ``tile``, ``interpret`` and
+    ``slab_halo`` are the TPU's tiling, accepted and ignored. Returns
+    (u_new, v_new)."""
+    if not has_ext:
+        f_ext_x = f_ext_y = None
+    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
+    return momentum_rk4_fused(
+        u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local, mkv,
+        bc_of_spec(bc_spec), eta_s=eta_s, dx=dx, dy=dy, dt=dt, mu_f=mu_f,
+        f_ext_x=f_ext_x, f_ext_y=f_ext_y,
+        periodic=bc_spec[0] == "periodic", row_offset=row_offset,
+        Ny_total=Ny_total, col_offset=col_offset, Nx_total=Nx_total)
 
 
 def _momentum_rk4_cuda(u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf,

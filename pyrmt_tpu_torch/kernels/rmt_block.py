@@ -42,11 +42,15 @@ from pyrmt_tpu_torch.ops.stress import smoothed_heaviside, solid_cauchy_stress
 
 # Times each wrapper launched its CUDA kernel (one per call on a CUDA
 # tensor): rmt_block_fused and advext_block_fused on a whole field, and
-# each on a shard's slab (the offsets). A caller may reset them to 0.
+# each on a shard's slab (the offsets). Of those, the launches with
+# tile_skip=False (on a field or a slab) count again in the no-skip
+# counters. A caller may reset them to 0.
 launches = 0
 advext_launches = 0
 offset_launches = 0
 advext_offset_launches = 0
+no_skip_launches = 0
+advext_no_skip_launches = 0
 
 # The most solids the fused tier's kernel takes: their level sets are kernel
 # arguments (kMaxSolids in csrc/rmt_block.cu).
@@ -77,7 +81,7 @@ def cut_depth(num_layers, sl_interp="bilinear"):
 def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
                        sl_interp="bilinear", sl_guard=None, row_offset=None,
                        Ny_total=None, col_offset=None, Nx_total=None,
-                       origin=None):
+                       origin=None, tile_skip=True):
     """The split tier's advect and extrapolate block: the shared SL-RK4
     backtrace of the (S, Ny, Nx) map stacks, sampled by ``sl_interp`` under
     the band guard ``sl_guard`` (bicubic where phis < -sl_guard), times the
@@ -89,7 +93,8 @@ def advext_block_plain(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
     (``ops.slab.on_slab``): the results at the domain's cells, 0 within
     ``cut_depth`` of a cut and outside the domain, as the kernel leaves
     them. ``origin`` is ``on_slab``'s: the global cell of the arrays'
-    (0, 0), for the samples' rounding."""
+    (0, 0), for the samples' rounding. ``tile_skip`` is the kernel's and
+    is ignored: this version never skips."""
     _check_interp(sl_interp)
     if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
         return on_slab(
@@ -119,7 +124,7 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
                     sl_interp="bilinear", sl_guard=None, row_offset=None,
                     Ny_total=None, col_offset=None, Nx_total=None,
-                    origin=None):
+                    origin=None, tile_skip=True):
     """The composed ops. ``X1s``/``X2s`` are (S, Ny, Nx) stacks, ``dt`` a
     0-d tensor and ``params`` the tensor [mu_s, kappa, rho_s, rho_f];
     ``stress_w_cut`` and ``stress_clamp`` select the stress's variant, as
@@ -131,8 +136,8 @@ def rmt_block_plain(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     sig_sxx_el, sig_sxy_el, sig_syy_el): seven (S, Ny, Nx) stacks and five
     (Ny, Nx) fields.
 
-    The offsets make the inputs a shard's slab, as in
-    ``advext_block_plain``.
+    The offsets make the inputs a shard's slab, and ``tile_skip`` is
+    ignored, as in ``advext_block_plain``.
     """
     if has_offsets(row_offset, Ny_total, col_offset, Nx_total):
         return on_slab(
@@ -213,7 +218,7 @@ def _cuda_lib():
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.pyrmt_rmt_block_f32, lib.pyrmt_rmt_block_f64):
         fn.argtypes = [P] * 19 + [I, P, P, I, I, I, I, I, I, D, D, I, D, D,
-                                  D, D, I, I, D, P, I, P]
+                                  D, D, I, I, D, P, I, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_rmt_block_workspace_f32,
                lib.pyrmt_rmt_block_workspace_f64):
@@ -221,7 +226,7 @@ def _cuda_lib():
         fn.restype = ctypes.c_longlong
     for fn in (lib.pyrmt_advext_f32, lib.pyrmt_advext_f64):
         fn.argtypes = [P] * 9 + [I, I, I, I, I, I, I, D, D, I, I, I, D, P,
-                                 I, P]
+                                 I, I, P]
         fn.restype = I
     for fn in (lib.pyrmt_advext_scratch_f32, lib.pyrmt_advext_scratch_f64):
         fn.argtypes = [I] * 4
@@ -239,7 +244,8 @@ def _guard_operands(sl_interp, sl_guard):
 def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut=0.0, stress_clamp=0.0,
                     sl_interp="bilinear", sl_guard=None, row_offset=None,
-                    Ny_total=None, col_offset=None, Nx_total=None):
+                    Ny_total=None, col_offset=None, Nx_total=None,
+                    tile_skip=True):
     """The solid block; same arguments and results as ``rmt_block_plain``.
 
     A CPU tensor goes to ``rmt_block_plain``. A CUDA tensor goes to the
@@ -260,6 +266,11 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
     the ``cut_depth`` cells next to a cut, which depend on cells the slab
     does not hold (the plain version's result with the same operands).
 
+    ``tile_skip=False`` (the JAX kernel's switch) makes the kernel run the
+    full pipeline on every tile, the solid-free ones too: the same results,
+    bit for bit, since the skip is exact. It times the skip
+    (``profiling.ablation_breakdown``).
+
     Where an input requires a gradient the launch goes through
     ``_autograd.launch``: the kernel forward, the autograd of
     ``rmt_block_plain`` backward.
@@ -269,7 +280,7 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
               w_t=w_t, params=params, stress_w_cut=stress_w_cut,
               stress_clamp=stress_clamp, sl_interp=sl_interp,
               sl_guard=sl_guard, row_offset=row_offset, Ny_total=Ny_total,
-              col_offset=col_offset, Nx_total=Nx_total)
+              col_offset=col_offset, Nx_total=Nx_total, tile_skip=tile_skip)
     if u.device.type == "cpu":
         return rmt_block_plain(u, v, X1s, X2s, dt, **kw)
     return _autograd.launch(_rmt_block_cuda, rmt_block_plain,
@@ -278,9 +289,10 @@ def rmt_block_fused(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
 
 def _rmt_block_cuda(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                     w_t, params, stress_w_cut, stress_clamp, sl_interp,
-                    sl_guard, row_offset, Ny_total, col_offset, Nx_total):
+                    sl_guard, row_offset, Ny_total, col_offset, Nx_total,
+                    tile_skip):
     """One launch of the fused tier's kernel on CUDA tensors."""
-    global launches, offset_launches
+    global launches, offset_launches, no_skip_launches
     if u.device.type != "cuda":
         raise ValueError(f"rmt_block: no kernel for device {u.device}")
     shapes = _check_cuda_operands(u, v, X1s, X2s, dt, params, phi_inits,
@@ -317,17 +329,20 @@ def _rmt_block_cuda(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers,
                   int(num_layers), float(w_t), clamp, clamp_lo,
                   max(float(stress_w_cut), 0.0),
                   *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy),
-                  sms)
+                  sms, int(bool(tile_skip)))
     if slab:
         offset_launches += 1
     else:
         launches += 1
+    if not tile_skip:
+        no_skip_launches += 1
     return (*stacks, *fields)
 
 
 def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
                        sl_interp="bilinear", sl_guard=None, row_offset=None,
-                       Ny_total=None, col_offset=None, Nx_total=None):
+                       Ny_total=None, col_offset=None, Nx_total=None,
+                       tile_skip=True):
     """The split tier's advect and extrapolate block; same arguments and
     results as ``advext_block_plain``.
 
@@ -338,11 +353,13 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
     the card. Where an input requires a gradient the backward is the
     autograd of ``advext_block_plain`` (``_autograd.launch``). The offsets
     make the inputs a shard's slab, as in ``rmt_block_fused``.
+    ``tile_skip=False`` runs no flag pre-pass and the full pipeline on
+    every tile (one device kernel a call), with the same results.
     """
     _check_interp(sl_interp)
     kw = dict(dx=dx, dy=dy, num_layers=num_layers, sl_interp=sl_interp,
               sl_guard=sl_guard, row_offset=row_offset, Ny_total=Ny_total,
-              col_offset=col_offset, Nx_total=Nx_total)
+              col_offset=col_offset, Nx_total=Nx_total, tile_skip=tile_skip)
     if u.device.type == "cpu":
         return advext_block_plain(u, v, X1s, X2s, phis, dt, **kw)
     return _autograd.launch(_advext_cuda, advext_block_plain,
@@ -350,9 +367,10 @@ def advext_block_fused(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers,
 
 
 def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
-                 sl_guard, row_offset, Ny_total, col_offset, Nx_total):
+                 sl_guard, row_offset, Ny_total, col_offset, Nx_total,
+                 tile_skip):
     """One launch of the split tier's kernel A on CUDA tensors."""
-    global advext_launches, advext_offset_launches
+    global advext_launches, advext_offset_launches, advext_no_skip_launches
     if u.device.type != "cuda":
         raise ValueError(f"advext_block: no kernel for device {u.device}")
     Ny, Nx = u.shape
@@ -383,9 +401,11 @@ def _advext_cuda(u, v, X1s, X2s, phis, dt, *, dx, dy, num_layers, sl_interp,
                                                 x1e, x2e, scratch)),
                   S, Ny, Nx, *offs, float(dx), float(dy), int(num_layers),
                   *_guard_operands(sl_interp, sl_guard), window_taps(dx, dy),
-                  sms)
+                  sms, int(bool(tile_skip)))
     if slab:
         advext_offset_launches += 1
     else:
         advext_launches += 1
+    if not tile_skip:
+        advext_no_skip_launches += 1
     return x1e, x2e

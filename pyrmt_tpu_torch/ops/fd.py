@@ -30,6 +30,54 @@ def grad_central_y_2nd(f, dy):
     return torch.cat([bottom, interior, top], dim=0)
 
 
+def grad_central_x_4th(f, dx):
+    """d/dx: 4th-order central interior, the 2nd-order central stencil in
+    the second and last-but-one columns, 2nd-order one-sided boundary
+    columns."""
+    inv12 = 1.0 / (12.0 * dx)
+    inv2 = 1.0 / (2.0 * dx)
+    interior = (-f[:, 4:] + 8.0 * f[:, 3:-1] - 8.0 * f[:, 1:-3]
+                + f[:, 0:-4]) * inv12
+    c1 = (f[:, 2:3] - f[:, 0:1]) * inv2
+    cm2 = (f[:, -1:] - f[:, -3:-2]) * inv2
+    left = (-3.0 * f[:, 0:1] + 4.0 * f[:, 1:2] - f[:, 2:3]) * inv2
+    right = (3.0 * f[:, -1:] - 4.0 * f[:, -2:-1] + f[:, -3:-2]) * inv2
+    return torch.cat([left, c1, interior, cm2, right], dim=1)
+
+
+def grad_central_y_4th(f, dy):
+    """d/dy: ``grad_central_x_4th`` down the rows."""
+    inv12 = 1.0 / (12.0 * dy)
+    inv2 = 1.0 / (2.0 * dy)
+    interior = (-f[4:, :] + 8.0 * f[3:-1, :] - 8.0 * f[1:-3, :]
+                + f[0:-4, :]) * inv12
+    r1 = (f[2:3, :] - f[0:1, :]) * inv2
+    rm2 = (f[-1:, :] - f[-3:-2, :]) * inv2
+    bottom = (-3.0 * f[0:1, :] + 4.0 * f[1:2, :] - f[2:3, :]) * inv2
+    top = (3.0 * f[-1:, :] - 4.0 * f[-2:-1, :] + f[-3:-2, :]) * inv2
+    return torch.cat([bottom, r1, interior, rm2, top], dim=0)
+
+
+def lap_2nd(f, dx, dy):
+    """The 2nd-order Laplacian, with 2nd-order one-sided closures on the
+    boundary rows and columns."""
+    cx = 1.0 / dx**2
+    cy = 1.0 / dy**2
+    dxx_i = (f[:, 2:] - 2.0 * f[:, 1:-1] + f[:, 0:-2]) * cx
+    dxx_l = (2.0 * f[:, 0:1] - 5.0 * f[:, 1:2] + 4.0 * f[:, 2:3]
+             - f[:, 3:4]) * cx
+    dxx_r = (2.0 * f[:, -1:] - 5.0 * f[:, -2:-1] + 4.0 * f[:, -3:-2]
+             - f[:, -4:-3]) * cx
+    dxx = torch.cat([dxx_l, dxx_i, dxx_r], dim=1)
+    dyy_i = (f[2:, :] - 2.0 * f[1:-1, :] + f[0:-2, :]) * cy
+    dyy_b = (2.0 * f[0:1, :] - 5.0 * f[1:2, :] + 4.0 * f[2:3, :]
+             - f[3:4, :]) * cy
+    dyy_t = (2.0 * f[-1:, :] - 5.0 * f[-2:-1, :] + 4.0 * f[-3:-2, :]
+             - f[-4:-3, :]) * cy
+    dyy = torch.cat([dyy_b, dyy_i, dyy_t], dim=0)
+    return dxx + dyy
+
+
 def _shift_x(f, k):
     """f shifted so output[..., j, i] = f[..., j, i + k]; out-of-range
     columns hold edge values. ``f`` is (Ny, Nx) or a stack (..., Ny, Nx)."""

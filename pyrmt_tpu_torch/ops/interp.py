@@ -22,9 +22,20 @@ def _prepare_queries(xq, yq, dx, dy, Nx, Ny):
     return x, y, finite
 
 
-def bilinear_interpolate(u, xq, yq, dx, dy):
+def _check_extents(u, Nx, Ny):
+    """JAX's ``Nx, Ny`` arguments: the port reads the extents from ``u``,
+    and raises where given ones disagree."""
+    if (Nx is not None and Nx != u.shape[-1]) or (
+            Ny is not None and Ny != u.shape[-2]):
+        raise ValueError(f"Nx, Ny = {Nx}, {Ny} disagree with the field's "
+                         f"shape {tuple(u.shape)}")
+
+
+def bilinear_interpolate(u, xq, yq, dx, dy, Nx=None, Ny=None):
     """Bilinear interpolation of ``u`` (Ny, Nx) at the physical points
-    (xq, yq); a non-finite query gives NaN."""
+    (xq, yq); a non-finite query gives NaN. ``Nx`` and ``Ny`` are the JAX
+    signature's, checked against ``u.shape``."""
+    _check_extents(u, Nx, Ny)
     return gather_bilinear_multi(u[None], xq, yq, dx, dy)[0]
 
 
@@ -266,9 +277,10 @@ def gather_bicubic_multi(us, xq, yq, dx, dy, cubic_mask=None):
     return torch.where(finite, out, float("nan"))
 
 
-def bicubic_interpolate(u, xq, yq, dx, dy):
+def bicubic_interpolate(u, xq, yq, dx, dy, Nx=None, Ny=None):
     """Bicubic interpolation of ``u`` (Ny, Nx) at the physical points
     (xq, yq), clamped to the stencil's min/max; a non-finite query gives
-    NaN."""
+    NaN. ``Nx`` and ``Ny`` as in ``bilinear_interpolate``."""
+    _check_extents(u, Nx, Ny)
     out, finite = _bicubic_stencil(u[None], xq, yq, dx, dy)
     return torch.where(finite, out[0], float("nan"))

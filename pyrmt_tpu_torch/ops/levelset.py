@@ -320,16 +320,23 @@ def compute_curvature_hf(phi, dx, dy, hh, kappa_fallback, smooth=0):
     return torch.minimum(torch.maximum(kap, -cap), cap)
 
 
-def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5,
-                         mesh=None):
+def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, apply_phi_BCs_func=None,
+                         dt_reinit_factor=0.5, *, mesh=None):
     """Sussman-Smereka-Osher reinitialisation: ``num_iters`` Godunov-upwind
-    pseudo-time steps with the smoothed sign of the input. The periodic
-    phi BC hook of the JAX function waits for ROADMAP modules item 3.
+    pseudo-time steps with the smoothed sign of the input, each followed
+    by ``apply_phi_BCs_func(phi)`` where one is given (as the JAX
+    function's hook: ``apply_phi_BCs`` with its periodic BC, for one).
 
     With a ``mesh`` (``parallel.sharding``) ``phi_in`` is this rank's
     block: the iterations run ``REINIT_CHUNK`` at a time on slabs padded
     by as many exchanged cells (``Mesh.stencil``: the edge pad at the
-    domain's edge only), each iteration reading one cell further."""
+    domain's edge only), each iteration reading one cell further. A hook
+    acts on the whole field, so it raises ValueError with a mesh (JAX's
+    sharded step passes none)."""
+    if mesh is not None and apply_phi_BCs_func is not None:
+        raise ValueError("reinitialize_phi_PDE on a mesh takes no "
+                         "apply_phi_BCs_func: the hook acts on the whole "
+                         "field")
     sign0 = phi_in / torch.sqrt(phi_in**2 + dx**2)
     dt_reinit = dt_reinit_factor * min(dx, dy)
 
@@ -339,6 +346,8 @@ def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5,
         for _ in range(n):
             phi = _pde_iteration(phi, sign0, mask_pos, mask_neg, dx, dy,
                                  dt_reinit)
+            if apply_phi_BCs_func is not None:
+                phi = apply_phi_BCs_func(phi)
         return phi
 
     if mesh is None:
@@ -355,6 +364,16 @@ def reinitialize_phi_PDE(phi_in, dx, dy, num_iters, dt_reinit_factor=0.5,
 # Iterations of the sharded PDE reinitialisation per halo exchange (and
 # the exchanged halo's depth).
 REINIT_CHUNK = 8
+
+
+def reinitialize_phi_fmm_equivalent(phi, dx, dy):
+    """The long-horizon PDE reinitialisation, max(200, 1.5 max(shape))
+    iterations at dt_reinit_factor 0.5 (the JAX package's 'fmm' stand-in,
+    exported as ``reinitialize_phi_fmm``; the step's 'fmm' is the fast
+    sweep, ``reinitialize_phi_fsm``)."""
+    iters = max(200, int(1.5 * max(phi.shape)))
+    return reinitialize_phi_PDE(phi, dx, dy, iters, None,
+                                dt_reinit_factor=0.5)
 
 
 def _pde_iteration(phi, sign0, mask_pos, mask_neg, dx, dy, dt_reinit):
@@ -483,16 +502,20 @@ def reinitialize_phi_fsm(phi, dx, dy, n_passes=2):
 
 
 def reinitialize_level_set(phi, dx, dy, method="none", num_iters=20,
-                           dt_reinit_factor=0.2, mesh=None):
-    """Switchable reinitialisation: 'none', 'pde' or 'fmm'. With a ``mesh``
-    (``parallel.sharding``) ``phi`` is this rank's block: 'pde' runs on
-    exchanged halo slabs (``reinitialize_phi_PDE``); 'fmm', a sweep over
-    the whole grid whose edges and cap are the whole grid's, runs on the
-    whole phi gathered on every rank, of which each keeps its block."""
+                           dt_reinit_factor=0.2, apply_phi_BCs_func=None, *,
+                           mesh=None):
+    """Switchable reinitialisation: 'none', 'pde' (with the phi BC hook
+    ``apply_phi_BCs_func``, as ``reinitialize_phi_PDE``) or 'fmm'. With a
+    ``mesh`` (``parallel.sharding``) ``phi`` is this rank's block: 'pde'
+    runs on exchanged halo slabs (``reinitialize_phi_PDE``); 'fmm', a
+    sweep over the whole grid whose edges and cap are the whole grid's,
+    runs on the whole phi gathered on every rank, of which each keeps its
+    block."""
     if method == "none":
         return phi
     if method == "pde":
-        return reinitialize_phi_PDE(phi, dx, dy, num_iters, dt_reinit_factor,
+        return reinitialize_phi_PDE(phi, dx, dy, num_iters,
+                                    apply_phi_BCs_func, dt_reinit_factor,
                                     mesh=mesh)
     if method == "fmm":
         if mesh is None:

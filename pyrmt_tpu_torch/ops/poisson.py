@@ -2,10 +2,14 @@
 (counterpart of the constant-density part of ``pyrmt_tpu.ops.poisson``).
 
 Neumann walls: the DCT-I runs as dense matrix products
-``C_y @ rhs @ C_x^T``, the same transform as the JAX package's
-rFFT-of-the-even-extension path. The even/odd fold of the JAX matmul path
-is a TPU layout device and is not carried over. The products run in full
-precision: the step module turns TF32 off.
+``C_y @ rhs @ C_x^T`` (``dct1_2d_matmul`` on ``precompute_dct_matrices``'
+``(C_x, C_y)``), the same transform as the JAX package's
+rFFT-of-the-even-extension path, which the port has too (``dct1`` to
+``idct1_2d``, ``torch.fft``: cuFFT on the card; ``solve_poisson_dct``
+with no matrices). The even/odd fold of the JAX matmul path is a TPU
+layout device and is not carried over. The products run in full
+precision: the step module turns TF32 off, and a ``precision`` below
+'highest' (the TPU's reduced-precision passes) raises.
 
 The doubly-periodic box: an FFT solve on the reduced (Ny-1, Nx-1) sub-grid
 of the overlap grid (``torch.fft`` per axis, cuFFT on the card; the JAX
@@ -37,6 +41,61 @@ from pyrmt_tpu_torch.ops.fd import grad_central_x_2nd as _grad_x_cc
 from pyrmt_tpu_torch.ops.fd import grad_central_y_2nd as _grad_y_cc
 
 
+def dct1(x, axis=-1):
+    """Unnormalised DCT-I along ``axis`` (scipy ``dct(type=1)``): the real
+    part of the rFFT of the even extension [x_0 .. x_{N-1}, x_{N-2} ..
+    x_1], of length 2(N - 1)."""
+    N = x.shape[axis]
+    body = x.narrow(axis, 1, N - 2)
+    ext = torch.cat([x, torch.flip(body, dims=(axis,))], dim=axis)
+    return torch.fft.rfft(ext, dim=axis).real
+
+
+def idct1(x, axis=-1):
+    """Unnormalised inverse DCT-I (scipy ``idct(type=1)``): the DCT-I over
+    2(N - 1)."""
+    N = x.shape[axis]
+    return dct1(x, axis=axis) / (2.0 * (N - 1))
+
+
+def dct1_2d(x):
+    return dct1(dct1(x, axis=-1), axis=-2)
+
+
+def idct1_2d(x):
+    return idct1(idct1(x, axis=-1), axis=-2)
+
+
+# the DCT's matrix-product precisions: None and 'highest' are full
+# precision; the TPU's 'high' and 'default' passes (bf16) are not ported
+PRECISIONS = (None, "highest")
+
+
+def check_precision(precision):
+    """Raise ValueError for a DCT precision the port does not run."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"dct precision {precision!r} is not ported: the port's DCT "
+            f"runs in full precision (None or 'highest')")
+
+
+def dct1_2d_matmul(x, mats, precision=None):
+    """The 2D unnormalised DCT-I as two matrix products, C_y @ x @ C_x^T,
+    with ``mats = (C_x, C_y)`` of ``precompute_dct_matrices``: the same
+    transform as ``dct1_2d`` to roundoff."""
+    check_precision(precision)
+    Cx, Cy = mats
+    return Cy @ x @ Cx.T
+
+
+def idct1_2d_matmul(x, mats, precision=None):
+    """The inverse of ``dct1_2d_matmul``: it over 4 (Nx - 1)(Ny - 1)."""
+    Cx, Cy = mats
+    Ny, Nx = Cy.shape[1], Cx.shape[1]
+    scale = 1.0 / (2.0 * (Ny - 1) * 2.0 * (Nx - 1))
+    return dct1_2d_matmul(x, mats, precision) * scale
+
+
 def dct1_matrix(N, dtype=torch.float32, device="cuda"):
     """Dense unnormalised DCT-I matrix: C[k, n] = w_n cos(pi k n / (N-1)),
     w_0 = w_{N-1} = 1, else 2 (scipy ``dctn(type=1)`` convention)."""
@@ -65,13 +124,16 @@ def precompute_poisson_eigenvalues(Nx, Ny, dx, dy, dtype=torch.float64,
     return torch.as_tensor(eig, dtype=dtype, device=device)
 
 
-def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True,
-                      mesh=None):
+def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats=None, precision=None,
+                      demean=True, *, mesh=None):
     """Direct Neumann solve: forward DCT-I, divide by the eigenvalues,
     inverse DCT-I (the forward transform over 4 (Nx-1)(Ny-1)), de-mean.
     ``demean=False`` leaves the mean, as the variable-density CG's
     preconditioner needs (it zeroes the constant mode by an infinite
-    eigenvalue instead, which keeps it symmetric).
+    eigenvalue instead, which keeps it symmetric). ``dct_mats`` (C_x, C_y)
+    runs the transforms as matrix products; None runs them as FFTs
+    (``dct1_2d``, single-device), as the JAX package's solve does without
+    matrices. ``precision``: None or 'highest' (``check_precision``).
 
     With a ``mesh`` (``parallel.sharding``) ``rhs_2d`` and ``eigenvalues``
     are this rank's block, and ``dct_mats`` this rank's rows of C_x and
@@ -81,6 +143,13 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats, demean=True,
     that share its rows, times its rows of C_x transposed; the mean is
     the whole grid's. On CUDA tensors the products go through cuBLASLt
     (``_block_products``)."""
+    check_precision(precision)
+    if dct_mats is None:
+        if mesh is not None:
+            raise ValueError("the sharded DCT solve takes the DCT matrices "
+                             "(precompute_dct_matrices' rows)")
+        p = idct1_2d(dct1_2d(rhs_2d) / eigenvalues.to(rhs_2d.dtype))
+        return p - torch.mean(p) if demean else p
     Cx, Cy = dct_mats
     Ny, Nx = Cy.shape[1], Cx.shape[1]
     if mesh is None:
@@ -118,6 +187,39 @@ def _block_products(like):
         yield
     finally:
         torch.backends.cuda.preferred_blas_library(prev)
+
+
+def build_poisson_matrix(Nx, Ny, dx, dy, device="cuda"):
+    """The explicit 5-point Neumann Laplacian with the ghost mirror p[-1] =
+    p[1], p[N] = p[N-2], row and column k = i + j Nx, as a float64 sparse
+    CSR tensor on ``device`` (the JAX package's scipy matrix, built from
+    index arrays; a mirrored neighbour that lands on another's column adds
+    to it). The solvers are matrix-free: it is there for the API and for
+    checks that the DCT eigenvalues diagonalise it. Singular: pin a node
+    or de-mean when solving against it."""
+    cx, cy = 1.0 / dx**2, 1.0 / dy**2
+    j, i = np.divmod(np.arange(Nx * Ny), Nx)
+    west = np.where(i > 0, i - 1, i + 1)
+    east = np.where(i < Nx - 1, i + 1, i - 1)
+    south = np.where(j > 0, j - 1, j + 1)
+    north = np.where(j < Ny - 1, j + 1, j - 1)
+    k = i + j * Nx
+    rows = np.concatenate([k] * 5)
+    cols = np.concatenate([k, west + j * Nx, east + j * Nx, i + south * Nx,
+                           i + north * Nx])
+    vals = np.concatenate([np.full(k.size, -2 * cx - 2 * cy),
+                           np.full(2 * k.size, cx), np.full(2 * k.size, cy)])
+    A = torch.sparse_coo_tensor(np.stack([rows, cols]), vals,
+                                (Nx * Ny, Nx * Ny), dtype=torch.float64,
+                                check_invariants=True)
+    return A.coalesce().to_sparse_csr().to(device)
+
+
+def compute_divergence(a_star, b_star, dx, dy):
+    """The wide central divergence, 0 on the boundary ring."""
+    div_i = ((a_star[1:-1, 2:] - a_star[1:-1, :-2]) / (2.0 * dx)
+             + (b_star[2:, 1:-1] - b_star[:-2, 1:-1]) / (2.0 * dy))
+    return F.pad(div_i, (1, 1, 1, 1))
 
 
 def compute_divergence_rc(a_star, b_star, p_prev, dt, rho, dx, dy,
@@ -497,7 +599,7 @@ def _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter,
 
 def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
                                       tol=1e-6, maxiter=200, dct_mats=None,
-                                      mesh=None):
+                                      precision=None, *, mesh=None):
     """Symmetrised preconditioned CG for the variable-density Neumann
     Poisson problem grad.((1/rho) grad p) = rhs, as the JAX package solves
     it: the system left-scaled by the trapezoidal weights D, the rhs
@@ -505,7 +607,8 @@ def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
     the weighted residual with the constant mode zeroed; jax.scipy's CG
     update order, stopping at ||r|| <= tol ||b|| or ``maxiter``
     iterations. Returns (p, iters, relres): p de-meaned, the iteration
-    count (0-d int32) and ||r|| / ||b|| on the device.
+    count (0-d int32) and ||r|| / ||b|| on the device. ``dct_mats`` and
+    ``precision`` are the preconditioner's (``solve_poisson_dct``).
 
     The loop runs ``CG_READ_EVERY`` iterations per host read of the
     stopping test; each iteration's updates are selected by the test on
@@ -526,8 +629,9 @@ def solve_variable_poisson_cg_counted(rhs, inv_rho, eigenvalues, dx, dy,
     the ranks added in rank order, so every rank reads the same stopping
     test and count. A sum over the ranks need not round as one sum does.
     Its implicit adjoint runs on the same sharded pieces."""
+    check_precision(precision)
     if needs_grad((rhs, inv_rho)):
-        Cx, Cy = dct_mats
+        Cx, Cy = (None, None) if dct_mats is None else dct_mats
         return _CGAdjoint.apply(rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy,
                                 tol, maxiter, mesh)
     return _variable_poisson_cg_core(rhs, inv_rho, eigenvalues, dx, dy, tol,
@@ -557,7 +661,8 @@ class _CGAdjoint(torch.autograd.Function):
     def forward(ctx, rhs, inv_rho, eigenvalues, Cx, Cy, dx, dy, tol,
                 maxiter, mesh=None):
         p, iters, relres = _variable_poisson_cg_core(
-            rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter, (Cx, Cy), mesh)
+            rhs, inv_rho, eigenvalues, dx, dy, tol, maxiter, _mats(Cx, Cy),
+            mesh)
         ctx.save_for_backward(p, inv_rho, eigenvalues, Cx, Cy)
         ctx.consts = (dx, dy, tol, maxiter, mesh)
         ctx.mark_non_differentiable(iters, relres)
@@ -571,7 +676,7 @@ class _CGAdjoint(torch.autograd.Function):
         w = _block_weights(p, mesh)
         # the core solves S lam = w (g / w) - mean = g
         lam = _variable_poisson_cg_core(g / w, inv_rho, eigenvalues, dx, dy,
-                                        tol, maxiter, (Cx, Cy), mesh)[0]
+                                        tol, maxiter, _mats(Cx, Cy), mesh)[0]
         grad_rhs = w * lam if ctx.needs_input_grad[0] else None
         grad_inv_rho = None
         if ctx.needs_input_grad[1]:
@@ -582,9 +687,14 @@ class _CGAdjoint(torch.autograd.Function):
         return (grad_rhs, grad_inv_rho) + (None,) * 8
 
 
+def _mats(Cx, Cy):
+    """The DCT matrices as the solve takes them: None for the FFT path."""
+    return None if Cx is None else (Cx, Cy)
+
+
 def solve_variable_poisson_cg(rhs, inv_rho, eigenvalues, dx, dy, tol=1e-6,
-                              maxiter=200, dct_mats=None):
+                              maxiter=200, dct_mats=None, precision=None):
     """``solve_variable_poisson_cg_counted``'s p alone."""
     return solve_variable_poisson_cg_counted(
         rhs, inv_rho, eigenvalues, dx, dy, tol=tol, maxiter=maxiter,
-        dct_mats=dct_mats)[0]
+        dct_mats=dct_mats, precision=precision)[0]

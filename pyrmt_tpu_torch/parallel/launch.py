@@ -199,7 +199,8 @@ def sharded_case(cfg, velocity_bc, phi_inits, steps, dtype, device="cuda",
 
 # the launch counters of the kernels on the sharded paths
 COUNTERS = {"rmt_block": ("launches", "offset_launches", "advext_launches",
-                           "advext_offset_launches"),
+                           "advext_offset_launches", "no_skip_launches",
+                           "advext_no_skip_launches"),
             "momentum_rk4": ("launches", "offset_launches"),
             "extrapolate_fused": ("launches", "offset_launches")}
 

@@ -919,7 +919,8 @@ def check_periodic_bc(cfg, velocity_bc) -> None:
 
 
 def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
-                      rmt_method=None, device="cuda", traced_params=None):
+                      rmt_method=None, interpret=None, traced_params=None, *,
+                      device="cuda"):
     """The FSI step of ``sim.make_step`` on this rank's block of the grid
     (JAX's make_sharded_step). Returns (step, shard): ``step(state,
     t_end)`` takes and returns this rank's block of the state
@@ -945,6 +946,8 @@ def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
     group's backend), 'halo' ('host-staged' where the exchanges and
     gathers go through host copies, else 'direct') and 'grad' (the
     adjoint collectives, host-staged or direct as the halo).
+    ``interpret`` is JAX's Pallas interpret switch, accepted and ignored
+    as the TPU-only tuning fields are.
 
     ``traced_params`` (of ``sim._TRACEABLE_PARAMS``; another name raises
     ValueError) makes it ``step(state, t_end, params)``, as

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -154,7 +155,7 @@ def stage_breakdown(N=128, dtype=torch.float32, iters=20, device="cuda",
 
     def proj(c):
         return pressure_projection(c[0], c[1], dx, dy, dt, rho, bc, c[2],
-                                   eig, mats)
+                                   eig, dct_mats=mats)
 
     step = make_step(cfg, bc, (FLAGSHIP_DISC,), **kw)
     stages = {
@@ -183,13 +184,20 @@ def stage_breakdown(N=128, dtype=torch.float32, iters=20, device="cuda",
 
 def _ablations():
     """(row, config overrides, make_step keywords): the switches that
-    change the port's path. JAX's ``rmt_method='xla'`` (no fused solid
-    block) is the plain twin of the solid block here, the port's
+    change the port's path. JAX's ``tile_skip=False`` row is the solid
+    block's kernel with its skip off; JAX's ``rmt_method='xla'`` (no fused
+    solid block) is the plain twin of the solid block here, the port's
     ``rmt_method`` being accepted and ignored."""
-    from pyrmt_tpu_torch.kernels.rmt_block import rmt_block_plain
+    from pyrmt_tpu_torch.kernels.rmt_block import (
+        rmt_block_fused,
+        rmt_block_plain,
+    )
 
     return (
         ("all defaults", {}, {}),
+        ("tile_skip=False (no solid-free skip)", {},
+         dict(rmt_block_impl=functools.partial(rmt_block_fused,
+                                               tile_skip=False))),
         ("rmt_block plain twin (JAX's rmt_method=xla)", {},
          dict(rmt_block_impl=rmt_block_plain)),
         ("momentum_method=xla", dict(momentum_method="xla"), {}),
@@ -199,18 +207,20 @@ def _ablations():
 
 
 def ablation_breakdown(N=1024, dtype=torch.float32, steps=500, warmup=20,
-                       device="cuda", verbose=True):
+                       device="cuda", verbose=True, on_row=None):
     """Each feature's cost end to end: the whole flagship step timed over
     one chunk of ``steps`` steps (at least ``MIN_ABLATION_STEPS``: chunks
     of 50 steps read about 2.4x slow, VERDICT weak #7) after ``warmup``
     steps, with one switch changed a row. The rows are JAX's whose switch
-    changes the port's path (all defaults; ``rmt_method='xla'``, here the
+    changes the port's path (all defaults; ``tile_skip=False``, the solid
+    block's kernel with no solid-free skip; ``rmt_method='xla'``, here the
     solid block's plain twin; ``momentum_method='xla'``;
     ``sl_local=False``) and JAX's ``projection_method='pallas'`` (the
     projection's stencil kernels). Left out: the switches the port takes
     and ignores (``extrap_method``, ``dct_method``, ``kernel_slab_halo``,
-    ``dct_precision``) and JAX's ``tile_skip=False`` row (the port's
-    kernels skip tiles with no switch). Returns {row: ms a step}."""
+    ``dct_precision``). ``on_row(row)``, where given, is called after each
+    row's timed chunk (a caller reads and resets the kernels' launch
+    counters there). Returns {row: ms a step}."""
     if steps < MIN_ABLATION_STEPS:
         raise ValueError(f"ablation_breakdown times chunks of at least "
                          f"{MIN_ABLATION_STEPS} steps, not {steps}")
@@ -233,6 +243,8 @@ def ablation_breakdown(N=1024, dtype=torch.float32, steps=500, warmup=20,
                                    device, warmup=0) / steps
         if verbose:
             print(f"  {name:45s} {results[name]:8.3f} ms/step")
+        if on_row is not None:
+            on_row(name)
     return results
 
 

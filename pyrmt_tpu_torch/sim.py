@@ -249,10 +249,17 @@ _KNOWN_VALUES = {
 }
 
 
+def required_extrapolation_layers(w_t, dx):
+    """The layers the extrapolation band needs to cover the (1 - H) > 0
+    blend region: ceil(w_t/dx) + 1."""
+    return int(math.ceil(w_t / dx)) + 1
+
+
 def check_narrow_band(w_t, dx, num_layers):
     """Raise if the extrapolation band cannot cover the (1 - H) > 0 blend
-    region: it needs ceil(w_t/dx) + 1 layers."""
-    need = int(math.ceil(w_t / dx)) + 1
+    region (``required_extrapolation_layers``); returns the layers it
+    needs."""
+    need = required_extrapolation_layers(w_t, dx)
     if num_layers < need:
         raise ValueError(
             "Narrow-band inconsistency: w_t=%.4g (=%0.2f dx) needs >= %d "
@@ -543,14 +550,15 @@ def make_step(
     velocity_bc: Callable,
     phi_inits: Sequence[Callable] = (),
     dtype=torch.float32,
-    device="cuda",
     rmt_block_impl: Callable | None = None,
     momentum_rk4_impl: Callable | None = None,
+    traced_params: tuple[str, ...] | None = None,
+    *,
+    device="cuda",
     advext_impl: Callable | None = None,
     extrap_impl: Callable | None = None,
     momentum_rhs_impl: Callable | None = None,
     projection_stencils_impl: tuple[Callable, Callable] | None = None,
-    traced_params: tuple[str, ...] | None = None,
     mesh=None,
 ):
     """Build the FSI step for a fixed configuration.
@@ -972,7 +980,7 @@ def make_step(
                       else block_tier(u, v, p, state, dt, active, pp, params))
         proj = pressure_projection(
             u_star, v_star, dx, dy, dt, rho_local, velocity_bc, p, eig,
-            dct_mats, stencils=stencils, bc_type=cfg.bc_type,
+            dct_mats=dct_mats, stencils=stencils, bc_type=cfg.bc_type,
             variable_rho=cfg.variable_rho, cg_tol=cfg.cg_tol,
             cg_maxiter=cfg.cg_maxiter, cg_info=cfg.variable_rho,
             st_faces=st_faces, mesh=mesh)
@@ -1094,12 +1102,21 @@ def diverged(state: SimState, umax_cap=1.0e3):
     return (~finite) | (umax > umax_cap)
 
 
+def stop_time(t_end, dtype):
+    """``t_end`` as a state of ``dtype`` holds it: the time a run reaches.
+    A float32 run to 0.01 stops at float32(0.01) < 0.01, so a loop that
+    compared t with the Python ``t_end`` would run no-op steps forever."""
+    return float(torch.as_tensor(t_end, dtype=dtype))
+
+
 def run_until(step_fn, state: SimState, t_end, max_steps=10**8,
               callback=None):
     """Host-driven loop: one step per iteration with an optional host
-    callback. Stops at t_end or divergence; returns (state, diverged)."""
+    callback. Stops at t_end (as the state's dtype holds it: ``stop_time``)
+    or divergence; returns (state, diverged)."""
     n = 0
-    while float(state.t) < t_end and n < max_steps:
+    t_stop = stop_time(t_end, state.t.dtype)
+    while float(state.t) < t_stop and n < max_steps:
         state, aux = step_fn(state, t_end)
         n += 1
         if callback is not None:
@@ -1249,9 +1266,15 @@ class RebaseRunner:
 
 
 def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
-                       dtype=torch.float32, device="cuda",
-                       donate: bool = False) -> RebaseRunner:
+                       dtype=torch.float32, donate: bool = False, *,
+                       device="cuda") -> RebaseRunner:
     """The chunked rebasing runner (see ``RebaseRunner``); ``donate`` as
     in ``make_run_chunk``."""
     return RebaseRunner(cfg, velocity_bc, phi_inits, n_steps, dtype, device,
                         donate)
+
+
+def extrapolate_reference_map_compat(X1, X2, phi, dx, dy, max_layers):
+    """The reference signature's name of
+    ``ops.extrapolate.extrapolate_reference_map``."""
+    return extrapolate_reference_map(X1, X2, phi, dx, dy, max_layers)

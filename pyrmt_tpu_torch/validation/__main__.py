@@ -19,8 +19,8 @@ nothing else is written. The summary is printed as one JSON line.
         [--reinit] [--areafix] [--bicubic] [--tend=T] [--rebase[=thr]]
         [--resume]
     sedimentation_pack [N] [S] [--resume]
-    periodic_taylor_green [N]
-    lid_driven_cavity [Re] [N] [--tol TOL]
+    periodic_taylor_green [N] [--solid]
+    lid_driven_cavity [Re] [N] [--tol TOL] [--resume PATH]
     surface_tension_drop [N] [gamma] [R] [--balanced] [--kstar] [--hf]
         [--hf-smooth]
     density_contrast_disc [N] [ratio]
@@ -101,8 +101,8 @@ FLAGS = {
                                "--reinit", "--areafix", "--bicubic",
                                "--tend=", "--rebase", "--rebase=",
                                "--resume"),
-    "sedimentation_pack": ("--resume",), "periodic_taylor_green": (),
-    "lid_driven_cavity": (),
+    "sedimentation_pack": ("--resume",),
+    "periodic_taylor_green": ("--solid",), "lid_driven_cavity": (),
     "surface_tension_drop": ("--balanced", "--kstar", "--hf", "--hf-smooth"),
     "density_contrast_disc": (),
 }
@@ -113,7 +113,9 @@ def run(case, args, device, dtype, out_root):
     if case not in FLAGS:
         raise SystemExit(f"unknown case {case!r}; see the usage:\n{__doc__}")
     kw = dict(dtype=dtype, device=device)
-    tol = _take(args, "--tol") if case == "lid_driven_cavity" else None
+    lid = case == "lid_driven_cavity"
+    tol = _take(args, "--tol") if lid else None
+    resume_from = _take(args, "--resume") if lid else None
     flags = [a for a in args if a.startswith("--")]
     for a in flags:
         if a not in FLAGS[case] and a.split("=")[0] + "=" not in FLAGS[case]:
@@ -164,12 +166,14 @@ def run(case, args, device, dtype, out_root):
             ckpt_dir=_ckpt(out_root, f"sedimentation_N{N}_S{S}"), **kw)[1]
     if case == "periodic_taylor_green":
         (N,) = _positional(args, (int,), (129,))
-        return v.taylor_green_decay(N=N, **kw)[1]
+        return v.taylor_green_decay(N=N, with_solid="--solid" in flags,
+                                    **kw)[1]
     if case == "lid_driven_cavity":
         Re, N = _positional(args, (float, int), (100.0, 129))
         ghia = DATA_DIR / f"plot_u_y_Ghia{Re:g}.csv"
         return v.lid_driven_cavity(
             Re=Re, N=N, ghia_csv=ghia if ghia.exists() else None,
+            resume_from=resume_from,
             **({} if tol is None else dict(steady_tol=float(tol))), **kw)
     if case == "surface_tension_drop":
         N, gamma, R = _positional(args, (int, float, float),

@@ -5,7 +5,7 @@ load_xy_csv}``, ``soft_disc_in_lid_driven.py::mean_track_deviation``,
 ``convergence_taylor_green.py::{richardson_order, _sample_ref_on, l2}``;
 ``make_disc_phi_init`` and ``make_ellipse_phi_init`` are ``ops.levelset``'s
 ``Disc`` and ``Ellipse``), a run's timing and the checkpoint of a
-resumable run."""
+resumable run; ``stop_time`` is ``sim``'s."""
 from __future__ import annotations
 
 import os
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pyrmt_tpu_torch.io import EnergyLogger, load_checkpoint, save_checkpoint
+from pyrmt_tpu_torch.sim import stop_time  # noqa: F401  (the drivers' loops)
 
 # the published tracks and tables (data/*.csv at the checkout's root)
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
@@ -124,12 +125,6 @@ def advance(step, state, t_end, n, fold=None, acc=None):
                                for k in ("phis", "J")})
         kept = aux
     return state, kept, acc
-
-
-def stop_time(t_end, dtype):
-    """``t_end`` as the state's ``dtype`` holds it: the time a run reaches
-    (a float32 run never passes float32(0.01) < 0.01)."""
-    return float(torch.tensor(t_end, dtype=dtype))
 
 
 def timing(steps, wall):

@@ -6,8 +6,12 @@
 
 ``taylor_green_decay``: the Taylor-Green vortex on the doubly-periodic unit
 box, an exact Navier-Stokes solution whose kinetic energy decays at
-16 pi^2 nu. ``lid_driven_cavity``: the pure-fluid cavity run to steady
-state, its centreline u(y) against Ghia et al. (1982). ``laplace_drop``: a
+16 pi^2 nu; with ``with_solid`` (the driver's ``--solid``) a near-fluid
+disc parked at the vortex centre (0.25, 0.25) runs the whole RMT
+pipeline on the periodic box, its centroid to stay within a cell.
+``lid_driven_cavity``: the pure-fluid cavity run to steady state (or
+resumed from a checkpoint, the driver's ``--resume``), its centreline
+u(y) against Ghia et al. (1982). ``laplace_drop``: a
 static drop held by surface tension, whose pressure jump must approach
 Laplace's gamma / R. ``density_contrast``: a disc ten times as dense as
 the fluid sinking under gravity through the variable-density CG
@@ -36,7 +40,7 @@ from pyrmt_tpu_torch.diagnostics import (
     extract_centerlines,
 )
 from pyrmt_tpu_torch.grid import Grid
-from pyrmt_tpu_torch.io import EnergyLogger
+from pyrmt_tpu_torch.io import EnergyLogger, load_checkpoint
 from pyrmt_tpu_torch.kernels.momentum_rk4 import momentum_rk4_fused
 from pyrmt_tpu_torch.ops.levelset import Disc
 from pyrmt_tpu_torch.ops.poisson import (
@@ -47,16 +51,30 @@ from pyrmt_tpu_torch.ops.poisson import (
 from pyrmt_tpu_torch.ops.projection import pressure_projection
 from pyrmt_tpu_torch.ops.stress import smoothed_heaviside
 from pyrmt_tpu_torch.physics import balanced_csf_forces, external_forces
-from pyrmt_tpu_torch.sim import RMTConfig, diverged, make_init_state, make_step
+from pyrmt_tpu_torch.sim import (
+    RMTConfig,
+    diverged,
+    make_init_state,
+    make_step,
+    stop_time,
+)
+from pyrmt_tpu_torch.validation.common import advance, timing
 
 
-def taylor_green_config(N, nu=0.01):
+def taylor_green_config(N, nu=0.01, with_solid=False):
     """The periodic Taylor-Green configuration of
-    ``benchmarks/periodic_taylor_green.py`` with no solid."""
-    return RMTConfig(grid=Grid(N, N, 1.0, 1.0), mu_s=0.0, rho_s=1.0,
+    ``benchmarks/periodic_taylor_green.py``: no solid, or with
+    ``with_solid`` the near-fluid disc's mu_s = 1e-3."""
+    return RMTConfig(grid=Grid(N, N, 1.0, 1.0),
+                     mu_s=1e-3 if with_solid else 0.0, rho_s=1.0,
                      mu_f=nu, rho_f=1.0, bc_type="periodic",
                      scheme="semilagrangian", num_layers=3, CFL=0.3,
                      dt_min_cap=1e-3)
+
+
+# the driver's --solid disc: radius 0.1 at the vortex centre, clear of the
+# periodic seam
+TG_SOLID = Disc(0.25, 0.25, 0.1)
 
 
 def taylor_green_velocity(cfg, U0=0.5, dtype=torch.float64, device="cuda"):
@@ -68,33 +86,46 @@ def taylor_green_velocity(cfg, U0=0.5, dtype=torch.float64, device="cuda"):
 
 def taylor_green_decay(N=65, nu=0.01, U0=0.5, t_end=0.5,
                        dtype=torch.float64, device="cuda", log_every=100,
-                       **step_kw):
+                       with_solid=False, **step_kw):
     """Run the decaying vortex to ``t_end``, logging t, the kinetic energy
-    and the largest periodic divergence every ``log_every`` steps. Returns
-    (rows, summary): ``stable``, the fitted decay ``rate`` against
+    and the largest periodic divergence every ``log_every`` steps (with
+    ``with_solid`` also the disc's centroid, weights 1 - H, from the
+    chunk's last step that advanced: ``common.advance``). Returns (rows,
+    summary): ``stable``, the fitted decay ``rate`` against
     ``rate_exact`` and their ``rate_rel_err``, ``profile_rel_err`` (the
     final u against the exact one, relative to its amplitude), ``maxdiv``,
+    with ``with_solid`` ``centroid_drift`` (the centroid's largest
+    distance from its first row) and ``centroid_drift_cells`` (over dx),
     ``steps`` (log_every per chunk, as the JAX package's benchmark counts
-    them) and ``wall_s``. ``step_kw`` goes to ``make_step``."""
-    cfg = taylor_green_config(N, nu)
+    them), ``wall_s`` and ``steps_per_s``. ``step_kw`` goes to
+    ``make_step``."""
+    cfg = taylor_green_config(N, nu, with_solid)
     g = cfg.grid
+    shapes = (TG_SOLID,) if with_solid else ()
     u0, v0 = taylor_green_velocity(cfg, U0, dtype, device)
-    step = make_step(cfg, periodic_bc, (), dtype=dtype, device=device,
+    step = make_step(cfg, periodic_bc, shapes, dtype=dtype, device=device,
                      **step_kw)
-    state = make_init_state(cfg, (), u0=u0, v0=v0, dtype=dtype,
+    state = make_init_state(cfg, shapes, u0=u0, v0=v0, dtype=dtype,
                             device=device)
+    X, Y = g.coords(dtype=dtype, device=device)
     rate_exact = 16.0 * np.pi**2 * nu
     log = EnergyLogger()
     nsteps = 0
     wall = time.perf_counter()
-    while float(state.t) < t_end:
-        for _ in range(log_every):
-            state, _ = step(state, t_end)
+    t_stop = stop_time(t_end, dtype)
+    while float(state.t) < t_stop:
+        state, aux, _ = advance(step, state, t_end, log_every)
         nsteps += log_every
         ke = 0.5 * torch.sum(state.u**2 + state.v**2) * g.dx * g.dy
         div = compute_divergence_periodic(state.u, state.v, g.dx, g.dy)
-        log.log(t=float(state.t), ke=float(ke),
-                maxdiv=float(torch.max(torch.abs(div))))
+        row = dict(t=float(state.t), ke=float(ke),
+                   maxdiv=float(torch.max(torch.abs(div))))
+        if with_solid:
+            w = 1.0 - smoothed_heaviside(aux["phis"][0], cfg.w_t)
+            wsum = torch.sum(w)
+            row.update(xc=float(torch.sum(w * X) / wsum),
+                       yc=float(torch.sum(w * Y) / wsum))
+        log.log(**row)
         if bool(diverged(state)):
             break
     wall = time.perf_counter() - wall
@@ -111,7 +142,12 @@ def taylor_green_decay(N=65, nu=0.01, U0=0.5, t_end=0.5,
         rate_rel_err=abs(rate + rate_exact) / rate_exact,
         profile_rel_err=float(np.max(np.abs(state.u.cpu().numpy() - ua))
                               / amp),
-        maxdiv=float(np.max(rows[:, 2])), steps=nsteps, wall_s=wall)
+        maxdiv=float(np.max(rows[:, 2])), **timing(nsteps, wall))
+    if with_solid:
+        cen = log.array("xc", "yc")
+        drift = float(np.max(np.hypot(cen[:, 0] - cen[0, 0],
+                                      cen[:, 1] - cen[0, 1])))
+        summary.update(centroid_drift=drift, centroid_drift_cells=drift / g.dx)
     return log.rows, summary
 
 
@@ -131,10 +167,13 @@ def lid_cavity_state(cfg, dtype=torch.float64, device="cuda"):
 
 def lid_driven_cavity(Re=100.0, N=65, max_steps=60000, steady_tol=2e-5,
                       chunk=200, dtype=torch.float64, device="cuda",
-                      ghia_csv=None, **step_kw):
+                      ghia_csv=None, resume_from=None, **step_kw):
     """Run the pure-fluid cavity (lid speed 1, mu_f = 1/Re) until the
     steady residual max|u - u_prev| / (dt chunk) over a chunk of steps
-    falls below ``steady_tol``. Returns a summary: ``steps``, ``t``,
+    falls below ``steady_tol``; with ``resume_from`` (a checkpoint that
+    ``io.load_checkpoint`` reads, the driver's ``--resume``: a float32
+    run's state polished in float64, say) from that state in ``dtype``,
+    the lid BC applied. Returns a summary: ``steps``, ``t``,
     ``residual``, ``wall_s``, the centreline (``y``, ``u``) and, with
     ``ghia_csv`` (the y,u table of data/plot_u_y_Ghia<Re>.csv), ``rms``:
     the RMS of the centreline interpolated at Ghia's points against
@@ -143,7 +182,12 @@ def lid_driven_cavity(Re=100.0, N=65, max_steps=60000, steady_tol=2e-5,
     g = cfg.grid
     step = make_step(cfg, make_lid_bc(1.0), (), dtype=dtype, device=device,
                      **step_kw)
-    state = lid_cavity_state(cfg, dtype, device)
+    if resume_from is None:
+        state = lid_cavity_state(cfg, dtype, device)
+    else:
+        state = load_checkpoint(resume_from, dtype=dtype, device=device)
+        u0, v0 = make_lid_bc(1.0)(state.u, state.v)
+        state = dataclasses.replace(state, u=u0, v=v0)
     t_end = 1e9  # a steady-state run: dt is never clipped
     n, res = 0, math.inf
     wall = time.perf_counter()
@@ -226,8 +270,8 @@ def laplace_drop(N=48, gamma=0.1, R=0.25, n_steps=1200, st_method="csf",
             eta_s=0.0, dx=dx, dy=dy, dt=dt, mu_f=mu_f, f_ext_x=fx,
             f_ext_y=fy)
         u, v, p = pressure_projection(u_star, v_star, dx, dy, dt, rho_proj,
-                                      free_slip_box_bc, p, eig, mats,
-                                      st_faces=st_faces)
+                                      free_slip_box_bc, p, eig,
+                                      dct_mats=mats, st_faces=st_faces)
         if n > n_steps - 50:
             dp_sum = dp_sum + (torch.where(inside, p, 0.0).sum() / n_in
                                - torch.where(outside, p, 0.0).sum() / n_out)
@@ -277,7 +321,8 @@ def density_contrast(N=48, rho_ratio=10.0, t_end=0.25, g0=1.0,
     log = EnergyLogger()
     nsteps = 0
     wall = time.perf_counter()
-    while float(state.t) < t_end:
+    t_stop = stop_time(t_end, dtype)
+    while float(state.t) < t_stop:
         state, aux = step(state, t_end)
         it_max, it_sum = aux["cg_iters"], aux["cg_iters"]
         for _ in range(log_every - 1):

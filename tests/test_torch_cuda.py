@@ -2311,3 +2311,83 @@ def test_dct_block_products_round_as_the_whole_solve(dev, mesh):
                 assert torch.equal(Cy[rows] @ f[:, cols], first[rows, cols])
                 assert torch.equal(first[rows] @ Cx[cols].T,
                                    second[rows, cols])
+
+
+def tile_skip_call(dev, mode, dtype):
+    """(wrapper, plain version, arguments, keywords) of one solid-block
+    mode at 203x301."""
+    shape = (203, 301)
+    if mode == "advext_block":
+        return (rb.advext_block_fused, rb.advext_block_plain,
+                *split_call(dev, shape, DISC, dtype))
+    if mode == "disc":
+        args, kw = block_inputs(dev, shape, dtype)[1:]
+    elif mode == "ellipse":
+        args, kw = block_inputs(dev, shape, dtype, ELLIPSE)[1:]
+    elif mode == "two solids":
+        args, kw = multi_call(dev, shape, dtype, TWO_DISCS)
+    elif mode == "bicubic":
+        args, kw = bicubic_block(dev, shape, dtype)
+    else:
+        args, kw = band_block(dev, shape, dtype)
+    return rb.rmt_block_fused, rb.rmt_block_plain, args, kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["disc", "ellipse", "two solids", "bicubic",
+                                  "band", "advext_block"])
+def test_tile_skip_false_equals_the_skip(dev, mode, dtype):
+    """``tile_skip=False`` (JAX's switch) runs the full pipeline on every
+    tile, one launch of the kernel, counted again in the wrapper's no-skip
+    counter (a skipping launch is not); since the skip is exact its results
+    equal the skipping kernel's and the plain version's bit for bit, in
+    every mode of both blocks."""
+    fn, plain, args, kw = tile_skip_call(dev, mode, dtype)
+    counters = (("advext_launches", "advext_no_skip_launches")
+                if mode == "advext_block" else
+                ("launches", "no_skip_launches"))
+
+    def count():
+        return tuple(getattr(rb, c) for c in counters)
+
+    before = count()
+    full = fn(*args, **kw, tile_skip=False)
+    torch.cuda.synchronize()
+    assert count() == (before[0] + 1, before[1] + 1)
+    skip = fn(*args, **kw)
+    assert count() == (before[0] + 2, before[1] + 1)
+    assert_bit_for_bit(full, skip)
+    assert_bit_for_bit(full, plain(*args, **kw, tile_skip=False))
+
+
+def test_stencil_bc_spec_launches_the_stencil_kernels(dev):
+    """``pressure_projection(stencil_bc_spec=...)`` on CUDA tensors runs the
+    two projection-stencil kernels, once each, with the spec's BC, as JAX's
+    runs its Pallas passes; the same result as the explicit pair."""
+    from pyrmt_tpu_torch.ops.poisson import (
+        precompute_dct_matrices,
+        precompute_poisson_eigenvalues,
+    )
+    from pyrmt_tpu_torch.ops.projection import pressure_projection
+
+    n = 203
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b, p = (torch.randn(n, n, generator=g, device=dev,
+                           dtype=torch.float64) for _ in range(3))
+    rho = 1.0 + 0.3 * torch.rand(n, n, generator=g, device=dev,
+                                 dtype=torch.float64)
+    dx = 1.0 / (n - 1)
+    eig = precompute_poisson_eigenvalues(n, n, dx, dx, torch.float64, dev)
+    mats = precompute_dct_matrices(n, n, torch.float64, dev)
+    dt = torch.tensor(1e-3, dtype=torch.float64, device=dev)
+    before = (ps.rc_rhs_launches, ps.grad_correct_launches)
+    out = pressure_projection(a, b, dx, dx, dt, rho, pt.noop_bc, p, eig,
+                              dct_mats=mats, stencil_bc_spec=("lid", 1.0))
+    torch.cuda.synchronize()
+    assert (ps.rc_rhs_launches, ps.grad_correct_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = pressure_projection(a, b, dx, dx, dt, rho, pt.make_lid_bc(1.0), p,
+                              eig, dct_mats=mats,
+                              stencils=(ps.rc_rhs_fused,
+                                        ps.grad_correct_fused))
+    assert_bit_for_bit(out, ref)

@@ -14,6 +14,17 @@
   solid read as rebased (u off by 1.2e-9).
 - F4: ``make_run_chunk`` and ``make_rebase_runner`` take ``donate=`` as
   ``bench.py`` passes it.
+- F7: a float32 run whose ``t_end`` rounds down (0.01) stops at t_end as
+  float32 holds it (``sim.stop_time``): ``run_until`` and the
+  ``taylor_green_decay`` and ``density_contrast`` loops. Each test bounds
+  the steps at 10x the float64 run's, so it fails, and does not hang,
+  where the loop would run no-op steps forever.
+- F8: positional calls in the JAX package's order bind JAX's parameters
+  (``reinitialize_phi_PDE``'s ``apply_phi_BCs_func``, ``solve_poisson_dct``'s
+  ``dct_mats, precision, demean``, ``pressure_projection``'s ``bc_type``
+  to ``st_faces``, ``make_step``'s ``rmt_block_impl``) and give JAX's
+  results.
+- F9: the interpolators take JAX's ``Nx, Ny``, checked against the field.
 The card's side of F1 and F2 is in tests/test_torch_cuda.py.
 """
 import dataclasses
@@ -171,3 +182,218 @@ def test_f4_runners_take_donate():
     s, _ = runner(pt.make_init_state(rcfg, disc, **KW), 1.0)
     assert int(s.step) == 2 and not runner.post
     np.testing.assert_array_equal(s.X1.shape, (1, N, N))
+
+
+# F7: a float32 run to a t_end that float32 rounds down
+
+T_END = 0.01
+F32 = dict(dtype=torch.float32, device=DEV)
+
+
+def bounded(make_step, limit, calls):
+    """``make_step`` whose steps raise past ``limit`` calls in all (a
+    loop that would run no-op steps forever fails instead)."""
+
+    def make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def counted(state, t_end):
+            calls.append(1)
+            if len(calls) > limit:
+                raise RuntimeError(f"the loop ran past {limit} steps")
+            return step(state, t_end)
+
+        return counted
+
+    return make
+
+
+def tg_box(dtype):
+    """The S = 0 doubly-periodic box at N=17 with the Taylor-Green
+    vortex: (step, state)."""
+    from pyrmt_tpu_torch.validation import gates
+
+    cfg = gates.taylor_green_config(17)
+    kw = dict(dtype=dtype, device=DEV)
+    u0, v0 = gates.taylor_green_velocity(cfg, 0.5, **kw)
+    return (pt.make_step(cfg, pt.periodic_bc, (), **kw),
+            pt.make_init_state(cfg, (), u0=u0, v0=v0, **kw))
+
+
+def test_f7_run_until_stops_at_float32_t_end():
+    """10 steps (dt 1e-3), as in float64, not max_steps; the state is the
+    10th step's, the last that advanced t."""
+    t_stop = float(torch.tensor(T_END, dtype=torch.float32))
+    counts = {}
+    for dtype in (torch.float64, torch.float32):
+        step, s0 = tg_box(dtype)
+        calls = []
+        s, bad = pt.run_until(bounded(lambda: step, 100, [])(), s0, T_END,
+                              callback=lambda s, aux: calls.append(1))
+        counts[dtype] = len(calls)
+        assert not bad
+    assert counts[torch.float32] == counts[torch.float64] == 10
+    assert float(s.t) == t_stop < T_END
+    assert pt.sim.stop_time(T_END, torch.float32) == t_stop
+    ref = s0
+    for _ in range(10):
+        ref, _ = step(ref, T_END)
+    assert_states_equal(s, ref)
+
+
+@pytest.mark.parametrize("case", ["taylor_green_decay", "density_contrast"])
+def test_f7_gate_loops_stop_at_float32_t_end(case, monkeypatch):
+    """The two loops of ``validation.gates`` end at float32(t_end) after
+    the chunks of the float64 run; the last row's time and state are the
+    last advancing step's (5 steps a chunk)."""
+    from pyrmt_tpu_torch.validation import gates
+
+    fn = getattr(gates, case)
+    kw = dict(N=17 if case == "taylor_green_decay" else 24, t_end=T_END,
+              log_every=5, device=DEV)
+    rows64, s64 = fn(dtype=torch.float64, **kw)
+    calls = []
+    monkeypatch.setattr(gates, "make_step",
+                        bounded(gates.make_step, 10 * s64["steps"], calls))
+    rows, s = fn(dtype=torch.float32, **kw)
+    assert s["steps"] == s64["steps"] == len(calls)
+    assert rows[-1]["t"] == pt.sim.stop_time(T_END, torch.float32)
+    assert len(rows) == len(rows64)
+
+
+# F8: JAX-order positional calls
+
+
+def test_f8_reinitialize_phi_pde_takes_the_hook_fifth():
+    import jax.numpy as jnp
+    import pyrmt_tpu.ops.levelset as jls
+
+    from pyrmt_tpu_torch.ops import levelset as tls
+
+    X, Y = pt.Grid(24, 24, 1.0, 1.0).coords(**KW)
+    phi = torch.sqrt((X - 0.45) ** 2 + (Y - 0.5) ** 2) ** 1.3 - 0.2
+    dx = 1.0 / 23
+    out = tls.reinitialize_phi_PDE(phi, dx, dx, 5, tls.apply_phi_BCs, 0.3)
+    ref = jls.reinitialize_phi_PDE(jnp.asarray(phi.numpy()), dx, dx, 5,
+                                   jls.apply_phi_BCs, 0.3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-13)
+    mesh = object()
+    with pytest.raises(ValueError, match="mesh"):
+        tls.reinitialize_phi_PDE(phi, dx, dx, 5, tls.apply_phi_BCs,
+                                 mesh=mesh)
+
+
+def test_f8_solve_poisson_dct_takes_jax_s_order():
+    import jax.numpy as jnp
+    import pyrmt_tpu.ops.poisson as jp
+
+    from pyrmt_tpu_torch.ops import poisson as tp
+
+    rng = np.random.default_rng(0)
+    Ny, Nx, dx, dy = 17, 21, 0.05, 1.0 / 16
+    rhs = rng.standard_normal((Ny, Nx))
+    eig = tp.precompute_poisson_eigenvalues(Nx, Ny, dx, dy, device=DEV)
+    jeig = jp.precompute_poisson_eigenvalues(Nx, Ny, dx, dy)
+    mats = tp.precompute_dct_matrices(Nx, Ny, torch.float64, DEV)
+    for demean in (True, False):
+        ref = np.asarray(jp.solve_poisson_dct(jnp.asarray(rhs), jeig, None,
+                                              "highest", demean))
+        for m in (None, mats):
+            out = tp.solve_poisson_dct(torch.tensor(rhs), eig, m, "highest",
+                                       demean)
+            np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                       atol=1e-13 * np.abs(ref).max())
+    for precision in ("high", "default"):
+        with pytest.raises(ValueError, match="precision"):
+            tp.solve_poisson_dct(torch.tensor(rhs), eig, mats, precision)
+
+
+@pytest.mark.parametrize("variant", ["incremental", "variable_rho",
+                                     "no p_prev"])
+def test_f8_pressure_projection_takes_jax_s_order(variant):
+    """Every JAX parameter positionally, bc_type to st_faces included."""
+    import jax.numpy as jnp
+    import pyrmt_tpu.bcs as jbcs
+    import pyrmt_tpu.ops.poisson as jp
+    from pyrmt_tpu.ops.projection import pressure_projection as jproj
+
+    from pyrmt_tpu_torch.ops import poisson as tp
+    from pyrmt_tpu_torch.ops.projection import pressure_projection
+
+    rng = np.random.default_rng(1)
+    n = 25
+    dx = 1.0 / (n - 1)
+    X, Y = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n))
+    a = 0.3 * np.sin(2 * np.pi * X) * np.cos(np.pi * Y) + 0.01 * \
+        rng.standard_normal((n, n))
+    b = -0.2 * np.cos(np.pi * X) * np.sin(2 * np.pi * Y)
+    p = 0.05 * np.cos(np.pi * X) * np.cos(np.pi * Y)
+    rho = 1.0 + 0.3 * (np.hypot(X - 0.6, Y - 0.5) <= 0.2)
+    var = variant == "variable_rho"
+    p_prev = None if variant == "no p_prev" else p
+    common = ("neumann", var, 1e-10, 100)
+    ref = jproj(jnp.asarray(a), jnp.asarray(b), dx, dx, 2e-3,
+                jnp.asarray(rho), jbcs.make_lid_bc(1.0),
+                None if p_prev is None else jnp.asarray(p_prev),
+                jp.precompute_poisson_eigenvalues(n, n, dx, dx), *common,
+                None, None, False, "highest", var, None)
+    t = torch.tensor
+    out = pressure_projection(
+        t(a), t(b), dx, dx, t(2e-3, dtype=torch.float64), t(rho), LID,
+        None if p_prev is None else t(p_prev),
+        tp.precompute_poisson_eigenvalues(n, n, dx, dx, device=DEV), *common,
+        tp.precompute_dct_matrices(n, n, torch.float64, DEV), None, False,
+        "highest", var, None)
+    assert len(out) == len(ref) == (4 if var else 3)
+    for o, r in zip(out[:3], ref[:3]):
+        r = np.asarray(r)
+        np.testing.assert_allclose(o.numpy(), r, rtol=0,
+                                   atol=1e-11 * max(1.0, np.abs(r).max()))
+    if var:
+        assert int(out[3][0]) == int(ref[3][0]) > 0
+
+
+def test_f8_stencil_bc_spec_takes_the_stencil_pair_and_its_bc():
+    """A ``stencil_bc_spec`` takes the stencil kernels' wrappers (their
+    plain versions on a CPU tensor) with the spec's BC, as JAX's applies
+    the BC from the spec; on the card it launches the kernels
+    (tests/test_torch_cuda.py)."""
+    from pyrmt_tpu_torch.ops import poisson as tp
+    from pyrmt_tpu_torch.ops.projection import pressure_projection
+
+    rng = np.random.default_rng(2)
+    n, dx = 17, 1.0 / 16
+    a, b, p = (torch.tensor(rng.standard_normal((n, n))) for _ in range(3))
+    eig = tp.precompute_poisson_eigenvalues(n, n, dx, dx, device=DEV)
+    args = (a, b, dx, dx, torch.tensor(1e-3, dtype=torch.float64), 1.2)
+    lid = pressure_projection(*args, LID, p, eig)
+    spec = pressure_projection(*args, pt.noop_bc, p, eig,
+                               stencil_bc_spec=("lid", 1.0),
+                               stencil_interpret=True)
+    for x, y in zip(lid, spec):
+        assert torch.equal(x, y)
+
+
+# F9: the interpolators' Nx, Ny
+
+
+@pytest.mark.parametrize("name", ["bilinear_interpolate",
+                                  "bicubic_interpolate"])
+def test_f9_interpolators_take_nx_ny(name):
+    import jax.numpy as jnp
+    import pyrmt_tpu.ops.interp as jint
+
+    rng = np.random.default_rng(3)
+    Ny, Nx, dx, dy = 13, 17, 1.0 / 16, 1.0 / 12
+    u = rng.standard_normal((Ny, Nx))
+    xq, yq = rng.uniform(-0.1, 1.1, (2, 40))
+    ref = getattr(jint, name)(jnp.asarray(u), jnp.asarray(xq),
+                              jnp.asarray(yq), dx, dy, Nx, Ny)
+    out = getattr(pt, name)(torch.tensor(u), torch.tensor(xq),
+                            torch.tensor(yq), dx, dy, Nx, Ny)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-13)
+    with pytest.raises(ValueError, match="Nx, Ny"):
+        getattr(pt, name)(torch.tensor(u), torch.tensor(xq),
+                          torch.tensor(yq), dx, dy, Ny, Nx)

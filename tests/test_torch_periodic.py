@@ -174,7 +174,7 @@ def test_periodic_projection_matches_jax(shape):
         bc_type="periodic")
     args = (torch.tensor(a), torch.tensor(b), dx, dy,
             torch.tensor(dt, dtype=torch.float64), torch.tensor(rho),
-            pt.periodic_bc, torch.tensor(p), teig, None)
+            pt.periodic_bc, torch.tensor(p), teig)
     out = tproj.pressure_projection(*args, bc_type="periodic")
     for o, r_, k in zip(out, ref, ("a", "b", "p")):
         close(o, r_, (1e-11 if k == "p" else 1e-12), k)

@@ -90,6 +90,6 @@ def test_pressure_projection_matches_jax(bc_name):
     out = pressure_projection(
         tt(a), tt(b), dx, dy, tt(dt), tt(rho), t_bc, tt(p),
         tp.precompute_poisson_eigenvalues(N, N, dx, dy, device=DEV),
-        tp.precompute_dct_matrices(N, N, torch.float64, DEV))
+        dct_mats=tp.precompute_dct_matrices(N, N, torch.float64, DEV))
     for t, j in zip(out, ref):
         close(t, j)

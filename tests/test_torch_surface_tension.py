@@ -278,9 +278,10 @@ def test_balanced_csf_balances_a_face_constant_curvature():
     eig = precompute_poisson_eigenvalues(n, n, dx, dx, torch.float64, "cpu")
     mats = precompute_dct_matrices(n, n, torch.float64, "cpu")
     a, b, _ = pressure_projection(u_star, v_star, dx, dx, dt, rho,
-                                  free_slip_box_bc, p_eq, eig, mats,
+                                  free_slip_box_bc, p_eq, eig, dct_mats=mats,
                                   st_faces=(Fx, Fy, fxc, fyc))
     assert float(torch.hypot(a, b).max()) < 1e-12
     a_c, b_c, _ = pressure_projection(u_star, v_star, dx, dx, dt, rho,
-                                      free_slip_box_bc, p_eq, eig, mats)
+                                      free_slip_box_bc, p_eq, eig,
+                                      dct_mats=mats)
     assert float(torch.hypot(a_c, b_c).max()) > 1e-6

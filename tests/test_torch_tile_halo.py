@@ -469,7 +469,8 @@ def test_extrapolate_skip_is_the_copy(disc, num_layers):
 
 
 @pytest.mark.parametrize("entry", ["make_step", "make_init_state",
-                                   "make_rebase_runner", "state_from_numpy"])
+                                   "make_rebase_runner", "state_from_numpy",
+                                   "create_grid"])
 def test_entry_points_default_to_the_card(entry):
     """Without device=, an entry point puts its tensors on the card; on a
     machine without CUDA that raises (never a quiet CPU run)."""
@@ -484,6 +485,7 @@ def test_entry_points_default_to_the_card(entry):
         "state_from_numpy": lambda: pt.state_from_numpy(
             pt.state_to_numpy(pt.make_init_state(cfg, (disc,),
                                                  device=DEV))).u,
+        "create_grid": lambda: pt.create_grid(16, 16, 1.0, 1.0)[0],
     }
     if torch.cuda.is_available():
         out = calls[entry]()

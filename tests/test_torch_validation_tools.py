@@ -32,15 +32,17 @@ def test_stage_breakdown_times_every_stage():
 def test_ablation_breakdown_times_chunks_of_500_steps(monkeypatch):
     rows = profiling._ablations()
     assert [r[0] for r in rows] == [
-        "all defaults", "rmt_block plain twin (JAX's rmt_method=xla)",
+        "all defaults", "tile_skip=False (no solid-free skip)",
+        "rmt_block plain twin (JAX's rmt_method=xla)",
         "momentum_method=xla", "sl_local=False (gather advection)",
         "projection_method=pallas"]
     with pytest.raises(ValueError, match="at least 500"):
         profiling.ablation_breakdown(N=16, steps=50, device=DEV)
-    monkeypatch.setattr(profiling, "_ablations", lambda: rows[::4])
+    monkeypatch.setattr(profiling, "_ablations", lambda: rows[::5])
+    seen = []
     ms = profiling.ablation_breakdown(N=16, steps=500, warmup=1, device=DEV,
-                                      verbose=False)
-    assert list(ms) == ["all defaults", "projection_method=pallas"]
+                                      verbose=False, on_row=seen.append)
+    assert list(ms) == seen == ["all defaults", "projection_method=pallas"]
     assert all(t > 0.0 for t in ms.values())
 
 
