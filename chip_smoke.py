@@ -209,7 +209,7 @@ another sm_90a card) and the CUDA toolkit. Phases:
      one process's float64 gradient no more than twice the
      single-process float32's. [shardgrad] lines.
   15. the validation suite (pyrmt_tpu_torch.validation, the JAX package's
-     benchmarks/*.py drivers) on the card, in 3 processes sharing it, each
+     benchmarks/*.py drivers) on the card, in 5 processes sharing it, each
      gate a hard check, float32 unless the protocol runs float64: the soft
      disc in the lid-driven cavity at N=128 to t = 8 (mean deviation from
      Sugiyama's track below 0.008; Kolahduz's and the orbit's x-extent
@@ -239,7 +239,14 @@ another sm_90a card) and the CUDA toolkit. Phases:
      its matrix form, build_poisson_matrix, compute_divergence, the FFT
      path of solve_poisson_dct, reinitialize_phi_fmm) on CUDA tensors
      against the same calls on the CPU. [valid] lines, each case's numbers
-     beside its gate, its wall seconds and steps/s.
+     beside its gate, its wall seconds and steps/s. Each case writes its
+     JAX driver's files (out_root, a temporary directory a case; the soft
+     disc also its snapshots at t = 2, 4, 6, 8, the convergence study its
+     field cache): [files] lines, each case's files held against
+     validation.common.OUTPUTS (names, CSV headers and rows, npz keys,
+     the snapshots' ten fields at N=128) and read back by
+     pyrmt_tpu_torch.analysis without matplotlib; then the convergence
+     study again on its own cache: no step run, its orders bit for bit.
 
 It then prints a [time] line of each phase's wall seconds, a JSON line of
 the kernels (with each kernel's backward ms and the largest relative
@@ -260,6 +267,7 @@ without the contact modes profiles the rest).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -267,8 +275,10 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2866,11 +2876,15 @@ JAX_TG_DRIFT = -2.963801366402927
 JAX_CONVERGENCE_ORDERS = {"|u|": 1.3224971051757255, "p": 0.8361854098708396,
                           "X1": 1.8992752519497669, "ke": 3.4669321449590305,
                           "se": 2.322422181144293}
+# the soft disc case's snapshot targets (benchmarks/README.md's panels)
+SNAPSHOT_TIMES = (2.0, 4.0, 6.0, 8.0)
 # phase 15's cases: (what, validation function, keywords); float32 unless
-# the protocol runs float64
+# the protocol runs float64; each writes its files under a directory of
+# its own (valid_jobs' out_root), which check_files reads back
 VALID_CASES = (
     ("soft disc in the lid-driven cavity N=128 float32 to t=8",
-     "soft_disc_in_lid_driven", dict(N=128, t_end=8.0)),
+     "soft_disc_in_lid_driven", dict(N=128, t_end=8.0,
+                                     snapshot_times=SNAPSHOT_TIMES)),
     ("Taylor-Green collision N=128 float32 to t=2", "two_disc_tg_collision",
      dict(N=128, t_end=2.0)),
     ("capillary drop N=128 float32, balanced CSF + kappa*, to t=4.5",
@@ -2878,7 +2892,7 @@ VALID_CASES = (
     ("disc in Taylor-Green N=128 float32 to t=1", "disc_in_taylor_green",
      dict(N=128, t_end=1.0)),
     ("convergence float64, grids 32, 64, 128 against 256, dt 1e-4, t=0.25",
-     "convergence_taylor_green", dict(dtype=torch.float64)),
+     "convergence_taylor_green", dict(dtype=torch.float64, cache=True)),
     ("two-disc contact N=64 float32 to t=1.5", "two_disc_contact",
      dict(N=64, t_end=1.5)),
     ("two-disc contact gate N=48 float64 to t=0.6", "two_disc_contact",
@@ -2902,15 +2916,16 @@ VALID_WORKERS = 5
 
 def valid_case(fn, kw, device):
     """A phase 15 job in a process of its own: (summary, launches) of the
-    validation case ``fn``, or ({row: ms a step}, {row: launches}) of
+    validation case ``fn`` (its rows counted in the summary's
+    ``n_rows``), or ({row: ms a step}, {row: launches}) of
     ``profiling.ablation_breakdown`` where ``fn`` is 'ablation' (each row's
     counts read and reset after its timed chunk)."""
     from pyrmt_tpu_torch import profiling, validation
 
     reset_counts()
     if fn != "ablation":
-        _, summary = getattr(validation, fn)(device=device, **kw)
-        return summary, counts()
+        rows, summary = getattr(validation, fn)(device=device, **kw)
+        return dict(summary, n_rows=len(rows)), counts()
     launches = {}
 
     def row_launches(row):
@@ -2921,12 +2936,19 @@ def valid_case(fn, kw, device):
                                         on_row=row_launches, **kw), launches
 
 
+def case_root(out_root, what):
+    """The ``out_root`` of phase 15's case ``what``: a directory a case."""
+    k = [case[0] for case in VALID_CASES].index(what)
+    return os.path.join(out_root, f"case{k}")
+
+
 @contextlib.contextmanager
-def valid_jobs(device, jobs=VALID_JOBS, workers=VALID_WORKERS):
-    """Phase 15's ``jobs`` started in ``workers`` spawned processes;
-    yields ``results()``, which waits for them and returns ({what:
-    (summary, launches)}, wall seconds since the start). Leaving the block
-    waits for the jobs still running."""
+def valid_jobs(device, out_root, jobs=VALID_JOBS, workers=VALID_WORKERS):
+    """Phase 15's ``jobs`` started in ``workers`` spawned processes, each
+    case writing its files under ``case_root(out_root, what)``; yields
+    ``results()``, which waits for them and returns ({what: (summary,
+    launches)}, wall seconds since the start). Leaving the block waits
+    for the jobs still running."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2934,8 +2956,10 @@ def valid_jobs(device, jobs=VALID_JOBS, workers=VALID_WORKERS):
     dev = torch.device(device).type
     with ProcessPoolExecutor(workers,
                              mp_context=mp.get_context("spawn")) as pool:
-        futures = {what: pool.submit(valid_case, fn, kw, dev)
-                   for what, fn, kw in jobs}
+        futures = {what: pool.submit(
+            valid_case, fn, kw if fn == "ablation" else dict(
+                kw, out_root=case_root(out_root, what)), dev)
+            for what, fn, kw in jobs}
 
         def results():
             out = {what: f.result() for what, f in futures.items()}
@@ -3100,7 +3124,90 @@ def surface_check(device, card):
           + "; create_grid and build_poisson_matrix's entries bit for bit")
 
 
-def validation_suite(device, card, results, jobs_s):
+def file_line(got):
+    """A [files] entry: a CSV's rows, or an npz's arrays and the shape of
+    its largest."""
+    if isinstance(got, int):
+        return f"{got} rows"
+    return f"{len(got)} arrays, {max(got.values(), key=np.prod)}"
+
+
+def check_files(results, out_root, device, card):
+    """Phase 15's [files] lines: each case's files (the one directory it
+    wrote under its ``case_root``) held against the port's table of what
+    its JAX driver writes (``validation.common.check_outputs``: the file
+    names, each CSV's header and its rows, one a logged row, each npz's
+    keys), the soft disc's snapshots (SNAPSHOT_TIMES) each with the ten
+    fields at the run's N as .npz where h5py is missing, and every file
+    read back by ``pyrmt_tpu_torch.analysis``'s readers, matplotlib not
+    imported. Then the convergence study once more with ``cache=True`` on
+    its own cache: no step run, its orders equal to the first run's bit
+    for bit. Raises at a mismatch."""
+    from pyrmt_tpu_torch import validation
+    from pyrmt_tpu_torch.analysis import common as readers
+    from pyrmt_tpu_torch.analysis.plot_soft_disc_panels import SnapshotSeries
+    from pyrmt_tpu_torch.io import _HAVE_H5
+    from pyrmt_tpu_torch.validation.common import check_outputs
+
+    t0 = time.perf_counter()
+    for what, fn, kw in VALID_CASES:
+        s, _ = results[what]
+        (name,) = os.listdir(case_root(out_root, what))
+        directory = os.path.join(case_root(out_root, what), name)
+        found = check_outputs(fn, directory, rows=s["n_rows"])
+        for f, got in found.items():
+            path = os.path.join(directory, f)
+            if f.endswith(".csv"):
+                cols = readers.load_csv(path)
+                if not all(len(c) == got for c in cols.values()):
+                    raise AssertionError(f"[files] {path}: the reader's "
+                                         f"columns are not {got} rows")
+            elif f.startswith("snap_t"):
+                fields, attrs = readers.load_frame(path)
+                N = kw["N"]
+                if (set(got.values()) != {(N, N)} or len(fields) != 10
+                        or (not _HAVE_H5 and not f.endswith(".npz"))):
+                    raise AssertionError(f"[files] {path}: {got}")
+            else:
+                with np.load(path) as z:
+                    if not all(np.isfinite(z[k]).all() for k in z.files):
+                        raise AssertionError(f"[files] {path}: not finite")
+        if fn == "soft_disc_in_lid_driven":
+            series = SnapshotSeries(directory)
+            if [fr["_t"] for fr in series.frames] != list(SNAPSHOT_TIMES):
+                raise AssertionError(f"[files] snapshots of {directory}: "
+                                     f"{[fr['_t'] for fr in series.frames]}")
+        if fn == "disc_in_taylor_green":
+            energy = readers.load_energy_csv(directory)
+            if len(energy["time"]) != s["n_rows"]:
+                raise AssertionError(f"[files] {directory}: {energy}")
+        print(f"[files] {what}: {name}/ "
+            + ", ".join(f"{f} ({file_line(got)})" for f, got in found.items())
+            + f"; names, headers, rows and keys as the JAX driver's "
+            f"(validation.common.OUTPUTS); each read back by "
+            f"pyrmt_tpu_torch.analysis")
+    if "matplotlib" in sys.modules:
+        raise AssertionError("[files] the readers imported matplotlib")
+    files_s = time.perf_counter() - t0
+    what, _, kw = next(c for c in VALID_CASES
+                       if c[1] == "convergence_taylor_green")
+    first = results[what][0]
+    reset_counts()
+    _, again = validation.convergence_taylor_green(
+        device=device, out_root=case_root(out_root, what), **kw)
+    launched = counts()["rmt_block"]
+    same = again["orders"] == first["orders"]
+    print(f"[files] {what} again with cache=True on its own cache: "
+          f"{again['steps']} steps, {launched} rmt_block launches, orders "
+          f"{'equal to the first run' if same else 'DIFFER'} bit for bit "
+          f"({again['orders']}); the [files] checks took {files_s:.3f} s, "
+          f"the cached run {again['wall_s']:.3f} s (host clock, '{card}')")
+    if not same or again["steps"] or launched:
+        raise AssertionError(f"[files] the cached convergence run: {again}, "
+                             f"{launched} launches, first {first['orders']}")
+
+
+def validation_suite(device, card, results, jobs_s, out_root):
     """Phase 15: the JAX package's validation drivers through
     ``pyrmt_tpu_torch.validation`` on the card (VALID_CASES), run by
     ``valid_jobs`` in VALID_WORKERS processes of their own beside phase 12
@@ -3125,6 +3232,7 @@ def validation_suite(device, card, results, jobs_s):
           f"{VALID_WORKERS} processes beside phase 12")
     if failed:
         raise AssertionError(f"[valid] gates failed: {failed}")
+    check_files(results, out_root, device, card)
     print(f"[valid] {ABLATION} on '{card}' (CUDA events over 500 steps "
           f"after 20, ms a step; {VALID_WORKERS} processes sharing the card "
           f"beside phase 12): "
@@ -3540,7 +3648,9 @@ def main() -> int:
     # 12. the JAX package's gates, on the card, beside phase 15's jobs in
     # processes of their own (gates of correctness alone: their wall
     # seconds are a shared host's)
-    with valid_jobs(device) as valid_results:
+    valid_out = tempfile.mkdtemp(prefix="chip_smoke_valid_")
+    atexit.register(shutil.rmtree, valid_out, True)
+    with valid_jobs(device, valid_out) as valid_results:
         reset_counts()
         rows, tg = validation.taylor_green_decay(N=65, nu=0.01, t_end=0.5,
                                                  dtype=f64, device=device)
@@ -3598,7 +3708,7 @@ def main() -> int:
     phase_s.append(("15", time.perf_counter()))
     # 15. the validation suite's gates (its jobs ran beside phase 12) and
     # the stage breakdown
-    valid_prof = validation_suite(device, card, valid, valid_s)
+    valid_prof = validation_suite(device, card, valid, valid_s, valid_out)
 
     phase_s.append(("end", time.perf_counter()))
     spans = ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)

@@ -1,6 +1,11 @@
 """The JAX package's validation drivers (``benchmarks/*.py``), as functions
-of the port: each runs on the card unless ``device='cpu'`` and returns
-what its driver's ``run`` returns, without the driver's file output.
+of the port: each takes its driver's ``run``'s parameters (in its order up
+to ``out_root``), runs on the card unless ``device='cpu'`` and returns
+what its driver's ``run`` returns. With ``out_root`` a case writes its
+driver's files there (``common.OUTPUTS``: the rows' CSV, snapshots, the
+lid cavity's steady state, checkpoints, the convergence cache), which
+``pyrmt_tpu_torch.analysis`` reads; with ``out_root=None`` (the default)
+nothing is written.
 
 One module a driver, as ``benchmarks/`` has one file a driver:
 

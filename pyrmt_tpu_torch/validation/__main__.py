@@ -5,16 +5,23 @@
 with the positional arguments and flags of the JAX driver of the same name
 (``benchmarks/<case>.py``), among them ``--f64`` (float64; float32
 without); ``--cpu`` runs on the CPU (default: the card); ``--out-root DIR``
-holds the checkpoints of a resumable case (capillary_drop_coupled,
-sedimentation_pack: written every 10 chunks, read back with ``--resume``);
-nothing else is written. The summary is printed as one JSON line.
+writes the case's files under DIR as its JAX driver does (the CSV of its
+rows, the lid cavity's ``steady_state.npz``, the checkpoints of a
+resumable case, which ``--resume`` reads back, the convergence study's
+field cache with ``--cache``: ``validation.common.OUTPUTS``). The summary
+is printed as one JSON line.
+
+Without ``--out-root`` nothing is written. This departs from the JAX
+drivers on purpose: their default, ``outputs/``, holds the JAX package's
+committed evidence (``.gitignore`` lists the files kept there), which a
+run of the port would overwrite.
 
     soft_disc_in_lid_driven [N] [scheme] [t_end]
     disc_in_taylor_green [N] [scheme]
     two_disc_contact [N] [t_end] [V0] [k_rep]
     two_disc_tg_collision [N] [t_end] [U0] [k_rep]
     convergence_taylor_green [scheme] [--stress-band] [--full] [--bicubic]
-        [--bicubic-raw]
+        [--bicubic-raw] [--cache]
     capillary_drop_coupled [N] [--csf] [--kstar] [--hf] [--hf-smooth]
         [--reinit] [--areafix] [--bicubic] [--tend=T] [--rebase[=thr]]
         [--resume]
@@ -28,7 +35,6 @@ nothing else is written. The summary is printed as one JSON line.
 from __future__ import annotations
 
 import json
-import os
 import sys
 
 import numpy as np
@@ -57,10 +63,6 @@ def _positional(args, types, defaults):
     if len(pos) > len(types):
         raise SystemExit(f"too many arguments: {pos}")
     return [t(p) for t, p in zip(types, pos)] + list(defaults[len(pos):])
-
-
-def _ckpt(out_root, name):
-    return None if out_root is None else os.path.join(out_root, name)
 
 
 def capillary_overrides(flags):
@@ -96,7 +98,7 @@ FLAGS = {
     "soft_disc_in_lid_driven": (), "disc_in_taylor_green": (),
     "two_disc_contact": (), "two_disc_tg_collision": (),
     "convergence_taylor_green": ("--stress-band", "--full", "--bicubic",
-                                 "--bicubic-raw"),
+                                 "--bicubic-raw", "--cache"),
     "capillary_drop_coupled": ("--csf", "--kstar", "--hf", "--hf-smooth",
                                "--reinit", "--areafix", "--bicubic",
                                "--tend=", "--rebase", "--rebase=",
@@ -112,7 +114,7 @@ def run(case, args, device, dtype, out_root):
     """The case's summary."""
     if case not in FLAGS:
         raise SystemExit(f"unknown case {case!r}; see the usage:\n{__doc__}")
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device, out_root=out_root)
     lid = case == "lid_driven_cavity"
     tol = _take(args, "--tol") if lid else None
     resume_from = _take(args, "--resume") if lid else None
@@ -147,23 +149,19 @@ def run(case, args, device, dtype, out_root):
             scheme=scheme, stress_band="--stress-band" in flags,
             sl_interp="bicubic" if bicubic else "bilinear",
             sl_band_guard=0.0 if "--bicubic-raw" in flags else 3.0,
-            **grids, **kw)[1]
+            cache="--cache" in flags, **grids, **kw)[1]
     if case == "capillary_drop_coupled":
         (N,) = _positional(args, (int,), (128,))
         over, t_end, tag = capillary_overrides(flags)
-        st = "csf" if "--csf" in flags else "balanced"
-        kstar = "--kstar" in flags
-        name = (f"capillary_drop_N{N}" + ("" if st == "balanced" else "_csf")
-                + ("_kstar" if kstar else "") + (f"_{tag}" if tag else ""))
         return v.capillary_drop_coupled(
-            N=N, st_method=st, kappa_interface=kstar, t_end=t_end,
-            cfg_overrides=over or None, resume="--resume" in flags,
-            ckpt_dir=_ckpt(out_root, name), **kw)[1]
+            N=N, st_method="csf" if "--csf" in flags else "balanced",
+            kappa_interface="--kstar" in flags, t_end=t_end,
+            cfg_overrides=over or None, tag=tag,
+            resume="--resume" in flags, **kw)[1]
     if case == "sedimentation_pack":
         N, S = _positional(args, (int, int), (256, 10))
-        return v.sedimentation_pack(
-            N=N, S=S, resume="--resume" in flags,
-            ckpt_dir=_ckpt(out_root, f"sedimentation_N{N}_S{S}"), **kw)[1]
+        return v.sedimentation_pack(N=N, S=S, resume="--resume" in flags,
+                                    **kw)[1]
     if case == "periodic_taylor_green":
         (N,) = _positional(args, (int,), (129,))
         return v.taylor_green_decay(N=N, with_solid="--solid" in flags,

@@ -1,5 +1,6 @@
 """The coupled moving capillary drop: the core of
-``benchmarks/capillary_drop_coupled.py::run`` without its file output.
+``benchmarks/capillary_drop_coupled.py::run``, with its files under
+``out_root`` (``common.OUTPUTS``).
 
 An elliptic near-fluid drop (mu_s = mu_f = 1e-3, gamma = 0.1, area-equal
 to the disc of R = 0.2: semi-axes R ecc and R / ecc) rings toward a
@@ -31,8 +32,11 @@ from pyrmt_tpu_torch.sim import RMTConfig, diverged, make_init_state, make_step
 from pyrmt_tpu_torch.validation.common import (
     Checkpoint,
     advance,
+    output_dir,
+    say,
     stop_time,
     timing,
+    torch_dtype,
 )
 
 
@@ -96,31 +100,49 @@ def oscillation_summary(rows, t_rayleigh, mu_f, gamma):
         envelope_ratio=envelope, aspect_final=float(a_s[-1]))
 
 
+def capillary_suffix(st_method="balanced", kappa_interface=False, tag=""):
+    """The JAX driver's directory suffix of a run's options and tag."""
+    suffix = "" if st_method == "balanced" else f"_{st_method}"
+    if kappa_interface:
+        suffix += "_kstar"
+    return suffix + (f"_{tag}" if tag else "")
+
+
 def capillary_drop_coupled(N=128, gamma=0.1, R=0.2, ecc=1.15, mu_s=1e-3,
-                           mu_f=1e-3, t_end=4.5, dtype=torch.float32,
-                           device="cuda", log_every=100,
+                           mu_f=1e-3, t_end=4.5, out_root=None,
+                           dtype=torch.float32, log_every=100,
                            st_method="balanced", kappa_interface=False,
-                           cfg_overrides=None, resume=False, ckpt_dir=None,
-                           ckpt_every=10, max_chunks=None, **step_kw):
+                           verbose=False, cfg_overrides=None, tag="",
+                           resume=False, ckpt_every=10, max_chunks=None, *,
+                           device="cuda", ckpt_dir=None, **step_kw):
     """Run to ``t_end`` in chunks of ``log_every`` steps, logging after each
     chunk t, the ``aspect``, the ``area``, ``umax``, the least J
     (``common.advance``: of the last step that advanced) and the chunk's
     rebase events (``aux['rebased']``, counted on the
-    device; 0 without rebasing). With ``ckpt_dir`` the state and the rows
-    go there every ``ckpt_every`` chunks (``io.save_checkpoint``), and
-    ``resume`` continues from them; ``max_chunks`` stops early (an
-    interruption). Returns (rows, summary): ``stable``, ``period`` against
-    ``period_rayleigh`` (``period_rel_err``), ``area_drift``,
+    device; 0 without rebasing). With ``out_root`` (None: no files) the
+    run's directory is the JAX driver's ``capillary_drop_N{N}`` and
+    ``capillary_suffix`` under it (``ckpt_dir``, the port's older keyword,
+    names it too; ValueError where the two differ): the state
+    (``checkpoint.npz``, ``io.save_checkpoint``) and the rows
+    (``oscillation.csv``) go there every ``ckpt_every`` chunks and at
+    ``max_chunks`` (an interruption), the rows again at the end, and
+    ``resume`` continues from them. Returns (rows, summary): ``stable``,
+    ``period`` against ``period_rayleigh`` (``period_rel_err``),
+    ``area_drift``,
     ``umax_tail``, ``ca_tail``, ``envelope_ratio``, ``rebases``,
     ``aspect_final``, ``steps`` (the logged rows' chunks), ``wall_s``,
     ``steps_per_s`` (this call's). ``step_kw`` goes to ``make_step``."""
+    dtype = torch_dtype(dtype)
     cfg = capillary_config(N, gamma, mu_s, mu_f, st_method, kappa_interface)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     kw = dict(dtype=dtype, device=device)
     drop = Ellipse(0.5, 0.5, R * ecc, R / ecc)
     step = make_step(cfg, free_slip_box_bc, (drop,), **kw, **step_kw)
-    ckpt = Checkpoint(ckpt_dir, "oscillation.csv")
+    ckpt = Checkpoint(output_dir(
+        "capillary_drop_coupled", out_root, ckpt_dir, N=N,
+        suffix=capillary_suffix(st_method, kappa_interface, tag)),
+        "oscillation.csv")
     saved = ckpt.load(**kw) if resume else None
     if saved is not None:
         state, log, _ = saved
@@ -146,6 +168,7 @@ def capillary_drop_coupled(N=128, gamma=0.1, R=0.2, ecc=1.15, mu_s=1e-3,
         t, aspect, area, umax, minJ, nreb = map(float, stats.cpu().numpy())
         log.log(t=t, aspect=aspect, area=area, umax=umax, minJ=minJ,
                 rebases=nreb)
+        say(verbose, "capillary-drop", step=nsteps, **log.rows[-1])
         if n_chunks % ckpt_every == 0:
             ckpt.save(state, log)
         if bool(diverged(state)):
@@ -154,6 +177,7 @@ def capillary_drop_coupled(N=128, gamma=0.1, R=0.2, ecc=1.15, mu_s=1e-3,
             ckpt.save(state, log)
             break
     wall = time.perf_counter() - wall
+    ckpt.save_rows(log)
     rows = log.array("t", "aspect", "area", "umax")
     summary = dict(stable=not bool(diverged(state)),
                    **oscillation_summary(rows, t_rayleigh, mu_f, gamma),

@@ -1,7 +1,7 @@
 """The spatial convergence study of the soft disc in a Taylor-Green vortex
 (Jain et al. 2019, Fig. 15): the core of
-``benchmarks/convergence_taylor_green.py::run`` without its file output
-and field cache.
+``benchmarks/convergence_taylor_green.py::run``, with its error table and
+its per-grid field cache under ``out_root`` (``common.OUTPUTS``).
 
 Runs at a fixed dt on the grids ``grids`` and a finer reference grid
 ``N_ref``; the L2 errors of |u|, p (means removed) and X1 (on the solid)
@@ -12,6 +12,7 @@ energies from grid triplets. benchmarks/README.md's protocol runs float64
 (its recorded orders belong to another grid set)."""
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -26,10 +27,16 @@ from pyrmt_tpu_torch.grid import Grid
 from pyrmt_tpu_torch.ops.levelset import Disc
 from pyrmt_tpu_torch.sim import RMTConfig, make_init_state, make_step
 from pyrmt_tpu_torch.validation.common import (
+    CACHE,
+    dtype_name,
     l2,
+    output_dir,
     richardson_order,
     sample_ref_on,
+    save_table,
+    say,
     timing,
+    torch_dtype,
     vortex_state_velocity,
 )
 
@@ -37,15 +44,16 @@ ORDER_NAMES = ("|u|", "p", "X1", "ke", "se")
 
 
 def simulate_tg(N, scheme="semilagrangian", t_end=0.25, dt=1.0e-4,
-                stress_band=False, dtype=torch.float32, device="cuda",
-                num_layers=3, sl_interp="bilinear", sl_band_guard=3.0,
+                stress_band=False, dtype=torch.float32, num_layers=3,
+                sl_interp="bilinear", sl_band_guard=3.0, *, device="cuda",
                 **step_kw):
     """The disc in the vortex to ``t_end`` with a truly fixed dt
     (``fixed_dt``: the adaptive viscous limit would otherwise bind below
     it at large N), round(t_end / dt) steps counted exactly. Returns the
-    final fields as numpy arrays (``X``, ``Y``, ``a``, ``b``, ``p``,
-    ``X1``, ``X2``, ``phi``), the energies ``ke`` and ``se``, ``N`` and
-    ``dx``."""
+    JAX driver's dict: ``N``, ``dx``, the final fields as numpy arrays
+    (``X``, ``Y``, ``a``, ``b``, ``p``, ``X1``, ``X2``, ``phi``) and the
+    energies ``ke`` and ``se``."""
+    dtype = torch_dtype(dtype)
     g = Grid(N, N, 1.0, 1.0)
     disc = Disc(0.5, 0.5, 0.2)
     cfg = RMTConfig(
@@ -66,29 +74,68 @@ def simulate_tg(N, scheme="semilagrangian", t_end=0.25, dt=1.0e-4,
     se = float(compute_strain_energy(state.X1[0], state.X2[0], phi,
                                      cfg.mu_s, g.dx, g.dy, kappa=cfg.kappa))
     X, Y = g.coords(**kw)
-    out = dict(X=X, Y=Y, a=state.u, b=state.v, p=state.p, X1=state.X1[0],
-               X2=state.X2[0], phi=phi)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    return dict(out, N=N, dx=g.dx, ke=ke, se=se)
+    fields = dict(X=X, Y=Y, a=state.u, b=state.v, p=state.p, X1=state.X1[0],
+                  X2=state.X2[0], phi=phi)
+    return dict(N=N, dx=g.dx, **{k: v.cpu().numpy()
+                                 for k, v in fields.items()}, ke=ke, se=se)
+
+
+def convergence_tag(scheme="semilagrangian", stress_band=False,
+                    num_layers=3, sl_interp="bilinear", sl_band_guard=3.0):
+    """The JAX driver's directory name of a study
+    (``benchmarks/convergence_taylor_green.py:120-128``)."""
+    return (f"convergence_tg_{scheme}" + ("_band" if stress_band else "")
+            + (f"_L{num_layers}" if num_layers != 3 else "")
+            + (f"_{sl_interp}" if sl_interp != "bilinear" else "")
+            + ("_raw" if sl_interp != "bilinear" and sl_band_guard <= 0.0
+               else ""))
 
 
 def convergence_taylor_green(scheme="semilagrangian", grids=(32, 64, 128),
                              N_ref=256, t_end=0.25, dt=1.0e-4,
                              stress_band=False, dtype=torch.float32,
-                             device="cuda", num_layers=3,
-                             sl_interp="bilinear", sl_band_guard=3.0,
-                             **step_kw):
-    """``simulate_tg`` on each grid and the reference. Returns (rows,
-    summary): a row per grid (``N``, ``dx`` and the errors ``E_v``,
-    ``E_p``, ``E_X1``, ``E_ke``, ``E_se``); ``orders`` ({name: the
-    observed order against the reference}, the JAX driver's result),
-    ``richardson`` ({'ke'|'se': [(N, order)]}), ``ke`` and ``se`` ({N:
-    energy}), ``steps`` (over all the grids), ``wall_s``, ``steps_per_s``.
+                             out_root=None, verbose=False, cache=False,
+                             num_layers=3, sl_interp="bilinear",
+                             sl_band_guard=3.0, *, device="cuda", **step_kw):
+    """``simulate_tg`` on each grid and the reference. With ``out_root``
+    (None: no files), in ``convergence_tag``'s directory: ``errors.csv``
+    (the JAX driver's table: dx and the five errors a grid) and, with
+    ``cache``, each grid's fields as ``sol_N{N}_{dtype}_t{t_end}_dt{dt}
+    .npz`` (the JAX driver's keys, its scalars 0-d arrays), which a later
+    run with ``cache`` reads instead of running that grid: a cache of
+    either package loads in the other. Returns (rows, summary): a row per
+    grid (``N``, ``dx`` and the errors ``E_v``, ``E_p``, ``E_X1``,
+    ``E_ke``, ``E_se``); ``orders`` ({name: the observed order against
+    the reference}, the JAX driver's result), ``richardson`` ({'ke'|'se':
+    [(N, order)]}), ``ke`` and ``se`` ({N: energy}), ``steps`` (those
+    run: a cached grid runs none), ``wall_s``, ``steps_per_s``.
     ``step_kw`` goes to ``make_step``."""
+    if cache and out_root is None:
+        raise ValueError("cache=True keeps the fields under out_root")
+    dtype = torch_dtype(dtype)
+    out_dir = output_dir("convergence_taylor_green", out_root,
+                         tag=convergence_tag(scheme, stress_band, num_layers,
+                                             sl_interp, sl_band_guard))
+    sols, steps = {}, 0
     wall = time.perf_counter()
-    sols = {N: simulate_tg(N, scheme, t_end, dt, stress_band, dtype, device,
-                           num_layers, sl_interp, sl_band_guard, **step_kw)
-            for N in list(grids) + [N_ref]}
+    for N in list(grids) + [N_ref]:
+        cpath = None if out_dir is None else os.path.join(
+            out_dir, CACHE.format(N=N, dtype=dtype_name(dtype), t_end=t_end,
+                                  dt=dt))
+        if cache and os.path.exists(cpath):
+            with np.load(cpath) as z:
+                sols[N] = {k: (z[k] if z[k].ndim else z[k].item())
+                           for k in z.files}
+            say(verbose, "convergence-TG", N=N, cached=cpath)
+            continue
+        sols[N] = simulate_tg(N, scheme, t_end, dt, stress_band, dtype,
+                              num_layers, sl_interp, sl_band_guard,
+                              device=device, **step_kw)
+        steps += int(round(t_end / dt))
+        say(verbose, "convergence-TG", N=N, ke=sols[N]["ke"],
+            se=sols[N]["se"])
+        if cache:
+            np.savez_compressed(cpath, **sols[N])
     wall = time.perf_counter() - wall
     ref = sols[N_ref]
     rows = []
@@ -106,8 +153,10 @@ def convergence_taylor_green(scheme="semilagrangian", grids=(32, 64, 128),
                          E_X1=l2(c["X1"] - X1_r, mask=c["phi"] <= 0),
                          E_ke=abs(c["ke"] - ref["ke"]),
                          E_se=abs(c["se"] - ref["se"])))
-    errs = np.array([[r[k] for k in ("dx", "E_v", "E_p", "E_X1", "E_ke",
-                                     "E_se")] for r in rows])
+    columns = ("dx", "E_v", "E_p", "E_X1", "E_ke", "E_se")
+    errs = np.array([[r[k] for k in columns] for r in rows])
+    if out_dir is not None:
+        save_table(os.path.join(out_dir, "errors.csv"), errs, columns)
     orders = {}
     for k, name in enumerate(ORDER_NAMES):
         E = errs[:, k + 1]
@@ -115,10 +164,11 @@ def convergence_taylor_green(scheme="semilagrangian", grids=(32, 64, 128),
         orders[name] = (float(np.polyfit(np.log(errs[good, 0]),
                                          np.log(E[good]), 1)[0])
                         if good.sum() > 1 else float("nan"))
+    say(verbose, "convergence-TG", **orders)
     richardson = {name: richardson_order([(N, sols[N][name])
                                           for N in sorted(sols)])
                   for name in ("ke", "se")}
     return rows, dict(orders=orders, richardson=richardson,
                       ke={N: s["ke"] for N, s in sols.items()},
                       se={N: s["se"] for N, s in sols.items()},
-                      **timing(len(sols) * int(round(t_end / dt)), wall))
+                      **timing(steps, wall))

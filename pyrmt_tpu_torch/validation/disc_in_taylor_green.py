@@ -1,6 +1,6 @@
 """A soft disc in a Taylor-Green vortex (Jain et al. 2019, Sec. 4.4): the
-core of ``benchmarks/disc_in_taylor_green.py::run`` without its file
-output.
+core of ``benchmarks/disc_in_taylor_green.py::run``, with its file under
+``out_root`` (``common.OUTPUTS``).
 
 A neo-Hookean disc (R = 0.2 at the centre, mu_s = 1) in the vortex of
 amplitude 0.05 between free-slip walls (mu_f = 1e-3, equal densities):
@@ -11,6 +11,7 @@ JAX driver's, float64 at N=128: -2.96 %)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
@@ -27,8 +28,11 @@ from pyrmt_tpu_torch.ops.levelset import Disc
 from pyrmt_tpu_torch.sim import RMTConfig, diverged, make_init_state, make_step
 from pyrmt_tpu_torch.validation.common import (
     advance,
+    output_dir,
+    say,
     stop_time,
     timing,
+    torch_dtype,
     vortex_state_velocity,
 )
 
@@ -55,18 +59,22 @@ def solid_radius_y(phi, Y):
 
 
 def disc_in_taylor_green(N=128, scheme="semilagrangian", t_end=1.0,
-                         stress_band=False, reinit_method="none",
-                         dtype=torch.float32, device="cuda", log_every=50,
-                         cfg_overrides=None, **step_kw):
+                         out_root=None, stress_band=False,
+                         reinit_method="none", dtype=torch.float32,
+                         log_every=50, verbose=False, cfg_overrides=None, *,
+                         device="cuda", **step_kw):
     """Run to ``t_end`` in chunks of ``log_every`` steps, integrating the
     dissipation over every step of a chunk on the device; after each chunk
     log t, the kinetic energy ``ke``, the strain energy ``se``, the
     ``dissipation``, its integral so far, ``total_energy`` = ke + se +
     the integral, ``radius_y`` and the least J (``common.advance``: of
-    the last step that advanced). Returns (rows,
+    the last step that advanced); with ``out_root`` (None: no files) the
+    rows go to ``energy_history.csv`` in ``disc_tg_N{N}_{scheme}``.
+    Returns (rows,
     summary): ``drift`` (the total energy's, in percent of the first
     row's), ``stable``, ``steps``, ``wall_s``, ``steps_per_s``.
     ``step_kw`` goes to ``make_step``."""
+    dtype = torch_dtype(dtype)
     cfg = disc_tg_config(N, scheme, stress_band, reinit_method)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -107,11 +115,18 @@ def disc_in_taylor_green(N=128, scheme="semilagrangian", t_end=1.0,
         log.log(t=t, ke=ke, se=se, dissipation=diss,
                 integrated_dissipation=integ, total_energy=ke + se + integ,
                 radius_y=ry, minJ=minJ)
+        say(verbose, "disc-in-TG", step=nsteps, **log.rows[-1])
         if bool(diverged(state)):
             break
     wall = time.perf_counter() - wall
+    out_dir = output_dir("disc_in_taylor_green", out_root, N=N,
+                         scheme=scheme)
+    if out_dir is not None:
+        log.to_csv(os.path.join(out_dir, "energy_history.csv"))
     rows = log.array("t", "ke", "se", "total_energy")
     drift = (rows[-1, 3] - rows[0, 3]) / max(abs(rows[0, 3]), 1e-30) * 100
+    say(verbose, "disc-in-TG", drift=float(drift), steps=nsteps,
+        wall_s=wall)
     return log.rows, dict(drift=float(drift),
                           stable=not bool(diverged(state)),
                           **timing(nsteps, wall))

@@ -1,5 +1,6 @@
 """Many-solid sedimentation: the core of
-``benchmarks/sedimentation_pack.py::run`` without its file output.
+``benchmarks/sedimentation_pack.py::run``, with its files under
+``out_root`` (``common.OUTPUTS``).
 
 A staggered pack of S heavy discs (radius R, density ratio ``rho_ratio``)
 released at rest in a closed free-slip box under gravity settles through
@@ -29,9 +30,12 @@ from pyrmt_tpu_torch.sim import RMTConfig, diverged, make_init_state, make_step
 from pyrmt_tpu_torch.validation.common import (
     Checkpoint,
     advance,
+    output_dir,
     pack_positions,
+    say,
     stop_time,
     timing,
+    torch_dtype,
 )
 
 
@@ -68,32 +72,39 @@ def pack_stats(cfg, state, aux, it_max, X, Y):
 
 
 def sedimentation_pack(N=256, S=10, R=0.06, rho_ratio=2.0, t_end=2.0,
-                       g0=1.0, dtype=torch.float32, device="cuda",
-                       log_every=50, cfg_overrides=None, resume=False,
-                       ckpt_dir=None, ckpt_every=10, max_chunks=None,
-                       **step_kw):
+                       g0=1.0, out_root=None, dtype=torch.float32,
+                       log_every=50, verbose=False, cfg_overrides=None,
+                       resume=False, ckpt_every=10, max_chunks=None, *,
+                       device="cuda", ckpt_dir=None, **step_kw):
     """Run to ``t_end`` in chunks of ``log_every`` steps, logging after each
     chunk t, ``dmin`` (the least pairwise centroid distance), ``ke``,
     ``ybar`` (the mean centroid height), the least J and the chunk's
     largest CG iteration count (of the steps that advanced,
     ``common.advance``) and the largest relative area change of a disc
-    since the first chunk. With ``ckpt_dir`` the state, the rows and the
-    first areas go there every ``ckpt_every`` chunks
-    (``io.save_checkpoint``), and ``resume`` continues from them;
-    ``max_chunks`` stops early (an interruption). Returns (rows, summary):
+    since the first chunk. With ``out_root`` (None: no files) the run's
+    directory is the JAX driver's ``sedimentation_N{N}_S{S}`` under it
+    (``ckpt_dir``, the port's older keyword, names it too; ValueError
+    where the two differ): the first areas (``resume_meta.npz``) go there
+    after the first chunk, the state (``checkpoint.npz``,
+    ``io.save_checkpoint``) and the rows (``settling.csv``) every
+    ``ckpt_every`` chunks and at ``max_chunks`` (an interruption), the
+    rows again at the end, and ``resume`` continues from them. Returns
+    (rows, summary):
     ``stable``, ``dmin`` against ``gap_floor`` (2R - w_c),
     ``no_passthrough``, ``ybar_final``, ``ybar_monotone`` (every chunk's
     rise below 1e-4), ``ke_final``, ``ke_peak``, ``minJ``,
     ``cg_iters_max``, ``area_drift``, ``steps`` (the logged rows' chunks),
     ``wall_s``, ``steps_per_s`` (this call's). ``step_kw`` goes to
     ``make_step``."""
+    dtype = torch_dtype(dtype)
     cfg = sedimentation_config(N, rho_ratio, g0)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     kw = dict(dtype=dtype, device=device)
     discs = tuple(Disc(x, y, R) for x, y in pack_positions(S, R))
     step = make_step(cfg, free_slip_box_bc, discs, **kw, **step_kw)
-    ckpt = Checkpoint(ckpt_dir, "settling.csv")
+    ckpt = Checkpoint(output_dir("sedimentation_pack", out_root, ckpt_dir,
+                                 N=N, S=S), "settling.csv")
     saved = ckpt.load(**kw) if resume else None
     areas0 = None
     if saved is not None:
@@ -120,17 +131,20 @@ def sedimentation_pack(N=256, S=10, R=0.06, rho_ratio=2.0, t_end=2.0,
         areas = arr[6 + S:6 + 2 * S]
         if areas0 is None:
             areas0 = areas.copy()
+            ckpt.save_meta(areas0=areas0)
         adrift = float(np.max(np.abs(areas / areas0 - 1.0)))
         log.log(t=t, dmin=dmin, ke=ke, ybar=ybar, minJ=minJ,
                 cg_iters_max=itmax, area_drift=adrift)
+        say(verbose, "sedimentation", step=nsteps, **log.rows[-1])
         if n_chunks % ckpt_every == 0:
-            ckpt.save(state, log, areas0=areas0)
+            ckpt.save(state, log)
         if bool(diverged(state)):
             break
         if max_chunks is not None and n_chunks >= max_chunks:
-            ckpt.save(state, log, areas0=areas0)
+            ckpt.save(state, log)
             break
     wall = time.perf_counter() - wall
+    ckpt.save_rows(log)
     rows = log.array("t", "dmin", "ke", "ybar", "minJ", "cg_iters_max",
                      "area_drift")
     gap_floor = 2 * R - cfg.w_c

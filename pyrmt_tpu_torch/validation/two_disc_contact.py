@@ -1,6 +1,6 @@
 """Two soft discs colliding head-on (Jain et al. 2019 Sec. 3.6 and 4.6):
-the core of ``benchmarks/two_disc_contact.py::run`` without its file
-output.
+the core of ``benchmarks/two_disc_contact.py::run`` with its file under
+``out_root`` (``common.OUTPUTS``).
 
 Two neo-Hookean discs (R = 0.15 at x = 0.3 and 0.7) approach at V0 each
 in a free-slip box; the short-range repulsion (k_rep, w_c = 3 cells, the
@@ -12,6 +12,7 @@ to t = 1.5 has min J 0.685 (0.6725 upstream)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
@@ -25,8 +26,11 @@ from pyrmt_tpu_torch.ops.stress import smoothed_heaviside
 from pyrmt_tpu_torch.sim import RMTConfig, diverged, make_init_state, make_step
 from pyrmt_tpu_torch.validation.common import (
     advance,
+    output_dir,
+    say,
     stop_time,
     timing,
+    torch_dtype,
 )
 
 CONTACT_R = 0.15
@@ -42,19 +46,22 @@ def contact_config(N, k_rep=2.0):
         dt_min_cap=1e-3)
 
 
-def two_disc_contact(N=128, t_end=2.0, V0=0.15, k_rep=2.0,
-                     dtype=torch.float32, device="cuda", log_every=50,
-                     cfg_overrides=None, **step_kw):
+def two_disc_contact(N=128, t_end=2.0, V0=0.15, k_rep=2.0, out_root=None,
+                     dtype=torch.float32, log_every=50, verbose=False,
+                     cfg_overrides=None, *, device="cuda", **step_kw):
     """Run to ``t_end`` in chunks of ``log_every`` steps, logging after each
     chunk t, the two centroids' x (cxa, cxb), the ``gap`` cxb - cxa and the
-    least J over every step of the chunk that advanced. Returns (rows,
-    summary): ``gmin`` (the least gap), ``minJ``, ``rebound`` (the gap's
-    least value is not the last row's and the last row's exceeds it by
-    1e-3), ``no_passthrough`` (gmin > 0), ``stable``, ``steps``,
-    ``wall_s``, ``steps_per_s``. ``step_kw`` goes to ``make_step``."""
+    least J over every step of the chunk that advanced; with ``out_root``
+    (None: no files) the rows go to ``centroids.csv`` in
+    ``two_disc_contact_N{N}``. Returns (rows, summary): ``gmin`` (the
+    least gap), ``minJ``, ``rebound`` (the gap's least value is not the
+    last row's and the last row's exceeds it by 1e-3), ``no_passthrough``
+    (gmin > 0), ``stable``, ``steps``, ``wall_s``, ``steps_per_s``.
+    ``step_kw`` goes to ``make_step``."""
     cfg = contact_config(N, k_rep)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    dtype = torch_dtype(dtype)
     kw = dict(dtype=dtype, device=device)
     step = make_step(cfg, free_slip_box_bc, CONTACT_DISCS, **kw, **step_kw)
     X, Y = cfg.grid.coords(**kw)
@@ -78,9 +85,13 @@ def two_disc_contact(N=128, t_end=2.0, V0=0.15, k_rep=2.0,
         stats = torch.stack([cxa, cxb, jmin, state.t.to(cxa.dtype)])
         cxa, cxb, jmin, t = map(float, stats.cpu().numpy())
         log.log(t=t, cxa=cxa, cxb=cxb, gap=cxb - cxa, minJ=jmin)
+        say(verbose, "contact", step=nsteps, **log.rows[-1])
         if bool(diverged(state)):
             break
     wall = time.perf_counter() - wall
+    out_dir = output_dir("two_disc_contact", out_root, N=N)
+    if out_dir is not None:
+        log.to_csv(os.path.join(out_dir, "centroids.csv"))
     hist = log.array("t", "cxa", "cxb", "gap", "minJ")
     gmin = float(hist[:, 3].min())
     approached = int(hist[:, 3].argmin()) < len(hist) - 1

@@ -4,8 +4,10 @@
 (the cell CSF and the balanced CSF with kappa*, N=32 float64, 60 steps:
 the pressure jump to 1e-10 of itself) and ``validation.density_contrast``
 against ``benchmarks/density_contrast_disc.py`` (N=32 float64, 4 chunks of
-5 steps: every logged row to 1e-10, the CG counts equal); then the JAX
-package's gates (tests/test_validation_gates.py) on the port at their own
+5 steps: every logged row to 1e-10, the CG counts equal), with their
+files under ``out_root`` (``laplace_history.csv`` in the JAX driver's
+directory of each option set, ``trajectory.csv``: the same names,
+header and rows, within those tolerances); then the JAX package's gates (tests/test_validation_gates.py) on the port at their own
 sizes, N=48 float64: the Laplace error of the cell CSF below 1.5e-2 and
 the balanced CSF with kappa* below it (1200 steps each, ~4 s), and the
 heavy disc sinking with at most 100 CG iterations a step and the relative
@@ -16,35 +18,44 @@ import pytest
 import torch
 
 from pyrmt_tpu_torch.validation import density_contrast, laplace_drop
+from pyrmt_tpu_torch.validation.common import check_outputs, compare_outputs
 
 torch.set_num_threads(1)
 DEV = "cpu"
 
 
-@pytest.mark.parametrize("st", [dict(st_method="csf"),
-                                dict(st_method="balanced",
-                                     kappa_interface=True)],
-                         ids=["csf", "balanced_kstar"])
-def test_laplace_drop_matches_the_jax_driver(st, tmp_path):
+@pytest.mark.parametrize("st, suffix", [
+    (dict(st_method="csf"), ""),
+    (dict(st_method="balanced", kappa_interface=True), "_balanced_kstar")],
+    ids=["csf", "balanced_kstar"])
+def test_laplace_drop_matches_the_jax_driver(st, suffix, tmp_path):
     from benchmarks.surface_tension_drop import run
 
     dp, target, err = run(N=32, gamma=0.1, R=0.25, n_steps=60,
                           dtype="float64", verbose=False,
-                          out_root=str(tmp_path), **st)
+                          out_root=str(tmp_path / "jax"), **st)
     s = laplace_drop(N=32, gamma=0.1, R=0.25, n_steps=60,
-                     dtype=torch.float64, device=DEV, **st)
+                     dtype=torch.float64, device=DEV,
+                     out_root=str(tmp_path / "port"), **st)
     assert s["target"] == target
     np.testing.assert_allclose(s["dp"], dp, rtol=1e-10)
     np.testing.assert_allclose(s["rel_err"], err, rtol=1e-8)
+    d = f"surface_tension_drop_N32{suffix}"
+    assert compare_outputs(tmp_path / "port" / d, tmp_path / "jax" / d) == [
+        "laplace_history.csv"]
+    for who in ("port", "jax"):  # step 1, and each of the last 50
+        check_outputs("laplace_drop", tmp_path / who / d, rows=51)
 
 
 def test_density_contrast_matches_the_jax_driver(tmp_path):
     from benchmarks.density_contrast_disc import run
 
     j_rows, _ = run(N=32, rho_ratio=10.0, t_end=0.02, dtype="float64",
-                    verbose=False, out_root=str(tmp_path), log_every=5)
+                    verbose=False, out_root=str(tmp_path / "jax"),
+                    log_every=5)
     rows, s = density_contrast(N=32, rho_ratio=10.0, t_end=0.02,
-                               dtype=torch.float64, device=DEV, log_every=5)
+                               dtype=torch.float64, device=DEV, log_every=5,
+                               out_root=str(tmp_path / "port"))
     assert len(rows) == len(j_rows) == 4
     for r, jr in zip(rows, j_rows):
         for k in ("t", "xc", "yc", "vc", "minJ", "max_div_rel",
@@ -57,6 +68,12 @@ def test_density_contrast_matches_the_jax_driver(tmp_path):
         np.testing.assert_allclose(r["cg_iters_mean"], jr["cg_iters_mean"],
                                    rtol=1e-7)
     assert s["steps"] == 20
+    d = "density_contrast_N32"
+    assert compare_outputs(tmp_path / "port" / d, tmp_path / "jax" / d,
+                           tols=dict(cg_iters_mean=(1e-7, 0.0))) == [
+        "trajectory.csv"]
+    for who in ("port", "jax"):
+        check_outputs("density_contrast", tmp_path / who / d, rows=4)
 
 
 def test_gate_laplace_law_and_balanced_csf():

@@ -5,10 +5,13 @@ once, jitted): the driver's default (the balanced CSF, the ellipse on the
 fused tier), and the cell CSF with kappa* under ``--areafix --rebase=10``
 (the split tier, a rebase on every step, counted from aux['rebased']).
 Every logged row to 1e-10 relative, the rebase counts equal, the summary's
-numbers likewise. Besides: the command line's overrides and a run
+numbers likewise; the files under ``out_root`` (``oscillation.csv`` in
+the JAX driver's directory of each option set) with the same names,
+header and rows likewise. Besides: the command line's overrides and a run
 interrupted by ``max_chunks`` and resumed from its checkpoint equal to the
 run without the interruption."""
 import math
+import os
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 
 from pyrmt_tpu_torch import validation
 from pyrmt_tpu_torch.validation.__main__ import capillary_overrides
+from pyrmt_tpu_torch.validation.common import check_outputs, compare_outputs
 
 torch.set_num_threads(1)
 DEV = "cpu"  # the entry points default to the card
@@ -30,12 +34,14 @@ CASES = {"balanced": dict(),
 def runs(tmp_path_factory):
     from benchmarks.capillary_drop_coupled import run
 
-    out = str(tmp_path_factory.mktemp("out"))
-    return {name: (run(dtype="float64", verbose=False, out_root=out, **RUN,
-                       **over),
+    out = tmp_path_factory.mktemp("out")
+    runs = {name: (run(dtype="float64", verbose=False,
+                       out_root=str(out / "jax"), **RUN, **over),
                    validation.capillary_drop_coupled(
-                       dtype=torch.float64, device=DEV, **RUN, **over))
+                       dtype=torch.float64, device=DEV,
+                       out_root=str(out / "port"), **RUN, **over))
             for name, over in CASES.items()}
+    return dict(runs, out=out)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -57,6 +63,17 @@ def test_capillary_drop_matches_the_jax_driver(runs, name):
             np.testing.assert_allclose(s[k], want, rtol=1e-10, atol=1e-13,
                                        err_msg=k)
     assert s["rebases"] == (30.0 if "rebase" in name else 0.0)
+
+
+def test_capillary_files_match_the_jax_driver(runs):
+    out = runs["out"]
+    assert sorted(os.listdir(out / "port")) == sorted(os.listdir(
+        out / "jax")) == ["capillary_drop_N32", "capillary_drop_N32_csf_kstar"]
+    for d in os.listdir(out / "jax"):
+        assert compare_outputs(out / "port" / d, out / "jax" / d) == [
+            "oscillation.csv"]
+        for who in ("port", "jax"):
+            check_outputs("capillary_drop_coupled", out / who / d, rows=3)
 
 
 def test_capillary_command_line_overrides():

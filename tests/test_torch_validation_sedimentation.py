@@ -2,19 +2,28 @@
 ``benchmarks/sedimentation_pack.py::run`` at N=32 float64, two discs of
 R = 0.1, to t = 0.02 in chunks of 5 steps (the JAX driver runs once,
 jitted): every logged row to 1e-10 relative, the CG's largest iteration
-counts equal. Then the JAX package's gate
+counts equal; the files under ``out_root`` (``settling.csv`` and
+``resume_meta.npz``, the first areas) with the same names, header, rows
+and keys likewise, and ``out_root`` and ``ckpt_dir`` naming one
+directory (a ValueError where they differ). Then the JAX package's gate
 (tests/test_validation_gates.py::test_gate_sedimentation_pack_small) on
 the port at its own size: N=48, S=3, R=0.1 to t = 0.25 in float64 (~7 s):
 stable, no pass-through, a monotone mean height, at most 99 CG iterations
 a step, area drift below 5 %. Besides: a run interrupted by ``max_chunks``
 and resumed from its checkpoint (``io.save_checkpoint``) equals the run
 without the interruption."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from pyrmt_tpu_torch import validation
-from pyrmt_tpu_torch.validation.common import pack_positions
+from pyrmt_tpu_torch.validation.common import (
+    check_outputs,
+    compare_outputs,
+    pack_positions,
+)
 
 torch.set_num_threads(1)
 DEV = "cpu"  # the entry points default to the card
@@ -25,14 +34,16 @@ RUN = dict(N=32, S=2, R=0.1, t_end=0.02, log_every=5)
 def runs(tmp_path_factory):
     from benchmarks.sedimentation_pack import run
 
-    out = str(tmp_path_factory.mktemp("out"))
-    return (run(dtype="float64", verbose=False, out_root=out, **RUN),
+    out = tmp_path_factory.mktemp("out")
+    return (run(dtype="float64", verbose=False, out_root=str(out / "jax"),
+                **RUN),
             validation.sedimentation_pack(dtype=torch.float64, device=DEV,
-                                          **RUN))
+                                          out_root=str(out / "port"), **RUN),
+            out)
 
 
 def test_sedimentation_matches_the_jax_driver(runs):
-    (j_rows, js), (rows, s) = runs
+    (j_rows, js), (rows, s), _ = runs
     assert len(rows) == len(j_rows) == 4
     for r, jr in zip(rows, j_rows):
         assert list(r) == list(jr)
@@ -45,6 +56,30 @@ def test_sedimentation_matches_the_jax_driver(runs):
                                    err_msg=k)
     for k in ("stable", "no_passthrough", "ybar_monotone", "steps"):
         assert s[k] == js[k], k
+
+
+def test_sedimentation_files_match_the_jax_driver(runs):
+    _, (rows, _), out = runs
+    d = "sedimentation_N32_S2"
+    assert compare_outputs(out / "port" / d, out / "jax" / d) == [
+        "resume_meta.npz", "settling.csv"]
+    for who in ("port", "jax"):
+        check_outputs("sedimentation_pack", out / who / d, rows=len(rows))
+
+
+def test_out_root_and_ckpt_dir_name_one_directory(tmp_path):
+    kw = dict(N=24, S=2, R=0.1, t_end=0.01, log_every=5,
+              dtype=torch.float64, device=DEV, out_root=str(tmp_path))
+    with pytest.raises(ValueError, match="not the run's directory"):
+        validation.sedimentation_pack(ckpt_dir=tmp_path / "elsewhere", **kw)
+    with pytest.raises(ValueError, match="not the run's directory"):
+        validation.capillary_drop_coupled(ckpt_dir=tmp_path, **{
+            k: v for k, v in kw.items() if k not in ("S", "R")})
+    assert os.listdir(tmp_path) == []
+    rows, _ = validation.sedimentation_pack(
+        ckpt_dir=tmp_path / "sedimentation_N24_S2", **kw)
+    check_outputs("sedimentation_pack", tmp_path / "sedimentation_N24_S2",
+                  rows=len(rows))
 
 
 def test_gate_sedimentation_pack_small():

@@ -12,18 +12,31 @@ once, jitted):
   against 64 with dt 1e-3 to t = 0.003 (3 steps a grid): the error rows
   (the driver's errors.csv) and the five observed orders to 1e-9
   relative (the orders are slopes of logs of differences).
+
+Their files under ``out_root``: ``energy_history.csv``, ``errors.csv``
+and the per-grid field caches (``cache=True``) with the same names,
+headers, rows and keys (1e-10; the errors 1e-9); each package's cache
+loads in the other bit for bit: a run on the other's cache runs no step
+and gives the other's orders exactly.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from pyrmt_tpu_torch import validation
-from pyrmt_tpu_torch.validation.common import richardson_order
+from pyrmt_tpu_torch.validation.common import (
+    check_outputs,
+    compare_outputs,
+    richardson_order,
+)
 
 torch.set_num_threads(1)
 DEV = "cpu"  # the entry points default to the card
 TG = dict(N=32, t_end=0.02, log_every=10)
 CONV = dict(grids=(16, 32), N_ref=64, t_end=0.003, dt=1e-3)
+CONV_DIR = "convergence_tg_semilagrangian"
 
 
 @pytest.fixture(scope="module")
@@ -32,15 +45,17 @@ def runs(tmp_path_factory):
     from benchmarks.disc_in_taylor_green import run as tg_run
 
     out = tmp_path_factory.mktemp("out")
-    jtg = tg_run(dtype="float64", verbose=False, out_root=str(out), **TG)
-    orders = conv_run(dtype="float64", verbose=False, out_root=str(out),
-                      **CONV)
-    errors = np.loadtxt(out / "convergence_tg_semilagrangian" / "errors.csv",
+    jax = str(out / "jax")
+    jtg = tg_run(dtype="float64", verbose=False, out_root=jax, **TG)
+    orders = conv_run(dtype="float64", verbose=False, out_root=jax,
+                      cache=True, **CONV)
+    errors = np.loadtxt(out / "jax" / CONV_DIR / "errors.csv",
                         delimiter=",", skiprows=1)
-    kw = dict(dtype=torch.float64, device=DEV)
-    return dict(jtg=jtg, orders=orders, errors=errors,
+    kw = dict(dtype=torch.float64, device=DEV, out_root=str(out / "port"))
+    return dict(jtg=jtg, orders=orders, errors=errors, out=out,
                 tg=validation.disc_in_taylor_green(**TG, **kw),
-                conv=validation.convergence_taylor_green(**CONV, **kw))
+                conv=validation.convergence_taylor_green(cache=True, **CONV,
+                                                         **kw))
 
 
 def test_disc_in_taylor_green_matches_the_jax_driver(runs):
@@ -70,6 +85,48 @@ def test_convergence_matches_the_jax_driver(runs):
     for name in ("ke", "se"):
         assert s["richardson"][name] == richardson_order(
             sorted(s[name].items()))
+
+
+@pytest.mark.parametrize("case, directory, tols", [
+    ("disc_in_taylor_green", "disc_tg_N32_semilagrangian", {}),
+    ("convergence_taylor_green", CONV_DIR,
+     {k: (1e-9, 0.0) for k in ("E_v", "E_p", "E_X1", "E_ke", "E_se")})])
+def test_files_match_the_jax_driver(runs, case, directory, tols):
+    out = runs["out"]
+    names = compare_outputs(out / "port" / directory,
+                            out / "jax" / directory, tols=tols)
+    rows = len(runs["tg" if case.startswith("disc") else "conv"][0])
+    for who in ("port", "jax"):
+        check_outputs(case, out / who / directory, rows=rows)
+    if case.startswith("conv"):
+        assert names == ["errors.csv"] + [
+            f"sol_N{N}_float64_t0.003_dt0.001.npz" for N in (16, 32, 64)]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_convergence_cache_loads_in_the_other_package(runs, tmp_path,
+                                                      writer):
+    """Either package's run on a copy of ``writer``'s cache runs no step,
+    and the two give the same orders bit for bit; on the port's cache,
+    the orders the port's run that wrote it returned."""
+    from benchmarks.convergence_taylor_green import run as conv_run
+
+    got = {}
+    for reader in ("port", "jax"):
+        root = tmp_path / reader
+        shutil.copytree(runs["out"] / writer / CONV_DIR, root / CONV_DIR)
+        if reader == "port":
+            _, s = validation.convergence_taylor_green(
+                dtype="float64", device=DEV, out_root=str(root), cache=True,
+                **CONV)
+            assert s["steps"] == 0
+            got[reader] = s["orders"]
+        else:
+            got[reader] = conv_run(dtype="float64", verbose=False,
+                                   out_root=str(root), cache=True, **CONV)
+    assert got["port"] == got["jax"]
+    if writer == "port":
+        assert got["port"] == runs["conv"][1]["orders"]
 
 
 def test_richardson_order_of_a_second_order_sequence():

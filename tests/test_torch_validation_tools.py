@@ -1,7 +1,8 @@
 """The port's profiler (``pyrmt_tpu_torch.profiling``), the twins of the
 JAX package's examples (``pyrmt_tpu_torch.examples``) and the validation
 cases' command line (``python -m pyrmt_tpu_torch.validation``), at tiny
-sizes on the CPU: each runs and returns its keys. ``ablation_breakdown``
+sizes on the CPU: each runs and returns its keys (the command line
+also writes a case's files with ``--out-root``). ``ablation_breakdown``
 times its chunks of at least 500 steps (two of its rows here, at N=16),
 and refuses fewer; ``trace`` writes a Chrome trace; the inverse problem
 runs two Adam and two secant evaluations; the command line prints the
@@ -75,9 +76,15 @@ def test_differentiable_fsi_moves_toward_the_modulus():
     assert abs(out["mu_s"] - 0.4) < abs(mu0 - 0.4)
 
 
-def test_validation_command_line_prints_the_summary(capsys):
+def test_validation_command_line_prints_the_summary(capsys, tmp_path):
+    """... and with --out-root writes the case's files there."""
     assert validation_main(["two_disc_contact", "32", "0.01", "0.15", "2.0",
-                            "--cpu", "--f64"]) == 0
+                            "--cpu", "--f64", "--out-root",
+                            str(tmp_path)]) == 0
+    assert os.listdir(tmp_path) == ["two_disc_contact_N32"]
+    assert validation.common.check_outputs(
+        "two_disc_contact", tmp_path / "two_disc_contact_N32") == {
+        "centroids.csv": 1}
     line = capsys.readouterr().out.strip().splitlines()[-1]
     got = json.loads(line)
     _, want = validation.two_disc_contact(N=32, t_end=0.01,
@@ -95,21 +102,28 @@ def test_validation_command_line_refuses_an_unknown_case():
 
 
 def test_validation_profiling_and_examples_import_without_jax():
-    """The new modules import with jax, the JAX package and its
-    benchmarks made unimportable (the port keeps its own copies of the
-    drivers' helpers)."""
+    """The new modules import with jax, the JAX package, its benchmarks
+    and helpers made unimportable (the port keeps its own copies of the
+    drivers' helpers), and the post-processing also without matplotlib
+    and imageio (they are imported where a figure is drawn)."""
     import subprocess
     import sys
     from pathlib import Path
 
     code = (
         "import sys\n"
-        "for m in ('jax', 'pyrmt_tpu', 'benchmarks'): sys.modules[m] = None\n"
+        "for m in ('jax', 'pyrmt_tpu', 'benchmarks', 'helper', 'matplotlib',"
+        " 'imageio'): sys.modules[m] = None\n"
         "import pyrmt_tpu_torch.validation, pyrmt_tpu_torch.profiling\n"
         "import pyrmt_tpu_torch.validation.__main__\n"
         "import pyrmt_tpu_torch.examples.soft_disc_minimal\n"
         "import pyrmt_tpu_torch.examples.differentiable_fsi\n"
-        "assert not any(m.split('.')[0] in ('jax', 'pyrmt_tpu', 'benchmarks')"
+        "import pyrmt_tpu_torch.analysis\n"
+        "from pyrmt_tpu_torch.analysis import (lid_driven_gif, plot_centroid,"
+        " plot_energy, plot_fields, plot_lid_driven, plot_soft_disc_panels,"
+        " simulation_gif)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'pyrmt_tpu', 'benchmarks',"
+        " 'helper', 'matplotlib', 'imageio')"
         " for m, mod in sys.modules.items() if mod is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
